@@ -46,7 +46,9 @@ constexpr int kSweepCols = 18;
 enum SweepCol { C_FR = 0, C_IP = 9, C_PA = 12, C_PR = 15, C_VALID = 16,
                 C_GID = 17 };
 
-// Kind segments [start, start + n) of the kind-sorted row table.
+// Kind segments [start, start + n) of the kind-sorted row table, n the
+// rows up to the segment's last valid one: the padding rows after it are
+// never tested.
 struct Layout {
   int sph_start, sph_n, pln_start, pln_n, box_start, box_n;
 };

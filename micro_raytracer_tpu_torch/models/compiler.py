@@ -10,7 +10,8 @@ The row layout is the JAX package's exactly — the kernels depend on it:
   a unit instance direction);
 * one ``group_id`` per (object, instance) pair, so that mesh entry/exit hits
   follow rt.rs:740-772 and every non-mesh group is a single row;
-* ``any_refract``, ``n_groups`` and ``kind_counts`` as static metadata.
+* ``any_refract``, ``n_groups`` and ``kind_counts`` as static metadata, and
+  ``kind_sweep``, the rows of each segment the kernels need to test.
 
 :func:`scene_from_numpy` / :func:`camera_from_numpy` build the tensors from
 numpy leaves, which is also how a test hands the JAX compiler's output to
@@ -84,6 +85,9 @@ class SceneArrays:
     sky_color: torch.Tensor     # (3,)
     sky_pwr: torch.Tensor       # ()
     kind_counts: tuple
+    # rows of each kind segment up to its last valid one, derived from
+    # prim_valid: what the kernels sweep (the padding after it never hits)
+    kind_sweep: tuple
     n_lights: int
     has_maps: bool
     any_refract: bool = True
@@ -132,6 +136,8 @@ def scene_from_numpy(d: dict, meta: dict, device="cpu") -> SceneArrays:
     static["kind_counts"] = tuple(int(c) for c in static["kind_counts"])
     static["map_slots"] = tuple(bool(v) for v in static["map_slots"])
     static["mapped_kinds"] = tuple(bool(v) for v in static["mapped_kinds"])
+    static["kind_sweep"] = _kind_sweep(static["kind_counts"],
+                                       np.asarray(d["prim_valid"], bool))
     return SceneArrays(**leaves, **static)
 
 
@@ -151,6 +157,17 @@ def _pad_rows(arr: np.ndarray, n: int) -> np.ndarray:
         return arr
     pad = [(0, n - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
     return np.pad(arr, pad)
+
+
+def _kind_sweep(kind_counts, prim_valid):
+    """Per kind: the rows of its segment up to and including its last valid
+    row (0 for a segment with none)."""
+    out, start = [], 0
+    for c in kind_counts:
+        valid = np.flatnonzero(prim_valid[start:start + c])
+        out.append(int(valid[-1]) + 1 if len(valid) else 0)
+        start += c
+    return tuple(out)
 
 
 def _mapped_kinds(kind_counts, mat_id, mat_maps_np, prim_valid):

@@ -42,27 +42,31 @@ KERNEL = CudaKernel(
 MODE_ENTRY, MODE_EXIT, MODE_ANY = 0, 1, 2
 
 
-def seg_layout(kind_counts):
-    """Static ``((kind, start, count), ...)`` of the non-empty dense
-    segments, the triangle start and the triangle count."""
+def seg_layout(kind_counts, kind_sweep=None):
+    """Static ``((kind, start, count, sweep), ...)`` of the non-empty dense
+    segments, the triangle start and the triangle count. ``sweep`` (default
+    ``count``) is the segment's rows up to its last valid one
+    (``SceneArrays.kind_sweep``): the rows the kernels test."""
     segs, start = [], 0
     for kind in (schema.KIND_SPHERE, schema.KIND_PLANE, schema.KIND_BOX):
         c = kind_counts[kind]
         if c:
-            segs.append((kind, start, c))
+            segs.append((kind, start, c,
+                         c if kind_sweep is None else kind_sweep[kind]))
         start += c
     return tuple(segs), start, kind_counts[schema.KIND_TRIANGLE]
 
 
 def layout_ints(layout):
-    """The six ints (start, count per dense kind) the kernels take. An
-    absent kind starts where the previous segment ends, so the kernels'
-    row-bound kind tests stay ordered."""
-    bounds = {kind: (s, c) for kind, s, c in layout[0]}
+    """The six ints (start, rows to sweep per dense kind) the kernels take.
+    An absent kind starts where the previous segment ends, so the kernels'
+    row-bound kind tests stay ordered; a row past a segment's sweep is
+    invalid padding, which no hit returns."""
+    bounds = {kind: (s, c, n) for kind, s, c, n in layout[0]}
     ints, prev = [], 0
     for kind in (schema.KIND_SPHERE, schema.KIND_PLANE, schema.KIND_BOX):
-        s, c = bounds.get(kind, (prev, 0))
-        ints += [s, c]
+        s, c, n = bounds.get(kind, (prev, 0, 0))
+        ints += [s, n]
         prev = s + c
     return ints
 
@@ -150,12 +154,19 @@ def closest_hit_plain(tab, layout, o, d, mode=MODE_EXIT):
     row table ``tab``: returns ``(te, row, tx, xrow)`` like the kernel (any
     device)."""
     KERNEL.plain_calls += 1
+    return sweep_plain(tab, layout, o, d, mode)
+
+
+def sweep_plain(tab, layout, o, d, mode=MODE_EXIT):
+    """The sweep of :func:`closest_hit_plain` without its call count: the
+    plain whole trace runs it for every step. Differentiable: ``te`` and
+    ``tx`` carry the winner row's t gradient (a masked min / max)."""
     fr, ipos, pa, pr, valid, gid = split_sweep(tab)
     segs, _tri_start, n_tri = layout
     if n_tri:
         raise NotImplementedError(intersect.UNPORTED_TRIANGLES)
     parts = [_kind_block(kind, s, s + c, fr, ipos, pa, pr, valid, o, d)
-             for kind, s, c in segs]
+             for kind, s, c, _n in segs]
     t0 = torch.cat([p[0] for p in parts], dim=1)
     t1 = torch.cat([p[1] for p in parts], dim=1)
     ok = torch.cat([p[2] for p in parts], dim=1)

@@ -12,8 +12,6 @@ import math
 
 import torch
 
-from . import linalg
-
 
 def make_generator(seed: int, device) -> torch.Generator:
     g = torch.Generator(device=torch.device(device))
@@ -30,9 +28,12 @@ def uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
 def sphere_rand(n, rough, u1, u2):
     """Jittered normal ``normalize(n + rough * uniform_sphere)``
     (``RayTracer::rand``, rt.rs:996-1007) with ``cos th = 1 - 2u`` in place
-    of the arccos/cos pair."""
+    of the arccos/cos pair, in the trace kernels' operation order
+    (csrc/trace_step.cuh ``sphere_rand``)."""
     ct = torch.clamp(1.0 - 2.0 * u1, -1.0, 1.0)
     st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
-    phi = u2 * 2.0 * math.pi
+    phi = u2 * (2.0 * math.pi)
     v = torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], dim=-1)
-    return linalg.safe_normalize(n + rough[..., None] * v)
+    w = n + v * rough[..., None]
+    m2 = w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1] + w[..., 2] * w[..., 2]
+    return w * (1.0 / torch.sqrt(torch.clamp(m2, min=1e-20)))[..., None]

@@ -1,10 +1,11 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each kernel is one ``.cu`` file under ``micro_raytracer_tpu_torch/csrc``
-with a plain C entry point. At first use it is compiled by ``nvcc`` into a
-shared library under ``micro_raytracer_tpu_torch/build`` (git-ignored) and
-loaded with ctypes; a library is rebuilt when the hash of its sources or
-flags changes. Pointers cross as ``tensor.data_ptr()`` and the stream as
+Each kernel is a plain C entry point of a ``.cu`` file under
+``micro_raytracer_tpu_torch/csrc``. At first use the file is compiled by
+``nvcc`` into a shared library under ``micro_raytracer_tpu_torch/build``
+(git-ignored), named after the source, and loaded with ctypes; entry points
+of one file share its library, and a library is rebuilt when the hash of
+its sources or flags changes. Pointers cross as ``tensor.data_ptr()`` and the stream as
 ``torch.cuda.current_stream().cuda_stream``; every entry point returns
 ``cudaGetLastError()`` after its launch, and :meth:`CudaKernel.launch`
 raises on anything but 0.
@@ -76,7 +77,8 @@ class CudaKernel:
         return h.hexdigest()[:16]
 
     def library_path(self) -> str:
-        return os.path.join(BUILD, f"lib{self.name}-{self._digest()}.so")
+        stem = os.path.splitext(self.source)[0]
+        return os.path.join(BUILD, f"lib{stem}-{self._digest()}.so")
 
     def _build(self, out: str) -> None:
         os.makedirs(BUILD, exist_ok=True)

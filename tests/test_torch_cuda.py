@@ -10,11 +10,25 @@ Tolerances: the closest-hit kernel is compiled without FMA contraction and
 follows the plain version's operation order, so rows are equal and t is
 within rtol 1e-5 / atol 1e-6. The trace is compared at rtol 1e-4 / atol
 1e-5 on all but 0.3% of rays, and within 1e-3 absolute on the rest: the
-plain version reaches the hit through the dense intersect path, whose sums
-of three products may round differently, and a one-ulp difference can
-flip a sampling branch. These scenes' random rays graze rotated boxes and
-planes more often than camera rays in a room: measured on the card, 36
-and 28 of 16,384 rays (0.22% and 0.17%) fall outside.
+plain version repeats the kernel's sweep and step operation for operation,
+but its sin, cos and square roots are PyTorch's, and a one-ulp difference
+can flip a sampling branch. These scenes' random rays graze rotated boxes
+and planes more often than camera rays in a room; measured on the card,
+no ray of 16,384 falls outside.
+
+Training: the train instance's A, B and first_live equal the render
+instance's bit for bit. Against ``trace_plain(want_resid=True)``, rays
+outside the trace tolerance above, or whose count of live steps differs,
+are left out (the same 0.3% cap); on the rest, every live step's residual
+rows agree — o, d, A, te and tx within rtol 1e-4 / atol 1e-4, the winner
+row, the refract choice and the occlusion bits equal. The backward kernel
+is fed the plain residuals, so both sides linearize at the same point, and
+is held against autograd through ``trace_plain`` for random output
+cotangents that are zero on those rays: rtol 2e-3 with an absolute floor of
+1e-5 of the largest magnitude of each compared array, as the CPU tests hold
+the plain trace against the JAX package. Two backward runs give equal
+per-ray cotangents, and table cotangents within rtol 1e-5 / 1e-6 of the
+largest magnitude: a block adds into shared memory in no fixed order.
 """
 
 import numpy as np
@@ -119,3 +133,154 @@ def test_kernel_refuses_unported_scenes(cuda_device):
     with pytest.raises(NotImplementedError, match="not ported"):
         step.trace_packed(scene, step.pack_step(scene), 0.85, o, d,
                           torch.rand((2, 4, 64), device=cuda_device))
+
+
+# --- training: the residual-writing forward and the backward kernel ---------
+
+K_TRAIN = 9
+TRACE_RTOL, TRACE_ATOL, TRACE_CAP = 1e-4, 1e-5, 0.003
+
+
+def _train_inputs(name, device, R=1 << 14):
+    scene = _scene(name, device)
+    tables = step.pack_step(scene)
+    oT, dT = (t.T.contiguous() for t in _rays(R, device, seed=3))
+    gen = torch.Generator(device=device).manual_seed(4)
+    u8s = torch.rand((K_TRAIN, step.n_uni(scene.any_refract), R),
+                     generator=gen, device=device)
+    return scene, tables, oT, dT, u8s
+
+
+def _off_path(A, B, A_r, B_r, n_live=None, n_live_r=None):
+    """(R,) bool on the card: rays outside the trace tolerance (or with
+    another count of live steps)."""
+    bad = torch.zeros(A.shape[1], dtype=torch.bool, device=A.device)
+    for g, r in ((A, A_r), (B, B_r)):
+        bad |= (~torch.isclose(g, r, rtol=TRACE_RTOL,
+                               atol=TRACE_ATOL)).any(0)
+    if n_live is not None:
+        bad |= n_live != n_live_r
+    return bad
+
+
+def _close(name, got, want, rtol=2e-3, floor=1e-5):
+    atol = floor * max(float(want.abs().max()), 1e-30)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_trace_fwd_train_matches_render_and_plain(name, cuda_device):
+    scene, tables, oT, dT, u8s = _train_inputs(name, cuda_device)
+    R = oT.shape[1]
+    hit0 = hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T,
+                            step.primary_mode(scene))
+    before = step.TRAIN_KERNEL.launches
+    A, B, fl, res, n_live = step.trace_fwd_train(scene, tables, 0.85, oT, dT,
+                                                 u8s, hit0)
+    assert step.TRAIN_KERNEL.launches == before + 1
+    for g, r in zip((A, B, fl), step.trace_fwd(scene, tables, 0.85, oT, dT,
+                                                u8s, hit0)):
+        assert torch.equal(g, r)
+    A_r, B_r, fl_r, res_r, n_live_r = step.trace_plain(
+        scene, tables, 0.85, oT, dT, u8s, want_resid=True)
+    assert torch.equal(fl, fl_r)
+    bad = _off_path(A, B, A_r, B_r, n_live, n_live_r)
+    print(f"{name}: {int(bad.sum())} of {R} rays off the plain path")
+    assert int(bad.sum()) <= TRACE_CAP * R
+    live = ((torch.arange(K_TRAIN, device=cuda_device)[:, None]
+             < n_live[None]) & ~bad[None])
+    assert int(live.sum()) > R
+    floats = [step.RES_O + c for c in range(9)] + [step.RES_TE]
+    exact = [step.RES_ROW] + [step.RES_LOK + li
+                              for li in range(scene.n_lights)]
+    if scene.any_refract:
+        floats.append(step.RES_TX)
+        exact.append(step.RES_CHOOSE)
+    for r in floats:
+        torch.testing.assert_close(res[:, r][live], res_r[:, r][live],
+                                   rtol=1e-4, atol=1e-4, msg=f"row {r}")
+    for r in exact:
+        assert torch.equal(res[:, r][live], res_r[:, r][live]), r
+
+
+def _bwd_case(name, device):
+    """The backward kernel and autograd through the plain trace, both at
+    the plain forward's residuals, for cotangents zero on off-path rays."""
+    scene, tables, oT, dT, u8s = _train_inputs(name, device)
+    R = oT.shape[1]
+    hit0 = hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T,
+                            step.primary_mode(scene))
+    A, B, _fl, _res, n_live = step.trace_fwd_train(scene, tables, 0.85, oT,
+                                                   dT, u8s, hit0)
+    A_r, B_r, _f, res_r, n_live_r = step.trace_plain(
+        scene, tables, 0.85, oT, dT, u8s, want_resid=True)
+    bad = _off_path(A, B, A_r, B_r, n_live, n_live_r)
+    assert int(bad.sum()) <= TRACE_CAP * R
+    rng = np.random.default_rng(5)
+    ctA, ctB = (torch.from_numpy(rng.normal(size=(3, R)).astype(np.float32))
+                .to(device) for _ in range(2))
+    ctA[:, bad] = 0.0
+    ctB[:, bad] = 0.0
+    return scene, tables, oT, dT, u8s, res_r, n_live_r, ctA, ctB
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_trace_bwd_matches_autograd_of_plain(name, cuda_device):
+    scene, tables, oT, dT, u8s, res, n_live, ctA, ctB = _bwd_case(
+        name, cuda_device)
+    before = step.BWD_KERNEL.launches
+    got = step.trace_bwd(scene, tables, 0.85, u8s, res, n_live, ctA, ctB)
+    assert step.BWD_KERNEL.launches == before + 1
+    want = step.trace_bwd_plain(scene, tables, 0.85, oT, dT, u8s, ctA, ctB)
+    assert float(want[0].abs().max()) > 0
+    for gname, g, w in zip(("d_tab", "d_lights", "d_oT", "d_dT"), got, want):
+        assert bool(torch.isfinite(g).all()), gname
+        _close(gname, g, w)
+
+
+@pytest.mark.cuda
+def test_trace_bwd_run_to_run(cuda_device):
+    scene, tables, _oT, _dT, u8s, res, n_live, ctA, ctB = _bwd_case(
+        "mixed", cuda_device)
+    a = step.trace_bwd(scene, tables, 0.85, u8s, res, n_live, ctA, ctB)
+    b = step.trace_bwd(scene, tables, 0.85, u8s, res, n_live, ctA, ctB)
+    assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+    for gname, g, w in zip(("d_tab", "d_lights"), a[:2], b[:2]):
+        _close(gname, g, w, rtol=1e-5, floor=1e-6)
+
+
+@pytest.mark.cuda
+def test_train_step_runs_the_kernels(cuda_device):
+    """make_train_step on the card: the primary-hit pass, the train
+    instance and the backward kernel once each, no plain version, and
+    finite gradients on every trainable leaf."""
+    from micro_raytracer_tpu_torch.models.compiler import compile_camera
+    from micro_raytracer_tpu_torch.parallel import shard
+
+    cfg = schema.SceneConfig.from_json(SCENES["mixed"])
+    scene = compile_scene(cfg, cuda_device)
+    cam = compile_camera(schema.CameraConfig.from_json({"pos": [0, -2, 0]}),
+                         cuda_device)
+    params = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+              for k in shard.TRAINABLE_FIELDS}
+    W = H = 32
+    ys, xs = torch.meshgrid(torch.arange(float(H)), torch.arange(float(W)),
+                            indexing="ij")
+    coords = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(
+        cuda_device)
+    target = torch.full((W * H, 3), 0.5, device=cuda_device)
+    kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL)
+    for k in kernels:
+        k.launches = k.plain_calls = 0
+    ts = shard.make_train_step((W, H), 3, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    loss, new = ts.step(params, scene, cam, 0.15, coords, target, gen)
+    assert [k.launches for k in kernels] == [1, 0, 1, 1]
+    assert [k.plain_calls for k in kernels] == [0, 0, 0, 0]
+    assert bool(torch.isfinite(loss))
+    for k, p in params.items():
+        assert bool(torch.isfinite(p.grad).all()), k
+        assert new[k].requires_grad and new[k].is_leaf
+    assert float(params["mat_albedo"].grad.abs().max()) > 0

@@ -1,6 +1,6 @@
-"""The port's closest-hit (plain version of the hit3 kernel, and the dense
-intersect path) against the JAX package's Pallas hit kernel in interpret
-mode and its dense jnp closest_hit.
+"""The port's closest-hit (plain version of the hit3 kernel) against the
+JAX package's Pallas hit kernel in interpret mode and its dense jnp
+closest_hit.
 
 Tolerance: rows must be equal; t within rtol 1e-5 / atol 1e-6 on hits
 (identical float32 formulas, ulp-level differences from reassociated
@@ -74,15 +74,12 @@ def test_plain_matches_pallas_interpret(name, need_exit, monkeypatch):
 
 @pytest.mark.parametrize("name", ["opaque", "glass_flat", "mixed"])
 def test_plain_and_dense_match_jax_dense(name):
+    """The plain sweep against the JAX package's dense jnp closest_hit."""
     js, ps = _scene(name)
     o, d = rays(seed=4)
     want = ji.closest_hit(js, ji.build_frames(js), jnp.asarray(o),
                           jnp.asarray(d), need_exit=True)
     _check(_port_hit(ps, o, d, True), want)
-    dense = ti.closest_hit(ps, ti.build_frames(ps), torch.from_numpy(o),
-                           torch.from_numpy(d), need_exit=True)
-    _check((dense.t_entry, dense.idx_entry, dense.t_exit, dense.idx_exit),
-           want)
 
 
 def test_ties_go_to_the_lowest_row(monkeypatch):
@@ -146,9 +143,6 @@ def test_any_hit_matches(name, monkeypatch):
     got = hit3.any_hit(tab, hit3.seg_layout(ps.kind_counts),
                        torch.from_numpy(o), torch.from_numpy(d))
     np.testing.assert_array_equal(got.numpy(), want)
-    dense = ti.any_hit(ps, ti.build_frames(ps), torch.from_numpy(o),
-                       torch.from_numpy(d))
-    np.testing.assert_array_equal(dense.numpy(), want)
 
 
 @pytest.mark.parametrize("name", ["glass", "textured_flat"])
@@ -156,10 +150,8 @@ def test_unported_scene_classes_raise(name):
     """Triangles and textures are later work: the plain paths refuse them
     rather than return wrong hits."""
     _js, ps = _scene(name)
-    o, d = rays(n=8)
     with pytest.raises(NotImplementedError, match="not ported"):
-        ti.closest_hit(ps, ti.build_frames(ps), torch.from_numpy(o),
-                       torch.from_numpy(d))
+        step.check_scene(ps)
     with pytest.raises(NotImplementedError, match="not ported"):
         hit3.pack_scene(ps, ti.build_frames(ps))
 
@@ -186,3 +178,20 @@ def test_layout_ints_keep_absent_kinds_ordered():
         [0, 8, 8, 0, 8, 16]
     assert hit3.layout_ints(hit3.seg_layout((0, 8, 8, 0))) == \
         [0, 0, 0, 8, 8, 8]
+
+
+def test_layout_sweeps_to_the_last_valid_row():
+    """The kernels test each segment only up to its last valid row
+    (``kind_sweep``): the padding rows after it never hit."""
+    assert hit3.layout_ints(hit3.seg_layout((8, 0, 16, 0), (2, 0, 14, 0))) \
+        == [0, 2, 8, 0, 8, 14]
+    _js, ps = _scene("mixed")
+    valid = ps.prim_valid.numpy()
+    assert sum(ps.kind_sweep) < ps.n_prims
+    for kind in range(4):
+        seg = valid[ps.seg(kind)]
+        n = ps.kind_sweep[kind]
+        assert seg[:n].any() == (n > 0) and not seg[n:].any()
+        assert n == 0 or seg[n - 1]
+    ints = hit3.layout_ints(step.pack_step(ps).layout)
+    assert ints[1::2] == list(ps.kind_sweep[:3])

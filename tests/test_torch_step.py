@@ -1,6 +1,6 @@
-"""The port's whole trace (plain version of the trace kernel) and its
-bounce step against the JAX package: the Pallas whole-trace kernel in
-interpret mode and the jnp ``fused_step_reference``, on the same uniforms.
+"""The port's whole trace (plain version of the trace kernel) against the
+JAX package: the Pallas whole-trace kernel in interpret mode, and one
+bounce against the jnp ``fused_step_reference``, on the same uniforms.
 
 Tolerance: rtol 1e-3 / atol 1e-4 (as test_step_kernel_full_trace_matches),
 on all but at most 0.5% of rays: a float32 rounding difference can flip a
@@ -19,7 +19,6 @@ from micro_raytracer_tpu.models import tracer as jtr
 from micro_raytracer_tpu.ops import intersect as ji
 from micro_raytracer_tpu.ops import pallas_step as jps
 from micro_raytracer_tpu_torch.models import tracer as ttr
-from micro_raytracer_tpu_torch.ops import intersect as ti
 from micro_raytracer_tpu_torch.ops import hit3, step
 from test_pallas_step import scenes, state
 from torch_port_helpers import outlier_rows, port_scene, rays
@@ -88,53 +87,62 @@ def test_pack_step_matches_jax(name):
 
 @pytest.mark.parametrize("name", ["opaque", "glass_flat"])
 def test_fused_step_matches_jax_reference(name, monkeypatch):
+    """One bounce of the plain trace against the JAX package's jnp bounce
+    step, from live rays at unit power with A = 1, B = 0: A/B and
+    first_live of a one-step trace, and the next step's input ray from the
+    residuals of a two-step trace."""
     monkeypatch.setenv("MRT_HIT3", "0")     # the JAX side stays dense
     js, ps = _scene(name)
-    ray, A, B, u, u_emit = state(js)
+    (o, d, _pwr, _live), _A, _B, u, u_emit = state(js)
+    R = o.shape[0]
     decay = 0.85
     jfr = ji.build_frames(js)
     ray_j, A_j, B_j, live_j = jtr.fused_step_reference(
-        js, jfr, ji.prim_attributes(js, jfr), jnp.float32(decay), ray, A, B,
-        u, u_emit)
-    tt = [torch.tensor(np.asarray(x)) for x in ray]
-    pfr = ti.build_frames(ps)
-    ray_t, A_t, B_t, live_t = ttr.fused_step_reference(
-        ps, pfr, ti.prim_attributes(ps, pfr), decay, tuple(tt),
-        *(torch.tensor(np.asarray(x)) for x in (A, B, u, u_emit)))
+        js, jfr, ji.prim_attributes(js, jfr), jnp.float32(decay),
+        (o, d, jnp.ones((R,), jnp.float32), jnp.ones((R,), bool)),
+        jnp.ones((R, 3), jnp.float32), jnp.zeros((R, 3), jnp.float32), u,
+        u_emit)
+    u, u_emit = np.asarray(u), np.asarray(u_emit)
+    rows = u.T if ps.any_refract else u[:, :3].T
+    u8 = np.concatenate([rows, u_emit[None]])[None]
+    u8s = torch.from_numpy(np.concatenate([u8, u8]))      # (2, NU, R)
+    oT, dT = (torch.from_numpy(np.asarray(x).T.copy()) for x in (o, d))
+    tables = step.pack_step(ps)
+    A_t, B_t, fl = step.trace_plain(ps, tables, decay, oT, dT, u8s[:1])
+    res = step.trace_plain(ps, tables, decay, oT, dT, u8s,
+                           want_resid=True)[3]
     live = np.asarray(live_j)
-    np.testing.assert_array_equal(live_t.numpy(), live)
-    R = len(live)
-    _assert_close_share("o2", ray_t[0].numpy()[live],
-                        np.asarray(ray_j[0])[live], R)
-    _assert_close_share("d2", ray_t[1].numpy()[live],
-                        np.asarray(ray_j[1])[live], R)
-    np.testing.assert_allclose(ray_t[2].numpy(), np.asarray(ray_j[2]),
-                               rtol=1e-6)
-    _assert_close_share("A2", A_t.numpy(), np.asarray(A_j), R)
-    _assert_close_share("B2", B_t.numpy(), np.asarray(B_j), R)
+    np.testing.assert_array_equal(fl[0].numpy() > 0.5, live)
+    o2 = res[1, step.RES_O:step.RES_O + 3].T.numpy()
+    d2 = res[1, step.RES_D:step.RES_D + 3].T.numpy()
+    _assert_close_share("o2", o2[live], np.asarray(ray_j[0])[live], R)
+    _assert_close_share("d2", d2[live], np.asarray(ray_j[1])[live], R)
+    _assert_close_share("A2", A_t.numpy().T, np.asarray(A_j), R)
+    _assert_close_share("B2", B_t.numpy().T, np.asarray(B_j), R)
 
 
 def test_all_dead_input_passes_through():
-    """Dead rays: A/B unchanged, pwr decays, live stays false; a trace of
-    rays that miss everything returns A = 1, B = 0, first_live = 0."""
-    js, ps = _scene("opaque")
-    ray, A, B, u, u_emit = state(js, n=128, seed=5)
-    to_t = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
-    ray_t = (to_t(ray[0]), to_t(ray[1]), to_t(ray[2]),
-             torch.zeros(128, dtype=torch.bool))
-    pfr = ti.build_frames(ps)
-    ray2, A2, B2, live2 = ttr.fused_step_reference(
-        ps, pfr, ti.prim_attributes(ps, pfr), 0.85, ray_t, to_t(A), to_t(B),
-        to_t(u), to_t(u_emit))
-    assert not live2.any() and not ray2[3].any()
-    assert torch.equal(A2, to_t(A)) and torch.equal(B2, to_t(B))
-    torch.testing.assert_close(ray2[2], to_t(ray[2]) * 0.85)
+    """Dead rays pass through: A/B stop changing after a ray's last live
+    step (a miss or an emit kill), and a trace of rays that miss everything
+    returns A = 1, B = 0, first_live = 0."""
+    _js, ps = _scene("opaque")
+    tables = step.pack_step(ps)
+    oT, dT = (torch.from_numpy(a.T.copy()) for a in rays(128, seed=5))
+    u8s = torch.rand((4, step.n_uni(ps.any_refract), 128),
+                     generator=torch.Generator().manual_seed(1))
+    A4, B4, _fl, _res, n_live = step.trace_plain(ps, tables, 0.85, oT, dT,
+                                                 u8s, want_resid=True)
+    A2, B2, _fl2 = step.trace_plain(ps, tables, 0.85, oT, dT, u8s[:2])
+    dead = n_live <= 2
+    assert ((n_live > 0) & dead).any()
+    assert torch.equal(A2[:, dead], A4[:, dead])
+    assert torch.equal(B2[:, dead], B4[:, dead])
 
     o = np.tile(np.asarray([[0.0, 0.0, 5.0]], np.float32), (64, 1))
     d = np.tile(np.asarray([[0.0, 0.0, 1.0]], np.float32), (64, 1))
     u8s = torch.rand((3, step.n_uni(ps.any_refract), 64),
                      generator=torch.Generator().manual_seed(0))
-    A3, B3, fl = step.trace_packed(ps, step.pack_step(ps), 0.85,
+    A3, B3, fl = step.trace_packed(ps, tables, 0.85,
                                    torch.from_numpy(o.T.copy()),
                                    torch.from_numpy(d.T.copy()), u8s)
     assert torch.equal(A3, torch.ones_like(A3))
