@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                # from the repository root
     python3 chip_smoke.py --render-only  # phase 1 and the render timing
+    python3 chip_smoke.py --mesh-only    # phases 1, 2 and 9-11
 
 Phases, each of which raises on failure:
 
@@ -58,16 +59,39 @@ Phases, each of which raises on failure:
    rays/s and peak device memory, then profiles one more step from the
    starting parameters for the device's busy share, its operation count
    and its kernel times.
+9. mesh kernels: the two mesh scenes (the slice room with the glass sphere
+   replaced by a 960-triangle torus: ``mesh_glass``, glass, whose sweeps
+   take the group exit, and ``mesh_opaque``, diffuse, whose entry sweeps
+   cull per 64-row block): every kernel against its plain version as in
+   phases 3, 4 and 7 — closest_hit on 2^17 random and 2^17 camera rays
+   (rows and t bit for bit), the trace on 2^17 camera rays, the train
+   instance and the backward on 2^15 camera rays (the triangle cotangents
+   included) — and timed at the main path's shape, the full frame; the
+   triangle rows each sweep tests after the cull come from the plain
+   version (``hit3.tri_rows_tested``, ``trace_plain(work=...)``).
+10. mesh main path: the CLI renders ``mesh_opaque`` and ``mesh_glass``,
+   written as scene JSON files, at 1080x1080, bounce 8, 16 spp: both
+   kernels once per sample and no plain version (launch counters), a
+   non-constant image; ten renders of each for the median, quartiles and
+   range of rays/s, and one profiled render for the device's busy share.
+   The HTTP service answers one ``mesh_glass`` request.
+11. mesh training: 3 steps of ``make_train_step`` on ``mesh_glass`` at
+   1080x1080, bounce 8, one path per pixel, from perturbed ``mat_albedo``,
+   ``light_pwr`` and torus ``inst_pos``: finite loss and gradients,
+   non-zero ``inst_pos`` / ``inst_dir`` gradients on the torus rows, one
+   ``closest_hit``, ``trace_fwd_train`` and ``trace_bwd`` per step; seconds
+   per step, fwd+bwd rays/s, peak memory and one profiled step.
 
 Every kernel's entry in the JSON line carries its bound: the larger of the
 bytes it must move (inputs read once, outputs written once) over 3.35 TB/s
 and the float32 operations this run's data needs over 67 TFLOP/s (the
 H100 SXM's published rates), with operations counted by hand from the
-sources (see ``ROW_TEST_OPS`` and the step constants below) and the
-data-dependent parts — live steps, occluded lights, refract choices — read
-from this run's residuals. A sweep counts the scene's valid rows only: the
-kernels skip the invalid rows that pad each kind segment to a multiple of
-8.
+sources (see ``ROW_TEST_OPS``, ``TRI_TEST_OPS`` and the step constants
+below) and the data-dependent parts — live steps, occluded
+lights, refract choices, the triangle rows the cull leaves — read from
+this run's residuals and plain versions. A sweep counts the scene's valid
+rows only: the kernels skip the invalid rows that pad each kind segment to
+a multiple of 8. The block slab tests of the cull are not counted.
 
 It prints a JSON line of per-kernel results and the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -77,6 +101,7 @@ no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -86,6 +111,16 @@ import sys
 import tempfile
 import threading
 import time
+
+# the Mesh-class scenes: tests/torch_mesh_helpers.py holds the same torus
+TORUS_POS = [-0.18, 0.12, -0.26]
+TORUS_TILT = 0.45
+MESH_MATS = {
+    "mesh_opaque": {"rough": 0.6, "albedo": [0.8, 0.7, 0.3]},
+    "mesh_glass": {"opacity": 0.0, "glass": 0.08},
+}
+MESH_NAMES = ("mesh_opaque", "mesh_glass")
+N_MESH_BWD = 1 << 15
 
 SLICE_ARGS = [
     "--obj", "box", "size:", "1", "1", "0.01", "pos:", "0", "0", "-0.5",
@@ -129,6 +164,11 @@ F32_OPS_PER_S = 67e12
 # 33 for the kind's test (sphere quadratic, plane, or box slabs) and 4 for
 # the validity checks.
 ROW_TEST_OPS = 73
+# One ray-triangle test of hit3.cuh tri_hit: 33 for o' = G o + h and d' =
+# G d, 2 for the |d'_z| >= thr test, 2 for t, 4 for u and v, 6 for the
+# barycentric and t bounds; tri_any: 33, 2, and 16 for the division-free
+# bounds.
+TRI_TEST_OPS, TRI_ANY_OPS = 47, 51
 # One live step of trace_fwd.cu without its sweeps: hit point, normal,
 # jittered normal and reflection, the fold (opaque scene); the refract side
 # adds the exit normal, its jitter and the refraction; each light adds its
@@ -258,9 +298,11 @@ def compare_hit(tables, o, d):
     from micro_raytracer_tpu_torch.ops import hit3
 
     err = 0.0
+    tri = (tables.tri, tables.tbb)
     for mode in (hit3.MODE_EXIT, hit3.MODE_ENTRY, hit3.MODE_ANY):
-        got = hit3.closest_hit(tables.tab, tables.layout, o, d, mode)
-        ref = hit3.closest_hit_plain(tables.tab, tables.layout, o, d, mode)
+        got = hit3.closest_hit(tables.tab, tables.layout, o, d, mode, *tri)
+        ref = hit3.closest_hit_plain(tables.tab, tables.layout, o, d, mode,
+                                     *tri)
         for name, g, r in zip(("te", "row", "tx", "xrow"), got, ref):
             if g.dtype == torch.int32:
                 bad = g != r
@@ -273,8 +315,9 @@ def compare_hit(tables, o, d):
                 raise AssertionError(f"closest_hit mode {mode}: {name} "
                                      f"differs on {int(bad.sum())} rays")
         hits = int((got[0] < hit3.BIG * 0.5).sum())
-        log(f"closest_hit mode {mode}, {o.shape[0]} rays: {hits} hit, "
-            f"matches plain")
+        tris = int((got[1] >= tables.layout[1]).sum())
+        log(f"closest_hit mode {mode}, {o.shape[0]} rays: {hits} hit "
+            f"({tris} on triangles), matches plain")
     return err
 
 
@@ -288,17 +331,49 @@ def main_path_rays(cfg, gen, dev):
     return o.T.contiguous(), d.T.contiguous()
 
 
-def valid_rows(scene) -> int:
-    """Rows a sweep must test: the valid ones (each kind segment of the
-    row table is padded to a multiple of 8 with invalid rows)."""
-    return int(scene.prim_valid.sum())
+def valid_rows(scene, tables) -> int:
+    """Dense rows a sweep must test: the valid sphere, plane and box rows
+    (each kind segment of the row table is padded to a multiple of 8 with
+    invalid rows)."""
+    return int(scene.prim_valid[:tables.layout[1]].sum())
+
+
+def table_bytes(scene, tables) -> int:
+    """The row, light and triangle tables (and cull blocks) a kernel
+    reads."""
+    n = tables.tab.numel() + scene.n_lights * 11 + tables.tri.numel()
+    return 4 * (n + (0 if tables.tbb is None else tables.tbb.numel()))
+
+
+def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
+    """closest_hit and its plain version timed on the main path's input
+    (lane-major primaries as (R, 3) views), and the bound of that input:
+    every valid dense row tested on the entry side, the triangle rows the
+    cull leaves (the plain version counts them), and on refractive scenes
+    the winner's group on the exit side (one row for a dense winner, the
+    mesh's rows for a triangle winner, counted with the triangles)."""
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    mode = step.primary_mode(scene)
+    args = (tables.tab, tables.layout, oT.T, dT.T, mode, tables.tri,
+            tables.tbb)
+    ms = cuda_ms(lambda: hit3.closest_hit(*args), reps)
+    plain_ms = cuda_ms(lambda: hit3.closest_hit_plain(*args), plain_reps)
+    R, P = oT.shape[1], valid_rows(scene, tables)
+    te, row = hit3.closest_hit(*args)[:2]
+    dense_hits = (te < hit3.BIG * 0.5) & (row < tables.layout[1])
+    exits = int(dense_hits.sum()) if scene.any_refract else 0
+    tri_rows = int(hit3.tri_rows_tested(*args).sum())
+    b = bound(R * (24 + 16) + table_bytes(scene, tables),
+              (R * P + exits) * ROW_TEST_OPS + tri_rows * TRI_TEST_OPS)
+    return {"ms": ms, "plain_ms": plain_ms, **b}, tri_rows / R
 
 
 def phase_hit(cfg, results):
     import torch
 
     from micro_raytracer_tpu_torch.models.compiler import compile_scene
-    from micro_raytracer_tpu_torch.ops import hit3, step
+    from micro_raytracer_tpu_torch.ops import step
 
     dev = torch.device("cuda")
     scene = compile_scene(cfg.scene, dev)
@@ -309,23 +384,10 @@ def phase_hit(cfg, results):
     # (R, 3) views of lane-major rays
     oT, dT = main_path_rays(cfg, gen, dev)
     err = max(err, compare_hit(tables, oT.T, dT.T))
-    mode = step.primary_mode(scene)
-    ms = cuda_ms(lambda: hit3.closest_hit(tables.tab, tables.layout, oT.T,
-                                          dT.T, mode), 20)
-    plain_ms = cuda_ms(lambda: hit3.closest_hit_plain(
-        tables.tab, tables.layout, oT.T, dT.T, mode), 5)
-    # the work of this input: every valid row tested on the entry side,
-    # and the winner's group (one row in this scene) on the exit side of a
-    # hit
-    R, P = oT.shape[1], valid_rows(scene)
-    te = hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T, mode)[0]
-    exits = int((te < hit3.BIG * 0.5).sum()) if scene.any_refract else 0
-    b = bound(R * (24 + 16) + P * step.ROW_COLS * 4,
-              (R * P + exits) * ROW_TEST_OPS)
-    log(f"closest_hit {R} rays: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-        f"ms, bound {fmt_bound(b)}")
-    results["closest_hit"] = {"max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms, **b,
+    res, _rows = time_hit(scene, tables, oT, dT)
+    log(f"closest_hit {oT.shape[1]} rays: kernel {res['ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.3f} ms, bound {fmt_bound(res)}")
+    results["closest_hit"] = {"max_abs_err": err, **res,
                               "library_ms": None}
 
 
@@ -389,8 +451,7 @@ def phase_trace(cfg, results):
     oT, dT = main_path_rays(cfg, gen, dev)   # the main path's shape
     u8s = uniforms(RES * RES)
     err = max(err, compare_trace(scene, tables, decay, oT, dT, u8s))
-    hit0 = hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T,
-                            step.primary_mode(scene))
+    hit0 = step.primary_hits(scene, tables, oT, dT)
     ms = cuda_ms(lambda: step.trace_fwd(scene, tables, decay, oT, dT, u8s,
                                         hit0), 5)
     plain_ms = cuda_ms(lambda: step.trace_plain(scene, tables, decay, oT, dT,
@@ -441,17 +502,18 @@ class _SampleLog(logging.Handler):
             self.seconds.append(float(record.args[1]))
 
 
-def render_cli(out):
-    """One CLI render of the main path: (render loop seconds, wall
-    seconds). The loop's seconds are the sum of the CLI's per-sample
-    times, each taken after a synchronize."""
+def render_cli(out, scene_args=SLICE_ARGS):
+    """One CLI render of the main path (the slice scene's flags, or a
+    scene JSON file): (render loop seconds, wall seconds). The loop's
+    seconds are the sum of the CLI's per-sample times, each taken after a
+    synchronize."""
     from micro_raytracer_tpu_torch.frontends import cli
 
     handler = _SampleLog()
     logging.getLogger("raytrace").addHandler(handler)
     t0 = time.perf_counter()
     try:
-        rc = cli.main(SLICE_ARGS + [
+        rc = cli.main(list(scene_args) + [
             "--res", str(RES), str(RES), "--ssaa", "1", "--bounce",
             str(BOUNCE), "--sample", str(SAMPLES), "--device", "cuda",
             "-v", "-o", out])
@@ -552,8 +614,16 @@ def _post(port: int, body: bytes) -> bytes:
             out += chunk
 
 
-def phase_server(cfg):
+def phase_server(cfg, requests=3):
+    """The HTTP service answers ``requests`` render requests of ``cfg``
+    with JPEGs, through the kernels alone."""
     from micro_raytracer_tpu_torch.frontends.http import HttpServer
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    kernels = (hit3.KERNEL, step.KERNEL)
+    for k in kernels:
+        k.launches = 0
+        k.plain_calls = 0
 
     port = _free_port()
     srv = HttpServer(f"127.0.0.1:{port}", device="cuda")
@@ -573,7 +643,7 @@ def phase_server(cfg):
         req["rt"] = {"bounce": BOUNCE, "sample": 4, "loss": cfg.rt.loss}
         req["frame"]["res"] = [256, 256]
         body = json.dumps(req).encode()
-        for i in range(3):
+        for i in range(requests):
             t0 = time.perf_counter()
             res = _post(port, body)
             head, _, jpg = res.partition(b"\r\n\r\n")
@@ -588,26 +658,34 @@ def phase_server(cfg):
         th.join(timeout=30)
     if th.is_alive():
         raise AssertionError("HTTP server did not stop")
+    if any(k.launches == 0 or k.plain_calls for k in kernels):
+        raise AssertionError(f"HTTP requests: launches "
+                             f"{[k.launches for k in kernels]}, plain calls "
+                             f"{[k.plain_calls for k in kernels]}")
 
 
-def trace_work(scene, tables, u8s, resid, n_live):
+def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
     """Bounds of the render instance, the train instance and the backward
     kernel on these inputs, from the work their data asks for (read from
-    the train instance's residuals)."""
+    the train instance's residuals; ``tri_work``, from
+    ``trace_plain(work=...)``, holds the triangle rows the sweeps test)."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
 
     K, NU, R = u8s.shape
-    L, P = scene.n_lights, valid_rows(scene)
+    L, P = scene.n_lights, valid_rows(scene, tables)
     n = n_live.long()
     idx = torch.arange(R, device=n.device)
     live = torch.arange(K, device=n.device)[:, None] < n[None]     # (K, R)
     S = int(live.sum())
-    # the emit draw ended the path at its last live step (the chosen row is
-    # the entry row: these scenes have no triangles)
+    # the emit draw ended the path at its last live step, read at the
+    # chosen side's row
     last = (n - 1).clamp(min=0)
-    row = torch.where(n > 0, resid[last, step.RES_ROW, idx], 0.0).long()
+    rl = resid[last, :, idx]                                      # (R, CR)
+    crow = torch.where(rl[:, step.RES_CHOOSE] > 0.5, rl[:, step.RES_XROW],
+                       rl[:, step.RES_ROW])
+    row = torch.where(n > 0, crow, 0.0).long()
     killed = (n > 0) & (u8s[last, NU - 1, idx]
                         < tables.tab[row, step._C_EMI])
     # closest-hit sweeps (of the P valid rows) after step 0: each later
@@ -626,7 +704,10 @@ def trace_work(scene, tables, u8s, resid, n_live):
     fwd_ops = ((sweeps * P + exits + vis * P + occ) * ROW_TEST_OPS
                + S * (FWD_STEP_OPS + L * FWD_LIGHT_OPS)
                + (S * FWD_REFRACT_OPS if scene.any_refract else 0))
-    tables_b = (P * step.ROW_COLS + L * step.LIGHT_COLS) * 4
+    if tri_work is not None:
+        fwd_ops += (tri_work["sweep"] * TRI_TEST_OPS
+                    + tri_work["shadow"] * TRI_ANY_OPS)
+    tables_b = table_bytes(scene, tables)
     # primaries, hits and outputs per ray; uniforms per live step
     fwd_b = R * (24 + 16 + 28) + S * NU * 4 + tables_b
     train_b = fwd_b + S * step.res_rows(L) * 4 + R * 4
@@ -634,7 +715,7 @@ def trace_work(scene, tables, u8s, resid, n_live):
                + vis * BWD_LIGHT_OK_OPS + occ * BWD_LIGHT_OCC_OPS)
     # n_live, ctA/ctB in, d_o/d_d out per ray; residuals and uniforms per
     # live step; tables in, their cotangents (every row) out
-    d_tables_b = tables.tab.numel() * 4 + L * step.LIGHT_COLS * 4
+    d_tables_b = table_bytes(scene, tables)
     bwd_b = (R * (4 + 24 + 24) + S * (step.res_rows(L) + NU) * 4 + tables_b
              + d_tables_b)
     return {"trace_fwd": bound(fwd_b, fwd_ops),
@@ -676,7 +757,7 @@ def compare_train_fwd(scene, tables, decay, oT, dT, u8s, hit0):
                               for li in range(scene.n_lights)]
     if scene.any_refract:
         floats.append(step.RES_TX)
-        exact.append(step.RES_CHOOSE)
+        exact += [step.RES_XROW, step.RES_CHOOSE]
     res_err = 0.0
     for r in floats:
         g, w = res[:, r][live], res_r[:, r][live]
@@ -702,7 +783,8 @@ def trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s, ctA, ctB):
     autograd graph of a whole frame does not fit the card). The table
     cotangents are summed over the chunks in float64, beside the sums of
     their absolute values (the mass that bounds a float32 sum's rounding):
-    ``(d_tab, d_lights, d_oT, d_dT, mass_tab, mass_lights)``."""
+    ``(d_tab, d_lights, d_oT, d_dT, d_tri, mass_tab, mass_lights,
+    mass_tri)``."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
@@ -711,6 +793,7 @@ def trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s, ctA, ctB):
     f64 = torch.float64
     d_tab, m_tab = (torch.zeros_like(tables.tab, dtype=f64) for _ in "ab")
     d_lt, m_lt = (torch.zeros_like(tables.lights, dtype=f64) for _ in "ab")
+    d_tri, m_tri = (torch.zeros_like(tables.tri, dtype=f64) for _ in "ab")
     d_o, d_d = torch.empty_like(oT), torch.empty_like(dT)
     for s in range(0, R, PLAIN_CHUNK):
         sl = slice(s, min(R, s + PLAIN_CHUNK))
@@ -721,8 +804,10 @@ def trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s, ctA, ctB):
         m_tab += g[0].to(f64).abs()
         d_lt += g[1].to(f64)
         m_lt += g[1].to(f64).abs()
+        d_tri += g[4].to(f64)
+        m_tri += g[4].to(f64).abs()
         d_o[:, sl], d_d[:, sl] = g[2], g[3]
-    return d_tab, d_lt, d_o, d_d, m_tab, m_lt
+    return d_tab, d_lt, d_o, d_d, d_tri, m_tab, m_lt, m_tri
 
 
 def compare_bwd(scene, tables, decay, oT, dT, u8s, resid, n_live, bad, gen):
@@ -760,9 +845,9 @@ def compare_bwd(scene, tables, decay, oT, dT, u8s, resid, n_live, bad, gen):
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
     # the absolute floors stay those of the whole frame
-    scales = [float(w.abs().max()) for w in want[:4]]
+    scales = [float(w.abs().max()) if w.numel() else 0.0 for w in want[:5]]
     ill = torch.zeros(R, dtype=torch.bool, device=oT.device)
-    for g, w, scale in zip(got[2:], want[2:4], scales[2:]):
+    for g, w, scale in zip(got[2:4], want[2:4], scales[2:4]):
         ill |= outlier_rays(g, w, G_RTOL, G_FLOOR * scale)
     share = float(ill.float().mean())
     log(f"trace_bwd {R} rays: {int(ill.sum())} ill-conditioned rays (share "
@@ -781,11 +866,13 @@ def compare_bwd(scene, tables, decay, oT, dT, u8s, resid, n_live, bad, gen):
                              ctB)
         want = (want[0] - sub[0], want[1] - sub[1],
                 torch.where(ill, 0.0, want[2]),
-                torch.where(ill, 0.0, want[3])) + want[4:]
+                torch.where(ill, 0.0, want[3]), want[4] - sub[4]) + want[5:]
     err, msg = 0.0, []
-    masses = (want[4], want[5], None, None)
-    for name, g, w, m, scale in zip(("d_tab", "d_lights", "d_oT", "d_dT"),
-                                    got, want, masses, scales):
+    masses = (want[5], want[6], None, None, want[7])
+    for name, g, w, m, scale in zip(("d_tab", "d_lights", "d_oT", "d_dT",
+                                     "d_tri"), got, want, masses, scales):
+        if not w.numel():
+            continue
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"trace_bwd: non-finite {name}")
         g = g.to(w.dtype)
@@ -813,14 +900,13 @@ def phase_train_kernels(cfg, results):
     scene, tables, decay, oT, dT, u8s, hit0 = results.pop("main_inputs")
     dev = oT.device
     gen = torch.Generator(device=dev).manual_seed(5)
-    mode = step.primary_mode(scene)
     o, d = camera_rays(compile_camera(cfg.frame.cam, dev), N_CMP, gen, dev)
     o, d = o.T.contiguous(), d.T.contiguous()
     u = torch.rand((BOUNCE + 1, step.n_uni(scene.any_refract), N_CMP),
                    generator=gen, device=dev)
     errs_f, errs_b = [], []
     for oT_, dT_, u_ in ((o, d, u), (oT, dT, u8s)):
-        h = hit3.closest_hit(tables.tab, tables.layout, oT_.T, dT_.T, mode)
+        h = step.primary_hits(scene, tables, oT_, dT_)
         e, bad, (res, nl), (res_r, nl_r) = compare_train_fwd(
             scene, tables, decay, oT_, dT_, u_, h)
         errs_f.append(e)
@@ -881,8 +967,10 @@ def _busy_share(step_fn):
     return out, wall, busy * 1e-6, len(spans), by_name
 
 
-def phase_train(cfg, card, counts):
-    """The training main path: 3 steps of make_train_step at full width."""
+def phase_train(cfg, card, counts, name="slice room", mesh=False):
+    """The training main path: 3 steps of make_train_step at full width,
+    from perturbed albedos and light power (and, on a mesh scene, the
+    mesh's position)."""
     import numpy as np
     import torch
 
@@ -899,7 +987,7 @@ def phase_train(cfg, card, counts):
     loss_cfg = cfg.rt.loss
     ys, xs = divmod(morton_ray_order(RES, RES), RES)
     coords = torch.from_numpy(np.stack([xs, ys], -1)).to(dev, torch.float32)
-    gen = torch.Generator(device=dev).manual_seed(6)
+    gen = torch.Generator(device=dev).manual_seed(12 if mesh else 6)
     tables = step.pack_step(truth)
     with torch.no_grad():      # the target, through the render kernels
         target = sum(tracer.trace_radiance(truth, cam, (RES, RES), BOUNCE,
@@ -909,6 +997,13 @@ def phase_train(cfg, card, counts):
     params = {k: v.detach().clone() for k, v in params.items()}
     params["mat_albedo"] = torch.full_like(params["mat_albedo"], 0.5)
     params["light_pwr"] = params["light_pwr"] * 0.3
+    # the leaves whose gradient must not vanish, and on which rows
+    rows = {k: slice(None) for k in ("mat_albedo", "light_pwr", "inst_pos")}
+    if mesh:
+        tri = scene.seg(3)
+        params["inst_pos"][tri] += torch.tensor([0.02, 0.0, 0.01],
+                                                device=dev)
+        rows = {"inst_pos": tri, "inst_dir": tri}
     params = {k: v.requires_grad_(True) for k, v in params.items()}
     start = params
     ts = shard.make_train_step((RES, RES), BOUNCE, device=dev)
@@ -926,14 +1021,15 @@ def phase_train(cfg, card, counts):
         secs.append(time.perf_counter() - t0)
         losses.append(float(loss))
         if not np.isfinite(losses[-1]):
-            raise AssertionError(f"training: loss {losses[-1]}")
+            raise AssertionError(f"{name} training: loss {losses[-1]}")
         for k, p in params.items():
             if p.grad is None or not bool(torch.isfinite(p.grad).all()):
-                raise AssertionError(f"training: gradient of {k} is "
+                raise AssertionError(f"{name} training: gradient of {k} is "
                                      f"missing or not finite")
-        for k in ("mat_albedo", "light_pwr", "inst_pos"):
-            if not bool((params[k].grad != 0).any()):
-                raise AssertionError(f"training: gradient of {k} is zero")
+        for k, r in rows.items():
+            if not bool((params[k].grad[r] != 0).any()):
+                raise AssertionError(f"{name} training: gradient of {k} is "
+                                     f"zero")
         params = new
     launched = {k.name: k.launches for k in kernels}
     plain = {k.name: k.plain_calls for k in kernels if k.plain_calls}
@@ -943,13 +1039,13 @@ def phase_train(cfg, card, counts):
             step.TRAIN_KERNEL.name: TRAIN_STEPS,
             step.BWD_KERNEL.name: TRAIN_STEPS}
     if launched != want or plain:
-        raise AssertionError(f"training launches {launched} (want {want}), "
-                             f"plain calls {plain}")
+        raise AssertionError(f"{name} training launches {launched} (want "
+                             f"{want}), plain calls {plain}")
     step_s = sum(secs[1:]) / (TRAIN_STEPS - 1)
     rays = RES * RES
     drift = {k: float((params[k] - start[k]).abs().max())
              for k in ("inst_pos", "inst_dir", "mat_albedo", "light_pwr")}
-    log(f"training main path: {RES}x{RES}, bounce {BOUNCE}, 1 path per "
+    log(f"{name} training: {RES}x{RES}, bounce {BOUNCE}, 1 path per "
         f"pixel, {TRAIN_STEPS} steps: seconds {[f'{s:.4f}' for s in secs]}, "
         f"losses {[f'{x:.6g}' for x in losses]}; {step_s:.4f} s per step "
         f"after the first = {rays / step_s / 1e6:.3f}M fwd+bwd rays/s; peak "
@@ -957,18 +1053,236 @@ def phase_train(cfg, card, counts):
         f"{launched}; largest change of a leaf over the steps "
         f"{ {k: f'{v:.3g}' for k, v in drift.items()} }")
     # one more step from the starting parameters, whose paths are those of
-    # the scene phase 7 timed the kernels on; an error of the step raises
+    # the scene the kernel phases timed; an error of the step raises
     (loss, _new), wall, busy, n_ops, by_name = _busy_share(
         lambda: ts.step(start, scene, cam, loss_cfg, coords, target, gen))
     if not np.isfinite(float(loss)):
         raise AssertionError(f"profiled training step: loss {float(loss)}")
-    log(f"training profile, one step from the starting parameters: wall "
-        f"{wall:.4f} s, device busy {busy:.4f} s = {busy / wall:.3f} of the "
-        f"step, {n_ops} device operations (kernels, copies, fills)")
-    for name, s in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
-        log(f"  {s * 1e3:9.3f} ms  {name[:90]}")
+    log(f"{name} training profile, one step from the starting parameters: "
+        f"wall {wall:.4f} s, device busy {busy:.4f} s = {busy / wall:.3f} of "
+        f"the step, {n_ops} device operations (kernels, copies, fills)")
+    for kname, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
+        log(f"  {t * 1e3:9.3f} ms  {kname[:90]}")
     return {"step_s": step_s, "steps_s": secs,
-            "fwd_bwd_rays_per_s": rays / step_s, "peak_bytes": peak}
+            "fwd_bwd_rays_per_s": rays / step_s, "peak_bytes": peak,
+            "busy_share": busy / wall}
+def torus(n_major=30, n_minor=16, R=0.16, r=0.06, tilt=TORUS_TILT):
+    """(2 * n_major * n_minor, 3, 3) vertices of a closed torus in object
+    space (the formula of tests/torch_mesh_helpers.py)."""
+    import numpy as np
+
+    u = 2.0 * np.pi * np.arange(n_major) / n_major
+    v = 2.0 * np.pi * np.arange(n_minor) / n_minor
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    ring = R + r * np.cos(vv)
+    a, b, c = ring * np.cos(uu), ring * np.sin(uu), r * np.sin(vv)
+    ct, st = np.cos(tilt), np.sin(tilt)
+    pts = np.stack([a, b * ct - c * st, b * st + c * ct], -1)
+    i1 = (np.arange(n_major) + 1) % n_major
+    j1 = (np.arange(n_minor) + 1) % n_minor
+    quads = [np.stack([pts, pts[i1], pts[i1][:, j1]], -2),
+             np.stack([pts, pts[i1][:, j1], pts[:, j1]], -2)]
+    return np.stack(quads, 2).reshape(-1, 3, 3).astype(np.float32)
+
+
+def mesh_config(name):
+    """The slice scene with its glass sphere replaced by the torus, glass
+    (``mesh_glass``) or diffuse (``mesh_opaque``)."""
+    from micro_raytracer_tpu_torch.models import schema
+
+    cfg = slice_config()
+    objs = [o for o in cfg.scene.objects
+            if not (o.kind == "sphere" and o.mat.glass > 0)]
+    if len(objs) != len(cfg.scene.objects) - 1:
+        raise AssertionError("the slice scene's glass sphere is missing")
+    cfg.scene.objects = objs + [schema.ObjectConfig.from_json({
+        "type": "mesh", "mesh": torus().tolist(), "pos": TORUS_POS,
+        "mat": MESH_MATS[name]})]
+    return cfg
+
+
+def mesh_inputs(name, dev, seed):
+    """(cfg, scene, tables, decay, cam) of a mesh scene on the card."""
+    import torch  # noqa: F401
+
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.compiler import (compile_camera,
+                                                           compile_scene)
+    from micro_raytracer_tpu_torch.ops import step
+
+    cfg = mesh_config(name)
+    scene = compile_scene(cfg.scene, dev)
+    tables = step.pack_step(scene)
+    if scene.kind_sweep[3] != 960 or tables.tbb is None:
+        raise AssertionError(f"{name}: {scene.kind_sweep[3]} triangle rows")
+    return (cfg, scene, tables, tracer.decay_of(cfg.rt.loss),
+            compile_camera(cfg.frame.cam, dev))
+
+
+def phase_mesh_kernels(results):
+    """Phase 9: every kernel on both mesh scenes against its plain version,
+    timed and bounded at the full frame."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    from micro_raytracer_tpu_torch.models.compiler import compile_scene
+
+    dev = torch.device("cuda")
+    for name in MESH_NAMES:
+        cfg, scene, tables, decay, cam = mesh_inputs(name, dev, 0)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        nu = step.n_uni(scene.any_refract)
+        # closest_hit: random rays in the room, camera rays, the frame
+        err = compare_hit(tables, *random_rays(N_CMP, gen, dev))
+        o, d = camera_rays(cam, N_CMP, gen, dev)
+        err = max(err, compare_hit(tables, o, d))
+        if name == MESH_NAMES[0]:
+            # the torus alone: shadow-like rays that reach the triangle
+            # segment (in the room an any-hit sweep meets a wall first)
+            alone = dataclasses.replace(cfg.scene, objects=[
+                ob for ob in cfg.scene.objects if ob.kind == "mesh"])
+            err = max(err, compare_hit(
+                step.pack_step(compile_scene(alone, dev)),
+                *random_rays(N_CMP, gen, dev)))
+        oT, dT = main_path_rays(cfg, gen, dev)
+        res, rows = time_hit(scene, tables, oT, dT, plain_reps=1)
+        log(f"{name} closest_hit {oT.shape[1]} rays: kernel "
+            f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
+            f"{rows:.1f} triangle rows tested per ray (of 960), bound "
+            f"{fmt_bound(res)}")
+        results[f"closest_hit/{name}"] = {"max_abs_err": err, **res,
+                                          "library_ms": None}
+        # the trace on 2^17 camera rays, then the frame
+        u = torch.rand((BOUNCE + 1, nu, N_CMP), generator=gen, device=dev)
+        err_f = compare_trace(scene, tables, decay, o.T.contiguous(),
+                              d.T.contiguous(), u)
+        u8s = torch.rand((BOUNCE + 1, nu, RES * RES), generator=gen,
+                         device=dev)
+        hit0 = step.primary_hits(scene, tables, oT, dT)
+        ms = cuda_ms(lambda: step.trace_fwd(scene, tables, decay, oT, dT,
+                                            u8s, hit0), 5)
+        plain_ms = cuda_ms(lambda: step.trace_plain(scene, tables, decay, oT,
+                                                    dT, u8s), 1)
+        work = {"sweep": 0, "shadow": 0}
+        step.trace_plain(scene, tables, decay, oT, dT, u8s, work=work)
+        # the train instance and the backward on 2^15 camera rays
+        n = N_MESH_BWD
+        ob, db = (t[:n].T.contiguous() for t in (o, d))
+        ub = u[..., :n].contiguous()
+        e_t, bad, _mine, (res_r, nl_r) = compare_train_fwd(
+            scene, tables, decay, ob, db, ub,
+            step.primary_hits(scene, tables, ob, db))
+        e_b, plain_b, _ctA, _ctB = compare_bwd(scene, tables, decay, ob, db,
+                                               ub, res_r, nl_r, bad, gen)
+        # the frame: train instance (equal to the render instance), then
+        # the backward on its residuals
+        A, B, fl, resid, nl = step.trace_fwd_train(scene, tables, decay, oT,
+                                                   dT, u8s, hit0)
+        for nm, g, r in zip(("A", "B", "first_live"), (A, B, fl),
+                            step.trace_fwd(scene, tables, decay, oT, dT, u8s,
+                                           hit0)):
+            if not torch.equal(g, r):
+                raise AssertionError(f"{name} trace_fwd_train: {nm} differs "
+                                     f"from the render instance")
+        ctA, ctB = (torch.randn((3, RES * RES), generator=gen, device=dev)
+                    for _ in range(2))
+        ms_t = cuda_ms(lambda: step.trace_fwd_train(scene, tables, decay, oT,
+                                                    dT, u8s, hit0), 5)
+        plain_t = cuda_ms(lambda: step.trace_plain(
+            scene, tables, decay, oT, dT, u8s, want_resid=True), 1)
+        ms_b = cuda_ms(lambda: step.trace_bwd(scene, tables, decay, u8s,
+                                              resid, nl, ctA, ctB), 5)
+        if name == "mesh_glass":
+            # the training main path's scene: the plain backward at the
+            # frame too (autograd in chunks of PLAIN_CHUNK rays)
+            n = RES * RES
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s, ctA,
+                                    ctB)
+            end.record()
+            torch.cuda.synchronize()
+            plain_b = start.elapsed_time(end)
+        bw = trace_work(scene, tables, u8s, resid, nl, work)
+        S = bw["live_steps"]
+        log(f"{name} trace_fwd {RES * RES} rays x {BOUNCE + 1} steps ({S} "
+            f"live steps): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {fmt_bound(bw['trace_fwd'])}; triangle rows tested per "
+            f"live step: {work['sweep'] / S:.1f} in the closest-hit sweeps, "
+            f"{work['shadow'] / S:.1f} in the shadow sweeps")
+        log(f"{name} trace_fwd_train: kernel {ms_t:.3f} ms, plain "
+            f"{plain_t:.3f} ms, bound {fmt_bound(bw['trace_fwd_train'])}; "
+            f"trace_bwd: kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms on "
+            f"{n} rays, bound {fmt_bound(bw['trace_bwd'])}")
+        results[f"trace_fwd/{name}"] = {
+            "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
+            **bw["trace_fwd"], "library_ms": None}
+        results[f"trace_fwd_train/{name}"] = {
+            "max_abs_err": e_t, "ms": ms_t, "plain_ms": plain_t,
+            **bw["trace_fwd_train"], "library_ms": None}
+        results[f"trace_bwd/{name}"] = {
+            "max_abs_err": e_b, "ms": ms_b, "plain_ms": plain_b,
+            "plain_rays": n, **bw["trace_bwd"], "library_ms": None}
+        del resid, res_r
+
+
+def write_mesh_json(name, tmp):
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(mesh_config(name).to_json(), f)
+    return path
+
+
+def phase_mesh_main(card, counts):
+    """Phase 10: the CLI renders both mesh scenes from JSON files (counted,
+    checked, ten timed renders each, one profiled), and the HTTP service
+    answers one mesh_glass request."""
+    import numpy as np
+    from PIL import Image
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out_res = {}
+    for name in MESH_NAMES:
+        scene_args = [write_mesh_json(name, tmp)]
+        out = os.path.join(tmp, f"{name}.png")
+        for k in (hit3.KERNEL, step.KERNEL):
+            k.launches = 0
+            k.plain_calls = 0
+        render_s, wall = render_cli(out, scene_args)
+        launched = {k.name: k.launches for k in (hit3.KERNEL, step.KERNEL)}
+        counts[name] = launched
+        if launched != {hit3.KERNEL.name: SAMPLES, step.KERNEL.name: SAMPLES} \
+                or hit3.KERNEL.plain_calls or step.KERNEL.plain_calls:
+            raise AssertionError(f"{name} render: launches {launched}, "
+                                 f"plain calls {hit3.KERNEL.plain_calls}, "
+                                 f"{step.KERNEL.plain_calls}")
+        img = np.asarray(Image.open(out))
+        if img.shape != (RES, RES, 3) or float(img.std()) < 5.0:
+            raise AssertionError(f"{name}: image {img.shape}, std "
+                                 f"{float(img.std()):.2f}")
+        loops = [render_s] + [render_cli(out, scene_args)[0]
+                              for _ in range(RENDER_REPS - 1)]
+        spread = render_spread(loops, card)
+        ((loop_p, _w), wall_p, busy, n_ops, by_name) = _busy_share(
+            lambda: render_cli(out, scene_args))
+        med = float(np.median(loops))
+        log(f"{name} render profile: the CLI's wall {wall_p:.4f} s (render "
+            f"loop {loop_p:.4f} s under the profiler), device busy "
+            f"{busy:.4f} s = {busy / med:.3f} of the unprofiled loop's "
+            f"median {med:.4f} s; {n_ops} device operations "
+            f"({n_ops / SAMPLES:.1f} per sample)")
+        for kname, t in sorted(by_name.items(), key=lambda x: -x[1])[:4]:
+            log(f"  {t * 1e3:9.3f} ms  {kname[:90]}")
+        out_res[name] = {"render_s": render_s, "wall_s": wall,
+                         "spread": spread, "busy_s": busy,
+                         "busy_share": busy / med,
+                         "ops_per_sample": n_ops / SAMPLES}
+    phase_server(mesh_config("mesh_glass"), requests=1)
+    return out_res
 
 
 def main() -> int:
@@ -996,43 +1310,79 @@ def main() -> int:
         print(json.dumps({"render": render_only(card)}))
         print(card)
         return 0
-    if sys.argv[1:]:
+    mesh_only = sys.argv[1:] == ["--mesh-only"]
+    if sys.argv[1:] and not mesh_only:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
     phase_build()
     cfg = slice_config()
     results = {}
-    phase_hit(cfg, results)
-    phase_trace(cfg, results)
-    counts = {}
-    main_res = phase_main(card, counts)
-    phase_server(cfg)
-    phase_train_kernels(cfg, results)
-    train_counts = {}
-    train_res = phase_train(cfg, card, train_counts)
+    counts, train_counts = {}, {}
+    if not mesh_only:
+        phase_hit(cfg, results)
+        phase_trace(cfg, results)
+        main_res = phase_main(card, counts)
+        phase_server(cfg)
+        phase_train_kernels(cfg, results)
+        train_res = phase_train(cfg, card, train_counts)
+    phase_mesh_kernels(results)
+    mesh_counts, mesh_train_counts = {}, {}
+    mesh_res = phase_mesh_main(card, mesh_counts)
+    mesh_train = phase_train(mesh_config("mesh_glass"), card,
+                             mesh_train_counts, "mesh_glass", mesh=True)
 
     from micro_raytracer_tpu_torch.ops import hit3, step
 
     fwd_src = "micro_raytracer_tpu_torch/csrc/trace_fwd.cu"
+    hit_src = "micro_raytracer_tpu_torch/csrc/hit3.cu"
+    bwd_src = "micro_raytracer_tpu_torch/csrc/trace_bwd.cu"
+    mesh_kernels = [
+        {"name": f"closest_hit/{name}", "route": "cuda", "source": hit_src,
+         "replaces": "micro_raytracer_tpu/ops/pallas_hit3.py:399",
+         "launches": mesh_counts[name][hit3.KERNEL.name],
+         **results[f"closest_hit/{name}"]} for name in MESH_NAMES]
+    mesh_kernels += [
+        {"name": f"trace_fwd/{name}", "route": "cuda", "source": fwd_src,
+         "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",
+         "launches": mesh_counts[name][step.KERNEL.name],
+         **results[f"trace_fwd/{name}"]} for name in MESH_NAMES]
+    mesh_kernels += [
+        {"name": "trace_fwd_train/mesh_glass", "route": "cuda",
+         "source": fwd_src,
+         "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",
+         "launches": mesh_train_counts[step.TRAIN_KERNEL.name],
+         **results["trace_fwd_train/mesh_glass"]},
+        {"name": "trace_bwd/mesh_glass", "route": "cuda", "source": bwd_src,
+         "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
+         "launches": mesh_train_counts[step.BWD_KERNEL.name],
+         **results["trace_bwd/mesh_glass"]}]
+    log(f"mesh render: {json.dumps(mesh_res)}")
+    log(f"mesh training: {json.dumps(mesh_train)}; closest_hit launches "
+        f"{mesh_train_counts[hit3.KERNEL.name]}")
+    log(f"mesh_opaque train kernels (phase 9 only): "
+        f"{json.dumps(results['trace_fwd_train/mesh_opaque'])}, "
+        f"{json.dumps(results['trace_bwd/mesh_opaque'])}")
+    if mesh_only:
+        print(json.dumps({"kernels": mesh_kernels}))
+        print(card)
+        return 0
     kernels = [
         {"name": "trace_fwd", "route": "cuda", "source": fwd_src,
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",
          "launches": counts[step.KERNEL.name], **results["trace_fwd"]},
-        {"name": "closest_hit", "route": "cuda",
-         "source": "micro_raytracer_tpu_torch/csrc/hit3.cu",
+        {"name": "closest_hit", "route": "cuda", "source": hit_src,
          "replaces": "micro_raytracer_tpu/ops/pallas_hit3.py:803",
          "launches": counts[hit3.KERNEL.name], **results["closest_hit"]},
         {"name": "trace_fwd_train", "route": "cuda", "source": fwd_src,
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",
          "launches": train_counts[step.TRAIN_KERNEL.name],
          **results["trace_fwd_train"]},
-        {"name": "trace_bwd", "route": "cuda",
-         "source": "micro_raytracer_tpu_torch/csrc/trace_bwd.cu",
+        {"name": "trace_bwd", "route": "cuda", "source": bwd_src,
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
          "launches": train_counts[step.BWD_KERNEL.name],
          **results["trace_bwd"]},
-    ]
+    ] + mesh_kernels
     log(f"render main path: {json.dumps(main_res)}")
     log(f"training main path: {json.dumps(train_res)}; closest_hit "
         f"launches {train_counts[hit3.KERNEL.name]}")

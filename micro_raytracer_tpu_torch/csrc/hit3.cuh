@@ -1,10 +1,13 @@
-// Closest-hit and any-hit over the dense sphere / plane / box segments.
+// Closest-hit and any-hit over the dense sphere / plane / box segments and
+// the triangle segment.
 //
 // Replaces: micro_raytracer_tpu/ops/pallas_hit3.py :: sweep_closest with
-// _kind_block (dense segments; the pallas_call in _call_hit). The same
-// device functions are the entry sweep and the shadow sweeps of the
-// whole-trace kernel (trace_fwd.cu) and the body of the primary-hit kernel
-// (hit3.cu).
+// _kind_block (dense segments), its triangle segment tri_body, the
+// candidate-block cull cb_body over _tri_superbounds, and the triangle exit
+// exit_tri, with pallas_tri.py :: _tri_block / _tri_block_any (the
+// pallas_call in _call_hit). The same device functions are the entry sweep
+// and the shadow sweeps of the whole-trace kernel (trace_fwd.cu) and the
+// body of the primary-hit kernel (hit3.cu).
 //
 // Semantics (rt.rs:299-412, 740-772, 867-898), as in the Pallas kernel:
 //  * object-space sphere quadratic, plane equation and box slab test, with
@@ -19,13 +22,35 @@
 //    for single-row groups;
 //  * misses: te = BIG, row = 0, tx = -BIG, xrow = 0.
 //
+// Triangles (kTri instances only; the room-only instances compile without
+// them): a row of the (Pt, 16) triangle table holds G (9), h (3), thr, the
+// group id and the triangle-local [start, end) of the row's group. The
+// entry test is _tri_block's Woop form in its operation order: o' = G o +
+// h, d' = G d, |d'_z| >= thr, t = -o'_z / d'_z, u, v in the triangle,
+// t >= 0. The any-hit test is _tri_block_any's division-free form. A
+// triangle's exit t is its entry t, and a mesh's rows are contiguous in the
+// table, so the exit pass sweeps only the winner group's rows.
+//
+// Per-ray block cull: the segment is cut into 64-row blocks (the compiler's
+// median-split leaf) with world AABBs (hit3.tri_blockbounds). Where the JAX
+// package culls — entry-only sweeps and any-hit sweeps, never an exit pass
+// — a ray slab-tests each block and skips it when it misses the AABB or
+// enters it beyond the ray's best t so far. The JAX kernel cut the same
+// blocks per 1024-ray tile (a block is swept for the whole tile if one lane
+// needs it); one thread per ray makes the per-ray test natural. Both drop
+// only "phantom" |det| >= E hits outside their block's AABB, and the plain
+// version (ops/hit3.py) applies this same rule, so the two agree ray by ray.
+//
 // What bounds it on the H100: arithmetic. Each ray runs ~40 float ops per
 // row and per sweep, the row table is a few KB read from shared memory as
 // warp-wide broadcasts, and a ray costs 24 bytes in and 16 out. The design
-// keeps one ray per thread with the whole table in shared memory (staged
-// once per block by the caller), loops over rows with the kind fixed per
-// segment (no per-row kind branch), and exits the any-hit loop at the
-// first hit.
+// keeps one ray per thread with the dense rows and the block AABBs in
+// shared memory (staged once per block by the caller), loops over rows with
+// the kind fixed per segment (no per-row kind branch), and exits the
+// any-hit loop at the first hit. The triangle table (64 B a row, ~61 KB for
+// a 960-triangle mesh) stays in global memory and is read through the
+// read-only cache: a warp's threads test the same row together, so a row
+// is one broadcast from L1, and it has no row bound.
 //
 // Geometry stays in float32; 1/sqrt is written as 1.0f/sqrtf (rsqrtf is
 // approximate), and the build uses -fmad=false so every product and sum
@@ -48,9 +73,24 @@ enum SweepCol { C_FR = 0, C_IP = 9, C_PA = 12, C_PR = 15, C_VALID = 16,
 
 // Kind segments [start, start + n) of the kind-sorted row table, n the
 // rows up to the segment's last valid one: the padding rows after it are
-// never tested.
+// never tested. The triangle segment starts at tri_start and sweeps tri_n
+// rows in n_cb cull blocks (0: no culling).
 struct Layout {
   int sph_start, sph_n, pln_start, pln_n, box_start, box_n;
+  int tri_start = 0, tri_n = 0, n_cb = 0;
+};
+
+// Triangle table columns (ops/hit3.py TRI_COLS) and the cull blocks.
+constexpr int kTriCols = 16;
+enum TriCol { T_G = 0, T_H = 9, T_THR = 12, T_GID = 13, T_GS = 14, T_GE = 15 };
+constexpr int kCullRows = 64;
+constexpr int kBbCols = 8;
+
+// The triangle segment's tables: `tab` (Pt, kTriCols) in global memory,
+// `bb` (n_cb, kBbCols) block AABBs [lo | hi | pad] in shared memory.
+struct Tris {
+  const float* __restrict__ tab;
+  const float* bb;
 };
 
 struct Hit {
@@ -70,6 +110,8 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
 }
+
+__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
 // (t0, t1, ok) of ray (o, d) against row `r` (a pointer to its sweep
 // columns), for a row of kind K. Operation order follows _kind_block.
@@ -180,13 +222,171 @@ __device__ __forceinline__ bool any_seg(const float* tab, int stride,
   return false;
 }
 
-// Closest hit of ray (o, d) over the table `tab` (rows of `stride` floats
-// whose first kSweepCols are the sweep columns).
-template <bool kNeedExit>
+// o' = G o + h and d' = G d of triangle row `a` (_tri_block's `prod`
+// order: three products summed left to right, then h).
+struct TriProds {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+__device__ __forceinline__ TriProds tri_prods(const float* __restrict__ a,
+                                              float ox, float oy, float oz,
+                                              float dx, float dy, float dz) {
+  TriProds p;
+  p.ox = __ldg(a + 0) * ox + __ldg(a + 1) * oy + __ldg(a + 2) * oz +
+         __ldg(a + T_H + 0);
+  p.oy = __ldg(a + 3) * ox + __ldg(a + 4) * oy + __ldg(a + 5) * oz +
+         __ldg(a + T_H + 1);
+  p.oz = __ldg(a + 6) * ox + __ldg(a + 7) * oy + __ldg(a + 8) * oz +
+         __ldg(a + T_H + 2);
+  p.dx = __ldg(a + 0) * dx + __ldg(a + 1) * dy + __ldg(a + 2) * dz;
+  p.dy = __ldg(a + 3) * dx + __ldg(a + 4) * dy + __ldg(a + 5) * dz;
+  p.dz = __ldg(a + 6) * dx + __ldg(a + 7) * dy + __ldg(a + 8) * dz;
+  return p;
+}
+
+// Woop entry test of triangle row `a` (_tri_block): t only where
+// |d'_z| >= thr passed.
+__device__ __forceinline__ bool tri_hit(const float* __restrict__ a,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float& t) {
+  const TriProds p = tri_prods(a, ox, oy, oz, dx, dy, dz);
+  if (!(fabsf(p.dz) >= __ldg(a + T_THR))) return false;
+  t = -p.oz / p.dz;
+  const float u = p.ox + t * p.dx;
+  const float v = p.oy + t * p.dy;
+  return u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
+}
+
+// Division-free occlusion test of triangle row `a` (_tri_block_any): with
+// D = d'_z, u in [0, 1] iff 0 <= u D^2 <= D^2, and t >= 0 iff o'_z D <= 0.
+__device__ __forceinline__ bool tri_any(const float* __restrict__ a,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz) {
+  const TriProds p = tri_prods(a, ox, oy, oz, dx, dy, dz);
+  const float D = p.dz;
+  if (!(fabsf(D) >= __ldg(a + T_THR))) return false;
+  const float D2 = D * D;
+  const float Pu = (p.ox * D - p.oz * p.dx) * D;
+  const float Pv = (p.oy * D - p.oz * p.dy) * D;
+  return Pu >= 0.0f && Pu <= D2 && Pv >= 0.0f && Pu + Pv <= D2 &&
+         p.oz * D <= 0.0f;
+}
+
+// Does the ray (o, 1/d) enter block AABB `bb` at or before `best`?
+// (pallas_hit3 _slab and its touch test, per ray; NaN propagates as in
+// jnp.minimum / torch.minimum.)
+__device__ __forceinline__ bool block_touch(const float* bb, float ox,
+                                            float oy, float oz, float ix,
+                                            float iy, float iz, float best) {
+  const float o[3] = {ox, oy, oz};
+  const float inv[3] = {ix, iy, iz};
+  float tmin = 0.0f, tmax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float t1 = (bb[k] - o[k]) * inv[k];
+    const float t2 = (bb[3 + k] - o[k]) * inv[k];
+    const float near = nan_min(t1, t2), far = nan_max(t1, t2);
+    tmin = k == 0 ? near : nan_max(tmin, near);
+    tmax = k == 0 ? far : nan_min(tmax, far);
+  }
+  return tmax >= nan_max(tmin, 0.0f) && tmin <= best;
+}
+
+// 1 / d with EPS for a zero component (the slab test's inverse direction)
+__device__ __forceinline__ float inv_dir(float d) {
+  return 1.0f / (d == 0.0f ? kEps : d);
+}
+
+// Entry sweep of the triangle segment: strict `<` after the dense rows'
+// best keeps the lowest row on ties; `cull` skips untouched blocks.
+__device__ __forceinline__ void tri_entry(const Tris& T, const Layout& L,
+                                          bool cull, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, float& best, int& row) {
+  if (!cull) {
+    for (int i = 0; i < L.tri_n; ++i) {
+      float t;
+      if (tri_hit(T.tab + i * kTriCols, ox, oy, oz, dx, dy, dz, t) &&
+          t < best) {
+        best = t;
+        row = L.tri_start + i;
+      }
+    }
+    return;
+  }
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  for (int b = 0; b < L.n_cb; ++b) {
+    const int lo = b * kCullRows;
+    if (lo >= L.tri_n) break;
+    if (!block_touch(T.bb + b * kBbCols, ox, oy, oz, ix, iy, iz, best))
+      continue;
+    const int hi = imin(lo + kCullRows, L.tri_n);
+    for (int i = lo; i < hi; ++i) {
+      float t;
+      if (tri_hit(T.tab + i * kTriCols, ox, oy, oz, dx, dy, dz, t) &&
+          t < best) {
+        best = t;
+        row = L.tri_start + i;
+      }
+    }
+  }
+}
+
+// Any-hit over the triangle segment, culled per ray when the segment has
+// cull blocks; stops at the first hit.
+__device__ __forceinline__ bool tri_any_seg(const Tris& T, const Layout& L,
+                                            float ox, float oy, float oz,
+                                            float dx, float dy, float dz) {
+  if (L.n_cb == 0) {
+    for (int i = 0; i < L.tri_n; ++i)
+      if (tri_any(T.tab + i * kTriCols, ox, oy, oz, dx, dy, dz)) return true;
+    return false;
+  }
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  for (int b = 0; b < L.n_cb; ++b) {
+    const int lo = b * kCullRows;
+    if (lo >= L.tri_n) break;
+    if (!block_touch(T.bb + b * kBbCols, ox, oy, oz, ix, iy, iz, kBig))
+      continue;
+    const int hi = imin(lo + kCullRows, L.tri_n);
+    for (int i = lo; i < hi; ++i)
+      if (tri_any(T.tab + i * kTriCols, ox, oy, oz, dx, dy, dz)) return true;
+  }
+  return false;
+}
+
+// Exit pass over the triangle rows of the winner's group (the winner is
+// triangle-local row `w`): the largest t, strict `>`, rows ascending.
+__device__ __forceinline__ void tri_exit(const Tris& T, const Layout& L,
+                                         int w, float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         float& best, int& row) {
+  const float* wr = T.tab + w * kTriCols;
+  const float wg = __ldg(wr + T_GID);
+  const int hi = imin(static_cast<int>(__ldg(wr + T_GE)), L.tri_n);
+  for (int i = static_cast<int>(__ldg(wr + T_GS)); i < hi; ++i) {
+    const float* r = T.tab + i * kTriCols;
+    if (__ldg(r + T_GID) != wg) continue;
+    float t;
+    const float v = tri_hit(r, ox, oy, oz, dx, dy, dz, t) ? t : -kBig;
+    if (v > best) {
+      best = v;
+      row = L.tri_start + i;
+    }
+  }
+}
+
+// Closest hit of ray (o, d) over the table `tab` (the dense rows; rows of
+// `stride` floats whose first kSweepCols are the sweep columns) and, with
+// kTri, the triangle segment. kNeedExit: entry and group exit, never
+// culled; otherwise entry only, culled.
+template <bool kNeedExit, bool kTri = false>
 __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
                                            const Layout& L, float ox,
                                            float oy, float oz, float dx,
-                                           float dy, float dz) {
+                                           float dy, float dz,
+                                           const Tris& T = Tris{}) {
   float best = kBig;
   int row = 0;
   entry_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, ox, oy, oz, dx, dy,
@@ -195,6 +395,9 @@ __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
                     dz, best, row);
   entry_seg<kBox>(tab, stride, L.box_start, L.box_n, ox, oy, oz, dx, dy, dz,
                   best, row);
+  if (kTri)
+    tri_entry(T, L, !kNeedExit && L.n_cb > 0, ox, oy, oz, dx, dy, dz, best,
+              row);
   Hit h;
   h.te = best;
   h.row = row;
@@ -203,32 +406,39 @@ __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
     h.xrow = row;
     return h;
   }
-  // miss lanes keep wg = BIG, which matches no row's group id
-  const float wg = best < kBig ? tab[row * stride + C_GID] : kBig;
   float xbest = -kBig;
   int xrow = 0;
-  exit_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, wg, ox, oy, oz, dx,
-                    dy, dz, xbest, xrow);
-  exit_seg<kPlane>(tab, stride, L.pln_start, L.pln_n, wg, ox, oy, oz, dx, dy,
+  if (kTri && best < kBig && row >= L.tri_start) {
+    // a triangle's group holds triangle rows only
+    tri_exit(T, L, row - L.tri_start, ox, oy, oz, dx, dy, dz, xbest, xrow);
+  } else {
+    // miss lanes keep wg = BIG, which matches no row's group id
+    const float wg = best < kBig ? tab[row * stride + C_GID] : kBig;
+    exit_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, wg, ox, oy, oz, dx,
+                      dy, dz, xbest, xrow);
+    exit_seg<kPlane>(tab, stride, L.pln_start, L.pln_n, wg, ox, oy, oz, dx,
+                     dy, dz, xbest, xrow);
+    exit_seg<kBox>(tab, stride, L.box_start, L.box_n, wg, ox, oy, oz, dx, dy,
                    dz, xbest, xrow);
-  exit_seg<kBox>(tab, stride, L.box_start, L.box_n, wg, ox, oy, oz, dx, dy,
-                 dz, xbest, xrow);
+  }
   h.tx = xbest;
   h.xrow = xrow;
   return h;
 }
 
 // Occlusion: does the ray hit any valid row? (rt.rs:1036-1038)
+template <bool kTri = false>
 __device__ __forceinline__ bool any_hit(const float* tab, int stride,
                                         const Layout& L, float ox, float oy,
                                         float oz, float dx, float dy,
-                                        float dz) {
+                                        float dz, const Tris& T = Tris{}) {
   return any_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, ox, oy, oz, dx,
                           dy, dz) ||
          any_seg<kPlane>(tab, stride, L.pln_start, L.pln_n, ox, oy, oz, dx,
                          dy, dz) ||
          any_seg<kBox>(tab, stride, L.box_start, L.box_n, ox, oy, oz, dx, dy,
-                       dz);
+                       dz) ||
+         (kTri && tri_any_seg(T, L, ox, oy, oz, dx, dy, dz));
 }
 
 // Stage the first `cols` floats of each of `rows` rows (`stride` floats

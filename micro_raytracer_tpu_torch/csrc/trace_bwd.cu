@@ -3,13 +3,21 @@
 // train instance of trace_fwd.cu saved.
 //
 // Replaces: micro_raytracer_tpu/ops/pallas_step.py :: _trace_bwd_kernel
-// (called by _call_trace_bwd), with its hand transposes for scenes without
-// triangles: _step_comp_bwd_same + _winner_t_bwd_both when the scene
-// refracts (every group is one row, so the exit winner is the entry
-// winner), and the entry side of _step_comp_bwd + _winner_t_bwd_math when
-// it does not; _side_bwd, _norm_bwd and _sphere_dir come with them. The
-// one-hot MXU fetch and scatter of the Pallas kernel become an exact row
-// read from shared memory and shared-memory accumulation.
+// (called by _call_trace_bwd), with its hand transposes:
+// _step_comp_bwd_same + _winner_t_bwd_both when the scene refracts without
+// triangles (every group is one row, so the exit winner is the entry
+// winner), _step_comp_bwd with need_exit and _winner_t_bwd_math on each
+// side when it refracts with triangles (a mesh group has many rows, so the
+// exit side has its own row, normal and material at xrow), and the entry
+// side of _step_comp_bwd + _winner_t_bwd_math when it does not refract;
+// _side_bwd, _norm_bwd and _sphere_dir come with them. Only the chosen side
+// of a step (entry, or exit when the refract branch was taken) gets a
+// cotangent: the other side's values reach the step only through the
+// discrete choice. A triangle winner's t is the Woop plane form t = -(g.o +
+// h)/(g.d) with g = G[2], h = h[2] of its triangle-table row; its
+// cotangents scatter per row onto a (Pt, 4) table (the kernel's dATg /
+// dHTg, l.3579-3594 and 3686-3694). The one-hot MXU fetch and scatter of
+// the Pallas kernel become an exact row read and per-row accumulation.
 //
 // One thread per ray walks its steps from the last live one (the ray's
 // n_live) down to 0, carrying the cotangents of o, d and A in registers;
@@ -22,23 +30,31 @@
 // material reads, the hit point and normal, and the winner t.
 //
 // Cotangents of the row table (its 22 differentiable columns: frame,
-// position, plane normal / box sizes, radius, albedo, rough, metal, glass;
-// valid, group id, opacity and emit get none) and of the light table
-// accumulate per block in shared memory; each block writes its partial
-// sums, and a second kernel adds the partials in block order. The rows hit
-// are few (a room is a dozen rows), so per-ray global atomics would
-// serialise on them; shared atomics serialise only within a block.
+// position, plane normal / box sizes / raw normal, radius, albedo, rough,
+// metal, glass; valid, group id, opacity and emit get none) and of the
+// light table: for the dense rows (spheres, planes, boxes) and the lights
+// they accumulate per block in shared memory; each block writes its
+// partial sums, and a second kernel adds the partials in block order. The
+// dense rows hit are few (a room is a dozen rows), so per-ray global
+// atomics would serialise on them; shared atomics serialise only within a
+// block. Triangle rows (and their (Pt, 4) Woop cotangents) add with global
+// atomics straight into d_tab / d_tri: a mesh's hits spread over hundreds
+// of rows, so the atomics rarely meet, and a shared accumulator of every
+// row would not fit beside the dense rows. Every row keeps its own
+// cotangent (none is folded onto a group's first row).
 //
-// Run to run: d_o and d_d are per ray and bitwise repeatable. d_tab and
-// d_lights are not: the order in which a block's threads add into shared
-// memory varies, so each block's partial sum varies at float32 rounding
-// level (the cross-block sum is in fixed order). The card test bounds the
+// Run to run: d_o and d_d are per ray and bitwise repeatable. d_tab,
+// d_lights and d_tri are not: the order in which a block's threads add into
+// shared memory, and the order of the global atomics on triangle rows,
+// vary, so those sums vary at float32 rounding level (the cross-block sum
+// of the dense partials is in fixed order). The card test bounds the
 // difference of two runs.
 //
 // What bounds it on the H100: bytes. A live step reads 4*(13 + L) bytes of
 // residuals and 4*NU of uniforms and does a few hundred float ops without
-// a sweep; the row table, the lights and the accumulators live in shared
-// memory: P*(26 + 22)*4 bytes, so step.BWD_MAX_ROWS = 1024 rows (192 KB).
+// a sweep; the dense rows, the lights and their accumulators live in
+// shared memory: P*(26 + 22)*4 bytes, so step.BWD_MAX_ROWS = 1024 dense
+// rows (192 KB); triangle rows are read from global memory (no bound).
 // Blocks of 128 threads loop over rays (grid-stride) so that the partials
 // stay at most 1024 blocks deep.
 //
@@ -68,13 +84,35 @@ __device__ __forceinline__ V3 norm_bwd(V3 v, V3 ct) {
   return sub(scale(ct, inv), scale(v, g));
 }
 
-// Winner-t transpose (_winner_t_bwd_both): the cotangents ce of the entry
-// t and cx of the exit t of one row (same_row: both sides share the row's
-// primal chain), into d_at[0..15] (frame, ip, na, radius) and the ray.
+// Winner-t transpose (_winner_t_bwd_both, and _winner_t_bwd_math on one
+// side): the cotangents ce of the entry t and cx of the exit t of one row
+// (same_row: both sides share the row's primal chain), into d_at[0..15]
+// (frame, ip, na, radius) and the ray; a triangle row's (the Woop plane
+// form of its triangle-table row `tr`) into d_gh = (d g (3), d h).
 __device__ __forceinline__ void winner_t_bwd(const float* at, int kind, V3 o,
                                              V3 d, float ce, float cx,
-                                             float* d_at, V3& ct_o,
-                                             V3& ct_d) {
+                                             float* d_at, V3& ct_o, V3& ct_d,
+                                             const float* tr = nullptr,
+                                             float* d_gh = nullptr) {
+  if (kind == kRowTri) {
+    // t = -(g.o + h) / (g.d); the exit t of a triangle is its entry t
+    const float ctm = ce + cx;
+    const V3 g = v3(__ldg(tr + 6), __ldg(tr + 7), __ldg(tr + 8));
+    const float oz = dot(o, g) + __ldg(tr + T_H + 2);
+    const float dz = dot(d, g);
+    const bool dz_ok = dz != 0.0f;
+    const float inv_dz = 1.0f / (dz_ok ? dz : 1.0f);
+    const float t = -oz * inv_dz;
+    const float ct_oz = -ctm * inv_dz;
+    const float ct_dz = dz_ok ? -ctm * t * inv_dz : 0.0f;
+    d_gh[0] += o.x * ct_oz + d.x * ct_dz;
+    d_gh[1] += o.y * ct_oz + d.y * ct_dz;
+    d_gh[2] += o.z * ct_oz + d.z * ct_dz;
+    d_gh[3] += ct_oz;
+    ct_o = add(ct_o, scale(g, ct_oz));
+    ct_d = add(ct_d, scale(g, ct_dz));
+    return;
+  }
   const float* f = at + A_FR;
   const V3 ip = load3(at + A_IP);
   const V3 na = load3(at + A_NA);
@@ -226,7 +264,7 @@ __device__ __forceinline__ float side_bwd(const float* at, int kind,
     d_at[A_IP + 0] -= mt_hp.x;
     d_at[A_IP + 1] -= mt_hp.y;
     d_at[A_IP + 2] -= mt_hp.z;
-  } else if (kind == kRowPlane) {
+  } else if (kind == kRowPlane || kind == kRowTri) {
     d_at[A_NA + 0] += ct_nobj.x;
     d_at[A_NA + 1] += ct_nobj.y;
     d_at[A_NA + 2] += ct_nobj.z;
@@ -236,22 +274,22 @@ __device__ __forceinline__ float side_bwd(const float* at, int kind,
   return dot(d, ct_p);
 }
 
-// One step's transpose. In: the step's residuals, uniforms u (stride R),
-// pwr, the cotangents ct_o, ct_d of the step's output ray, ct_A of its
-// output A, and ctB. Out: ct_o, ct_d, ct_A of the step's input; d_at (the
-// winner row's 26 columns) and d_lt (the lights') accumulate.
+// One step's transpose at its chosen side: the row `at` of kind `kind`
+// (with `tr`, its triangle-table row, for a triangle) hit at t_c. In: the
+// step's residuals, uniforms u (stride R), pwr, the cotangents ct_o, ct_d
+// of the step's output ray, ct_A of its output A, and ctB. Out: ct_o,
+// ct_d, ct_A of the step's input; d_at (the chosen row's 26 columns), d_gh
+// (its triangle cotangents) and d_lt (the lights') accumulate.
 template <bool kRefract>
-__device__ __forceinline__ void step_bwd(const float* s_tab, const Layout& lay,
-                                         const float* s_lt, int L, V3 o, V3 d,
-                                         V3 A, float te, float tx, int row,
+__device__ __forceinline__ void step_bwd(const float* at, int kind,
+                                         const float* tr, const float* s_lt,
+                                         int L, V3 o, V3 d, V3 A, float t_c,
                                          bool choose, const bool* lok,
                                          const float* u, int R, float pwr,
                                          V3 ctB, V3& ct_o, V3& ct_d, V3& ct_A,
-                                         float* d_at, float* d_lt) {
-  const float* at = s_tab + row * kRowCols;
-  const int kind = row_kind(row, lay);
+                                         float* d_at, float* d_gh,
+                                         float* d_lt) {
   // ---- primal recompute at the selected hit ----
-  const float t_c = choose ? tx : te;
   const V3 p = add(o, scale(d, t_c));
   const Normal nm = normal_full(at, p, kind);
   const V3 n = nm.n;
@@ -411,16 +449,18 @@ __device__ __forceinline__ void step_bwd(const float* s_tab, const Layout& lay,
   const float ct_t =
       side_bwd(at, kind, nm, d, t_c, ct_p, ct_n, d_at, new_ct_o, ct_dd);
   winner_t_bwd(at, kind, o, d, choose ? 0.0f : ct_t, choose ? ct_t : 0.0f,
-               d_at, new_ct_o, ct_dd);
+               d_at, new_ct_o, ct_dd, tr, d_gh);
   ct_o = new_ct_o;
   ct_d = ct_dd;
 }
 
-// One ray's whole backward. `acc` adds into the row and light
-// accumulators: acc.row(row, d_at) and acc.light(li, d_lt).
-template <bool kRefract, class Acc>
+// One ray's whole backward. `s_tab` holds the dense rows, `g_tab` the whole
+// row table. `acc` adds into the row, triangle and light accumulators:
+// acc.row(row, d_at), acc.tri(local row, d_gh) and acc.light(d_lt).
+template <bool kRefract, bool kTri, class Acc>
 __device__ __forceinline__ void trace_ray_bwd(
-    const float* s_tab, const Layout& lay, const float* s_lt, int L, float dk,
+    const float* s_tab, const float* g_tab, const Tris& T, const Layout& lay,
+    const float* s_lt, int L, float dk,
     int i, int R, const float* __restrict__ resid, int n,
     const float* __restrict__ u8s, V3 ctA, V3 ctB, V3& ct_o, V3& ct_d,
     Acc& acc) {
@@ -434,7 +474,16 @@ __device__ __forceinline__ void trace_ray_bwd(
     const V3 o = v3(r[(R_O + 0) * R], r[(R_O + 1) * R], r[(R_O + 2) * R]);
     const V3 d = v3(r[(R_D + 0) * R], r[(R_D + 1) * R], r[(R_D + 2) * R]);
     const V3 A = v3(r[(R_A + 0) * R], r[(R_A + 1) * R], r[(R_A + 2) * R]);
-    const int row = static_cast<int>(r[R_ROW * R]);
+    const bool choose = kRefract && r[R_CHOOSE * R] > 0.5f;
+    // the chosen side's row: the exit row when the refract branch was
+    // taken (without triangles every group is one row, so it is the entry
+    // row and the exit row is not read)
+    const int row = static_cast<int>(r[((kTri && choose) ? R_XROW : R_ROW) *
+                                       R]);
+    const int kind = row_kind<kTri>(row, lay);
+    const float* at = row_at<kTri>(s_tab, g_tab, row, lay);
+    const float* tr =
+        kind == kRowTri ? T.tab + (row - lay.tri_start) * kTriCols : nullptr;
     bool lok[kMaxLights];
 #pragma unroll
     for (int li = 0; li < kMaxLights; ++li)
@@ -448,10 +497,12 @@ __device__ __forceinline__ void trace_ray_bwd(
     float d_lt[kMaxLights * kLightCols];
 #pragma unroll
     for (int c = 0; c < kMaxLights * kLightCols; ++c) d_lt[c] = 0.0f;
-    step_bwd<kRefract>(s_tab, lay, s_lt, L, o, d, A, r[R_TE * R],
-                       r[R_TX * R], row, kRefract && r[R_CHOOSE * R] > 0.5f,
-                       lok, u, R, pwr, ctB, ct_o, ct_d, ct_A, d_at, d_lt);
+    float d_gh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    step_bwd<kRefract>(at, kind, tr, s_lt, L, o, d, A,
+                       choose ? r[R_TX * R] : r[R_TE * R], choose, lok, u, R,
+                       pwr, ctB, ct_o, ct_d, ct_A, d_at, d_gh, d_lt);
     acc.row(row, d_at);
+    if (kTri && kind == kRowTri) acc.tri(row - lay.tri_start, d_gh);
     acc.light(d_lt);
   }
 }
@@ -463,16 +514,36 @@ __device__ __forceinline__ void trace_ray_bwd(
 
 namespace {
 
-// shared-memory accumulators of one block
+// accumulators of one block: the dense rows and the lights in shared
+// memory; with kTri, triangle rows straight into the global d_tab and
+// d_tri (zeroed by the wrapper)
+template <bool kTri>
 struct SharedAcc {
-  float* rows;    // (P, kGradCols)
+  float* rows;    // (n_dense, kGradCols)
   float* lights;  // (L, kLightCols)
   int L;
+  int n_dense;
+  float* g_tab;   // (P, kRowCols)
+  float* g_tri;   // (Pt, 4)
   __device__ void row(int row, const float* d_at) {
+    if (kTri && row >= n_dense) {
+      float* dst = g_tab + static_cast<size_t>(row) * mrt::kRowCols;
+#pragma unroll
+      for (int g = 0; g < mrt::kGradCols; ++g) {
+        const int c = mrt::tab_col(g);
+        if (d_at[c] != 0.0f) atomicAdd(dst + c, d_at[c]);
+      }
+      return;
+    }
     float* dst = rows + row * mrt::kGradCols;
 #pragma unroll
     for (int g = 0; g < mrt::kGradCols; ++g)
       atomicAdd(dst + g, d_at[mrt::tab_col(g)]);
+  }
+  __device__ void tri(int t, const float* d_gh) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (d_gh[k] != 0.0f) atomicAdd(g_tri + 4 * t + k, d_gh[k]);
   }
   __device__ void light(const float* d_lt) {
 #pragma unroll
@@ -486,9 +557,10 @@ struct SharedAcc {
   }
 };
 
-template <bool kRefract>
+template <bool kRefract, bool kTri>
 __global__ void trace_bwd_kernel(const float* __restrict__ tab, int P,
                                  mrt::Layout lay,
+                                 const float* __restrict__ tri,
                                  const float* __restrict__ lights, int L,
                                  float dk, const float* __restrict__ resid,
                                  const int* __restrict__ n_live,
@@ -497,7 +569,9 @@ __global__ void trace_bwd_kernel(const float* __restrict__ tab, int P,
                                  const float* __restrict__ ctB,
                                  float* __restrict__ d_o,
                                  float* __restrict__ d_d,
-                                 float* __restrict__ partials) {
+                                 float* __restrict__ partials,
+                                 float* __restrict__ d_tab,
+                                 float* __restrict__ d_tri) {
   extern __shared__ float smem[];
   float* s_tab = smem;
   float* s_lt = s_tab + P * mrt::kRowCols;
@@ -507,12 +581,13 @@ __global__ void trace_bwd_kernel(const float* __restrict__ tab, int P,
   mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
   for (int c = threadIdx.x; c < n_acc; c += blockDim.x) s_acc[c] = 0.0f;
   __syncthreads();
-  SharedAcc acc{s_acc, s_acc + P * mrt::kGradCols, L};
+  SharedAcc<kTri> acc{s_acc, s_acc + P * mrt::kGradCols, L, P, d_tab, d_tri};
+  const mrt::Tris T{tri, nullptr};
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < R;
        i += gridDim.x * blockDim.x) {
     mrt::V3 ct_o, ct_d;
-    mrt::trace_ray_bwd<kRefract>(
-        s_tab, lay, s_lt, L, dk, i, R, resid, n_live[i], u8s,
+    mrt::trace_ray_bwd<kRefract, kTri>(
+        s_tab, tab, T, lay, s_lt, L, dk, i, R, resid, n_live[i], u8s,
         mrt::v3(ctA[i], ctA[R + i], ctA[2 * R + i]),
         mrt::v3(ctB[i], ctB[R + i], ctB[2 * R + i]), ct_o, ct_d, acc);
     d_o[i] = ct_o.x;
@@ -527,7 +602,8 @@ __global__ void trace_bwd_kernel(const float* __restrict__ tab, int P,
   for (int c = threadIdx.x; c < n_acc; c += blockDim.x) part[c] = s_acc[c];
 }
 
-// d_tab (P, 26) and d_lights (L, 11): the partials summed in block order
+// the dense rows of d_tab (P, 26) and d_lights (L, 11): the partials
+// summed in block order
 __global__ void reduce_kernel(const float* __restrict__ partials, int blocks,
                               int P, int L, float* __restrict__ d_tab,
                               float* __restrict__ d_lights) {
@@ -555,25 +631,26 @@ __global__ void reduce_kernel(const float* __restrict__ partials, int blocks,
     d_lights[j - n_rows] = s;
 }
 
-template <bool kRefract>
-int launch(const float* tab, int P, const mrt::Layout& lay,
+template <bool kRefract, bool kTri>
+int launch(const float* tab, int P, const mrt::Layout& lay, const float* tri,
            const float* lights, int L, float dk, const float* resid,
            const int* n_live, const float* u8s, int R, const float* ctA,
            const float* ctB, float* d_o, float* d_d, float* partials,
-           int blocks, float* d_tab, float* d_lights, cudaStream_t stream) {
+           int blocks, float* d_tab, float* d_lights, float* d_tri,
+           cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(P) * (mrt::kRowCols + mrt::kGradCols) +
        static_cast<size_t>(L) * 2 * mrt::kLightCols) *
       sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        trace_bwd_kernel<kRefract>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        trace_bwd_kernel<kRefract, kTri>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  trace_bwd_kernel<kRefract><<<blocks, mrt::kBwdThreads, smem, stream>>>(
-      tab, P, lay, lights, L, dk, resid, n_live, u8s, R, ctA, ctB, d_o, d_d,
-      partials);
+  trace_bwd_kernel<kRefract, kTri><<<blocks, mrt::kBwdThreads, smem, stream>>>(
+      tab, P, lay, tri, lights, L, dk, resid, n_live, u8s, R, ctA, ctB, d_o,
+      d_d, partials, d_tab, d_tri);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_out = P * mrt::kRowCols + L * mrt::kLightCols;
@@ -582,26 +659,50 @@ int launch(const float* tab, int P, const mrt::Layout& lay,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kTri>
+int dispatch(const float* tab, int P, const mrt::Layout& lay,
+             const float* tri, const float* lights, int L, float dk,
+             const float* resid, const int* n_live, const float* u8s, int R,
+             int refract, const float* ctA, const float* ctB, float* d_o,
+             float* d_d, float* partials, int blocks, float* d_tab,
+             float* d_lights, float* d_tri, cudaStream_t s) {
+  return refract ? launch<true, kTri>(tab, P, lay, tri, lights, L, dk, resid,
+                                      n_live, u8s, R, ctA, ctB, d_o, d_d,
+                                      partials, blocks, d_tab, d_lights,
+                                      d_tri, s)
+                 : launch<false, kTri>(tab, P, lay, tri, lights, L, dk,
+                                       resid, n_live, u8s, R, ctA, ctB, d_o,
+                                       d_d, partials, blocks, d_tab,
+                                       d_lights, d_tri, s);
+}
+
 }  // namespace
 
-// blocks: the grid size the wrapper sized `partials` for,
-// (blocks, P*22 + L*11) floats.
+// P: the dense rows (tri_start); blocks: the grid size the wrapper sized
+// `partials` for, (blocks, P*22 + L*11) floats; d_tab (all rows) and d_tri
+// (Pt, 4) zeroed by the wrapper. The cull blocks are not read (the
+// backward does not sweep).
 extern "C" int mrt_trace_bwd(const float* tab, int P, int sph_start,
                              int sph_n, int pln_start, int pln_n,
-                             int box_start, int box_n, const float* lights,
-                             int L, float dk, const float* resid,
-                             const int* n_live, const float* u8s, int R,
-                             int refract, const float* ctA, const float* ctB,
-                             float* d_o, float* d_d, float* partials,
-                             int blocks, float* d_tab, float* d_lights,
+                             int box_start, int box_n, const float* tri,
+                             int tri_start, int tri_n, const float* bb,
+                             int n_cb, const float* lights, int L, float dk,
+                             const float* resid, const int* n_live,
+                             const float* u8s, int R, int refract,
+                             const float* ctA, const float* ctB, float* d_o,
+                             float* d_d, float* partials, int blocks,
+                             float* d_tab, float* d_lights, float* d_tri,
                              void* stream) {
-  const mrt::Layout lay{sph_start, sph_n, pln_start, pln_n, box_start, box_n};
+  (void)bb;
+  const mrt::Layout lay{sph_start, sph_n, pln_start, pln_n, box_start,
+                        box_n,     tri_start, tri_n, n_cb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return refract ? launch<true>(tab, P, lay, lights, L, dk, resid, n_live,
-                                u8s, R, ctA, ctB, d_o, d_d, partials, blocks,
-                                d_tab, d_lights, s)
-                 : launch<false>(tab, P, lay, lights, L, dk, resid, n_live,
-                                 u8s, R, ctA, ctB, d_o, d_d, partials, blocks,
-                                 d_tab, d_lights, s);
+  return tri_n > 0
+             ? dispatch<true>(tab, P, lay, tri, lights, L, dk, resid, n_live,
+                              u8s, R, refract, ctA, ctB, d_o, d_d, partials,
+                              blocks, d_tab, d_lights, d_tri, s)
+             : dispatch<false>(tab, P, lay, tri, lights, L, dk, resid, n_live,
+                               u8s, R, refract, ctA, ctB, d_o, d_d, partials,
+                               blocks, d_tab, d_lights, d_tri, s);
 }
 #endif  // __CUDACC__

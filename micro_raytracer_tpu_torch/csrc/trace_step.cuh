@@ -4,15 +4,19 @@
 // residual layout.
 //
 // Row table: (P, 26) floats per row — the 18 sweep columns of hit3.cuh
-// (frame 9, instance position 3, plane normal / box sizes 3, radius,
-// valid, group id) then albedo (3), rough, metal, glass, opacity, emit.
+// (frame 9, instance position 3, plane normal / box sizes / a triangle's
+// raw normal 3, radius, valid, group id) then albedo (3), rough, metal,
+// glass, opacity, emit. The kernels stage the dense rows (below
+// tri_start) in shared memory and read triangle rows from global memory
+// (row_at).
 // Light table: (L, 11) floats [pos 3 | -normalize(dir) 3 | is_dir | pwr |
 // color 3].
 //
 // Residuals of a training forward, per step k and ray i at
 // resid[(k * res_rows(L) + r) * R + i] (rays on the fastest axis): the
 // step's input ray o, d and throughput A, the entry and exit t of its hit,
-// the winner row, the refract choice, and one occlusion bit per light.
+// the entry and exit winner rows, the refract choice, and one occlusion
+// bit per light.
 // pwr is dk^k and B never shapes a cotangent (it enters additively), so
 // neither is saved. Steps at or after a ray's live-step count are neither
 // written nor read.
@@ -47,8 +51,9 @@ enum ResRow {
   R_TE = 9,
   R_TX = 10,
   R_ROW = 11,
-  R_CHOOSE = 12,
-  R_LOK = 13
+  R_XROW = 12,
+  R_CHOOSE = 13,
+  R_LOK = 14
 };
 __device__ __forceinline__ int res_rows(int L) { return R_LOK + L; }
 
@@ -126,20 +131,34 @@ __device__ __forceinline__ float pow32(float x) {
   return x16 * x16;
 }
 
-enum RowKind { kRowSphere = 0, kRowPlane = 1, kRowBox = 2 };
+enum RowKind { kRowSphere = 0, kRowPlane = 1, kRowBox = 2, kRowTri = 3 };
 
 // the kind of row `row` from the segment bounds (absent kinds have n = 0
-// and start where the previous segment ends, so the tests stay ordered)
+// and start where the previous segment ends, so the tests stay ordered;
+// kTri: rows from tri_start on are triangles)
+template <bool kTri = false>
 __device__ __forceinline__ int row_kind(int row, const Layout& L) {
+  if (kTri && row >= L.tri_start) return kRowTri;
   return row < L.sph_start + L.sph_n
              ? kRowSphere
              : (row < L.pln_start + L.pln_n ? kRowPlane : kRowBox);
 }
 
+// Attributes of row `row`: a dense row from the shared copy `s_tab`, a
+// triangle row (kTri) from the global table `g_tab`.
+template <bool kTri>
+__device__ __forceinline__ const float* row_at(const float* s_tab,
+                                               const float* g_tab, int row,
+                                               const Layout& L) {
+  return (kTri && row >= L.tri_start) ? g_tab + row * kRowCols
+                                      : s_tab + row * kRowCols;
+}
+
 // World-space normal at p of row `row` (attributes `at`), _normal_rows with
-// the box z test not chained to the x/y tests (rt.rs:435), and the
-// intermediates its transpose needs: rel = p - ip, the object-space normal
-// n_obj, mv = M n_obj and its normalization nn (n = finite0(nn)).
+// the box z test not chained to the x/y tests (rt.rs:435) and a
+// triangle's raw normal as its object-space normal, and the intermediates
+// its transpose needs: rel = p - ip, the object-space normal n_obj, mv = M
+// n_obj and its normalization nn (n = finite0(nn)).
 struct Normal {
   V3 rel, n_obj, mv, nn, n;
 };
@@ -152,7 +171,7 @@ __device__ __forceinline__ Normal normal_full(const float* at, V3 p, int kind) {
   r.rel = sub(p, ip);
   if (kind == kRowSphere) {
     r.n_obj = sub(add(ip, matvec(f, r.rel)), ip);
-  } else if (kind == kRowPlane) {
+  } else if (kind == kRowPlane || kind == kRowTri) {
     r.n_obj = pa;
   } else {
     const V3 hp = add(ip, matvec(f, r.rel));
@@ -178,9 +197,10 @@ __device__ __forceinline__ Normal normal_full(const float* at, V3 p, int kind) {
   return r;
 }
 
+template <bool kTri = false>
 __device__ __forceinline__ V3 normal(const float* at, V3 p, int row,
                                      const Layout& L) {
-  return normal_full(at, p, row_kind(row, L)).n;
+  return normal_full(at, p, row_kind<kTri>(row, L)).n;
 }
 
 // vector from p toward light `lt` (un-normalized; -normalize(dir) for

@@ -1,14 +1,29 @@
-"""Closest-hit over the dense sphere/plane/box segments: the hand-written
-CUDA kernel ``csrc/hit3.cu`` (sweep in ``csrc/hit3.cuh``), its wrapper, and
-its plain PyTorch version.
+"""Closest-hit over the sphere/plane/box segments and the triangle segment:
+the hand-written CUDA kernel ``csrc/hit3.cu`` (sweeps in ``csrc/hit3.cuh``),
+its wrapper, and its plain PyTorch version.
 
-The counterpart of ``micro_raytracer_tpu.ops.pallas_hit3`` for scenes
-without triangles: :func:`pack_scene` builds the same per-row sweep tables
-(``fr, ipos, pa, pr, valid, gid``) as the columns of one ``(P, 18)`` row
-table, :func:`closest_hit` returns the same ``(te, row, tx, xrow)``
-quadruple — misses give ``te = BIG``, ``row = 0``, ``tx = -BIG``, ``xrow =
-0`` — and :func:`any_hit` the occlusion bit. Both take any row table whose
-first 18 columns are the sweep columns, such as the whole-trace kernel's.
+The counterpart of ``micro_raytracer_tpu.ops.pallas_hit3``:
+:func:`pack_scene` builds the per-row sweep tables (``fr, ipos, pa, pr,
+valid, gid``) as the columns of one ``(P, 18)`` row table (a triangle
+row's ``pa`` holds its raw normal, the shading normal's source),
+:func:`tri_tables` the triangle segment's Woop table ``(Pt, 16)`` and the
+world AABBs of its 64-row cull blocks, :func:`closest_hit` returns the
+same ``(te, row, tx, xrow)`` quadruple — misses give ``te = BIG``, ``row =
+0``, ``tx = -BIG``, ``xrow = 0`` — and :func:`any_hit` the occlusion bit.
+Both take any row table whose first 18 columns are the sweep columns, such
+as the whole-trace kernel's.
+
+Triangles: the entry test is pallas_tri._tri_block's Woop form (``|d'_z| >=
+thr``, then ``t = -o'_z / d'_z`` and the barycentric bounds), the any-hit
+test its division-free ``_tri_block_any``, and a triangle's exit t is its
+entry t. Culling is per ray: the ray slab-tests each 64-row block's AABB
+and skips the block when it misses it, or when the block begins beyond the
+ray's best t so far. It applies where the JAX package culls — entry-only
+sweeps and any-hit sweeps of a segment of more than one block, never an
+exit pass — and the kernel and the plain version apply the same rule, so
+they agree ray by ray. (The JAX package culls per 1024-ray tile; the two
+differ only on "phantom" grazing hits outside their block's AABB, which the
+``|det| >= E`` rule admits.)
 
 :func:`closest_hit` launches the kernel for CUDA tensors and runs
 :func:`closest_hit_plain` for CPU tensors; there is no other path. On the
@@ -18,6 +33,7 @@ render path it is the primary-hit pass of :func:`step.trace_packed`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,23 +46,34 @@ from .linalg import EPS
 BIG = 3.0e38
 SWEEP_COLS = 18          # fr(9) ipos(3) pa(3) pr valid gid
 _C_FR, _C_IP, _C_PA, _C_PR, _C_VALID, _C_GID = 0, 9, 12, 15, 16, 17
-# shared-memory bound of the kernel: 2048 rows * 72 B = 144 KB per block
+# shared-memory bound of the kernel on the dense rows: 2048 rows * 72 B
 MAX_ROWS = 2048
+# triangle table columns: G (9, row-major: o'_k = G[k] . o + h_k), h (3),
+# thr (BIG on invalid or degenerate rows), group id (-3 on invalid rows),
+# and the triangle-local [start, end) rows of the row's group
+TRI_COLS = 16
+_T_G, _T_H, _T_THR, _T_GID, _T_GS, _T_GE = 0, 9, 12, 13, 14, 15
+CB = 64                  # rows per cull block (the compiler's split leaf)
+BB_COLS = 8              # block AABB: lo (3), hi (3), padding (2)
+# shared-memory bound on the block AABBs the kernels stage: 256 * 32 B
+MAX_TRI_BLOCKS = 256
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
 KERNEL = CudaKernel(
     "hit3", "hit3.cu", ("hit3.cuh",), "mrt_closest_hit",
-    [_c_ptr, _c_int, _c_int] + [_c_int] * 6 + [_c_ptr, _c_ptr]
-    + [_c_int] * 4 + [_c_ptr] * 4 + [_c_ptr])
+    [_c_ptr, _c_int, _c_int] + [_c_int] * 6 + [_c_ptr, _c_int, _c_int,
+                                                  _c_ptr, _c_int]
+    + [_c_ptr, _c_ptr] + [_c_int] * 4 + [_c_ptr] * 4 + [_c_ptr])
 # entry only (tx = te); entry and group exit; any-hit (te = -BIG on a hit)
 MODE_ENTRY, MODE_EXIT, MODE_ANY = 0, 1, 2
 
 
 def seg_layout(kind_counts, kind_sweep=None):
     """Static ``((kind, start, count, sweep), ...)`` of the non-empty dense
-    segments, the triangle start and the triangle count. ``sweep`` (default
-    ``count``) is the segment's rows up to its last valid one
-    (``SceneArrays.kind_sweep``): the rows the kernels test."""
+    segments, the triangle start, the triangle count and the triangle
+    rows to sweep. ``sweep`` (default ``count``) is the segment's rows up
+    to its last valid one (``SceneArrays.kind_sweep``): the rows the
+    kernels test."""
     segs, start = [], 0
     for kind in (schema.KIND_SPHERE, schema.KIND_PLANE, schema.KIND_BOX):
         c = kind_counts[kind]
@@ -54,7 +81,9 @@ def seg_layout(kind_counts, kind_sweep=None):
             segs.append((kind, start, c,
                          c if kind_sweep is None else kind_sweep[kind]))
         start += c
-    return tuple(segs), start, kind_counts[schema.KIND_TRIANGLE]
+    n_tri = kind_counts[schema.KIND_TRIANGLE]
+    tri_n = n_tri if kind_sweep is None else kind_sweep[schema.KIND_TRIANGLE]
+    return tuple(segs), start, n_tri, tri_n
 
 
 def layout_ints(layout):
@@ -71,15 +100,131 @@ def layout_ints(layout):
     return ints
 
 
+def tri_ints(layout, tbb):
+    """The three ints of the triangle segment the kernels take: its first
+    row, its rows to sweep, and its cull blocks (0: no culling)."""
+    return [layout[1], layout[3], 0 if tbb is None else tbb.shape[0]]
+
+
+@functools.lru_cache(maxsize=None)
+def _table_ints(layout):
+    """layout_ints as a tuple, computed once per layout (every launch of
+    a kernel passes them)."""
+    return tuple(layout_ints(layout))
+
+
+def table_args(layout, tri, tbb):
+    """The kernels' C arguments for the kind segments: the six dense ints,
+    then the triangle table, its first row and rows to sweep, the cull
+    blocks and their count (null pointers and zeros without triangles)."""
+    if not layout[2]:
+        return (*_table_ints(layout), None, layout[1], 0, None, 0)
+    return (*_table_ints(layout), ptr(tri), layout[1], layout[3],
+            None if tbb is None else ptr(tbb),
+            0 if tbb is None else tbb.shape[0])
+
+
 def pack_scene(scene, frames):
     """The ``(P, 18)`` float32 sweep table: columns ``fr (9), ipos (3), pa
-    (3), pr, valid, gid``, the dense part of pallas_hit3.pack_scene."""
+    (3), pr, valid, gid``, the dense part of pallas_hit3.pack_scene; a
+    triangle row's ``pa`` is its raw normal (pallas_step's normal source
+    column)."""
     intersect.check_scene_class(scene)
     P = scene.n_prims
+    pa = scene.prim_a
+    if scene.kind_counts[schema.KIND_TRIANGLE]:
+        s = scene.seg(schema.KIND_TRIANGLE)
+        pa = torch.cat([pa[:s.start], intersect.triangle_normals(scene)])
     return torch.cat([
-        frames.reshape(P, 9), scene.inst_pos, scene.prim_a,
+        frames.reshape(P, 9), scene.inst_pos, pa,
         scene.prim_r[:, None], scene.prim_valid.to(torch.float32)[:, None],
         scene.group_id.to(torch.float32)[:, None]], dim=1)
+
+
+def _group_ranges(gid):
+    """Triangle-local ``[start, end)`` of each row's run of equal group
+    ids (a mesh instance's rows are contiguous in the compiled table)."""
+    n = gid.shape[0]
+    idx = torch.arange(n, device=gid.device)
+    first = torch.ones(n, dtype=torch.bool, device=gid.device)
+    first[1:] = gid[1:] != gid[:-1]
+    last = torch.ones_like(first)
+    last[:-1] = first[1:]
+    start = torch.cummax(torch.where(first, idx, 0), 0).values
+    end = torch.flip(torch.cummin(torch.flip(
+        torch.where(last, idx + 1, n), (0,)), 0).values, (0,))
+    return start, end
+
+
+def tri_blockbounds(scene, frames):
+    """World AABBs ``(n_cb, 8)`` ``[lo (3) | hi (3) | 0 0]`` of the
+    triangle segment's 64-row blocks (pallas_hit3._tri_superbounds without
+    its padding to 8 rows), with the inverse of the instance frame as the
+    cross-product adjugate; invalid rows add nothing, the bounds get a 1e-4
+    slack, and a non-finite bound tests always. Culling data, built without
+    a gradient.
+
+    The world vertex is ``ip + M^-1 v``: the Woop test maps a ray to ``M (o
+    - ip)`` and compares it with the stored vertices, so a mesh's vertices
+    are relative to its instance position. (``_tri_superbounds`` takes ``ip
+    + M^-1 (v - ip)``, which omits the translation; its tile-wide cull
+    hides that wherever one ray of a 1024-ray tile touches the true block,
+    but a per-ray cull would drop real hits of a translated mesh.)"""
+    with torch.no_grad():
+        s = scene.seg(schema.KIND_TRIANGLE)
+        M, ip = frames[s].detach(), scene.inst_pos[s].detach()
+        valid = scene.prim_valid[s]
+        c0, c1, c2 = M[:, :, 0], M[:, :, 1], M[:, :, 2]
+        r0 = torch.linalg.cross(c1, c2)
+        r1 = torch.linalg.cross(c2, c0)
+        r2 = torch.linalg.cross(c0, c1)
+        det = (c0 * r0).sum(-1, keepdim=True)
+        det = torch.where(det == 0.0, 1.0, det)
+        ws = []
+        for v in (scene.prim_a[s], scene.prim_b[s], scene.prim_c[s]):
+            rel = v.detach()
+            ws.append(ip + torch.stack([(r0 * rel).sum(-1),
+                                        (r1 * rel).sum(-1),
+                                        (r2 * rel).sum(-1)], -1) / det)
+        W = torch.stack(ws, 0)                            # (3, Pt, 3)
+        vm = valid[None, :, None]
+        lo = torch.where(vm, W, BIG)
+        hi = torch.where(vm, W, -BIG)
+        pad = (-lo.shape[1]) % CB
+        lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=BIG)
+        hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-BIG)
+        n_cb = lo.shape[1] // CB
+        lo = lo.reshape(3, n_cb, CB, 3).amin(dim=(0, 2))
+        hi = hi.reshape(3, n_cb, CB, 3).amax(dim=(0, 2))
+        eps = 1e-4 + 1e-4 * torch.clamp(hi - lo, min=0.0)
+        lo, hi = lo - eps, hi + eps
+        bad = ~(torch.isfinite(lo) & torch.isfinite(hi))
+        lo = torch.where(bad, -BIG, lo)
+        hi = torch.where(bad, BIG, hi)
+        return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], 1)
+
+
+def tri_tables(scene, frames):
+    """The triangle segment's ``(Pt, 16)`` table (differentiable in ``G``
+    and ``h``; pallas_tri.pack_consts' ``AT | HT | thr`` with the group id
+    and group range) and its cull blocks' AABBs, or None where the JAX
+    package does not cull (a segment of at most one block)."""
+    s = scene.seg(schema.KIND_TRIANGLE)
+    Pt = s.stop - s.start
+    if not Pt:
+        return torch.zeros((0, TRI_COLS), dtype=torch.float32,
+                           device=frames.device), None
+    G, h, thr, ok = intersect.triangle_pack(scene, frames)
+    valid = scene.prim_valid[s]
+    gid = scene.group_id[s]
+    gs, ge = _group_ranges(gid)
+    meta = torch.stack([
+        torch.where(ok & valid, thr, BIG).detach(),
+        torch.where(valid, gid, -3).to(torch.float32),
+        gs.to(torch.float32), ge.to(torch.float32)], 1)
+    tri = torch.cat([G.reshape(Pt, 9), h, meta], 1)
+    tbb = tri_blockbounds(scene, frames) if Pt > CB else None
+    return tri, tbb
 
 
 def split_sweep(tab):
@@ -149,59 +294,272 @@ def _kind_block(kind, s, e, fr, ipos, pa, pr, valid, o, d):
     return t0, t1, ok
 
 
-def closest_hit_plain(tab, layout, o, d, mode=MODE_EXIT):
+# --- the triangle segment: Woop tests, cull blocks, winner t ---------------
+
+def _tri_prods(rows, o, d):
+    """``o' = G o + h`` and ``d' = G d`` of rays ``(R, 3)`` against table
+    rows ``(n, 16)``, each component ``(R, n)`` in pallas_tri._tri_block's
+    operation order (hit3.cuh tri_prods)."""
+    g = [rows[:, k][None] for k in range(9)]
+    h = [rows[:, _T_H + k][None] for k in range(3)]
+    oc = [o[:, k:k + 1] for k in range(3)]
+    dc = [d[:, k:k + 1] for k in range(3)]
+
+    def prod(k, v):
+        return g[3 * k] * v[0] + g[3 * k + 1] * v[1] + g[3 * k + 2] * v[2]
+
+    return ([prod(k, oc) + h[k] for k in range(3)],
+            [prod(k, dc) for k in range(3)])
+
+
+def _tri_block(rows, o, d):
+    """``(t, ok)`` ``(R, n)`` of the Woop entry test (pallas_tri._tri_block,
+    hit3.cuh tri_hit)."""
+    (oxt, oyt, ozt), (dxt, dyt, dzt) = _tri_prods(rows, o, d)
+    ok = torch.abs(dzt) >= rows[:, _T_THR][None]
+    t = -ozt / torch.where(ok, dzt, 1.0)
+    u = oxt + t * dxt
+    v = oyt + t * dyt
+    ok = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) \
+        & (t >= 0.0)
+    return t, ok
+
+
+def _tri_block_any(rows, o, d):
+    """``ok`` ``(R, n)`` of the division-free occlusion test
+    (pallas_tri._tri_block_any, hit3.cuh tri_any)."""
+    (oxt, oyt, ozt), (dxt, dyt, D) = _tri_prods(rows, o, d)
+    ok = torch.abs(D) >= rows[:, _T_THR][None]
+    D2 = D * D
+    Pu = (oxt * D - ozt * dxt) * D
+    Pv = (oyt * D - ozt * dyt) * D
+    return ok & (Pu >= 0.0) & (Pu <= D2) & (Pv >= 0.0) & (Pu + Pv <= D2) \
+        & (ozt * D <= 0.0)
+
+
+def _inv_dir(d):
+    """``1 / d`` with ``EPS`` for a zero component (the slab test's)."""
+    return 1.0 / torch.where(d == 0.0, EPS, d)
+
+
+def _slab_touch(bb, o, invd, best):
+    """(R,) bool: does each ray enter block AABB ``bb`` ``(8,)`` at or
+    before its ``best`` t? (pallas_hit3's ``_slab`` and ``touch``, per ray;
+    hit3.cuh block_touch)."""
+    tmin = tmax = None
+    for k in range(3):
+        t1 = (bb[k] - o[:, k]) * invd[:, k]
+        t2 = (bb[3 + k] - o[:, k]) * invd[:, k]
+        near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tmin = near if tmin is None else torch.maximum(tmin, near)
+        tmax = far if tmax is None else torch.minimum(tmax, far)
+    return (tmax >= torch.maximum(tmin, torch.zeros_like(tmin))) \
+        & (tmin <= best)
+
+
+def _blocks(n):
+    return [(lo, min(lo + CB, n)) for lo in range(0, n, CB)]
+
+
+def _tri_entry(tri, tbb, n, o, d, best):
+    """Entry sweep of the first ``n`` triangle rows after the dense
+    segments' ``best`` t, block by block in row order, culled per ray
+    when ``tbb`` is given (no gradient). Returns the new best, the
+    triangle-local winner (-1: no triangle improved ``best``) and the rows
+    each ray tested."""
+    R = o.shape[0]
+    row = torch.full((R,), -1, dtype=torch.int64, device=o.device)
+    tested = torch.zeros(R, dtype=torch.int64, device=o.device)
+    invd = _inv_dir(d) if tbb is not None else None
+    for b, (lo, hi) in enumerate(_blocks(n)):
+        t, ok = _tri_block(tri[lo:hi], o, d)
+        if tbb is not None:
+            touch = _slab_touch(tbb[b], o, invd, best)
+            ok = ok & touch[:, None]
+            tested += touch * (hi - lo)
+        else:
+            tested += hi - lo
+        tm = torch.where(ok, t, BIG)
+        bm = tm.amin(dim=1)
+        br = intersect.first_index(tm == bm[:, None]).long()
+        upd = bm < best
+        best = torch.where(upd, bm, best)
+        row = torch.where(upd, lo + br, row)
+    return best, row, tested
+
+
+def _tri_exit(tri, n, o, d, wg, best):
+    """Exit pass over the triangle rows of group ``wg``: the largest t,
+    ties to the lowest row, after the dense segments' ``best`` (no
+    gradient). Returns the new best, the triangle-local exit row (-1: none
+    improved ``best``) and the rows of the group each ray tested (the
+    kernel sweeps only the winner group's row range)."""
+    R = o.shape[0]
+    row = torch.full((R,), -1, dtype=torch.int64, device=o.device)
+    gid = tri[:, _T_GID]
+    for lo, hi in _blocks(n):
+        t, ok = _tri_block(tri[lo:hi], o, d)
+        me = torch.where(ok & (gid[None, lo:hi] == wg[:, None]), t, -BIG)
+        bm = me.amax(dim=1)
+        br = intersect.first_index(me == bm[:, None]).long()
+        upd = bm > best
+        best = torch.where(upd, bm, best)
+        row = torch.where(upd, lo + br, row)
+    return best, row
+
+
+def _tri_any(tri, tbb, n, o, d, done):
+    """Occlusion over the first ``n`` triangle rows for rays not ``done``,
+    culled per ray when ``tbb`` is given; a ray stops at its first hit.
+    Returns the hit mask and the rows each ray tested."""
+    hit = done.clone()
+    tested = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+    invd = _inv_dir(d) if tbb is not None else None
+    big = torch.full_like(o[:, 0], BIG)
+    for b, (lo, hi) in enumerate(_blocks(n)):
+        touch = ~hit
+        if tbb is not None:
+            touch = touch & _slab_touch(tbb[b], o, invd, big)
+        ok = _tri_block_any(tri[lo:hi], o, d) & touch[:, None]
+        found = ok.any(dim=1)
+        upto = torch.where(found, intersect.first_index(ok).long() + 1,
+                           hi - lo)
+        tested += torch.where(touch, upto, 0)
+        hit = hit | found
+    return hit, tested
+
+
+def _tri_t(tri, row, o, d):
+    """Differentiable t of triangle-local rows ``row`` (R,) for rays
+    ``o``/``d``: the Woop plane form ``t = -(g.o + h)/(g.d)`` of
+    pallas_tri._winner_t, in the sweep's operation order (so its value is
+    the sweep's bit for bit); gradients reach ``G[2]``, ``h[2]``, ``o`` and
+    ``d``."""
+    w = tri[row]
+    g = [w[:, 6 + k] for k in range(3)]
+    oz = g[0] * o[:, 0] + g[1] * o[:, 1] + g[2] * o[:, 2] + w[:, _T_H + 2]
+    dz = g[0] * d[:, 0] + g[1] * d[:, 1] + g[2] * d[:, 2]
+    return -oz / torch.where(dz == 0.0, 1.0, dz)
+
+
+def _need_tri(layout, tri):
+    if layout[2] and tri is None:
+        raise ValueError("the scene has triangles: pass its triangle table "
+                         "(tri_tables)")
+    return layout[2] > 0
+
+
+def closest_hit_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None,
+                      tbb=None):
     """Plain PyTorch closest hit of rays ``o``/``d`` ``(R, 3)`` against the
-    row table ``tab``: returns ``(te, row, tx, xrow)`` like the kernel (any
-    device)."""
+    row table ``tab`` (and the triangle tables): returns ``(te, row, tx,
+    xrow)`` like the kernel (any device)."""
     KERNEL.plain_calls += 1
-    return sweep_plain(tab, layout, o, d, mode)
+    return sweep_plain(tab, layout, o, d, mode, tri, tbb)
 
 
-def sweep_plain(tab, layout, o, d, mode=MODE_EXIT):
+def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None):
     """The sweep of :func:`closest_hit_plain` without its call count: the
     plain whole trace runs it for every step. Differentiable: ``te`` and
-    ``tx`` carry the winner row's t gradient (a masked min / max)."""
+    ``tx`` carry the winner row's t gradient (a masked min / max over the
+    dense rows, the Woop plane form of a triangle winner)."""
     fr, ipos, pa, pr, valid, gid = split_sweep(tab)
-    segs, _tri_start, n_tri = layout
-    if n_tri:
-        raise NotImplementedError(intersect.UNPORTED_TRIANGLES)
+    segs, tri_start, _n_tri, tri_n = layout
+    has_tri = _need_tri(layout, tri)
+    R = o.shape[0]
     parts = [_kind_block(kind, s, s + c, fr, ipos, pa, pr, valid, o, d)
              for kind, s, c, _n in segs]
-    t0 = torch.cat([p[0] for p in parts], dim=1)
-    t1 = torch.cat([p[1] for p in parts], dim=1)
-    ok = torch.cat([p[2] for p in parts], dim=1)
-    R = o.shape[0]
-    big = torch.full_like(t0, BIG)
+    if parts:
+        t0 = torch.cat([p[0] for p in parts], dim=1)
+        t1 = torch.cat([p[1] for p in parts], dim=1)
+        ok = torch.cat([p[2] for p in parts], dim=1)
+    else:
+        t0 = t1 = o.new_zeros((R, 0))
+        ok = torch.zeros((R, 0), dtype=torch.bool, device=o.device)
+    zero = torch.zeros(R, dtype=torch.int32, device=o.device)
     if mode == MODE_ANY:
-        te = torch.where(ok.any(dim=1), -BIG, BIG).to(o.dtype)
-        zero = torch.zeros(R, dtype=torch.int32, device=o.device)
+        hit = ok.any(dim=1)
+        if has_tri:
+            with torch.no_grad():
+                hit = _tri_any(tri, tbb, tri_n, o, d, hit)[0]
+        te = torch.where(hit, -BIG, BIG).to(o.dtype)
         return te, zero, te, zero
     # entry: smallest t0, first row on ties; a miss keeps BIG and row 0
-    tm = torch.where(ok, t0, big)
-    te = tm.amin(dim=1)
-    row = intersect.first_index(tm == te[:, None])
+    if parts:
+        tm = torch.where(ok, t0, torch.full_like(t0, BIG))
+        te = tm.amin(dim=1)
+        row = intersect.first_index(tm == te[:, None])
+    else:
+        te, row = torch.full((R,), BIG, dtype=o.dtype, device=o.device), zero
+    if has_tri:
+        with torch.no_grad():
+            _b, trow, _n = _tri_entry(
+                tri, tbb if mode == MODE_ENTRY else None, tri_n, o, d,
+                te.detach())
+        won = trow >= 0
+        te = torch.where(won, _tri_t(tri, trow.clamp(min=0), o, d), te)
+        row = torch.where(won, (tri_start + trow).to(torch.int32), row)
     if mode == MODE_ENTRY:
         return te, row, te, row
     # exit: largest t1 over the winner's group; a miss has no group
     g = gid[:, 0]
-    wg = torch.where(ok.any(dim=1), g[row.long()], torch.full_like(te, BIG))
-    me = torch.where(ok & (g[None, :] == wg[:, None]), t1, -big)
-    tx = me.amax(dim=1)
-    xrow = intersect.first_index(me == tx[:, None])
+    wg = torch.where(te < BIG * 0.5, g[row.long()],
+                     torch.full_like(te, BIG)).detach()
+    if parts:
+        me = torch.where(ok & (g[None, :tri_start] == wg[:, None]), t1,
+                         torch.full_like(t1, -BIG))
+        tx = me.amax(dim=1)
+        xrow = intersect.first_index(me == tx[:, None])
+    else:
+        tx, xrow = torch.full((R,), -BIG, dtype=o.dtype,
+                              device=o.device), zero
+    if has_tri:
+        with torch.no_grad():
+            _b, xr = _tri_exit(tri, tri_n, o, d, wg, tx.detach())
+        won = xr >= 0
+        tx = torch.where(won, _tri_t(tri, xr.clamp(min=0), o, d), tx)
+        xrow = torch.where(won, (tri_start + xr).to(torch.int32), xrow)
     return te, row, tx, xrow
 
 
-def closest_hit(tab, layout, o, d, mode=MODE_EXIT):
+def tri_rows_tested(tab, layout, o, d, mode, tri, tbb):
+    """(R,) int64: the triangle rows the kernel tests for these rays in
+    ``mode``, by its culling rule (entry: the rows of each touched block;
+    exit: also the winner group's rows when a triangle wins; any-hit: rows
+    up to the first hit). Counts the work behind a kernel's bound."""
+    R = o.shape[0]
+    if not layout[2]:
+        return torch.zeros(R, dtype=torch.int64, device=o.device)
+    with torch.no_grad():
+        o, d = o.detach(), d.detach()
+        tri_n = layout[3]
+        if mode == MODE_ANY:
+            dense = sweep_plain(tab, (layout[0], layout[1], 0, 0), o, d,
+                                MODE_ANY)[0] < 0.0
+            return _tri_any(tri, tbb, tri_n, o, d, dense)[1]
+        te = sweep_plain(tab, (layout[0], layout[1], 0, 0), o, d,
+                         MODE_ENTRY)[0]
+        best, trow, tested = _tri_entry(
+            tri, tbb if mode == MODE_ENTRY else None, tri_n, o, d, te)
+        if mode == MODE_EXIT:
+            w = trow.clamp(min=0)
+            span = (tri[w, _T_GE].clamp(max=tri_n)
+                    - tri[w, _T_GS]).to(torch.int64)
+            tested += torch.where(trow >= 0, span, 0)
+        return tested
+
+
+def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None):
     """``(te, row, tx, xrow)`` of rays ``o``/``d`` ``(R, 3)`` float32
-    against the row table ``tab`` ``(P, C >= 18)``.
+    against the row table ``tab`` ``(P, C >= 18)`` and, for a scene with
+    triangles, its :func:`tri_tables` ``tri`` and ``tbb``.
 
     CUDA tensors launch ``mrt_closest_hit``; the rays may be any strided
     view, such as the transpose of lane-major ``(3, R)`` rays. CPU tensors
     run :func:`closest_hit_plain`."""
     if o.device.type == "cpu":
-        return closest_hit_plain(tab, layout, o, d, mode)
-    if layout[2]:
-        raise NotImplementedError(intersect.UNPORTED_TRIANGLES)
+        return closest_hit_plain(tab, layout, o, d, mode, tri, tbb)
+    has_tri = _need_tri(layout, tri)
     R = o.shape[0]
     require_cuda_tensor("o", o, torch.float32, (R, 3), contiguous=False)
     require_cuda_tensor("d", d, torch.float32, (R, 3), contiguous=False)
@@ -213,20 +571,37 @@ def closest_hit(tab, layout, o, d, mode=MODE_EXIT):
     if C < SWEEP_COLS:
         raise ValueError(f"table: {C} columns, the sweep needs "
                          f"{SWEEP_COLS}")
-    if P > MAX_ROWS:
-        raise ValueError(f"closest_hit kernel: {P} rows exceed the "
-                         f"shared-memory bound of {MAX_ROWS}")
+    n_dense = layout[1]
+    if n_dense > MAX_ROWS:
+        raise ValueError(f"closest_hit kernel: {n_dense} sphere, plane and "
+                         f"box rows exceed the shared-memory bound of "
+                         f"{MAX_ROWS}")
+    if has_tri:
+        check_tri_tables(layout, tri, tbb)
     te = torch.empty(R, dtype=torch.float32, device=o.device)
     tx = torch.empty_like(te)
     row = torch.empty(R, dtype=torch.int32, device=o.device)
     xrow = torch.empty_like(row)
     if R:
-        KERNEL.launch(ptr(tab), P, C, *layout_ints(layout), ptr(o), ptr(d),
-                      *o.stride(), R, mode, ptr(te), ptr(row), ptr(tx),
-                      ptr(xrow), stream_ptr(o.device))
+        KERNEL.launch(ptr(tab), n_dense, C, *table_args(layout, tri, tbb),
+                      ptr(o), ptr(d), *o.stride(), R, mode, ptr(te),
+                      ptr(row), ptr(tx), ptr(xrow), stream_ptr(o.device))
     return te, row, tx, xrow
 
 
-def any_hit(tab, layout, o, d):
+def check_tri_tables(layout, tri, tbb):
+    """Validate the triangle tables of a kernel launch."""
+    if not layout[2]:
+        return
+    require_cuda_tensor("tri", tri, torch.float32, (layout[2], TRI_COLS))
+    if tbb is not None:
+        n_cb = -(-layout[2] // CB)
+        require_cuda_tensor("tbb", tbb, torch.float32, (n_cb, BB_COLS))
+        if n_cb > MAX_TRI_BLOCKS:
+            raise ValueError(f"triangle segment: {n_cb} cull blocks exceed "
+                             f"the shared-memory bound of {MAX_TRI_BLOCKS}")
+
+
+def any_hit(tab, layout, o, d, tri=None, tbb=None):
     """(R,) bool: does each ray hit any valid row?"""
-    return closest_hit(tab, layout, o, d, MODE_ANY)[0] < BIG * 0.5
+    return closest_hit(tab, layout, o, d, MODE_ANY, tri, tbb)[0] < BIG * 0.5

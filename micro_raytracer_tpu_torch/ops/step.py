@@ -3,15 +3,17 @@
 plain PyTorch versions, and the autograd function that joins them.
 
 The counterpart of ``micro_raytracer_tpu.ops.pallas_step`` for scenes of
-spheres, planes and boxes with at most 4 lights and no textures.
-:func:`pack_step` builds the kernels' tables (:class:`TraceTables`): a
-``(P, 26)`` row table — the 18 sweep columns of :func:`hit3.pack_scene`,
-whose ``fr, ipos, pa, pr`` are pallas_step's attribute columns
-``_C_FR.._C_PR``, then ``_C_ALB.._C_EMI`` — and the ``(L, 11)`` light table
-whose directional entries hold ``-normalize(light_dir)``. Both are
-differentiable functions of the scene leaves, so a cotangent of the tables
-reaches the leaves by autograd; a training step rebuilds them from the
-current parameters every step.
+spheres, planes, boxes, triangles and meshes with at most 4 lights and no
+textures. :func:`pack_step` builds the kernels' tables
+(:class:`TraceTables`): a ``(P, 26)`` row table — the 18 sweep columns of
+:func:`hit3.pack_scene`, whose ``fr, ipos, pa, pr`` are pallas_step's
+attribute columns ``_C_FR.._C_PR`` (a triangle row's ``pa`` is its raw
+normal), then ``_C_ALB.._C_EMI`` — the ``(L, 11)`` light table whose
+directional entries hold ``-normalize(light_dir)``, and the triangle
+segment's Woop table and cull-block AABBs (:func:`hit3.tri_tables`). The
+row, light and triangle tables are differentiable functions of the scene
+leaves, so their cotangents reach the leaves by autograd; a training step
+rebuilds them from the current parameters every step.
 
 :func:`trace_packed` runs all ``bounce + 1`` steps on lane-major primaries
 ``oT``/``dT`` ``(3, R)`` with uniforms ``u8s`` ``(K, NU, R)`` — ``NU = 8``
@@ -48,19 +50,23 @@ _C_ALB, _C_RGH, _C_MET, _C_GLS, _C_OPA, _C_EMI = 18, 21, 22, 23, 24, 25
 ROW_COLS = 26
 LIGHT_COLS = 11
 MAX_LIGHTS = 4
-# shared-memory bound of the forward kernel: 2048 rows * 104 B + lights
+# shared-memory bound of the forward kernel on the sphere, plane and box
+# rows: 2048 rows * 104 B + lights + hit3.MAX_TRI_BLOCKS block AABBs; the
+# triangle rows stay in global memory (any count)
 MAX_ROWS = 2048
-# the backward kernel also keeps a (P, 22) accumulator in shared memory:
-# 1024 rows * 192 B + lights = 192 KB of the 227 KB a block may use
+# the backward kernel also keeps a (P, 22) accumulator of those rows in
+# shared memory: 1024 rows * 192 B + lights = 192 KB of the 227 KB a block
+# may use; triangle rows accumulate in global memory
 BWD_MAX_ROWS = 1024
 _GRAD_COLS = 22           # row-table columns with a cotangent
 _BWD_THREADS, _BWD_MAX_BLOCKS = 128, 1024   # csrc/trace_bwd.cu kBwdThreads
 
 # residual rows per step (csrc/trace_step.cuh): the step's input ray o, d
-# and throughput A, its entry and exit t, winner row, refract choice, then
-# one occlusion bit per light
+# and throughput A, its entry and exit t, entry and exit winner rows,
+# refract choice, then one occlusion bit per light
 RES_O, RES_D, RES_A = 0, 3, 6
-RES_TE, RES_TX, RES_ROW, RES_CHOOSE, RES_LOK = 9, 10, 11, 12, 13
+RES_TE, RES_TX, RES_ROW, RES_XROW, RES_CHOOSE, RES_LOK = (9, 10, 11, 12, 13,
+                                                          14)
 
 
 def res_rows(n_lights: int) -> int:
@@ -68,7 +74,8 @@ def res_rows(n_lights: int) -> int:
 
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
-_FWD_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6
+_TRI_ARGS = [_c_ptr, _c_int, _c_int, _c_ptr, _c_int]
+_FWD_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
              + [_c_ptr, _c_int, ctypes.c_float] + [_c_ptr] * 7
              + [_c_int] * 3 + [_c_ptr] * 3)
 _HEADERS = ("hit3.cuh", "trace_step.cuh")
@@ -78,9 +85,9 @@ TRAIN_KERNEL = CudaKernel("trace_fwd_train", "trace_fwd.cu", _HEADERS,
                           "mrt_trace_fwd_train", _FWD_ARGS + [_c_ptr] * 3)
 BWD_KERNEL = CudaKernel(
     "trace_bwd", "trace_bwd.cu", _HEADERS, "mrt_trace_bwd",
-    [_c_ptr, _c_int] + [_c_int] * 6 + [_c_ptr, _c_int, ctypes.c_float]
-    + [_c_ptr] * 3 + [_c_int] * 2 + [_c_ptr] * 5 + [_c_int]
-    + [_c_ptr] * 3)
+    [_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
+    + [_c_ptr, _c_int, ctypes.c_float] + [_c_ptr] * 3 + [_c_int] * 2
+    + [_c_ptr] * 5 + [_c_int] + [_c_ptr] * 4)
 
 
 class TraceTables(NamedTuple):
@@ -90,6 +97,8 @@ class TraceTables(NamedTuple):
     tab: torch.Tensor        # (P, ROW_COLS) row table
     lights: torch.Tensor     # (max(L, 1), LIGHT_COLS) light table
     layout: tuple            # hit3.seg_layout of the kind segments
+    tri: torch.Tensor        # (Pt, hit3.TRI_COLS) triangle table
+    tbb: torch.Tensor | None  # (n_cb, hit3.BB_COLS) cull blocks, or None
 
 
 def n_uni(need_exit: bool) -> int:
@@ -124,8 +133,10 @@ def pack_step(scene) -> TraceTables:
     else:
         lights = torch.zeros((1, LIGHT_COLS), dtype=torch.float32,
                              device=frames.device)
+    tri, tbb = hit3.tri_tables(scene, frames)
     return TraceTables(frames, tab, lights,
-                       hit3.seg_layout(scene.kind_counts, scene.kind_sweep))
+                       hit3.seg_layout(scene.kind_counts, scene.kind_sweep),
+                       tri, tbb)
 
 
 def primary_mode(scene) -> int:
@@ -169,15 +180,17 @@ def _matvec(f, v):
 
 
 def _row_ends(layout):
-    """End rows of the sphere and plane segments (hit3.layout_ints)."""
+    """End rows of the sphere and plane segments (hit3.layout_ints) and the
+    first triangle row."""
     ints = hit3.layout_ints(layout)
-    return ints[0] + ints[1], ints[2] + ints[3]
+    return ints[0] + ints[1], ints[2] + ints[3], layout[1]
 
 
 def _normal(at, p, row, ends):
     """World-space normal at ``p`` of the fetched rows ``at`` (trace_step.cuh
-    normal_full): sphere ``M(p - ip)``, plane ``pa``, box face with the
-    missing-``else`` quirk, then ``finite0(safe_norm(M n_obj))``."""
+    normal_full): sphere ``M(p - ip)``, plane and triangle ``pa`` (a
+    triangle row's raw normal), box face with the missing-``else`` quirk,
+    then ``finite0(safe_norm(M n_obj))``."""
     f, ip, pa = at[:, 0:9], at[:, 9:12], at[:, 12:15]
     hp = ip + _matvec(f, p - ip)
     n_sph = hp - ip
@@ -195,7 +208,8 @@ def _normal(at, p, row, ends):
                          torch.where(anyz, zero, by),
                          torch.where(iz1, one,
                                      torch.where(iz_1, -one, zero))], 1)
-    sph_end, pln_end = ends
+    sph_end, pln_end, tri_start = ends
+    n_box = torch.where((row >= tri_start)[:, None], pa, n_box)
     n_obj = torch.where((row < sph_end)[:, None], n_sph,
                         torch.where((row < pln_end)[:, None], pa, n_box))
     return _finite0(_safe_norm(_matvec(f, n_obj)))
@@ -211,17 +225,25 @@ def _light_vec(lt, p):
     return torch.where(lt[6] > 0.5, lt[3:6].expand_as(p), lt[0:3] - p)
 
 
-def _occlusion(tab, layout, lights, L, p_e, live_i):
+def _occlusion(tables, L, p_e, live_i, work=None):
     """(R, L) bool: light li is visible from the entry point (no
-    gradient: the shadow sweep's result is a choice)."""
+    gradient: the shadow sweep's result is a choice). ``work["shadow"]``
+    gains the triangle rows the kernel's shadow sweeps test."""
     with torch.no_grad():
-        tab, p_e = tab.detach(), p_e.detach()
+        tab, p_e = tables.tab.detach(), p_e.detach()
+        lights, layout = tables.lights, tables.layout
+        tri = tables.tri.detach()
         oks = []
         for li in range(L):
             lv = _light_vec(lights[li].detach(), p_e)
             ln = _scale(lv, 1.0 / torch.sqrt(_dot3(lv, lv)))
             so = p_e + ln * EPS
-            te = hit3.sweep_plain(tab, layout, so, ln, hit3.MODE_ANY)[0]
+            te = hit3.sweep_plain(tab, layout, so, ln, hit3.MODE_ANY, tri,
+                                  tables.tbb)[0]
+            if work is not None:
+                work["shadow"] += int(hit3.tri_rows_tested(
+                    tab, layout, so, ln, hit3.MODE_ANY, tri,
+                    tables.tbb)[live_i].sum())
             oks.append((te >= hit3.BIG * 0.5) & live_i)
         if not oks:
             return torch.zeros((p_e.shape[0], 0), dtype=torch.bool,
@@ -254,17 +276,25 @@ def _direct_light(lights, L, lok, p, n, d, alb, rgh, met):
     return l_col
 
 
-def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False):
+def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
+                work=None):
     """Plain PyTorch whole trace: the kernels' step, operation for
     operation, on their inputs (any device). Differentiable by autograd in
     ``tables.tab``, ``tables.lights``, ``oT`` and ``dT``: hits are the
     winner row's t from the sweep (:func:`hit3.sweep_plain`), attributes a
-    gather of its row, occlusion a choice.
+    gather of its row, occlusion a choice. ``tables.tri`` carries the
+    gradient of a triangle winner's t (its ``G`` and ``h`` columns).
 
     Returns ``(A (3,R), B (3,R), first_live (1,R))``; with ``want_resid``
     also the residuals ``(K, res_rows(L), R)`` and live-step counts ``(R,)``
     int32 that the train kernel writes (rows of steps at or after a ray's
-    count are not meaningful)."""
+    count are not meaningful).
+
+    ``work`` (a dict, for the kernels' bounds): gains under ``"sweep"`` the
+    triangle rows the trace kernel's closest-hit sweeps test (steps after
+    the first, whose sweep is the primary-hit pass; the exit pass
+    included) and under ``"shadow"`` those of its shadow sweeps, for the
+    rays live at each sweep."""
     (TRAIN_KERNEL if want_resid else KERNEL).plain_calls += 1
     intersect.check_scene_class(scene)
     tab, lights, layout = tables.tab, tables.lights, tables.layout
@@ -281,13 +311,17 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False):
     first, resid = None, []
     for k in range(K):
         u, u_emit = unpack_uniforms(u8s[k], refract)
-        te, row, tx, xrow = hit3.sweep_plain(tab, layout, o, d, mode)
+        te, row, tx, xrow = hit3.sweep_plain(tab, layout, o, d, mode,
+                                             tables.tri, tables.tbb)
+        if work is not None and k:
+            work["sweep"] += int(hit3.tri_rows_tested(
+                tab, layout, o, d, mode, tables.tri, tables.tbb)[live].sum())
         live_i = live & (te < hit3.BIG * 0.5)
         if k == 0:
             first = live_i
         p_e = o + _scale(d, torch.where(live_i, te, 1.0))
         at_e = tab[row.long()]
-        lok = _occlusion(tab, layout, lights, L, p_e, live_i)
+        lok = _occlusion(tables, L, p_e, live_i, work)
         n_e = _normal(at_e, p_e, row, ends)
         rough_r = torch.where(_rough_override(at_e, u[:, 0]), 1.0,
                               at_e[:, _C_RGH])
@@ -329,7 +363,8 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False):
         if want_resid:
             resid.append(torch.cat([
                 o.T, d.T, A.T, te[None], tx[None], row.to(te.dtype)[None],
-                choose.to(te.dtype)[None], lok.to(te.dtype).T]).detach())
+                xrow.to(te.dtype)[None], choose.to(te.dtype)[None],
+                lok.to(te.dtype).T]).detach())
         B = B + A * b_f
         A = A * a_f
         o = from_p + next_dir * EPS                          # Ray::cast
@@ -345,14 +380,14 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False):
 
 def trace_bwd_plain(scene, tables, decay, oT, dT, u8s, ctA, ctB):
     """Plain version of :func:`trace_bwd`: autograd through
-    :func:`trace_plain`. Returns ``(d_tab, d_lights, d_oT, d_dT)``."""
+    :func:`trace_plain`. Returns ``(d_tab, d_lights, d_oT, d_dT, d_tri)``."""
     BWD_KERNEL.plain_calls += 1
     ins = [t.detach().requires_grad_(True)
-           for t in (tables.tab, tables.lights, oT, dT)]
+           for t in (tables.tab, tables.lights, oT, dT, tables.tri)]
     with torch.enable_grad():
         A, B, _fl = trace_plain(
-            scene, tables._replace(tab=ins[0], lights=ins[1]), decay,
-            ins[2], ins[3], u8s)
+            scene, tables._replace(tab=ins[0], lights=ins[1], tri=ins[4]),
+            decay, ins[2], ins[3], u8s)
         grads = torch.autograd.grad((A, B), ins, (ctA, ctB),
                                     allow_unused=True)
     return tuple(torch.zeros_like(x) if g is None else g
@@ -360,6 +395,25 @@ def trace_bwd_plain(scene, tables, decay, oT, dT, u8s, ctA, ctB):
 
 
 # --- kernel wrappers --------------------------------------------------------
+
+def _table_args(scene, tables, max_dense, what):
+    """Validate the row, light and triangle tables of a launch; their
+    leading C arguments (the dense rows the kernel stages, the dense and
+    triangle layouts)."""
+    tab, lights, layout = tables.tab, tables.lights, tables.layout
+    P = tab.shape[0]
+    require_cuda_tensor("table", tab, torch.float32, (P, ROW_COLS))
+    require_cuda_tensor("lights", lights, torch.float32,
+                        (max(scene.n_lights, 1), LIGHT_COLS))
+    n_dense = layout[1]
+    if n_dense > max_dense:
+        raise ValueError(f"{what} kernel: {n_dense} sphere, plane and box "
+                         f"rows exceed the shared-memory bound of "
+                         f"{max_dense}")
+    hit3.check_tri_tables(layout, tables.tri, tables.tbb)
+    return [ptr(tab), n_dense,
+            *hit3.table_args(layout, tables.tri, tables.tbb), ptr(lights)]
+
 
 def _fwd_args(scene, tables, decay, oT, dT, u8s, hit0):
     """Validate a forward launch's inputs; its leading C arguments."""
@@ -373,24 +427,23 @@ def _fwd_args(scene, tables, decay, oT, dT, u8s, hit0):
     for name, t, dtype in zip(("te0", "row0", "tx0", "xrow0"), hit0,
                               (torch.float32, torch.int32) * 2):
         require_cuda_tensor(name, t, dtype, (R,))
-    tab, lights = tables.tab, tables.lights
-    P = tab.shape[0]
-    require_cuda_tensor("table", tab, torch.float32, (P, ROW_COLS))
-    require_cuda_tensor("lights", lights, torch.float32,
-                        (max(scene.n_lights, 1), LIGHT_COLS))
-    if P > MAX_ROWS:
-        raise ValueError(f"trace kernel: {P} rows exceed the shared-memory "
-                         f"bound of {MAX_ROWS}")
-    return [ptr(tab), P, *hit3.layout_ints(tables.layout), ptr(lights),
-            scene.n_lights, float(decay), ptr(oT), ptr(dT),
-            *(ptr(t) for t in hit0), ptr(u8s), K, R,
-            int(scene.any_refract)]
+    return (_table_args(scene, tables, MAX_ROWS, "trace")
+            + [scene.n_lights, float(decay), ptr(oT), ptr(dT),
+               *(ptr(t) for t in hit0), ptr(u8s), K, R,
+               int(scene.any_refract)])
+
+
+def primary_hits(scene, tables, oT, dT):
+    """The primary-hit pass (:func:`hit3.closest_hit`) of lane-major
+    primaries, in :func:`primary_mode`: the trace kernels' ``hit0``."""
+    return hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T,
+                            primary_mode(scene), tables.tri, tables.tbb)
 
 
 def trace_fwd(scene, tables, decay, oT, dT, u8s, hit0):
     """Launch ``mrt_trace_fwd`` (the render instance) on CUDA tensors.
     ``hit0`` is the primaries' ``(te, row, tx, xrow)`` from
-    :func:`hit3.closest_hit` in :func:`primary_mode`."""
+    :func:`primary_hits`."""
     args = _fwd_args(scene, tables, decay, oT, dT, u8s, hit0)
     R = oT.shape[1]
     A = torch.empty((3, R), dtype=torch.float32, device=oT.device)
@@ -422,11 +475,12 @@ def trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0):
 
 def trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB):
     """Launch ``mrt_trace_bwd`` on CUDA tensors: the cotangents of the row
-    table ``(P, 26)``, the light table, and the primaries ``oT``, ``dT``
-    ``(3, R)``, for output cotangents ``ctA``, ``ctB`` ``(3, R)`` of a
-    trace whose residuals :func:`trace_fwd_train` (or :func:`trace_plain`
-    with ``want_resid``) wrote. The table cotangents vary from run to run
-    at float32 rounding level (csrc/trace_bwd.cu)."""
+    table ``(P, 26)``, the light table, the primaries ``oT``, ``dT`` ``(3,
+    R)`` and the triangle table ``(Pt, 16)`` (its ``G[2]`` and ``h[2]``
+    columns), for output cotangents ``ctA``, ``ctB`` ``(3, R)`` of a trace
+    whose residuals :func:`trace_fwd_train` (or :func:`trace_plain` with
+    ``want_resid``) wrote. The table cotangents vary from run to run at
+    float32 rounding level (csrc/trace_bwd.cu)."""
     check_scene(scene)
     L = scene.n_lights
     K, _nu, R = u8s.shape
@@ -436,61 +490,62 @@ def trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB):
     require_cuda_tensor("n_live", n_live, torch.int32, (R,))
     require_cuda_tensor("ctA", ctA, torch.float32, (3, R))
     require_cuda_tensor("ctB", ctB, torch.float32, (3, R))
-    tab, lights = tables.tab, tables.lights
-    P = tab.shape[0]
-    require_cuda_tensor("table", tab, torch.float32, (P, ROW_COLS))
-    require_cuda_tensor("lights", lights, torch.float32,
-                        (max(L, 1), LIGHT_COLS))
-    if P > BWD_MAX_ROWS:
-        raise ValueError(f"trace_bwd kernel: {P} rows exceed the "
-                         f"shared-memory bound of {BWD_MAX_ROWS}")
+    args = _table_args(scene, tables, BWD_MAX_ROWS, "trace_bwd")
+    tab, lights, layout = tables.tab, tables.lights, tables.layout
     dev = tab.device
-    d_tab = torch.zeros((P, ROW_COLS), dtype=torch.float32, device=dev)
+    d_tab = torch.zeros((tab.shape[0], ROW_COLS), dtype=torch.float32,
+                        device=dev)
     d_lights = torch.zeros_like(lights)
     d_oT = torch.zeros((3, R), dtype=torch.float32, device=dev)
     d_dT = torch.zeros_like(d_oT)
+    d_tri4 = torch.zeros((layout[2], 4), dtype=torch.float32, device=dev)
     if R:
         blocks = min(-(-R // _BWD_THREADS), _BWD_MAX_BLOCKS)
-        partials = torch.empty((blocks, P * _GRAD_COLS + L * LIGHT_COLS),
-                               dtype=torch.float32, device=dev)
+        partials = torch.empty(
+            (blocks, layout[1] * _GRAD_COLS + L * LIGHT_COLS),
+            dtype=torch.float32, device=dev)
         BWD_KERNEL.launch(
-            ptr(tab), P, *hit3.layout_ints(tables.layout), ptr(lights), L,
-            float(decay), ptr(resid), ptr(n_live), ptr(u8s), R,
+            *args, L, float(decay), ptr(resid), ptr(n_live), ptr(u8s), R,
             int(scene.any_refract), ptr(ctA), ptr(ctB), ptr(d_oT),
             ptr(d_dT), ptr(partials), blocks, ptr(d_tab), ptr(d_lights),
-            stream_ptr(dev))
-    return d_tab, d_lights, d_oT, d_dT
+            ptr(d_tri4) if layout[2] else None, stream_ptr(dev))
+    d_tri = torch.zeros((layout[2], hit3.TRI_COLS), dtype=torch.float32,
+                        device=dev)
+    d_tri[:, 6:9] = d_tri4[:, :3]
+    d_tri[:, hit3._T_H + 2] = d_tri4[:, 3]
+    return d_tab, d_lights, d_oT, d_dT, d_tri
 
 
 class TraceFunction(torch.autograd.Function):
     """The whole trace on CUDA tensors under autograd: forward through the
     primary-hit kernel and the train instance of the trace kernel, backward
     through the backward kernel. Differentiable inputs: the row table, the
-    light table, ``oT`` and ``dT``; ``first_live`` has no gradient."""
+    light table, the triangle table, ``oT`` and ``dT``; ``first_live`` has
+    no gradient."""
 
     @staticmethod
-    def forward(ctx, tab, lights, oT, dT, scene, tables, decay, u8s):
-        tables = tables._replace(tab=tab, lights=lights)
-        hit0 = hit3.closest_hit(tab, tables.layout, oT.T, dT.T,
-                                primary_mode(scene))
+    def forward(ctx, tab, lights, tri, oT, dT, scene, tables, decay, u8s):
+        tables = tables._replace(tab=tab, lights=lights, tri=tri)
+        hit0 = primary_hits(scene, tables, oT, dT)
         A, B, fl, resid, n_live = trace_fwd_train(scene, tables, decay, oT,
                                                   dT, u8s, hit0)
-        ctx.save_for_backward(tab, lights, u8s, resid, n_live)
-        ctx.scene, ctx.layout, ctx.decay = scene, tables.layout, decay
+        ctx.save_for_backward(tab, lights, tri, u8s, resid, n_live)
+        ctx.scene, ctx.decay = scene, decay
+        ctx.layout, ctx.tbb = tables.layout, tables.tbb
         ctx.mark_non_differentiable(fl)
         return A, B, fl
 
     @staticmethod
     def backward(ctx, ctA, ctB, _ct_fl):
-        tab, lights, u8s, resid, n_live = ctx.saved_tensors
+        tab, lights, tri, u8s, resid, n_live = ctx.saved_tensors
         R = u8s.shape[2]
         zero = torch.zeros((3, R), dtype=torch.float32, device=tab.device)
         ctA = zero if ctA is None else ctA.contiguous()
         ctB = zero if ctB is None else ctB.contiguous()
-        tables = TraceTables(None, tab, lights, ctx.layout)
-        d_tab, d_lights, d_oT, d_dT = trace_bwd(
+        tables = TraceTables(None, tab, lights, ctx.layout, tri, ctx.tbb)
+        d_tab, d_lights, d_oT, d_dT, d_tri = trace_bwd(
             ctx.scene, tables, ctx.decay, u8s, resid, n_live, ctA, ctB)
-        return d_tab, d_lights, d_oT, d_dT, None, None, None, None
+        return d_tab, d_lights, d_tri, d_oT, d_dT, None, None, None, None
 
 
 def trace_packed(scene, tables, decay, oT, dT, u8s):
@@ -498,10 +553,9 @@ def trace_packed(scene, tables, decay, oT, dT, u8s):
     which path each input takes)."""
     if oT.device.type == "cpu":
         return trace_plain(scene, tables, decay, oT, dT, u8s)
-    diff_in = (tables.tab, tables.lights, oT, dT)
+    diff_in = (tables.tab, tables.lights, tables.tri, oT, dT)
     if torch.is_grad_enabled() and any(t.requires_grad for t in diff_in):
-        return TraceFunction.apply(tables.tab, tables.lights, oT, dT, scene,
-                                   tables, decay, u8s)
-    hit0 = hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T,
-                            primary_mode(scene))
+        return TraceFunction.apply(tables.tab, tables.lights, tables.tri,
+                                   oT, dT, scene, tables, decay, u8s)
+    hit0 = primary_hits(scene, tables, oT, dT)
     return trace_fwd(scene, tables, decay, oT, dT, u8s, hit0)

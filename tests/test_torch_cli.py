@@ -15,6 +15,7 @@ from PIL import Image
 from micro_raytracer_tpu.frontends import cli as jcli
 from micro_raytracer_tpu_torch.frontends import cli as tcli
 from micro_raytracer_tpu_torch.frontends.http import HttpServer
+from torch_mesh_helpers import one_torch_thread  # noqa: F401
 
 SPHERE = ["--obj", "sphere", "--light", "point:", "-0.5", "-1", "0.5"]
 
@@ -69,9 +70,14 @@ def test_multi_device_flags_are_refused(flag, capsys):
     assert "multi-device not yet ported" in capsys.readouterr().err
 
 
-def test_unported_scene_class_is_refused(capsys):
-    rc = tcli.main(["--obj", "tri", "--res", "8", "8", "--sample", "1",
-                    "--device", "cpu", "-o", "unused.png"])
+def test_unported_scene_class_is_refused(capsys, tmp_path):
+    """A textured material (not ported yet) is refused with rc 1."""
+    cfg = tmp_path / "textured.json"
+    cfg.write_text(json.dumps({"scene": {"renderer": [
+        {"type": "sphere", "r": 0.5, "mat": {"tex": {
+            "w": 2, "h": 1, "dat": [[1, 0, 0], [0, 1, 0]]}}}]}}))
+    rc = tcli.main([str(cfg), "--res", "8", "8", "--sample", "1",
+                    "--device", "cpu", "-o", str(tmp_path / "unused.png")])
     assert rc == 1
     assert "not ported" in capsys.readouterr().err
 

@@ -49,6 +49,7 @@ from micro_raytracer_tpu_torch.ops import hit3, step
 from micro_raytracer_tpu_torch.parallel import shard
 from test_pallas_step import scenes
 from torch_port_helpers import outlier_rows, port_scene, rays
+from torch_mesh_helpers import one_torch_thread  # noqa: F401
 
 FWD_RTOL, FWD_ATOL = 1e-3, 1e-4
 G_RTOL, G_FLOOR = 2e-3, 1e-5
@@ -85,10 +86,23 @@ def _bad_rays(pairs):
     return bad
 
 
+def _jax_pack(js):
+    """pallas_step.pack_step of a JAX scene, with its triangles' Woop
+    transforms when it has any."""
+    fr = ji.build_frames(js)
+    return jps.pack_step(js, fr, ji.triangle_pack(js, fr)
+                         if js.kind_counts[schema.KIND_TRIANGLE] else None)
+
+
+def _same_row(ps):
+    """Refractive scenes without triangles keep the refract choice in the
+    JAX residuals' xrow row (every group is one row)."""
+    return ps.any_refract and not ps.kind_counts[schema.KIND_TRIANGLE]
+
+
 def _resid_j(js, oT, dT, u8s):
     """The JAX train-mode forward: (A, B, first_live, residuals)."""
-    consts, attr, gattr, attr2, lights, _tex = jps.pack_step(
-        js, ji.build_frames(js), None)
+    consts, attr, gattr, attr2, lights, _tex = _jax_pack(js)
     out = jps._call_trace(
         jps._seg_layout(js.kind_counts), js.any_refract, js.n_lights,
         u8s.shape[0], consts, attr, lights, jnp.float32(DECAY),
@@ -107,8 +121,10 @@ def _path_flips(ps, res, n_live, res_j):
     cols = [(step.RES_ROW, jps._R_ROW)]
     cols += [(step.RES_LOK + li, jps._R_LOK + li)
              for li in range(ps.n_lights)]
-    if ps.any_refract:   # same_row scenes keep the refract choice in xrow
+    if _same_row(ps):
         cols.append((step.RES_CHOOSE, jps._R_XROW))
+    elif ps.any_refract:
+        cols.append((step.RES_XROW, jps._R_XROW))
     for mine, theirs in cols:
         flip |= (live & (res[:, mine] != res_j[:, theirs])).any(0)
     return flip
@@ -131,22 +147,24 @@ def _module_fwd(name):
 
 @functools.lru_cache(maxsize=None)
 def _module_case(name):
-    """Both sides' trace gradients for random ctA/ctB (outliers zeroed)."""
+    """Both sides' trace gradients for random ctA/ctB (outliers zeroed):
+    JAX's for (attr, lights, oT, dT, AT, HT), the port's for (tab, lights,
+    oT, dT, tri)."""
     js, ps = _scene(name)
     (o, d, u8s), (_A, _B, _f, res_j), (A_t, B_t, _fl, res, n_live) = \
         _module_fwd(name)
-    consts, attr, gattr, attr2, lights, tex = jps.pack_step(
-        js, ji.build_frames(js), None)
+    consts, attr, gattr, attr2, lights, tex = _jax_pack(js)
 
-    def f(attr, lights, oT, dT):
+    def f(attr, lights, oT, dT, AT, HT):
+        c = consts[:6] + (AT, HT) + consts[8:]
         A, B, _fl = jps.trace_packed(
-            js, consts, attr, lights, jnp.float32(DECAY), oT, dT,
+            js, c, attr, lights, jnp.float32(DECAY), oT, dT,
             jnp.asarray(u8s), tex=tex, inference=False, gattr=gattr,
             attr2=attr2)
         return A, B
 
     (A_j, B_j), vjp = jax.vjp(f, attr, lights, jnp.asarray(o.T),
-                              jnp.asarray(d.T))
+                              jnp.asarray(d.T), consts[6], consts[7])
     tables = step.pack_step(ps)
     oT, dT = (torch.from_numpy(a.T.copy()) for a in (o, d))
     bad = _path_flips(ps, res.numpy(), n_live.numpy(), res_j)
@@ -168,11 +186,19 @@ def _module_case(name):
 def test_trace_grad_matches_pallas_vjp(name):
     """d_attr (on the port's columns), d_lights, d_oT and d_dT of one trace
     for the same cotangents."""
-    bad, (d_attr, d_lights, d_oT, d_dT), g_t = _module_case(name)
+    check_trace_grad(name)
+
+
+def check_trace_grad(name):
+    bad, (d_attr, d_lights, d_oT, d_dT, _dAT, _dHT), g_t = _module_case(name)
     print(f"{name}: {int(bad.sum())} of {R} rays took another path")
-    d_tab, d_lt, d_oT_t, d_dT_t = (g.numpy() for g in g_t)
+    d_tab, d_lt, d_oT_t, d_dT_t = (g.numpy() for g in g_t[:4])
     port_attr = np.concatenate([d_tab[:, :16], d_tab[:, step._C_ALB:]], 1)
-    assert np.abs(np.asarray(d_attr)).max() > 0
+    # the JAX table pads the triangle segment to its kernel's block size
+    d_attr = np.asarray(d_attr)
+    assert not d_attr[len(d_tab):].any()
+    d_attr = d_attr[:len(d_tab)]
+    assert np.abs(d_attr).max() > 0
     _assert_grad_close("d_attr", port_attr, d_attr)
     np.testing.assert_array_equal(d_tab[:, 16:18], 0.0)  # valid, gid
     _assert_grad_close("d_lights", d_lt, d_lights)
@@ -184,6 +210,10 @@ def test_trace_grad_matches_pallas_vjp(name):
 def test_resid_matches_pallas_train_mode(name):
     """trace_plain(want_resid=True) against the JAX train-mode residual
     block (_call_trace with train=True) on the rows both layouts hold."""
+    check_resid(name)
+
+
+def check_resid(name):
     _js, ps = _scene(name)
     _ins, (A_j, B_j, _f, res_j), (A, B, _fl, res, n_live) = \
         _module_fwd(name)
@@ -206,8 +236,10 @@ def test_resid_matches_pallas_train_mode(name):
     exact = [(step.RES_ROW, jps._R_ROW)]
     exact += [(step.RES_LOK + li, jps._R_LOK + li)
               for li in range(ps.n_lights)]
-    if ps.any_refract:   # same_row scenes keep the refract choice in xrow
+    if _same_row(ps):
         exact.append((step.RES_CHOOSE, jps._R_XROW))
+    elif ps.any_refract:
+        exact.append((step.RES_XROW, jps._R_XROW))
     for mine, theirs in exact:
         np.testing.assert_array_equal(res[:, mine][live],
                                       res_j[:, theirs][live], err_msg=str(mine))

@@ -22,20 +22,23 @@ import torch
 from micro_raytracer_tpu.models import camera as jcam_mod
 from micro_raytracer_tpu.models import compiler as jcomp
 from micro_raytracer_tpu.models import schema
-from micro_raytracer_tpu.ops import intersect as ji
 from micro_raytracer_tpu.ops import pallas_step as jps
 from micro_raytracer_tpu_torch.models import camera as tcam_mod
 from micro_raytracer_tpu_torch.models import tracer as ttr
 from micro_raytracer_tpu_torch.ops import step
 from micro_raytracer_tpu_torch.parallel import shard
 from test_torch_grad import (DECAY, SCENES, _assert_grad_close, _bad_rays,
-                             _path_flips, _resid_j, _scene, _uniforms)
+                             _jax_pack, _path_flips, _resid_j, _scene,
+                             _uniforms)
 from torch_port_helpers import port_camera
+from torch_mesh_helpers import one_torch_thread  # noqa: F401
 
 # --- the slice: camera -> tables -> trace -> sky fold, by scene leaf --------
 
 W = H = 16
 BOUNCE = 3
+# the glass scene adds a refractive mesh (16 triangles, a multi-row group)
+SLICE_SCENES = SCENES + ["glass"]
 
 
 def _jcam():
@@ -84,8 +87,7 @@ def _jax_slice(name):
         s = dataclasses.replace(js, **params)
         orig, dirs = jcam_mod.gen_rays(jc, (W, H), jnp.asarray(coords),
                                        jnp.asarray(u_aprt))
-        consts, attr, gattr, attr2, lights, tex = jps.pack_step(
-            s, ji.build_frames(s), None)
+        consts, attr, gattr, attr2, lights, tex = _jax_pack(s)
         A_T, B_T, flT = jps.trace_packed(
             s, consts, attr, lights, jnp.float32(DECAY), orig.T, dirs.T,
             jnp.asarray(u8s), tex=tex, inference=False, gattr=gattr,
@@ -110,7 +112,7 @@ def _port_slice(name):
             *(torch.from_numpy(a) for a in (coords, u_aprt, u8s, target)))
 
 
-@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("name", SLICE_SCENES)
 def test_slice_grad_mean_sq_matches_jax(name):
     """d mean(rad**2) / d leaf for every trainable leaf."""
     js, ps, params, cam, coords, u_aprt, u8s, _t = _port_slice(name)
@@ -127,7 +129,7 @@ def test_slice_grad_mean_sq_matches_jax(name):
         _assert_grad_close(k, g.numpy(), g_j[k])
 
 
-@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("name", SLICE_SCENES)
 def test_train_step_matches_jax_sgd(name):
     """One make_train_step SGD step: the L2 loss, every leaf's gradient
     and the new leaves against JAX's arithmetic (p - lr * grad) on the

@@ -4,7 +4,9 @@ closest_hit.
 
 Tolerance: rows must be equal; t within rtol 1e-5 / atol 1e-6 on hits
 (identical float32 formulas, ulp-level differences from reassociated
-sums); misses are exactly (BIG, 0, -BIG, 0) on both sides.
+sums); misses are exactly (BIG, 0, -BIG, 0) on both sides. The ``glass``
+scene adds a refractive mesh of 16 random triangles (one group of many
+rows, swept without culling: a segment of one block).
 """
 
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ from micro_raytracer_tpu.ops import pallas_hit3 as jh
 from micro_raytracer_tpu_torch.ops import hit3, intersect as ti, step
 from test_pallas_step import scenes
 from torch_port_helpers import MIXED, port_scene, rays
+from torch_mesh_helpers import one_torch_thread  # noqa: F401
 
 # exact ties: two identical spheres (same segment), and a plane through
 # z = 0 with a box whose top face lies on it (across segments)
@@ -39,10 +42,13 @@ def _scene(name):
 
 
 def _port_hit(ps, o, d, need_exit):
-    tab = hit3.pack_scene(ps, ti.build_frames(ps))
+    frames = ti.build_frames(ps)
+    tab = hit3.pack_scene(ps, frames)
+    tri, tbb = hit3.tri_tables(ps, frames)
     return hit3.closest_hit(tab, hit3.seg_layout(ps.kind_counts),
                             torch.from_numpy(o), torch.from_numpy(d),
-                            hit3.MODE_EXIT if need_exit else hit3.MODE_ENTRY)
+                            hit3.MODE_EXIT if need_exit else hit3.MODE_ENTRY,
+                            tri, tbb)
 
 
 def _check(got, want_hit, need_exit=True):
@@ -62,7 +68,7 @@ def _check(got, want_hit, need_exit=True):
 
 
 @pytest.mark.parametrize("need_exit", [True, False])
-@pytest.mark.parametrize("name", ["opaque", "glass_flat", "mixed"])
+@pytest.mark.parametrize("name", ["opaque", "glass_flat", "mixed", "glass"])
 def test_plain_matches_pallas_interpret(name, need_exit, monkeypatch):
     monkeypatch.setenv("MRT_HIT3", "1")
     js, ps = _scene(name)
@@ -72,7 +78,7 @@ def test_plain_matches_pallas_interpret(name, need_exit, monkeypatch):
     _check(_port_hit(ps, o, d, need_exit), want, need_exit)
 
 
-@pytest.mark.parametrize("name", ["opaque", "glass_flat", "mixed"])
+@pytest.mark.parametrize("name", ["opaque", "glass_flat", "mixed", "glass"])
 def test_plain_and_dense_match_jax_dense(name):
     """The plain sweep against the JAX package's dense jnp closest_hit."""
     js, ps = _scene(name)
@@ -129,7 +135,7 @@ def test_sphere_grid_360_dense(need_exit):
     _check(_port_hit(ps, o, d, need_exit), want, need_exit)
 
 
-@pytest.mark.parametrize("name", ["opaque", "glass_flat", "mixed"])
+@pytest.mark.parametrize("name", ["opaque", "glass_flat", "mixed", "glass"])
 def test_any_hit_matches(name, monkeypatch):
     monkeypatch.setenv("MRT_HIT3", "1")
     js, ps = _scene(name)
@@ -139,16 +145,18 @@ def test_any_hit_matches(name, monkeypatch):
     np.testing.assert_array_equal(
         np.asarray(jh.any_hit(js, jfr, jnp.asarray(o), jnp.asarray(d))),
         want)
-    tab = hit3.pack_scene(ps, ti.build_frames(ps))
+    frames = ti.build_frames(ps)
+    tab = hit3.pack_scene(ps, frames)
     got = hit3.any_hit(tab, hit3.seg_layout(ps.kind_counts),
-                       torch.from_numpy(o), torch.from_numpy(d))
+                       torch.from_numpy(o), torch.from_numpy(d),
+                       *hit3.tri_tables(ps, frames))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("name", ["glass", "textured_flat"])
+@pytest.mark.parametrize("name", ["textured", "textured_flat"])
 def test_unported_scene_classes_raise(name):
-    """Triangles and textures are later work: the plain paths refuse them
-    rather than return wrong hits."""
+    """Textures are later work: the plain paths refuse them rather than
+    return wrong hits."""
     _js, ps = _scene(name)
     with pytest.raises(NotImplementedError, match="not ported"):
         step.check_scene(ps)
@@ -156,7 +164,7 @@ def test_unported_scene_classes_raise(name):
         hit3.pack_scene(ps, ti.build_frames(ps))
 
 
-@pytest.mark.parametrize("name", ["glass_flat", "mixed"])
+@pytest.mark.parametrize("name", ["glass_flat", "mixed", "glass"])
 def test_trace_row_table_sweeps_like_the_sweep_table(name):
     """The trace's wider row table (sweep columns first) gives the same
     hits, in every mode, as the sweep table alone: the primary-hit pass
@@ -166,10 +174,12 @@ def test_trace_row_table_sweeps_like_the_sweep_table(name):
     tables = step.pack_step(ps)
     assert tables.tab.shape == (ps.n_prims, step.ROW_COLS)
     sweep = hit3.pack_scene(ps, tables.frames)
+    tri = (tables.tri, tables.tbb)
     for mode in (hit3.MODE_ENTRY, hit3.MODE_EXIT, hit3.MODE_ANY):
         for a, b in zip(hit3.closest_hit(tables.tab, tables.layout, o, d,
-                                         mode),
-                        hit3.closest_hit(sweep, tables.layout, o, d, mode)):
+                                         mode, *tri),
+                        hit3.closest_hit(sweep, tables.layout, o, d, mode,
+                                         *tri)):
             assert torch.equal(a, b)
 
 

@@ -27,6 +27,7 @@ from micro_raytracer_tpu_torch.models import tracer as ttr
 from micro_raytracer_tpu_torch.ops import tonemap as ttm
 from test_pallas_step import scenes
 from torch_port_helpers import outlier_rows, port_camera, port_scene
+from torch_mesh_helpers import one_torch_thread  # noqa: F401
 
 
 def _jax_uniforms(key, R, bounce, any_refract):
@@ -42,7 +43,7 @@ def _jax_uniforms(key, R, bounce, any_refract):
     return np.array(u_aprt), np.array(jnp.stack(rows))
 
 
-@pytest.mark.parametrize("name", ["opaque", "glass_flat"])
+@pytest.mark.parametrize("name", ["opaque", "glass_flat", "glass"])
 def test_trace_radiance_u_matches_jax(name, monkeypatch):
     monkeypatch.setenv("MRT_STEP", "0")       # the JAX jnp path
     js = jcomp.compile_scene(schema.SceneConfig.from_json(scenes()[name]))

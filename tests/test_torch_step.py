@@ -21,7 +21,9 @@ from micro_raytracer_tpu.ops import pallas_step as jps
 from micro_raytracer_tpu_torch.models import tracer as ttr
 from micro_raytracer_tpu_torch.ops import hit3, step
 from test_pallas_step import scenes, state
+from test_torch_grad import _jax_pack
 from torch_port_helpers import outlier_rows, port_scene, rays
+from torch_mesh_helpers import one_torch_thread  # noqa: F401
 
 RTOL, ATOL, SHARE = 1e-3, 1e-4, 0.005
 
@@ -39,7 +41,7 @@ def _assert_close_share(name, got, want, n_rays):
     assert len(bad) <= SHARE * n_rays, (name, len(bad))
 
 
-@pytest.mark.parametrize("name", ["opaque", "glass_flat"])
+@pytest.mark.parametrize("name", ["opaque", "glass_flat", "glass"])
 def test_trace_plain_matches_pallas_trace(name, monkeypatch):
     monkeypatch.setenv("MRT_STEP", "1")
     js, ps = _scene(name)
@@ -48,8 +50,7 @@ def test_trace_plain_matches_pallas_trace(name, monkeypatch):
     nu = step.n_uni(ps.any_refract)
     assert nu == jps.n_uni(js.any_refract)
     u8s = np.random.default_rng(4).random((K, nu, R)).astype(np.float32)
-    jfr = ji.build_frames(js)
-    consts, attr, gattr, attr2, lights, tex = jps.pack_step(js, jfr, None)
+    consts, attr, gattr, attr2, lights, tex = _jax_pack(js)
     A_j, B_j, fl_j = jps.trace_packed(
         js, consts, attr, lights, jnp.float32(0.85), jnp.asarray(o.T),
         jnp.asarray(d.T), jnp.asarray(u8s), tex=tex, inference=True,
@@ -64,28 +65,42 @@ def test_trace_plain_matches_pallas_trace(name, monkeypatch):
     _assert_close_share("B", B.numpy().T, np.asarray(B_j).T, R)
 
 
-@pytest.mark.parametrize("name", ["opaque", "glass_flat"])
+@pytest.mark.parametrize("name", ["opaque", "glass_flat", "glass"])
 def test_pack_step_matches_jax(name):
     """The row table holds pallas_step's (P, 24) attribute table: its
     columns _C_FR.._C_PR are the sweep columns 0-15, _C_ALB.._C_EMI follow
-    valid and gid."""
+    valid and gid. A triangle row's normal columns hold its raw normal
+    (the attribute table's; the JAX sweep table keeps a vertex there, which
+    its triangle sweep never reads), and the triangle table holds
+    pallas_tri.pack_consts' AT, HT and thr."""
     js, ps = _scene(name)
-    consts, attr, _g, _a2, lights, _tex = jps.pack_step(
-        js, ji.build_frames(js), None)
+    consts, attr, _g, _a2, lights, _tex = _jax_pack(js)
     tables = step.pack_step(ps)
     tab = tables.tab
     assert step._C_ALB == hit3.SWEEP_COLS and tab.shape[1] == step.ROW_COLS
     t_attr = torch.cat([tab[:, :16], tab[:, step._C_ALB:]], dim=1)
-    np.testing.assert_allclose(t_attr.numpy(), np.asarray(attr), rtol=1e-6,
-                               atol=1e-7)
+    # the JAX tables pad the triangle segment to its kernel's block size
+    P = tab.shape[0]
+    np.testing.assert_allclose(t_attr.numpy(), np.asarray(attr)[:P],
+                               rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(tables.lights.numpy(), np.asarray(lights),
                                rtol=1e-6, atol=1e-7)
-    for got, want in zip(hit3.split_sweep(tab), consts[:6]):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+    n_dense = tables.layout[1]
+    for k, (got, want) in enumerate(zip(hit3.split_sweep(tab), consts[:6])):
+        rows = n_dense if k == 2 else P
+        np.testing.assert_allclose(got[:rows].numpy(),
+                                   np.asarray(want)[:rows], rtol=1e-6,
                                    atol=1e-7)
+    tri = tables.tri.detach().numpy()
+    assert tri.shape == (ps.kind_counts[3], hit3.TRI_COLS)
+    if tri.shape[0]:
+        for got, want in ((tri[:, :9], consts[6]), (tri[:, 9:12], consts[7]),
+                          (tri[:, 12:13], consts[8])):
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                       atol=1e-7)
 
 
-@pytest.mark.parametrize("name", ["opaque", "glass_flat"])
+@pytest.mark.parametrize("name", ["opaque", "glass_flat", "glass"])
 def test_fused_step_matches_jax_reference(name, monkeypatch):
     """One bounce of the plain trace against the JAX package's jnp bounce
     step, from live rays at unit power with A = 1, B = 0: A/B and
