@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py                # from the repository root
     python3 chip_smoke.py --render-only  # phase 1 and the render timing
-    python3 chip_smoke.py --mesh-only    # phases 1, 2 and 9-11
 
 Phases, each of which raises on failure:
 
@@ -66,9 +65,10 @@ Phases, each of which raises on failure:
    phases 3, 4 and 7 — closest_hit on 2^17 random and 2^17 camera rays
    (rows and t bit for bit), the trace on 2^17 camera rays, the train
    instance and the backward on 2^15 camera rays (the triangle cotangents
-   included) — and timed at the main path's shape, the full frame; the
-   triangle rows each sweep tests after the cull come from the plain
-   version (``hit3.tri_rows_tested``, ``trace_plain(work=...)``).
+   included) — and each of them again at the main path's shape, the full
+   frame, where they are timed; the triangle rows each sweep tests after
+   the cull come from the plain version (``hit3.tri_rows_tested``,
+   ``trace_plain(work=...)``).
 10. mesh main path: the CLI renders ``mesh_opaque`` and ``mesh_glass``,
    written as scene JSON files, at 1080x1080, bounce 8, 16 spp: both
    kernels once per sample and no plain version (launch counters), a
@@ -150,6 +150,10 @@ IN_ERR = 1e-3
 TRAIN_STEPS = 3
 TARGET_SPP = 4
 G_RTOL, G_FLOOR = 2e-3, 1e-5
+# a ray that meets a triangle is also held to this share of its own
+# largest magnitude, and may differ from the plain version at most
+# ILL_RATIO times as much as float64 moves the plain version (compare_bwd)
+RAY_FLOOR, ILL_RATIO = 1e-3, 10.0
 ILL_SHARE = 1e-4
 SUM_TOL = 4e-4
 PLAIN_CHUNK = 1 << 14
@@ -683,8 +687,11 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
     # chosen side's row
     last = (n - 1).clamp(min=0)
     rl = resid[last, :, idx]                                      # (R, CR)
-    crow = torch.where(rl[:, step.RES_CHOOSE] > 0.5, rl[:, step.RES_XROW],
-                       rl[:, step.RES_ROW])
+    # (the exit row is saved on scenes with triangles, else it is the row)
+    crow = rl[:, step.RES_ROW]
+    if tables.layout[3]:
+        crow = torch.where(rl[:, step.RES_CHOOSE] > 0.5,
+                           rl[:, step.res_xrow(L)], crow)
     row = torch.where(n > 0, crow, 0.0).long()
     killed = (n > 0) & (u8s[last, NU - 1, idx]
                         < tables.tab[row, step._C_EMI])
@@ -710,13 +717,14 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
     tables_b = table_bytes(scene, tables)
     # primaries, hits and outputs per ray; uniforms per live step
     fwd_b = R * (24 + 16 + 28) + S * NU * 4 + tables_b
-    train_b = fwd_b + S * step.res_rows(L) * 4 + R * 4
+    CR = step.res_rows(L, tables.layout[3])
+    train_b = fwd_b + S * CR * 4 + R * 4
     bwd_ops = (S * BWD_STEP_OPS + chosen * BWD_REFRACT_OPS
                + vis * BWD_LIGHT_OK_OPS + occ * BWD_LIGHT_OCC_OPS)
     # n_live, ctA/ctB in, d_o/d_d out per ray; residuals and uniforms per
     # live step; tables in, their cotangents (every row) out
     d_tables_b = table_bytes(scene, tables)
-    bwd_b = (R * (4 + 24 + 24) + S * (step.res_rows(L) + NU) * 4 + tables_b
+    bwd_b = (R * (4 + 24 + 24) + S * (CR + NU) * 4 + tables_b
              + d_tables_b)
     return {"trace_fwd": bound(fwd_b, fwd_ops),
             "trace_fwd_train": bound(train_b, fwd_ops),
@@ -757,7 +765,9 @@ def compare_train_fwd(scene, tables, decay, oT, dT, u8s, hit0):
                               for li in range(scene.n_lights)]
     if scene.any_refract:
         floats.append(step.RES_TX)
-        exact += [step.RES_XROW, step.RES_CHOOSE]
+        exact.append(step.RES_CHOOSE)
+    if tables.layout[3]:
+        exact.append(step.res_xrow(scene.n_lights))
     res_err = 0.0
     for r in floats:
         g, w = res[:, r][live], res_r[:, r][live]
@@ -810,22 +820,63 @@ def trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s, ctA, ctB):
     return d_tab, d_lt, d_o, d_d, d_tri, m_tab, m_lt, m_tri
 
 
+def ill_conditioned(scene, tables, decay, oT, dT, u8s, ctA, ctB, idx, got,
+                    want):
+    """Show that each ray of ``idx`` is ill-conditioned: the kernel's d_oT
+    and d_dT (``got``) lie within ILL_RATIO times the plain float32
+    version's (``want``) own distance from the plain trace run in float64,
+    at their largest component. Raises otherwise."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    f64 = torch.float64
+    t64 = tables._replace(tab=tables.tab.to(f64),
+                          lights=tables.lights.to(f64),
+                          tri=tables.tri.to(f64))
+    ins = [t[..., idx].to(f64).contiguous() for t in (oT, dT, u8s, ctA, ctB)]
+    w64 = [torch.cat(x, 1) for x in zip(*(
+        step.trace_bwd_plain(scene, t64, decay,
+                             *(t[..., s:s + PLAIN_CHUNK] for t in ins))[2:4]
+        for s in range(0, idx.numel(), PLAIN_CHUNK)))]
+    off = [(got[a][:, idx].to(f64) - want[a][:, idx]).abs().amax(0)
+           for a in (2, 3)]
+    own = [(want[a][:, idx] - w64[a - 2]).abs().amax(0) for a in (2, 3)]
+    ratio = torch.maximum(*off) / torch.maximum(*own)
+    if not bool((ratio <= ILL_RATIO).all()):
+        k = int(torch.argmax(ratio))
+        j = int(idx[k])
+        raise AssertionError(
+            f"trace_bwd: ray {j} disagrees with autograd of the plain trace "
+            f"{float(ratio[k]):.3g} times as far as float64 moves the plain "
+            f"version: d_dT kernel {got[3][:, j].tolist()}, plain "
+            f"{want[3][:, j].tolist()}, float64 {w64[1][:, k].tolist()}")
+    return float(ratio.max())
+
+
 def compare_bwd(scene, tables, decay, oT, dT, u8s, resid, n_live, bad, gen):
     """The backward kernel on the plain residuals against autograd through
     the plain trace, for random output cotangents that are zero on the
     off-path rays.
 
-    Per ray, d_oT and d_dT within rtol G_RTOL and G_FLOOR of the largest
-    magnitude. A ray outside is ill-conditioned, not wrong: a step that
-    starts inside a thin box wall and runs nearly parallel to it takes its
-    t as the difference of two slab terms ~1e4 times larger, so float32
-    rounding decides its gradient, and two float32 programs disagree there
-    (float64 gives yet another value). At most ILL_SHARE of the rays may
-    be so; both sides drop them (the cotangents are linear in ctA, ctB).
-    The table cotangents, sums over millions of steps whose order differs,
-    are then held within G_RTOL, G_FLOOR and SUM_TOL of the entry's mass.
+    Per ray, d_oT and d_dT within rtol G_RTOL and G_FLOOR of the frame's
+    largest magnitude. A ray outside is ill-conditioned, not wrong: a step
+    that starts inside a thin box wall and runs nearly parallel to it
+    takes its t as the difference of two slab terms ~1e4 times larger, so
+    float32 rounding decides its gradient, and two float32 programs
+    disagree there (float64 gives yet another value). A ray that meets a
+    triangle is also held to RAY_FLOOR of its own largest magnitude: the
+    raw normal of a torus triangle is ~1e-3 long, so the ray's normal
+    cotangent is ~1e3 times its ray cotangents, and an error of 0.2% on
+    them moves its row's sum. A ray outside only that must be shown
+    ill-conditioned by float64 (``ill_conditioned``). At most ILL_SHARE of
+    the rays may be outside; both sides drop them (the cotangents are
+    linear in ctA, ctB). The table cotangents, sums over millions of steps
+    whose order differs, are then held within G_RTOL, G_FLOOR and SUM_TOL
+    of the entry's mass.
     Returns the max abs error, the plain version's ms and the cotangents.
     """
+    import numpy as np
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
@@ -844,17 +895,36 @@ def compare_bwd(scene, tables, decay, oT, dT, u8s, resid, n_live, bad, gen):
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    # the absolute floors stay those of the whole frame
+    # the absolute floors of the sums stay those of the whole frame
     scales = [float(w.abs().max()) if w.numel() else 0.0 for w in want[:5]]
     ill = torch.zeros(R, dtype=torch.bool, device=oT.device)
+    tri_ill = torch.zeros_like(ill)
     for g, w, scale in zip(got[2:4], want[2:4], scales[2:4]):
-        ill |= outlier_rays(g, w, G_RTOL, G_FLOOR * scale)
-    share = float(ill.float().mean())
-    log(f"trace_bwd {R} rays: {int(ill.sum())} ill-conditioned rays (share "
-        f"{share:.2e}, bound {ILL_SHARE})")
+        e, rt = (g - w).abs(), G_RTOL * w.abs()
+        ill |= (e > rt + G_FLOOR * scale).any(0)
+        tri_ill |= (e > rt + RAY_FLOOR * w.abs().amax(0)).any(0)
+    if tables.layout[3]:
+        # rays that meet a triangle (entry or exit row) at a live step
+        live = (torch.arange(u8s.shape[0], device=oT.device)[:, None]
+                < n_live[None])
+        rows = torch.maximum(resid[:, step.RES_ROW],
+                             resid[:, step.res_xrow(scene.n_lights)])
+        tri_ill &= ((rows >= tables.layout[1]) & live).any(0) & ~ill
+    else:
+        tri_ill[:] = False
+    share = float((ill | tri_ill).float().mean())
+    log(f"trace_bwd {R} rays: {int(ill.sum())} ill-conditioned rays and "
+        f"{int(tri_ill.sum())} more on triangles (share {share:.2e}, bound "
+        f"{ILL_SHARE})")
     if share > ILL_SHARE:
         raise AssertionError("trace_bwd: too many rays disagree with "
                              "autograd of the plain trace")
+    if bool(tri_ill.any()):
+        worst = ill_conditioned(scene, tables, decay, oT, dT, u8s, ctA, ctB,
+                                tri_ill.nonzero()[:, 0], got, want)
+        log(f"trace_bwd: the rays on triangles differ from the plain "
+            f"version at most {worst:.3g} times as much as float64 moves it")
+        ill |= tri_ill
     if bool(ill.any()):
         idx = ill.nonzero()[:, 0]
         sub = trace_bwd_plain_chunked(
@@ -884,8 +954,15 @@ def compare_bwd(scene, tables, decay, oT, dT, u8s, resid, n_live, bad, gen):
         msg.append(f"{name} {float(e.max()):.3g} of {scale:.3g} (worst "
                    f"{float((e / tol).max()):.3f} of its tolerance)")
         if not bool((e <= tol).all()):
-            raise AssertionError(f"trace_bwd: {name} differs from autograd "
-                                 f"on {int((e > tol).sum())} entries")
+            worst = torch.topk((e / tol).flatten(), min(4, e.numel()))[1]
+            at = [tuple(int(x) for x in np.unravel_index(int(i), e.shape))
+                  for i in worst]
+            raise AssertionError(
+                f"trace_bwd: {name} differs from autograd on "
+                f"{int((e > tol).sum())} entries; worst (index: kernel, "
+                f"plain, tolerance): " + ", ".join(
+                    f"{ix}: {float(g[ix]):.6g}, {float(w[ix]):.6g}, "
+                    f"{float(tol[ix]):.3g}" for ix in at))
     log(f"trace_bwd {R} rays: matches autograd of the plain trace; max abs "
         f"err {', '.join(msg)}")
     return err, plain_ms, ctA, ctB
@@ -1145,7 +1222,8 @@ def phase_mesh_kernels(results):
             err = max(err, compare_hit(
                 step.pack_step(compile_scene(alone, dev)),
                 *random_rays(N_CMP, gen, dev)))
-        oT, dT = main_path_rays(cfg, gen, dev)
+        oT, dT = main_path_rays(cfg, gen, dev)   # the main path's input
+        err = max(err, compare_hit(tables, oT.T, dT.T))
         res, rows = time_hit(scene, tables, oT, dT, plain_reps=1)
         log(f"{name} closest_hit {oT.shape[1]} rays: kernel "
             f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
@@ -1159,6 +1237,7 @@ def phase_mesh_kernels(results):
                               d.T.contiguous(), u)
         u8s = torch.rand((BOUNCE + 1, nu, RES * RES), generator=gen,
                          device=dev)
+        err_f = max(err_f, compare_trace(scene, tables, decay, oT, dT, u8s))
         hit0 = step.primary_hits(scene, tables, oT, dT)
         ms = cuda_ms(lambda: step.trace_fwd(scene, tables, decay, oT, dT,
                                             u8s, hit0), 5)
@@ -1166,45 +1245,28 @@ def phase_mesh_kernels(results):
                                                     dT, u8s), 1)
         work = {"sweep": 0, "shadow": 0}
         step.trace_plain(scene, tables, decay, oT, dT, u8s, work=work)
-        # the train instance and the backward on 2^15 camera rays
+        # the train instance and the backward on 2^15 camera rays, then the
+        # frame (the backward's plain version in chunks); the frame's
+        # kernel residuals and cotangents are kept for the timing
         n = N_MESH_BWD
         ob, db = (t[:n].T.contiguous() for t in (o, d))
-        ub = u[..., :n].contiguous()
-        e_t, bad, _mine, (res_r, nl_r) = compare_train_fwd(
-            scene, tables, decay, ob, db, ub,
-            step.primary_hits(scene, tables, ob, db))
-        e_b, plain_b, _ctA, _ctB = compare_bwd(scene, tables, decay, ob, db,
-                                               ub, res_r, nl_r, bad, gen)
-        # the frame: train instance (equal to the render instance), then
-        # the backward on its residuals
-        A, B, fl, resid, nl = step.trace_fwd_train(scene, tables, decay, oT,
-                                                   dT, u8s, hit0)
-        for nm, g, r in zip(("A", "B", "first_live"), (A, B, fl),
-                            step.trace_fwd(scene, tables, decay, oT, dT, u8s,
-                                           hit0)):
-            if not torch.equal(g, r):
-                raise AssertionError(f"{name} trace_fwd_train: {nm} differs "
-                                     f"from the render instance")
-        ctA, ctB = (torch.randn((3, RES * RES), generator=gen, device=dev)
-                    for _ in range(2))
+        errs_t, errs_b = [], []
+        for oT_, dT_, u_ in ((ob, db, u[..., :n].contiguous()),
+                             (oT, dT, u8s)):
+            e, bad, (resid, nl), (res_r, nl_r) = compare_train_fwd(
+                scene, tables, decay, oT_, dT_, u_,
+                step.primary_hits(scene, tables, oT_, dT_))
+            errs_t.append(e)
+            e, plain_b, ctA, ctB = compare_bwd(scene, tables, decay, oT_,
+                                               dT_, u_, res_r, nl_r, bad, gen)
+            errs_b.append(e)
+        del res_r, nl_r
         ms_t = cuda_ms(lambda: step.trace_fwd_train(scene, tables, decay, oT,
                                                     dT, u8s, hit0), 5)
         plain_t = cuda_ms(lambda: step.trace_plain(
             scene, tables, decay, oT, dT, u8s, want_resid=True), 1)
         ms_b = cuda_ms(lambda: step.trace_bwd(scene, tables, decay, u8s,
                                               resid, nl, ctA, ctB), 5)
-        if name == "mesh_glass":
-            # the training main path's scene: the plain backward at the
-            # frame too (autograd in chunks of PLAIN_CHUNK rays)
-            n = RES * RES
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s, ctA,
-                                    ctB)
-            end.record()
-            torch.cuda.synchronize()
-            plain_b = start.elapsed_time(end)
         bw = trace_work(scene, tables, u8s, resid, nl, work)
         S = bw["live_steps"]
         log(f"{name} trace_fwd {RES * RES} rays x {BOUNCE + 1} steps ({S} "
@@ -1214,18 +1276,18 @@ def phase_mesh_kernels(results):
             f"{work['shadow'] / S:.1f} in the shadow sweeps")
         log(f"{name} trace_fwd_train: kernel {ms_t:.3f} ms, plain "
             f"{plain_t:.3f} ms, bound {fmt_bound(bw['trace_fwd_train'])}; "
-            f"trace_bwd: kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms on "
-            f"{n} rays, bound {fmt_bound(bw['trace_bwd'])}")
+            f"trace_bwd: kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms, bound "
+            f"{fmt_bound(bw['trace_bwd'])}")
         results[f"trace_fwd/{name}"] = {
             "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
             **bw["trace_fwd"], "library_ms": None}
         results[f"trace_fwd_train/{name}"] = {
-            "max_abs_err": e_t, "ms": ms_t, "plain_ms": plain_t,
+            "max_abs_err": max(errs_t), "ms": ms_t, "plain_ms": plain_t,
             **bw["trace_fwd_train"], "library_ms": None}
         results[f"trace_bwd/{name}"] = {
-            "max_abs_err": e_b, "ms": ms_b, "plain_ms": plain_b,
-            "plain_rays": n, **bw["trace_bwd"], "library_ms": None}
-        del resid, res_r
+            "max_abs_err": max(errs_b), "ms": ms_b, "plain_ms": plain_b,
+            **bw["trace_bwd"], "library_ms": None}
+        del resid
 
 
 def write_mesh_json(name, tmp):
@@ -1310,8 +1372,7 @@ def main() -> int:
         print(json.dumps({"render": render_only(card)}))
         print(card)
         return 0
-    mesh_only = sys.argv[1:] == ["--mesh-only"]
-    if sys.argv[1:] and not mesh_only:
+    if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -1319,13 +1380,12 @@ def main() -> int:
     cfg = slice_config()
     results = {}
     counts, train_counts = {}, {}
-    if not mesh_only:
-        phase_hit(cfg, results)
-        phase_trace(cfg, results)
-        main_res = phase_main(card, counts)
-        phase_server(cfg)
-        phase_train_kernels(cfg, results)
-        train_res = phase_train(cfg, card, train_counts)
+    phase_hit(cfg, results)
+    phase_trace(cfg, results)
+    main_res = phase_main(card, counts)
+    phase_server(cfg)
+    phase_train_kernels(cfg, results)
+    train_res = phase_train(cfg, card, train_counts)
     phase_mesh_kernels(results)
     mesh_counts, mesh_train_counts = {}, {}
     mesh_res = phase_mesh_main(card, mesh_counts)
@@ -1363,10 +1423,6 @@ def main() -> int:
     log(f"mesh_opaque train kernels (phase 9 only): "
         f"{json.dumps(results['trace_fwd_train/mesh_opaque'])}, "
         f"{json.dumps(results['trace_bwd/mesh_opaque'])}")
-    if mesh_only:
-        print(json.dumps({"kernels": mesh_kernels}))
-        print(card)
-        return 0
     kernels = [
         {"name": "trace_fwd", "route": "cuda", "source": fwd_src,
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",

@@ -298,28 +298,17 @@ __device__ __forceinline__ float inv_dir(float d) {
   return 1.0f / (d == 0.0f ? kEps : d);
 }
 
-// Entry sweep of the triangle segment: strict `<` after the dense rows'
-// best keeps the lowest row on ties; `cull` skips untouched blocks.
+// Entry sweep of the triangle segment, block by block in row order:
+// strict `<` after the dense rows' best keeps the lowest row on ties;
+// `cull` skips the blocks the ray does not enter before `best`.
 __device__ __forceinline__ void tri_entry(const Tris& T, const Layout& L,
                                           bool cull, float ox, float oy,
                                           float oz, float dx, float dy,
                                           float dz, float& best, int& row) {
-  if (!cull) {
-    for (int i = 0; i < L.tri_n; ++i) {
-      float t;
-      if (tri_hit(T.tab + i * kTriCols, ox, oy, oz, dx, dy, dz, t) &&
-          t < best) {
-        best = t;
-        row = L.tri_start + i;
-      }
-    }
-    return;
-  }
   const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-  for (int b = 0; b < L.n_cb; ++b) {
-    const int lo = b * kCullRows;
-    if (lo >= L.tri_n) break;
-    if (!block_touch(T.bb + b * kBbCols, ox, oy, oz, ix, iy, iz, best))
+  for (int lo = 0, b = 0; lo < L.tri_n; lo += kCullRows, ++b) {
+    if (cull &&
+        !block_touch(T.bb + b * kBbCols, ox, oy, oz, ix, iy, iz, best))
       continue;
     const int hi = imin(lo + kCullRows, L.tri_n);
     for (int i = lo; i < hi; ++i) {
@@ -338,16 +327,11 @@ __device__ __forceinline__ void tri_entry(const Tris& T, const Layout& L,
 __device__ __forceinline__ bool tri_any_seg(const Tris& T, const Layout& L,
                                             float ox, float oy, float oz,
                                             float dx, float dy, float dz) {
-  if (L.n_cb == 0) {
-    for (int i = 0; i < L.tri_n; ++i)
-      if (tri_any(T.tab + i * kTriCols, ox, oy, oz, dx, dy, dz)) return true;
-    return false;
-  }
+  const bool cull = L.n_cb > 0;
   const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-  for (int b = 0; b < L.n_cb; ++b) {
-    const int lo = b * kCullRows;
-    if (lo >= L.tri_n) break;
-    if (!block_touch(T.bb + b * kBbCols, ox, oy, oz, ix, iy, iz, kBig))
+  for (int lo = 0, b = 0; lo < L.tri_n; lo += kCullRows, ++b) {
+    if (cull &&
+        !block_touch(T.bb + b * kBbCols, ox, oy, oz, ix, iy, iz, kBig))
       continue;
     const int hi = imin(lo + kCullRows, L.tri_n);
     for (int i = lo; i < hi; ++i)

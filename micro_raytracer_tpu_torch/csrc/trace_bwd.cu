@@ -465,7 +465,7 @@ __device__ __forceinline__ void trace_ray_bwd(
     const float* __restrict__ u8s, V3 ctA, V3 ctB, V3& ct_o, V3& ct_d,
     Acc& acc) {
   constexpr int NU = kRefract ? 8 : 4;
-  const int CR = res_rows(L);
+  const int CR = res_rows<kTri>(L);
   ct_o = v3(0.0f, 0.0f, 0.0f);
   ct_d = ct_o;
   V3 ct_A = ctA;
@@ -477,9 +477,9 @@ __device__ __forceinline__ void trace_ray_bwd(
     const bool choose = kRefract && r[R_CHOOSE * R] > 0.5f;
     // the chosen side's row: the exit row when the refract branch was
     // taken (without triangles every group is one row, so it is the entry
-    // row and the exit row is not read)
-    const int row = static_cast<int>(r[((kTri && choose) ? R_XROW : R_ROW) *
-                                       R]);
+    // row and no exit row is saved)
+    const int row = static_cast<int>(
+        r[((kTri && choose) ? res_xrow(L) : static_cast<int>(R_ROW)) * R]);
     const int kind = row_kind<kTri>(row, lay);
     const float* at = row_at<kTri>(s_tab, g_tab, row, lay);
     const float* tr =

@@ -77,7 +77,7 @@ __device__ __forceinline__ void trace_ray(
     float* __restrict__ fl_out, float* __restrict__ resid,
     int* __restrict__ n_live) {
   constexpr int NU = kRefract ? 8 : 4;
-  const int CR = res_rows(L);
+  const int CR = res_rows<kTri>(L);
   V3 o = v3(o0[i], o0[R + i], o0[2 * R + i]);
   V3 d = v3(d0[i], d0[R + i], d0[2 * R + i]);
   float pwr = 1.0f;
@@ -187,13 +187,13 @@ __device__ __forceinline__ void trace_ray(
       r[R_TE * R] = h.te;
       r[R_TX * R] = h.tx;
       r[R_ROW * R] = static_cast<float>(h.row);
-      r[R_XROW * R] = static_cast<float>(h.xrow);
       r[R_CHOOSE * R] = choose ? 1.0f : 0.0f;
 #pragma unroll
       for (int li = 0; li < kMaxLights; ++li) {
         if (li >= L) break;
         r[(R_LOK + li) * R] = light_ok[li] ? 1.0f : 0.0f;
       }
+      if (kTri) r[res_xrow(L) * R] = static_cast<float>(h.xrow);
       n = k + 1;
     }
 

@@ -13,10 +13,12 @@
 // color 3].
 //
 // Residuals of a training forward, per step k and ray i at
-// resid[(k * res_rows(L) + r) * R + i] (rays on the fastest axis): the
-// step's input ray o, d and throughput A, the entry and exit t of its hit,
-// the entry and exit winner rows, the refract choice, and one occlusion
-// bit per light.
+// resid[(k * res_rows<kTri>(L) + r) * R + i] (rays on the fastest axis):
+// the step's input ray o, d and throughput A, the entry and exit t of its
+// hit, the entry winner row, the refract choice, one occlusion bit per
+// light and, with a triangle segment (kTri), the exit winner row. Without
+// triangles every group is one row, so the exit row is the entry row and
+// is not saved.
 // pwr is dk^k and B never shapes a cotangent (it enters additively), so
 // neither is saved. Steps at or after a ray's live-step count are neither
 // written nor read.
@@ -51,11 +53,15 @@ enum ResRow {
   R_TE = 9,
   R_TX = 10,
   R_ROW = 11,
-  R_XROW = 12,
-  R_CHOOSE = 13,
-  R_LOK = 14
+  R_CHOOSE = 12,
+  R_LOK = 13
 };
-__device__ __forceinline__ int res_rows(int L) { return R_LOK + L; }
+template <bool kTri>
+__device__ __forceinline__ int res_rows(int L) {
+  return R_LOK + L + (kTri ? 1 : 0);
+}
+// the exit winner row (kTri only), after the occlusion bits
+__device__ __forceinline__ int res_xrow(int L) { return R_LOK + L; }
 
 struct V3 {
   float x, y, z;

@@ -62,14 +62,22 @@ _GRAD_COLS = 22           # row-table columns with a cotangent
 _BWD_THREADS, _BWD_MAX_BLOCKS = 128, 1024   # csrc/trace_bwd.cu kBwdThreads
 
 # residual rows per step (csrc/trace_step.cuh): the step's input ray o, d
-# and throughput A, its entry and exit t, entry and exit winner rows,
-# refract choice, then one occlusion bit per light
+# and throughput A, its entry and exit t, entry winner row, refract choice,
+# one occlusion bit per light and, on a scene with triangle rows, the exit
+# winner row (without triangles every group is one row: it is the entry
+# row)
 RES_O, RES_D, RES_A = 0, 3, 6
-RES_TE, RES_TX, RES_ROW, RES_XROW, RES_CHOOSE, RES_LOK = (9, 10, 11, 12, 13,
-                                                          14)
+RES_TE, RES_TX, RES_ROW, RES_CHOOSE, RES_LOK = 9, 10, 11, 12, 13
 
 
-def res_rows(n_lights: int) -> int:
+def res_rows(n_lights: int, n_tri: int = 0) -> int:
+    """Residual rows per step with ``n_lights`` lights and ``n_tri``
+    triangle rows to sweep (``layout[3]``)."""
+    return RES_LOK + n_lights + (1 if n_tri else 0)
+
+
+def res_xrow(n_lights: int) -> int:
+    """The exit winner row's residual row (scenes with triangle rows)."""
     return RES_LOK + n_lights
 
 
@@ -286,9 +294,9 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
     gradient of a triangle winner's t (its ``G`` and ``h`` columns).
 
     Returns ``(A (3,R), B (3,R), first_live (1,R))``; with ``want_resid``
-    also the residuals ``(K, res_rows(L), R)`` and live-step counts ``(R,)``
-    int32 that the train kernel writes (rows of steps at or after a ray's
-    count are not meaningful).
+    also the residuals ``(K, res_rows(L, n_tri), R)`` and live-step counts
+    ``(R,)`` int32 that the train kernel writes (rows of steps at or after
+    a ray's count are not meaningful).
 
     ``work`` (a dict, for the kernels' bounds): gains under ``"sweep"`` the
     triangle rows the trace kernel's closest-hit sweeps test (steps after
@@ -363,8 +371,8 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
         if want_resid:
             resid.append(torch.cat([
                 o.T, d.T, A.T, te[None], tx[None], row.to(te.dtype)[None],
-                xrow.to(te.dtype)[None], choose.to(te.dtype)[None],
-                lok.to(te.dtype).T]).detach())
+                choose.to(te.dtype)[None], lok.to(te.dtype).T]
+                + ([xrow.to(te.dtype)[None]] if layout[3] else [])).detach())
         B = B + A * b_f
         A = A * a_f
         o = from_p + next_dir * EPS                          # Ray::cast
@@ -457,14 +465,14 @@ def trace_fwd(scene, tables, decay, oT, dT, u8s, hit0):
 def trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0):
     """Launch ``mrt_trace_fwd_train`` (the train instance) on CUDA tensors:
     :func:`trace_fwd`'s ``(A, B, first_live)`` bit for bit, plus the
-    residuals ``(K, res_rows(L), R)`` and live-step counts ``(R,)`` int32
-    that :func:`trace_bwd` reads."""
+    residuals ``(K, res_rows(L, n_tri), R)`` and live-step counts ``(R,)``
+    int32 that :func:`trace_bwd` reads."""
     args = _fwd_args(scene, tables, decay, oT, dT, u8s, hit0)
     R, K = oT.shape[1], u8s.shape[0]
     A = torch.empty((3, R), dtype=torch.float32, device=oT.device)
     B = torch.empty_like(A)
     fl = torch.empty((1, R), dtype=torch.float32, device=oT.device)
-    resid = torch.empty((K, res_rows(scene.n_lights), R),
+    resid = torch.empty((K, res_rows(scene.n_lights, tables.layout[3]), R),
                         dtype=torch.float32, device=oT.device)
     n_live = torch.empty(R, dtype=torch.int32, device=oT.device)
     if R:
@@ -486,7 +494,8 @@ def trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB):
     K, _nu, R = u8s.shape
     require_cuda_tensor("u8s", u8s, torch.float32,
                         (K, n_uni(scene.any_refract), R))
-    require_cuda_tensor("resid", resid, torch.float32, (K, res_rows(L), R))
+    require_cuda_tensor("resid", resid, torch.float32,
+                        (K, res_rows(L, tables.layout[3]), R))
     require_cuda_tensor("n_live", n_live, torch.int32, (R,))
     require_cuda_tensor("ctA", ctA, torch.float32, (3, R))
     require_cuda_tensor("ctB", ctB, torch.float32, (3, R))

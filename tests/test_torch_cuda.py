@@ -45,10 +45,15 @@ never do (their any-hit sweep meets a wall first).
 Ill-conditioned rays (chip_smoke.py, phase 7): a step that starts inside a
 thin box wall and runs nearly parallel to it takes its t as the difference
 of two slab terms ~1e4 times larger, so float32 rounding decides its
-gradient, and the kernel and the plain version disagree there. The
-backward test finds such rays per ray (d_oT or d_dT outside the tolerance
-above), allows at most ILL_SHARE of the rays, drops them on both sides
-(the cotangents are linear in ctA, ctB) and then holds every array.
+gradient, and the kernel and the plain version disagree there. Only the
+scenes in ILL_CONDITIONED (rays from inside the slice room, whose walls
+are thin boxes) have such rays; every other scene's rays are all held to
+the tolerance above. On those scenes a ray outside it must be shown
+ill-conditioned: the plain version run in float64 on that ray moves its
+d_oT or d_dT by more than the tolerance, and the kernel's lie within twice
+that move of the plain float32 ones (each float32 program is that far from
+the exact value); the other rays' d_oT and d_dT, and the table
+cotangents summed over all rays, are held as above.
 """
 
 import numpy as np
@@ -68,7 +73,8 @@ SCENES = {"mixed": MIXED, "mixed_opaque": MIXED_OPAQUE,
           "mesh_glass": mesh_scene("mesh_glass"),
           "mesh_opaque": mesh_scene("mesh_opaque"),
           "clustered": CLUSTERED_LIT, "two_tori": two_tori()}
-ILL_SHARE = 2e-4
+# scenes whose rays may be ill-conditioned (module docstring)
+ILL_CONDITIONED = {"mesh_opaque"}
 
 
 def _scene(name, device):
@@ -267,7 +273,9 @@ def test_trace_fwd_train_matches_render_and_plain(name, cuda_device):
                               for li in range(scene.n_lights)]
     if scene.any_refract:
         floats.append(step.RES_TX)
-        exact += [step.RES_XROW, step.RES_CHOOSE]
+        exact.append(step.RES_CHOOSE)
+    if tables.layout[3]:
+        exact.append(step.res_xrow(scene.n_lights))
     for r in floats:
         torch.testing.assert_close(res[:, r][live], res_r[:, r][live],
                                    rtol=1e-4, atol=1e-4, msg=f"row {r}")
@@ -304,28 +312,45 @@ def test_trace_bwd_matches_autograd_of_plain(name, cuda_device):
     got = step.trace_bwd(scene, tables, 0.85, u8s, res, n_live, ctA, ctB)
     assert step.BWD_KERNEL.launches == before + 1
     want = step.trace_bwd_plain(scene, tables, 0.85, oT, dT, u8s, ctA, ctB)
-    ill = torch.zeros(oT.shape[1], dtype=torch.bool, device=oT.device)
-    for g, w in zip(got[2:4], want[2:4]):
-        atol = 1e-5 * float(w.abs().max())
-        ill |= (~torch.isclose(g, w, rtol=2e-3, atol=atol)).any(0)
-    idx = ill.nonzero()[:, 0].tolist()
-    print(f"{name}: {len(idx)} ill-conditioned rays of {oT.shape[1]}: "
+    out = torch.zeros(oT.shape[1], dtype=torch.bool, device=oT.device)
+    atols = [1e-5 * float(w.abs().max()) for w in want[2:4]]
+    for g, w, atol in zip(got[2:4], want[2:4], atols):
+        out |= (~torch.isclose(g, w, rtol=2e-3, atol=atol)).any(0)
+    idx = out.nonzero()[:, 0].tolist()
+    print(f"{name}: {len(idx)} rays of {oT.shape[1]} outside tolerance: "
           f"{idx[:8]}; kernel d_dT {got[3][:, idx[:4]].T.tolist()}, plain "
           f"{want[3][:, idx[:4]].T.tolist()}")
-    assert len(idx) <= ILL_SHARE * oT.shape[1]
     if idx:
-        ctA[:, ill] = 0.0
-        ctB[:, ill] = 0.0
-        got = step.trace_bwd(scene, tables, 0.85, u8s, res, n_live, ctA,
-                             ctB)
-        want = step.trace_bwd_plain(scene, tables, 0.85, oT, dT, u8s, ctA,
-                                    ctB)
+        assert name in ILL_CONDITIONED, f"{name}: rays {idx[:8]} disagree"
+        # the plain version in float64 on those rays
+        t64 = tables._replace(tab=tables.tab.double(),
+                              lights=tables.lights.double(),
+                              tri=tables.tri.double())
+        w64 = step.trace_bwd_plain(
+            scene, t64, 0.85, *(t[..., idx].double()
+                                for t in (oT, dT, u8s, ctA, ctB)))
+        moved = torch.zeros(len(idx), dtype=torch.bool, device=oT.device)
+        for gname, g, w, w_64, atol in zip(("d_oT", "d_dT"), got[2:4],
+                                           want[2:4], w64[2:4], atols):
+            g, w = g[:, idx].double(), w[:, idx].double()
+            tol = 2e-3 * w.abs() + atol
+            gap = (w - w_64).abs()
+            moved |= (gap > tol).any(0)
+            # per ray: the kernel's largest error within twice the plain
+            # version's largest move
+            err = ((g - w).abs() - tol).amax(0)
+            print(f"{gname}: kernel {g.T.tolist()}, plain {w.T.tolist()}, "
+                  f"float64 {w_64.T.tolist()}")
+            assert bool((err <= 2.0 * gap.amax(0)).all()), gname
+        assert bool(moved.all()), f"{name}: well-conditioned rays disagree"
     assert float(want[0].abs().max()) > 0
     if scene.kind_counts[3]:
         assert float(want[4].abs().max()) > 0
     for gname, g, w in zip(("d_tab", "d_lights", "d_oT", "d_dT", "d_tri"),
                            got, want):
         assert bool(torch.isfinite(g).all()), gname
+        if gname in ("d_oT", "d_dT"):   # the rays held above left out
+            g, w = g[:, ~out], w[:, ~out]
         if w.numel():
             _close(gname, g, w)
 

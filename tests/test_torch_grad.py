@@ -124,7 +124,7 @@ def _path_flips(ps, res, n_live, res_j):
     if _same_row(ps):
         cols.append((step.RES_CHOOSE, jps._R_XROW))
     elif ps.any_refract:
-        cols.append((step.RES_XROW, jps._R_XROW))
+        cols.append((step.res_xrow(ps.n_lights), jps._R_XROW))
     for mine, theirs in cols:
         flip |= (live & (res[:, mine] != res_j[:, theirs])).any(0)
     return flip
@@ -218,7 +218,7 @@ def check_resid(name):
     _ins, (A_j, B_j, _f, res_j), (A, B, _fl, res, n_live) = \
         _module_fwd(name)
     res, n_live = res.numpy(), n_live.numpy()
-    assert res.shape == (K, step.res_rows(ps.n_lights), R)
+    assert res.shape == (K, step.res_rows(ps.n_lights, ps.kind_sweep[3]), R)
     flips = _path_flips(ps, res, n_live, res_j)
     assert flips.sum() <= 0.005 * R
     good = ~flips & ~_bad_rays([(A, A_j), (B, B_j)])
@@ -239,7 +239,7 @@ def check_resid(name):
     if _same_row(ps):
         exact.append((step.RES_CHOOSE, jps._R_XROW))
     elif ps.any_refract:
-        exact.append((step.RES_XROW, jps._R_XROW))
+        exact.append((step.res_xrow(ps.n_lights), jps._R_XROW))
     for mine, theirs in exact:
         np.testing.assert_array_equal(res[:, mine][live],
                                       res_j[:, theirs][live], err_msg=str(mine))

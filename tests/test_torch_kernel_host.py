@@ -263,7 +263,7 @@ def _case(name, lib):
             tables.tbb)]
     A, B = torch.empty(3, R), torch.empty(3, R)
     fl = torch.empty(1, R)
-    res = torch.zeros(K, step.res_rows(L), R)
+    res = torch.zeros(K, step.res_rows(L, tables.layout[3]), R)
     n_live = torch.empty(R, dtype=torch.int32)
     lib.host_fwd_train(
         _p(tab), _p(lay), _opt(tri), _opt(tables.tbb), _p(lights), L,
@@ -284,7 +284,7 @@ def _case(name, lib):
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_host_trace_fwd_train_matches_plain(name, host_lib):
-    scene, _t, _l, _o, _d, _u, bad, (res, n_live), (res_r, _n) = _case(
+    scene, tables, _l, _o, _d, _u, bad, (res, n_live), (res_r, _n) = _case(
         name, host_lib)
     live = (torch.arange(K)[:, None] < n_live[None]) & ~bad[None]
     # the open scene's paths leave it sooner than a room's
@@ -294,7 +294,9 @@ def test_host_trace_fwd_train_matches_plain(name, host_lib):
                               for li in range(scene.n_lights)]
     if scene.any_refract:
         floats.append(step.RES_TX)
-        exact += [step.RES_XROW, step.RES_CHOOSE]
+        exact.append(step.RES_CHOOSE)
+    if tables.layout[3]:
+        exact.append(step.res_xrow(scene.n_lights))
     for r in floats:
         torch.testing.assert_close(res[:, r][live], res_r[:, r][live],
                                    rtol=1e-4, atol=1e-4, msg=f"row {r}")
