@@ -82,6 +82,28 @@ Phases, each of which raises on failure:
    ``closest_hit``, ``trace_fwd_train`` and ``trace_bwd`` per step; seconds
    per step, fwd+bwd rays/s, peak memory and one profiled step.
 
+12. textured kernels: the stand-ins ``tex_dof`` (the class of dof.json: a
+   checker-textured ground, a sphere-mapped, a metal, an emissive and a
+   glass sphere, depth of field) and ``tex_blocks`` (the class of
+   Minecraft.json: a 16 x 16 grid of unit boxes over a plane, 257 rows,
+   eight materials whose cross-atlas textures use all six map slots),
+   built here as tests/torch_tex_helpers.py builds them: the closest-hit
+   pass, the trace's render instance (the kTex instances), its train
+   instance (bit for bit the render instance; its residuals, texel rows
+   included, against ``trace_plain(want_resid=True)``) and the backward
+   (against autograd of the plain trace, phase 9's rule) on 2^17 camera
+   rays and at the full frame, where they are timed and bounded. Beside
+   OUTLIER_SHARE, at most TEX_FLIP_CAP of the rays may be left out as
+   shown texel flips: rays outside tolerance with a texel coordinate
+   within 1e-4 of an integer at a live step (``trace_plain``'s
+   ``work["tex_edge"]``). The plain forward runs in chunks of 2^18 rays.
+13. textured main path: the CLI renders both stand-ins from JSON files at
+   1080x1080, bounce 8, 16 spp: both kernels once per sample and no plain
+   version; ten renders each for the spread of rays/s, one profiled; the
+   HTTP service answers one ``tex_dof`` request.
+14. textured training: 3 steps of ``make_train_step`` on ``tex_blocks``
+   at 1080x1080, bounce 8, one path per pixel, as phase 8.
+
 Every kernel's entry in the JSON line carries its bound: the larger of the
 bytes it must move (inputs read once, outputs written once) over 3.35 TB/s
 and the float32 operations this run's data needs over 67 TFLOP/s (the
@@ -91,7 +113,10 @@ below) and the data-dependent parts — live steps, occluded
 lights, refract choices, the triangle rows the cull leaves — read from
 this run's residuals and plain versions. A sweep counts the scene's valid
 rows only: the kernels skip the invalid rows that pad each kind segment to
-a multiple of 8. The block slab tests of the cull are not counted.
+a multiple of 8. The block slab tests of the cull are not counted. On a
+textured scene each texel fetch counts one 32-byte sector of the atlas,
+and each hit side one sector of map ids (``TEX_SIDE_OPS`` and the texture
+constants below).
 
 It prints a JSON line of per-kernel results and the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -121,6 +146,27 @@ MESH_MATS = {
 }
 MESH_NAMES = ("mesh_opaque", "mesh_glass")
 N_MESH_BWD = 1 << 15
+# the textured stand-ins: tests/torch_tex_helpers.py holds the same builders
+# (tests/test_torch_tex.py holds the two copies equal)
+TEX_NAMES = ("tex_dof", "tex_blocks")
+TEX_CAMERAS = {
+    "tex_dof": {"pos": [0, -1, 0.2], "fov": 60, "aprt": 0.05, "foc": 4.0},
+    "tex_blocks": {"pos": [0, -1, 2], "dir": [0, 0, 1, -0.5], "fov": 70},
+}
+# (map slot, base material) of the eight block materials
+BLOCK_MATS = (
+    ("tex", {"rough": 0.9}),
+    ("tex", {"rough": 0.7}),
+    ("tex", {"rough": 0.5, "albedo": [0.8, 0.6, 0.4]}),
+    ("rmap", {"albedo": [0.6, 0.6, 0.65]}),
+    ("mmap", {"albedo": [0.9, 0.8, 0.3], "rough": 0.3}),
+    ("gmap", {"opacity": 0.6, "glass": 0.1}),
+    ("omap", {"albedo": [0.4, 0.7, 0.9], "glass": 0.05}),
+    ("emap", {"albedo": [1.0, 0.5, 0.2]}),
+)
+BLOCK_BASES = ([0.3, 0.7, 0.2], [0.5, 0.5, 0.5], [0.6, 0.4, 0.2],
+               [0.5, 0.5, 0.5], [0.5, 0.5, 0.5], [0.3, 0.3, 0.3],
+               [0.7, 0.7, 0.7], [0.1, 0.1, 0.1])
 
 SLICE_ARGS = [
     "--obj", "box", "size:", "1", "1", "0.01", "pos:", "0", "0", "-0.5",
@@ -185,6 +231,152 @@ FWD_STEP_OPS, FWD_REFRACT_OPS, FWD_LIGHT_OPS = 140, 135, 70
 # occluded one only the recompute.
 BWD_STEP_OPS, BWD_REFRACT_OPS = 450, 100
 BWD_LIGHT_OK_OPS, BWD_LIGHT_OCC_OPS = 160, 60
+
+
+# Texture work (csrc/trace_step.cuh), counted by hand: a hit side's uv and
+# map-id read (the sphere map's normalize and atan2, the box's face tests;
+# its 6 ids are one 32-byte sector), and one texel fetch (index, clip and
+# read: one 32-byte sector of the atlas per fetch); the backward applies
+# the saved texels of the chosen side and masks its cotangents.
+TEX_SIDE_OPS, TEX_FETCH_OPS, TEX_BWD_OPS = 45, 8, 12
+SECTOR = 32
+# shown texel flips (a texel coordinate within step.TEX_EDGE of an integer
+# at a live step), dropped beside OUTLIER_SHARE
+TEX_FLIP_CAP = 0.02
+# the plain forward over chunks of rays (a 257-row table's sweeps at the
+# frame would hold (R, 256) float tensors of 1.2 GB each)
+PLAIN_FWD_CHUNK = 1 << 18
+
+
+def _buf(img):
+    """(H, W, 3) float32 -> the inline buffer form of a texture."""
+    h, w = img.shape[:2]
+    return {"w": int(w), "h": int(h),
+            "dat": [[float(c) for c in px] for px in img.reshape(-1, 3)]}
+
+
+def _q(img):
+    """Texels rounded to multiples of 1/255 (float32, as a PNG loads)."""
+    import numpy as np
+
+    k = np.clip(np.round(img * 255.0), 0, 255).astype(np.float32)
+    return k / np.float32(255.0)
+
+
+def checker(n, cells=8):
+    """An n x n two-colour checker of cells x cells squares."""
+    import numpy as np
+
+    i = np.arange(n) * cells // n
+    on = (i[:, None] + i[None, :]) % 2 == 1
+    return _q(np.where(on[..., None], [0.9, 0.85, 0.7], [0.15, 0.2, 0.3]))
+
+
+def sphere_map(w, h):
+    """A w x h spherical map: bands of latitude, stripes of longitude."""
+    import numpy as np
+
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    r = 0.5 + 0.4 * np.cos(2 * np.pi * x / w)
+    g = 0.5 + 0.4 * np.cos(np.pi * y / h)
+    b = 0.3 + 0.3 * ((x // max(w // 8, 1) + y // max(h // 4, 1)) % 2)
+    return _q(np.stack([r, g, b], -1))
+
+
+def cross_atlas(rng, cell, base, spread=0.25):
+    """A 4 cell x 3 cell cross atlas (the box uv layout): six face cells of
+    ``base`` with per-texel noise and a darker rim."""
+    import numpy as np
+
+    img = np.zeros((3 * cell, 4 * cell, 3), np.float32)
+    y, x = np.mgrid[0:cell, 0:cell]
+    rim = (np.minimum(np.minimum(x, y), np.minimum(cell - 1 - x,
+                                                   cell - 1 - y)) == 0)
+    for cy, cx in ((0, 1), (1, 0), (1, 1), (1, 2), (1, 3), (2, 1)):
+        face = np.asarray(base, np.float32) + spread * (
+            rng.random((cell, cell, 3)) - 0.5)
+        face[rim] *= 0.6
+        img[cy * cell:(cy + 1) * cell, cx * cell:(cx + 1) * cell] = face
+    return _q(np.clip(img, 0.0, 1.0))
+
+
+def tex_dof(small=False):
+    """``tex_dof`` (the class of dof.json): a checker-textured ground plane
+    (64 x 64 texels), a metal, an emissive, a sphere-mapped (32 x 16) and a
+    glass sphere, one point light, the sky; the camera has depth of
+    field."""
+    n, (sw, sh) = (8, (8, 4)) if small else (64, (32, 16))
+    return {
+        "renderer": [
+            {"type": "plane", "n": [0, 0, 1], "pos": [0, 0, -0.5],
+             "mat": {"tex": _buf(checker(n)), "rough": 0.8}},
+            {"type": "sphere", "r": 0.5, "pos": [-1.2, 2.2, 0],
+             "mat": {"metal": 1, "rough": 0.1}},
+            {"type": "sphere", "r": 0.5, "pos": [0, 3.0, 0],
+             "mat": {"tex": _buf(sphere_map(sw, sh)), "rough": 0.6}},
+            {"type": "sphere", "r": 0.5, "pos": [1.3, 4.2, 0],
+             "mat": {"emit": 1, "albedo": [1.0, 0.8, 0.5]}},
+            {"type": "sphere", "r": 0.35, "pos": [0.5, 1.4, -0.15],
+             "mat": {"glass": 0.08, "opacity": 0}},
+        ],
+        "light": [{"type": "point", "pos": [-2, 0, 3], "pwr": 0.6}],
+        "sky": {"color": [0.5, 0.6, 0.8], "pwr": 0.6},
+    }
+
+
+def tex_blocks(small=False):
+    """``tex_blocks`` (the class of Minecraft.json): a 16 x 16 grid of unit
+    boxes at stepped heights over a plane (257 rows), eight instanced box
+    objects whose 64 x 48 cross-atlas textures use all six map slots."""
+    import numpy as np
+
+    grid, cell = (4, 4) if small else (16, 16)
+    rng = np.random.default_rng(21)
+    heights = rng.integers(0, 4, (grid, grid)) * 0.25
+    which = rng.permutation(np.arange(grid * grid) % len(BLOCK_MATS))
+    insts = [[] for _ in BLOCK_MATS]
+    for k in range(grid * grid):
+        i, j = divmod(k, grid)
+        pos = [i - grid / 2 + 0.5, j + 1.0, -1.0 + float(heights[i, j])]
+        rot = [0.3, 0.2, 1.0, 0.4] if k % 8 == 7 else [0, 0, 1, 0]
+        insts[int(which[k])].append([pos, rot])
+    objs = []
+    for (slot, base), color, inst in zip(BLOCK_MATS, BLOCK_BASES, insts):
+        img = cross_atlas(rng, cell, color)
+        if slot in ("rmap", "mmap", "gmap", "omap", "emap"):
+            red = {"rmap": img[..., 0],
+                   "mmap": (img[..., 0] > 0.5).astype(np.float32),
+                   "gmap": 0.2 * img[..., 0],
+                   "omap": 0.3 + 0.7 * img[..., 0],
+                   "emap": np.where(img[..., 0] > 0.15, 0.9, 0.0)}[slot]
+            img = np.stack([_q(red)] + [img[..., 1], img[..., 2]], -1)
+        objs.append({"type": "box", "sizes": [1, 1, 1], "inst": inst,
+                     "mat": dict(base, **{slot: _buf(img)})})
+    objs.append({"type": "plane", "n": [0, 0, 1], "pos": [0, 0, -1.5],
+                 "mat": {"rough": 1.0, "albedo": [0.4, 0.35, 0.3]}})
+    return {
+        "renderer": objs,
+        "light": [{"type": "point", "pos": [2, 4, 6], "pwr": 0.7}],
+        "sky": {"color": [0.55, 0.7, 0.9], "pwr": 0.7},
+    }
+
+
+def tex_scene(name, small=False):
+    return {"tex_dof": tex_dof, "tex_blocks": tex_blocks}[name](small)
+
+
+def tex_json(name, res=None):
+    """The render JSON of a textured stand-in at the main path's size."""
+    res = RES if res is None else res
+    return {"scene": tex_scene(name),
+            "frame": {"res": [res, res], "cam": TEX_CAMERAS[name]},
+            "rt": {"bounce": BOUNCE, "sample": SAMPLES}}
+
+
+def tex_config(name):
+    from micro_raytracer_tpu_torch.models import schema
+
+    return schema.RenderConfig.from_json(tex_json(name))
 
 
 def fmt_bound(b: dict) -> str:
@@ -395,18 +587,69 @@ def phase_hit(cfg, results):
                               "library_ms": None}
 
 
-def compare_trace(scene, tables, decay, oT, dT, u8s):
+def plain_trace(scene, tables, decay, oT, dT, u8s, want_resid=False,
+                work=None):
+    """``step.trace_plain`` over chunks of PLAIN_FWD_CHUNK rays (each ray's
+    trace is its own, so the result is the unchunked one's); ``work``
+    gains the chunks' counts and, on a textured scene, their texel-edge
+    rays."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    R = oT.shape[1]
+    outs, edges = [], []
+    for s in range(0, R, PLAIN_FWD_CHUNK):
+        sl = slice(s, min(R, s + PLAIN_FWD_CHUNK))
+        w = None if work is None else {"sweep": 0, "shadow": 0}
+        outs.append(step.trace_plain(
+            scene, tables, decay, *(t[..., sl].contiguous()
+                                    for t in (oT, dT, u8s)),
+            want_resid=want_resid, work=w))
+        if w is not None:
+            for k in ("sweep", "shadow", "tex_fetch"):
+                work[k] = work.get(k, 0) + w.get(k, 0)
+            edges.append(w.get("tex_edge", torch.zeros(
+                sl.stop - sl.start, dtype=torch.bool, device=oT.device)))
+    if work is not None:
+        work["tex_edge"] = torch.cat(edges)
+    return tuple(torch.cat(x, -1) for x in zip(*outs))
+
+
+def split_flips(bad, work, what):
+    """Rays outside tolerance (``bad``): those shown to be texel flips (a
+    texel coordinate within step.TEX_EDGE of an integer at a live step,
+    ``work["tex_edge"]``), at most TEX_FLIP_CAP of the rays, and the rest,
+    at most OUTLIER_SHARE. Returns (share of the rest, flips)."""
+    import torch
+
+    edge = (work or {}).get("tex_edge")
+    flips = bad & edge if edge is not None else torch.zeros_like(bad)
+    R = bad.shape[0]
+    n_flip = int(flips.sum())
+    if n_flip > TEX_FLIP_CAP * R:
+        raise AssertionError(f"{what}: {n_flip} shown texel flips of {R} "
+                             f"rays exceed {TEX_FLIP_CAP}")
+    return float((bad & ~flips).float().mean()), flips
+
+
+def compare_trace(scene, tables, decay, oT, dT, u8s, work=None):
     """Kernels (primary-hit pass, then trace) vs the plain whole trace:
     first_live equal; A, B and radiance within rtol 1e-4 / atol 1e-5 on
-    all but OUTLIER_SHARE of the rays, and A and B within IN_ERR on the
-    rest. Returns the max abs error of A and B over all rays."""
+    all but OUTLIER_SHARE of the rays besides shown texel flips (with
+    ``work``, see ``split_flips``), and A and B within IN_ERR on the rest.
+    Returns the max abs error of A and B over all rays."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
 
     R = oT.shape[1]
     A, B, fl = step.trace_packed(scene, tables, decay, oT, dT, u8s)
-    A_r, B_r, fl_r = step.trace_plain(scene, tables, decay, oT, dT, u8s)
+    if work is None:
+        A_r, B_r, fl_r = step.trace_plain(scene, tables, decay, oT, dT, u8s)
+    else:
+        A_r, B_r, fl_r = plain_trace(scene, tables, decay, oT, dT, u8s,
+                                     work=work)
     n_fl = int((fl != fl_r).sum())
     if n_fl:
         raise AssertionError(f"trace_fwd: first_live differs on {n_fl} rays")
@@ -416,15 +659,19 @@ def compare_trace(scene, tables, decay, oT, dT, u8s):
     bad = torch.zeros(R, dtype=torch.bool, device=oT.device)
     for g, r in ((A, A_r), (B, B_r), (rad, rad_r)):
         bad |= outlier_rays(g, r, 1e-4, 1e-5)
-    share = float(bad.float().mean())
+    share, flips = split_flips(bad, work, "trace_fwd")
     err = float(max((A - A_r).abs().max(), (B - B_r).abs().max()))
     good = ~bad
     err_in = float(max((A - A_r)[:, good].abs().max(),
                        (B - B_r)[:, good].abs().max()))
-    log(f"trace_fwd {R} rays: {int(bad.sum())} rays outside rtol 1e-4 "
-        f"(share {share:.5f}, bound {OUTLIER_SHARE}); max abs err of A/B "
-        f"{err:.3g} over all rays, {err_in:.3g} over the rest (bound "
-        f"{IN_ERR})")
+    tex = (f"; {int(flips.sum())} of them shown texel flips (of "
+           f"{int(work['tex_edge'].sum())} rays at a texel edge, "
+           f"{work['tex_fetch']} texel fetches)"
+           if scene.has_maps and work else "")
+    log(f"trace_fwd {R} rays: {int(bad.sum())} rays outside rtol 1e-4{tex} "
+        f"(share of the rest {share:.5f}, bound {OUTLIER_SHARE}); max abs "
+        f"err of A/B {err:.3g} over all rays, {err_in:.3g} over the rest "
+        f"(bound {IN_ERR})")
     if share > OUTLIER_SHARE or err_in > IN_ERR:
         raise AssertionError("trace_fwd disagrees with its plain version")
     return err
@@ -689,12 +936,19 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
     rl = resid[last, :, idx]                                      # (R, CR)
     # (the exit row is saved on scenes with triangles, else it is the row)
     crow = rl[:, step.RES_ROW]
+    chose = rl[:, step.RES_CHOOSE] > 0.5
     if tables.layout[3]:
-        crow = torch.where(rl[:, step.RES_CHOOSE] > 0.5,
-                           rl[:, step.res_xrow(L)], crow)
+        crow = torch.where(chose, rl[:, step.res_xrow(L)], crow)
     row = torch.where(n > 0, crow, 0.0).long()
-    killed = (n > 0) & (u8s[last, NU - 1, idx]
-                        < tables.tab[row, step._C_EMI])
+    emit = tables.tab[row, step._C_EMI]
+    if scene.has_maps and scene.map_slots[5]:
+        # a mapped emit is the chosen side's saved texel (the last slot
+        # of its side's texel rows)
+        side = step.tex_side_rows(scene.map_slots)
+        r5 = (step.res_rows(L, tables.layout[3]) + side - 1
+              + torch.where(chose, side, 0))
+        emit = torch.where(tables.maps[row, 5] >= 0, rl[idx, r5], emit)
+    killed = (n > 0) & (u8s[last, NU - 1, idx] < emit)
     # closest-hit sweeps (of the P valid rows) after step 0: each later
     # live step, and the step whose sweep missed; on refractive scenes each
     # hit also tests its group's exit (one row here)
@@ -717,7 +971,7 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
     tables_b = table_bytes(scene, tables)
     # primaries, hits and outputs per ray; uniforms per live step
     fwd_b = R * (24 + 16 + 28) + S * NU * 4 + tables_b
-    CR = step.res_rows(L, tables.layout[3])
+    CR = step.scene_res_rows(scene, tables.layout)
     train_b = fwd_b + S * CR * 4 + R * 4
     bwd_ops = (S * BWD_STEP_OPS + chosen * BWD_REFRACT_OPS
                + vis * BWD_LIGHT_OK_OPS + occ * BWD_LIGHT_OCC_OPS)
@@ -726,15 +980,37 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
     d_tables_b = table_bytes(scene, tables)
     bwd_b = (R * (4 + 24 + 24) + S * (CR + NU) * 4 + tables_b
              + d_tables_b)
+    fetches = 0
+    if scene.has_maps:
+        # per live step and hit side (the exit side on a refractive scene):
+        # the uv and the map ids (one sector), one sector per texel fetch
+        rows = [resid[:, step.RES_ROW].long()]
+        if scene.any_refract:
+            rows.append(resid[:, step.res_xrow(L)].long()
+                        if tables.layout[3] else rows[0])
+        for r in rows:
+            r = torch.where(live, r, 0)
+            fetches += int(((tables.maps[r] >= 0).sum(-1) * live).sum())
+        sides = S * len(rows)
+        tex_b = sides * SECTOR + fetches * SECTOR
+        fwd_ops += sides * TEX_SIDE_OPS + fetches * TEX_FETCH_OPS
+        fwd_b += tex_b
+        train_b += tex_b
+        bwd_ops += S * TEX_BWD_OPS
+        bwd_b += S * SECTOR          # the chosen side's map ids
     return {"trace_fwd": bound(fwd_b, fwd_ops),
             "trace_fwd_train": bound(train_b, fwd_ops),
-            "trace_bwd": bound(bwd_b, bwd_ops), "live_steps": S}
+            "trace_bwd": bound(bwd_b, bwd_ops), "live_steps": S,
+            "texel_fetches": fetches}
 
 
-def compare_train_fwd(scene, tables, decay, oT, dT, u8s, hit0):
+def compare_train_fwd(scene, tables, decay, oT, dT, u8s, hit0, work=None):
     """The train instance against the render instance (bit for bit) and
-    against ``trace_plain(want_resid=True)``. Returns the max abs error of
-    A/B, the off-path mask, the kernel's and the plain residuals."""
+    against ``trace_plain(want_resid=True)``, on a textured scene (with
+    ``work``) in chunks with the shown-flip rule (``split_flips``); the
+    residuals, texel rows included, are compared on the other rays (rays
+    at a texel edge left out). Returns the max abs error of A/B, the
+    off-path mask, the kernel's and the plain residuals."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
@@ -748,17 +1024,23 @@ def compare_train_fwd(scene, tables, decay, oT, dT, u8s, hit0):
         if not torch.equal(g, r):
             raise AssertionError(f"trace_fwd_train: {name} differs from the "
                                  f"render instance")
-    A_r, B_r, fl_r, res_r, nl_r = step.trace_plain(
-        scene, tables, decay, oT, dT, u8s, want_resid=True)
+    if work is None:
+        A_r, B_r, fl_r, res_r, nl_r = step.trace_plain(
+            scene, tables, decay, oT, dT, u8s, want_resid=True)
+    else:
+        A_r, B_r, fl_r, res_r, nl_r = plain_trace(
+            scene, tables, decay, oT, dT, u8s, want_resid=True, work=work)
     if not torch.equal(fl, fl_r):
         raise AssertionError("trace_fwd_train: first_live differs")
     bad = (outlier_rays(A, A_r, 1e-4, 1e-5) | outlier_rays(B, B_r, 1e-4, 1e-5)
            | (nl != nl_r))
-    share = float(bad.float().mean())
+    share, flips = split_flips(bad, work, "trace_fwd_train")
     err = float(max((A - A_r).abs().max(), (B - B_r).abs().max()))
     good = ~bad
     err_in = float(max((A - A_r)[:, good].abs().max(),
                        (B - B_r)[:, good].abs().max()))
+    if work is not None and scene.has_maps:
+        good = good & ~work["tex_edge"]
     live = (torch.arange(K, device=oT.device)[:, None] < nl[None]) & good
     floats = [step.RES_O + c for c in range(9)] + [step.RES_TE]
     exact = [step.RES_ROW] + [step.RES_LOK + li
@@ -768,6 +1050,9 @@ def compare_train_fwd(scene, tables, decay, oT, dT, u8s, hit0):
         exact.append(step.RES_CHOOSE)
     if tables.layout[3]:
         exact.append(step.res_xrow(scene.n_lights))
+    # the texel rows
+    exact += list(range(step.res_rows(scene.n_lights, tables.layout[3]),
+                        res.shape[1]))
     res_err = 0.0
     for r in floats:
         g, w = res[:, r][live], res_r[:, r][live]
@@ -777,10 +1062,12 @@ def compare_train_fwd(scene, tables, decay, oT, dT, u8s, hit0):
     for r in exact:
         if not torch.equal(res[:, r][live], res_r[:, r][live]):
             raise AssertionError(f"trace_fwd_train: residual row {r} differs")
+    tex = (f", {int(flips.sum())} of them shown texel flips"
+           if scene.has_maps and work else "")
     log(f"trace_fwd_train {R} rays: equals trace_fwd bit for bit; "
-        f"{int(bad.sum())} rays off the plain path (share {share:.5f}, "
-        f"bound {OUTLIER_SHARE}); max abs err of A/B {err:.3g} over all "
-        f"rays, {err_in:.3g} over the rest; residuals of "
+        f"{int(bad.sum())} rays off the plain path{tex} (share of the rest "
+        f"{share:.5f}, bound {OUTLIER_SHARE}); max abs err of A/B {err:.3g} "
+        f"over all rays, {err_in:.3g} over the rest; residuals of "
         f"{int(live.sum())} live steps within {res_err:.3g}")
     if share > OUTLIER_SHARE or err_in > IN_ERR:
         raise AssertionError("trace_fwd_train disagrees with its plain "
@@ -1347,6 +1634,152 @@ def phase_mesh_main(card, counts):
     return out_res
 
 
+def tex_inputs(name, dev):
+    """(cfg, scene, tables, decay, cam) of a textured stand-in on the
+    card."""
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.compiler import (compile_camera,
+                                                           compile_scene)
+    from micro_raytracer_tpu_torch.ops import step
+
+    cfg = tex_config(name)
+    scene = compile_scene(cfg.scene, dev)
+    tables = step.pack_step(scene)
+    want = {"tex_dof": (5, (True,) + (False,) * 5),
+            "tex_blocks": (257, (True,) * 6)}[name]
+    got = (int(scene.prim_valid.sum()), tuple(scene.map_slots))
+    if got != want or not scene.any_refract:
+        raise AssertionError(f"{name}: rows and map slots {got}")
+    return (cfg, scene, tables, tracer.decay_of(cfg.rt.loss),
+            compile_camera(cfg.frame.cam, dev))
+
+
+def phase_tex_kernels(results):
+    """Phase 12: every textured kernel (the closest-hit pass, the render
+    and train instances of the trace, the backward) on both stand-ins
+    against its plain version, on 2^17 camera rays and at the full frame,
+    where it is timed and bounded."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    dev = torch.device("cuda")
+    for name in TEX_NAMES:
+        cfg, scene, tables, decay, cam = tex_inputs(name, dev)
+        gen = torch.Generator(device=dev).manual_seed(13)
+        nu = step.n_uni(scene.any_refract)
+        o, d = camera_rays(cam, N_CMP, gen, dev)
+        oT, dT = main_path_rays(cfg, gen, dev)
+        err = max(compare_hit(tables, o, d), compare_hit(tables, oT.T, dT.T))
+        res_h, _rows = time_hit(scene, tables, oT, dT, plain_reps=1)
+        results[f"closest_hit/{name}"] = {"max_abs_err": err, **res_h,
+                                          "library_ms": None}
+        u = torch.rand((BOUNCE + 1, nu, N_CMP), generator=gen, device=dev)
+        u8s = torch.rand((BOUNCE + 1, nu, RES * RES), generator=gen,
+                         device=dev)
+        ob, db = o.T.contiguous(), d.T.contiguous()
+        err_f = compare_trace(scene, tables, decay, ob, db, u, work={})
+        work = {}
+        err_f = max(err_f, compare_trace(scene, tables, decay, oT, dT, u8s,
+                                         work=work))
+        hit0 = step.primary_hits(scene, tables, oT, dT)
+        ms = cuda_ms(lambda: step.trace_fwd(scene, tables, decay, oT, dT,
+                                            u8s, hit0), 5)
+        plain_ms = cuda_ms(lambda: plain_trace(scene, tables, decay, oT, dT,
+                                               u8s), 1)
+        errs_t, errs_b = [], []
+        for oT_, dT_, u_ in ((ob, db, u), (oT, dT, u8s)):
+            e, bad, (resid, nl), (res_r, nl_r) = compare_train_fwd(
+                scene, tables, decay, oT_, dT_, u_,
+                step.primary_hits(scene, tables, oT_, dT_), work={})
+            errs_t.append(e)
+            e, plain_b, ctA, ctB = compare_bwd(scene, tables, decay, oT_,
+                                               dT_, u_, res_r, nl_r, bad, gen)
+            errs_b.append(e)
+        del res_r, nl_r
+        ms_t = cuda_ms(lambda: step.trace_fwd_train(scene, tables, decay, oT,
+                                                    dT, u8s, hit0), 5)
+        plain_t = cuda_ms(lambda: plain_trace(
+            scene, tables, decay, oT, dT, u8s, want_resid=True), 1)
+        ms_b = cuda_ms(lambda: step.trace_bwd(scene, tables, decay, u8s,
+                                              resid, nl, ctA, ctB), 5)
+        bw = trace_work(scene, tables, u8s, resid, nl, work)
+        S = bw["live_steps"]
+        log(f"{name} closest_hit {RES * RES} rays: kernel "
+            f"{res_h['ms']:.3f} ms, plain {res_h['plain_ms']:.3f} ms, bound "
+            f"{fmt_bound(res_h)}")
+        log(f"{name} trace_fwd {RES * RES} rays x {BOUNCE + 1} steps ({S} "
+            f"live steps, {bw['texel_fetches']} texel fetches): kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms (chunks of "
+            f"{PLAIN_FWD_CHUNK} rays), bound {fmt_bound(bw['trace_fwd'])}")
+        log(f"{name} trace_fwd_train: kernel {ms_t:.3f} ms, plain "
+            f"{plain_t:.3f} ms, bound {fmt_bound(bw['trace_fwd_train'])}; "
+            f"trace_bwd: kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms, bound "
+            f"{fmt_bound(bw['trace_bwd'])}")
+        results[f"trace_fwd/{name}"] = {
+            "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
+            **bw["trace_fwd"], "library_ms": None}
+        results[f"trace_fwd_train/{name}"] = {
+            "max_abs_err": max(errs_t), "ms": ms_t, "plain_ms": plain_t,
+            **bw["trace_fwd_train"], "library_ms": None}
+        results[f"trace_bwd/{name}"] = {
+            "max_abs_err": max(errs_b), "ms": ms_b, "plain_ms": plain_b,
+            **bw["trace_bwd"], "library_ms": None}
+        del resid
+
+
+def phase_tex_main(card, counts):
+    """Phase 13: the CLI renders both textured stand-ins from JSON files
+    (counted, checked, ten timed renders each, one profiled); the HTTP
+    service answers one tex_dof request."""
+    import numpy as np
+    from PIL import Image
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tex_")
+    out_res = {}
+    for name in TEX_NAMES:
+        path = os.path.join(tmp, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(tex_json(name), f)
+        out = os.path.join(tmp, f"{name}.png")
+        for k in (hit3.KERNEL, step.KERNEL):
+            k.launches = 0
+            k.plain_calls = 0
+        render_s, wall = render_cli(out, [path])
+        launched = {k.name: k.launches for k in (hit3.KERNEL, step.KERNEL)}
+        counts[name] = launched
+        if launched != {hit3.KERNEL.name: SAMPLES, step.KERNEL.name: SAMPLES} \
+                or hit3.KERNEL.plain_calls or step.KERNEL.plain_calls:
+            raise AssertionError(f"{name} render: launches {launched}, "
+                                 f"plain calls {hit3.KERNEL.plain_calls}, "
+                                 f"{step.KERNEL.plain_calls}")
+        img = np.asarray(Image.open(out))
+        if img.shape != (RES, RES, 3) or float(img.std()) < 5.0:
+            raise AssertionError(f"{name}: image {img.shape}, std "
+                                 f"{float(img.std()):.2f}")
+        loops = [render_s] + [render_cli(out, [path])[0]
+                              for _ in range(RENDER_REPS - 1)]
+        spread = render_spread(loops, card)
+        ((loop_p, _w), wall_p, busy, n_ops, by_name) = _busy_share(
+            lambda: render_cli(out, [path]))
+        med = float(np.median(loops))
+        log(f"{name} render profile: the CLI's wall {wall_p:.4f} s (render "
+            f"loop {loop_p:.4f} s under the profiler), device busy "
+            f"{busy:.4f} s = {busy / med:.3f} of the unprofiled loop's "
+            f"median {med:.4f} s; {n_ops} device operations "
+            f"({n_ops / SAMPLES:.1f} per sample)")
+        for kname, t in sorted(by_name.items(), key=lambda x: -x[1])[:4]:
+            log(f"  {t * 1e3:9.3f} ms  {kname[:90]}")
+        out_res[name] = {"render_s": render_s, "wall_s": wall,
+                         "spread": spread, "busy_s": busy,
+                         "busy_share": busy / med,
+                         "ops_per_sample": n_ops / SAMPLES}
+    phase_server(tex_config("tex_dof"), requests=1)
+    return out_res
+
+
 def main() -> int:
     try:
         import torch
@@ -1391,6 +1824,11 @@ def main() -> int:
     mesh_res = phase_mesh_main(card, mesh_counts)
     mesh_train = phase_train(mesh_config("mesh_glass"), card,
                              mesh_train_counts, "mesh_glass", mesh=True)
+    phase_tex_kernels(results)
+    tex_counts, tex_train_counts = {}, {}
+    tex_res = phase_tex_main(card, tex_counts)
+    tex_train = phase_train(tex_config("tex_blocks"), card, tex_train_counts,
+                            "tex_blocks")
 
     from micro_raytracer_tpu_torch.ops import hit3, step
 
@@ -1417,6 +1855,34 @@ def main() -> int:
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
          "launches": mesh_train_counts[step.BWD_KERNEL.name],
          **results["trace_bwd/mesh_glass"]}]
+    tex_kernels = []
+    for name in TEX_NAMES:
+        tex_kernels += [
+            {"name": f"closest_hit/{name}", "route": "cuda",
+             "source": hit_src,
+             "replaces": "micro_raytracer_tpu/ops/pallas_hit3.py:803",
+             "launches": tex_counts[name][hit3.KERNEL.name],
+             **results[f"closest_hit/{name}"]},
+            {"name": f"trace_fwd/{name}", "route": "cuda", "source": fwd_src,
+             "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",
+             "launches": tex_counts[name][step.KERNEL.name],
+             **results[f"trace_fwd/{name}"]}]
+    tex_kernels += [
+        {"name": "trace_fwd_train/tex_blocks", "route": "cuda",
+         "source": fwd_src,
+         "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",
+         "launches": tex_train_counts[step.TRAIN_KERNEL.name],
+         **results["trace_fwd_train/tex_blocks"]},
+        {"name": "trace_bwd/tex_blocks", "route": "cuda", "source": bwd_src,
+         "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
+         "launches": tex_train_counts[step.BWD_KERNEL.name],
+         **results["trace_bwd/tex_blocks"]}]
+    log(f"textured render: {json.dumps(tex_res)}")
+    log(f"textured training: {json.dumps(tex_train)}; closest_hit launches "
+        f"{tex_train_counts[hit3.KERNEL.name]}")
+    log(f"tex_dof train kernels (phase 12 only): "
+        f"{json.dumps(results['trace_fwd_train/tex_dof'])}, "
+        f"{json.dumps(results['trace_bwd/tex_dof'])}")
     log(f"mesh render: {json.dumps(mesh_res)}")
     log(f"mesh training: {json.dumps(mesh_train)}; closest_hit launches "
         f"{mesh_train_counts[hit3.KERNEL.name]}")
@@ -1438,7 +1904,7 @@ def main() -> int:
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
          "launches": train_counts[step.BWD_KERNEL.name],
          **results["trace_bwd"]},
-    ] + mesh_kernels
+    ] + mesh_kernels + tex_kernels
     log(f"render main path: {json.dumps(main_res)}")
     log(f"training main path: {json.dumps(train_res)}; closest_hit "
         f"launches {train_counts[hit3.KERNEL.name]}")

@@ -29,6 +29,17 @@
 // transposes the fold, the direct light, the sampled direction, the
 // material reads, the hit point and normal, and the winner t.
 //
+// Textures (kTex; pallas_step.py _tex_base_bwd l.2564 as used by
+// _step_comp_bwd l.2837, 2865 and _step_comp_bwd_same l.2920, the saved
+// texels read at l.3606-3649): the chosen side's material is the row's
+// columns with the texels the train instance saved applied as constants,
+// so the replay uses the mapped albedo, rough, metal, glass, opacity and
+// emit the forward used. Then the albedo's cotangent is multiplied by the
+// rgb texel where slot 0 is mapped, and the rough, metal and glass
+// cotangents are 0 where their slot is mapped; opacity and emission feed
+// only comparisons and get none. No uv, no texel fetch: the map ids of the
+// chosen row are read from global memory.
+//
 // Cotangents of the row table (its 22 differentiable columns: frame,
 // position, plane normal / box sizes / raw normal, radius, albedo, rough,
 // metal, glass; valid, group id, opacity and emit get none) and of the
@@ -50,8 +61,8 @@
 // of the dense partials is in fixed order). The card test bounds the
 // difference of two runs.
 //
-// What bounds it on the H100: bytes. A live step reads 4*(13 + L) bytes of
-// residuals and 4*NU of uniforms and does a few hundred float ops without
+// What bounds it on the H100: bytes. A live step reads 4*CR bytes of
+// residuals (res_rows_all) and 4*NU of uniforms and does a few hundred float ops without
 // a sweep; the dense rows, the lights and their accumulators live in
 // shared memory: P*(26 + 22)*4 bytes, so step.BWD_MAX_ROWS = 1024 dense
 // rows (192 KB); triangle rows are read from global memory (no bound).
@@ -275,13 +286,15 @@ __device__ __forceinline__ float side_bwd(const float* at, int kind,
 }
 
 // One step's transpose at its chosen side: the row `at` of kind `kind`
-// (with `tr`, its triangle-table row, for a triangle) hit at t_c. In: the
+// (with `tr`, its triangle-table row, for a triangle) hit at t_c, with
+// the saved texels `tv` of that side (kTex). In: the
 // step's residuals, uniforms u (stride R), pwr, the cotangents ct_o, ct_d
 // of the step's output ray, ct_A of its output A, and ctB. Out: ct_o,
 // ct_d, ct_A of the step's input; d_at (the chosen row's 26 columns), d_gh
 // (its triangle cotangents) and d_lt (the lights') accumulate.
-template <bool kRefract>
-__device__ __forceinline__ void step_bwd(const float* at, int kind,
+template <bool kRefract, bool kTex>
+__device__ __forceinline__ void step_bwd(const float* at, const Texels& tv,
+                                         int kind,
                                          const float* tr, const float* s_lt,
                                          int L, V3 o, V3 d, V3 A, float t_c,
                                          bool choose, const bool* lok,
@@ -293,16 +306,17 @@ __device__ __forceinline__ void step_bwd(const float* at, int kind,
   const V3 p = add(o, scale(d, t_c));
   const Normal nm = normal_full(at, p, kind);
   const V3 n = nm.n;
-  const bool cond = rough_override(at, choose ? u[3 * R] : u[0]);
-  const float rough_c = cond ? 1.0f : at[A_RGH];
+  const Side<kTex> m(at, tv);
+  const bool cond = rough_override(m, choose ? u[3 * R] : u[0]);
+  const float rough_c = cond ? 1.0f : m.col(A_RGH);
   const V3 v = choose ? sphere_dir(u[4 * R], u[5 * R])
                       : sphere_dir(u[R], u[2 * R]);
   const V3 w1 = add(n, scale(v, rough_c));
   const V3 nrc = safe_norm(w1);
-  const V3 alb = load3(at + A_ALB);
-  const float rgh = at[A_RGH], met = at[A_MET];
+  const V3 alb = m.alb();
+  const float rgh = m.col(A_RGH), met = m.col(A_MET);
   const float u_emit = kRefract ? u[7 * R] : u[3 * R];
-  const bool b_emit = u_emit < at[A_EMI];
+  const bool b_emit = u_emit < m.col(A_EMI);
 
   // ---- fold: B2 = B + A*b, A2 = A*a ----
   V3 l_col = v3(0.0f, 0.0f, 0.0f);  // recomputed only when it matters
@@ -407,7 +421,7 @@ __device__ __forceinline__ void step_bwd(const float* at, int kind,
     ct_nr = scale(add(scale(d, t_nr), scale(ct_w2, dn_r)), -2.0f);
   } else {
     // next = finite0(safe_norm(w3)), w3 = d*eta + nf*(cos*eta + sqrt(k))
-    const float eta = 1.0f + 0.5f * at[A_GLS];
+    const float eta = 1.0f + 0.5f * m.col(A_GLS);
     const float cs = -dn_r;
     const float kk = 1.0f - eta * eta * (1.0f - cs * cs);
     const float k_safe = kk >= 0.0f ? fmaxf(kk, 1e-12f) : 1.0f;
@@ -439,6 +453,13 @@ __device__ __forceinline__ void step_bwd(const float* at, int kind,
   if (!cond) ct_rgh += dot(v, ct_w1);
 
   // ---- material reads, hit point and normal, winner t ----
+  if constexpr (kTex) {
+    // the texels are constants (_tex_base_bwd)
+    if (tv.id[0] >= 0) ct_alb = mul(ct_alb, v3(tv.v[0], tv.v[1], tv.v[2]));
+    if (tv.id[1] >= 0) ct_rgh = 0.0f;
+    if (tv.id[2] >= 0) ct_met = 0.0f;
+    if (tv.id[3] >= 0) ct_gls = 0.0f;
+  }
   d_at[A_ALB + 0] += ct_alb.x;
   d_at[A_ALB + 1] += ct_alb.y;
   d_at[A_ALB + 2] += ct_alb.z;
@@ -457,15 +478,16 @@ __device__ __forceinline__ void step_bwd(const float* at, int kind,
 // One ray's whole backward. `s_tab` holds the dense rows, `g_tab` the whole
 // row table. `acc` adds into the row, triangle and light accumulators:
 // acc.row(row, d_at), acc.tri(local row, d_gh) and acc.light(d_lt).
-template <bool kRefract, bool kTri, class Acc>
+template <bool kRefract, bool kTri, bool kTex, class Acc>
 __device__ __forceinline__ void trace_ray_bwd(
     const float* s_tab, const float* g_tab, const Tris& T, const Layout& lay,
-    const float* s_lt, int L, float dk,
+    const float* s_lt, int L, float dk, const Tex& tex,
     int i, int R, const float* __restrict__ resid, int n,
     const float* __restrict__ u8s, V3 ctA, V3 ctB, V3& ct_o, V3& ct_d,
     Acc& acc) {
   constexpr int NU = kRefract ? 8 : 4;
-  const int CR = res_rows<kTri>(L);
+  const int CR = res_rows_all<kRefract, kTri, kTex>(L, tex.slots);
+  const int side_rows = kTex ? tex_side_rows(tex.slots) : 0;
   ct_o = v3(0.0f, 0.0f, 0.0f);
   ct_d = ct_o;
   V3 ct_A = ctA;
@@ -484,6 +506,16 @@ __device__ __forceinline__ void trace_ray_bwd(
     const float* at = row_at<kTri>(s_tab, g_tab, row, lay);
     const float* tr =
         kind == kRowTri ? T.tab + (row - lay.tri_start) * kTriCols : nullptr;
+    // the chosen side's map ids and saved texels (the exit side's rows
+    // follow the entry side's)
+    Texels tv{};
+    if constexpr (kTex) {
+#pragma unroll
+      for (int s = 0; s < kMapSlots; ++s)
+        tv.id[s] = __ldg(tex.maps + row * kMapSlots + s);
+      read_texels(r, res_rows<kTri>(L) + (choose ? side_rows : 0), R,
+                  tex.slots, tv);
+    }
     bool lok[kMaxLights];
 #pragma unroll
     for (int li = 0; li < kMaxLights; ++li)
@@ -498,7 +530,7 @@ __device__ __forceinline__ void trace_ray_bwd(
 #pragma unroll
     for (int c = 0; c < kMaxLights * kLightCols; ++c) d_lt[c] = 0.0f;
     float d_gh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    step_bwd<kRefract>(at, kind, tr, s_lt, L, o, d, A,
+    step_bwd<kRefract, kTex>(at, tv, kind, tr, s_lt, L, o, d, A,
                        choose ? r[R_TX * R] : r[R_TE * R], choose, lok, u, R,
                        pwr, ctB, ct_o, ct_d, ct_A, d_at, d_gh, d_lt);
     acc.row(row, d_at);
@@ -557,12 +589,13 @@ struct SharedAcc {
   }
 };
 
-template <bool kRefract, bool kTri>
+template <bool kRefract, bool kTri, bool kTex>
 __global__ void trace_bwd_kernel(const float* __restrict__ tab, int P,
                                  mrt::Layout lay,
                                  const float* __restrict__ tri,
                                  const float* __restrict__ lights, int L,
-                                 float dk, const float* __restrict__ resid,
+                                 float dk, mrt::Tex tex,
+                                 const float* __restrict__ resid,
                                  const int* __restrict__ n_live,
                                  const float* __restrict__ u8s, int R,
                                  const float* __restrict__ ctA,
@@ -586,8 +619,8 @@ __global__ void trace_bwd_kernel(const float* __restrict__ tab, int P,
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < R;
        i += gridDim.x * blockDim.x) {
     mrt::V3 ct_o, ct_d;
-    mrt::trace_ray_bwd<kRefract, kTri>(
-        s_tab, tab, T, lay, s_lt, L, dk, i, R, resid, n_live[i], u8s,
+    mrt::trace_ray_bwd<kRefract, kTri, kTex>(
+        s_tab, tab, T, lay, s_lt, L, dk, tex, i, R, resid, n_live[i], u8s,
         mrt::v3(ctA[i], ctA[R + i], ctA[2 * R + i]),
         mrt::v3(ctB[i], ctB[R + i], ctB[2 * R + i]), ct_o, ct_d, acc);
     d_o[i] = ct_o.x;
@@ -631,78 +664,99 @@ __global__ void reduce_kernel(const float* __restrict__ partials, int blocks,
     d_lights[j - n_rows] = s;
 }
 
-template <bool kRefract, bool kTri>
-int launch(const float* tab, int P, const mrt::Layout& lay, const float* tri,
-           const float* lights, int L, float dk, const float* resid,
-           const int* n_live, const float* u8s, int R, const float* ctA,
-           const float* ctB, float* d_o, float* d_d, float* partials,
-           int blocks, float* d_tab, float* d_lights, float* d_tri,
-           cudaStream_t stream) {
+// The arguments every instance takes.
+struct Args {
+  const float* tab;
+  int P;
+  mrt::Layout lay;
+  const float* tri;
+  const float* lights;
+  int L;
+  float dk;
+  mrt::Tex tex;
+  const float* resid;
+  const int* n_live;
+  const float* u8s;
+  int R;
+  const float* ctA;
+  const float* ctB;
+  float* d_o;
+  float* d_d;
+  float* partials;
+  int blocks;
+  float* d_tab;
+  float* d_lights;
+  float* d_tri;
+};
+
+template <bool kRefract, bool kTri, bool kTex>
+int launch(const Args& a, cudaStream_t stream) {
   const size_t smem =
-      (static_cast<size_t>(P) * (mrt::kRowCols + mrt::kGradCols) +
-       static_cast<size_t>(L) * 2 * mrt::kLightCols) *
+      (static_cast<size_t>(a.P) * (mrt::kRowCols + mrt::kGradCols) +
+       static_cast<size_t>(a.L) * 2 * mrt::kLightCols) *
       sizeof(float);
+  auto kernel = trace_bwd_kernel<kRefract, kTri, kTex>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        trace_bwd_kernel<kRefract, kTri>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  trace_bwd_kernel<kRefract, kTri><<<blocks, mrt::kBwdThreads, smem, stream>>>(
-      tab, P, lay, tri, lights, L, dk, resid, n_live, u8s, R, ctA, ctB, d_o,
-      d_d, partials, d_tab, d_tri);
+  kernel<<<a.blocks, mrt::kBwdThreads, smem, stream>>>(
+      a.tab, a.P, a.lay, a.tri, a.lights, a.L, a.dk, a.tex, a.resid,
+      a.n_live, a.u8s, a.R, a.ctA, a.ctB, a.d_o, a.d_d, a.partials, a.d_tab,
+      a.d_tri);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_out = P * mrt::kRowCols + L * mrt::kLightCols;
-  reduce_kernel<<<(n_out + 127) / 128, 128, 0, stream>>>(partials, blocks, P,
-                                                         L, d_tab, d_lights);
+  const int n_out = a.P * mrt::kRowCols + a.L * mrt::kLightCols;
+  reduce_kernel<<<(n_out + 127) / 128, 128, 0, stream>>>(
+      a.partials, a.blocks, a.P, a.L, a.d_tab, a.d_lights);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kTri>
-int dispatch(const float* tab, int P, const mrt::Layout& lay,
-             const float* tri, const float* lights, int L, float dk,
-             const float* resid, const int* n_live, const float* u8s, int R,
-             int refract, const float* ctA, const float* ctB, float* d_o,
-             float* d_d, float* partials, int blocks, float* d_tab,
-             float* d_lights, float* d_tri, cudaStream_t s) {
-  return refract ? launch<true, kTri>(tab, P, lay, tri, lights, L, dk, resid,
-                                      n_live, u8s, R, ctA, ctB, d_o, d_d,
-                                      partials, blocks, d_tab, d_lights,
-                                      d_tri, s)
-                 : launch<false, kTri>(tab, P, lay, tri, lights, L, dk,
-                                       resid, n_live, u8s, R, ctA, ctB, d_o,
-                                       d_d, partials, blocks, d_tab,
-                                       d_lights, d_tri, s);
+// the instance for the scene: refraction, triangles, textures
+int dispatch(const Args& a, int refract, cudaStream_t s) {
+  const bool tri = a.lay.tri_n > 0, tex = a.tex.slots != 0;
+  if (refract) {
+    if (tri)
+      return tex ? launch<true, true, true>(a, s)
+                 : launch<true, true, false>(a, s);
+    return tex ? launch<true, false, true>(a, s)
+               : launch<true, false, false>(a, s);
+  }
+  if (tri)
+    return tex ? launch<false, true, true>(a, s)
+               : launch<false, true, false>(a, s);
+  return tex ? launch<false, false, true>(a, s)
+             : launch<false, false, false>(a, s);
 }
 
 }  // namespace
 
-// P: the dense rows (tri_start); blocks: the grid size the wrapper sized
-// `partials` for, (blocks, P*22 + L*11) floats; d_tab (all rows) and d_tri
-// (Pt, 4) zeroed by the wrapper. The cull blocks are not read (the
-// backward does not sweep).
+// P: the dense rows (tri_start); maps, atlas, tmeta and slots as in
+// mrt_trace_fwd (nulls and 0 without textures); blocks: the grid size the
+// wrapper sized `partials` for, (blocks, P*22 + L*11) floats; d_tab (all
+// rows) and d_tri (Pt, 4) zeroed by the wrapper. The cull blocks are not
+// read (the backward does not sweep).
 extern "C" int mrt_trace_bwd(const float* tab, int P, int sph_start,
                              int sph_n, int pln_start, int pln_n,
                              int box_start, int box_n, const float* tri,
                              int tri_start, int tri_n, const float* bb,
                              int n_cb, const float* lights, int L, float dk,
-                             const float* resid, const int* n_live,
-                             const float* u8s, int R, int refract,
-                             const float* ctA, const float* ctB, float* d_o,
-                             float* d_d, float* partials, int blocks,
-                             float* d_tab, float* d_lights, float* d_tri,
-                             void* stream) {
+                             const int* maps, const float* atlas,
+                             const int* tmeta, int slots, const float* resid,
+                             const int* n_live, const float* u8s, int R,
+                             int refract, const float* ctA, const float* ctB,
+                             float* d_o, float* d_d, float* partials,
+                             int blocks, float* d_tab, float* d_lights,
+                             float* d_tri, void* stream) {
   (void)bb;
-  const mrt::Layout lay{sph_start, sph_n, pln_start, pln_n, box_start,
-                        box_n,     tri_start, tri_n, n_cb};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tri_n > 0
-             ? dispatch<true>(tab, P, lay, tri, lights, L, dk, resid, n_live,
-                              u8s, R, refract, ctA, ctB, d_o, d_d, partials,
-                              blocks, d_tab, d_lights, d_tri, s)
-             : dispatch<false>(tab, P, lay, tri, lights, L, dk, resid, n_live,
-                               u8s, R, refract, ctA, ctB, d_o, d_d, partials,
-                               blocks, d_tab, d_lights, d_tri, s);
+  const Args a{tab, P,
+               mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
+                           box_n, tri_start, tri_n, n_cb},
+               tri, lights, L, dk, mrt::Tex{maps, atlas, tmeta, slots},
+               resid, n_live, u8s, R, ctA, ctB, d_o, d_d, partials, blocks,
+               d_tab, d_lights, d_tri};
+  return dispatch(a, refract, static_cast<cudaStream_t>(stream));
 }
 #endif  // __CUDACC__

@@ -30,17 +30,34 @@
 // while the ray lives, and the ray's count of live steps at the end; the
 // Pallas kernel wrote a whole tile's rows until the tile died.
 //
+// Textures (kTex, textured scenes; pallas_step.py _uv_rows l.569,
+// _tex_sample_rows l.652, _apply_maps_rows l.699 as used in _step_math
+// l.1016-1075, and in train mode the texel residuals of _step_comp,
+// _tex_res_rows_side l.1800): at the entry point and, on a refractive
+// scene, at the exit point, the row's map ids are read from global memory,
+// the point's uv computed, and each mapped slot's nearest texel read from
+// the flat float32 atlas through the read-only cache (one 12-byte texel,
+// one 32-byte sector, per fetch). The TPU kernel's channel-planar bf16
+// hi/lo atlas and its one-hot MXU fetch have no counterpart: the texel is
+// exact, as in the jnp sample_texture, and the sphere map's atan2 is
+// atan2f. The dielectric test reads the raw metal and the mapped opacity;
+// the train instance saves the texels (texel values are piecewise constant
+// in every differentiable input, so the backward replays them as
+// constants). A scene without textures runs the kTex = false instances.
+//
 // Inputs: the (P, 26) row table and (L, 11) light table (trace_step.cuh),
 // the triangle table (Pt, 16) and cull-block AABBs (n_cb, 8) (hit3.cuh),
+// on a textured scene the map ids (P, 6), atlas (N, 3) and texture table
+// (T, 3) (trace_step.cuh),
 // primaries o0, d0 (3, R), their hits te0, row0, tx0, xrow0 (R,), and
 // uniforms u8s (K, NU, R) with NU = 8 ([u0..u6, u_emit]) when the scene
 // refracts and 4 ([u0, u1, u2, u_emit]) otherwise. Outputs: A, B (3, R)
 // and first_live (R,), the pre-kill hit liveness of step 0; in train mode
-// also resid (K, 14 + L, R) and n_live (R,) int32.
+// also resid (K, CR, R) (res_rows_all) and n_live (R,) int32.
 //
 // What bounds it on the H100: arithmetic and divergence. A ray costs 40
 // bytes of primaries and hits, 4*NU bytes of uniforms per step and 28
-// bytes out (train mode: 4*(14 + L) bytes of residuals per live step),
+// bytes out (train mode: 4*CR bytes of residuals per live step),
 // while each step runs 1 + L sweeps over all dense rows (~65 float ops per
 // row) and the triangle rows the cull leaves (~30 ops per row), plus ~300
 // ops of shading. The design keeps the dense rows (P*104 bytes, at most
@@ -67,17 +84,18 @@ namespace mrt {
 
 // One ray's whole trace (the body of both instances). `s_tab` holds the
 // dense rows, `g_tab` the whole row table (triangle rows are read there).
-template <bool kRefract, bool kTrain, bool kTri = false>
+template <bool kRefract, bool kTrain, bool kTri = false, bool kTex = false>
 __device__ __forceinline__ void trace_ray(
     const float* s_tab, const float* g_tab, const Tris& T, const Layout& lay,
-    const float* s_lt, int L, float dk,
+    const float* s_lt, int L, float dk, const Tex& tex,
     int i, int R, int K, const float* __restrict__ o0,
     const float* __restrict__ d0, Hit h0, const float* __restrict__ u8s,
     float* __restrict__ A_out, float* __restrict__ B_out,
     float* __restrict__ fl_out, float* __restrict__ resid,
     int* __restrict__ n_live) {
   constexpr int NU = kRefract ? 8 : 4;
-  const int CR = res_rows<kTri>(L);
+  const int CR = res_rows_all<kRefract, kTri, kTex>(L, tex.slots);
+  const int side_rows = kTex ? tex_side_rows(tex.slots) : 0;
   V3 o = v3(o0[i], o0[R + i], o0[2 * R + i]);
   V3 d = v3(d0[i], d0[R + i], d0[2 * R + i]);
   float pwr = 1.0f;
@@ -98,6 +116,7 @@ __device__ __forceinline__ void trace_ray(
 
     const float* atE = row_at<kTri>(s_tab, g_tab, h.row, lay);
     const V3 p_e = add(o, scale(d, h.te));
+    float* r = kTrain ? resid + static_cast<size_t>(k) * CR * R + i : nullptr;
 
     // per-light occlusion from the entry point (rt.rs:1027-1046)
     bool light_ok[kMaxLights];
@@ -111,26 +130,43 @@ __device__ __forceinline__ void trace_ray(
                                     ln.x, ln.y, ln.z, T);
     }
 
-    const V3 n_e = normal<kTri>(atE, p_e, h.row, lay);
-    const float opa_e = atE[A_OPA];
+    const int kind_e = row_kind<kTri>(h.row, lay);
+    const V3 n_e = normal_full(atE, p_e, kind_e).n;
+    Texels tE{};  // the entry side's texels (kTex)
+    if constexpr (kTex) {
+      side_texels(tex, h.row, atE, p_e, kind_e, tE);
+      if constexpr (kTrain)
+        write_texels(r, res_rows<kTri>(L), R, tex.slots, tE);
+    }
+    const Side<kTex> sE(atE, tE);
+    const float opa_e = sE.col(A_OPA);
 
     // reflect from the entry hit (rt.rs:559-572)
-    const float rough_r = rough_override(atE, u[0]) ? 1.0f : atE[A_RGH];
+    const float rough_r = rough_override(sE, u[0]) ? 1.0f : sE.col(A_RGH);
     const V3 nr = sphere_rand(n_e, rough_r, u[R], u[2 * R]);
     const V3 refl = safe_norm(sub(d, scale(nr, 2.0f * dot(d, nr))));
 
     V3 next_dir = refl, from_p = p_e, norm_c = n_e;
-    const float* atC = atE;  // chosen side's attributes
+    Side<kTex> sC = sE;  // the chosen side's material
     bool choose = false;
     float u_emit;
     if (kRefract) {
       // refract from the exit hit (rt.rs:574-589, 1054-1058)
       const float* atX = row_at<kTri>(s_tab, g_tab, h.xrow, lay);
       const V3 p_x = add(o, scale(d, h.tx));
-      const V3 n_x = normal<kTri>(atX, p_x, h.xrow, lay);
-      const float rough_f = rough_override(atX, u[3 * R]) ? 1.0f : atX[A_RGH];
+      const int kind_x = row_kind<kTri>(h.xrow, lay);
+      const V3 n_x = normal_full(atX, p_x, kind_x).n;
+      Texels tX{};
+      if constexpr (kTex) {
+        side_texels(tex, h.xrow, atX, p_x, kind_x, tX);
+        if constexpr (kTrain)
+          write_texels(r, res_rows<kTri>(L) + side_rows, R, tex.slots, tX);
+      }
+      const Side<kTex> sX(atX, tX);
+      const float rough_f =
+          rough_override(sX, u[3 * R]) ? 1.0f : sX.col(A_RGH);
       const V3 nf = sphere_rand(n_x, rough_f, u[4 * R], u[5 * R]);
-      const float eta = 1.0f + 0.5f * atX[A_GLS];
+      const float eta = 1.0f + 0.5f * sX.col(A_GLS);
       const float cs = -dot(nf, d);
       const float kk = 1.0f - eta * eta * (1.0f - cs * cs);
       const bool refr_ok = kk >= 0.0f;
@@ -142,16 +178,16 @@ __device__ __forceinline__ void trace_ray(
         next_dir = refr;
         from_p = p_x;
         norm_c = n_x;
-        atC = atX;
+        sC = sX;
       }
       u_emit = u[7 * R];
     } else {
       u_emit = u[3 * R];
     }
-    const V3 alb_c = load3(atC + A_ALB);
-    const float rgh_c = atC[A_RGH];
-    const float met_c = atC[A_MET];
-    const float emi_c = atC[A_EMI];
+    const V3 alb_c = sC.alb();
+    const float rgh_c = sC.col(A_RGH);
+    const float met_c = sC.col(A_MET);
+    const float emi_c = sC.col(A_EMI);
 
     // direct light at the chosen point, occlusion from the entry point
     // (rt.rs:973-987 vs 1027-1046)
@@ -174,7 +210,6 @@ __device__ __forceinline__ void trace_ray(
     }
 
     if constexpr (kTrain) {
-      float* r = resid + static_cast<size_t>(k) * CR * R + i;
       r[(R_O + 0) * R] = o.x;
       r[(R_O + 1) * R] = o.y;
       r[(R_O + 2) * R] = o.z;
@@ -228,13 +263,14 @@ __device__ __forceinline__ void trace_ray(
 
 namespace {
 
-template <bool kRefract, bool kTrain, bool kTri>
+template <bool kRefract, bool kTrain, bool kTri, bool kTex>
 __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
                                  mrt::Layout lay,
                                  const float* __restrict__ tri,
                                  const float* __restrict__ bb,
                                  const float* __restrict__ lights, int L,
-                                 float dk, const float* __restrict__ o0,
+                                 float dk, mrt::Tex tex,
+                                 const float* __restrict__ o0,
                                  const float* __restrict__ d0,
                                  const float* __restrict__ te0,
                                  const int* __restrict__ row0,
@@ -256,111 +292,121 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  mrt::trace_ray<kRefract, kTrain, kTri>(
-      s_tab, tab, mrt::Tris{tri, s_bb}, lay, s_lt, L, dk, i, R, K, o0, d0,
-      mrt::Hit{te0[i], row0[i], tx0[i], xrow0[i]}, u8s, A_out, B_out, fl_out,
-      resid, n_live);
+  mrt::trace_ray<kRefract, kTrain, kTri, kTex>(
+      s_tab, tab, mrt::Tris{tri, s_bb}, lay, s_lt, L, dk, tex, i, R, K, o0,
+      d0, mrt::Hit{te0[i], row0[i], tx0[i], xrow0[i]}, u8s, A_out, B_out,
+      fl_out, resid, n_live);
 }
 
-template <bool kRefract, bool kTrain, bool kTri>
-int launch(const float* tab, int P, const mrt::Layout& lay, const float* tri,
-           const float* bb, const float* lights, int L, float dk,
-           const float* o0, const float* d0, const float* te0,
-           const int* row0, const float* tx0, const int* xrow0,
-           const float* u8s, int K, int R, float* A, float* B, float* fl,
-           float* resid, int* n_live, cudaStream_t stream) {
+// The arguments every instance takes.
+struct Args {
+  const float* tab;
+  int P;
+  mrt::Layout lay;
+  const float* tri;
+  const float* bb;
+  const float* lights;
+  int L;
+  float dk;
+  mrt::Tex tex;
+  const float* o0;
+  const float* d0;
+  const float* te0;
+  const int* row0;
+  const float* tx0;
+  const int* xrow0;
+  const float* u8s;
+  int K, R;
+  float* A;
+  float* B;
+  float* fl;
+  float* resid;
+  int* n_live;
+};
+
+template <bool kRefract, bool kTrain, bool kTri, bool kTex>
+int launch(const Args& a, cudaStream_t stream) {
   const size_t smem =
-      (static_cast<size_t>(P) * mrt::kRowCols +
-       static_cast<size_t>(L) * mrt::kLightCols +
-       (kTri ? static_cast<size_t>(lay.n_cb) * mrt::kBbCols : 0)) *
+      (static_cast<size_t>(a.P) * mrt::kRowCols +
+       static_cast<size_t>(a.L) * mrt::kLightCols +
+       (kTri ? static_cast<size_t>(a.lay.n_cb) * mrt::kBbCols : 0)) *
       sizeof(float);
+  auto kernel = trace_fwd_kernel<kRefract, kTrain, kTri, kTex>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        trace_fwd_kernel<kRefract, kTrain, kTri>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int threads = 128;
-  const int blocks = (R + threads - 1) / threads;
-  trace_fwd_kernel<kRefract, kTrain, kTri><<<blocks, threads, smem, stream>>>(
-      tab, P, lay, tri, bb, lights, L, dk, o0, d0, te0, row0, tx0, xrow0, u8s,
-      K, R, A, B, fl, resid, n_live);
+  const int blocks = (a.R + threads - 1) / threads;
+  kernel<<<blocks, threads, smem, stream>>>(
+      a.tab, a.P, a.lay, a.tri, a.bb, a.lights, a.L, a.dk, a.tex, a.o0, a.d0,
+      a.te0, a.row0, a.tx0, a.xrow0, a.u8s, a.K, a.R, a.A, a.B, a.fl,
+      a.resid, a.n_live);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kTrain, bool kTri>
-int dispatch_refract(const float* tab, int P, const mrt::Layout& lay,
-                     const float* tri, const float* bb, const float* lights,
-                     int L, float dk, const float* o0, const float* d0,
-                     const float* te0, const int* row0, const float* tx0,
-                     const int* xrow0, const float* u8s, int K, int R,
-                     int refract, float* A, float* B, float* fl, float* resid,
-                     int* n_live, cudaStream_t s) {
-  return refract
-             ? launch<true, kTrain, kTri>(tab, P, lay, tri, bb, lights, L, dk,
-                                          o0, d0, te0, row0, tx0, xrow0, u8s,
-                                          K, R, A, B, fl, resid, n_live, s)
-             : launch<false, kTrain, kTri>(tab, P, lay, tri, bb, lights, L,
-                                           dk, o0, d0, te0, row0, tx0, xrow0,
-                                           u8s, K, R, A, B, fl, resid, n_live,
-                                           s);
-}
-
+// the instance for the scene: refraction, triangles, textures
 template <bool kTrain>
-int dispatch(const float* tab, int P, int sph_start, int sph_n,
-             int pln_start, int pln_n, int box_start, int box_n,
-             const float* tri, int tri_start, int tri_n, const float* bb,
-             int n_cb, const float* lights, int L, float dk, const float* o0,
-             const float* d0, const float* te0, const int* row0,
-             const float* tx0, const int* xrow0, const float* u8s, int K,
-             int R, int refract, float* A, float* B, float* fl, float* resid,
-             int* n_live, void* stream) {
-  const mrt::Layout lay{sph_start, sph_n, pln_start, pln_n, box_start,
-                        box_n,     tri_start, tri_n, n_cb};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tri_n > 0
-             ? dispatch_refract<kTrain, true>(tab, P, lay, tri, bb, lights, L,
-                                              dk, o0, d0, te0, row0, tx0,
-                                              xrow0, u8s, K, R, refract, A, B,
-                                              fl, resid, n_live, s)
-             : dispatch_refract<kTrain, false>(tab, P, lay, tri, bb, lights,
-                                               L, dk, o0, d0, te0, row0, tx0,
-                                               xrow0, u8s, K, R, refract, A,
-                                               B, fl, resid, n_live, s);
+int dispatch(const Args& a, int refract, cudaStream_t s) {
+  const bool tri = a.lay.tri_n > 0, tex = a.tex.slots != 0;
+  if (refract) {
+    if (tri)
+      return tex ? launch<true, kTrain, true, true>(a, s)
+                 : launch<true, kTrain, true, false>(a, s);
+    return tex ? launch<true, kTrain, false, true>(a, s)
+               : launch<true, kTrain, false, false>(a, s);
+  }
+  if (tri)
+    return tex ? launch<false, kTrain, true, true>(a, s)
+               : launch<false, kTrain, true, false>(a, s);
+  return tex ? launch<false, kTrain, false, true>(a, s)
+             : launch<false, kTrain, false, false>(a, s);
 }
 
 }  // namespace
 
 // P: the dense rows (tri_start), staged in shared memory; tri: the (Pt, 16)
 // triangle table, or null with tri_n = 0; bb: the (n_cb, 8) block AABBs,
-// or null with n_cb = 0.
+// or null with n_cb = 0; maps (P, 6), atlas (N, 3), tmeta (T, 3) and the
+// slot mask `slots` of a textured scene, or nulls and slots = 0.
 extern "C" int mrt_trace_fwd(const float* tab, int P, int sph_start,
                              int sph_n, int pln_start, int pln_n,
                              int box_start, int box_n, const float* tri,
                              int tri_start, int tri_n, const float* bb,
                              int n_cb, const float* lights, int L, float dk,
-                             const float* o0, const float* d0,
-                             const float* te0, const int* row0,
-                             const float* tx0, const int* xrow0,
-                             const float* u8s, int K, int R, int refract,
-                             float* A, float* B, float* fl, void* stream) {
-  return dispatch<false>(tab, P, sph_start, sph_n, pln_start, pln_n,
-                         box_start, box_n, tri, tri_start, tri_n, bb, n_cb,
-                         lights, L, dk, o0, d0, te0, row0, tx0, xrow0, u8s,
-                         K, R, refract, A, B, fl, nullptr, nullptr, stream);
+                             const int* maps, const float* atlas,
+                             const int* tmeta, int slots, const float* o0,
+                             const float* d0, const float* te0,
+                             const int* row0, const float* tx0,
+                             const int* xrow0, const float* u8s, int K, int R,
+                             int refract, float* A, float* B, float* fl,
+                             void* stream) {
+  const Args a{tab, P,
+               mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
+                           box_n, tri_start, tri_n, n_cb},
+               tri, bb, lights, L, dk, mrt::Tex{maps, atlas, tmeta, slots},
+               o0, d0, te0, row0, tx0, xrow0, u8s, K, R, A, B, fl, nullptr,
+               nullptr};
+  return dispatch<false>(a, refract, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mrt_trace_fwd_train(
     const float* tab, int P, int sph_start, int sph_n, int pln_start,
     int pln_n, int box_start, int box_n, const float* tri, int tri_start,
     int tri_n, const float* bb, int n_cb, const float* lights, int L,
-    float dk, const float* o0, const float* d0, const float* te0,
+    float dk, const int* maps, const float* atlas, const int* tmeta,
+    int slots, const float* o0, const float* d0, const float* te0,
     const int* row0, const float* tx0, const int* xrow0, const float* u8s,
     int K, int R, int refract, float* A, float* B, float* fl, float* resid,
     int* n_live, void* stream) {
-  return dispatch<true>(tab, P, sph_start, sph_n, pln_start, pln_n,
-                        box_start, box_n, tri, tri_start, tri_n, bb, n_cb,
-                        lights, L, dk, o0, d0, te0, row0, tx0, xrow0, u8s, K,
-                        R, refract, A, B, fl, resid, n_live, stream);
+  const Args a{tab, P,
+               mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
+                           box_n, tri_start, tri_n, n_cb},
+               tri, bb, lights, L, dk, mrt::Tex{maps, atlas, tmeta, slots},
+               o0, d0, te0, row0, tx0, xrow0, u8s, K, R, A, B, fl, resid,
+               n_live};
+  return dispatch<true>(a, refract, static_cast<cudaStream_t>(stream));
 }
 #endif  // __CUDACC__

@@ -1,7 +1,7 @@
 // Step math shared by the whole-trace forward (trace_fwd.cu) and backward
 // (trace_bwd.cu): 3-vectors, the row table's attribute columns, normals,
-// the jittered sampling direction, light vectors, and the training
-// residual layout.
+// the jittered sampling direction, light vectors, materials with their
+// texture maps, and the training residual layout.
 //
 // Row table: (P, 26) floats per row — the 18 sweep columns of hit3.cuh
 // (frame 9, instance position 3, plane normal / box sizes / a triangle's
@@ -11,14 +11,22 @@
 // (row_at).
 // Light table: (L, 11) floats [pos 3 | -normalize(dir) 3 | is_dir | pwr |
 // color 3].
+// Textures (textured scenes, the kTex instances): a (P, 6) int32 table of
+// each row's map ids (-1: no map; slots tex, rmap, mmap, gmap, omap,
+// emap), the flat (N, 3) float32 atlas and a (T, 3) int32 table of each
+// texture's (offset, width, height), all read from global memory (only the
+// winner rows' ids and texels are read, once per side per live step).
 //
 // Residuals of a training forward, per step k and ray i at
-// resid[(k * res_rows<kTri>(L) + r) * R + i] (rays on the fastest axis):
+// resid[(k * CR + r) * R + i] with CR = res_rows_all (rays on the fastest
+// axis):
 // the step's input ray o, d and throughput A, the entry and exit t of its
 // hit, the entry winner row, the refract choice, one occlusion bit per
-// light and, with a triangle segment (kTri), the exit winner row. Without
+// light, with a triangle segment (kTri) the exit winner row (without
 // triangles every group is one row, so the exit row is the entry row and
-// is not saved.
+// is not saved), and with textures (kTex) the texels of the present map
+// slots (3 rows for slot 0, 1 for each other slot; 0 where the side's id
+// is -1), entry side then, on a refractive scene, exit side.
 // pwr is dk^k and B never shapes a cotangent (it enters additively), so
 // neither is saved. Steps at or after a ray's live-step count are neither
 // written nor read.
@@ -62,6 +70,20 @@ __device__ __forceinline__ int res_rows(int L) {
 }
 // the exit winner row (kTri only), after the occlusion bits
 __device__ __forceinline__ int res_xrow(int L) { return R_LOK + L; }
+
+// texel rows of one hit side for the present map slots (bit s: slot s)
+__device__ __forceinline__ int tex_side_rows(int slots) {
+  int n = (slots & 1) ? 3 : 0;
+  for (int s = 1; s < 6; ++s) n += (slots >> s) & 1;
+  return n;
+}
+
+// residual rows per step; the texel rows start at res_rows<kTri>(L)
+template <bool kRefract, bool kTri, bool kTex>
+__device__ __forceinline__ int res_rows_all(int L, int slots) {
+  return res_rows<kTri>(L) +
+         (kTex ? tex_side_rows(slots) * (kRefract ? 2 : 1) : 0);
+}
 
 struct V3 {
   float x, y, z;
@@ -203,23 +225,173 @@ __device__ __forceinline__ Normal normal_full(const float* at, V3 p, int kind) {
   return r;
 }
 
-template <bool kTri = false>
-__device__ __forceinline__ V3 normal(const float* at, V3 p, int row,
-                                     const Layout& L) {
-  return normal_full(at, p, row_kind<kTri>(row, L)).n;
-}
-
 // vector from p toward light `lt` (un-normalized; -normalize(dir) for
 // directional lights)
 __device__ __forceinline__ V3 light_vec(const float* lt, V3 p) {
   return lt[6] > 0.5f ? load3(lt + 3) : sub(load3(lt), p);
 }
 
+// ---- materials and textures ----
+
+constexpr int kMapSlots = 6;
+constexpr float kPi = 3.14159265358979323846f;
+
+struct Tex {
+  const int* maps;     // (P, 6) map ids of each row, -1: none
+  const float* atlas;  // (N, 3) texels, texture after texture
+  const int* meta;     // (T, 3) offset, width, height of each texture
+  int slots;           // bit s: some row maps slot s
+};
+
+// A hit side's map ids and texels: the rgb of slot 0 in v[0..2], the red
+// channel of slot s >= 1 in v[2 + s]; 0 where the id is -1.
+struct Texels {
+  int id[kMapSlots];
+  float v[8];
+};
+
+struct UV {
+  float u, v;
+};
+
+// The material of one hit side. The untextured instances keep the row
+// and read each column where it is used (their code before textures); the
+// textured ones apply the texels once (rt.rs:811-863: slot 0 multiplies
+// the albedo by the rgb texel, slots 1-5 replace rough, metal, glass,
+// opacity and emit by its red channel where the slot is mapped) and keep
+// the mapped values, so that the texels need not stay live.
+template <bool kTex>
+struct Side {
+  const float* at;
+  __device__ __forceinline__ Side(const float* row, const Texels&)
+      : at(row) {}
+  __device__ __forceinline__ V3 alb() const { return load3(at + A_ALB); }
+  // column c, A_RGH..A_EMI
+  __device__ __forceinline__ float col(int c) const { return at[c]; }
+  // the unmapped metal, which the dielectric test reads (rt.rs:564)
+  __device__ __forceinline__ float raw_met() const { return at[A_MET]; }
+};
+
+template <>
+struct Side<true> {
+  V3 a;
+  float v[5];  // A_RGH..A_EMI, mapped
+  float met;
+  __device__ __forceinline__ Side(const float* at, const Texels& tv)
+      : a(load3(at + A_ALB)), met(at[A_MET]) {
+    if (tv.id[0] >= 0) a = mul(a, v3(tv.v[0], tv.v[1], tv.v[2]));
+#pragma unroll
+    for (int s = 1; s < kMapSlots; ++s)
+      v[s - 1] = tv.id[s] >= 0 ? tv.v[2 + s] : at[A_RGH + s - 1];
+  }
+  __device__ __forceinline__ V3 alb() const { return a; }
+  __device__ __forceinline__ float col(int c) const { return v[c - A_RGH]; }
+  __device__ __forceinline__ float raw_met() const { return met; }
+};
+
 // The dielectric re-roll of the roughness (rt.rs:559-572): a dielectric
-// row samples a diffuse lobe when the draw is below 0.8.
-__device__ __forceinline__ bool rough_override(const float* at, float u) {
-  const bool diel = (at[A_MET] == 0.0f) && (at[A_OPA] != 0.0f);
+// side (raw metal 0, mapped opacity not 0) samples a diffuse lobe when the
+// draw is below 0.8.
+template <bool kTex>
+__device__ __forceinline__ bool rough_override(const Side<kTex>& m,
+                                               float u) {
+  const bool diel = (m.raw_met() == 0.0f) && (m.col(A_OPA) != 0.0f);
   return diel && u < 0.8f;
+}
+
+// Texture coordinates at world point p of a row of kind `kind`
+// (rt.rs:468-548, intersect.uv_from_attrs): the sphere's spherical map of
+// the unguarded normalize(hp - ip) (a degenerate point gives NaN, whose
+// texel is the first); the plane's fract(x + 0.5) as x - trunc(x), wrapped
+// below 0; the box's 4x3 cross atlas, the first face test that holds in
+// rt.rs order (x+, x-, y+, y-, z+, z-) choosing the face; a triangle's 0
+// (the reference's todo!()).
+__device__ __forceinline__ UV uv_of(const float* at, V3 p, int kind) {
+  if (kind == kRowTri) return UV{0.0f, 0.0f};
+  const V3 ip = load3(at + A_IP);
+  const V3 hp = add(ip, matvec(at + A_FR, sub(p, ip)));
+  const V3 rel = sub(hp, ip);
+  if (kind == kRowSphere) {
+    const float inv = 1.0f / sqrtf(dot(rel, rel));
+    const V3 n = scale(rel, inv);
+    return UV{0.5f + 0.5f * atan2f(n.x, -n.y) / kPi, 0.5f - 0.5f * n.z};
+  }
+  if (kind == kRowPlane) {
+    const float fx = (hp.x + 0.5f) - truncf(hp.x + 0.5f);
+    const float fy = (hp.y + 0.5f) - truncf(hp.y + 0.5f);
+    return UV{fx < 0.0f ? 1.0f + fx : fx, fy < 0.0f ? 1.0f + fy : fy};
+  }
+  const V3 pa = load3(at + A_NA);
+  const float qx = rel.x * (2.0f / (pa.x == 0.0f ? 1.0f : pa.x));
+  const float qy = rel.y * (2.0f / (pa.y == 0.0f ? 1.0f : pa.y));
+  const float qz = rel.z * (2.0f / (pa.z == 0.0f ? 1.0f : pa.z));
+  const float side = (0.5f - 0.5f * qz) / 3.0f + 1.0f / 3.0f;
+  const float top_u = (0.5f + 0.5f * qx) / 4.0f + 1.0f / 4.0f;
+  if (fabsf(qx - 1.0f) < kEps)
+    return UV{(0.5f + 0.5f * qy) / 4.0f + 2.0f / 4.0f, side};
+  if (fabsf(qx + 1.0f) < kEps) return UV{(0.5f - 0.5f * qy) / 4.0f, side};
+  if (fabsf(qy - 1.0f) < kEps)
+    return UV{(0.5f - 0.5f * qx) / 4.0f + 3.0f / 4.0f, side};
+  if (fabsf(qy + 1.0f) < kEps) return UV{top_u, side};
+  if (fabsf(qz - 1.0f) < kEps) return UV{top_u, (0.5f - 0.5f * qy) / 3.0f};
+  if (fabsf(qz + 1.0f) < kEps)
+    return UV{top_u, (0.5f + 0.5f * qy) / 3.0f + 2.0f / 3.0f};
+  return UV{0.0f, 0.0f};
+}
+
+// clip(int(f), 0, n - 1) with NaN at 0 (fmaxf returns the number)
+__device__ __forceinline__ int texel_index(float f, int n) {
+  return static_cast<int>(fminf(fmaxf(f, 0.0f), static_cast<float>(n - 1)));
+}
+
+// The nearest texel of texture `id` at uv (rt.rs:618-628,
+// intersect.sample_texture): off + x + y*w, from the read-only cache.
+__device__ __forceinline__ const float* texel(const Tex& t, int id, UV uv) {
+  const int* m = t.meta + 3 * id;
+  const int off = __ldg(m), w = __ldg(m + 1), h = __ldg(m + 2);
+  const int x = texel_index(uv.u * static_cast<float>(w), w);
+  const int y = texel_index(uv.v * static_cast<float>(h), h);
+  return t.atlas + 3 * static_cast<size_t>(off + x + y * w);
+}
+
+// The map ids of row `row` and the texels of its mapped slots at point p
+// (kind `kind`).
+__device__ __forceinline__ void side_texels(const Tex& t, int row,
+                                            const float* at, V3 p, int kind,
+                                            Texels& tv) {
+  const UV uv = uv_of(at, p, kind);
+#pragma unroll
+  for (int s = 0; s < kMapSlots; ++s)
+    tv.id[s] = __ldg(t.maps + row * kMapSlots + s);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) tv.v[c] = 0.0f;
+  if (tv.id[0] >= 0) {
+    const float* px = texel(t, tv.id[0], uv);
+    tv.v[0] = __ldg(px);
+    tv.v[1] = __ldg(px + 1);
+    tv.v[2] = __ldg(px + 2);
+  }
+#pragma unroll
+  for (int s = 1; s < kMapSlots; ++s)
+    if (tv.id[s] >= 0) tv.v[2 + s] = __ldg(texel(t, tv.id[s], uv));
+}
+
+// One side's texel residual rows: the present slots in order, from row r0
+// of a step's block `r` (stride R).
+__device__ __forceinline__ void write_texels(float* r, int r0, int R,
+                                             int slots, const Texels& tv) {
+  int j = r0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    if ((slots >> (c < 3 ? 0 : c - 2)) & 1) r[(j++) * R] = tv.v[c];
+}
+
+__device__ __forceinline__ void read_texels(const float* r, int r0, int R,
+                                            int slots, Texels& tv) {
+  int j = r0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    tv.v[c] = ((slots >> (c < 3 ? 0 : c - 2)) & 1) ? r[(j++) * R] : 0.0f;
 }
 
 }  // namespace mrt

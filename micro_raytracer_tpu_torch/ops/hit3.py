@@ -129,7 +129,6 @@ def pack_scene(scene, frames):
     (3), pr, valid, gid``, the dense part of pallas_hit3.pack_scene; a
     triangle row's ``pa`` is its raw normal (pallas_step's normal source
     column)."""
-    intersect.check_scene_class(scene)
     P = scene.n_prims
     pa = scene.prim_a
     if scene.kind_counts[schema.KIND_TRIANGLE]:
@@ -461,8 +460,11 @@ def closest_hit_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None,
 def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None):
     """The sweep of :func:`closest_hit_plain` without its call count: the
     plain whole trace runs it for every step. Differentiable: ``te`` and
-    ``tx`` carry the winner row's t gradient (a masked min / max over the
-    dense rows, the Woop plane form of a triangle winner)."""
+    ``tx`` carry the winner row's t gradient (the masked min / max over the
+    dense rows read at the winner row, the Woop plane form of a triangle
+    winner): on a tie the lowest row takes it all, as in the kernels, where
+    autograd of the min itself would split it among the tied rows (two
+    boxes with a common face, a ray starting on it)."""
     fr, ipos, pa, pr, valid, gid = split_sweep(tab)
     segs, tri_start, _n_tri, tri_n = layout
     has_tri = _need_tri(layout, tri)
@@ -487,8 +489,8 @@ def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None):
     # entry: smallest t0, first row on ties; a miss keeps BIG and row 0
     if parts:
         tm = torch.where(ok, t0, torch.full_like(t0, BIG))
-        te = tm.amin(dim=1)
-        row = intersect.first_index(tm == te[:, None])
+        row = intersect.first_index(tm == tm.amin(dim=1)[:, None])
+        te = tm.gather(1, row.long()[:, None])[:, 0]
     else:
         te, row = torch.full((R,), BIG, dtype=o.dtype, device=o.device), zero
     if has_tri:
@@ -508,8 +510,8 @@ def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None):
     if parts:
         me = torch.where(ok & (g[None, :tri_start] == wg[:, None]), t1,
                          torch.full_like(t1, -BIG))
-        tx = me.amax(dim=1)
-        xrow = intersect.first_index(me == tx[:, None])
+        xrow = intersect.first_index(me == me.amax(dim=1)[:, None])
+        tx = me.gather(1, xrow.long()[:, None])[:, 0]
     else:
         tx, xrow = torch.full((R,), -BIG, dtype=o.dtype,
                               device=o.device), zero

@@ -3,17 +3,30 @@
 plain PyTorch versions, and the autograd function that joins them.
 
 The counterpart of ``micro_raytracer_tpu.ops.pallas_step`` for scenes of
-spheres, planes, boxes, triangles and meshes with at most 4 lights and no
-textures. :func:`pack_step` builds the kernels' tables
+spheres, planes, boxes, triangles and meshes with at most 4 lights, with
+or without texture maps. :func:`pack_step` builds the kernels' tables
 (:class:`TraceTables`): a ``(P, 26)`` row table — the 18 sweep columns of
 :func:`hit3.pack_scene`, whose ``fr, ipos, pa, pr`` are pallas_step's
 attribute columns ``_C_FR.._C_PR`` (a triangle row's ``pa`` is its raw
 normal), then ``_C_ALB.._C_EMI`` — the ``(L, 11)`` light table whose
-directional entries hold ``-normalize(light_dir)``, and the triangle
-segment's Woop table and cull-block AABBs (:func:`hit3.tri_tables`). The
-row, light and triangle tables are differentiable functions of the scene
-leaves, so their cotangents reach the leaves by autograd; a training step
-rebuilds them from the current parameters every step.
+directional entries hold ``-normalize(light_dir)``, the triangle
+segment's Woop table and cull-block AABBs (:func:`hit3.tri_tables`), and
+on a textured scene the ``(P, 6)`` int32 map ids of each row
+(``mat_maps[mat_id]``, -1: no map) with the flat ``(N, 3)`` atlas and its
+``(T, 3)`` (offset, width, height) table. The row, light and triangle
+tables are differentiable functions of the scene leaves, so their
+cotangents reach the leaves by autograd; a training step rebuilds them
+from the current parameters every step. Textures are constants.
+
+Textures (rt.rs:811-863, pallas_step's ``_apply_maps_rows``): at each hit
+side the trace takes the point's uv (:func:`intersect.uv_from_attrs`), the
+nearest texel of each mapped slot (:func:`intersect.sample_texture`), and
+applies it: slot 0 multiplies the albedo by the texel's rgb, slots 1-5
+replace rough, metal, glass, opacity and emit by its red channel. The
+dielectric test ``(metal == 0) & (opacity != 0)`` reads the raw metal and
+the mapped opacity; the entry side's mapped opacity sets the refract
+choice, the exit side's mapped glass the index; the chosen side's mapped
+albedo, rough, metal and emit shade the step.
 
 :func:`trace_packed` runs all ``bounce + 1`` steps on lane-major primaries
 ``oT``/``dT`` ``(3, R)`` with uniforms ``u8s`` ``(K, NU, R)`` — ``NU = 8``
@@ -39,6 +52,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..models import schema
 from ..utils.kernels import (CudaKernel, ptr, require_cuda_tensor,
                              stream_ptr)
 from . import hit3, intersect, linalg, rng
@@ -63,17 +77,38 @@ _BWD_THREADS, _BWD_MAX_BLOCKS = 128, 1024   # csrc/trace_bwd.cu kBwdThreads
 
 # residual rows per step (csrc/trace_step.cuh): the step's input ray o, d
 # and throughput A, its entry and exit t, entry winner row, refract choice,
-# one occlusion bit per light and, on a scene with triangle rows, the exit
+# one occlusion bit per light, on a scene with triangle rows the exit
 # winner row (without triangles every group is one row: it is the entry
-# row)
+# row) and on a textured scene the texels of the present map slots (3 rows
+# for slot 0, 1 for each other slot), entry side then exit side
 RES_O, RES_D, RES_A = 0, 3, 6
 RES_TE, RES_TX, RES_ROW, RES_CHOOSE, RES_LOK = 9, 10, 11, 12, 13
 
 
 def res_rows(n_lights: int, n_tri: int = 0) -> int:
     """Residual rows per step with ``n_lights`` lights and ``n_tri``
-    triangle rows to sweep (``layout[3]``)."""
+    triangle rows to sweep (``layout[3]``), without textures: on a
+    textured scene the first texel row."""
     return RES_LOK + n_lights + (1 if n_tri else 0)
+
+
+def tex_side_rows(slots) -> int:
+    """Texel residual rows of one hit side for the present map slots."""
+    return sum(3 if s == 0 else 1 for s in range(6) if slots[s])
+
+
+def tex_rows(scene) -> int:
+    """Texel residual rows per step: one side's, twice on a refractive
+    scene (entry and exit side), none without textures."""
+    if not scene.has_maps:
+        return 0
+    return tex_side_rows(scene.map_slots) * (2 if scene.any_refract else 1)
+
+
+def scene_res_rows(scene, layout) -> int:
+    """Residual rows per step of a scene and its tables' layout, the
+    texel rows included."""
+    return res_rows(scene.n_lights, layout[3]) + tex_rows(scene)
 
 
 def res_xrow(n_lights: int) -> int:
@@ -83,8 +118,9 @@ def res_xrow(n_lights: int) -> int:
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
 _TRI_ARGS = [_c_ptr, _c_int, _c_int, _c_ptr, _c_int]
+_TEX_ARGS = [_c_ptr] * 3 + [_c_int]
 _FWD_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
-             + [_c_ptr, _c_int, ctypes.c_float] + [_c_ptr] * 7
+             + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS + [_c_ptr] * 7
              + [_c_int] * 3 + [_c_ptr] * 3)
 _HEADERS = ("hit3.cuh", "trace_step.cuh")
 KERNEL = CudaKernel("trace_fwd", "trace_fwd.cu", _HEADERS, "mrt_trace_fwd",
@@ -94,7 +130,8 @@ TRAIN_KERNEL = CudaKernel("trace_fwd_train", "trace_fwd.cu", _HEADERS,
 BWD_KERNEL = CudaKernel(
     "trace_bwd", "trace_bwd.cu", _HEADERS, "mrt_trace_bwd",
     [_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
-    + [_c_ptr, _c_int, ctypes.c_float] + [_c_ptr] * 3 + [_c_int] * 2
+    + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS + [_c_ptr] * 3
+    + [_c_int] * 2
     + [_c_ptr] * 5 + [_c_int] + [_c_ptr] * 4)
 
 
@@ -107,6 +144,11 @@ class TraceTables(NamedTuple):
     layout: tuple            # hit3.seg_layout of the kind segments
     tri: torch.Tensor        # (Pt, hit3.TRI_COLS) triangle table
     tbb: torch.Tensor | None  # (n_cb, hit3.BB_COLS) cull blocks, or None
+    # textured scenes only (else None): (P, 6) int32 map ids, the (N, 3)
+    # atlas, the (T, 3) int32 (offset, width, height) of each texture
+    maps: torch.Tensor | None = None
+    atlas: torch.Tensor | None = None
+    tmeta: torch.Tensor | None = None
 
 
 def n_uni(need_exit: bool) -> int:
@@ -117,7 +159,6 @@ def n_uni(need_exit: bool) -> int:
 
 def check_scene(scene) -> None:
     """Reject a scene the kernels do not cover (never another path)."""
-    intersect.check_scene_class(scene)
     if scene.n_lights > MAX_LIGHTS:
         raise ValueError(f"trace kernel: {scene.n_lights} lights exceed "
                          f"its bound of {MAX_LIGHTS}")
@@ -142,9 +183,13 @@ def pack_step(scene) -> TraceTables:
         lights = torch.zeros((1, LIGHT_COLS), dtype=torch.float32,
                              device=frames.device)
     tri, tbb = hit3.tri_tables(scene, frames)
+    tex = ()
+    if scene.has_maps:
+        tex = (scene.mat_maps[m].to(torch.int32).contiguous(),
+               *intersect.tex_tables(scene))
     return TraceTables(frames, tab, lights,
                        hit3.seg_layout(scene.kind_counts, scene.kind_sweep),
-                       tri, tbb)
+                       tri, tbb, *tex)
 
 
 def primary_mode(scene) -> int:
@@ -223,8 +268,61 @@ def _normal(at, p, row, ends):
     return _finite0(_safe_norm(_matvec(f, n_obj)))
 
 
-def _rough_override(at, u):
-    return (at[:, _C_MET] == 0.0) & (at[:, _C_OPA] != 0.0) & (u < 0.8)
+def _rough_override(at, mat, u):
+    """The dielectric re-roll (rt.rs:559-572): the raw metal column, the
+    mapped opacity."""
+    return (at[:, _C_MET] == 0.0) & (mat["opacity"] != 0.0) & (u < 0.8)
+
+
+def _row_kind(row, ends):
+    """Schema kind of each winner row (segments: spheres, planes, boxes,
+    triangles)."""
+    sph_end, pln_end, tri_start = ends
+    return torch.where(
+        row < sph_end, schema.KIND_SPHERE,
+        torch.where(row < pln_end, schema.KIND_PLANE,
+                    torch.where(row >= tri_start, schema.KIND_TRIANGLE,
+                                schema.KIND_BOX)))
+
+
+TEX_EDGE = 1e-4   # a texel coordinate this close to an integer may flip
+
+
+def _side_material(scene, tables, at, p, row, ends, live_i, work):
+    """The material of one hit side: the row's columns with the texels at
+    ``p`` applied (:func:`intersect.apply_texels`), and the texels
+    (``[(slot, value)]``, empty without textures). ``work`` gains under
+    ``"tex_fetch"`` the texel fetches of live rays and under
+    ``"tex_edge"`` the rays with a texel coordinate within
+    :data:`TEX_EDGE` of an integer."""
+    mat = {"color": at[:, _C_ALB:_C_ALB + 3], "rough": at[:, _C_RGH],
+           "metal": at[:, _C_MET], "glass": at[:, _C_GLS],
+           "opacity": at[:, _C_OPA], "emit": at[:, _C_EMI]}
+    if tables.maps is None:
+        return mat, []
+    ids = tables.maps[row.long()]
+    with torch.no_grad():
+        kind = _row_kind(row, ends)
+        u, v = intersect.uv_from_attrs(at.detach(), p.detach(), kind)
+        tv = intersect.texel_values(tables.atlas, tables.tmeta,
+                                    scene.map_slots, ids, u, v)
+        if work is not None:
+            for s, _val in tv:
+                fetch = live_i & (ids[:, s] >= 0)
+                work["tex_fetch"] = (work.get("tex_fetch", 0)
+                                     + int(fetch.sum()))
+                # a triangle's uv is 0 on every path: its texel never flips
+                edge = intersect.texel_edge(tables.tmeta, ids[:, s], u, v,
+                                            TEX_EDGE)
+                edge &= fetch & (kind != schema.KIND_TRIANGLE)
+                work["tex_edge"] = work.get(
+                    "tex_edge", torch.zeros_like(fetch)) | edge
+    return intersect.apply_texels(mat, ids, tv), tv
+
+
+def _tex_resid(tv):
+    """Residual rows of one side's texels: 3 for slot 0, 1 per scalar."""
+    return [val.T if s == 0 else val[None] for s, val in tv]
 
 
 def _light_vec(lt, p):
@@ -294,17 +392,17 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
     gradient of a triangle winner's t (its ``G`` and ``h`` columns).
 
     Returns ``(A (3,R), B (3,R), first_live (1,R))``; with ``want_resid``
-    also the residuals ``(K, res_rows(L, n_tri), R)`` and live-step counts
-    ``(R,)`` int32 that the train kernel writes (rows of steps at or after
-    a ray's count are not meaningful).
+    also the residuals ``(K, scene_res_rows(scene, layout), R)`` and
+    live-step counts ``(R,)`` int32 that the train kernel writes (rows of
+    steps at or after a ray's count are not meaningful).
 
-    ``work`` (a dict, for the kernels' bounds): gains under ``"sweep"`` the
-    triangle rows the trace kernel's closest-hit sweeps test (steps after
-    the first, whose sweep is the primary-hit pass; the exit pass
-    included) and under ``"shadow"`` those of its shadow sweeps, for the
-    rays live at each sweep."""
+    ``work`` (a dict, for the kernels' bounds and checks): gains under
+    ``"sweep"`` the triangle rows the trace kernel's closest-hit sweeps
+    test (steps after the first, whose sweep is the primary-hit pass; the
+    exit pass included) and under ``"shadow"`` those of its shadow sweeps,
+    for the rays live at each sweep; on a textured scene also
+    ``"tex_fetch"`` and ``"tex_edge"`` (:func:`_side_material`)."""
     (TRAIN_KERNEL if want_resid else KERNEL).plain_calls += 1
-    intersect.check_scene_class(scene)
     tab, lights, layout = tables.tab, tables.lights, tables.layout
     L, refract = scene.n_lights, scene.any_refract
     mode = primary_mode(scene)
@@ -331,38 +429,44 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
         at_e = tab[row.long()]
         lok = _occlusion(tables, L, p_e, live_i, work)
         n_e = _normal(at_e, p_e, row, ends)
-        rough_r = torch.where(_rough_override(at_e, u[:, 0]), 1.0,
-                              at_e[:, _C_RGH])
+        mat_e, tv_e = _side_material(scene, tables, at_e, p_e, row, ends,
+                                     live_i, work)
+        rough_r = torch.where(_rough_override(at_e, mat_e, u[:, 0]), 1.0,
+                              mat_e["rough"])
         nr = rng.sphere_rand(n_e, rough_r, u[:, 1], u[:, 2])
         refl = _safe_norm(d - _scale(nr, 2.0 * _dot3(d, nr)))
+        tv_x = []
         if refract:
             at_x = tab[xrow.long()]
             p_x = o + _scale(d, torch.where(live_i, tx, 1.0))
             n_x = _normal(at_x, p_x, xrow, ends)
-            rough_f = torch.where(_rough_override(at_x, u[:, 3]), 1.0,
-                                  at_x[:, _C_RGH])
+            mat_x, tv_x = _side_material(scene, tables, at_x, p_x, xrow,
+                                         ends, live_i, work)
+            rough_f = torch.where(_rough_override(at_x, mat_x, u[:, 3]), 1.0,
+                                  mat_x["rough"])
             nf = rng.sphere_rand(n_x, rough_f, u[:, 4], u[:, 5])
-            eta = 1.0 + 0.5 * at_x[:, _C_GLS]
+            eta = 1.0 + 0.5 * mat_x["glass"]
             cs = -_dot3(nf, d)
             kk = 1.0 - eta * eta * (1.0 - cs * cs)
             refr_ok = kk >= 0.0
             k_safe = torch.where(refr_ok, torch.clamp(kk, min=1e-12), 1.0)
             refr = _finite0(_safe_norm(
                 _scale(d, eta) + _scale(nf, cs * eta + torch.sqrt(k_safe))))
-            choose = ((u[:, 6] < torch.clamp(1.0 - at_e[:, _C_OPA],
+            choose = ((u[:, 6] < torch.clamp(1.0 - mat_e["opacity"],
                                              max=0.85)) & refr_ok)
             c = choose[:, None]
             next_dir = torch.where(c, refr, refl)
             from_p = torch.where(c, p_x, p_e)
             norm_c = torch.where(c, n_x, n_e)
-            at_c = torch.where(c, at_x, at_e)
+            mat_c = {k: torch.where(c if k == "color" else choose, mat_x[k],
+                                    mat_e[k]) for k in mat_e}
         else:
             choose = torch.zeros_like(live_i)
-            next_dir, from_p, norm_c, at_c = refl, p_e, n_e, at_e
-        alb_c = at_c[:, _C_ALB:_C_ALB + 3]
+            next_dir, from_p, norm_c, mat_c = refl, p_e, n_e, mat_e
+        alb_c = mat_c["color"]
         l_col = _direct_light(lights, L, lok, from_p, norm_c, d, alb_c,
-                              at_c[:, _C_RGH], at_c[:, _C_MET])
-        b_emit = (u_emit < at_c[:, _C_EMI])[:, None]
+                              mat_c["rough"], mat_c["metal"])
+        b_emit = (u_emit < mat_c["emit"])[:, None]
         a_f = torch.where(b_emit, 0.0, pwr * (0.5 + alb_c))
         b_f = torch.where(b_emit, alb_c, l_col * pwr)
         lv = live_i[:, None]
@@ -372,7 +476,8 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
             resid.append(torch.cat([
                 o.T, d.T, A.T, te[None], tx[None], row.to(te.dtype)[None],
                 choose.to(te.dtype)[None], lok.to(te.dtype).T]
-                + ([xrow.to(te.dtype)[None]] if layout[3] else [])).detach())
+                + ([xrow.to(te.dtype)[None]] if layout[3] else [])
+                + _tex_resid(tv_e) + _tex_resid(tv_x)).detach())
         B = B + A * b_f
         A = A * a_f
         o = from_p + next_dir * EPS                          # Ray::cast
@@ -423,6 +528,22 @@ def _table_args(scene, tables, max_dense, what):
             *hit3.table_args(layout, tables.tri, tables.tbb), ptr(lights)]
 
 
+def _tex_args(scene, tables):
+    """Validate the texture tables of a launch; their C arguments (null
+    pointers and an empty slot mask without textures: the kernels'
+    untextured instances)."""
+    if not scene.has_maps:
+        return [None, None, None, 0]
+    require_cuda_tensor("maps", tables.maps, torch.int32,
+                        (tables.tab.shape[0], 6))
+    require_cuda_tensor("atlas", tables.atlas, torch.float32,
+                        (tables.atlas.shape[0], 3))
+    require_cuda_tensor("tmeta", tables.tmeta, torch.int32,
+                        (tables.tmeta.shape[0], 3))
+    slots = sum(1 << s for s in range(6) if scene.map_slots[s])
+    return [ptr(tables.maps), ptr(tables.atlas), ptr(tables.tmeta), slots]
+
+
 def _fwd_args(scene, tables, decay, oT, dT, u8s, hit0):
     """Validate a forward launch's inputs; its leading C arguments."""
     check_scene(scene)
@@ -436,7 +557,8 @@ def _fwd_args(scene, tables, decay, oT, dT, u8s, hit0):
                               (torch.float32, torch.int32) * 2):
         require_cuda_tensor(name, t, dtype, (R,))
     return (_table_args(scene, tables, MAX_ROWS, "trace")
-            + [scene.n_lights, float(decay), ptr(oT), ptr(dT),
+            + [scene.n_lights, float(decay), *_tex_args(scene, tables),
+               ptr(oT), ptr(dT),
                *(ptr(t) for t in hit0), ptr(u8s), K, R,
                int(scene.any_refract)])
 
@@ -465,14 +587,14 @@ def trace_fwd(scene, tables, decay, oT, dT, u8s, hit0):
 def trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0):
     """Launch ``mrt_trace_fwd_train`` (the train instance) on CUDA tensors:
     :func:`trace_fwd`'s ``(A, B, first_live)`` bit for bit, plus the
-    residuals ``(K, res_rows(L, n_tri), R)`` and live-step counts ``(R,)``
-    int32 that :func:`trace_bwd` reads."""
+    residuals ``(K, scene_res_rows(scene, layout), R)`` and live-step
+    counts ``(R,)`` int32 that :func:`trace_bwd` reads."""
     args = _fwd_args(scene, tables, decay, oT, dT, u8s, hit0)
     R, K = oT.shape[1], u8s.shape[0]
     A = torch.empty((3, R), dtype=torch.float32, device=oT.device)
     B = torch.empty_like(A)
     fl = torch.empty((1, R), dtype=torch.float32, device=oT.device)
-    resid = torch.empty((K, res_rows(scene.n_lights, tables.layout[3]), R),
+    resid = torch.empty((K, scene_res_rows(scene, tables.layout), R),
                         dtype=torch.float32, device=oT.device)
     n_live = torch.empty(R, dtype=torch.int32, device=oT.device)
     if R:
@@ -495,7 +617,7 @@ def trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB):
     require_cuda_tensor("u8s", u8s, torch.float32,
                         (K, n_uni(scene.any_refract), R))
     require_cuda_tensor("resid", resid, torch.float32,
-                        (K, res_rows(L, tables.layout[3]), R))
+                        (K, scene_res_rows(scene, tables.layout), R))
     require_cuda_tensor("n_live", n_live, torch.int32, (R,))
     require_cuda_tensor("ctA", ctA, torch.float32, (3, R))
     require_cuda_tensor("ctB", ctB, torch.float32, (3, R))
@@ -514,8 +636,9 @@ def trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB):
             (blocks, layout[1] * _GRAD_COLS + L * LIGHT_COLS),
             dtype=torch.float32, device=dev)
         BWD_KERNEL.launch(
-            *args, L, float(decay), ptr(resid), ptr(n_live), ptr(u8s), R,
-            int(scene.any_refract), ptr(ctA), ptr(ctB), ptr(d_oT),
+            *args, L, float(decay), *_tex_args(scene, tables), ptr(resid),
+            ptr(n_live), ptr(u8s), R, int(scene.any_refract), ptr(ctA),
+            ptr(ctB), ptr(d_oT),
             ptr(d_dT), ptr(partials), blocks, ptr(d_tab), ptr(d_lights),
             ptr(d_tri4) if layout[2] else None, stream_ptr(dev))
     d_tri = torch.zeros((layout[2], hit3.TRI_COLS), dtype=torch.float32,
@@ -540,7 +663,8 @@ class TraceFunction(torch.autograd.Function):
                                                   dT, u8s, hit0)
         ctx.save_for_backward(tab, lights, tri, u8s, resid, n_live)
         ctx.scene, ctx.decay = scene, decay
-        ctx.layout, ctx.tbb = tables.layout, tables.tbb
+        ctx.tables = tables._replace(frames=None, tab=None, lights=None,
+                                     tri=None)
         ctx.mark_non_differentiable(fl)
         return A, B, fl
 
@@ -551,7 +675,7 @@ class TraceFunction(torch.autograd.Function):
         zero = torch.zeros((3, R), dtype=torch.float32, device=tab.device)
         ctA = zero if ctA is None else ctA.contiguous()
         ctB = zero if ctB is None else ctB.contiguous()
-        tables = TraceTables(None, tab, lights, ctx.layout, tri, ctx.tbb)
+        tables = ctx.tables._replace(tab=tab, lights=lights, tri=tri)
         d_tab, d_lights, d_oT, d_dT, d_tri = trace_bwd(
             ctx.scene, tables, ctx.decay, u8s, resid, n_live, ctA, ctB)
         return d_tab, d_lights, d_tri, d_oT, d_dT, None, None, None, None

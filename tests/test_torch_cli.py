@@ -70,16 +70,23 @@ def test_multi_device_flags_are_refused(flag, capsys):
     assert "multi-device not yet ported" in capsys.readouterr().err
 
 
-def test_unported_scene_class_is_refused(capsys, tmp_path):
-    """A textured material (not ported yet) is refused with rc 1."""
-    cfg = tmp_path / "textured.json"
-    cfg.write_text(json.dumps({"scene": {"renderer": [
-        {"type": "sphere", "r": 0.5, "mat": {"tex": {
-            "w": 2, "h": 1, "dat": [[1, 0, 0], [0, 1, 0]]}}}]}}))
-    rc = tcli.main([str(cfg), "--res", "8", "8", "--sample", "1",
-                    "--device", "cpu", "-o", str(tmp_path / "unused.png")])
-    assert rc == 1
-    assert "not ported" in capsys.readouterr().err
+def test_unported_scene_class_is_refused(tmp_path):
+    """A textured material, refused with rc 1 before textures were ported,
+    now renders (rc 0): the texture shows in the image."""
+    imgs = []
+    for dat in ([[1, 0, 0], [0, 1, 0]], [[0, 0, 1], [0, 0, 1]]):
+        cfg = tmp_path / "textured.json"
+        cfg.write_text(json.dumps({"scene": {
+            "renderer": [{"type": "sphere", "r": 0.5, "mat": {"tex": {
+                "w": 2, "h": 1, "dat": dat}}}],
+            "light": [{"type": "point", "pos": [-0.5, -1, 0.5]}]}}))
+        out = tmp_path / "textured.png"
+        rc = tcli.main([str(cfg), "--res", "16", "16", "--sample", "1",
+                        "--device", "cpu", "-o", str(out)])
+        assert rc == 0
+        imgs.append(np.asarray(Image.open(out)).astype(int))
+    # the red/green texture against the blue one: the sphere's colour moves
+    assert imgs[0][..., 2].sum() < imgs[1][..., 2].sum()
 
 
 def test_cuda_without_a_card_is_refused(capsys):

@@ -1,4 +1,7 @@
-"""The port's scene compiler against the JAX package's, field by field."""
+"""The port's scene compiler against the JAX package's, field by field
+(the texture atlas, its offsets and sizes, the map ids, the present map
+slots and mapped kinds included: ``textured``, ``textured_flat`` and the
+textured stand-ins of ``torch_tex_helpers``)."""
 
 import numpy as np
 import pytest
@@ -10,6 +13,7 @@ from micro_raytracer_tpu.models import schema
 from micro_raytracer_tpu_torch.models import compiler as tcomp
 from test_pallas_step import scenes
 from torch_port_helpers import port_camera, port_scene
+from torch_tex_helpers import tex_scene
 
 CORNELL_ARGS = [
     "--obj", "sph", "r:", "0.15", "pos:", "0", "0", "-0.1",
@@ -25,11 +29,13 @@ CORNELL_ARGS = [
 def _config(name):
     if name == "cornell":
         return jcli.parse_render(jcli.build_parser().parse_args(CORNELL_ARGS))
+    if name.startswith("tex_"):
+        return schema.RenderConfig.from_json({"scene": tex_scene(name)})
     return schema.RenderConfig.from_json({"scene": scenes()[name]})
 
 
 NAMES = ["opaque", "glass", "textured", "glass_flat", "textured_flat",
-         "cornell"]
+         "cornell", "tex_dof", "tex_blocks", "tex_mesh"]
 
 
 def _assert_same(port, js):

@@ -29,7 +29,7 @@ from micro_raytracer_tpu_torch.ops import step
 from micro_raytracer_tpu_torch.parallel import shard
 from test_torch_grad import (DECAY, SCENES, _assert_grad_close, _bad_rays,
                              _jax_pack, _path_flips, _resid_j, _scene,
-                             _uniforms)
+                             _uniforms, drop_flips)
 from torch_port_helpers import port_camera
 from torch_mesh_helpers import one_torch_thread  # noqa: F401
 
@@ -60,15 +60,19 @@ def _slice_inputs(name):
     target = rng.random((W * H, 3)).astype(np.float32)
     o_j, d_j = jcam_mod.gen_rays(_jcam(), (W, H), jnp.asarray(coords),
                                  jnp.asarray(u_aprt))
-    res_j = _resid_j(js, np.asarray(o_j).T, np.asarray(d_j).T, u8s)[3]
+    A_j, B_j, _fl_j, res_j = _resid_j(js, np.asarray(o_j).T,
+                                      np.asarray(d_j).T, u8s)
     o_t, d_t = tcam_mod.gen_rays(port_camera(_jcam()), (W, H),
                                  torch.from_numpy(coords),
                                  torch.from_numpy(u_aprt))
-    _A, _B, _fl, res, n_live = step.trace_plain(
+    work = {"sweep": 0, "shadow": 0,
+            "tex_edge": torch.zeros(W * H, dtype=torch.bool)}
+    A, B, _fl, res, n_live = step.trace_plain(
         ps, step.pack_step(ps), DECAY, o_t.T.contiguous(),
-        d_t.T.contiguous(), torch.from_numpy(u8s), want_resid=True)
-    flips = _path_flips(ps, res.numpy(), n_live.numpy(), res_j)
-    assert flips.sum() <= 0.005 * W * H
+        d_t.T.contiguous(), torch.from_numpy(u8s), want_resid=True,
+        work=work)
+    flips = drop_flips(_path_flips(ps, res.numpy(), n_live.numpy(), res_j),
+                       work["tex_edge"].numpy(), [(A, A_j), (B, B_j)])
     src = int(np.argmin(flips))
     coords[flips], u_aprt[flips] = coords[src], u_aprt[src]
     u8s[:, :, flips] = u8s[:, :, src:src + 1]

@@ -20,19 +20,8 @@ from micro_raytracer_tpu.ops import intersect as ji
 from micro_raytracer_tpu.ops import pallas_hit3 as jh
 from micro_raytracer_tpu_torch.ops import hit3, intersect as ti, step
 from test_pallas_step import scenes
-from torch_port_helpers import MIXED, port_scene, rays
+from torch_port_helpers import MIXED, TIES, port_scene, rays
 from torch_mesh_helpers import one_torch_thread  # noqa: F401
-
-# exact ties: two identical spheres (same segment), and a plane through
-# z = 0 with a box whose top face lies on it (across segments)
-TIES = {
-    "renderer": [
-        {"type": "sphere", "r": 0.3, "pos": [0.6, 0, 0]},
-        {"type": "sphere", "r": 0.3, "pos": [0.6, 0, 0]},
-        {"type": "plane", "n": [0, 0, 1], "pos": [0, 0, 0]},
-        {"type": "box", "sizes": [0.6, 0.6, 0.5], "pos": [-0.6, 0, -0.25]},
-    ],
-}
 
 
 def _scene(name):
@@ -154,14 +143,24 @@ def test_any_hit_matches(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["textured", "textured_flat"])
-def test_unported_scene_classes_raise(name):
-    """Textures are later work: the plain paths refuse them rather than
-    return wrong hits."""
-    _js, ps = _scene(name)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        step.check_scene(ps)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        hit3.pack_scene(ps, ti.build_frames(ps))
+def test_unported_scene_classes_raise(name, monkeypatch):
+    """Textured scenes, once refused here, are now ported: they pack and
+    sweep like the JAX package (hits do not depend on textures), in the
+    Pallas kernel's closest and entry-only modes, and the trace's checks
+    accept them."""
+    monkeypatch.setenv("MRT_HIT3", "1")
+    js, ps = _scene(name)
+    assert ps.has_maps
+    step.check_scene(ps)
+    o, d = rays(seed=9)
+    for need_exit in (True, False):
+        want = jh.closest_hit(js, ji.build_frames(js), jnp.asarray(o),
+                              jnp.asarray(d), need_exit=need_exit)
+        _check(_port_hit(ps, o, d, need_exit), want, need_exit)
+    tables = step.pack_step(ps)
+    assert tables.maps.shape == (ps.n_prims, 6)
+    np.testing.assert_array_equal(
+        tables.maps.numpy(), np.asarray(js.mat_maps)[np.asarray(js.mat_id)])
 
 
 @pytest.mark.parametrize("name", ["glass_flat", "mixed", "glass"])

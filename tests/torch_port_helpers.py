@@ -37,6 +37,19 @@ MIXED_OPAQUE = {
 }
 
 
+# exact ties: two identical spheres (same segment), and a plane through
+# z = 0 with a box whose top face lies on it (across segments)
+TIES = {
+    "renderer": [
+        {"type": "sphere", "r": 0.3, "pos": [0.6, 0, 0]},
+        {"type": "sphere", "r": 0.3, "pos": [0.6, 0, 0]},
+        {"type": "plane", "n": [0, 0, 1], "pos": [0, 0, 0]},
+        {"type": "box", "sizes": [0.6, 0.6, 0.5], "pos": [-0.6, 0, -0.25]},
+    ],
+    "light": [{"type": "point", "pos": [-0.5, -1, 1.5], "pwr": 0.6}],
+}
+
+
 def port_scene(js, device="cpu"):
     """The port's SceneArrays from the JAX package's compiled scene."""
     leaves = {k: np.asarray(getattr(js, k)) for k in tcomp.SCENE_FIELDS}
