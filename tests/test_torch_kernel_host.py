@@ -25,8 +25,8 @@ the off-path rays. The mesh scenes (``torch_mesh_helpers``) shoot their
 rays from inside the room. The textured scenes (``torch_tex_helpers``:
 the stand-ins at full width from their cameras, and ``tex_mesh`` from
 inside its room) build the kTex instances: their texel residual rows are
-equal too, and beside the 0.3% at most 2% of the rays may be left out as
-shown texel flips (``test_torch_tex.py``'s rule).
+equal too, and beside the 0.3% at most a quarter of the rays at a texel
+edge may be left out as shown texel flips (``test_torch_tex.py``'s rule).
 """
 
 import ctypes
@@ -48,7 +48,7 @@ from torch_mesh_helpers import (CLUSTERED_LIT, aimed_rays, mesh_scene,
                                 two_tori)
 from torch_mesh_helpers import one_torch_thread  # noqa: F401
 from torch_port_helpers import MIXED, MIXED_OPAQUE, TIES, rays
-from torch_tex_helpers import CAMERAS, tex_scene
+from torch_tex_helpers import CAMERAS, max_flips, tex_scene
 
 SCENES = {"mixed": MIXED, "mixed_opaque": MIXED_OPAQUE,
           "mesh_glass": mesh_scene("mesh_glass"),
@@ -321,7 +321,7 @@ def _case(name, lib):
     assert torch.equal(fl, fl_r)
     # shown texel flips (test_torch_tex.py's rule) besides the 0.3%
     edge = work["tex_edge"]
-    assert int((bad & edge).sum()) <= 0.02 * R
+    assert int((bad & edge).sum()) <= max_flips(int(edge.sum()))
     assert int((bad & ~edge).sum()) <= 0.003 * R
     bad |= edge
     return (scene, tables, lay, oT, dT, u8s, bad, (res, n_live),

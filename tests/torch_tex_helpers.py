@@ -23,132 +23,17 @@ triangles sample texel (0, 0) (uv 0, the reference's ``todo!()``).
 
 ``small=True`` builds the same scenes with 8 x 8 / 8 x 4 textures and a
 4 x 4 grid of 16 x 12 textures, for the CPU tests that run the JAX
-package's kernels in interpret mode. ``chip_smoke.py`` keeps its own copy
-of these builders (it runs without the tests directory);
-``tests/test_torch_tex.py`` holds the two copies equal.
+package's kernels in interpret mode. The builders of ``tex_dof`` and
+``tex_blocks`` are ``chip_smoke.py``'s (it runs without the tests
+directory); this module adds ``tex_mesh`` and the small render JSONs.
 """
 
 import numpy as np
 
-TEX_NAMES = ("tex_dof", "tex_blocks")
-CAMERAS = {
-    "tex_dof": {"pos": [0, -1, 0.2], "fov": 60, "aprt": 0.05, "foc": 4.0},
-    "tex_blocks": {"pos": [0, -1, 2], "dir": [0, 0, 1, -0.5], "fov": 70},
-}
-
-
-def _buf(img):
-    """``(H, W, 3)`` float32 -> the inline buffer form."""
-    h, w = img.shape[:2]
-    return {"w": int(w), "h": int(h),
-            "dat": [[float(c) for c in px] for px in img.reshape(-1, 3)]}
-
-
-def _q(img):
-    """Round texels to multiples of 1/255 (float32, as a PNG loads)."""
-    k = np.clip(np.round(img * 255.0), 0, 255).astype(np.float32)
-    return k / np.float32(255.0)
-
-
-def checker(n, cells=8):
-    """An ``n x n`` two-colour checker of ``cells x cells`` squares."""
-    i = np.arange(n) * cells // n
-    on = (i[:, None] + i[None, :]) % 2 == 1
-    return _q(np.where(on[..., None], [0.9, 0.85, 0.7], [0.15, 0.2, 0.3]))
-
-
-def sphere_map(w, h):
-    """A ``w x h`` spherical map: bands of latitude, stripes of longitude."""
-    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
-    r = 0.5 + 0.4 * np.cos(2 * np.pi * x / w)
-    g = 0.5 + 0.4 * np.cos(np.pi * y / h)
-    b = 0.3 + 0.3 * ((x // max(w // 8, 1) + y // max(h // 4, 1)) % 2)
-    return _q(np.stack([r, g, b], -1))
-
-
-def cross_atlas(rng, cell, base, spread=0.25):
-    """A ``4 cell x 3 cell`` cross atlas (the box uv layout): each of the
-    six face cells is ``base`` with per-texel noise and a darker rim."""
-    img = np.zeros((3 * cell, 4 * cell, 3), np.float32)
-    y, x = np.mgrid[0:cell, 0:cell]
-    rim = (np.minimum(np.minimum(x, y), np.minimum(cell - 1 - x,
-                                                   cell - 1 - y)) == 0)
-    for cy, cx in ((0, 1), (1, 0), (1, 1), (1, 2), (1, 3), (2, 1)):
-        face = np.asarray(base, np.float32) + spread * (
-            rng.random((cell, cell, 3)) - 0.5)
-        face[rim] *= 0.6
-        img[cy * cell:(cy + 1) * cell, cx * cell:(cx + 1) * cell] = face
-    return _q(np.clip(img, 0.0, 1.0))
-
-
-def tex_dof(small=False):
-    """The ``tex_dof`` scene (``renderer``, ``light``, ``sky``)."""
-    n, (sw, sh) = (8, (8, 4)) if small else (64, (32, 16))
-    return {
-        "renderer": [
-            {"type": "plane", "n": [0, 0, 1], "pos": [0, 0, -0.5],
-             "mat": {"tex": _buf(checker(n)), "rough": 0.8}},
-            {"type": "sphere", "r": 0.5, "pos": [-1.2, 2.2, 0],
-             "mat": {"metal": 1, "rough": 0.1}},
-            {"type": "sphere", "r": 0.5, "pos": [0, 3.0, 0],
-             "mat": {"tex": _buf(sphere_map(sw, sh)), "rough": 0.6}},
-            {"type": "sphere", "r": 0.5, "pos": [1.3, 4.2, 0],
-             "mat": {"emit": 1, "albedo": [1.0, 0.8, 0.5]}},
-            {"type": "sphere", "r": 0.35, "pos": [0.5, 1.4, -0.15],
-             "mat": {"glass": 0.08, "opacity": 0}},
-        ],
-        "light": [{"type": "point", "pos": [-2, 0, 3], "pwr": 0.6}],
-        "sky": {"color": [0.5, 0.6, 0.8], "pwr": 0.6},
-    }
-
-
-# (map slot, base material) of the eight block materials
-BLOCK_MATS = (
-    ("tex", {"rough": 0.9}),                          # grass
-    ("tex", {"rough": 0.7}),                          # stone
-    ("tex", {"rough": 0.5, "albedo": [0.8, 0.6, 0.4]}),   # wood
-    ("rmap", {"albedo": [0.6, 0.6, 0.65]}),           # rough map
-    ("mmap", {"albedo": [0.9, 0.8, 0.3], "rough": 0.3}),  # metal map
-    ("gmap", {"opacity": 0.6, "glass": 0.1}),         # glass
-    ("omap", {"albedo": [0.4, 0.7, 0.9], "glass": 0.05}),  # opacity map
-    ("emap", {"albedo": [1.0, 0.5, 0.2]}),            # emission map
-)
-BLOCK_BASES = ([0.3, 0.7, 0.2], [0.5, 0.5, 0.5], [0.6, 0.4, 0.2],
-               [0.5, 0.5, 0.5], [0.5, 0.5, 0.5], [0.3, 0.3, 0.3],
-               [0.7, 0.7, 0.7], [0.1, 0.1, 0.1])
-
-
-def tex_blocks(small=False):
-    """The ``tex_blocks`` scene (``renderer``, ``light``, ``sky``)."""
-    grid, cell = (4, 4) if small else (16, 16)
-    rng = np.random.default_rng(21)
-    heights = rng.integers(0, 4, (grid, grid)) * 0.25
-    which = rng.permutation(np.arange(grid * grid) % len(BLOCK_MATS))
-    insts = [[] for _ in BLOCK_MATS]
-    for k in range(grid * grid):
-        i, j = divmod(k, grid)
-        pos = [i - grid / 2 + 0.5, j + 1.0, -1.0 + float(heights[i, j])]
-        rot = [0.3, 0.2, 1.0, 0.4] if k % 8 == 7 else [0, 0, 1, 0]
-        insts[int(which[k])].append([pos, rot])
-    objs = []
-    for (slot, base), color, inst in zip(BLOCK_MATS, BLOCK_BASES, insts):
-        img = cross_atlas(rng, cell, color)
-        if slot in ("rmap", "mmap", "gmap", "omap", "emap"):
-            red = {"rmap": img[..., 0],
-                   "mmap": (img[..., 0] > 0.5).astype(np.float32),
-                   "gmap": 0.2 * img[..., 0],
-                   "omap": 0.3 + 0.7 * img[..., 0],
-                   "emap": np.where(img[..., 0] > 0.15, 0.9, 0.0)}[slot]
-            img = np.stack([_q(red)] + [img[..., 1], img[..., 2]], -1)
-        objs.append({"type": "box", "sizes": [1, 1, 1], "inst": inst,
-                     "mat": dict(base, **{slot: _buf(img)})})
-    objs.append({"type": "plane", "n": [0, 0, 1], "pos": [0, 0, -1.5],
-                 "mat": {"rough": 1.0, "albedo": [0.4, 0.35, 0.3]}})
-    return {
-        "renderer": objs,
-        "light": [{"type": "point", "pos": [2, 4, 6], "pwr": 0.7}],
-        "sky": {"color": [0.55, 0.7, 0.9], "pwr": 0.7},
-    }
+from chip_smoke import TEX_CAMERAS as CAMERAS  # noqa: F401  (re-exported)
+from chip_smoke import TEX_NAMES, max_flips  # noqa: F401  (re-exported)
+from chip_smoke import _buf, _q, checker, cross_atlas
+from chip_smoke import tex_scene as _stand_in
 
 
 def tex_mesh():
@@ -175,7 +60,7 @@ def tex_mesh():
 def tex_scene(name, small=False):
     if name == "tex_mesh":
         return tex_mesh()
-    return {"tex_dof": tex_dof, "tex_blocks": tex_blocks}[name](small)
+    return _stand_in(name, small)
 
 
 def render_json(name, small=False, res=32, bounce=2, sample=2):

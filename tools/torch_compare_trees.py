@@ -5,6 +5,7 @@ compared.
 
     python3 tools/torch_compare_trees.py dump <tree> <out.pt>
     python3 tools/torch_compare_trees.py compare <a.pt> <b.pt>
+    python3 tools/torch_compare_trees.py time <tree> <tag>
 
 ``dump`` imports the package and ``chip_smoke.py`` of ``<tree>`` and runs,
 on the slice room and the two mesh scenes of ``chip_smoke.py``, 2^18
@@ -13,8 +14,14 @@ trace kernel and the backward kernel, and saves every output. ``compare``
 holds two dumps equal: every per-ray output bit for bit, the table
 cotangents (shared-memory and atomic sums in no fixed order) within rtol
 1e-5 and 1e-6 of the largest magnitude. It exits 1 when they differ.
+``time`` builds ``<tree>``'s kernels and prints ``<tag>`` and one JSON
+object: the CUDA-event ms of each kernel (``chip_smoke.cuda_ms``) at the
+full frame of each scene that tree's ``chip_smoke.py`` has (the room, the
+mesh scenes and, where present, the textured stand-ins). Run the trees
+interleaved in one call (parent, change, change, parent) to compare them.
 """
 
+import json
 import os
 import sys
 
@@ -61,6 +68,46 @@ def dump(tree, out):
     torch.save(res, out)
 
 
+def time_tree(tree, tag):
+    sys.path.insert(0, os.path.abspath(tree))
+    os.chdir(tree)
+    import torch
+
+    import chip_smoke as cs
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.compiler import compile_scene
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    dev = torch.device("cuda")
+    cs.phase_build()
+    names = ["room", *cs.MESH_NAMES, *getattr(cs, "TEX_NAMES", ())]
+    out = {}
+    for name in names:
+        cfg = (cs.slice_config() if name == "room" else cs.tex_config(name)
+               if name.startswith("tex") else cs.mesh_config(name))
+        scene = compile_scene(cfg.scene, dev)
+        tables = step.pack_step(scene)
+        decay = tracer.decay_of(cfg.rt.loss)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        oT, dT = cs.main_path_rays(cfg, gen, dev)
+        u8s = torch.rand((cs.BOUNCE + 1, step.n_uni(scene.any_refract),
+                          oT.shape[1]), generator=gen, device=dev)
+        hit0 = step.primary_hits(scene, tables, oT, dT)
+        res = step.trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0)
+        ct = torch.randn((3, oT.shape[1]), generator=gen, device=dev)
+        args = (tables.tab, tables.layout, oT.T, dT.T,
+                step.primary_mode(scene), tables.tri, tables.tbb)
+        out[name] = {
+            "trace_fwd": cs.cuda_ms(lambda: step.trace_fwd(
+                scene, tables, decay, oT, dT, u8s, hit0), 10),
+            "trace_fwd_train": cs.cuda_ms(lambda: step.trace_fwd_train(
+                scene, tables, decay, oT, dT, u8s, hit0), 10),
+            "trace_bwd": cs.cuda_ms(lambda: step.trace_bwd(
+                scene, tables, decay, u8s, res[3], res[4], ct, ct), 10),
+            "closest_hit": cs.cuda_ms(lambda: hit3.closest_hit(*args), 20)}
+    print(tag, json.dumps(out), flush=True)
+
+
 def compare(a_path, b_path):
     import torch
 
@@ -85,5 +132,7 @@ if __name__ == "__main__":
         dump(*sys.argv[2:])
     elif sys.argv[1:2] == ["compare"] and len(sys.argv) == 4:
         sys.exit(compare(*sys.argv[2:]))
+    elif sys.argv[1:2] == ["time"] and len(sys.argv) == 4:
+        time_tree(*sys.argv[2:])
     else:
         sys.exit(__doc__)
