@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                # from the repository root
     python3 chip_smoke.py --render-only  # phase 1 and the render timing
+    python3 chip_smoke.py --compaction   # renders with and without
+                                         # live-first compaction
 
 Phases, each of which raises on failure:
 
@@ -103,6 +105,34 @@ Phases, each of which raises on failure:
    HTTP service answers one ``tex_dof`` request.
 14. textured training: 3 steps of ``make_train_step`` on ``tex_blocks``
    at 1080x1080, bounce 8, one path per pixel, as phase 8.
+15. Instance-class kernels: the stand-ins ``inst_grid`` (the class of
+   Instance.json: a 10 x 10 x 10 grid of instanced spheres over a plane,
+   1,008 rows, the sphere segment culled in 16 blocks of 64 rows) and
+   ``inst_glass`` (343 spheres, a twentieth glass: dense entry sweeps,
+   culled shadow sweeps), built here (tests/torch_inst_helpers.py imports
+   them). closest_hit in all three modes against its plain version, rows
+   and t bit for bit, on 2^17 random rays, 2^17 camera rays and the frame
+   of ``inst_grid`` and on 2^17 rays of each kind of ``inst_glass``; the
+   culled sweeps against the kernel's own dense sweeps, bit for bit; the
+   trace (phase 4's rule), the train instance (bit for bit the render
+   instance; residuals against ``trace_plain(want_resid=True)``) and the
+   backward (phase 9's rule) on ``inst_grid``, on camera rays and at the
+   frame; the render compacted at steps 2, 4 and 6 against the unsegmented
+   one, bit for bit. Timed and bounded at the frame; the sphere rows the
+   cull leaves come from the plain version (``hit3.sph_rows_tested``,
+   ``trace_plain(work=...)``), the block slab tests are not counted.
+16. Instance-class main path: the CLI renders ``inst_grid`` from a JSON
+   file at 1080x1080, bounce 8, 16 spp: one primary-hit launch per sample
+   and one trace launch per segment of its render (``tracer.compact_cuts``)
+   and no plain version; ten renders for the spread, one profiled; the
+   HTTP service answers one ``inst_grid`` request.
+17. Instance-class training: 3 steps of ``make_train_step`` on
+   ``inst_grid`` as phase 8, from perturbed albedos, light power and
+   sphere positions: non-zero ``inst_pos`` gradients on the sphere rows.
+
+``--compaction`` renders ``inst_grid``, ``mesh_opaque`` and ``mesh_glass``
+through the CLI with the JAX package's compaction cuts and without, in
+alternating order, for the medians that set ``tracer.compact_cuts``.
 
 Every kernel's entry in the JSON line carries its bound: the larger of the
 bytes it must move (inputs read once, outputs written once) over 3.35 TB/s
@@ -167,6 +197,13 @@ BLOCK_MATS = (
 BLOCK_BASES = ([0.3, 0.7, 0.2], [0.5, 0.5, 0.5], [0.6, 0.4, 0.2],
                [0.5, 0.5, 0.5], [0.5, 0.5, 0.5], [0.3, 0.3, 0.3],
                [0.7, 0.7, 0.7], [0.1, 0.1, 0.1])
+
+# the Instance-class stand-ins (tests/torch_inst_helpers.py imports these
+# builders): a grid of instanced spheres over a plane, seen from outside
+INST_NAMES = ("inst_grid", "inst_glass")
+INST_CAMERA = {"pos": [0, -2.6, 1.25], "fov": 60}
+INST_DIMS = {"inst_grid": (10, 10, 10), "inst_glass": (7, 7, 7)}
+INST_SMALL_DIMS = (6, 7, 7)
 
 SLICE_ARGS = [
     "--obj", "box", "size:", "1", "1", "0.01", "pos:", "0", "0", "-0.5",
@@ -246,6 +283,13 @@ TEX_FLIP_SHARE = 0.25
 # the plain forward over chunks of rays (a 257-row table's sweeps at the
 # frame would hold (R, 256) float tensors of 1.2 GB each)
 PLAIN_FWD_CHUNK = 1 << 18
+
+
+def chunk_for(tables, base):
+    """``base`` rays per chunk of a plain version, halved for every
+    doubling of the dense rows past 511 (the plain sweeps hold (R, rows)
+    float tensors)."""
+    return base >> max(0, (tables.layout[1] // 256).bit_length() - 1)
 
 
 def _buf(img):
@@ -359,6 +403,62 @@ def tex_blocks(small=False):
         "light": [{"type": "point", "pos": [2, 4, 6], "pwr": 0.7}],
         "sky": {"color": [0.55, 0.7, 0.9], "pwr": 0.7},
     }
+
+
+def inst_scene(name, small=False):
+    """``inst_grid`` (the class of Instance.json): a grid of spheres (r
+    0.18, spacing 0.5; 10 x 10 x 10, or 6 x 7 x 7 with ``small``) over a
+    ground plane, the sky, one point and one directional light. Every
+    sphere is an instance of a renderer entry's ``inst`` list; the grammar
+    gives an entry one material, so the grid is eight entries, one per
+    material (seven diffuse, one metal for about a tenth of the spheres),
+    albedo and roughness from a numpy seed. ``inst_glass``: a 7 x 7 x 7
+    grid (or the small one) with a ninth entry, glass (opacity 0), for
+    about a twentieth of the spheres: its entry sweeps take the group
+    exit."""
+    import numpy as np
+
+    dims = INST_SMALL_DIMS if small else INST_DIMS[name]
+    rng = np.random.default_rng(31)
+    mats = [{"albedo": [float(x) for x in rng.uniform(0.2, 0.9, 3)],
+             "rough": float(rng.uniform(0.3, 1.0))} for _ in range(7)]
+    mats.append({"albedo": [0.9, 0.85, 0.7], "metal": 1,
+                 "rough": float(rng.uniform(0.05, 0.3))})
+    n = dims[0] * dims[1] * dims[2]
+    which = rng.integers(0, 7, n)
+    which[rng.random(n) < 0.1] = 7
+    if name == "inst_glass":
+        mats.append({"opacity": 0, "glass": 0.08})
+        which[rng.random(n) < 0.05] = 8
+    insts = [[] for _ in mats]
+    for m, (i, j, k) in zip(which, np.ndindex(*dims)):
+        pos = [(i - (dims[0] - 1) / 2) * 0.5, 1.5 + j * 0.5, k * 0.5 - 1.0]
+        insts[int(m)].append([pos, [0, 0, 1, 0]])
+    objs = [{"type": "sphere", "r": 0.18, "inst": inst, "mat": mat}
+            for mat, inst in zip(mats, insts) if inst]
+    objs.append({"type": "plane", "n": [0, 0, 1], "pos": [0, 0, -1.5],
+                 "mat": {"rough": 0.9, "albedo": [0.5, 0.5, 0.45]}})
+    return {
+        "renderer": objs,
+        "light": [{"type": "point", "pos": [-3, -1, 5], "pwr": 0.7},
+                  {"type": "dir", "dir": [0.4, 0.6, -1], "pwr": 0.5}],
+        "sky": {"color": [0.55, 0.65, 0.85], "pwr": 0.7},
+    }
+
+
+def inst_json(name, res=None):
+    """The render JSON of an Instance-class stand-in at the main path's
+    size."""
+    res = RES if res is None else res
+    return {"scene": inst_scene(name),
+            "frame": {"res": [res, res], "cam": INST_CAMERA},
+            "rt": {"bounce": BOUNCE, "sample": SAMPLES}}
+
+
+def inst_config(name):
+    from micro_raytracer_tpu_torch.models import schema
+
+    return schema.RenderConfig.from_json(inst_json(name))
 
 
 def tex_scene(name, small=False):
@@ -486,21 +586,37 @@ def camera_rays(cam, n, gen, device):
     return camera.gen_rays(cam, (RES, RES), coords, u_aprt)
 
 
-def compare_hit(tables, o, d):
+def plain_hit(tables, o, d, mode):
+    """``hit3.closest_hit_plain`` of the scene's tables, over chunks of
+    rays (``chunk_for``) on a table of 512 dense rows or more."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    chunk = (chunk_for(tables, PLAIN_FWD_CHUNK) if tables.layout[1] >= 512
+             else max(o.shape[0], 1))
+    outs = [hit3.closest_hit_plain(tables.tab, tables.layout, o[s:s + chunk],
+                                   d[s:s + chunk], mode, tables.tri,
+                                   tables.tbb, tables.sbb)
+            for s in range(0, o.shape[0], chunk)]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def compare_hit(tables, o, d, exact=False):
     """Kernel vs plain closest hit in every mode: rows equal, t within
-    rtol 1e-5 / atol 1e-6. Returns the max abs t error over hits."""
+    rtol 1e-5 / atol 1e-6 (bit for bit with ``exact``). Returns the max
+    abs t error over hits."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import hit3
 
     err = 0.0
-    tri = (tables.tri, tables.tbb)
+    cull = (tables.tri, tables.tbb, tables.sbb)
     for mode in (hit3.MODE_EXIT, hit3.MODE_ENTRY, hit3.MODE_ANY):
-        got = hit3.closest_hit(tables.tab, tables.layout, o, d, mode, *tri)
-        ref = hit3.closest_hit_plain(tables.tab, tables.layout, o, d, mode,
-                                     *tri)
+        got = hit3.closest_hit(tables.tab, tables.layout, o, d, mode, *cull)
+        ref = plain_hit(tables, o, d, mode)
         for name, g, r in zip(("te", "row", "tx", "xrow"), got, ref):
-            if g.dtype == torch.int32:
+            if g.dtype == torch.int32 or exact:
                 bad = g != r
             else:
                 bad = ~torch.isclose(g, r, rtol=1e-5, atol=1e-6)
@@ -513,7 +629,8 @@ def compare_hit(tables, o, d):
         hits = int((got[0] < hit3.BIG * 0.5).sum())
         tris = int((got[1] >= tables.layout[1]).sum())
         log(f"closest_hit mode {mode}, {o.shape[0]} rays: {hits} hit "
-            f"({tris} on triangles), matches plain")
+            f"({tris} on triangles), matches plain"
+            f"{' bit for bit' if exact else ''}")
     return err
 
 
@@ -538,7 +655,28 @@ def table_bytes(scene, tables) -> int:
     """The row, light and triangle tables (and cull blocks) a kernel
     reads."""
     n = tables.tab.numel() + scene.n_lights * 11 + tables.tri.numel()
-    return 4 * (n + (0 if tables.tbb is None else tables.tbb.numel()))
+    for bb in (tables.tbb, tables.sbb):
+        n += 0 if bb is None else bb.numel()
+    return 4 * n
+
+
+def sph_rows(scene, tables) -> int:
+    """The valid sphere rows of a scene whose sphere segment is culled
+    (counted from the plain version instead), else 0."""
+    if tables.sbb is None:
+        return 0
+    return int(scene.prim_valid[scene.seg(0)].sum())
+
+
+def sph_rows_tested(tables, o, d, mode):
+    """``hit3.sph_rows_tested`` summed over chunks of rays."""
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    chunk = chunk_for(tables, PLAIN_FWD_CHUNK)
+    return sum(int(hit3.sph_rows_tested(tables.tab, tables.layout,
+                                        o[s:s + chunk], d[s:s + chunk], mode,
+                                        tables.sbb).sum())
+               for s in range(0, o.shape[0], chunk))
 
 
 def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
@@ -547,22 +685,27 @@ def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
     every valid dense row tested on the entry side, the triangle rows the
     cull leaves (the plain version counts them), and on refractive scenes
     the winner's group on the exit side (one row for a dense winner, the
-    mesh's rows for a triangle winner, counted with the triangles)."""
+    mesh's rows for a triangle winner, counted with the triangles); a
+    culled sphere segment counts the rows the cull leaves. Returns the
+    result and the triangle and sphere rows tested per ray."""
     from micro_raytracer_tpu_torch.ops import hit3, step
 
     mode = step.primary_mode(scene)
     args = (tables.tab, tables.layout, oT.T, dT.T, mode, tables.tri,
-            tables.tbb)
+            tables.tbb, tables.sbb)
     ms = cuda_ms(lambda: hit3.closest_hit(*args), reps)
-    plain_ms = cuda_ms(lambda: hit3.closest_hit_plain(*args), plain_reps)
-    R, P = oT.shape[1], valid_rows(scene, tables)
+    plain_ms = cuda_ms(lambda: plain_hit(tables, oT.T, dT.T, mode),
+                       plain_reps)
+    R, P = oT.shape[1], valid_rows(scene, tables) - sph_rows(scene, tables)
     te, row = hit3.closest_hit(*args)[:2]
     dense_hits = (te < hit3.BIG * 0.5) & (row < tables.layout[1])
     exits = int(dense_hits.sum()) if scene.any_refract else 0
-    tri_rows = int(hit3.tri_rows_tested(*args).sum())
+    tri_rows = int(hit3.tri_rows_tested(*args[:-1]).sum())
+    sph = sph_rows_tested(tables, oT.T, dT.T, mode) if tables.sbb is not None \
+        else 0
     b = bound(R * (24 + 16) + table_bytes(scene, tables),
-              (R * P + exits) * ROW_TEST_OPS + tri_rows * TRI_TEST_OPS)
-    return {"ms": ms, "plain_ms": plain_ms, **b}, tri_rows / R
+              (R * P + sph + exits) * ROW_TEST_OPS + tri_rows * TRI_TEST_OPS)
+    return {"ms": ms, "plain_ms": plain_ms, **b}, tri_rows / R, sph / R
 
 
 def phase_hit(cfg, results):
@@ -580,7 +723,7 @@ def phase_hit(cfg, results):
     # (R, 3) views of lane-major rays
     oT, dT = main_path_rays(cfg, gen, dev)
     err = max(err, compare_hit(tables, oT.T, dT.T))
-    res, _rows = time_hit(scene, tables, oT, dT)
+    res, _rows, _sph = time_hit(scene, tables, oT, dT)
     log(f"closest_hit {oT.shape[1]} rays: kernel {res['ms']:.3f} ms, plain "
         f"{res['plain_ms']:.3f} ms, bound {fmt_bound(res)}")
     results["closest_hit"] = {"max_abs_err": err, **res,
@@ -599,15 +742,17 @@ def plain_trace(scene, tables, decay, oT, dT, u8s, want_resid=False,
 
     R = oT.shape[1]
     outs, edges = [], []
-    for s in range(0, R, PLAIN_FWD_CHUNK):
-        sl = slice(s, min(R, s + PLAIN_FWD_CHUNK))
+    chunk = chunk_for(tables, PLAIN_FWD_CHUNK)
+    for s in range(0, R, chunk):
+        sl = slice(s, min(R, s + chunk))
         w = None if work is None else {"sweep": 0, "shadow": 0}
         outs.append(step.trace_plain(
             scene, tables, decay, *(t[..., sl].contiguous()
                                     for t in (oT, dT, u8s)),
             want_resid=want_resid, work=w))
         if w is not None:
-            for k in ("sweep", "shadow", "tex_fetch"):
+            for k in ("sweep", "shadow", "sph_sweep", "sph_shadow",
+                      "tex_fetch"):
                 work[k] = work.get(k, 0) + w.get(k, 0)
             edges.append(w.get("tex_edge", torch.zeros(
                 sl.stop - sl.start, dtype=torch.bool, device=oT.device)))
@@ -928,13 +1073,15 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
     """Bounds of the render instance, the train instance and the backward
     kernel on these inputs, from the work their data asks for (read from
     the train instance's residuals; ``tri_work``, from
-    ``trace_plain(work=...)``, holds the triangle rows the sweeps test)."""
+    ``trace_plain(work=...)``, holds the triangle rows the sweeps test and,
+    where the sphere segment is culled, the sphere rows)."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
 
     K, NU, R = u8s.shape
-    L, P = scene.n_lights, valid_rows(scene, tables)
+    # a culled sphere segment's rows are counted by the plain version
+    L, P = scene.n_lights, valid_rows(scene, tables) - sph_rows(scene, tables)
     n = n_live.long()
     idx = torch.arange(R, device=n.device)
     live = torch.arange(K, device=n.device)[:, None] < n[None]     # (K, R)
@@ -969,9 +1116,15 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
     lok = resid[:, step.RES_LOK:step.RES_LOK + L] > 0.5            # (K, L, R)
     vis = int((lok & live[:, None]).sum())
     occ = S * L - vis
+    sph = 0
+    if tables.sbb is not None:
+        # the sphere rows the sweeps test (a shadow ray's to its first
+        # hit); an occluded light's row past them is left out
+        sph = tri_work["sph_sweep"] + tri_work["sph_shadow"]
+        occ = 0
     chosen = (int(((resid[:, step.RES_CHOOSE] > 0.5) & live).sum())
               if scene.any_refract else 0)
-    fwd_ops = ((sweeps * P + exits + vis * P + occ) * ROW_TEST_OPS
+    fwd_ops = ((sweeps * P + exits + vis * P + occ + sph) * ROW_TEST_OPS
                + S * (FWD_STEP_OPS + L * FWD_LIGHT_OPS)
                + (S * FWD_REFRACT_OPS if scene.any_refract else 0))
     if tri_work is not None:
@@ -1104,8 +1257,9 @@ def trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s, ctA, ctB):
     d_lt, m_lt = (torch.zeros_like(tables.lights, dtype=f64) for _ in "ab")
     d_tri, m_tri = (torch.zeros_like(tables.tri, dtype=f64) for _ in "ab")
     d_o, d_d = torch.empty_like(oT), torch.empty_like(dT)
-    for s in range(0, R, PLAIN_CHUNK):
-        sl = slice(s, min(R, s + PLAIN_CHUNK))
+    chunk = chunk_for(tables, PLAIN_CHUNK)
+    for s in range(0, R, chunk):
+        sl = slice(s, min(R, s + chunk))
         g = step.trace_bwd_plain(scene, tables, decay,
                                  *(t[..., sl].contiguous()
                                    for t in (oT, dT, u8s, ctA, ctB)))
@@ -1343,10 +1497,10 @@ def _busy_share(step_fn):
     return out, wall, busy * 1e-6, len(spans), by_name
 
 
-def phase_train(cfg, card, counts, name="slice room", mesh=False):
+def phase_train(cfg, card, counts, name="slice room", moved=None):
     """The training main path: 3 steps of make_train_step at full width,
-    from perturbed albedos and light power (and, on a mesh scene, the
-    mesh's position)."""
+    from perturbed albedos and light power (and the positions of the rows
+    of kind ``moved``: the mesh's triangles, or the grid's spheres)."""
     import numpy as np
     import torch
 
@@ -1363,7 +1517,7 @@ def phase_train(cfg, card, counts, name="slice room", mesh=False):
     loss_cfg = cfg.rt.loss
     ys, xs = divmod(morton_ray_order(RES, RES), RES)
     coords = torch.from_numpy(np.stack([xs, ys], -1)).to(dev, torch.float32)
-    gen = torch.Generator(device=dev).manual_seed(12 if mesh else 6)
+    gen = torch.Generator(device=dev).manual_seed(6 if moved is None else 12)
     tables = step.pack_step(truth)
     with torch.no_grad():      # the target, through the render kernels
         target = sum(tracer.trace_radiance(truth, cam, (RES, RES), BOUNCE,
@@ -1375,11 +1529,13 @@ def phase_train(cfg, card, counts, name="slice room", mesh=False):
     params["light_pwr"] = params["light_pwr"] * 0.3
     # the leaves whose gradient must not vanish, and on which rows
     rows = {k: slice(None) for k in ("mat_albedo", "light_pwr", "inst_pos")}
-    if mesh:
-        tri = scene.seg(3)
-        params["inst_pos"][tri] += torch.tensor([0.02, 0.0, 0.01],
+    if moved is not None:
+        seg = scene.seg(moved)
+        params["inst_pos"][seg] += torch.tensor([0.02, 0.0, 0.01],
                                                 device=dev)
-        rows = {"inst_pos": tri, "inst_dir": tri}
+        # a sphere's turn moves nothing
+        rows = {"inst_pos": seg, "inst_dir": seg} if moved == 3 \
+            else {"inst_pos": seg}
     params = {k: v.requires_grad_(True) for k, v in params.items()}
     start = params
     ts = shard.make_train_step((RES, RES), BOUNCE, device=dev)
@@ -1523,7 +1679,7 @@ def phase_mesh_kernels(results):
                 *random_rays(N_CMP, gen, dev)))
         oT, dT = main_path_rays(cfg, gen, dev)   # the main path's input
         err = max(err, compare_hit(tables, oT.T, dT.T))
-        res, rows = time_hit(scene, tables, oT, dT, plain_reps=1)
+        res, rows, _sph = time_hit(scene, tables, oT, dT, plain_reps=1)
         log(f"{name} closest_hit {oT.shape[1]} rays: kernel "
             f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
             f"{rows:.1f} triangle rows tested per ray (of 960), bound "
@@ -1589,6 +1745,16 @@ def phase_mesh_kernels(results):
         del resid
 
 
+def segments(cfg) -> int:
+    """Trace launches per sample of a render of ``cfg`` (one per segment
+    between the compaction cuts, ``tracer.compact_cuts``)."""
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.compiler import compile_scene
+
+    scene = compile_scene(cfg.scene, "cpu")
+    return len(tracer.compact_cuts(scene, BOUNCE + 1, True)) + 1
+
+
 def write_mesh_json(name, tmp):
     path = os.path.join(tmp, f"{name}.json")
     with open(path, "w") as f:
@@ -1616,10 +1782,13 @@ def phase_mesh_main(card, counts):
         render_s, wall = render_cli(out, scene_args)
         launched = {k.name: k.launches for k in (hit3.KERNEL, step.KERNEL)}
         counts[name] = launched
-        if launched != {hit3.KERNEL.name: SAMPLES, step.KERNEL.name: SAMPLES} \
+        segs = segments(mesh_config(name))
+        if launched != {hit3.KERNEL.name: SAMPLES,
+                        step.KERNEL.name: SAMPLES * segs} \
                 or hit3.KERNEL.plain_calls or step.KERNEL.plain_calls:
-            raise AssertionError(f"{name} render: launches {launched}, "
-                                 f"plain calls {hit3.KERNEL.plain_calls}, "
+            raise AssertionError(f"{name} render: launches {launched} "
+                                 f"({segs} segments per sample), plain calls "
+                                 f"{hit3.KERNEL.plain_calls}, "
                                  f"{step.KERNEL.plain_calls}")
         img = np.asarray(Image.open(out))
         if img.shape != (RES, RES, 3) or float(img.std()) < 5.0:
@@ -1683,7 +1852,7 @@ def phase_tex_kernels(results):
         o, d = camera_rays(cam, N_CMP, gen, dev)
         oT, dT = main_path_rays(cfg, gen, dev)
         err = max(compare_hit(tables, o, d), compare_hit(tables, oT.T, dT.T))
-        res_h, _rows = time_hit(scene, tables, oT, dT, plain_reps=1)
+        res_h, _rows, _sph = time_hit(scene, tables, oT, dT, plain_reps=1)
         results[f"closest_hit/{name}"] = {"max_abs_err": err, **res_h,
                                           "library_ms": None}
         u = torch.rand((BOUNCE + 1, nu, N_CMP), generator=gen, device=dev)
@@ -1762,7 +1931,9 @@ def phase_tex_main(card, counts):
         render_s, wall = render_cli(out, [path])
         launched = {k.name: k.launches for k in (hit3.KERNEL, step.KERNEL)}
         counts[name] = launched
-        if launched != {hit3.KERNEL.name: SAMPLES, step.KERNEL.name: SAMPLES} \
+        if launched != {hit3.KERNEL.name: SAMPLES,
+                        step.KERNEL.name: SAMPLES * segments(
+                            tex_config(name))} \
                 or hit3.KERNEL.plain_calls or step.KERNEL.plain_calls:
             raise AssertionError(f"{name} render: launches {launched}, "
                                  f"plain calls {hit3.KERNEL.plain_calls}, "
@@ -1792,6 +1963,300 @@ def phase_tex_main(card, counts):
     return out_res
 
 
+def inst_inputs(name, dev):
+    """(cfg, scene, tables, decay, cam) of an Instance-class stand-in on the
+    card: 1,000 sphere rows in 16 cull blocks and the plane's 8 rows
+    (``inst_grid``), or 343 spheres, a twentieth of them glass
+    (``inst_glass``)."""
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.compiler import (compile_camera,
+                                                           compile_scene)
+    from micro_raytracer_tpu_torch.ops import step
+
+    cfg = inst_config(name)
+    scene = compile_scene(cfg.scene, dev)
+    tables = step.pack_step(scene)
+    want = {"inst_grid": (1000, 1008, 16, False),
+            "inst_glass": (343, 352, 6, True)}[name]
+    got = (scene.kind_sweep[0], scene.n_prims,
+           0 if tables.sbb is None else tables.sbb.shape[0],
+           scene.any_refract)
+    if got != want:
+        raise AssertionError(f"{name}: sphere rows, rows, cull blocks, "
+                             f"refract {got}, want {want}")
+    return (cfg, scene, tables, tracer.decay_of(cfg.rt.loss),
+            compile_camera(cfg.frame.cam, dev))
+
+
+def grid_rays(n, gen, device):
+    """Rays from inside and around the sphere grid, uniformly random
+    directions."""
+    import torch
+
+    box = torch.tensor([6.0, 6.0, 6.0], device=device)
+    mid = torch.tensor([0.0, 3.75, 1.25], device=device)
+    o = (torch.rand((n, 3), generator=gen, device=device) - 0.5) * box + mid
+    d = torch.randn((n, 3), generator=gen, device=device)
+    return o, d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+
+
+def compare_cull(tables, o, d):
+    """The closest-hit kernel with the sphere cull blocks against itself
+    without them (the dense sweep): entry-only and any-hit rows and t bit
+    for bit."""
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    for mode in (hit3.MODE_ENTRY, hit3.MODE_ANY):
+        args = (tables.tab, tables.layout, o, d, mode, tables.tri,
+                tables.tbb)
+        culled = hit3.closest_hit(*args, tables.sbb)
+        dense = hit3.closest_hit(*args, None)
+        n = sum(int((c != f).sum()) for c, f in zip(culled, dense))
+        if n:
+            raise AssertionError(f"the sphere cull changes {n} outputs of "
+                                 f"mode {mode}")
+    log(f"closest_hit {o.shape[0]} rays: the culled sweeps equal the dense "
+        f"ones bit for bit (entry, any-hit)")
+
+
+def phase_inst_kernels(results):
+    """Phase 15: every kernel on ``inst_grid`` against its plain version —
+    closest_hit bit for bit on 2^17 random and 2^17 camera rays and at the
+    frame (and ``inst_glass`` on 2^17 rays of each), the trace (phase 4's
+    rule), the train instance and the backward (phase 9's rule) on 2^15
+    camera rays and at the frame, the compacted render against the
+    unsegmented one — timed and bounded at the frame."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.ops import step
+
+    dev = torch.device("cuda")
+    _cfg, _scene, tables, _decay, cam = inst_inputs("inst_glass", dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    compare_hit(tables, *grid_rays(N_CMP, gen, dev), exact=True)
+    compare_hit(tables, *camera_rays(cam, N_CMP, gen, dev), exact=True)
+    compare_cull(tables, *camera_rays(cam, N_CMP, gen, dev))
+    name = "inst_grid"
+    cfg, scene, tables, decay, cam = inst_inputs(name, dev)
+    nu = step.n_uni(scene.any_refract)
+    o, d = grid_rays(N_CMP, gen, dev)
+    err = compare_hit(tables, o, d, exact=True)
+    compare_cull(tables, o, d)
+    o, d = camera_rays(cam, N_CMP, gen, dev)
+    err = max(err, compare_hit(tables, o, d, exact=True))
+    oT, dT = main_path_rays(cfg, gen, dev)
+    err = max(err, compare_hit(tables, oT.T, dT.T, exact=True))
+    compare_cull(tables, oT.T, dT.T)
+    res_h, _rows, sph = time_hit(scene, tables, oT, dT, plain_reps=1)
+    dense = tables._replace(sbb=None)          # the kernels without the cull
+    dense_hit = cuda_ms(lambda: step.primary_hits(scene, dense, oT, dT), 10)
+    log(f"{name} closest_hit {oT.shape[1]} rays: kernel {res_h['ms']:.3f} "
+        f"ms (without the cull {dense_hit:.3f} ms), plain "
+        f"{res_h['plain_ms']:.3f} ms, {sph:.1f} sphere rows tested per ray "
+        f"(of {scene.kind_sweep[0]}), bound {fmt_bound(res_h)}")
+    results[f"closest_hit/{name}"] = {"max_abs_err": err, **res_h,
+                                      "library_ms": None}
+    # the trace on 2^17 camera rays, then the frame
+    u = torch.rand((BOUNCE + 1, nu, N_CMP), generator=gen, device=dev)
+    ob, db = o.T.contiguous(), d.T.contiguous()
+    err_f = compare_trace(scene, tables, decay, ob, db, u, work={})
+    u8s = torch.rand((BOUNCE + 1, nu, RES * RES), generator=gen, device=dev)
+    work = {}
+    err_f = max(err_f, compare_trace(scene, tables, decay, oT, dT, u8s,
+                                     work=work))
+    hit0 = step.primary_hits(scene, tables, oT, dT)
+    ms = cuda_ms(lambda: step.trace_fwd(scene, tables, decay, oT, dT, u8s,
+                                        hit0), 5)
+    dense_ms = cuda_ms(lambda: step.trace_fwd(scene, dense, decay, oT, dT,
+                                              u8s, hit0), 2)
+    plain_ms = cuda_ms(lambda: plain_trace(scene, tables, decay, oT, dT,
+                                           u8s), 1)
+    # the compacted render (the JAX rule's cuts) against the unsegmented
+    # one: radiance bit for bit; both timed from the primaries
+    cuts = [c for c in (2, 4, 6) if c < BOUNCE + 1]
+
+    def render(c):
+        return tracer.trace_fused(scene, tables, BOUNCE, oT.T, dT.T,
+                                  cfg.rt.loss, u8s, cuts=c)
+
+    flat, split = render([]), render(cuts)
+    if not torch.equal(flat, split):
+        n = int((flat != split).any(1).sum())
+        raise AssertionError(f"{name}: the compacted render differs on {n} "
+                             f"rays")
+    ms_flat, ms_split = cuda_ms(lambda: render([]), 3), \
+        cuda_ms(lambda: render(cuts), 3)
+    log(f"{name} compacted render (cuts {cuts}) equals the unsegmented one "
+        f"bit for bit; {RES * RES} rays x {BOUNCE + 1} steps: unsegmented "
+        f"{ms_flat:.3f} ms, compacted {ms_split:.3f} ms (primary-hit pass, "
+        f"trace launches, compaction and radiance)")
+    results["compaction/inst_grid"] = {"flat_ms": ms_flat,
+                                       "compacted_ms": ms_split,
+                                       "cuts": cuts}
+    errs_t, errs_b = [], []
+    n = N_MESH_BWD
+    for oT_, dT_, u_ in ((ob[:, :n].contiguous(), db[:, :n].contiguous(),
+                          u[..., :n].contiguous()), (oT, dT, u8s)):
+        e, bad, (resid, nl), (res_r, nl_r) = compare_train_fwd(
+            scene, tables, decay, oT_, dT_, u_,
+            step.primary_hits(scene, tables, oT_, dT_), work={})
+        errs_t.append(e)
+        e, plain_b, ctA, ctB = compare_bwd(scene, tables, decay, oT_, dT_,
+                                           u_, res_r, nl_r, bad, gen)
+        errs_b.append(e)
+    del res_r, nl_r
+    ms_t = cuda_ms(lambda: step.trace_fwd_train(scene, tables, decay, oT, dT,
+                                                u8s, hit0), 5)
+    plain_t = cuda_ms(lambda: plain_trace(scene, tables, decay, oT, dT, u8s,
+                                          want_resid=True), 1)
+    ms_b = cuda_ms(lambda: step.trace_bwd(scene, tables, decay, u8s, resid,
+                                          nl, ctA, ctB), 5)
+    bw = trace_work(scene, tables, u8s, resid, nl, work)
+    S = bw["live_steps"]
+    L = scene.n_lights
+    later = int((nl.long() - 1).clamp(min=0).sum())
+    log(f"{name} trace_fwd {RES * RES} rays x {BOUNCE + 1} steps ({S} live "
+        f"steps): kernel {ms:.3f} ms (without the cull {dense_ms:.3f} ms), "
+        f"plain {plain_ms:.3f} ms, bound "
+        f"{fmt_bound(bw['trace_fwd'])}; sphere rows tested (of "
+        f"{scene.kind_sweep[0]}): {work['sph_sweep'] / max(later, 1):.1f} "
+        f"per closest-hit sweep after step 0, "
+        f"{work['sph_shadow'] / max(S * L, 1):.1f} per shadow sweep")
+    log(f"{name} trace_fwd_train: kernel {ms_t:.3f} ms, plain "
+        f"{plain_t:.3f} ms, bound {fmt_bound(bw['trace_fwd_train'])}; "
+        f"trace_bwd: kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms, bound "
+        f"{fmt_bound(bw['trace_bwd'])}")
+    results[f"trace_fwd/{name}"] = {
+        "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
+        **bw["trace_fwd"], "library_ms": None}
+    results[f"trace_fwd_train/{name}"] = {
+        "max_abs_err": max(errs_t), "ms": ms_t, "plain_ms": plain_t,
+        **bw["trace_fwd_train"], "library_ms": None}
+    results[f"trace_bwd/{name}"] = {
+        "max_abs_err": max(errs_b), "ms": ms_b, "plain_ms": plain_b,
+        **bw["trace_bwd"], "library_ms": None}
+    results["sph_rows/inst_grid"] = {
+        "dense_closest_hit_ms": dense_hit, "dense_trace_fwd_ms": dense_ms,
+        "closest_hit_per_ray": sph,
+        "sweep_per_step": work["sph_sweep"] / max(later, 1),
+        "shadow_per_sweep": work["sph_shadow"] / max(S * L, 1)}
+    del resid
+
+
+def write_json(path, cfg_json):
+    with open(path, "w") as f:
+        json.dump(cfg_json, f)
+    return path
+
+
+def phase_inst_main(card, counts):
+    """Phase 16: the CLI renders ``inst_grid`` from a JSON file (counted:
+    one primary-hit launch per sample, one trace launch per segment of the
+    sample's compacted render, no plain version; ten timed renders, one
+    profiled), and the HTTP service answers one ``inst_grid`` request."""
+    import numpy as np
+    from PIL import Image
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    name = "inst_grid"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_inst_")
+    path = write_json(os.path.join(tmp, f"{name}.json"), inst_json(name))
+    out = os.path.join(tmp, f"{name}.png")
+    segs = segments(inst_config(name))
+    for k in (hit3.KERNEL, step.KERNEL):
+        k.launches = 0
+        k.plain_calls = 0
+    render_s, wall = render_cli(out, [path])
+    launched = {k.name: k.launches for k in (hit3.KERNEL, step.KERNEL)}
+    counts[name] = launched
+    if launched != {hit3.KERNEL.name: SAMPLES,
+                    step.KERNEL.name: SAMPLES * segs} \
+            or hit3.KERNEL.plain_calls or step.KERNEL.plain_calls:
+        raise AssertionError(f"{name} render: launches {launched} ({segs} "
+                             f"segments per sample), plain calls "
+                             f"{hit3.KERNEL.plain_calls}, "
+                             f"{step.KERNEL.plain_calls}")
+    img = np.asarray(Image.open(out))
+    if img.shape != (RES, RES, 3) or float(img.std()) < 5.0:
+        raise AssertionError(f"{name}: image {img.shape}, std "
+                             f"{float(img.std()):.2f}")
+    loops = [render_s] + [render_cli(out, [path])[0]
+                          for _ in range(RENDER_REPS - 1)]
+    spread = render_spread(loops, card)
+    ((loop_p, _w), wall_p, busy, n_ops, by_name) = _busy_share(
+        lambda: render_cli(out, [path]))
+    med = float(np.median(loops))
+    log(f"{name} render profile: the CLI's wall {wall_p:.4f} s (render "
+        f"loop {loop_p:.4f} s under the profiler), device busy "
+        f"{busy:.4f} s = {busy / med:.3f} of the unprofiled loop's "
+        f"median {med:.4f} s; {n_ops} device operations "
+        f"({n_ops / SAMPLES:.1f} per sample); {segs} trace segments per "
+        f"sample")
+    for kname, t in sorted(by_name.items(), key=lambda x: -x[1])[:4]:
+        log(f"  {t * 1e3:9.3f} ms  {kname[:90]}")
+    phase_server(inst_config(name), requests=1)
+    return {"render_s": render_s, "wall_s": wall, "spread": spread,
+            "busy_s": busy, "busy_share": busy / med,
+            "ops_per_sample": n_ops / SAMPLES, "segments": segs}
+
+
+def compaction_ab(card, pairs=5):
+    """``--compaction``: the CLI's render loop of ``inst_grid``,
+    ``mesh_opaque`` and ``mesh_glass`` (1080x1080, bounce 8, 16 spp) with
+    the JAX package's compaction cuts and without, in alternating order
+    (off, on, on, off, ...) after one warm-up render of each: the median
+    and range of rays/s of each side. The cuts are set by replacing
+    ``tracer.compact_cuts`` in this process."""
+    import numpy as np
+
+    from micro_raytracer_tpu_torch.models import tracer
+
+    rule = tracer.compact_cuts
+    jax_rule = tracer.jax_cuts
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ab_")
+    out_res = {}
+    try:
+        for name in ("inst_grid", "mesh_opaque", "mesh_glass"):
+            cfg = inst_json(name) if name.startswith("inst") \
+                else mesh_config(name).to_json()
+            path = write_json(os.path.join(tmp, f"{name}.json"), cfg)
+            out = os.path.join(tmp, f"{name}.png")
+            loops = {"off": [], "on": []}
+
+            def run(side):
+                tracer.compact_cuts = (
+                    (lambda scene, steps, inference: jax_rule(scene, steps)
+                     if inference else [])
+                    if side == "on" else
+                    (lambda scene, steps, inference: []))
+                return render_cli(out, [path])[0]
+
+            run("off")
+            run("on")
+            for i in range(pairs):
+                order = ("off", "on") if i % 2 == 0 else ("on", "off")
+                for side in order:
+                    loops[side].append(run(side))
+            res = {}
+            for side, secs in loops.items():
+                rate = RES * RES * SAMPLES / np.asarray(secs)
+                res[side] = {"median_rays_per_s": float(np.median(rate)),
+                             "min_rays_per_s": float(rate.min()),
+                             "max_rays_per_s": float(rate.max()),
+                             "render_s": secs}
+            wins = sum(a < b for a, b in zip(loops["on"], loops["off"]))
+            log(f"{name} compaction on {card}: median "
+                f"{res['on']['median_rays_per_s'] / 1e6:.2f}M rays/s with, "
+                f"{res['off']['median_rays_per_s'] / 1e6:.2f}M without; "
+                f"faster with in {wins} of {pairs} pairs")
+            out_res[name] = res
+    finally:
+        tracer.compact_cuts = rule
+    return out_res
+
+
 def main() -> int:
     try:
         import torch
@@ -1817,6 +2282,11 @@ def main() -> int:
         print(json.dumps({"render": render_only(card)}))
         print(card)
         return 0
+    if sys.argv[1:] == ["--compaction"]:
+        phase_build()
+        print(json.dumps({"compaction": compaction_ab(card)}))
+        print(card)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -1835,12 +2305,17 @@ def main() -> int:
     mesh_counts, mesh_train_counts = {}, {}
     mesh_res = phase_mesh_main(card, mesh_counts)
     mesh_train = phase_train(mesh_config("mesh_glass"), card,
-                             mesh_train_counts, "mesh_glass", mesh=True)
+                             mesh_train_counts, "mesh_glass", moved=3)
     phase_tex_kernels(results)
     tex_counts, tex_train_counts = {}, {}
     tex_res = phase_tex_main(card, tex_counts)
     tex_train = phase_train(tex_config("tex_blocks"), card, tex_train_counts,
                             "tex_blocks")
+    phase_inst_kernels(results)
+    inst_counts, inst_train_counts = {}, {}
+    inst_res = phase_inst_main(card, inst_counts)
+    inst_train = phase_train(inst_config("inst_grid"), card,
+                             inst_train_counts, "inst_grid", moved=0)
 
     from micro_raytracer_tpu_torch.ops import hit3, step
 
@@ -1889,6 +2364,30 @@ def main() -> int:
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
          "launches": tex_train_counts[step.BWD_KERNEL.name],
          **results["trace_bwd/tex_blocks"]}]
+    inst_kernels = [
+        {"name": "closest_hit/inst_grid", "route": "cuda", "source": hit_src,
+         "replaces": "micro_raytracer_tpu/ops/pallas_hit3.py:227",
+         "launches": inst_counts["inst_grid"][hit3.KERNEL.name],
+         **results["closest_hit/inst_grid"]},
+        {"name": "trace_fwd/inst_grid", "route": "cuda", "source": fwd_src,
+         "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",
+         "launches": inst_counts["inst_grid"][step.KERNEL.name],
+         **results["trace_fwd/inst_grid"]},
+        {"name": "trace_fwd_train/inst_grid", "route": "cuda",
+         "source": fwd_src,
+         "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",
+         "launches": inst_train_counts[step.TRAIN_KERNEL.name],
+         **results["trace_fwd_train/inst_grid"]},
+        {"name": "trace_bwd/inst_grid", "route": "cuda", "source": bwd_src,
+         "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
+         "launches": inst_train_counts[step.BWD_KERNEL.name],
+         **results["trace_bwd/inst_grid"]}]
+    log(f"instance render: {json.dumps(inst_res)}")
+    log(f"instance training: {json.dumps(inst_train)}; closest_hit "
+        f"launches {inst_train_counts[hit3.KERNEL.name]}")
+    log(f"instance sphere rows tested: "
+        f"{json.dumps(results['sph_rows/inst_grid'])}; compaction at the "
+        f"frame: {json.dumps(results['compaction/inst_grid'])}")
     log(f"textured render: {json.dumps(tex_res)}")
     log(f"textured training: {json.dumps(tex_train)}; closest_hit launches "
         f"{tex_train_counts[hit3.KERNEL.name]}")
@@ -1916,7 +2415,7 @@ def main() -> int:
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
          "launches": train_counts[step.BWD_KERNEL.name],
          **results["trace_bwd"]},
-    ] + mesh_kernels + tex_kernels
+    ] + mesh_kernels + tex_kernels + inst_kernels
     log(f"render main path: {json.dumps(main_res)}")
     log(f"training main path: {json.dumps(train_res)}; closest_hit "
         f"launches {train_counts[hit3.KERNEL.name]}")

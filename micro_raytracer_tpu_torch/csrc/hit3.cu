@@ -4,8 +4,9 @@
 // its step loop from that hit.
 //
 // Replaces: micro_raytracer_tpu/ops/pallas_hit3.py :: _call_hit / _hit_kernel
-// (dense segments, the triangle segment with its candidate-block cull, the
-// group exit; the winner-t VJP _winner_t_all is not ported). The sweep
+// (dense segments, the long sphere segment's block cull, the triangle
+// segment with its candidate-block cull, the group exit; the winner-t VJP
+// _winner_t_all is not ported). The sweep
 // itself lives in hit3.cuh, shared with the whole-trace kernel; see there
 // for the semantics, the per-ray cull and what bounds it.
 //
@@ -14,7 +15,9 @@
 // a dense (n_dense, 18) shared table once (n_dense*72 bytes of dynamic
 // shared memory; the wrapper raises above hit3.MAX_ROWS rows), and the
 // triangle segment's block AABBs after it (n_cb*32 bytes, at most
-// hit3.MAX_TRI_BLOCKS); the triangle table stays in global memory. The
+// hit3.MAX_TRI_BLOCKS) or, without triangles, the sphere segment's
+// (n_sb*32 bytes, at most 32); the triangle table stays in global memory.
+// The
 // table's rows are `stride` floats apart, so the trace kernel's wider row
 // table serves as it is. Ray component c of ray i is read at
 // o[i * ray_stride + c * comp_stride]: (R, 3) row-major rays and views of
@@ -34,6 +37,7 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
                                    int stride, mrt::Layout lay,
                                    const float* __restrict__ tri,
                                    const float* __restrict__ bb,
+                                   const float* __restrict__ sbb,
                                    const float* __restrict__ o,
                                    const float* __restrict__ d,
                                    int ray_stride, int comp_stride, int R,
@@ -46,6 +50,9 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
   mrt::Tris T{tri, s_tab + P * mrt::kSweepCols};
   if (kTri)
     mrt::stage(s_tab + P * mrt::kSweepCols, bb, lay.n_cb, mrt::kBbCols,
+               mrt::kBbCols);
+  else
+    mrt::stage(s_tab + P * mrt::kSweepCols, sbb, lay.n_sb, mrt::kBbCols,
                mrt::kBbCols);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -76,12 +83,13 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
 
 template <bool kTri>
 int launch(const float* tab, int P, int stride, const mrt::Layout& lay,
-           const float* tri, const float* bb, const float* o, const float* d,
+           const float* tri, const float* bb, const float* sbb,
+           const float* o, const float* d,
            int ray_stride, int comp_stride, int R, int mode, float* te,
            int* row, float* tx, int* xrow, cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(P) * mrt::kSweepCols +
-       (kTri ? static_cast<size_t>(lay.n_cb) * mrt::kBbCols : 0)) *
+       static_cast<size_t>(kTri ? lay.n_cb : lay.n_sb) * mrt::kBbCols) *
       sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -92,30 +100,32 @@ int launch(const float* tab, int P, int stride, const mrt::Layout& lay,
   const int threads = 256;
   const int blocks = (R + threads - 1) / threads;
   closest_hit_kernel<kTri><<<blocks, threads, smem, stream>>>(
-      tab, P, stride, lay, tri, bb, o, d, ray_stride, comp_stride, R, mode,
-      te, row, tx, xrow);
+      tab, P, stride, lay, tri, bb, sbb, o, d, ray_stride, comp_stride, R,
+      mode, te, row, tx, xrow);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // P: the dense rows (tri_start); tri: the (Pt, 16) triangle table, or null
-// with tri_n = 0; bb: the (n_cb, 8) block AABBs, or null with n_cb = 0.
+// with tri_n = 0; bb: the (n_cb, 8) block AABBs, or null with n_cb = 0;
+// sbb: the sphere segment's (n_sb, 8) block AABBs, or null with n_sb = 0.
 extern "C" int mrt_closest_hit(const float* tab, int P, int stride,
                                int sph_start, int sph_n, int pln_start,
                                int pln_n, int box_start, int box_n,
                                const float* tri, int tri_start, int tri_n,
-                               const float* bb, int n_cb, const float* o,
+                               const float* bb, int n_cb, const float* sbb,
+                               int n_sb, const float* o,
                                const float* d, int ray_stride,
                                int comp_stride, int R, int mode, float* te,
                                int* row, float* tx, int* xrow, void* stream) {
   const mrt::Layout lay{sph_start, sph_n, pln_start, pln_n, box_start,
-                        box_n,     tri_start, tri_n, n_cb};
+                        box_n,     tri_start, tri_n, n_cb,    n_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tri_n > 0 ? launch<true>(tab, P, stride, lay, tri, bb, o, d,
+  return tri_n > 0 ? launch<true>(tab, P, stride, lay, tri, bb, sbb, o, d,
                                   ray_stride, comp_stride, R, mode, te, row,
                                   tx, xrow, s)
-                   : launch<false>(tab, P, stride, lay, tri, bb, o, d,
+                   : launch<false>(tab, P, stride, lay, tri, bb, sbb, o, d,
                                    ray_stride, comp_stride, R, mode, te, row,
                                    tx, xrow, s);
 }

@@ -31,6 +31,21 @@
 // triangle's exit t is its entry t, and a mesh's rows are contiguous in the
 // table, so the exit pass sweeps only the winner group's rows.
 //
+// Sphere blocks (pallas_hit3.sweep_closest's sphere_cull_sweep over
+// _sphere_blockbounds): a sphere segment of at least 256 rows
+// (hit3.sph_cull_rows; the compiler gives it the median-split order) is cut
+// into 64-row blocks behind world AABBs (centre +- r, hit3.sph_blockbounds).
+// Entry-only and any-hit sweeps — the shadow sweeps of refractive scenes
+// too — walk the blocks in ascending order and skip a block the ray does
+// not enter at or before its best t (any-hit: a block it misses); a swept
+// block runs the dense row test. A sphere's hit point lies inside its
+// block's AABB, so no hit is lost and ties still go to the lowest row: the
+// culled sweep gives the dense sweep's t and row. The cull is a runtime
+// branch on the layout's block count (0: dense), not a template instance,
+// and only in the instances for scenes without triangles and textures
+// (kSph): those get no sphere blocks (hit3.sph_table), so the Mesh-class
+// and textured instances keep their code and their registers.
+//
 // Per-ray block cull: the segment is cut into 64-row blocks (the compiler's
 // median-split leaf) with world AABBs (hit3.tri_blockbounds). Where the JAX
 // package culls — entry-only sweeps and any-hit sweeps, never an exit pass
@@ -74,10 +89,11 @@ enum SweepCol { C_FR = 0, C_IP = 9, C_PA = 12, C_PR = 15, C_VALID = 16,
 // Kind segments [start, start + n) of the kind-sorted row table, n the
 // rows up to the segment's last valid one: the padding rows after it are
 // never tested. The triangle segment starts at tri_start and sweeps tri_n
-// rows in n_cb cull blocks (0: no culling).
+// rows in n_cb cull blocks, the sphere segment's rows lie in n_sb cull
+// blocks (0: no culling).
 struct Layout {
   int sph_start, sph_n, pln_start, pln_n, box_start, box_n;
-  int tri_start = 0, tri_n = 0, n_cb = 0;
+  int tri_start = 0, tri_n = 0, n_cb = 0, n_sb = 0;
 };
 
 // Triangle table columns (ops/hit3.py TRI_COLS) and the cull blocks.
@@ -87,7 +103,9 @@ constexpr int kCullRows = 64;
 constexpr int kBbCols = 8;
 
 // The triangle segment's tables: `tab` (Pt, kTriCols) in global memory,
-// `bb` (n_cb, kBbCols) block AABBs [lo | hi | pad] in shared memory.
+// `bb` block AABBs [lo | hi | pad] in shared memory: the triangle
+// segment's (n_cb, kBbCols) or, in a scene without triangles, the sphere
+// segment's (n_sb, kBbCols).
 struct Tris {
   const float* __restrict__ tab;
   const float* bb;
@@ -298,6 +316,72 @@ __device__ __forceinline__ float inv_dir(float d) {
   return 1.0f / (d == 0.0f ? kEps : d);
 }
 
+// The sphere blocks a ray's slab test touches at all (bit b: block b; at
+// most 32 blocks, hit3.sph_cull_rows). A block outside it fails every
+// later test against a best t too.
+__device__ __forceinline__ unsigned sph_touched(const Layout& L,
+                                                const float* sbb, float ox,
+                                                float oy, float oz, float ix,
+                                                float iy, float iz) {
+  unsigned mask = 0u;
+  for (int b = 0; b < L.n_sb; ++b)
+    if (block_touch(sbb + b * kBbCols, ox, oy, oz, ix, iy, iz, kBig))
+      mask |= 1u << b;
+  return mask;
+}
+
+// Entry sweep of the sphere segment: dense, or with the layout's sphere
+// blocks (`cull`) block by block in row order, skipping the blocks the ray
+// does not enter at or before `best`; strict `<` within, so the lowest row
+// keeps a tie. Each lane walks its own touched blocks (a bit mask, lowest
+// first), so a warp's lanes sweep their blocks side by side and the warp
+// pays for its busiest lane's blocks, not for every block one of its lanes
+// touches.
+__device__ __forceinline__ void sph_entry(const float* tab, int stride,
+                                          const Layout& L, const float* sbb,
+                                          bool cull, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, float& best, int& row) {
+  if (!cull) {
+    entry_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, ox, oy, oz, dx,
+                       dy, dz, best, row);
+    return;
+  }
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  for (unsigned m = sph_touched(L, sbb, ox, oy, oz, ix, iy, iz); m;
+       m &= m - 1u) {
+    const int b = __ffs(m) - 1;
+    if (!block_touch(sbb + b * kBbCols, ox, oy, oz, ix, iy, iz, best))
+      continue;
+    const int lo = b * kCullRows;
+    entry_seg<kSphere>(tab, stride, L.sph_start + lo,
+                       imin(kCullRows, L.sph_n - lo), ox, oy, oz, dx, dy, dz,
+                       best, row);
+  }
+}
+
+// Any-hit over the sphere segment, culled per ray (the lane's touched
+// blocks, lowest first) when the layout has sphere blocks; stops at the
+// first hit.
+__device__ __forceinline__ bool sph_any(const float* tab, int stride,
+                                        const Layout& L, const float* sbb,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz) {
+  if (L.n_sb == 0)
+    return any_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, ox, oy, oz,
+                            dx, dy, dz);
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  for (unsigned m = sph_touched(L, sbb, ox, oy, oz, ix, iy, iz); m;
+       m &= m - 1u) {
+    const int lo = (__ffs(m) - 1) * kCullRows;
+    if (any_seg<kSphere>(tab, stride, L.sph_start + lo,
+                         imin(kCullRows, L.sph_n - lo), ox, oy, oz, dx, dy,
+                         dz))
+      return true;
+  }
+  return false;
+}
+
 // Entry sweep of the triangle segment, block by block in row order:
 // strict `<` after the dense rows' best keeps the lowest row on ties;
 // `cull` skips the blocks the ray does not enter before `best`.
@@ -364,8 +448,10 @@ __device__ __forceinline__ void tri_exit(const Tris& T, const Layout& L,
 // Closest hit of ray (o, d) over the table `tab` (the dense rows; rows of
 // `stride` floats whose first kSweepCols are the sweep columns) and, with
 // kTri, the triangle segment. kNeedExit: entry and group exit, never
-// culled; otherwise entry only, culled.
-template <bool kNeedExit, bool kTri = false>
+// culled; otherwise entry only, culled (the triangle blocks; with kSph the
+// sphere blocks, in the instances of scenes without triangles or textures,
+// which alone get them: hit3.sph_table).
+template <bool kNeedExit, bool kTri = false, bool kSph = !kTri>
 __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
                                            const Layout& L, float ox,
                                            float oy, float oz, float dx,
@@ -373,8 +459,8 @@ __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
                                            const Tris& T = Tris{}) {
   float best = kBig;
   int row = 0;
-  entry_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, ox, oy, oz, dx, dy,
-                     dz, best, row);
+  sph_entry(tab, stride, L, T.bb, kSph && !kNeedExit && L.n_sb > 0, ox, oy,
+            oz, dx, dy, dz, best, row);
   entry_seg<kPlane>(tab, stride, L.pln_start, L.pln_n, ox, oy, oz, dx, dy,
                     dz, best, row);
   entry_seg<kBox>(tab, stride, L.box_start, L.box_n, ox, oy, oz, dx, dy, dz,
@@ -410,14 +496,16 @@ __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
   return h;
 }
 
-// Occlusion: does the ray hit any valid row? (rt.rs:1036-1038)
-template <bool kTri = false>
+// Occlusion: does the ray hit any valid row? (rt.rs:1036-1038) kSph: the
+// sphere blocks cull, as in closest_hit.
+template <bool kTri = false, bool kSph = !kTri>
 __device__ __forceinline__ bool any_hit(const float* tab, int stride,
                                         const Layout& L, float ox, float oy,
                                         float oz, float dx, float dy,
                                         float dz, const Tris& T = Tris{}) {
-  return any_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, ox, oy, oz, dx,
-                          dy, dz) ||
+  return (kSph ? sph_any(tab, stride, L, T.bb, ox, oy, oz, dx, dy, dz)
+               : any_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, ox, oy,
+                                  oz, dx, dy, dz)) ||
          any_seg<kPlane>(tab, stride, L.pln_start, L.pln_n, ox, oy, oz, dx,
                          dy, dz) ||
          any_seg<kBox>(tab, stride, L.box_start, L.box_n, ox, oy, oz, dx, dy,

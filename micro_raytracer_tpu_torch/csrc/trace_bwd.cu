@@ -742,7 +742,8 @@ extern "C" int mrt_trace_bwd(const float* tab, int P, int sph_start,
                              int sph_n, int pln_start, int pln_n,
                              int box_start, int box_n, const float* tri,
                              int tri_start, int tri_n, const float* bb,
-                             int n_cb, const float* lights, int L, float dk,
+                             int n_cb, const float* sbb, int n_sb,
+                             const float* lights, int L, float dk,
                              const int* maps, const float* atlas,
                              const int* tmeta, int slots, const float* resid,
                              const int* n_live, const float* u8s, int R,
@@ -751,9 +752,10 @@ extern "C" int mrt_trace_bwd(const float* tab, int P, int sph_start,
                              int blocks, float* d_tab, float* d_lights,
                              float* d_tri, void* stream) {
   (void)bb;
+  (void)sbb;
   const Args a{tab, P,
                mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
-                           box_n, tri_start, tri_n, n_cb},
+                           box_n, tri_start, tri_n, n_cb, n_sb},
                tri, lights, L, dk, mrt::Tex{maps, atlas, tmeta, slots},
                resid, n_live, u8s, R, ctA, ctB, d_o, d_d, partials, blocks,
                d_tab, d_lights, d_tri};

@@ -13,6 +13,14 @@ same ``(te, row, tx, xrow)`` quadruple — misses give ``te = BIG``, ``row =
 Both take any row table whose first 18 columns are the sweep columns, such
 as the whole-trace kernel's.
 
+Long sphere segments (at least :data:`DENSE_CULL_MIN` rows,
+:func:`sph_cull_rows`) of scenes without triangles or textures are cut
+into 64-row blocks too, behind world AABBs (:func:`sph_blockbounds`): a
+sphere's hit point lies inside its block's AABB, so skipping a block the
+ray does not enter before its best t drops no hit, and the culled sweep
+gives the dense sweep's t and row. Entry-only and any-hit sweeps cull
+(the shadow sweeps of refractive scenes too); exit sweeps stay dense.
+
 Triangles: the entry test is pallas_tri._tri_block's Woop form (``|d'_z| >=
 thr``, then ``t = -o'_z / d'_z`` and the barycentric bounds), the any-hit
 test its division-free ``_tri_block_any``, and a triangle's exit t is its
@@ -57,12 +65,16 @@ CB = 64                  # rows per cull block (the compiler's split leaf)
 BB_COLS = 8              # block AABB: lo (3), hi (3), padding (2)
 # shared-memory bound on the block AABBs the kernels stage: 256 * 32 B
 MAX_TRI_BLOCKS = 256
+# a sphere segment of at least this many rows gets cull blocks
+# (pallas_hit3._DENSE_CULL_MIN); at most MAX_ROWS // CB = 32 of them
+DENSE_CULL_MIN = 256
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
 KERNEL = CudaKernel(
     "hit3", "hit3.cu", ("hit3.cuh",), "mrt_closest_hit",
     [_c_ptr, _c_int, _c_int] + [_c_int] * 6 + [_c_ptr, _c_int, _c_int,
-                                                  _c_ptr, _c_int]
+                                                  _c_ptr, _c_int, _c_ptr,
+                                                  _c_int]
     + [_c_ptr, _c_ptr] + [_c_int] * 4 + [_c_ptr] * 4 + [_c_ptr])
 # entry only (tx = te); entry and group exit; any-hit (te = -BIG on a hit)
 MODE_ENTRY, MODE_EXIT, MODE_ANY = 0, 1, 2
@@ -100,10 +112,13 @@ def layout_ints(layout):
     return ints
 
 
-def tri_ints(layout, tbb):
-    """The three ints of the triangle segment the kernels take: its first
-    row, its rows to sweep, and its cull blocks (0: no culling)."""
-    return [layout[1], layout[3], 0 if tbb is None else tbb.shape[0]]
+def cull_ints(layout, tbb, sbb):
+    """The four ints of the triangle segment and the cull the kernels'
+    ``Layout`` takes after the dense ones: the triangle segment's first row
+    and rows to sweep, its cull blocks and the sphere segment's (0: no
+    culling)."""
+    return [layout[1], layout[3], 0 if tbb is None else tbb.shape[0],
+            0 if sbb is None else sbb.shape[0]]
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,15 +128,18 @@ def _table_ints(layout):
     return tuple(layout_ints(layout))
 
 
-def table_args(layout, tri, tbb):
+def table_args(layout, tri, tbb, sbb=None):
     """The kernels' C arguments for the kind segments: the six dense ints,
-    then the triangle table, its first row and rows to sweep, the cull
-    blocks and their count (null pointers and zeros without triangles)."""
+    then the triangle table, its first row and rows to sweep, its cull
+    blocks and their count (null pointers and zeros without triangles),
+    and the sphere segment's cull blocks and their count (null and 0
+    without)."""
+    sph = (None, 0) if sbb is None else (ptr(sbb), sbb.shape[0])
     if not layout[2]:
-        return (*_table_ints(layout), None, layout[1], 0, None, 0)
+        return (*_table_ints(layout), None, layout[1], 0, None, 0, *sph)
     return (*_table_ints(layout), ptr(tri), layout[1], layout[3],
             None if tbb is None else ptr(tbb),
-            0 if tbb is None else tbb.shape[0])
+            0 if tbb is None else tbb.shape[0], *sph)
 
 
 def pack_scene(scene, frames):
@@ -201,6 +219,55 @@ def tri_blockbounds(scene, frames):
         lo = torch.where(bad, -BIG, lo)
         hi = torch.where(bad, BIG, hi)
         return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], 1)
+
+
+def sph_cull_rows(layout):
+    """``(start, count)`` of the sphere segment when it gets cull blocks
+    (pallas_hit3._sph_cull_rows): at least DENSE_CULL_MIN rows, at most
+    MAX_ROWS // CB blocks; else None."""
+    for kind, s, c, _n in layout[0]:
+        if kind == schema.KIND_SPHERE and c >= DENSE_CULL_MIN \
+                and -(-c // CB) <= MAX_ROWS // CB:
+            return s, c
+    return None
+
+
+def sph_blockbounds(scene):
+    """World AABBs ``(n_sb, 8)`` ``[lo (3) | hi (3) | 0 0]`` of the sphere
+    segment's 64-row blocks (pallas_hit3._sphere_blockbounds without its
+    padding to 8 rows): centre +- r of each valid row (the instance frame
+    is a rotation, so the radius holds), a slack of 1e-4 + 1e-4 * extent,
+    and a non-finite bound tests always. Culling data, built without a
+    gradient."""
+    with torch.no_grad():
+        s = scene.seg(schema.KIND_SPHERE)
+        ip = scene.inst_pos[s].detach()
+        r = scene.prim_r[s].detach()[:, None]
+        valid = scene.prim_valid[s][:, None]
+        lo = torch.where(valid, ip - r, BIG)
+        hi = torch.where(valid, ip + r, -BIG)
+        pad = (-lo.shape[0]) % CB
+        lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=BIG)
+        hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-BIG)
+        n_sb = lo.shape[0] // CB
+        lo = lo.reshape(n_sb, CB, 3).amin(dim=1)
+        hi = hi.reshape(n_sb, CB, 3).amax(dim=1)
+        eps = 1e-4 + 1e-4 * torch.clamp(hi - lo, min=0.0)
+        lo, hi = lo - eps, hi + eps
+        bad = ~(torch.isfinite(lo) & torch.isfinite(hi))
+        lo = torch.where(bad, -BIG, lo)
+        hi = torch.where(bad, BIG, hi)
+        return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], 1)
+
+
+def sph_table(scene, layout):
+    """The sphere segment's cull blocks (:func:`sph_blockbounds`), or None
+    where it gets none (:func:`sph_cull_rows`) and in a scene with
+    triangles or textures, whose kernels sweep the spheres dense (their
+    instances keep the Mesh-class and textured code and registers)."""
+    if layout[2] or scene.has_maps or not sph_cull_rows(layout):
+        return None
+    return sph_blockbounds(scene)
 
 
 def tri_tables(scene, frames):
@@ -441,6 +508,37 @@ def _tri_t(tri, row, o, d):
     return -oz / torch.where(dz == 0.0, 1.0, dz)
 
 
+def _sph_cull(sbb, n, o, d, t0, ok, mode):
+    """The per-ray cull of the sphere segment's first ``n`` rows, block by
+    block in row order (hit3.cuh sph_entry / sph_any): an entry sweep
+    skips a block the ray does not enter at or before its best t so far,
+    an any-hit sweep a block the ray misses, and stops at its first hit.
+    ``t0``, ``ok`` ``(R, c)`` are the segment's row tests. Returns ``ok``
+    with the skipped rows cleared and the rows each ray tested (no
+    gradient)."""
+    R = o.shape[0]
+    keep = torch.zeros_like(ok)
+    tested = torch.zeros(R, dtype=torch.int64, device=o.device)
+    invd = _inv_dir(d)
+    best = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
+    hit = torch.zeros(R, dtype=torch.bool, device=o.device)
+    for b, (lo, hi) in enumerate(_blocks(n)):
+        touch = _slab_touch(sbb[b], o, invd, best)
+        keep[:, lo:hi] = touch[:, None]
+        ok_b = ok[:, lo:hi] & touch[:, None]
+        if mode == MODE_ANY:
+            found = ok_b.any(dim=1)
+            upto = torch.where(found, intersect.first_index(ok_b).long() + 1,
+                               hi - lo)
+            tested += torch.where(touch & ~hit, upto, 0)
+            hit = hit | found
+        else:
+            tested += touch * (hi - lo)
+            best = torch.minimum(best, torch.where(
+                ok_b, t0[:, lo:hi], BIG).amin(dim=1))
+    return ok & keep, tested
+
+
 def _need_tri(layout, tri):
     if layout[2] and tri is None:
         raise ValueError("the scene has triangles: pass its triangle table "
@@ -449,28 +547,38 @@ def _need_tri(layout, tri):
 
 
 def closest_hit_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None,
-                      tbb=None):
+                      tbb=None, sbb=None):
     """Plain PyTorch closest hit of rays ``o``/``d`` ``(R, 3)`` against the
-    row table ``tab`` (and the triangle tables): returns ``(te, row, tx,
-    xrow)`` like the kernel (any device)."""
+    row table ``tab`` (and the triangle tables, the sphere cull blocks):
+    returns ``(te, row, tx, xrow)`` like the kernel (any device)."""
     KERNEL.plain_calls += 1
-    return sweep_plain(tab, layout, o, d, mode, tri, tbb)
+    return sweep_plain(tab, layout, o, d, mode, tri, tbb, sbb)
 
 
-def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None):
+def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
+                sbb=None):
     """The sweep of :func:`closest_hit_plain` without its call count: the
     plain whole trace runs it for every step. Differentiable: ``te`` and
     ``tx`` carry the winner row's t gradient (the masked min / max over the
     dense rows read at the winner row, the Woop plane form of a triangle
     winner): on a tie the lowest row takes it all, as in the kernels, where
     autograd of the min itself would split it among the tied rows (two
-    boxes with a common face, a ray starting on it)."""
+    boxes with a common face, a ray starting on it). With the sphere
+    cull blocks ``sbb``, entry-only and any-hit sweeps skip the blocks the
+    kernel skips (:func:`_sph_cull`)."""
     fr, ipos, pa, pr, valid, gid = split_sweep(tab)
     segs, tri_start, _n_tri, tri_n = layout
     has_tri = _need_tri(layout, tri)
     R = o.shape[0]
     parts = [_kind_block(kind, s, s + c, fr, ipos, pa, pr, valid, o, d)
              for kind, s, c, _n in segs]
+    if sbb is not None and mode != MODE_EXIT:
+        # the sphere segment is the first (sph_cull_rows)
+        t0s, t1s, oks = parts[0]
+        with torch.no_grad():
+            oks = _sph_cull(sbb, segs[0][3], o.detach(), d.detach(),
+                            t0s.detach(), oks, mode)[0]
+        parts[0] = (t0s, t1s, oks)
     if parts:
         t0 = torch.cat([p[0] for p in parts], dim=1)
         t1 = torch.cat([p[1] for p in parts], dim=1)
@@ -551,16 +659,38 @@ def tri_rows_tested(tab, layout, o, d, mode, tri, tbb):
         return tested
 
 
-def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None):
+def sph_rows_tested(tab, layout, o, d, mode, sbb):
+    """(R,) int64: the sphere rows the kernel tests for these rays in
+    ``mode``, by its culling rule (entry: the rows of each touched block;
+    any-hit: rows up to the first hit; exit, or no cull blocks: every row
+    of the sweep). Counts the work behind a kernel's bound."""
+    R = o.shape[0]
+    segs = layout[0]
+    if not segs or segs[0][0] != schema.KIND_SPHERE:
+        return torch.zeros(R, dtype=torch.int64, device=o.device)
+    n = segs[0][3]
+    if sbb is None or mode == MODE_EXIT:
+        return torch.full((R,), n, dtype=torch.int64, device=o.device)
+    with torch.no_grad():
+        o, d = o.detach(), d.detach()
+        fr, ipos, pa, pr, valid, _gid = split_sweep(tab.detach())
+        t0, _t1, ok = _kind_block(schema.KIND_SPHERE, 0, segs[0][2], fr,
+                                  ipos, pa, pr, valid, o, d)
+        return _sph_cull(sbb, n, o, d, t0, ok, mode)[1]
+
+
+def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
+                sbb=None):
     """``(te, row, tx, xrow)`` of rays ``o``/``d`` ``(R, 3)`` float32
     against the row table ``tab`` ``(P, C >= 18)`` and, for a scene with
-    triangles, its :func:`tri_tables` ``tri`` and ``tbb``.
+    triangles, its :func:`tri_tables` ``tri`` and ``tbb``; with a long
+    sphere segment, its cull blocks ``sbb`` (:func:`sph_table`).
 
     CUDA tensors launch ``mrt_closest_hit``; the rays may be any strided
     view, such as the transpose of lane-major ``(3, R)`` rays. CPU tensors
     run :func:`closest_hit_plain`."""
     if o.device.type == "cpu":
-        return closest_hit_plain(tab, layout, o, d, mode, tri, tbb)
+        return closest_hit_plain(tab, layout, o, d, mode, tri, tbb, sbb)
     has_tri = _need_tri(layout, tri)
     R = o.shape[0]
     require_cuda_tensor("o", o, torch.float32, (R, 3), contiguous=False)
@@ -578,21 +708,29 @@ def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None):
         raise ValueError(f"closest_hit kernel: {n_dense} sphere, plane and "
                          f"box rows exceed the shared-memory bound of "
                          f"{MAX_ROWS}")
-    if has_tri:
-        check_tri_tables(layout, tri, tbb)
+    check_cull_tables(layout, tri, tbb, sbb)
     te = torch.empty(R, dtype=torch.float32, device=o.device)
     tx = torch.empty_like(te)
     row = torch.empty(R, dtype=torch.int32, device=o.device)
     xrow = torch.empty_like(row)
     if R:
-        KERNEL.launch(ptr(tab), n_dense, C, *table_args(layout, tri, tbb),
+        KERNEL.launch(ptr(tab), n_dense, C,
+                      *table_args(layout, tri, tbb, sbb),
                       ptr(o), ptr(d), *o.stride(), R, mode, ptr(te),
                       ptr(row), ptr(tx), ptr(xrow), stream_ptr(o.device))
     return te, row, tx, xrow
 
 
-def check_tri_tables(layout, tri, tbb):
-    """Validate the triangle tables of a kernel launch."""
+def check_cull_tables(layout, tri, tbb, sbb):
+    """Validate the triangle tables and the cull blocks of a kernel
+    launch."""
+    if sbb is not None:
+        sph = sph_cull_rows(layout)
+        if sph is None or layout[2]:
+            raise ValueError("sphere cull blocks for a scene that gets none "
+                             "(sph_table)")
+        require_cuda_tensor("sbb", sbb, torch.float32,
+                            (-(-sph[1] // CB), BB_COLS))
     if not layout[2]:
         return
     require_cuda_tensor("tri", tri, torch.float32, (layout[2], TRI_COLS))
@@ -604,6 +742,7 @@ def check_tri_tables(layout, tri, tbb):
                              f"the shared-memory bound of {MAX_TRI_BLOCKS}")
 
 
-def any_hit(tab, layout, o, d, tri=None, tbb=None):
+def any_hit(tab, layout, o, d, tri=None, tbb=None, sbb=None):
     """(R,) bool: does each ray hit any valid row?"""
-    return closest_hit(tab, layout, o, d, MODE_ANY, tri, tbb)[0] < BIG * 0.5
+    return closest_hit(tab, layout, o, d, MODE_ANY, tri, tbb,
+                       sbb)[0] < BIG * 0.5

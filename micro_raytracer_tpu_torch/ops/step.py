@@ -42,7 +42,10 @@ liveness ``(1, R)``. It dispatches on its inputs:
 * other CUDA tensors run the primary-hit kernel and the render instance
   (:func:`trace_fwd`).
 
-No path falls back to another.
+:func:`trace_segment` runs the steps ``[k0, k1)`` of a render from a
+carry (live-first compaction between segments, ``models/tracer.py``): the
+render instance on the card, :func:`trace_plain` on the CPU. No path
+falls back to another.
 """
 
 from __future__ import annotations
@@ -116,23 +119,39 @@ def res_xrow(n_lights: int) -> int:
     return RES_LOK + n_lights
 
 
+# carry rows of a segmented render (csrc/trace_fwd.cu CarryRow; the JAX
+# package's c0 / cout): o (3), d (3), pwr, live, A (3), B (3)
+C_LIVE, CARRY_ROWS = 7, 14
+
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
-_TRI_ARGS = [_c_ptr, _c_int, _c_int, _c_ptr, _c_int]
+_TRI_ARGS = [_c_ptr, _c_int, _c_int, _c_ptr, _c_int, _c_ptr, _c_int]
 _TEX_ARGS = [_c_ptr] * 3 + [_c_int]
 _FWD_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
              + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS + [_c_ptr] * 7
-             + [_c_int] * 3 + [_c_ptr] * 3)
+             + [_c_int] * 3)
 _HEADERS = ("hit3.cuh", "trace_step.cuh")
 KERNEL = CudaKernel("trace_fwd", "trace_fwd.cu", _HEADERS, "mrt_trace_fwd",
-                    _FWD_ARGS + [_c_ptr])
+                    _FWD_ARGS + [_c_int, _c_int] + [_c_ptr] * 7)
 TRAIN_KERNEL = CudaKernel("trace_fwd_train", "trace_fwd.cu", _HEADERS,
-                          "mrt_trace_fwd_train", _FWD_ARGS + [_c_ptr] * 3)
+                          "mrt_trace_fwd_train", _FWD_ARGS + [_c_ptr] * 6)
 BWD_KERNEL = CudaKernel(
     "trace_bwd", "trace_bwd.cu", _HEADERS, "mrt_trace_bwd",
     [_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
     + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS + [_c_ptr] * 3
     + [_c_int] * 2
     + [_c_ptr] * 5 + [_c_int] + [_c_ptr] * 4)
+
+
+class Segment(NamedTuple):
+    """The steps ``[k0, k1)`` of a segmented render, the ``(CARRY_ROWS,
+    R)`` carry it resumes from (None: the primaries, ``k0 = 0``) and the
+    ray each lane holds (None: lane i holds ray i), whose uniform column it
+    reads."""
+
+    k0: int
+    k1: int
+    c0: torch.Tensor | None = None
+    rid: torch.Tensor | None = None
 
 
 class TraceTables(NamedTuple):
@@ -149,6 +168,8 @@ class TraceTables(NamedTuple):
     maps: torch.Tensor | None = None
     atlas: torch.Tensor | None = None
     tmeta: torch.Tensor | None = None
+    # (n_sb, hit3.BB_COLS) cull blocks of a long sphere segment, or None
+    sbb: torch.Tensor | None = None
 
 
 def n_uni(need_exit: bool) -> int:
@@ -187,9 +208,9 @@ def pack_step(scene) -> TraceTables:
     if scene.has_maps:
         tex = (scene.mat_maps[m].to(torch.int32).contiguous(),
                *intersect.tex_tables(scene))
-    return TraceTables(frames, tab, lights,
-                       hit3.seg_layout(scene.kind_counts, scene.kind_sweep),
-                       tri, tbb, *tex)
+    layout = hit3.seg_layout(scene.kind_counts, scene.kind_sweep)
+    return TraceTables(frames, tab, lights, layout, tri, tbb, *tex,
+                       sbb=hit3.sph_table(scene, layout))
 
 
 def primary_mode(scene) -> int:
@@ -334,7 +355,8 @@ def _light_vec(lt, p):
 def _occlusion(tables, L, p_e, live_i, work=None):
     """(R, L) bool: light li is visible from the entry point (no
     gradient: the shadow sweep's result is a choice). ``work["shadow"]``
-    gains the triangle rows the kernel's shadow sweeps test."""
+    gains the triangle rows the kernel's shadow sweeps test, and with
+    sphere cull blocks ``work["sph_shadow"]`` the sphere rows."""
     with torch.no_grad():
         tab, p_e = tables.tab.detach(), p_e.detach()
         lights, layout = tables.lights, tables.layout
@@ -345,11 +367,16 @@ def _occlusion(tables, L, p_e, live_i, work=None):
             ln = _scale(lv, 1.0 / torch.sqrt(_dot3(lv, lv)))
             so = p_e + ln * EPS
             te = hit3.sweep_plain(tab, layout, so, ln, hit3.MODE_ANY, tri,
-                                  tables.tbb)[0]
+                                  tables.tbb, tables.sbb)[0]
             if work is not None:
                 work["shadow"] += int(hit3.tri_rows_tested(
                     tab, layout, so, ln, hit3.MODE_ANY, tri,
                     tables.tbb)[live_i].sum())
+                if tables.sbb is not None:
+                    work["sph_shadow"] = work.get("sph_shadow", 0) + int(
+                        hit3.sph_rows_tested(tab, layout, so, ln,
+                                             hit3.MODE_ANY,
+                                             tables.sbb)[live_i].sum())
             oks.append((te >= hit3.BIG * 0.5) & live_i)
         if not oks:
             return torch.zeros((p_e.shape[0], 0), dtype=torch.bool,
@@ -383,7 +410,7 @@ def _direct_light(lights, L, lok, p, n, d, alb, rgh, met):
 
 
 def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
-                work=None):
+                work=None, seg=None):
     """Plain PyTorch whole trace: the kernels' step, operation for
     operation, on their inputs (any device). Differentiable by autograd in
     ``tables.tab``, ``tables.lights``, ``oT`` and ``dT``: hits are the
@@ -400,28 +427,48 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
     ``"sweep"`` the triangle rows the trace kernel's closest-hit sweeps
     test (steps after the first, whose sweep is the primary-hit pass; the
     exit pass included) and under ``"shadow"`` those of its shadow sweeps,
-    for the rays live at each sweep; on a textured scene also
-    ``"tex_fetch"`` and ``"tex_edge"`` (:func:`_side_material`)."""
+    for the rays live at each sweep; with sphere cull blocks the sphere
+    rows under ``"sph_sweep"`` and ``"sph_shadow"``; on a textured scene
+    also ``"tex_fetch"`` and ``"tex_edge"`` (:func:`_side_material`).
+
+    ``seg`` (a :class:`Segment`, not with ``want_resid``) runs its steps
+    from its carry, lane i reading the uniform column of ray ``rid[i]``,
+    and returns ``(A, B, first_live, carry)`` like :func:`trace_segment`
+    (``first_live`` is 0 unless the segment starts at step 0)."""
     (TRAIN_KERNEL if want_resid else KERNEL).plain_calls += 1
     tab, lights, layout = tables.tab, tables.lights, tables.layout
     L, refract = scene.n_lights, scene.any_refract
     mode = primary_mode(scene)
     ends = _row_ends(layout)
     R, K = oT.shape[1], u8s.shape[0]
-    o, d = oT.T, dT.T
-    pwr = torch.ones((), dtype=oT.dtype, device=oT.device)
-    live = torch.ones(R, dtype=torch.bool, device=oT.device)
+    segmented = seg is not None
+    seg = Segment(0, K) if seg is None else seg
     n_live = torch.zeros(R, dtype=torch.int32, device=oT.device)
-    A = torch.ones((R, 3), dtype=oT.dtype, device=oT.device)
-    B = torch.zeros((R, 3), dtype=oT.dtype, device=oT.device)
-    first, resid = None, []
-    for k in range(K):
-        u, u_emit = unpack_uniforms(u8s[k], refract)
+    if seg.c0 is None:
+        o, d = oT.T, dT.T
+        pwr = torch.ones((), dtype=oT.dtype, device=oT.device)
+        live = torch.ones(R, dtype=torch.bool, device=oT.device)
+        A = torch.ones((R, 3), dtype=oT.dtype, device=oT.device)
+        B = torch.zeros((R, 3), dtype=oT.dtype, device=oT.device)
+    else:
+        c = seg.c0
+        o, d, pwr = c[0:3].T, c[3:6].T, c[6:7].T
+        live, A, B = c[C_LIVE] > 0.5, c[8:11].T, c[11:14].T
+    first = torch.zeros(R, dtype=torch.bool, device=oT.device)
+    resid = []
+    for k in range(seg.k0, seg.k1):
+        u8 = u8s[k] if seg.rid is None else u8s[k][:, seg.rid]
+        u, u_emit = unpack_uniforms(u8, refract)
         te, row, tx, xrow = hit3.sweep_plain(tab, layout, o, d, mode,
-                                             tables.tri, tables.tbb)
+                                             tables.tri, tables.tbb,
+                                             tables.sbb)
         if work is not None and k:
             work["sweep"] += int(hit3.tri_rows_tested(
                 tab, layout, o, d, mode, tables.tri, tables.tbb)[live].sum())
+            if tables.sbb is not None:
+                work["sph_sweep"] = work.get("sph_sweep", 0) + int(
+                    hit3.sph_rows_tested(tab, layout, o, d, mode,
+                                         tables.sbb)[live].sum())
         live_i = live & (te < hit3.BIG * 0.5)
         if k == 0:
             first = live_i
@@ -488,6 +535,10 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
     out = (A.T.contiguous(), B.T.contiguous(), first.to(oT.dtype)[None])
     if want_resid:
         return out + (torch.stack(resid), n_live)
+    if segmented:
+        pwr = torch.broadcast_to(pwr, (R, 1))
+        return out + (torch.cat([o, d, pwr, live.to(oT.dtype)[:, None], A,
+                                 B], 1).T.contiguous(),)
     return out
 
 
@@ -523,9 +574,13 @@ def _table_args(scene, tables, max_dense, what):
         raise ValueError(f"{what} kernel: {n_dense} sphere, plane and box "
                          f"rows exceed the shared-memory bound of "
                          f"{max_dense}")
-    hit3.check_tri_tables(layout, tables.tri, tables.tbb)
+    if scene.has_maps and tables.sbb is not None:
+        raise ValueError("sphere cull blocks for a textured scene "
+                         "(hit3.sph_table)")
+    hit3.check_cull_tables(layout, tables.tri, tables.tbb, tables.sbb)
     return [ptr(tab), n_dense,
-            *hit3.table_args(layout, tables.tri, tables.tbb), ptr(lights)]
+            *hit3.table_args(layout, tables.tri, tables.tbb, tables.sbb),
+            ptr(lights)]
 
 
 def _tex_args(scene, tables):
@@ -545,7 +600,9 @@ def _tex_args(scene, tables):
 
 
 def _fwd_args(scene, tables, decay, oT, dT, u8s, hit0):
-    """Validate a forward launch's inputs; its leading C arguments."""
+    """Validate a forward launch's inputs; its leading C arguments
+    (``hit0`` None: null pointers, for a segment that starts after step
+    0)."""
     check_scene(scene)
     R = oT.shape[1]
     K = u8s.shape[0]
@@ -553,13 +610,16 @@ def _fwd_args(scene, tables, decay, oT, dT, u8s, hit0):
     require_cuda_tensor("dT", dT, torch.float32, (3, R))
     require_cuda_tensor("u8s", u8s, torch.float32,
                         (K, n_uni(scene.any_refract), R))
-    for name, t, dtype in zip(("te0", "row0", "tx0", "xrow0"), hit0,
-                              (torch.float32, torch.int32) * 2):
-        require_cuda_tensor(name, t, dtype, (R,))
+    if hit0 is None:
+        hit_ptrs = [None] * 4
+    else:
+        for name, t, dtype in zip(("te0", "row0", "tx0", "xrow0"), hit0,
+                                  (torch.float32, torch.int32) * 2):
+            require_cuda_tensor(name, t, dtype, (R,))
+        hit_ptrs = [ptr(t) for t in hit0]
     return (_table_args(scene, tables, MAX_ROWS, "trace")
             + [scene.n_lights, float(decay), *_tex_args(scene, tables),
-               ptr(oT), ptr(dT),
-               *(ptr(t) for t in hit0), ptr(u8s), K, R,
+               ptr(oT), ptr(dT), *hit_ptrs, ptr(u8s), K, R,
                int(scene.any_refract)])
 
 
@@ -567,21 +627,46 @@ def primary_hits(scene, tables, oT, dT):
     """The primary-hit pass (:func:`hit3.closest_hit`) of lane-major
     primaries, in :func:`primary_mode`: the trace kernels' ``hit0``."""
     return hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T,
-                            primary_mode(scene), tables.tri, tables.tbb)
+                            primary_mode(scene), tables.tri, tables.tbb,
+                            tables.sbb)
 
 
-def trace_fwd(scene, tables, decay, oT, dT, u8s, hit0):
+def _seg_args(seg, K, R, dev):
+    """Validate a segment of the render instance; its C arguments (the
+    step range, the carry in, the lanes' rays) and the carry out."""
+    if seg is None:
+        return [0, K, None, None], None
+    if not 0 <= seg.k0 < seg.k1 <= K or (seg.c0 is None) != (seg.k0 == 0):
+        raise ValueError(f"segment [{seg.k0}, {seg.k1}) of {K} steps with "
+                         f"{'no ' if seg.c0 is None else ''}carry")
+    c0 = rid = None
+    if seg.c0 is not None:
+        require_cuda_tensor("c0", seg.c0, torch.float32, (CARRY_ROWS, R))
+        c0 = ptr(seg.c0)
+    if seg.rid is not None:
+        require_cuda_tensor("rid", seg.rid, torch.int32, (R,))
+        rid = ptr(seg.rid)
+    cout = torch.empty((CARRY_ROWS, R), dtype=torch.float32, device=dev)
+    return [seg.k0, seg.k1, c0, rid], cout
+
+
+def trace_fwd(scene, tables, decay, oT, dT, u8s, hit0, seg=None):
     """Launch ``mrt_trace_fwd`` (the render instance) on CUDA tensors.
     ``hit0`` is the primaries' ``(te, row, tx, xrow)`` from
-    :func:`primary_hits`."""
+    :func:`primary_hits` (None for a segment that starts after step 0).
+    With a :class:`Segment` it runs its steps from its carry and returns
+    its carry out too: ``(A, B, first_live, carry)``."""
     args = _fwd_args(scene, tables, decay, oT, dT, u8s, hit0)
     R = oT.shape[1]
+    seg_args, cout = _seg_args(seg, u8s.shape[0], R, oT.device)
     A = torch.empty((3, R), dtype=torch.float32, device=oT.device)
     B = torch.empty_like(A)
     fl = torch.empty((1, R), dtype=torch.float32, device=oT.device)
     if R:
-        KERNEL.launch(*args, ptr(A), ptr(B), ptr(fl), stream_ptr(oT.device))
-    return A, B, fl
+        KERNEL.launch(*args, *seg_args, ptr(A), ptr(B), ptr(fl),
+                      None if cout is None else ptr(cout),
+                      stream_ptr(oT.device))
+    return (A, B, fl) if seg is None else (A, B, fl, cout)
 
 
 def trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0):
@@ -679,6 +764,17 @@ class TraceFunction(torch.autograd.Function):
         d_tab, d_lights, d_oT, d_dT, d_tri = trace_bwd(
             ctx.scene, tables, ctx.decay, u8s, resid, n_live, ctA, ctB)
         return d_tab, d_lights, d_tri, d_oT, d_dT, None, None, None, None
+
+
+def trace_segment(scene, tables, decay, oT, dT, u8s, seg):
+    """The steps of :class:`Segment` ``seg`` of a render (no gradient):
+    ``(A, B, first_live, carry)`` in lane order. CUDA tensors run the
+    primary-hit kernel (a segment from step 0) and the render instance of
+    the trace kernel, CPU tensors :func:`trace_plain`."""
+    if oT.device.type == "cpu":
+        return trace_plain(scene, tables, decay, oT, dT, u8s, seg=seg)
+    hit0 = primary_hits(scene, tables, oT, dT) if seg.k0 == 0 else None
+    return trace_fwd(scene, tables, decay, oT, dT, u8s, hit0, seg)
 
 
 def trace_packed(scene, tables, decay, oT, dT, u8s):

@@ -52,6 +52,17 @@ flips: rays outside the tolerance that have a texel coordinate within
 ``work["tex_edge"]``); the texel residual rows of the other rays are
 equal.
 
+Instance-class scenes (``torch_inst_helpers``: ``inst_grid``, 1,000
+instanced spheres over a plane, and ``inst_glass``, 343 of which a
+twentieth are glass; camera rays): the closest-hit kernel's rows and t
+equal the plain version's bit for bit in every mode, with the per-ray
+sphere-block cull; the other checks are those above. Their spheres are
+convex mirrors that move a path about tenfold per bounce and whose grazing
+hits give t as 1 / sqrt(disc), so they are in ILL_CONDITIONED below. The
+render split into segments with live lanes packed first between them
+(``tracer.trace_fused``'s ``cuts``) equals the unsegmented render bit for
+bit, on them and on ``mesh_glass``.
+
 ``ties`` (two identical spheres; a box whose top face lies on a plane)
 hits exact ties of the winner t: the lowest row wins and takes the whole
 gradient in the kernels and in the plain version.
@@ -76,8 +87,12 @@ import torch
 
 from micro_raytracer_tpu_torch.frontends import cli
 from micro_raytracer_tpu_torch.models import schema
+from micro_raytracer_tpu_torch.models import tracer as ttr
 from micro_raytracer_tpu_torch.models.compiler import compile_scene
 from micro_raytracer_tpu_torch.ops import hit3, step
+from torch_inst_helpers import CAMERA as INST_CAMERA
+from torch_inst_helpers import inst_scene
+from torch_inst_helpers import render_json as inst_json
 from torch_mesh_helpers import (CLUSTERED_LIT, aimed_rays, mesh_scene,
                                 small_torus, two_tori)
 from torch_port_helpers import (MIXED, MIXED_OPAQUE, TIES,  # noqa: F401
@@ -90,9 +105,12 @@ SCENES = {"mixed": MIXED, "mixed_opaque": MIXED_OPAQUE,
           "clustered": CLUSTERED_LIT, "two_tori": two_tori(),
           "tex_dof": tex_scene("tex_dof"),
           "tex_blocks": tex_scene("tex_blocks"),
-          "tex_mesh": tex_scene("tex_mesh"), "ties": TIES}
+          "tex_mesh": tex_scene("tex_mesh"), "ties": TIES,
+          "inst_grid": inst_scene("inst_grid"),
+          "inst_glass": inst_scene("inst_glass")}
+CAMERAS = dict(CAMERAS, inst_grid=INST_CAMERA, inst_glass=INST_CAMERA)
 # scenes whose rays may be ill-conditioned (module docstring)
-ILL_CONDITIONED = {"mesh_opaque", "tex_mesh"}
+ILL_CONDITIONED = {"mesh_opaque", "tex_mesh", "inst_grid", "inst_glass"}
 
 
 def _scene(name, device):
@@ -131,7 +149,8 @@ def test_closest_hit_kernel_matches_plain(name, cuda_device):
     trace's row table (the primary-hit pass's inputs)."""
     scene = _scene(name, cuda_device)
     tables = step.pack_step(scene)
-    tri = (tables.tri, tables.tbb)
+    tri = (tables.tri, tables.tbb, tables.sbb)
+    exact = scene.kind_counts[3] or tables.sbb is not None
     o, d = _rays(1 << 14, cuda_device, name=name)
     oT, dT = o.T.contiguous(), d.T.contiguous()
     for tab, o_, d_ in ((hit3.pack_scene(scene, tables.frames), o, d),
@@ -143,7 +162,7 @@ def test_closest_hit_kernel_matches_plain(name, cuda_device):
             ref = hit3.closest_hit_plain(tab, tables.layout, o, d, mode,
                                          *tri)
             for g, r in zip(got, ref):
-                if g.dtype == torch.int32 or scene.kind_counts[3]:
+                if g.dtype == torch.int32 or exact:
                     assert torch.equal(g, r)
                 else:
                     torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
@@ -231,12 +250,62 @@ def test_cli_renders_a_mesh_scene_on_the_kernels(cuda_device, tmp_path):
             k.launches = k.plain_calls = 0
         out = tmp_path / f"o{int(obj_file)}.png"
         assert cli.main([str(cfg), "-o", str(out)]) == 0
-        assert hit3.KERNEL.launches == 2 and step.KERNEL.launches == 2
+        # one trace launch per segment of a sample's render
+        segs = len(ttr.compact_cuts(compile_scene(schema.SceneConfig
+                                                  .from_json(scene), "cpu"),
+                                    5, True)) + 1
+        assert hit3.KERNEL.launches == 2
+        assert step.KERNEL.launches == 2 * segs
         assert step.KERNEL.plain_calls == 0 and hit3.KERNEL.plain_calls == 0
         from PIL import Image
 
         imgs.append(np.asarray(Image.open(out)))
     assert np.array_equal(imgs[0], imgs[1]) and imgs[0].std() > 5.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["inst_grid", "inst_glass", "mesh_glass"])
+def test_compacted_render_equals_unsegmented(name, cuda_device):
+    """trace_fused split at steps 2, 4 and 6, live lanes packed first
+    between the segments: one primary-hit launch and four trace launches,
+    and the unsegmented render's radiance bit for bit."""
+    scene = _scene(name, cuda_device)
+    tables = step.pack_step(scene)
+    R = 1 << 14
+    o, d = _rays(R, cuda_device, seed=5, name=name)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    u8s = torch.rand((9, step.n_uni(scene.any_refract), R), generator=gen,
+                     device=cuda_device)
+    flat = ttr.trace_fused(scene, tables, 8, o, d, 0.15, u8s, cuts=[])
+    before = (hit3.KERNEL.launches, step.KERNEL.launches)
+    split = ttr.trace_fused(scene, tables, 8, o, d, 0.15, u8s,
+                            cuts=[2, 4, 6])
+    assert (hit3.KERNEL.launches, step.KERNEL.launches) == \
+        (before[0] + 1, before[1] + 4)
+    assert torch.equal(split, flat) and float(flat.std()) > 0.01
+
+
+@pytest.mark.cuda
+def test_cli_renders_an_instanced_scene_on_the_kernels(cuda_device,
+                                                        tmp_path):
+    """The small grid's JSON renders through the kernels alone: one
+    primary-hit launch per sample and one trace launch per segment of the
+    sample's compacted render."""
+    import json
+
+    from PIL import Image
+
+    cfg = tmp_path / "inst.json"
+    cfg.write_text(json.dumps(inst_json("inst_grid", small=True, res=64,
+                                        bounce=8, sample=2)))
+    for k in (hit3.KERNEL, step.KERNEL):
+        k.launches = k.plain_calls = 0
+    out = tmp_path / "inst.png"
+    assert cli.main([str(cfg), "-o", str(out)]) == 0
+    segs = len(ttr.compact_cuts(_scene("inst_grid", "cpu"), 9, True)) + 1
+    assert hit3.KERNEL.launches == 2 and step.KERNEL.launches == 2 * segs
+    assert step.KERNEL.plain_calls == 0 and hit3.KERNEL.plain_calls == 0
+    assert np.asarray(Image.open(out)).std() > 5.0
 
 
 @pytest.mark.cuda

@@ -52,12 +52,16 @@ from micro_raytracer_tpu_torch.models import tracer as ttr
 from micro_raytracer_tpu_torch.ops import hit3, step
 from micro_raytracer_tpu_torch.parallel import shard
 from test_pallas_step import scenes
+from torch_inst_helpers import INST_NAMES, inst_scene
 from torch_port_helpers import outlier_rows, port_scene, rays
 from torch_mesh_helpers import one_torch_thread  # noqa: F401
 from torch_tex_helpers import max_flips
 
 FWD_RTOL, FWD_ATOL = 1e-3, 1e-4
 G_RTOL, G_FLOOR = 2e-3, 1e-5
+# rays shown ill-conditioned by float64 (_ill_rays; sphere-grid scenes
+# only): at most this share, each within ILL_RATIO of float32's own error
+ILL_SHARE, ILL_RATIO = 0.01, 10.0
 R, K = 256, 4
 DECAY = ttr.decay_of(0.15)
 SCENES = ["opaque", "glass_flat"]
@@ -65,7 +69,11 @@ SCENES = ["opaque", "glass_flat"]
 
 @functools.lru_cache(maxsize=None)
 def _scene(name):
-    js = jcomp.compile_scene(schema.SceneConfig.from_json(scenes()[name]))
+    """The JAX package's test scene ``name``, or the small Instance-class
+    stand-in."""
+    src = inst_scene(name, small=True) if name in INST_NAMES \
+        else scenes()[name]
+    js = jcomp.compile_scene(schema.SceneConfig.from_json(src))
     return js, port_scene(js)
 
 
@@ -170,11 +178,45 @@ def _module_fwd(name):
         work["tex_edge"].numpy()
 
 
+def _ill_rays(ps, tables, oT, dT, u8s, ct, g_j, g_t):
+    """(R,) bool: the rays whose d_oT or d_dT lie outside the gradient
+    tolerance, each shown ill-conditioned: the port's and JAX's values
+    differ at most ILL_RATIO times as much as float32 rounding moves one
+    of them from the port's plain trace run in float64 (a sphere-grid path
+    that grazes a sphere, where d t / d o grows as 1 / sqrt(disc)). At most
+    ILL_SHARE of the rays."""
+    off = np.zeros(R, bool)
+    for a, b in ((g_t[2], g_j[2]), (g_t[3], g_j[3])):
+        a, b = a.numpy(), np.asarray(b)
+        atol = G_FLOOR * max(float(np.abs(b).max()), 1e-30)
+        off |= (np.abs(a - b) > G_RTOL * np.abs(b) + atol).any(0)
+    idx = np.nonzero(off)[0]
+    if not len(idx):
+        return off
+    assert len(idx) <= ILL_SHARE * R, idx
+    f64 = torch.float64
+    t64 = tables._replace(tab=tables.tab.to(f64),
+                          lights=tables.lights.to(f64),
+                          tri=tables.tri.to(f64))
+    sub = [torch.from_numpy(np.ascontiguousarray(x[..., idx])).to(f64)
+           for x in (oT.numpy(), dT.numpy(), u8s, ct[0], ct[1])]
+    g64 = step.trace_bwd_plain(ps, t64, DECAY, *sub)
+    for k in (2, 3):
+        mine, theirs = g_t[k].numpy()[:, idx], np.asarray(g_j[k])[:, idx]
+        truth = g64[k].numpy()
+        gap = np.abs(mine - theirs).max(0)
+        own = np.maximum(np.abs(mine - truth).max(0),
+                         np.abs(theirs - truth).max(0))
+        assert np.all(gap <= ILL_RATIO * own), (idx, gap / own)
+    return off
+
+
 @functools.lru_cache(maxsize=None)
-def _module_case(name):
+def _module_case(name, ill_ok=False):
     """Both sides' trace gradients for random ctA/ctB (outliers zeroed):
     JAX's for (attr, lights, oT, dT, AT, HT), the port's for (tab, lights,
-    oT, dT, tri)."""
+    oT, dT, tri). With ``ill_ok``, rays shown ill-conditioned
+    (:func:`_ill_rays`) are zeroed too, and both sides run again."""
     js, ps = _scene(name)
     (o, d, u8s), (A_j, B_j, _f, res_j), (A_t, B_t, _fl, res, n_live), \
         edge = _module_fwd(name)
@@ -198,12 +240,19 @@ def _module_case(name):
                           (B_t[:, ~bad], B_j[:, ~bad])]).any()
     rng = np.random.default_rng(5)
     ct = [rng.normal(size=(3, R)).astype(np.float32) for _ in range(2)]
-    for c in ct:
-        c[:, bad] = 0.0
-    g_j = vjp((jnp.asarray(ct[0]), jnp.asarray(ct[1])))
-    g_t = step.trace_bwd_plain(ps, tables, DECAY, oT, dT,
-                               torch.from_numpy(u8s),
-                               *(torch.from_numpy(c) for c in ct))
+    for _round in range(2):
+        for c in ct:
+            c[:, bad] = 0.0
+        g_j = vjp((jnp.asarray(ct[0]), jnp.asarray(ct[1])))
+        g_t = step.trace_bwd_plain(ps, tables, DECAY, oT, dT,
+                                   torch.from_numpy(u8s),
+                                   *(torch.from_numpy(c) for c in ct))
+        ill = _ill_rays(ps, tables, oT, dT, u8s, ct, g_j, g_t) \
+            if ill_ok else np.zeros(R, bool)
+        if not ill.any():
+            break
+        print(f"{name}: rays {np.nonzero(ill)[0]} shown ill-conditioned")
+        bad = bad | ill
     return bad, g_j, g_t
 
 
@@ -214,8 +263,9 @@ def test_trace_grad_matches_pallas_vjp(name):
     check_trace_grad(name)
 
 
-def check_trace_grad(name):
-    bad, (d_attr, d_lights, d_oT, d_dT, _dAT, _dHT), g_t = _module_case(name)
+def check_trace_grad(name, ill_ok=False):
+    bad, (d_attr, d_lights, d_oT, d_dT, _dAT, _dHT), g_t = _module_case(
+        name, ill_ok)
     print(f"{name}: {int(bad.sum())} of {R} rays took another path")
     d_tab, d_lt, d_oT_t, d_dT_t = (g.numpy() for g in g_t[:4])
     port_attr = np.concatenate([d_tab[:, :16], d_tab[:, step._C_ALB:]], 1)

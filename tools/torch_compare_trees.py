@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
-"""Compare the port's room and mesh kernels between two checkouts, on one
-NVIDIA GPU: the same inputs through each tree's kernels, then every output
-compared.
+"""Compare the port's room, mesh and textured kernels between two
+checkouts, on one NVIDIA GPU: the same inputs through each tree's kernels,
+then every output compared.
 
     python3 tools/torch_compare_trees.py dump <tree> <out.pt>
     python3 tools/torch_compare_trees.py compare <a.pt> <b.pt>
     python3 tools/torch_compare_trees.py time <tree> <tag>
 
 ``dump`` imports the package and ``chip_smoke.py`` of ``<tree>`` and runs,
-on the slice room and the two mesh scenes of ``chip_smoke.py``, 2^18
-camera rays (seed 31) through the primary-hit pass, both instances of the
-trace kernel and the backward kernel, and saves every output. ``compare``
+on the slice room, the two mesh scenes and the two textured stand-ins of
+``chip_smoke.py``, 2^18 camera rays (seed 31) through the primary-hit pass,
+both instances of the trace kernel and the backward kernel, and saves every
+output. ``compare``
 holds two dumps equal: every per-ray output bit for bit, the table
 cotangents (shared-memory and atomic sums in no fixed order) within rtol
 1e-5 and 1e-6 of the largest magnitude. It exits 1 when they differ.
 ``time`` builds ``<tree>``'s kernels and prints ``<tag>`` and one JSON
 object: the CUDA-event ms of each kernel (``chip_smoke.cuda_ms``) at the
 full frame of each scene that tree's ``chip_smoke.py`` has (the room, the
-mesh scenes and, where present, the textured stand-ins). Run the trees
+mesh scenes and, where present, the textured and Instance-class
+stand-ins). Run the trees
 interleaved in one call (parent, change, change, parent) to compare them.
 """
 
@@ -45,8 +47,8 @@ def dump(tree, out):
 
     dev = torch.device("cuda")
     res = {}
-    for name in ("room", "mesh_glass", "mesh_opaque"):
-        cfg = cs.slice_config() if name == "room" else cs.mesh_config(name)
+    for name in ("room", "mesh_glass", "mesh_opaque", *cs.TEX_NAMES):
+        cfg = _config(cs, name)
         scene = compile_scene(cfg.scene, dev)
         tables = step.pack_step(scene)
         decay = tracer.decay_of(cfg.rt.loss)
@@ -68,6 +70,17 @@ def dump(tree, out):
     torch.save(res, out)
 
 
+def _config(cs, name):
+    """The render config of a scene of a tree's ``chip_smoke.py``."""
+    if name == "room":
+        return cs.slice_config()
+    if name.startswith("tex"):
+        return cs.tex_config(name)
+    if name.startswith("inst"):
+        return cs.inst_config(name)
+    return cs.mesh_config(name)
+
+
 def time_tree(tree, tag):
     sys.path.insert(0, os.path.abspath(tree))
     os.chdir(tree)
@@ -80,11 +93,11 @@ def time_tree(tree, tag):
 
     dev = torch.device("cuda")
     cs.phase_build()
-    names = ["room", *cs.MESH_NAMES, *getattr(cs, "TEX_NAMES", ())]
+    names = ["room", *cs.MESH_NAMES, *getattr(cs, "TEX_NAMES", ()),
+             *getattr(cs, "INST_NAMES", ())]
     out = {}
     for name in names:
-        cfg = (cs.slice_config() if name == "room" else cs.tex_config(name)
-               if name.startswith("tex") else cs.mesh_config(name))
+        cfg = _config(cs, name)
         scene = compile_scene(cfg.scene, dev)
         tables = step.pack_step(scene)
         decay = tracer.decay_of(cfg.rt.loss)
@@ -97,6 +110,8 @@ def time_tree(tree, tag):
         ct = torch.randn((3, oT.shape[1]), generator=gen, device=dev)
         args = (tables.tab, tables.layout, oT.T, dT.T,
                 step.primary_mode(scene), tables.tri, tables.tbb)
+        if getattr(tables, "sbb", None) is not None:
+            args += (tables.sbb,)
         out[name] = {
             "trace_fwd": cs.cuda_ms(lambda: step.trace_fwd(
                 scene, tables, decay, oT, dT, u8s, hit0), 10),
