@@ -70,13 +70,16 @@ Phases, each of which raises on failure:
    included) — and each of them again at the main path's shape, the full
    frame, where they are timed; the triangle rows each sweep tests after
    the cull come from the plain version (``hit3.tri_rows_tested``,
-   ``trace_plain(work=...)``).
+   ``trace_plain(work=...)``). ``mesh_glass``'s render, compacted at steps
+   3 and 6, against the unsegmented one at the frame, bit for bit.
 10. mesh main path: the CLI renders ``mesh_opaque`` and ``mesh_glass``,
    written as scene JSON files, at 1080x1080, bounce 8, 16 spp: both
    kernels once per sample and no plain version (launch counters), a
-   non-constant image; ten renders of each for the median, quartiles and
-   range of rays/s, and one profiled render for the device's busy share.
-   The HTTP service answers one ``mesh_glass`` request.
+   non-constant image (``mesh_glass`` renders in three segments, one
+   trace launch each: ``tracer.compact_cuts``); ten renders of each for
+   the median, quartiles and range of rays/s, and one profiled render for
+   the device's busy share. The HTTP service answers one ``mesh_glass``
+   request.
 11. mesh training: 3 steps of ``make_train_step`` on ``mesh_glass`` at
    1080x1080, bounce 8, one path per pixel, from perturbed ``mat_albedo``,
    ``light_pwr`` and torus ``inst_pos``: finite loss and gradients,
@@ -118,7 +121,8 @@ Phases, each of which raises on failure:
    instance; residuals against ``trace_plain(want_resid=True)``) and the
    backward (phase 9's rule) on ``inst_grid``, on camera rays and at the
    frame; the render compacted at steps 2, 4 and 6 against the unsegmented
-   one, bit for bit. Timed and bounded at the frame; the sphere rows the
+   one, bit for bit (as phases 9 and 12 do for each scene whose render
+   compacts). Timed and bounded at the frame; the sphere rows the
    cull leaves come from the plain version (``hit3.sph_rows_tested``,
    ``trace_plain(work=...)``), the block slab tests are not counted.
 16. Instance-class main path: the CLI renders ``inst_grid`` from a JSON
@@ -146,7 +150,11 @@ rows only: the kernels skip the invalid rows that pad each kind segment to
 a multiple of 8. The block slab tests of the cull are not counted. On a
 textured scene the map ids, the atlas and its meta are read once, like
 every other table, and each hit side's uv and each texel fetch count as
-operations (``TEX_SIDE_OPS`` and the texture constants below).
+operations (``TEX_SIDE_OPS`` and the texture constants below). Where the
+main path renders in segments, a render entry's ``ms`` is the segments'
+summed kernel time (``segment_ms``), with the unsegmented instance's time
+beside it (``unsegmented_ms``); its bound is that of the whole trace, the
+same function of the same inputs.
 
 It prints a JSON line of per-kernel results and the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -1696,6 +1704,8 @@ def phase_mesh_kernels(results):
         hit0 = step.primary_hits(scene, tables, oT, dT)
         ms = cuda_ms(lambda: step.trace_fwd(scene, tables, decay, oT, dT,
                                             u8s, hit0), 5)
+        seg = check_segmented(name, scene, tables, decay, cfg.rt.loss, oT,
+                              dT, u8s, hit0, ms)
         plain_ms = cuda_ms(lambda: step.trace_plain(scene, tables, decay, oT,
                                                     dT, u8s), 1)
         work = {"sweep": 0, "shadow": 0}
@@ -1735,7 +1745,7 @@ def phase_mesh_kernels(results):
             f"{fmt_bound(bw['trace_bwd'])}")
         results[f"trace_fwd/{name}"] = {
             "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
-            **bw["trace_fwd"], "library_ms": None}
+            **bw["trace_fwd"], "library_ms": None, **seg}
         results[f"trace_fwd_train/{name}"] = {
             "max_abs_err": max(errs_t), "ms": ms_t, "plain_ms": plain_t,
             **bw["trace_fwd_train"], "library_ms": None}
@@ -1753,6 +1763,55 @@ def segments(cfg) -> int:
 
     scene = compile_scene(cfg.scene, "cpu")
     return len(tracer.compact_cuts(scene, BOUNCE + 1, True)) + 1
+
+
+def check_segmented(name, scene, tables, decay, loss, oT, dT, u8s, hit0,
+                    ms):
+    """Where the render of ``scene`` runs in segments
+    (``tracer.compact_cuts``), the render instance that the main path
+    launches: the default render of the frame against the unsegmented one
+    (``cuts=[]``), radiance bit for bit, and the segments' kernel time,
+    each launch timed alone on the carry and ray ids the render hands it
+    and summed (the primary-hit pass and the gathers left out). Returns
+    the keys that replace the unsegmented instance's ``ms`` (``{}`` where
+    the render is whole)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.ops import step
+
+    K = u8s.shape[0]
+    cuts = tracer.compact_cuts(scene, K, True)
+    if not cuts:
+        return {}
+    flat, split = (tracer.trace_fused(scene, tables, K - 1, oT.T, dT.T,
+                                      loss, u8s, cuts=c) for c in ([], None))
+    if not torch.equal(flat, split):
+        n = int((flat != split).any(1).sum())
+        raise AssertionError(f"{name}: the compacted render (cuts {cuts}) "
+                             f"differs from the unsegmented one on {n} rays")
+    del flat, split
+    bounds = [0, *cuts, K]
+    seg_ms, carry, rid = [], None, None
+    for k0, k1 in zip(bounds[:-1], bounds[1:]):
+        seg = step.Segment(k0, k1, carry, rid)
+        h0 = hit0 if k0 == 0 else None
+
+        def launch(seg=seg, h0=h0):
+            return step.trace_fwd(scene, tables, decay, oT, dT, u8s, h0, seg)
+
+        seg_ms.append(cuda_ms(launch, 5))
+        carry = launch()[3]
+        if k1 < K:
+            perm = tracer.compact_perm(carry[step.C_LIVE] > 0.5)
+            carry = carry[:, perm]
+            rid = (perm if rid is None else rid[perm]).to(torch.int32)
+    log(f"{name} compacted render (cuts {cuts}) equals the unsegmented one "
+        f"bit for bit at the frame; trace_fwd segments "
+        f"{' + '.join(f'{t:.3f}' for t in seg_ms)} = {sum(seg_ms):.3f} ms, "
+        f"the unsegmented instance {ms:.3f} ms")
+    return {"ms": sum(seg_ms), "unsegmented_ms": ms, "segment_ms": seg_ms,
+            "cuts": cuts}
 
 
 def write_mesh_json(name, tmp):
@@ -1866,6 +1925,8 @@ def phase_tex_kernels(results):
         hit0 = step.primary_hits(scene, tables, oT, dT)
         ms = cuda_ms(lambda: step.trace_fwd(scene, tables, decay, oT, dT,
                                             u8s, hit0), 5)
+        seg = check_segmented(name, scene, tables, decay, cfg.rt.loss, oT,
+                              dT, u8s, hit0, ms)
         plain_ms = cuda_ms(lambda: plain_trace(scene, tables, decay, oT, dT,
                                                u8s), 1)
         errs_t, errs_b = [], []
@@ -1899,7 +1960,7 @@ def phase_tex_kernels(results):
             f"{fmt_bound(bw['trace_bwd'])}")
         results[f"trace_fwd/{name}"] = {
             "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
-            **bw["trace_fwd"], "library_ms": None}
+            **bw["trace_fwd"], "library_ms": None, **seg}
         results[f"trace_fwd_train/{name}"] = {
             "max_abs_err": max(errs_t), "ms": ms_t, "plain_ms": plain_t,
             **bw["trace_fwd_train"], "library_ms": None}
@@ -2072,25 +2133,22 @@ def phase_inst_kernels(results):
                                               u8s, hit0), 2)
     plain_ms = cuda_ms(lambda: plain_trace(scene, tables, decay, oT, dT,
                                            u8s), 1)
-    # the compacted render (the JAX rule's cuts) against the unsegmented
-    # one: radiance bit for bit; both timed from the primaries
-    cuts = [c for c in (2, 4, 6) if c < BOUNCE + 1]
+    # the compacted render against the unsegmented one (radiance bit for
+    # bit) and the segments' kernel time; then both renders timed from the
+    # primaries
+    seg = check_segmented(name, scene, tables, decay, cfg.rt.loss, oT, dT,
+                          u8s, hit0, ms)
+    cuts = seg["cuts"]
 
     def render(c):
         return tracer.trace_fused(scene, tables, BOUNCE, oT.T, dT.T,
                                   cfg.rt.loss, u8s, cuts=c)
 
-    flat, split = render([]), render(cuts)
-    if not torch.equal(flat, split):
-        n = int((flat != split).any(1).sum())
-        raise AssertionError(f"{name}: the compacted render differs on {n} "
-                             f"rays")
     ms_flat, ms_split = cuda_ms(lambda: render([]), 3), \
         cuda_ms(lambda: render(cuts), 3)
-    log(f"{name} compacted render (cuts {cuts}) equals the unsegmented one "
-        f"bit for bit; {RES * RES} rays x {BOUNCE + 1} steps: unsegmented "
-        f"{ms_flat:.3f} ms, compacted {ms_split:.3f} ms (primary-hit pass, "
-        f"trace launches, compaction and radiance)")
+    log(f"{name} render of {RES * RES} rays x {BOUNCE + 1} steps: "
+        f"unsegmented {ms_flat:.3f} ms, compacted {ms_split:.3f} ms "
+        f"(primary-hit pass, trace launches, compaction and radiance)")
     results["compaction/inst_grid"] = {"flat_ms": ms_flat,
                                        "compacted_ms": ms_split,
                                        "cuts": cuts}
@@ -2129,7 +2187,7 @@ def phase_inst_kernels(results):
         f"{fmt_bound(bw['trace_bwd'])}")
     results[f"trace_fwd/{name}"] = {
         "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
-        **bw["trace_fwd"], "library_ms": None}
+        **bw["trace_fwd"], "library_ms": None, **seg}
     results[f"trace_fwd_train/{name}"] = {
         "max_abs_err": max(errs_t), "ms": ms_t, "plain_ms": plain_t,
         **bw["trace_fwd_train"], "library_ms": None}

@@ -56,11 +56,13 @@ def jax_cuts(scene: SceneArrays, steps: int):
     and has no triangles, none otherwise; cuts inside ``(0, steps)``.
     Sweeps are the expensive part there, and the scenes are open: lanes
     die to the sky, and a warp whose lanes are mostly dead costs as much
-    as a full one."""
+    as a full one. The sphere rule needs the port's cull too
+    (:func:`hit3.sph_culled`): a textured sphere grid, which the JAX
+    package culls and the port sweeps dense, stays whole."""
     layout = hit3.seg_layout(scene.kind_counts, scene.kind_sweep)
     if layout[2]:
         cuts = [3, 6]
-    elif hit3.sph_cull_rows(layout):
+    elif hit3.sph_culled(scene, layout):
         cuts = [2, 4, 6]
     else:
         return []

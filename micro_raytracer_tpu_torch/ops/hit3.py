@@ -260,14 +260,19 @@ def sph_blockbounds(scene):
         return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], 1)
 
 
+def sph_culled(scene, layout) -> bool:
+    """Whether the kernels cull the sphere segment: it gets cull blocks
+    (:func:`sph_cull_rows`) and the scene has no triangles or textures,
+    whose kernels sweep the spheres dense (their instances keep the
+    Mesh-class and textured code and registers)."""
+    return not (layout[2] or scene.has_maps) \
+        and sph_cull_rows(layout) is not None
+
+
 def sph_table(scene, layout):
-    """The sphere segment's cull blocks (:func:`sph_blockbounds`), or None
-    where it gets none (:func:`sph_cull_rows`) and in a scene with
-    triangles or textures, whose kernels sweep the spheres dense (their
-    instances keep the Mesh-class and textured code and registers)."""
-    if layout[2] or scene.has_maps or not sph_cull_rows(layout):
-        return None
-    return sph_blockbounds(scene)
+    """The sphere segment's cull blocks (:func:`sph_blockbounds`) where
+    :func:`sph_culled`, else None."""
+    return sph_blockbounds(scene) if sph_culled(scene, layout) else None
 
 
 def tri_tables(scene, frames):

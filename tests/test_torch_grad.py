@@ -60,7 +60,8 @@ from torch_tex_helpers import max_flips
 FWD_RTOL, FWD_ATOL = 1e-3, 1e-4
 G_RTOL, G_FLOOR = 2e-3, 1e-5
 # rays shown ill-conditioned by float64 (_ill_rays; sphere-grid scenes
-# only): at most this share, each within ILL_RATIO of float32's own error
+# only): at most this share, each off JAX at most ILL_RATIO times as far
+# as the port's own float32 value is off its float64 value
 ILL_SHARE, ILL_RATIO = 0.01, 10.0
 R, K = 256, 4
 DECAY = ttr.decay_of(0.15)
@@ -180,16 +181,19 @@ def _module_fwd(name):
 
 def _ill_rays(ps, tables, oT, dT, u8s, ct, g_j, g_t):
     """(R,) bool: the rays whose d_oT or d_dT lie outside the gradient
-    tolerance, each shown ill-conditioned: the port's and JAX's values
-    differ at most ILL_RATIO times as much as float32 rounding moves one
-    of them from the port's plain trace run in float64 (a sphere-grid path
-    that grazes a sphere, where d t / d o grows as 1 / sqrt(disc)). At most
+    tolerance, each shown ill-conditioned: on each gradient it leaves the
+    tolerance in, the port's value differs from JAX's at most ILL_RATIO
+    times as much as it differs from the port's plain backward run in
+    float64 (a sphere-grid path that grazes a sphere, where d t / d o grows
+    as 1 / sqrt(disc), so float32 rounding alone moves it that far). A ray
+    whose port value float64 confirms while JAX's differs fails. At most
     ILL_SHARE of the rays."""
-    off = np.zeros(R, bool)
+    offs = []
     for a, b in ((g_t[2], g_j[2]), (g_t[3], g_j[3])):
         a, b = a.numpy(), np.asarray(b)
         atol = G_FLOOR * max(float(np.abs(b).max()), 1e-30)
-        off |= (np.abs(a - b) > G_RTOL * np.abs(b) + atol).any(0)
+        offs.append((np.abs(a - b) > G_RTOL * np.abs(b) + atol).any(0))
+    off = offs[0] | offs[1]
     idx = np.nonzero(off)[0]
     if not len(idx):
         return off
@@ -201,13 +205,14 @@ def _ill_rays(ps, tables, oT, dT, u8s, ct, g_j, g_t):
     sub = [torch.from_numpy(np.ascontiguousarray(x[..., idx])).to(f64)
            for x in (oT.numpy(), dT.numpy(), u8s, ct[0], ct[1])]
     g64 = step.trace_bwd_plain(ps, t64, DECAY, *sub)
-    for k in (2, 3):
-        mine, theirs = g_t[k].numpy()[:, idx], np.asarray(g_j[k])[:, idx]
-        truth = g64[k].numpy()
-        gap = np.abs(mine - theirs).max(0)
-        own = np.maximum(np.abs(mine - truth).max(0),
-                         np.abs(theirs - truth).max(0))
-        assert np.all(gap <= ILL_RATIO * own), (idx, gap / own)
+    for k, off_k in zip((2, 3), offs):
+        j = off_k[idx]
+        mine = g_t[k].numpy()[:, idx[j]].astype(np.float64)
+        gap = np.abs(mine - np.asarray(g_j[k])[:, idx[j]]).max(0)
+        own = np.abs(mine - g64[k].numpy()[:, j]).max(0)
+        print(f"rays {idx[j]}: off JAX {gap / own} times as far as off "
+              f"float64")
+        assert np.all(gap <= ILL_RATIO * own), (idx[j], gap, own)
     return off
 
 

@@ -14,9 +14,12 @@ spheres), both with a partial last cull block. Tolerances:
   hit point lies inside its block's AABB); against the JAX sweep: rows
   equal, t within rtol 1e-5 / atol 1e-6;
 * the whole trace (camera rays and uniforms drawn as the JAX package's
-  ``trace_radiance`` draws them, which compacts this class at step 2):
-  ``test_torch_step.py``'s rule, rtol 1e-3 / atol 1e-4 on all but 0.5% of
-  rays;
+  ``trace_radiance`` draws them, which compacts this class at step 2),
+  ray by ray: ``test_torch_step.py``'s rule, rtol 1e-3 / atol 1e-4 on all
+  but 0.5% of rays, at bounce 1; at bounce 3 at most 3% of rays may leave
+  it, each explained by float32 rounding: traced from JAX's own primaries
+  the port meets the rule, or its own float32 radiance is off its float64
+  radiance at least a tenth as far as off JAX's;
 * the compacted render against the unsegmented one: bit for bit;
 * gradients: ``test_torch_grad.py``'s rules, and a ray whose gradient
   leaves them must be shown ill-conditioned by float64.
@@ -32,6 +35,7 @@ import pytest
 import torch
 from PIL import Image
 
+from micro_raytracer_tpu.models import camera as jcam_mod
 from micro_raytracer_tpu.models import compiler as jcomp
 from micro_raytracer_tpu.models import schema
 from micro_raytracer_tpu.models import tracer as jtr
@@ -43,9 +47,15 @@ from micro_raytracer_tpu_torch.models import tracer as ttr
 from micro_raytracer_tpu_torch.ops import hit3, step
 from test_torch_grad import check_trace_grad
 from torch_inst_helpers import CAMERA, inst_scene, render_json
+from torch_tex_helpers import _buf, checker
 from torch_mesh_helpers import mesh_scene, small_torus
 from torch_mesh_helpers import one_torch_thread  # noqa: F401
 from torch_port_helpers import outlier_rows, port_camera, port_scene, rays
+
+# bounce 3 of the whole trace: at most this share of the frame's rays may
+# leave test_torch_step.py's rule, each off JAX at most ILL_RATIO times as
+# far as the port's own float32 radiance is off its float64 radiance
+ILL_SHARE, ILL_RATIO = 0.03, 10.0
 
 
 def grid360():
@@ -65,6 +75,15 @@ def grid360():
     return {"renderer": objs,
             "light": [{"type": "point", "pos": [0, -1, 1.5], "pwr": 0.7}],
             "sky": {"color": [0.25, 0.3, 0.35], "pwr": 0.5}}
+
+
+def tex_grid360():
+    """grid360 with one sphere textured: the JAX package culls its spheres
+    and compacts its render, the port sweeps them dense and renders it
+    whole (hit3.sph_culled)."""
+    src = grid360()
+    src["renderer"][0]["mat"]["tex"] = _buf(checker(4, 2))
+    return src
 
 
 SCENES = {"grid360": grid360(), "inst_grid": inst_scene("inst_grid", True),
@@ -101,13 +120,21 @@ def test_sph_blockbounds_match_jax(name):
 
 def test_sph_cull_gate():
     """Only a sphere segment of at least 256 rows gets cull blocks: not
-    the room scenes, not a mesh's triangles, not a 248-sphere grid."""
+    the room scenes, not a mesh's triangles, not a 248-sphere grid; and
+    the kernels cull it only in a scene without triangles or textures."""
     for src in (mesh_scene("mesh_opaque", small_torus()),
                 {"renderer": grid360()["renderer"][:248]}):
         ps = port_scene(jcomp.compile_scene(schema.SceneConfig.from_json(
             src)))
         assert step.pack_step(ps).sbb is None
         assert hit3.sph_cull_rows(step.pack_step(ps).layout) is None
+    ps = port_scene(jcomp.compile_scene(schema.SceneConfig.from_json(
+        tex_grid360())))
+    tables = step.pack_step(ps)
+    assert hit3.sph_cull_rows(tables.layout) is not None
+    assert not hit3.sph_culled(ps, tables.layout) and tables.sbb is None
+    assert hit3.sph_culled(_scene("grid360")[1],
+                           step.pack_step(_scene("grid360")[1]).layout)
 
 
 @pytest.mark.parametrize("mode", [hit3.MODE_ENTRY, hit3.MODE_EXIT,
@@ -188,18 +215,52 @@ def _jax_draws(key, n, bounce, refract):
     return np.array(u_aprt), np.array(jnp.stack(us))
 
 
+def _shown_ill(ps, prim, jprim, u8s, bounce, got, want, idx):
+    """Hold each ray of ``idx`` (outside the rule) to a witness that
+    float32 rounding alone moves it that far (a path that the grid's
+    convex mirrors amplify, or one that a last-bit change of the primary
+    turns onto another sphere):
+
+    * the camera: traced from JAX's own primaries ``jprim`` (which differ
+      from the port's ``prim`` in the last bits), the port meets the rule;
+    * the trace: the port's radiance differs from JAX's at most ILL_RATIO
+      times as much as it differs from the port's plain trace of the same
+      primaries and uniforms run in float64.
+
+    A ray that neither explains fails."""
+    f64 = torch.float64
+    tables = step.pack_step(ps)
+    t64 = tables._replace(tab=tables.tab.to(f64),
+                          lights=tables.lights.to(f64),
+                          tri=tables.tri.to(f64))
+    sub = torch.from_numpy(idx)
+    u = u8s[..., sub]
+    with torch.no_grad():
+        from_jax = ttr.trace_fused(ps, tables, bounce, *(
+            torch.from_numpy(a[idx]) for a in jprim), 0.15, u, cuts=[])
+        got64 = ttr.trace_fused(ps, t64, bounce, *(
+            a[sub].to(f64) for a in prim), 0.15, u.to(f64), cuts=[])
+    cam = np.isclose(from_jax.numpy(), want[idx], rtol=1e-3,
+                     atol=1e-4).all(1)
+    gap = np.abs(got[idx] - want[idx]).max(1)
+    own = np.abs(got[idx].astype(np.float64) - got64.numpy()).max(1)
+    print(f"rays {idx}: the camera explains {idx[cam]}; off JAX "
+          f"{gap / own} times as far as off float64")
+    assert np.all(cam | (gap <= ILL_RATIO * own)), (idx, cam, gap, own)
+
+
 @pytest.mark.parametrize("name", ["inst_grid", "inst_glass"])
 def test_trace_radiance_matches_jax(name, monkeypatch):
     """A 32 x 32 frame of the small stand-in through the JAX package's
     trace_radiance (its whole-trace kernel) and the port's
-    trace_radiance_u from the same draws. At bounce 1 every ray is held to
-    the rule. The grid's spheres are convex mirrors: a first-hit t that
-    differs in its last bits (JAX's XLA contracts products into fused
-    multiply-adds, the port rounds each) moves a path about tenfold per
-    bounce, so at bounce 3 some 2% of the frame's rays leave rtol 1e-3
-    (measured 19 of 1,024) with the same rows and occlusion bits; there
-    (both sides compacting at step 2) the frame's mean radiance is held
-    within rtol 2e-3 (measured 7e-4)."""
+    trace_radiance_u from the same draws, ray by ray. At bounce 1 every
+    ray is held to the rule (all but 0.5% of rays). At bounce 3 (both
+    sides compacting at step 2) the grid's convex mirrors amplify a
+    first-hit t that differs in its last bits (JAX's XLA contracts
+    products into fused multiply-adds, the port rounds each), and a
+    camera direction that differs in its last bit can turn a path onto
+    another sphere: at most ILL_SHARE of the rays may leave the rule, each
+    explained by float32 rounding (:func:`_shown_ill`)."""
     monkeypatch.setenv("MRT_STEP", "1")
     monkeypatch.setenv("MRT_HIT3", "1")
     js, ps = _scene(name)
@@ -211,12 +272,12 @@ def test_trace_radiance_matches_jax(name, monkeypatch):
         want = np.asarray(jtr.trace_radiance(
             js, jcam, (32, 32), bounce, jnp.float32(0.15),
             jnp.asarray(coords), key, inference=True))
-        u_aprt, u8s = _jax_draws(key, len(coords), bounce, ps.any_refract)
+        u_aprt, u8s = (torch.from_numpy(a) for a in _jax_draws(
+            key, len(coords), bounce, ps.any_refract))
         assert ttr.compact_cuts(ps, bounce + 1, True) == cuts
         got = ttr.trace_radiance_u(
             ps, port_camera(jcam), (32, 32), bounce, 0.15,
-            torch.from_numpy(coords), torch.from_numpy(u_aprt),
-            torch.from_numpy(u8s)).numpy()
+            torch.from_numpy(coords), u_aprt, u8s).numpy()
         assert np.abs(want).max() > 0
         bad = outlier_rows(got, want, 1e-3, 1e-4)
         print(f"{name} bounce {bounce}: {len(bad)} of {len(coords)} rays "
@@ -224,7 +285,13 @@ def test_trace_radiance_matches_jax(name, monkeypatch):
         if bounce == 1:
             assert len(bad) <= 0.005 * len(coords), bad
         else:
-            np.testing.assert_allclose(got.mean(0), want.mean(0), rtol=2e-3)
+            assert len(bad) <= ILL_SHARE * len(coords), bad
+            prim = ttr.camera_mod.gen_rays(port_camera(jcam), (32, 32),
+                                           torch.from_numpy(coords), u_aprt)
+            jprim = jcam_mod.gen_rays(jcam, (32, 32), jnp.asarray(coords),
+                                      jnp.asarray(u_aprt.numpy()))
+            _shown_ill(ps, prim, [np.asarray(a) for a in jprim], u8s,
+                       bounce, got, want, bad)
 
 
 def test_compact_perm_is_a_stable_live_first_partition():
@@ -240,7 +307,8 @@ def test_compact_perm_is_a_stable_live_first_partition():
 def test_compact_cuts_rule():
     """The JAX package's rule (jax_cuts): a sphere-cull class without
     triangles compacts at 2, 4 and 6, a triangle class at 3 and 6, a room
-    never. The default (compact_cuts) follows it but leaves opaque mesh
+    never; a sphere grid whose spheres the port sweeps dense (textured)
+    neither. The default (compact_cuts) follows it but leaves opaque mesh
     scenes whole, and a trace that needs a gradient never compacts."""
     inst = _scene("inst_grid")[1]
     mesh = {name: port_scene(jcomp.compile_scene(schema.SceneConfig
@@ -253,6 +321,9 @@ def test_compact_cuts_rule():
     assert ttr.jax_cuts(inst, 4) == [2]
     assert ttr.jax_cuts(mesh["mesh_opaque"], 9) == [3, 6]
     assert ttr.jax_cuts(room, 9) == []
+    tex = port_scene(jcomp.compile_scene(schema.SceneConfig.from_json(
+        tex_grid360())))
+    assert ttr.jax_cuts(tex, 9) == [] and ttr.compact_cuts(tex, 9, True) == []
     assert ttr.compact_cuts(inst, 9, True) == [2, 4, 6]
     assert ttr.compact_cuts(mesh["mesh_glass"], 9, True) == [3, 6]
     assert ttr.compact_cuts(mesh["mesh_opaque"], 9, True) == []
