@@ -11,7 +11,8 @@ Phases, each of which raises on failure:
 1. card: CUDA present; name and power limit from nvidia-smi; TF32 off.
 2. build: nvcc builds every kernel source of ``micro_raytracer_tpu_torch/csrc``
    (``hit3.cu``, ``trace_fwd.cu`` with its render and train instances,
-   ``trace_bwd.cu``), one nvcc process per source, all started together.
+   ``trace_bwd.cu``, ``step_fwd.cu``, ``step_bwd.cu``), one nvcc process
+   per source, all started together.
 3. closest_hit kernel against its plain PyTorch version on the slice
    scene's row table, on 2^17 random rays and on the main path's input
    (the primary rays of the whole 1080x1080 frame in Morton order, as
@@ -134,6 +135,38 @@ Phases, each of which raises on failure:
    ``inst_grid`` as phase 8, from perturbed albedos, light power and
    sphere positions: non-zero ``inst_pos`` gradients on the sphere rows.
 
+18. per-step kernels: the stand-ins of the per-step path, ``lights8`` (the
+   Default class past 4 lights: a plane, 2 boxes, 4 spheres, one glass and
+   one metal, under the sky and 8 lights, 5 point and 3 directional) and
+   ``inst_grid3k`` (``inst_grid``'s generator at 15 x 15 x 15: 3,375
+   spheres in 53 cull blocks and the plane, 3,384 rows, past the whole
+   trace's 2,048), both routed to the per-step path (``step.route``).
+   At the frame, the carry of each step from the render instance of
+   step_fwd (each step timed); at steps 0 and 2 the render and train
+   instances equal each other bit for bit and the plain step (hit equal,
+   the carry by phase 4's rule, the residuals by phase 7's), and at step 0
+   step_bwd matches autograd of the plain step (phase 7's rule); the
+   per-step trace against the plain per-step trace on 2^17 camera rays
+   (phase 4's rule). Timed and bounded at step 0 (every ray live).
+19. per-step route: on the slice room, ``mesh_glass``, ``tex_blocks`` and
+   ``inst_grid`` (2^17 camera rays, bounce 8) the per-step path equals the
+   whole trace: A, B and first_live bit for bit, under a gradient d_oT
+   and d_dT bit for bit and the table cotangents within rtol 1e-5, 1e-6 of
+   each table's largest magnitude and ORDER_TOL of the entry's mass.
+   Phases 3-17 launched no step kernel.
+20. per-step main path: the CLI renders ``lights8`` and ``inst_grid3k``
+   from JSON files at 1080x1080, bounce 8, 16 spp: BOUNCE + 1 step_fwd
+   launches per sample and no trace_fwd or closest_hit launch, no plain
+   version; STEP_RENDER_REPS renders for the spread, one profiled, the
+   peak device memory of one render; the HTTP service answers one
+   ``lights8`` request through the step kernel.
+21. per-step training: 3 steps of ``make_train_step`` on ``lights8`` and
+   on ``inst_grid3k`` as phase 8 (``mat_albedo`` from 0.5, ``light_pwr``
+   x 0.3, against a 4-spp target; lr 1e-2, steps 2-3 timed; every leaf of
+   ``lights8``, ``mat_albedo`` and ``light_pwr`` of ``inst_grid3k``,
+   ``STEP_TRAIN_LEAVES``): BOUNCE + 1 launches each of step_fwd_train and
+   step_bwd per step, no whole-trace kernel.
+
 ``--compaction`` renders ``inst_grid``, ``mesh_opaque`` and ``mesh_glass``
 through the CLI with the JAX package's compaction cuts and without, in
 alternating order, for the medians that set ``tracer.compact_cuts``.
@@ -210,8 +243,21 @@ BLOCK_BASES = ([0.3, 0.7, 0.2], [0.5, 0.5, 0.5], [0.6, 0.4, 0.2],
 # builders): a grid of instanced spheres over a plane, seen from outside
 INST_NAMES = ("inst_grid", "inst_glass")
 INST_CAMERA = {"pos": [0, -2.6, 1.25], "fov": 60}
-INST_DIMS = {"inst_grid": (10, 10, 10), "inst_glass": (7, 7, 7)}
+INST_DIMS = {"inst_grid": (10, 10, 10), "inst_glass": (7, 7, 7),
+             "inst_grid3k": (15, 15, 15)}
 INST_SMALL_DIMS = (6, 7, 7)
+# the per-step path's stand-ins (tests/test_torch_steps.py imports their
+# scene functions): lights8, an open scene under 8 lights, and inst_grid3k,
+# the sphere grid past the whole-trace kernels' rows
+STEP_NAMES = ("lights8", "inst_grid3k")
+# the leaves phase 21 trains: every trainable leaf of lights8; the albedos
+# and light power of inst_grid3k, whose sphere-position gradient (4,871 at
+# the first step, 21x per bounce back through the grid of convex mirrors)
+# moves spheres by tens of units at lr 1e-2 and makes the next gradient
+# non-finite
+STEP_TRAIN_LEAVES = {"lights8": None,
+                     "inst_grid3k": ("mat_albedo", "light_pwr")}
+LIGHTS8_CAMERA = {"pos": [0, -0.6, -0.25], "fov": 60}
 
 SLICE_ARGS = [
     "--obj", "box", "size:", "1", "1", "0.01", "pos:", "0", "0", "-0.5",
@@ -235,6 +281,9 @@ RES = 1080
 BOUNCE = 8
 SAMPLES = 16
 RENDER_REPS = 10
+# renders of the per-step stand-ins for their spread (a sample of
+# inst_grid3k takes nine launches over 3,384 rows)
+STEP_RENDER_REPS = 5
 N_CMP = 1 << 17
 OUTLIER_SHARE = 0.001
 IN_ERR = 1e-3
@@ -247,6 +296,11 @@ G_RTOL, G_FLOOR = 2e-3, 1e-5
 RAY_FLOOR, ILL_RATIO = 1e-3, 10.0
 ILL_SHARE = 1e-4
 SUM_TOL = 4e-4
+# two float32 sums of the same terms in another order (the per-step path's
+# table cotangents against the whole trace's) differ by a share of the
+# terms' mass, taken over chunks of MASS_CHUNK rays: measured up to 4.5e-5
+# of the mass over chunks of 8,192 rays on 2^17 rays of mesh_glass
+ORDER_TOL, MASS_CHUNK = 1e-4, 1 << 12
 PLAIN_CHUNK = 1 << 14
 
 # The least time the card could take: bytes over the memory rate, float32
@@ -413,7 +467,69 @@ def tex_blocks(small=False):
     }
 
 
-def inst_scene(name, small=False):
+def lights8():
+    """``lights8`` (the Default class, and more than 4 lights): a ground
+    plane, 2 boxes and 4 spheres (one glass, one metal) under the sky, lit
+    by 5 point and 3 directional lights. The scene is open, so that shadow
+    rays escape: in a closed room an any-hit ray, which has no length,
+    meets a wall and every light term is 0."""
+    return {
+        "renderer": [
+            {"type": "plane", "n": [0, 0, 1], "pos": [0, 0, -1.0],
+             "mat": {"rough": 0.8, "albedo": [0.55, 0.5, 0.45]}},
+            {"type": "box", "sizes": [0.8, 0.8, 0.8],
+             "pos": [-1.0, 2.6, -0.6],
+             "mat": {"albedo": [0.8, 0.3, 0.25], "rough": 0.6}},
+            {"type": "box", "sizes": [0.6, 1.0, 0.5],
+             "pos": [1.0, 3.2, -0.75],
+             "mat": {"albedo": [0.3, 0.6, 0.8], "rough": 0.4}},
+            {"type": "sphere", "r": 0.45, "pos": [-0.25, 1.6, -0.55],
+             "mat": {"opacity": 0, "glass": 0.08}},
+            {"type": "sphere", "r": 0.4, "pos": [0.6, 2.0, -0.6],
+             "mat": {"metal": 1, "rough": 0.1,
+                     "albedo": [0.9, 0.85, 0.7]}},
+            {"type": "sphere", "r": 0.35, "pos": [0.0, 3.4, -0.65],
+             "mat": {"albedo": [0.9, 0.8, 0.3], "rough": 0.7}},
+            {"type": "sphere", "r": 0.3, "pos": [-0.8, 1.3, -0.7],
+             "mat": {"albedo": [0.4, 0.85, 0.5], "rough": 0.9}},
+        ],
+        "light": [
+            {"type": "point", "pos": [-2, 0, 2], "pwr": 0.25},
+            {"type": "point", "pos": [2, 1, 2.5], "pwr": 0.2,
+             "color": [1.0, 0.8, 0.6]},
+            {"type": "point", "pos": [0, 4, 1.5], "pwr": 0.15},
+            {"type": "point", "pos": [-1, 2.5, 0.8], "pwr": 0.12,
+             "color": [0.6, 0.7, 1.0]},
+            {"type": "point", "pos": [1.5, 1.0, 0.5], "pwr": 0.1},
+            {"type": "dir", "dir": [0.3, 0.5, -1], "pwr": 0.15},
+            {"type": "dir", "dir": [-0.6, 0.2, -1], "pwr": 0.1,
+             "color": [1.0, 0.9, 0.8]},
+            {"type": "dir", "dir": [0.1, -0.8, -0.6], "pwr": 0.08},
+        ],
+        "sky": {"color": [0.55, 0.65, 0.85], "pwr": 0.4},
+    }
+
+
+def lights8_json(res=None):
+    """The render JSON of ``lights8`` at the main path's size."""
+    res = RES if res is None else res
+    return {"scene": lights8(),
+            "frame": {"res": [res, res], "cam": LIGHTS8_CAMERA},
+            "rt": {"bounce": BOUNCE, "sample": SAMPLES}}
+
+
+def step_json(name, res=None):
+    """The render JSON of a per-step stand-in at the main path's size."""
+    return lights8_json(res) if name == "lights8" else inst_json(name, res)
+
+
+def step_config(name):
+    from micro_raytracer_tpu_torch.models import schema
+
+    return schema.RenderConfig.from_json(step_json(name))
+
+
+def inst_scene(name, small=False, dims=None):
     """``inst_grid`` (the class of Instance.json): a grid of spheres (r
     0.18, spacing 0.5; 10 x 10 x 10, or 6 x 7 x 7 with ``small``) over a
     ground plane, the sky, one point and one directional light. Every
@@ -423,10 +539,12 @@ def inst_scene(name, small=False):
     albedo and roughness from a numpy seed. ``inst_glass``: a 7 x 7 x 7
     grid (or the small one) with a ninth entry, glass (opacity 0), for
     about a twentieth of the spheres: its entry sweeps take the group
-    exit."""
+    exit. ``inst_grid3k``: 15 x 15 x 15 spheres, as ``inst_grid``;
+    ``dims`` sets another grid."""
     import numpy as np
 
-    dims = INST_SMALL_DIMS if small else INST_DIMS[name]
+    if dims is None:
+        dims = INST_SMALL_DIMS if small else INST_DIMS[name]
     rng = np.random.default_rng(31)
     mats = [{"albedo": [float(x) for x in rng.uniform(0.2, 0.9, 3)],
              "rough": float(rng.uniform(0.3, 1.0))} for _ in range(7)]
@@ -498,8 +616,12 @@ def bound(n_bytes: float, n_ops: float) -> dict:
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"chip_smoke: {msg}", flush=True)
+    print(f"chip_smoke [{time.perf_counter() - _T0:6.1f} s]: {msg}",
+          flush=True)
 
 
 def card_line() -> str:
@@ -532,6 +654,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def plain_ms(fn) -> float:
+    """Milliseconds of one call of ``fn`` on the card (CUDA events), for a
+    plain version that takes seconds at the frame (no warm-up run)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def outlier_rays(a, b, rtol, atol):
     """(R,) mask of rays whose (C, R) components are outside tolerance."""
     import torch
@@ -546,7 +682,9 @@ def phase_build():
 
     from micro_raytracer_tpu_torch.ops import hit3, step
 
-    kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL)
+    kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL,
+               step.STEP_KERNEL, step.STEP_TRAIN_KERNEL,
+               step.STEP_BWD_KERNEL)
     by_source = {k.source: k for k in kernels}
     t0 = time.perf_counter()
 
@@ -559,7 +697,8 @@ def phase_build():
     for src, k in by_source.items():
         log(f"built {src} in {done[src]:.2f} s")
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
     for k in kernels:
         k.fn()
@@ -1029,11 +1168,14 @@ def _post(port: int, body: bytes) -> bytes:
 
 def phase_server(cfg, requests=3):
     """The HTTP service answers ``requests`` render requests of ``cfg``
-    with JPEGs, through the kernels alone."""
+    with JPEGs, through the kernels of its route alone (``step.route``:
+    the primary-hit and trace kernels, or the step kernel)."""
     from micro_raytracer_tpu_torch.frontends.http import HttpServer
+    from micro_raytracer_tpu_torch.models.compiler import compile_scene
     from micro_raytracer_tpu_torch.ops import hit3, step
 
-    kernels = (hit3.KERNEL, step.KERNEL)
+    steps = step.route(compile_scene(cfg.scene, "cpu"), False) == "steps"
+    kernels = (step.STEP_KERNEL,) if steps else (hit3.KERNEL, step.KERNEL)
     for k in kernels:
         k.launches = 0
         k.plain_calls = 0
@@ -1248,13 +1390,15 @@ def compare_train_fwd(scene, tables, decay, oT, dT, u8s, hit0, work=None):
     return err, bad, (res, nl), (res_r, nl_r)
 
 
-def trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s, ctA, ctB):
+def trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s, ctA, ctB,
+                            chunk=None):
     """``step.trace_bwd_plain`` over chunks of PLAIN_CHUNK rays (the
-    autograd graph of a whole frame does not fit the card). The table
-    cotangents are summed over the chunks in float64, beside the sums of
-    their absolute values (the mass that bounds a float32 sum's rounding):
-    ``(d_tab, d_lights, d_oT, d_dT, d_tri, mass_tab, mass_lights,
-    mass_tri)``."""
+    autograd graph of a whole frame does not fit the card), or of
+    ``chunk``. The table cotangents are summed over the chunks in float64,
+    beside the sums of their absolute values (the mass that bounds a
+    float32 sum's rounding; the finer the chunks, the closer it comes to
+    the sum of the terms' magnitudes): ``(d_tab, d_lights, d_oT, d_dT,
+    d_tri, mass_tab, mass_lights, mass_tri)``."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
@@ -1265,7 +1409,7 @@ def trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s, ctA, ctB):
     d_lt, m_lt = (torch.zeros_like(tables.lights, dtype=f64) for _ in "ab")
     d_tri, m_tri = (torch.zeros_like(tables.tri, dtype=f64) for _ in "ab")
     d_o, d_d = torch.empty_like(oT), torch.empty_like(dT)
-    chunk = chunk_for(tables, PLAIN_CHUNK)
+    chunk = chunk or chunk_for(tables, PLAIN_CHUNK)
     for s in range(0, R, chunk):
         sl = slice(s, min(R, s + chunk))
         g = step.trace_bwd_plain(scene, tables, decay,
@@ -1505,10 +1649,12 @@ def _busy_share(step_fn):
     return out, wall, busy * 1e-6, len(spans), by_name
 
 
-def phase_train(cfg, card, counts, name="slice room", moved=None):
+def phase_train(cfg, card, counts, name="slice room", moved=None,
+                leaves=None):
     """The training main path: 3 steps of make_train_step at full width,
     from perturbed albedos and light power (and the positions of the rows
-    of kind ``moved``: the mesh's triangles, or the grid's spheres)."""
+    of kind ``moved``: the mesh's triangles, or the grid's spheres), on
+    every trainable leaf or on ``leaves`` alone (the rest fixed)."""
     import numpy as np
     import torch
 
@@ -1535,8 +1681,11 @@ def phase_train(cfg, card, counts, name="slice room", moved=None):
     params = {k: v.detach().clone() for k, v in params.items()}
     params["mat_albedo"] = torch.full_like(params["mat_albedo"], 0.5)
     params["light_pwr"] = params["light_pwr"] * 0.3
+    if leaves is not None:
+        params = {k: params[k] for k in leaves}
     # the leaves whose gradient must not vanish, and on which rows
-    rows = {k: slice(None) for k in ("mat_albedo", "light_pwr", "inst_pos")}
+    rows = {k: slice(None) for k in ("mat_albedo", "light_pwr", "inst_pos")
+            if k in params}
     if moved is not None:
         seg = scene.seg(moved)
         params["inst_pos"][seg] += torch.tensor([0.02, 0.0, 0.01],
@@ -1547,7 +1696,9 @@ def phase_train(cfg, card, counts, name="slice room", moved=None):
     params = {k: v.requires_grad_(True) for k, v in params.items()}
     start = params
     ts = shard.make_train_step((RES, RES), BOUNCE, device=dev)
-    kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL)
+    kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL,
+               step.STEP_KERNEL, step.STEP_TRAIN_KERNEL,
+               step.STEP_BWD_KERNEL)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -1575,18 +1726,27 @@ def phase_train(cfg, card, counts, name="slice room", moved=None):
     plain = {k.name: k.plain_calls for k in kernels if k.plain_calls}
     peak = torch.cuda.max_memory_allocated()
     counts.update(launched)
-    want = {hit3.KERNEL.name: TRAIN_STEPS, step.KERNEL.name: 0,
-            step.TRAIN_KERNEL.name: TRAIN_STEPS,
-            step.BWD_KERNEL.name: TRAIN_STEPS}
+    want = {k.name: 0 for k in kernels}
+    if step.route(scene, True) == "steps":
+        # one step launch of each kind per bounce step and training step
+        want.update({step.STEP_TRAIN_KERNEL.name: TRAIN_STEPS * (BOUNCE + 1),
+                     step.STEP_BWD_KERNEL.name: TRAIN_STEPS * (BOUNCE + 1)})
+    else:
+        want.update({hit3.KERNEL.name: TRAIN_STEPS,
+                     step.TRAIN_KERNEL.name: TRAIN_STEPS,
+                     step.BWD_KERNEL.name: TRAIN_STEPS})
     if launched != want or plain:
         raise AssertionError(f"{name} training launches {launched} (want "
                              f"{want}), plain calls {plain}")
     step_s = sum(secs[1:]) / (TRAIN_STEPS - 1)
     rays = RES * RES
-    drift = {k: float((params[k] - start[k]).abs().max())
-             for k in ("inst_pos", "inst_dir", "mat_albedo", "light_pwr")}
+    lr = ts.lr
+    drift = {k: float((params[k] - start[k]).detach().abs().max())
+             for k in ("inst_pos", "inst_dir", "mat_albedo", "light_pwr")
+             if k in params}
     log(f"{name} training: {RES}x{RES}, bounce {BOUNCE}, 1 path per "
-        f"pixel, {TRAIN_STEPS} steps: seconds {[f'{s:.4f}' for s in secs]}, "
+        f"pixel, {TRAIN_STEPS} SGD steps at lr {lr} (timed: steps 2-"
+        f"{TRAIN_STEPS}): seconds {[f'{s:.4f}' for s in secs]}, "
         f"losses {[f'{x:.6g}' for x in losses]}; {step_s:.4f} s per step "
         f"after the first = {rays / step_s / 1e6:.3f}M fwd+bwd rays/s; peak "
         f"device memory {peak / 2**30:.3f} GiB on {card}; launches "
@@ -1605,7 +1765,7 @@ def phase_train(cfg, card, counts, name="slice room", moved=None):
         log(f"  {t * 1e3:9.3f} ms  {kname[:90]}")
     return {"step_s": step_s, "steps_s": secs,
             "fwd_bwd_rays_per_s": rays / step_s, "peak_bytes": peak,
-            "busy_share": busy / wall}
+            "busy_share": busy / wall, "lr": lr, "losses": losses}
 def torus(n_major=30, n_minor=16, R=0.16, r=0.06, tilt=TORUS_TILT):
     """(2 * n_major * n_minor, 3, 3) vertices of a closed torus in object
     space (the formula of tests/torch_mesh_helpers.py)."""
@@ -2260,6 +2420,552 @@ def phase_inst_main(card, counts):
             "ops_per_sample": n_ops / SAMPLES, "segments": segs}
 
 
+# --- the per-step path (phases 18-21) ---------------------------------------
+
+def step_inputs(name, dev):
+    """(cfg, scene, tables, decay, cam) of a per-step stand-in on the card:
+    ``lights8`` (24 rows, 7 valid, 8 lights, refractive) or ``inst_grid3k``
+    (3,375 sphere rows in 53 cull blocks and the plane: 3,384 rows); both
+    routed to the per-step path, rendering and training."""
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.compiler import (compile_camera,
+                                                           compile_scene)
+    from micro_raytracer_tpu_torch.ops import step
+
+    cfg = step_config(name)
+    scene = compile_scene(cfg.scene, dev)
+    tables = step.pack_step(scene)
+    want = {"lights8": (24, 8, 0, True), "inst_grid3k": (3384, 2, 53, False)}
+    got = (scene.n_prims, scene.n_lights,
+           0 if tables.sbb is None else tables.sbb.shape[0],
+           scene.any_refract)
+    if got != want[name]:
+        raise AssertionError(f"{name}: rows, lights, cull blocks, refract "
+                             f"{got}, want {want[name]}")
+    if (step.route(scene, False), step.route(scene, True)) \
+            != ("steps", "steps"):
+        raise AssertionError(f"{name}: not routed to the per-step path")
+    return (cfg, scene, tables, tracer.decay_of(cfg.rt.loss),
+            compile_camera(cfg.frame.cam, dev))
+
+
+def plain_step_chunked(scene, tables, decay, c0, u8, want_resid=False,
+                       work=None):
+    """``step.step_plain`` over chunks of rays (``chunk_for``); ``work``
+    (a dict) gains the sphere and triangle rows the step's sweeps test
+    (``trace_plain``'s counts, the closest-hit sweep included)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    R = c0.shape[1]
+    outs = []
+    chunk = chunk_for(tables, PLAIN_FWD_CHUNK)
+    for s in range(0, R, chunk):
+        c = c0[:, s:s + chunk].contiguous()
+        u = u8[:, s:s + chunk].contiguous()
+        outs.append(step.step_plain(scene, tables, decay, c, u, want_resid))
+        if work is not None:
+            # the same step as step 1 of a segment: trace_plain counts the
+            # closest-hit sweep of every step after the first
+            w = {"sweep": 0, "shadow": 0}
+            with torch.no_grad():
+                step._trace_plain(scene, tables, decay, c[0:3], c[3:6],
+                                  torch.stack([u, u]), False, w,
+                                  step.Segment(1, 2, c))
+            for k, v in w.items():
+                work[k] = work.get(k, 0) + v
+    return tuple(torch.cat(x, -1) for x in zip(*outs))
+
+
+def step_bwd_plain_chunked(scene, tables, decay, c0, u8, ct1):
+    """``step.step_bwd_plain`` over chunks of PLAIN_CHUNK rays (halved for
+    long tables), the table cotangents summed in float64 beside their
+    masses: ``(d_tab, d_lights, d_c0, d_tri, mass_tab, mass_lights,
+    mass_tri)``."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    R = c0.shape[1]
+    f64 = torch.float64
+    d_tab, m_tab = (torch.zeros_like(tables.tab, dtype=f64) for _ in "ab")
+    d_lt, m_lt = (torch.zeros_like(tables.lights, dtype=f64) for _ in "ab")
+    d_tri, m_tri = (torch.zeros_like(tables.tri, dtype=f64) for _ in "ab")
+    d_c0 = torch.empty_like(c0)
+    chunk = PLAIN_CHUNK         # one step's graph of 2^14 rays fits the card
+    for s in range(0, R, chunk):
+        sl = slice(s, min(R, s + chunk))
+        g = step.step_bwd_plain(scene, tables, decay,
+                                *(t[:, sl].contiguous()
+                                  for t in (c0, u8, ct1)))
+        for acc, m, x in ((d_tab, m_tab, g[0]), (d_lt, m_lt, g[1]),
+                          (d_tri, m_tri, g[3])):
+            acc += x.to(f64)
+            m += x.to(f64).abs()
+        d_c0[:, sl] = g[2]
+    return d_tab, d_lt, d_c0, d_tri, m_tab, m_lt, m_tri
+
+
+def compare_step_fwd(name, scene, tables, decay, c0, u8, k):
+    """The render and train instances of the step kernel at step ``k`` of
+    the frame: equal to each other bit for bit (carry and hit), and
+    against the plain step: hit equal (the sweeps are exact), the carry
+    within rtol 1e-4 / atol 1e-5 on all but OUTLIER_SHARE of the rays, A
+    and B within IN_ERR on the rest, and the residuals of the rest that
+    hit as phase 7 holds them. Returns (max abs err, off-path rays, the
+    kernel's carry, the plain residuals and hit, the plain step's ms)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    R = c0.shape[1]
+    c1, hit = step.step_fwd(scene, tables, decay, c0, u8)
+    c1_t, hit_t, res = step.step_fwd_train(scene, tables, decay, c0, u8)
+    if not (torch.equal(c1, c1_t) and torch.equal(hit, hit_t)):
+        raise AssertionError(f"{name} step {k}: the train instance differs "
+                             f"from the render instance")
+    box = []
+    plain = plain_ms(lambda: box.append(plain_step_chunked(
+        scene, tables, decay, c0, u8, want_resid=True)))
+    c1_p, hit_p, res_p = box[0]
+    n_hit = int((hit != hit_p).sum())
+    if n_hit:
+        raise AssertionError(f"{name} step {k}: hit differs on {n_hit} "
+                             f"rays")
+    bad = outlier_rays(c1, c1_p, 1e-4, 1e-5)
+    share = float(bad.float().mean())
+    good = ~bad
+    err = float((c1 - c1_p)[8:14].abs().max())
+    err_in = float((c1 - c1_p)[8:14][:, good].abs().max())
+    live = (hit[0] > 0.5) & good
+    floats = [step.RES_O + c for c in range(9)] + [step.RES_TE]
+    exact = [step.RES_ROW] + [step.RES_LOK + li
+                              for li in range(scene.n_lights)]
+    if scene.any_refract:
+        floats.append(step.RES_TX)
+        exact.append(step.RES_CHOOSE)
+    res_err = 0.0
+    for r in floats:
+        g, w = res[r][live], res_p[r][live]
+        res_err = max(res_err, float((g - w).abs().max()))
+        if not bool(torch.isclose(g, w, rtol=1e-4, atol=1e-4).all()):
+            raise AssertionError(f"{name} step {k}: residual row {r} "
+                                 f"differs")
+    for r in exact:
+        if not torch.equal(res[r][live], res_p[r][live]):
+            raise AssertionError(f"{name} step {k}: residual row {r} "
+                                 f"differs")
+    log(f"{name} step_fwd step {k}, {R} rays ({int(hit.sum())} hit): the "
+        f"train instance equals the render instance bit for bit; hit equals "
+        f"the plain step's; {int(bad.sum())} rays outside rtol 1e-4 (share "
+        f"{share:.5f}, bound {OUTLIER_SHARE}); max abs err of A/B {err:.3g}, "
+        f"{err_in:.3g} over the rest (bound {IN_ERR}); residuals of "
+        f"{int(live.sum())} rays within {res_err:.3g}")
+    if share > OUTLIER_SHARE or err_in > IN_ERR:
+        raise AssertionError(f"{name} step_fwd disagrees with the plain "
+                             f"step")
+    return err, bad, c1, res_p, hit_p, plain
+
+
+def compare_step_bwd(name, scene, tables, decay, c0, u8, res, hit, bad,
+                     gen):
+    """The step's backward kernel on the plain residuals against autograd
+    of the plain step, for random output cotangents zero on the off-path
+    rays: per ray d_c0 within rtol G_RTOL and G_FLOOR of the array's
+    largest magnitude, a ray outside shown ill-conditioned by float64
+    (``ill_conditioned``'s rule) and at most ILL_SHARE of them; the table
+    cotangents within G_RTOL, G_FLOOR and SUM_TOL of the entry's mass.
+    Returns (max abs err, plain ms, ct1)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    R = c0.shape[1]
+    ct1 = torch.randn((step.CARRY_ROWS, R), generator=gen, device=c0.device)
+    ct1[:, bad] = 0.0
+    got = step.step_bwd(scene, tables, decay, c0, u8, res, hit, ct1)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = step_bwd_plain_chunked(scene, tables, decay, c0, u8, ct1)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    scale = float(want[2].abs().max())
+    e = (got[2] - want[2]).abs()
+    ill = (e > G_RTOL * want[2].abs() + G_FLOOR * scale).any(0)
+    n_ill = int(ill.sum())
+    if n_ill > ILL_SHARE * R:
+        raise AssertionError(f"{name} step_bwd: {n_ill} rays disagree with "
+                             f"autograd of the plain step")
+    worst = 0.0
+    if n_ill:
+        idx = ill.nonzero()[:, 0]
+        f64 = torch.float64
+        t64 = tables._replace(tab=tables.tab.to(f64),
+                              lights=tables.lights.to(f64),
+                              tri=tables.tri.to(f64))
+        w64 = step.step_bwd_plain(scene, t64, decay,
+                                  *(t[:, idx].to(f64) for t in (c0, u8, ct1)))
+        off = (got[2][:, idx].to(f64) - want[2][:, idx]).abs().amax(0)
+        own = (want[2][:, idx] - w64[2]).abs().amax(0)
+        ratio = off / own
+        worst = float(ratio.max())
+        if not bool((ratio <= ILL_RATIO).all()):
+            raise AssertionError(f"{name} step_bwd: a ray disagrees with the "
+                                 f"plain step {worst:.3g} times as far as "
+                                 f"float64 moves it")
+        sub = step_bwd_plain_chunked(scene, tables, decay,
+                                     *(t[:, idx] for t in (c0, u8, ct1)))
+        ct1[:, ill] = 0.0
+        got = step.step_bwd(scene, tables, decay, c0, u8, res, hit, ct1)
+        want = (want[0] - sub[0], want[1] - sub[1],
+                torch.where(ill, 0.0, want[2]), want[3] - sub[3]) + want[4:]
+    err, msg = 0.0, []
+    masses = (want[4], want[5], None, want[6])
+    for gname, g, w, m in zip(("d_tab", "d_lights", "d_c0", "d_tri"), got,
+                              want, masses):
+        if not w.numel():
+            continue
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} step_bwd: non-finite {gname}")
+        g = g.to(w.dtype)
+        e = (g - w).abs()
+        tol = G_RTOL * w.abs() + G_FLOOR * float(w.abs().max())
+        if m is not None:
+            tol = tol + SUM_TOL * m
+        err = max(err, float(e.max()))
+        msg.append(f"{gname} {float(e.max()):.3g} (worst "
+                   f"{float((e / tol).max()):.3f} of its tolerance)")
+        if not bool((e <= tol).all()):
+            raise AssertionError(f"{name} step_bwd: {gname} differs from "
+                                 f"autograd on {int((e > tol).sum())} "
+                                 f"entries")
+    log(f"{name} step_bwd {R} rays: matches autograd of the plain step "
+        f"({n_ill} rays shown ill-conditioned, at most {worst:.3g} times "
+        f"float64's move); max abs err {', '.join(msg)}")
+    return err, plain_ms, ct1
+
+
+def step_work(scene, tables, c0, u8, res, hit, work):
+    """Bounds of one launch of step_fwd, step_fwd_train and step_bwd on
+    these inputs, from the work their data asks for: every ray live on
+    entry sweeps the rows (a culled sphere segment: the rows ``work``
+    counts), a ray that hits tests its group's exit row on a refractive
+    scene and sweeps once per light (a visible light every row, an
+    occluded one at least one), then shades; the backward transposes the
+    step of every ray that hit."""
+    from micro_raytracer_tpu_torch.ops import step
+
+    R = c0.shape[1]
+    NU = u8.shape[0]
+    L = scene.n_lights
+    P = valid_rows(scene, tables) - sph_rows(scene, tables)
+    live_in = int((c0[step.C_LIVE] > 0.5).sum())
+    h = hit[0] > 0.5
+    S = int(h.sum())
+    lok = res[step.RES_LOK:step.RES_LOK + L][:, h] > 0.5
+    vis = int(lok.sum())
+    occ = S * L - vis
+    sph = 0
+    if tables.sbb is not None:
+        sph = work["sph_sweep"] + work["sph_shadow"]
+        occ = 0
+    exits = S if scene.any_refract else 0
+    chosen = (int((res[step.RES_CHOOSE][h] > 0.5).sum())
+              if scene.any_refract else 0)
+    fwd_ops = ((live_in * P + exits + vis * P + occ + sph) * ROW_TEST_OPS
+               + S * (FWD_STEP_OPS + L * FWD_LIGHT_OPS)
+               + (S * FWD_REFRACT_OPS if scene.any_refract else 0)
+               + work["sweep"] * TRI_TEST_OPS + work["shadow"] * TRI_ANY_OPS)
+    tables_b = table_bytes(scene, tables)
+    CR = step.scene_res_rows(scene, tables.layout)
+    # carry in and out, hit out, uniforms per ray
+    fwd_b = R * (56 + 56 + 4 + NU * 4) + tables_b
+    train_b = fwd_b + S * CR * 4
+    bwd_ops = (S * BWD_STEP_OPS + chosen * BWD_REFRACT_OPS
+               + vis * BWD_LIGHT_OK_OPS + occ * BWD_LIGHT_OCC_OPS)
+    # ct1 in, ct0 out, hit in per ray; residuals, uniforms and pwr per ray
+    # that hit; tables in, their cotangents out
+    bwd_b = R * (56 + 56 + 4) + S * (CR + NU + 1) * 4 + 2 * tables_b
+    return {"step_fwd": bound(fwd_b, fwd_ops),
+            "step_fwd_train": bound(train_b, fwd_ops),
+            "step_bwd": bound(bwd_b, bwd_ops), "hits": S,
+            "live_in": live_in}
+
+
+def phase_step_kernels(results):
+    """Phase 18: the per-step kernels on ``lights8`` and ``inst_grid3k``
+    at the frame (camera rays in Morton order, bounce 8): the render and
+    train instances of step_fwd against each other and against the plain
+    step at steps 0 and 2 (from the kernel's carry), step_bwd against
+    autograd of the plain step at step 0; the per-step trace's
+    radiance against the plain per-step trace's (phase 4's rule). Timed
+    and bounded at step 0, a launch with every ray live; each step's
+    kernel time and their sum, a sample's, are logged beside."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    dev = torch.device("cuda")
+    for name in STEP_NAMES:
+        cfg, scene, tables, decay, cam = step_inputs(name, dev)
+        gen = torch.Generator(device=dev).manual_seed(18)
+        oT, dT = main_path_rays(cfg, gen, dev)
+        nu = step.n_uni(scene.any_refract)
+        u8s = torch.rand((BOUNCE + 1, nu, RES * RES), generator=gen,
+                         device=dev)
+        c = step.primary_carry(oT, dT)
+        carries, step_ms = [], []
+        for k in range(BOUNCE + 1):
+            carries.append(c)
+            step_ms.append(cuda_ms(
+                lambda c=c, k=k: step.step_fwd(scene, tables, decay, c,
+                                               u8s[k]), 3))
+            c = step.step_fwd(scene, tables, decay, c, u8s[k])[0]
+        A, B, _fl = step.trace_steps(scene, tables, decay, oT, dT, u8s)
+        if not (torch.equal(A, c[8:11]) and torch.equal(B, c[11:14])):
+            raise AssertionError(f"{name}: trace_steps differs from its "
+                                 f"launches")
+        log(f"{name} step_fwd at the frame, per step "
+            f"{' + '.join(f'{t:.3f}' for t in step_ms)} = "
+            f"{sum(step_ms):.3f} ms a sample")
+        # the per-step trace against the plain per-step trace on 2^17
+        # camera rays (phase 4's rule)
+        o, d = camera_rays(cam, N_CMP, gen, dev)
+        oc, dc = o.T.contiguous(), d.T.contiguous()
+        u = u8s[..., :N_CMP].contiguous()
+        A, B, fl = step.trace_steps(scene, tables, decay, oc, dc, u)
+        cp = step.primary_carry(oc, dc)
+        for k in range(BOUNCE + 1):
+            cp, hit_p = plain_step_chunked(scene, tables, decay, cp, u[k])
+            if k == 0:
+                fl_p = hit_p
+        if not torch.equal(fl, fl_p):
+            raise AssertionError(f"{name}: first_live differs from the plain "
+                                 f"per-step trace")
+        sky = scene.sky_color[:, None]
+        rad = B + A * (sky * scene.sky_pwr)
+        rad_p = cp[11:14] + cp[8:11] * (sky * scene.sky_pwr)
+        bad = outlier_rays(A, cp[8:11], 1e-4, 1e-5) \
+            | outlier_rays(B, cp[11:14], 1e-4, 1e-5) \
+            | outlier_rays(rad, rad_p, 1e-4, 1e-5)
+        share = float(bad.float().mean())
+        err_in = float(max((A - cp[8:11])[:, ~bad].abs().max(),
+                           (B - cp[11:14])[:, ~bad].abs().max()))
+        log(f"{name} per-step trace {N_CMP} rays x {BOUNCE + 1} steps: "
+            f"{int(bad.sum())} rays outside rtol 1e-4 of the plain per-step "
+            f"trace (share {share:.5f}, bound {OUTLIER_SHARE}), {err_in:.3g} "
+            f"over the rest (bound {IN_ERR})")
+        if share > OUTLIER_SHARE or err_in > IN_ERR:
+            raise AssertionError(f"{name}: the per-step trace disagrees with "
+                                 f"the plain one")
+        del cp
+        # step 0 (the times and bounds below) and step 2 against the plain
+        # step; the backward at step 0, on the plain residuals
+        errs_f = []
+        for k in (2, 0):
+            e, bad, _c1, res0, hit0, plain_t = compare_step_fwd(
+                name, scene, tables, decay, carries[k], u8s[k], k)
+            errs_f.append(e)
+        c0, u8 = carries[0], u8s[0]
+        err_b, plain_b, ct1 = compare_step_bwd(name, scene, tables, decay,
+                                               c0, u8, res0, hit0, bad, gen)
+        work = {}
+        plain_step_chunked(scene, tables, decay, c0, u8, work=work)
+        plain_f = plain_ms(lambda: plain_step_chunked(scene, tables, decay,
+                                                      c0, u8))
+        ms_f = cuda_ms(lambda: step.step_fwd(scene, tables, decay, c0, u8),
+                       5)
+        ms_t = cuda_ms(lambda: step.step_fwd_train(scene, tables, decay, c0,
+                                                   u8), 5)
+        ms_b = cuda_ms(lambda: step.step_bwd(scene, tables, decay, c0, u8,
+                                             res0, hit0, ct1), 5)
+        bw = step_work(scene, tables, c0, u8, res0, hit0, work)
+        log(f"{name} at step 0 ({bw['live_in']} rays, {bw['hits']} hit): "
+            f"step_fwd {ms_f:.3f} ms (plain {plain_f:.1f}), bound "
+            f"{fmt_bound(bw['step_fwd'])}; step_fwd_train {ms_t:.3f} ms "
+            f"(plain {plain_t:.1f}), bound {fmt_bound(bw['step_fwd_train'])}"
+            f"; step_bwd {ms_b:.3f} ms (plain {plain_b:.1f}), bound "
+            f"{fmt_bound(bw['step_bwd'])}; sphere rows tested "
+            f"{ {k: v for k, v in work.items() if k.startswith('sph')} }")
+        shape = {"at": "step 0 of the 1080x1080 frame, bounce 8"}
+        results[f"step_fwd/{name}"] = {
+            "max_abs_err": max(errs_f), "ms": ms_f, "plain_ms": plain_f,
+            **bw["step_fwd"], "library_ms": None, **shape,
+            "step_ms": step_ms, "sample_ms": sum(step_ms)}
+        results[f"step_fwd_train/{name}"] = {
+            "max_abs_err": max(errs_f), "ms": ms_t, "plain_ms": plain_t,
+            **bw["step_fwd_train"], "library_ms": None, **shape}
+        results[f"step_bwd/{name}"] = {
+            "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
+            **bw["step_bwd"], "library_ms": None, **shape}
+        del carries, res0
+
+
+def phase_step_route(results):
+    """Phase 19: the per-step path against the whole trace on the scenes
+    the whole trace takes — the slice room, ``mesh_glass``, ``tex_blocks``
+    and ``inst_grid`` — on 2^17 camera rays, bounce 8: A, B and first_live
+    bit for bit; under a gradient d_oT and d_dT bit for bit (the same
+    transposes per ray) and the table cotangents within rtol 1e-5, 1e-6 of
+    each table's largest magnitude and ORDER_TOL of the entry's mass (the
+    sum of the magnitudes of its sums over chunks of MASS_CHUNK rays, from
+    the plain backward): both sum the
+    same terms in float32 in another order, and an entry whose terms
+    cancel can differ by more than 1e-5 of itself. This holds the
+    kRefract, kTri and kTex instances of the step kernels against the
+    whole-trace kernels."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models.compiler import (compile_camera,
+                                                           compile_scene)
+    from micro_raytracer_tpu_torch.ops import step
+
+    dev = torch.device("cuda")
+    cfgs = {"slice room": slice_config(), "mesh_glass":
+            mesh_config("mesh_glass"), "tex_blocks": tex_config("tex_blocks"),
+            "inst_grid": inst_config("inst_grid")}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out = {}
+    for name, cfg in cfgs.items():
+        scene = compile_scene(cfg.scene, dev)
+        tables = step.pack_step(scene)
+        if step.route(scene, True) != "trace":
+            raise AssertionError(f"{name} is not on the whole-trace route")
+        cam = compile_camera(cfg.frame.cam, dev)
+        o, d = camera_rays(cam, N_CMP, gen, dev)
+        oT, dT = o.T.contiguous(), d.T.contiguous()
+        u8s = torch.rand((BOUNCE + 1, step.n_uni(scene.any_refract), N_CMP),
+                         generator=gen, device=dev)
+        whole = step.trace_packed(scene, tables, 0.85, oT, dT, u8s)
+        steps = step.trace_steps(scene, tables, 0.85, oT, dT, u8s)
+        for what, a, b in zip(("A", "B", "first_live"), whole, steps):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: the per-step {what} differs "
+                                     f"from the whole trace's on "
+                                     f"{int((a != b).any(0).sum())} rays")
+        ctA, ctB = (torch.randn((3, N_CMP), generator=gen, device=dev)
+                    for _ in "ab")
+
+        def grads(fn):
+            ins = [t.detach().clone().requires_grad_(True)
+                   for t in (tables.tab, tables.lights, tables.tri, oT, dT)]
+            t = tables._replace(tab=ins[0], lights=ins[1], tri=ins[2])
+            A, B, _fl = fn(scene, t, 0.85, ins[3], ins[4], u8s)
+            torch.autograd.backward((A, B), (ctA, ctB))
+            return [x.grad for x in ins]
+
+        gw, gs = grads(step.trace_packed), grads(step.trace_steps)
+        if not (torch.equal(gw[3], gs[3]) and torch.equal(gw[4], gs[4])):
+            raise AssertionError(f"{name}: the per-step d_oT / d_dT differ "
+                                 f"from the whole trace's")
+        # the terms' mass of each table entry, from the plain backward in
+        # chunks of MASS_CHUNK rays
+        mass = trace_bwd_plain_chunked(scene, tables, 0.85, oT, dT, u8s,
+                                       ctA, ctB, MASS_CHUNK)[5:]
+        worst = {}
+        for tname, a, b, m in zip(("d_tab", "d_lights", "d_tri"), gs[:3],
+                                  gw[:3], mass):
+            if b is None or not b.numel():
+                continue
+            tol = (1e-5 * b.abs() + 1e-6 * float(b.abs().max())
+                   + ORDER_TOL * m.to(b.dtype))
+            r = float(((a - b).abs() / tol).max())
+            worst[tname] = r
+            if r > 1.0:
+                raise AssertionError(f"{name}: the per-step {tname} differs "
+                                     f"from the whole trace's ({r:.3g} of "
+                                     f"its tolerance)")
+        log(f"{name} per-step route on {N_CMP} rays: A, B, first_live, "
+            f"d_oT and d_dT equal the whole trace's bit for bit; table "
+            f"cotangents within {worst} of their tolerance")
+        out[name] = worst
+    # the two routes' kernel time at inst_grid's frame: the primary-hit
+    # pass and the whole trace (uncompacted) against the step launches
+    cfg = cfgs["inst_grid"]
+    scene = compile_scene(cfg.scene, dev)
+    tables = step.pack_step(scene)
+    oT, dT = main_path_rays(cfg, gen, dev)
+    u8s = torch.rand((BOUNCE + 1, step.n_uni(scene.any_refract), RES * RES),
+                     generator=gen, device=dev)
+    whole_ms = cuda_ms(lambda: step.trace_packed(scene, tables, 0.85, oT,
+                                                 dT, u8s), 3)
+    steps_ms = cuda_ms(lambda: step.trace_steps(scene, tables, 0.85, oT, dT,
+                                                u8s), 3)
+    log(f"inst_grid at the frame: the whole trace (closest_hit, trace_fwd) "
+        f"{whole_ms:.3f} ms, the per-step path {steps_ms:.3f} ms")
+    out["inst_grid_frame_ms"] = {"whole": whole_ms, "steps": steps_ms}
+    results["step_route"] = out
+
+
+def phase_step_main(card, counts):
+    """Phases 20-21: the CLI renders ``lights8`` and ``inst_grid3k`` from
+    JSON files at 1080x1080, bounce 8, 16 spp through the per-step path
+    (counted: BOUNCE + 1 step launches per sample, no whole-trace or
+    primary-hit launch, no plain version; renders for the spread, one
+    profiled, peak device memory of one render); the HTTP service answers
+    one ``lights8`` request."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_step_")
+    out_res = {}
+    kernels = (hit3.KERNEL, step.KERNEL, step.STEP_KERNEL)
+    for name in STEP_NAMES:
+        path = write_json(os.path.join(tmp, f"{name}.json"), step_json(name))
+        out = os.path.join(tmp, f"{name}.png")
+        for k in kernels:
+            k.launches = 0
+            k.plain_calls = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        render_s, wall = render_cli(out, [path])
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k.name: k.launches for k in kernels}
+        counts[name] = launched
+        want = {hit3.KERNEL.name: 0, step.KERNEL.name: 0,
+                step.STEP_KERNEL.name: SAMPLES * (BOUNCE + 1)}
+        if launched != want or any(k.plain_calls for k in kernels):
+            raise AssertionError(f"{name} render: launches {launched} (want "
+                                 f"{want}), plain calls "
+                                 f"{[k.plain_calls for k in kernels]}")
+        img = np.asarray(Image.open(out))
+        if img.shape != (RES, RES, 3) or float(img.std()) < 5.0:
+            raise AssertionError(f"{name}: image {img.shape}, std "
+                                 f"{float(img.std()):.2f}")
+        loops = [render_s] + [render_cli(out, [path])[0]
+                              for _ in range(STEP_RENDER_REPS - 1)]
+        spread = render_spread(loops, card)
+        ((loop_p, _w), wall_p, busy, n_ops, by_name) = _busy_share(
+            lambda: render_cli(out, [path]))
+        med = float(np.median(loops))
+        log(f"{name} render: {launched[step.STEP_KERNEL.name] / SAMPLES:.0f} "
+            f"step_fwd and {launched[step.KERNEL.name] / SAMPLES:.0f} "
+            f"trace_fwd launches per sample; peak device memory "
+            f"{peak / 2**30:.3f} GiB; profile: the CLI's wall {wall_p:.4f} s "
+            f"(render loop {loop_p:.4f} s under the profiler), device busy "
+            f"{busy:.4f} s = {busy / med:.3f} of the unprofiled loop's "
+            f"median {med:.4f} s; {n_ops} device operations "
+            f"({n_ops / SAMPLES:.1f} per sample)")
+        for kname, t in sorted(by_name.items(), key=lambda x: -x[1])[:4]:
+            log(f"  {t * 1e3:9.3f} ms  {kname[:90]}")
+        out_res[name] = {"render_s": render_s, "wall_s": wall,
+                         "spread": spread, "busy_s": busy,
+                         "busy_share": busy / med,
+                         "ops_per_sample": n_ops / SAMPLES,
+                         "step_fwd_per_sample":
+                             launched[step.STEP_KERNEL.name] / SAMPLES,
+                         "trace_fwd_per_sample":
+                             launched[step.KERNEL.name] / SAMPLES,
+                         "peak_bytes": peak}
+    phase_server(step_config("lights8"), requests=1)
+    return out_res
+
 def compaction_ab(card, pairs=5):
     """``--compaction``: the CLI's render loop of ``inst_grid``,
     ``mesh_opaque`` and ``mesh_glass`` (1080x1080, bounce 8, 16 spp) with
@@ -2349,7 +3055,14 @@ def main() -> int:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     phase_build()
+    from micro_raytracer_tpu_torch.ops import step as step_mod
+
+    step_kernels = (step_mod.STEP_KERNEL, step_mod.STEP_TRAIN_KERNEL,
+                    step_mod.STEP_BWD_KERNEL)
+    for k in step_kernels:
+        k.launches = 0
     cfg = slice_config()
     results = {}
     counts, train_counts = {}, {}
@@ -2374,6 +3087,24 @@ def main() -> int:
     inst_res = phase_inst_main(card, inst_counts)
     inst_train = phase_train(inst_config("inst_grid"), card,
                              inst_train_counts, "inst_grid", moved=0)
+    # the whole-trace scenes never took the per-step path
+    if any(k.launches for k in step_kernels):
+        raise AssertionError(f"the room, mesh, textured and Instance phases "
+                             f"launched the step kernels "
+                             f"{[k.launches for k in step_kernels]} times")
+    log(f"phases 3-17: 0 step kernel launches; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    phase_step_kernels(results)
+    phase_step_route(results)
+    step_counts = {}
+    step_res = phase_step_main(card, step_counts)
+    step_train, step_train_counts = {}, {}
+    for name in STEP_NAMES:
+        step_train_counts[name] = {}
+        step_train[name] = phase_train(step_config(name), card,
+                                       step_train_counts[name], name,
+                                       leaves=STEP_TRAIN_LEAVES[name])
+    log(f"phases 18-21: {time.perf_counter() - t_start:.1f} s so far")
 
     from micro_raytracer_tpu_torch.ops import hit3, step
 
@@ -2440,6 +3171,31 @@ def main() -> int:
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
          "launches": inst_train_counts[step.BWD_KERNEL.name],
          **results["trace_bwd/inst_grid"]}]
+    step_src = "micro_raytracer_tpu_torch/csrc/step_fwd.cu"
+    step_bwd_src = "micro_raytracer_tpu_torch/csrc/step_bwd.cu"
+    step_entries = []
+    for name in STEP_NAMES:
+        tc = step_train_counts[name]
+        step_entries += [
+            {"name": f"step_fwd/{name}", "route": "cuda",
+             "source": step_src,
+             "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1110",
+             "launches": step_counts[name][step.STEP_KERNEL.name],
+             **results[f"step_fwd/{name}"]},
+            {"name": f"step_fwd_train/{name}", "route": "cuda",
+             "source": step_src,
+             "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1110",
+             "launches": tc[step.STEP_TRAIN_KERNEL.name],
+             **results[f"step_fwd_train/{name}"]},
+            {"name": f"step_bwd/{name}", "route": "cuda",
+             "source": step_bwd_src,
+             "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3139",
+             "launches": tc[step.STEP_BWD_KERNEL.name],
+             **results[f"step_bwd/{name}"]}]
+    log(f"per-step render: {json.dumps(step_res)}")
+    log(f"per-step training: {json.dumps(step_train)}")
+    log(f"per-step route against the whole trace: "
+        f"{json.dumps(results['step_route'])}")
     log(f"instance render: {json.dumps(inst_res)}")
     log(f"instance training: {json.dumps(inst_train)}; closest_hit "
         f"launches {inst_train_counts[hit3.KERNEL.name]}")
@@ -2473,10 +3229,11 @@ def main() -> int:
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
          "launches": train_counts[step.BWD_KERNEL.name],
          **results["trace_bwd"]},
-    ] + mesh_kernels + tex_kernels + inst_kernels
+    ] + mesh_kernels + tex_kernels + inst_kernels + step_entries
     log(f"render main path: {json.dumps(main_res)}")
     log(f"training main path: {json.dumps(train_res)}; closest_hit "
         f"launches {train_counts[hit3.KERNEL.name]}")
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

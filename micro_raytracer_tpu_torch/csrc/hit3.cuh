@@ -44,7 +44,11 @@
 // branch on the layout's block count (0: dense), not a template instance,
 // and only in the instances for scenes without triangles and textures
 // (kSph): those get no sphere blocks (hit3.sph_table), so the Mesh-class
-// and textured instances keep their code and their registers.
+// and textured instances keep their code and their registers. A lane keeps
+// the blocks its ray touches as a bit mask: 32 bits (`unsigned`) in the
+// whole-trace and primary-hit kernels, whose dense rows (step.MAX_ROWS)
+// hold at most 32 blocks, 64 (`unsigned long long`) in the per-step
+// kernel (step_fwd.cu), up to the JAX package's 64 blocks.
 //
 // Per-ray block cull: the segment is cut into 64-row blocks (the compiler's
 // median-split leaf) with world AABBs (hit3.tri_blockbounds). Where the JAX
@@ -316,17 +320,24 @@ __device__ __forceinline__ float inv_dir(float d) {
   return 1.0f / (d == 0.0f ? kEps : d);
 }
 
+// The lowest set bit of a block mask.
+__device__ __forceinline__ int low_bit(unsigned m) { return __ffs(m) - 1; }
+__device__ __forceinline__ int low_bit(unsigned long long m) {
+  return __ffsll(static_cast<long long>(m)) - 1;
+}
+
 // The sphere blocks a ray's slab test touches at all (bit b: block b; at
-// most 32 blocks, hit3.sph_cull_rows). A block outside it fails every
-// later test against a best t too.
-__device__ __forceinline__ unsigned sph_touched(const Layout& L,
-                                                const float* sbb, float ox,
-                                                float oy, float oz, float ix,
-                                                float iy, float iz) {
-  unsigned mask = 0u;
+// most as many blocks as Mask has bits, hit3.sph_cull_rows). A block
+// outside it fails every later test against a best t too.
+template <class Mask = unsigned>
+__device__ __forceinline__ Mask sph_touched(const Layout& L,
+                                            const float* sbb, float ox,
+                                            float oy, float oz, float ix,
+                                            float iy, float iz) {
+  Mask mask = 0u;
   for (int b = 0; b < L.n_sb; ++b)
     if (block_touch(sbb + b * kBbCols, ox, oy, oz, ix, iy, iz, kBig))
-      mask |= 1u << b;
+      mask |= Mask(1) << b;
   return mask;
 }
 
@@ -337,6 +348,7 @@ __device__ __forceinline__ unsigned sph_touched(const Layout& L,
 // first), so a warp's lanes sweep their blocks side by side and the warp
 // pays for its busiest lane's blocks, not for every block one of its lanes
 // touches.
+template <class Mask = unsigned>
 __device__ __forceinline__ void sph_entry(const float* tab, int stride,
                                           const Layout& L, const float* sbb,
                                           bool cull, float ox, float oy,
@@ -348,9 +360,9 @@ __device__ __forceinline__ void sph_entry(const float* tab, int stride,
     return;
   }
   const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-  for (unsigned m = sph_touched(L, sbb, ox, oy, oz, ix, iy, iz); m;
+  for (Mask m = sph_touched<Mask>(L, sbb, ox, oy, oz, ix, iy, iz); m;
        m &= m - 1u) {
-    const int b = __ffs(m) - 1;
+    const int b = low_bit(m);
     if (!block_touch(sbb + b * kBbCols, ox, oy, oz, ix, iy, iz, best))
       continue;
     const int lo = b * kCullRows;
@@ -363,6 +375,7 @@ __device__ __forceinline__ void sph_entry(const float* tab, int stride,
 // Any-hit over the sphere segment, culled per ray (the lane's touched
 // blocks, lowest first) when the layout has sphere blocks; stops at the
 // first hit.
+template <class Mask = unsigned>
 __device__ __forceinline__ bool sph_any(const float* tab, int stride,
                                         const Layout& L, const float* sbb,
                                         float ox, float oy, float oz,
@@ -371,9 +384,9 @@ __device__ __forceinline__ bool sph_any(const float* tab, int stride,
     return any_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, ox, oy, oz,
                             dx, dy, dz);
   const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-  for (unsigned m = sph_touched(L, sbb, ox, oy, oz, ix, iy, iz); m;
+  for (Mask m = sph_touched<Mask>(L, sbb, ox, oy, oz, ix, iy, iz); m;
        m &= m - 1u) {
-    const int lo = (__ffs(m) - 1) * kCullRows;
+    const int lo = low_bit(m) * kCullRows;
     if (any_seg<kSphere>(tab, stride, L.sph_start + lo,
                          imin(kCullRows, L.sph_n - lo), ox, oy, oz, dx, dy,
                          dz))
@@ -450,8 +463,10 @@ __device__ __forceinline__ void tri_exit(const Tris& T, const Layout& L,
 // kTri, the triangle segment. kNeedExit: entry and group exit, never
 // culled; otherwise entry only, culled (the triangle blocks; with kSph the
 // sphere blocks, in the instances of scenes without triangles or textures,
-// which alone get them: hit3.sph_table).
-template <bool kNeedExit, bool kTri = false, bool kSph = !kTri>
+// which alone get them: hit3.sph_table). Mask: the type of a lane's
+// sphere-block mask (the blocks it may hold).
+template <bool kNeedExit, bool kTri = false, bool kSph = !kTri,
+          class Mask = unsigned>
 __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
                                            const Layout& L, float ox,
                                            float oy, float oz, float dx,
@@ -459,8 +474,8 @@ __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
                                            const Tris& T = Tris{}) {
   float best = kBig;
   int row = 0;
-  sph_entry(tab, stride, L, T.bb, kSph && !kNeedExit && L.n_sb > 0, ox, oy,
-            oz, dx, dy, dz, best, row);
+  sph_entry<Mask>(tab, stride, L, T.bb, kSph && !kNeedExit && L.n_sb > 0,
+                  ox, oy, oz, dx, dy, dz, best, row);
   entry_seg<kPlane>(tab, stride, L.pln_start, L.pln_n, ox, oy, oz, dx, dy,
                     dz, best, row);
   entry_seg<kBox>(tab, stride, L.box_start, L.box_n, ox, oy, oz, dx, dy, dz,
@@ -498,12 +513,12 @@ __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
 
 // Occlusion: does the ray hit any valid row? (rt.rs:1036-1038) kSph: the
 // sphere blocks cull, as in closest_hit.
-template <bool kTri = false, bool kSph = !kTri>
+template <bool kTri = false, bool kSph = !kTri, class Mask = unsigned>
 __device__ __forceinline__ bool any_hit(const float* tab, int stride,
                                         const Layout& L, float ox, float oy,
                                         float oz, float dx, float dy,
                                         float dz, const Tris& T = Tris{}) {
-  return (kSph ? sph_any(tab, stride, L, T.bb, ox, oy, oz, dx, dy, dz)
+  return (kSph ? sph_any<Mask>(tab, stride, L, T.bb, ox, oy, oz, dx, dy, dz)
                : any_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, ox, oy,
                                   oz, dx, dy, dz)) ||
          any_seg<kPlane>(tab, stride, L.pln_start, L.pln_n, ox, oy, oz, dx,

@@ -100,11 +100,6 @@
 
 namespace mrt {
 
-// The carry of a segmented render (pallas_step's c0 rows): o, d, pwr,
-// live, A, B.
-enum CarryRow { kC_O = 0, kC_D = 3, kC_PWR = 6, kC_LIVE = 7, kC_A = 8,
-                kC_B = 11, kCarryRows = 14 };
-
 // The steps [k0, k1) a launch runs, the carry it resumes from (null: the
 // primaries, k0 = 0), each lane's ray (its uniform column; null: the lane)
 // and the carry it writes (null: none).

@@ -1,14 +1,16 @@
 // Step math shared by the whole-trace forward (trace_fwd.cu) and backward
-// (trace_bwd.cu): 3-vectors, the row table's attribute columns, normals,
-// the jittered sampling direction, light vectors, materials with their
-// texture maps, and the training residual layout.
+// (trace_bwd.cu) and the per-step kernels (step_fwd.cu, step_bwd.cu):
+// 3-vectors, the row table's attribute columns, normals, the jittered
+// sampling direction, light vectors, materials with their texture maps,
+// the carry and the training residual layout.
 //
 // Row table: (P, 26) floats per row — the 18 sweep columns of hit3.cuh
 // (frame 9, instance position 3, plane normal / box sizes / a triangle's
 // raw normal 3, radius, valid, group id) then albedo (3), rough, metal,
-// glass, opacity, emit. The kernels stage the dense rows (below
-// tri_start) in shared memory and read triangle rows from global memory
-// (row_at).
+// glass, opacity, emit. The whole-trace kernels stage the dense rows
+// (below tri_start) in shared memory and read triangle rows from global
+// memory (row_at); the per-step kernels read every row from global
+// memory.
 // Light table: (L, 11) floats [pos 3 | -normalize(dir) 3 | is_dir | pwr |
 // color 3].
 // Textures (textured scenes, the kTex instances): a (P, 6) int32 table of
@@ -64,6 +66,11 @@ enum ResRow {
   R_CHOOSE = 12,
   R_LOK = 13
 };
+// The carry of a segmented render and of the per-step path
+// (pallas_step's c0 rows; step.CARRY_ROWS): o, d, pwr, live, A, B.
+enum CarryRow { kC_O = 0, kC_D = 3, kC_PWR = 6, kC_LIVE = 7, kC_A = 8,
+                kC_B = 11, kCarryRows = 14 };
+
 template <bool kTri>
 __device__ __forceinline__ int res_rows(int L) {
   return R_LOK + L + (kTri ? 1 : 0);

@@ -12,7 +12,9 @@ with ``col = A * col_tail + B`` and updates ``B += A*b; A *= a`` per
 bounce. :func:`trace_fused` runs the whole trace through
 :func:`step.trace_packed`: the CUDA kernels for CUDA tensors, the plain
 trace (the kernels' arithmetic in PyTorch, which the tests hold against
-the JAX package) for CPU tensors.
+the JAX package) for CPU tensors; a scene past the whole-trace kernels'
+bounds (more than 4 lights, or more dense rows than they stage) takes
+the per-step path there (``step.route``, ``step.trace_steps``).
 
 A render (no gradient) of a scene with a long sphere segment or a
 refractive one with triangles runs in segments with live-first compaction
@@ -71,14 +73,16 @@ def jax_cuts(scene: SceneArrays, steps: int):
 
 def compact_cuts(scene: SceneArrays, steps: int, inference: bool):
     """The cuts of a render: :func:`jax_cuts`, except on an opaque scene
-    with triangles, and none for a trace that needs a gradient. On the
-    H100 the CLI renders the sphere-grid class 39% faster compacted and a
-    refractive mesh (its exit passes sweep every triangle row) 4% faster,
-    but an opaque mesh, whose culled sweeps are short and whose room keeps
-    its lanes alive, 7% slower (PERF.md, ``chip_smoke.py
-    --compaction``)."""
+    with triangles, and none for a trace that needs a gradient or that
+    takes the per-step path (``step.route``; the JAX package's per-step
+    scan does not compact either). On the H100 the CLI renders the
+    sphere-grid class 39% faster compacted and a refractive mesh (its exit
+    passes sweep every triangle row) 4% faster, but an opaque mesh, whose
+    culled sweeps are short and whose room keeps its lanes alive, 7%
+    slower (PERF.md, ``chip_smoke.py --compaction``)."""
     if not inference or (scene.kind_counts[schema.KIND_TRIANGLE]
-                         and not scene.any_refract):
+                         and not scene.any_refract) \
+            or step.route(scene, False) == "steps":
         return []
     return jax_cuts(scene, steps)
 

@@ -13,9 +13,10 @@ same ``(te, row, tx, xrow)`` quadruple — misses give ``te = BIG``, ``row =
 Both take any row table whose first 18 columns are the sweep columns, such
 as the whole-trace kernel's.
 
-Long sphere segments (at least :data:`DENSE_CULL_MIN` rows,
-:func:`sph_cull_rows`) of scenes without triangles or textures are cut
-into 64-row blocks too, behind world AABBs (:func:`sph_blockbounds`): a
+Long sphere segments (at least :data:`DENSE_CULL_MIN` rows and at most
+:data:`SPH_MAX_BLOCKS` blocks, :func:`sph_cull_rows`) of scenes without
+triangles or textures are cut into 64-row blocks too, behind world AABBs
+(:func:`sph_blockbounds`): a
 sphere's hit point lies inside its block's AABB, so skipping a block the
 ray does not enter before its best t drops no hit, and the culled sweep
 gives the dense sweep's t and row. Entry-only and any-hit sweeps cull
@@ -66,8 +67,12 @@ BB_COLS = 8              # block AABB: lo (3), hi (3), padding (2)
 # shared-memory bound on the block AABBs the kernels stage: 256 * 32 B
 MAX_TRI_BLOCKS = 256
 # a sphere segment of at least this many rows gets cull blocks
-# (pallas_hit3._DENSE_CULL_MIN); at most MAX_ROWS // CB = 32 of them
+# (pallas_hit3._DENSE_CULL_MIN), at most SPH_MAX_BLOCKS of them
+# (pallas_hit3._CAND_MAX); the whole-trace and primary-hit kernels, whose
+# dense rows are at most MAX_ROWS, see at most MAX_ROWS // CB = 32 (a
+# 32-bit mask per lane), the per-step kernel up to 64 (csrc/hit3.cuh)
 DENSE_CULL_MIN = 256
+SPH_MAX_BLOCKS = 64
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
 KERNEL = CudaKernel(
@@ -224,10 +229,10 @@ def tri_blockbounds(scene, frames):
 def sph_cull_rows(layout):
     """``(start, count)`` of the sphere segment when it gets cull blocks
     (pallas_hit3._sph_cull_rows): at least DENSE_CULL_MIN rows, at most
-    MAX_ROWS // CB blocks; else None."""
+    SPH_MAX_BLOCKS blocks; else None."""
     for kind, s, c, _n in layout[0]:
         if kind == schema.KIND_SPHERE and c >= DENSE_CULL_MIN \
-                and -(-c // CB) <= MAX_ROWS // CB:
+                and -(-c // CB) <= SPH_MAX_BLOCKS:
             return s, c
     return None
 

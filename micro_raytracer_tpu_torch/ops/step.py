@@ -1,10 +1,11 @@
-"""Whole trace, forward and backward: the hand-written CUDA kernels
-``csrc/trace_fwd.cu`` and ``csrc/trace_bwd.cu``, their wrappers, their
-plain PyTorch versions, and the autograd function that joins them.
+"""The trace, forward and backward: the whole-trace CUDA kernels
+``csrc/trace_fwd.cu`` and ``csrc/trace_bwd.cu``, the per-step kernels
+``csrc/step_fwd.cu`` and ``csrc/step_bwd.cu``, their wrappers, their plain
+PyTorch versions, and the autograd functions that join them.
 
 The counterpart of ``micro_raytracer_tpu.ops.pallas_step`` for scenes of
-spheres, planes, boxes, triangles and meshes with at most 4 lights, with
-or without texture maps. :func:`pack_step` builds the kernels' tables
+spheres, planes, boxes, triangles and meshes, with or without texture
+maps. :func:`pack_step` builds the kernels' tables
 (:class:`TraceTables`): a ``(P, 26)`` row table — the 18 sweep columns of
 :func:`hit3.pack_scene`, whose ``fr, ipos, pa, pr`` are pallas_step's
 attribute columns ``_C_FR.._C_PR`` (a triangle row's ``pa`` is its raw
@@ -32,7 +33,16 @@ albedo, rough, metal and emit shade the step.
 ``oT``/``dT`` ``(3, R)`` with uniforms ``u8s`` ``(K, NU, R)`` — ``NU = 8``
 rows ``[u0..u6, u_emit]`` when the scene refracts, else 4 rows ``[u0, u1,
 u2, u_emit]`` — and returns ``A, B`` ``(3, R)`` and the first-bounce hit
-liveness ``(1, R)``. It dispatches on its inputs:
+liveness ``(1, R)``. :func:`route` picks its path from the scene and
+whether a gradient is wanted, the same way on every device: the whole
+trace for at most :data:`MAX_LIGHTS` lights and at most :data:`MAX_ROWS`
+sphere, plane and box rows (:data:`BWD_MAX_ROWS` in training), which the
+whole-trace kernels hold in registers and shared memory; past either, the
+per-step path (:func:`trace_steps`: one bounce step per launch, the
+``(CARRY_ROWS, R)`` carry in device memory between launches, the JAX
+package's per-step scan with pallas_step's ``_step_kernel`` and
+``_bwd_kernel``), whose kernels take any number of lights and rows. On
+the whole-trace route it dispatches on its inputs:
 
 * CPU tensors run :func:`trace_plain`, and autograd differentiates it;
 * CUDA tensors that need a gradient run :class:`TraceFunction`: the
@@ -44,8 +54,16 @@ liveness ``(1, R)``. It dispatches on its inputs:
 
 :func:`trace_segment` runs the steps ``[k0, k1)`` of a render from a
 carry (live-first compaction between segments, ``models/tracer.py``): the
-render instance on the card, :func:`trace_plain` on the CPU. No path
-falls back to another.
+render instance on the card, :func:`trace_plain` on the CPU.
+
+The per-step path: :func:`step_plain` is one step of :func:`trace_plain`
+from a carry, with its residuals (a ray that is dead or misses passes its
+carry through; pwr decays on every lane); on the card :func:`step_fwd`
+(the render instance), or under a gradient :class:`StepFunction`
+(:func:`step_fwd_train`, then :func:`step_bwd`). Composed over the K
+steps it is the whole trace bit for bit. Both paths take at most
+``hit3.MAX_TRI_BLOCKS`` triangle cull blocks (16,384 triangles) and raise
+past them on the card. No path falls back to another.
 """
 
 from __future__ import annotations
@@ -76,7 +94,14 @@ MAX_ROWS = 2048
 # may use; triangle rows accumulate in global memory
 BWD_MAX_ROWS = 1024
 _GRAD_COLS = 22           # row-table columns with a cotangent
-_BWD_THREADS, _BWD_MAX_BLOCKS = 128, 1024   # csrc/trace_bwd.cu kBwdThreads
+_BWD_THREADS, _BWD_MAX_BLOCKS = 128, 1024   # csrc/trace_bwd.cuh kBwdThreads
+# the per-step kernels (csrc/step_fwd.cu, csrc/step_bwd.cu) read the rows
+# from global memory (no row bound) and stage the lights in shared memory:
+# the backward the lights and their accumulators, 2 * 2048 * 44 B = 176 KB
+STEP_MAX_LIGHTS = 2048
+# the per-step backward accumulates the dense rows' cotangents in shared
+# memory while they and the lights' fit this budget, else in global memory
+_STEP_SHARED_BYTES = 48 * 1024
 
 # residual rows per step (csrc/trace_step.cuh): the step's input ray o, d
 # and throughput A, its entry and exit t, entry winner row, refract choice,
@@ -134,12 +159,27 @@ KERNEL = CudaKernel("trace_fwd", "trace_fwd.cu", _HEADERS, "mrt_trace_fwd",
                     _FWD_ARGS + [_c_int, _c_int] + [_c_ptr] * 7)
 TRAIN_KERNEL = CudaKernel("trace_fwd_train", "trace_fwd.cu", _HEADERS,
                           "mrt_trace_fwd_train", _FWD_ARGS + [_c_ptr] * 6)
+_BWD_HEADERS = _HEADERS + ("trace_bwd.cuh",)
 BWD_KERNEL = CudaKernel(
-    "trace_bwd", "trace_bwd.cu", _HEADERS, "mrt_trace_bwd",
+    "trace_bwd", "trace_bwd.cu", _BWD_HEADERS, "mrt_trace_bwd",
     [_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
     + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS + [_c_ptr] * 3
     + [_c_int] * 2
     + [_c_ptr] * 5 + [_c_int] + [_c_ptr] * 4)
+# the per-step path: tables as the trace kernels', then c0, u8, R, refract
+_STEP_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
+              + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS
+              + [_c_ptr, _c_ptr, _c_int, _c_int])
+STEP_KERNEL = CudaKernel("step_fwd", "step_fwd.cu", _HEADERS, "mrt_step_fwd",
+                         _STEP_ARGS + [_c_ptr] * 3)
+STEP_TRAIN_KERNEL = CudaKernel("step_fwd_train", "step_fwd.cu", _HEADERS,
+                               "mrt_step_fwd_train", _STEP_ARGS + [_c_ptr] * 4)
+STEP_BWD_KERNEL = CudaKernel(
+    "step_bwd", "step_bwd.cu", _BWD_HEADERS, "mrt_step_bwd",
+    [_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
+    + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS + [_c_ptr] * 4
+    + [_c_int] * 2 + [_c_ptr] * 2 + [_c_int, _c_ptr, _c_int]
+    + [_c_ptr] * 4)
 
 
 class Segment(NamedTuple):
@@ -179,10 +219,27 @@ def n_uni(need_exit: bool) -> int:
 
 
 def check_scene(scene) -> None:
-    """Reject a scene the kernels do not cover (never another path)."""
+    """Reject a scene the whole-trace kernels do not cover (:func:`route`
+    sends it to the per-step path)."""
     if scene.n_lights > MAX_LIGHTS:
         raise ValueError(f"trace kernel: {scene.n_lights} lights exceed "
                          f"its bound of {MAX_LIGHTS}")
+
+
+def route(scene, train: bool) -> str:
+    """The path of a trace of ``scene`` (``train``: a gradient is
+    wanted): ``"trace"``, the whole-trace kernels, for at most
+    :data:`MAX_LIGHTS` lights and at most :data:`MAX_ROWS` sphere, plane
+    and box rows (:data:`BWD_MAX_ROWS` in training); ``"steps"``, the
+    per-step path (:func:`trace_steps`), past either bound — exactly where
+    the whole-trace wrappers raise. The rule is the same on every device.
+    Both paths take at most ``hit3.MAX_TRI_BLOCKS`` triangle cull blocks,
+    16,384 triangles, and raise past them on the card."""
+    n_dense = hit3.seg_layout(scene.kind_counts)[1]
+    if scene.n_lights > MAX_LIGHTS or \
+            n_dense > (BWD_MAX_ROWS if train else MAX_ROWS):
+        return "steps"
+    return "trace"
 
 
 def pack_step(scene) -> TraceTables:
@@ -431,11 +488,19 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
     rows under ``"sph_sweep"`` and ``"sph_shadow"``; on a textured scene
     also ``"tex_fetch"`` and ``"tex_edge"`` (:func:`_side_material`).
 
-    ``seg`` (a :class:`Segment`, not with ``want_resid``) runs its steps
-    from its carry, lane i reading the uniform column of ray ``rid[i]``,
-    and returns ``(A, B, first_live, carry)`` like :func:`trace_segment`
-    (``first_live`` is 0 unless the segment starts at step 0)."""
+    ``seg`` (a :class:`Segment`) runs its steps from its carry, lane i
+    reading the uniform column of ray ``rid[i]``, and returns ``(A, B,
+    first_live, carry)`` like :func:`trace_segment` (``first_live`` is 0
+    unless the segment starts at step 0), then with ``want_resid`` the
+    segment's residuals and live-step counts."""
     (TRAIN_KERNEL if want_resid else KERNEL).plain_calls += 1
+    return _trace_plain(scene, tables, decay, oT, dT, u8s, want_resid, work,
+                        seg)
+
+
+def _trace_plain(scene, tables, decay, oT, dT, u8s, want_resid, work, seg):
+    """:func:`trace_plain` without its call count (the plain step runs
+    it too)."""
     tab, lights, layout = tables.tab, tables.lights, tables.layout
     L, refract = scene.n_lights, scene.any_refract
     mode = primary_mode(scene)
@@ -533,12 +598,12 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
         n_live += live_i.to(torch.int32)
         live = live_i & ~b_emit[:, 0]                        # emit kill
     out = (A.T.contiguous(), B.T.contiguous(), first.to(oT.dtype)[None])
-    if want_resid:
-        return out + (torch.stack(resid), n_live)
     if segmented:
         pwr = torch.broadcast_to(pwr, (R, 1))
-        return out + (torch.cat([o, d, pwr, live.to(oT.dtype)[:, None], A,
-                                 B], 1).T.contiguous(),)
+        out += (torch.cat([o, d, pwr, live.to(oT.dtype)[:, None], A, B],
+                          1).T.contiguous(),)
+    if want_resid:
+        out += (torch.stack(resid), n_live)
     return out
 
 
@@ -558,19 +623,70 @@ def trace_bwd_plain(scene, tables, decay, oT, dT, u8s, ctA, ctB):
                  for g, x in zip(grads, ins))
 
 
+# --- the per-step path: plain version ---------------------------------------
+
+def primary_carry(oT, dT):
+    """The carry ``(CARRY_ROWS, R)`` of lane-major primaries: o, d, pwr = 1,
+    live = 1, A = 1, B = 0 (differentiable in ``oT`` and ``dT``)."""
+    R = oT.shape[1]
+    one = torch.ones((1, R), dtype=oT.dtype, device=oT.device)
+    return torch.cat([oT, dT, one, one, one.expand(3, R),
+                      torch.zeros((3, R), dtype=oT.dtype, device=oT.device)])
+
+
+def _step_plain(scene, tables, decay, c0, u8, want_resid):
+    """:func:`step_plain` without its call count."""
+    out = _trace_plain(scene, tables, decay, c0[0:3], c0[3:6], u8[None],
+                       want_resid, None, Segment(0, 1, c0))
+    hit, c1 = out[2], out[3]
+    # a ray that is dead or misses keeps its ray (the plain step moves it)
+    c1 = torch.cat([torch.where(hit > 0.5, c1[:6], c0[:6]), c1[6:]])
+    return (c1, hit) + ((out[4][0],) if want_resid else ())
+
+
+def step_plain(scene, tables, decay, c0, u8, want_resid=False):
+    """Plain PyTorch bounce step, the per-step kernels' arithmetic (any
+    device): the step of :func:`trace_plain` from the carry ``c0``
+    ``(CARRY_ROWS, R)`` with the step's uniforms ``u8`` ``(NU, R)``.
+    Returns the next carry and the step's hit liveness ``(1, R)`` (before
+    the emit kill; pallas_step.step's ``live2``); with ``want_resid`` also
+    the step's residuals ``(scene_res_rows, R)``, meaningful on the rays
+    that hit. A ray that is dead or misses passes its carry through (live
+    0); pwr decays on every lane. Differentiable by autograd in the
+    tables and ``c0``."""
+    (STEP_TRAIN_KERNEL if want_resid else STEP_KERNEL).plain_calls += 1
+    return _step_plain(scene, tables, decay, c0, u8, want_resid)
+
+
+def step_bwd_plain(scene, tables, decay, c0, u8, ct1):
+    """Plain version of :func:`step_bwd`: autograd through the plain step
+    for the output carry's cotangent ``ct1``. Returns ``(d_tab, d_lights,
+    d_c0, d_tri)``."""
+    STEP_BWD_KERNEL.plain_calls += 1
+    ins = [t.detach().requires_grad_(True)
+           for t in (tables.tab, tables.lights, c0, tables.tri)]
+    with torch.enable_grad():
+        c1, _hit = _step_plain(
+            scene, tables._replace(tab=ins[0], lights=ins[1], tri=ins[3]),
+            decay, ins[2], u8, False)
+        grads = torch.autograd.grad(c1, ins, ct1, allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, ins))
+
+
 # --- kernel wrappers --------------------------------------------------------
 
 def _table_args(scene, tables, max_dense, what):
-    """Validate the row, light and triangle tables of a launch; their
-    leading C arguments (the dense rows the kernel stages, the dense and
-    triangle layouts)."""
+    """Validate the row, light and triangle tables of a launch (``max_dense``:
+    the kernel's bound on the dense rows, None for none); their leading C
+    arguments (the dense rows, the dense and triangle layouts)."""
     tab, lights, layout = tables.tab, tables.lights, tables.layout
     P = tab.shape[0]
     require_cuda_tensor("table", tab, torch.float32, (P, ROW_COLS))
     require_cuda_tensor("lights", lights, torch.float32,
                         (max(scene.n_lights, 1), LIGHT_COLS))
     n_dense = layout[1]
-    if n_dense > max_dense:
+    if max_dense is not None and n_dense > max_dense:
         raise ValueError(f"{what} kernel: {n_dense} sphere, plane and box "
                          f"rows exceed the shared-memory bound of "
                          f"{max_dense}")
@@ -733,6 +849,104 @@ def trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB):
     return d_tab, d_lights, d_oT, d_dT, d_tri
 
 
+# --- the per-step path: kernel wrappers -------------------------------------
+
+def _step_args(scene, tables, decay, c0, u8):
+    """Validate a per-step launch's inputs; its leading C arguments (the
+    tables, then the carry ``c0``, the uniforms ``u8``, R and refract for
+    the forward; the backward takes the tables' and adds its own)."""
+    L = scene.n_lights
+    if L > STEP_MAX_LIGHTS:
+        raise ValueError(f"step kernel: {L} lights exceed its shared-memory "
+                         f"bound of {STEP_MAX_LIGHTS}")
+    R = c0.shape[1]
+    require_cuda_tensor("c0", c0, torch.float32, (CARRY_ROWS, R))
+    require_cuda_tensor("u8", u8, torch.float32,
+                        (n_uni(scene.any_refract), R))
+    tab_args = (_table_args(scene, tables, None, "step")
+                + [L, float(decay), *_tex_args(scene, tables)])
+    return tab_args, [ptr(c0), ptr(u8), R, int(scene.any_refract)]
+
+
+def step_fwd(scene, tables, decay, c0, u8):
+    """Launch ``mrt_step_fwd`` (the render instance) on CUDA tensors: one
+    bounce step from the carry ``c0``; returns :func:`step_plain`'s
+    ``(c1, hit)``."""
+    tab_args, ray_args = _step_args(scene, tables, decay, c0, u8)
+    R = c0.shape[1]
+    c1 = torch.empty_like(c0)
+    hit = torch.empty((1, R), dtype=torch.float32, device=c0.device)
+    if R:
+        STEP_KERNEL.launch(*tab_args, *ray_args, ptr(c1), ptr(hit),
+                           stream_ptr(c0.device))
+    return c1, hit
+
+
+def step_fwd_train(scene, tables, decay, c0, u8):
+    """Launch ``mrt_step_fwd_train`` (the train instance) on CUDA tensors:
+    :func:`step_fwd`'s ``(c1, hit)`` bit for bit, plus the step's residuals
+    ``(scene_res_rows, R)`` of the rays that hit (the rest unwritten)."""
+    tab_args, ray_args = _step_args(scene, tables, decay, c0, u8)
+    R = c0.shape[1]
+    c1 = torch.empty_like(c0)
+    hit = torch.empty((1, R), dtype=torch.float32, device=c0.device)
+    resid = torch.empty((scene_res_rows(scene, tables.layout), R),
+                        dtype=torch.float32, device=c0.device)
+    if R:
+        STEP_TRAIN_KERNEL.launch(*tab_args, *ray_args, ptr(c1), ptr(hit),
+                                 ptr(resid), stream_ptr(c0.device))
+    return c1, hit, resid
+
+
+def _step_shared_rows(n_dense: int, L: int) -> bool:
+    """Whether the per-step backward accumulates the dense rows in shared
+    memory (beside the lights and their accumulators)."""
+    return (n_dense * _GRAD_COLS + 2 * L * LIGHT_COLS) * 4 \
+        <= _STEP_SHARED_BYTES
+
+
+def step_bwd(scene, tables, decay, c0, u8, resid, hit, ct1):
+    """Launch ``mrt_step_bwd`` on CUDA tensors: for the cotangent ``ct1``
+    ``(CARRY_ROWS, R)`` of a step's output carry, whose train instance
+    (:func:`step_fwd_train`) wrote ``resid`` and ``hit`` from the carry
+    ``c0``, the cotangents of the row table ``(P, 26)``, the light table,
+    the input carry ``(CARRY_ROWS, R)`` (o, d, pwr, A, B; the live row 0)
+    and the triangle table ``(Pt, 16)`` (its ``G[2]`` and ``h[2]``
+    columns). The table cotangents vary from run to run at float32
+    rounding level (csrc/step_bwd.cu)."""
+    L = scene.n_lights
+    R = c0.shape[1]
+    for name, t, shape in (
+            ("resid", resid, (scene_res_rows(scene, tables.layout), R)),
+            ("hit", hit, (1, R)), ("ct1", ct1, (CARRY_ROWS, R))):
+        require_cuda_tensor(name, t, torch.float32, shape)
+    tab_args, _ray_args = _step_args(scene, tables, decay, c0, u8)
+    tab, lights, layout = tables.tab, tables.lights, tables.layout
+    dev = tab.device
+    n_dense = layout[1]
+    shared = _step_shared_rows(n_dense, L)
+    d_tab = torch.zeros((tab.shape[0], ROW_COLS), dtype=torch.float32,
+                        device=dev)
+    d_lights = torch.zeros_like(lights)
+    ct0 = torch.empty_like(c0)
+    d_tri4 = torch.zeros((layout[2], 4), dtype=torch.float32, device=dev)
+    if R:
+        blocks = min(-(-R // _BWD_THREADS), _BWD_MAX_BLOCKS)
+        partials = torch.empty(
+            (blocks, (n_dense * _GRAD_COLS if shared else 0)
+             + L * LIGHT_COLS), dtype=torch.float32, device=dev)
+        STEP_BWD_KERNEL.launch(
+            *tab_args, ptr(resid), ptr(hit), ptr(c0), ptr(u8), R,
+            int(scene.any_refract), ptr(ct1), ptr(ct0), int(shared),
+            ptr(partials), blocks, ptr(d_tab), ptr(d_lights),
+            ptr(d_tri4) if layout[2] else None, stream_ptr(dev))
+    d_tri = torch.zeros((layout[2], hit3.TRI_COLS), dtype=torch.float32,
+                        device=dev)
+    d_tri[:, 6:9] = d_tri4[:, :3]
+    d_tri[:, hit3._T_H + 2] = d_tri4[:, 3]
+    return d_tab, d_lights, ct0, d_tri
+
+
 class TraceFunction(torch.autograd.Function):
     """The whole trace on CUDA tensors under autograd: forward through the
     primary-hit kernel and the train instance of the trace kernel, backward
@@ -766,11 +980,83 @@ class TraceFunction(torch.autograd.Function):
         return d_tab, d_lights, d_tri, d_oT, d_dT, None, None, None, None
 
 
+class StepFunction(torch.autograd.Function):
+    """One bounce step on CUDA tensors under autograd: forward through the
+    train instance of the step kernel, backward through the step's
+    backward kernel. Differentiable inputs: the row table, the light
+    table, the triangle table and the carry ``c0``; ``hit`` has no
+    gradient, and ``decay`` is a constant."""
+
+    @staticmethod
+    def forward(ctx, tab, lights, tri, c0, scene, tables, decay, u8):
+        tables = tables._replace(tab=tab, lights=lights, tri=tri)
+        c1, hit, resid = step_fwd_train(scene, tables, decay, c0, u8)
+        ctx.save_for_backward(tab, lights, tri, c0, u8, resid, hit)
+        ctx.scene, ctx.decay = scene, decay
+        ctx.tables = tables._replace(frames=None, tab=None, lights=None,
+                                     tri=None)
+        ctx.mark_non_differentiable(hit)
+        return c1, hit
+
+    @staticmethod
+    def backward(ctx, ct1, _ct_hit):
+        tab, lights, tri, c0, u8, resid, hit = ctx.saved_tensors
+        ct1 = torch.zeros_like(c0) if ct1 is None else ct1.contiguous()
+        tables = ctx.tables._replace(tab=tab, lights=lights, tri=tri)
+        d_tab, d_lights, d_c0, d_tri = step_bwd(
+            ctx.scene, tables, ctx.decay, c0, u8, resid, hit, ct1)
+        return d_tab, d_lights, d_tri, d_c0, None, None, None, None
+
+
+def _steps(scene, tables, decay, c, u8s, k0, k1, rid=None, grad=False):
+    """Steps ``[k0, k1)`` of the per-step path from the carry ``c``, lane i
+    reading the uniform column of ray ``rid[i]`` (None: ray i): the plain
+    step on the CPU, on the card the step kernel's render instance, or
+    with ``grad`` :class:`StepFunction`. Returns the carry and step 0's hit
+    liveness (zeros unless ``k0`` is 0)."""
+    fl = torch.zeros((1, c.shape[1]), dtype=c.dtype, device=c.device)
+    for k in range(k0, k1):
+        u8 = u8s[k] if rid is None else u8s[k][:, rid.long()].contiguous()
+        if c.device.type == "cpu":
+            c, hit = step_plain(scene, tables, decay, c, u8)
+        elif grad:
+            c, hit = StepFunction.apply(tables.tab, tables.lights, tables.tri,
+                                        c, scene, tables, decay, u8)
+        else:
+            c, hit = step_fwd(scene, tables, decay, c, u8)
+        if k == 0:
+            fl = hit
+    return c, fl
+
+
+def trace_steps(scene, tables, decay, oT, dT, u8s):
+    """The per-step path: the whole trace of :func:`trace_packed` as one
+    bounce step per launch, the carry ``(CARRY_ROWS, R)`` in device memory
+    between them (the JAX package's ``stepk`` scan, models/tracer.py:564-
+    597): from :func:`primary_carry`, step k reads row k of ``u8s``, so a
+    ray's uniforms are the whole trace's. Returns ``(A, B, first_live)``,
+    first_live from step 0. CPU tensors run :func:`step_plain` (autograd
+    differentiates it), CUDA tensors the step kernel, or under a gradient
+    :class:`StepFunction`. Its radiance is the whole trace's bit for
+    bit."""
+    diff_in = (tables.tab, tables.lights, tables.tri, oT, dT)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in diff_in)
+    c, fl = _steps(scene, tables, decay, primary_carry(oT, dT), u8s, 0,
+                   u8s.shape[0], grad=grad)
+    return c[8:11], c[11:14], fl
+
+
 def trace_segment(scene, tables, decay, oT, dT, u8s, seg):
     """The steps of :class:`Segment` ``seg`` of a render (no gradient):
     ``(A, B, first_live, carry)`` in lane order. CUDA tensors run the
     primary-hit kernel (a segment from step 0) and the render instance of
-    the trace kernel, CPU tensors :func:`trace_plain`."""
+    the trace kernel, CPU tensors :func:`trace_plain`; a scene that
+    :func:`route` sends to the per-step path runs its steps there."""
+    if route(scene, False) == "steps":
+        c = primary_carry(oT, dT) if seg.c0 is None else seg.c0
+        c, fl = _steps(scene, tables, decay, c, u8s, seg.k0, seg.k1,
+                       seg.rid)
+        return c[8:11], c[11:14], fl, c
     if oT.device.type == "cpu":
         return trace_plain(scene, tables, decay, oT, dT, u8s, seg=seg)
     hit0 = primary_hits(scene, tables, oT, dT) if seg.k0 == 0 else None
@@ -780,10 +1066,13 @@ def trace_segment(scene, tables, decay, oT, dT, u8s, seg):
 def trace_packed(scene, tables, decay, oT, dT, u8s):
     """Whole trace on lane-major primaries (see the module docstring for
     which path each input takes)."""
+    diff_in = (tables.tab, tables.lights, tables.tri, oT, dT)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in diff_in)
+    if route(scene, grad) == "steps":
+        return trace_steps(scene, tables, decay, oT, dT, u8s)
     if oT.device.type == "cpu":
         return trace_plain(scene, tables, decay, oT, dT, u8s)
-    diff_in = (tables.tab, tables.lights, tables.tri, oT, dT)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in diff_in):
+    if grad:
         return TraceFunction.apply(tables.tab, tables.lights, tables.tri,
                                    oT, dT, scene, tables, decay, u8s)
     hit0 = primary_hits(scene, tables, oT, dT)

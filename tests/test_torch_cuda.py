@@ -98,6 +98,7 @@ from torch_mesh_helpers import (CLUSTERED_LIT, aimed_rays, mesh_scene,
 from torch_port_helpers import (MIXED, MIXED_OPAQUE, TIES,  # noqa: F401
                                 cuda_device, outlier_rows, rays)
 from torch_tex_helpers import CAMERAS, max_flips, render_json, tex_scene
+from chip_smoke import LIGHTS8_CAMERA, lights8
 
 SCENES = {"mixed": MIXED, "mixed_opaque": MIXED_OPAQUE,
           "mesh_glass": mesh_scene("mesh_glass"),
@@ -579,3 +580,237 @@ def test_train_step_runs_the_kernels(name, cuda_device):
         for k in ("inst_pos", "inst_dir"):
             g = params[k].grad[scene.seg(3)]
             assert float(g.abs().max()) > 0, k
+
+
+# --- the per-step path (csrc/step_fwd.cu, csrc/step_bwd.cu) -----------------
+#
+# step_fwd / step_fwd_train against the plain step (step.step_plain) from a
+# mid-trace carry: hit equal, the carry within the trace tolerance on all
+# but TRACE_CAP of the rays, the train instance bit for bit the render
+# instance, the residuals of the other rays that hit as in the train
+# test above. step_bwd on the plain residuals against autograd of the
+# plain step, as the whole-trace backward is held (a sphere grid's rays
+# outside must be shown ill-conditioned by float64, the rule above). The
+# per-step route against the whole trace: radiance bit for bit; under a
+# gradient d_oT and d_dT bit for bit (the same transposes per ray) and the
+# table cotangents within rtol 1e-5 and 1e-6 of the largest magnitude
+# (their sums run in another order).
+
+STEP_SCENES = {"lights8": lights8(),
+               "grid13": inst_scene("inst_grid", dims=(13, 13, 13))}
+STEP_CAMERAS = {"lights8": LIGHTS8_CAMERA, "grid13": INST_CAMERA}
+STEP_ILL = {"grid13", "inst_grid"}
+
+
+def _step_case(name, device, R=1 << 14):
+    """A scene, its tables, a mid-trace carry (two plain steps from camera
+    or random rays) and the next step's uniforms."""
+    js = STEP_SCENES.get(name) or SCENES[name]
+    scene = compile_scene(schema.SceneConfig.from_json(js), device)
+    tables = step.pack_step(scene)
+    if name in STEP_SCENES:
+        cams = dict(CAMERAS, **STEP_CAMERAS)
+        from micro_raytracer_tpu_torch.models import camera
+        from micro_raytracer_tpu_torch.models.compiler import compile_camera
+
+        cam = compile_camera(schema.CameraConfig.from_json(cams[name]),
+                             device)
+        gen = torch.Generator(device=device).manual_seed(3)
+        o, d = camera.gen_rays(
+            cam, (256, 256),
+            torch.floor(torch.rand((R, 2), generator=gen, device=device)
+                        * 256), torch.rand((R, 2), generator=gen,
+                                           device=device))
+    else:
+        o, d = _rays(R, device, seed=3, name=name)
+    gen = torch.Generator(device=device).manual_seed(4)
+    u8s = torch.rand((3, step.n_uni(scene.any_refract), R), generator=gen,
+                     device=device)
+    with torch.no_grad():
+        c0 = step.primary_carry(o.T.contiguous(), d.T.contiguous())
+        for k in range(2):
+            c0 = step.step_plain(scene, tables, 0.85, c0, u8s[k])[0]
+    return scene, tables, c0, u8s[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lights8", "grid13", "mixed",
+                                  "mesh_glass", "inst_grid"])
+def test_step_kernels_match_plain(name, cuda_device):
+    scene, tables, c0, u8 = _step_case(name, cuda_device)
+    R = c0.shape[1]
+    before = (step.STEP_KERNEL.launches, step.STEP_TRAIN_KERNEL.launches)
+    c1, hit = step.step_fwd(scene, tables, 0.85, c0, u8)
+    c1_t, hit_t, res = step.step_fwd_train(scene, tables, 0.85, c0, u8)
+    assert (step.STEP_KERNEL.launches, step.STEP_TRAIN_KERNEL.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(c1, c1_t) and torch.equal(hit, hit_t)
+    c1_p, hit_p, res_p = step.step_plain(scene, tables, 0.85, c0, u8,
+                                         want_resid=True)
+    assert torch.equal(hit, hit_p)
+    live = hit[0] > 0.5
+    assert int(live.sum()) > R // 16
+    bad = (~torch.isclose(c1, c1_p, rtol=TRACE_RTOL,
+                          atol=TRACE_ATOL)).any(0)
+    assert int(bad.sum()) <= TRACE_CAP * R, int(bad.sum())
+    good = live & ~bad
+    floats = [step.RES_O + c for c in range(9)] + [step.RES_TE]
+    exact = [step.RES_ROW] + [step.RES_LOK + li
+                              for li in range(scene.n_lights)]
+    if scene.any_refract:
+        floats.append(step.RES_TX)
+        exact.append(step.RES_CHOOSE)
+    if tables.layout[3]:
+        exact.append(step.res_xrow(scene.n_lights))
+    for r in floats:
+        torch.testing.assert_close(res[r, good], res_p[r, good], rtol=1e-4,
+                                   atol=1e-4, msg=f"row {r}")
+    for r in exact:
+        assert torch.equal(res[r, good], res_p[r, good]), r
+
+    # the backward on the plain residuals
+    ct1 = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(step.CARRY_ROWS, R)).astype(np.float32)).to(cuda_device)
+    ct1[:, bad] = 0.0
+    before = step.STEP_BWD_KERNEL.launches
+    got = step.step_bwd(scene, tables, 0.85, c0, u8, res_p, hit_p, ct1)
+    assert step.STEP_BWD_KERNEL.launches == before + 1
+    want = step.step_bwd_plain(scene, tables, 0.85, c0, u8, ct1)
+    atol = 1e-5 * float(want[2].abs().max())
+    out = (~torch.isclose(got[2], want[2], rtol=2e-3, atol=atol)).any(0)
+    idx = out.nonzero()[:, 0]
+    if len(idx):
+        assert name in STEP_ILL, f"{name}: rays {idx[:8].tolist()} disagree"
+        assert len(idx) <= TRACE_CAP * R
+        t64 = tables._replace(tab=tables.tab.double(),
+                              lights=tables.lights.double(),
+                              tri=tables.tri.double())
+        w64 = step.step_bwd_plain(scene, t64, 0.85, c0[:, idx].double(),
+                                  u8[:, idx].double(),
+                                  ct1[:, idx].double())[2]
+        g, w = got[2][:, idx].double(), want[2][:, idx].double()
+        tol = 2e-3 * w.abs() + atol
+        gap = (w - w64).abs()
+        assert bool(((gap > tol).any(0)).all()), "well-conditioned rays"
+        assert bool((((g - w).abs() - tol).amax(0)
+                     <= 2.0 * gap.amax(0)).all())
+    assert float(want[0].abs().max()) > 0
+    for gname, g, w in zip(("d_tab", "d_lights", "d_c0", "d_tri"), got,
+                           want):
+        assert bool(torch.isfinite(g).all()), gname
+        if gname == "d_c0":
+            g, w = g[:, ~out], w[:, ~out]
+        if w.numel():
+            _close(gname, g, w)
+    # run to run: the per-ray cotangents bit for bit, the tables' sums at
+    # float32 rounding
+    again = step.step_bwd(scene, tables, 0.85, c0, u8, res_p, hit_p, ct1)
+    assert torch.equal(got[2], again[2])
+    for gname, g, w in zip(("d_tab", "d_lights", "d_tri"),
+                           (got[0], got[1], got[3]),
+                           (again[0], again[1], again[3])):
+        if w.numel():
+            _close(gname, g, w, rtol=1e-5, floor=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mixed", "mixed_opaque", "mesh_glass",
+                                  "mesh_opaque", "tex_blocks", "tex_mesh",
+                                  "inst_grid", "inst_glass"])
+def test_steps_equal_whole_trace(name, cuda_device):
+    """The per-step path on a scene the whole trace takes: A, B and
+    first_live bit for bit; under a gradient the primaries' cotangents
+    bit for bit and the tables' within rtol 1e-5."""
+    scene, tables, oT, dT, u8s = _train_inputs(name, cuda_device,
+                                               R=1 << 13)
+    assert step.route(scene, True) == "trace"
+    A, B, fl = step.trace_packed(scene, tables, 0.85, oT, dT, u8s)
+    As, Bs, fls = step.trace_steps(scene, tables, 0.85, oT, dT, u8s)
+    assert torch.equal(A, As) and torch.equal(B, Bs)
+    assert torch.equal(fl, fls)
+    rng = np.random.default_rng(6)
+    ctA, ctB = (torch.from_numpy(rng.normal(size=(3, oT.shape[1])).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_(True)
+               for t in (tables.tab, tables.lights, tables.tri, oT, dT)]
+        t = tables._replace(tab=ins[0], lights=ins[1], tri=ins[2])
+        A_, B_, _fl = fn(scene, t, 0.85, ins[3], ins[4], u8s)
+        torch.autograd.backward((A_, B_), (ctA, ctB))
+        return [x.grad for x in ins]
+
+    whole = grads(step.trace_packed)
+    steps = grads(step.trace_steps)
+    for gname, g, w in zip(("d_tab", "d_lights", "d_tri"), steps[:3],
+                           whole[:3]):
+        if w is not None and w.numel():
+            _close(gname, g, w, rtol=1e-5, floor=1e-6)
+    assert torch.equal(steps[3], whole[3]) and torch.equal(steps[4], whole[4])
+
+
+@pytest.mark.cuda
+def test_route_refuses_past_256_triangle_blocks(cuda_device):
+    """A mesh past hit3.MAX_TRI_BLOCKS cull blocks (16,384 triangles) is
+    refused on the card by both routes, with 1 light and with 5."""
+    rng = np.random.default_rng(7)
+    tris = rng.uniform(-1, 1, (257 * 64, 3, 3)).astype(np.float32) * 0.05
+    for n_lights in (1, 5):
+        js = {"renderer": [{"type": "mesh", "mesh": tris.tolist(),
+                            "pos": [0, 1, 0]}],
+              "light": [{"type": "point", "pos": [0, -1, i]}
+                        for i in range(n_lights)]}
+        scene = compile_scene(schema.SceneConfig.from_json(js), cuda_device)
+        tables = step.pack_step(scene)
+        o, d = (t.T.contiguous() for t in _rays(256, cuda_device))
+        u8s = torch.rand((2, 4, 256), device=cuda_device)
+        assert step.route(scene, False) == (
+            "trace" if n_lights == 1 else "steps")
+        with pytest.raises(ValueError, match="cull blocks exceed"):
+            step.trace_packed(scene, tables, 0.85, o, d, u8s)
+
+
+@pytest.mark.cuda
+def test_cli_and_training_run_the_step_kernels(cuda_device, tmp_path):
+    """lights8 (8 lights) renders through the CLI on the step kernel, one
+    launch per step and sample, and trains on its train instance and
+    backward, with no whole-trace kernel and no plain version."""
+    import json
+
+    from micro_raytracer_tpu_torch.models.compiler import compile_camera
+    from micro_raytracer_tpu_torch.parallel import shard
+    from PIL import Image
+
+    kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL,
+               step.STEP_KERNEL, step.STEP_TRAIN_KERNEL,
+               step.STEP_BWD_KERNEL)
+    for k in kernels:
+        k.launches = k.plain_calls = 0
+    path = tmp_path / "lights8.json"
+    path.write_text(json.dumps({
+        "scene": lights8(), "frame": {"res": [48, 48], "cam": LIGHTS8_CAMERA},
+        "rt": {"bounce": 3, "sample": 2}}))
+    out = tmp_path / "out.png"
+    assert cli.main([str(path), "-o", str(out)]) == 0
+    assert [k.launches for k in kernels] == [0, 0, 0, 0, 8, 0, 0]
+    assert np.asarray(Image.open(out)).std() > 5.0
+    scene = compile_scene(schema.SceneConfig.from_json(lights8()),
+                          cuda_device)
+    cam = compile_camera(schema.CameraConfig.from_json(LIGHTS8_CAMERA),
+                         cuda_device)
+    params = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+              for k in shard.TRAINABLE_FIELDS}
+    ys, xs = torch.meshgrid(torch.arange(32.0), torch.arange(32.0),
+                            indexing="ij")
+    coords = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(
+        cuda_device)
+    ts = shard.make_train_step((32, 32), 3, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    loss, _new = ts.step(params, scene, cam, 0.15, coords,
+                         torch.full((1024, 3), 0.5, device=cuda_device), gen)
+    assert [k.launches for k in kernels] == [0, 0, 0, 0, 8, 4, 4]
+    assert all(k.plain_calls == 0 for k in kernels)
+    assert bool(torch.isfinite(loss))
+    for k in ("mat_albedo", "light_pwr", "light_color"):
+        g = params[k].grad
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, k

@@ -50,6 +50,7 @@ from torch_mesh_helpers import (CLUSTERED_LIT, aimed_rays, mesh_scene,
 from torch_mesh_helpers import one_torch_thread  # noqa: F401
 from torch_inst_helpers import CAMERA as INST_CAMERA
 from torch_inst_helpers import inst_scene
+from chip_smoke import LIGHTS8_CAMERA, lights8
 from torch_port_helpers import MIXED, MIXED_OPAQUE, TIES, rays
 from torch_tex_helpers import CAMERAS, max_flips, tex_scene
 
@@ -82,6 +83,7 @@ _SHIM = r"""
 #define __forceinline__ inline
 #define __ldg(p) (*(p))
 #define __ffs(x) __builtin_ffs(x)
+#define __ffsll(x) __builtin_ffsll(x)
 static inline float __int_as_float(int i) {
   float f;
   memcpy(&f, &i, sizeof f);
@@ -94,6 +96,8 @@ static const HostDim3 threadIdx{0, 0, 0}, blockDim{1, 1, 1};
 _HARNESS = r"""
 #include "trace_fwd.cu"
 #include "trace_bwd.cu"
+#include "step_fwd.cu"
+#include "step_bwd.cu"
 
 namespace {
 struct HostAcc {
@@ -275,6 +279,108 @@ extern "C" void host_bwd(const float* tab, const int* lay10,
   else if (tri_) run(bwd_rays<true, false>);
   else if (slots) run(bwd_rays<false, true>);
   else run(bwd_rays<false, false>);
+}
+
+// the per-step kernels' bodies: one bounce step of every ray from the
+// carry c0, the render (train = 0) or train instance
+template <bool kTrain, bool kTri, bool kTex>
+static void step_rays(const float* tab, const mrt::Tris& T,
+    const mrt::Layout& lay, const float* lights, int L, float dk,
+    const mrt::Tex& tex, const float* c0, const float* u8, int R,
+    int refract, float* c1, float* hit, float* resid) {
+  for (int i = 0; i < R; ++i) {
+    if (refract)
+      mrt::step_ray<true, kTrain, kTri, kTex>(tab, T, lay, lights, L, dk,
+                                              tex, i, R, c0, u8, c1, hit,
+                                              resid);
+    else
+      mrt::step_ray<false, kTrain, kTri, kTex>(tab, T, lay, lights, L, dk,
+                                               tex, i, R, c0, u8, c1, hit,
+                                               resid);
+  }
+}
+
+extern "C" void host_step_fwd(const float* tab, const int* lay10,
+    const float* tri, const float* bb, const float* lights, int L, float dk,
+    const int* maps, const float* atlas, const int* tmeta, int slots,
+    const float* c0, const float* u8, int R, int refract, int train,
+    float* c1, float* hit, float* resid) {
+  const mrt::Layout lay = layout(lay10);
+  const mrt::Tris T{tri, bb};
+  const mrt::Tex tex{maps, atlas, tmeta, slots};
+  const bool tri_ = lay.tri_n > 0;
+  auto run = [&](auto fn) {
+    fn(tab, T, lay, lights, L, dk, tex, c0, u8, R, refract, c1, hit, resid);
+  };
+  if (train) {
+    if (tri_ && slots) run(step_rays<true, true, true>);
+    else if (tri_) run(step_rays<true, true, false>);
+    else if (slots) run(step_rays<true, false, true>);
+    else run(step_rays<true, false, false>);
+  } else {
+    if (tri_ && slots) run(step_rays<false, true, true>);
+    else if (tri_) run(step_rays<false, true, false>);
+    else if (slots) run(step_rays<false, false, true>);
+    else run(step_rays<false, false, false>);
+  }
+}
+
+namespace {
+struct HostStepAcc {
+  float* d_tab;
+  float* d_lights;
+  float* d_tri;
+  void row(int row, const float* d_at) {
+    for (int c = 0; c < mrt::kRowCols; ++c)
+      d_tab[row * mrt::kRowCols + c] += d_at[c];
+  }
+  void tri(int t, const float* d_gh) {
+    for (int k = 0; k < 4; ++k) d_tri[4 * t + k] += d_gh[k];
+  }
+  void light(int li, const float* g) {
+    for (int c = 0; c < mrt::kLightCols; ++c)
+      if (c != 6) d_lights[li * mrt::kLightCols + c] += g[c];
+  }
+};
+}  // namespace
+
+template <bool kTri, bool kTex>
+static void step_bwd_rays(const float* tab, const mrt::Tris& T,
+    const mrt::Layout& lay, const float* lights, int L, float dk,
+    const mrt::Tex& tex, const float* resid, const float* hit,
+    const float* c0, const float* u8, int R, int refract, const float* ct1,
+    float* ct0, HostStepAcc& acc) {
+  for (int i = 0; i < R; ++i) {
+    if (refract)
+      mrt::step_ray_bwd<true, kTri, kTex>(tab, T, lay, lights, L, dk, tex,
+                                          i, R, resid, hit, c0, u8, ct1, ct0,
+                                          acc);
+    else
+      mrt::step_ray_bwd<false, kTri, kTex>(tab, T, lay, lights, L, dk, tex,
+                                           i, R, resid, hit, c0, u8, ct1,
+                                           ct0, acc);
+  }
+}
+
+extern "C" void host_step_bwd(const float* tab, const int* lay10,
+    const float* tri, const float* lights, int L, float dk,
+    const int* maps, const float* atlas, const int* tmeta, int slots,
+    const float* resid, const float* hit, const float* c0, const float* u8,
+    int R, int refract, const float* ct1, float* ct0, float* d_tab,
+    float* d_lights, float* d_tri) {
+  const mrt::Layout lay = layout(lay10);
+  const mrt::Tris T{tri, nullptr};
+  const mrt::Tex tex{maps, atlas, tmeta, slots};
+  HostStepAcc acc{d_tab, d_lights, d_tri};
+  const bool tri_ = lay.tri_n > 0;
+  auto run = [&](auto fn) {
+    fn(tab, T, lay, lights, L, dk, tex, resid, hit, c0, u8, R, refract, ct1,
+       ct0, acc);
+  };
+  if (tri_ && slots) run(step_bwd_rays<true, true>);
+  else if (tri_) run(step_bwd_rays<true, false>);
+  else if (slots) run(step_bwd_rays<false, true>);
+  else run(step_bwd_rays<false, false>);
 }
 """
 
@@ -580,3 +686,160 @@ def test_host_segmented_render_equals_whole(name, host_lib):
     ray = rid.long()
     assert torch.equal(A, torch.empty_like(A).index_copy_(1, ray, A_s))
     assert torch.equal(B, torch.empty_like(B).index_copy_(1, ray, B_s))
+
+
+# --- the per-step kernels' bodies (csrc/step_fwd.cu, csrc/step_bwd.cu) ------
+
+def _host_step(lib, scene, tables, lay, bb, c0, u8, train):
+    """One bounce step of the host build of step_fwd.cu from the carry
+    ``c0``: (c1, hit) and with ``train`` the residuals."""
+    n = c0.shape[1]
+    c1, hit = torch.empty_like(c0), torch.empty(1, n)
+    resid = torch.zeros(step.scene_res_rows(scene, tables.layout), n)
+    lib.host_step_fwd(
+        _p(tables.tab.detach().contiguous()), _p(lay),
+        _opt(tables.tri.detach().contiguous()), _opt(bb),
+        _p(tables.lights.detach().contiguous()), scene.n_lights,
+        ctypes.c_float(DECAY), *_tex(scene, tables), _p(c0), _p(u8), n,
+        int(scene.any_refract), int(train), _p(c1), _p(hit), _p(resid))
+    return (c1, hit, resid) if train else (c1, hit)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_host_steps_equal_whole_trace(name, host_lib):
+    """The per-step body composed over K steps from the primaries' carry
+    (step.primary_carry) gives the whole trace's A, B and first_live bit
+    for bit (the render instance of trace_fwd.cu, its step-0 hits from the
+    plain sweep, which the host sweep equals); the train instance's carry
+    and hit equal the render instance's, a ray hits at step k exactly when
+    k is below its live-step count, and its residuals are the whole train
+    instance's rows of step k, bit for bit."""
+    scene = compile_scene(schema.SceneConfig.from_json(SCENES[name]), "cpu")
+    tables = step.pack_step(scene)
+    tab = tables.tab.detach().contiguous()
+    lights = tables.lights.detach().contiguous()
+    tri = tables.tri.detach().contiguous()
+    oT, dT = _rays(name, R, 8)
+    u8s = torch.rand((K, step.n_uni(scene.any_refract), R),
+                     generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        hit0 = [t.contiguous() for t in hit3.closest_hit_plain(
+            tab, tables.layout, oT.T, dT.T, step.primary_mode(scene), tri,
+            tables.tbb, tables.sbb)]
+    lay, bb = _lay(tables), _bb(tables)
+    A, B, fl = torch.empty(3, R), torch.empty(3, R), torch.empty(1, R)
+    res = torch.zeros(K, step.scene_res_rows(scene, tables.layout), R)
+    n_live = torch.empty(R, dtype=torch.int32)
+    host_lib.host_fwd_train(
+        _p(tab), _p(lay), _opt(tri), _opt(bb), _p(lights), scene.n_lights,
+        ctypes.c_float(DECAY), *_tex(scene, tables), _p(oT), _p(dT),
+        *map(_p, hit0), _p(u8s), K, R, int(scene.any_refract), _p(A), _p(B),
+        _p(fl), _p(res), _p(n_live))
+    c = step.primary_carry(oT, dT)
+    for k in range(K):
+        c1, hit = _host_step(host_lib, scene, tables, lay, bb, c, u8s[k],
+                             False)
+        c1_t, hit_t, res_t = _host_step(host_lib, scene, tables, lay, bb, c,
+                                        u8s[k], True)
+        assert torch.equal(c1, c1_t) and torch.equal(hit, hit_t)
+        live = hit[0] > 0.5
+        assert torch.equal(live, k < n_live), k
+        assert torch.equal(res_t[:, live], res[k][:, live]), k
+        if k == 0:
+            assert torch.equal(hit, fl)
+        c = c1
+    assert torch.equal(c[8:11], A) and torch.equal(c[11:14], B)
+
+
+# the per-step path's own scenes: more than 4 lights, and a sphere grid
+# past the whole-trace kernels' 2,048 rows (13^3 spheres and the plane:
+# 35 cull blocks, past a 32-bit mask)
+STEP_SCENES = {"lights8": lights8(),
+               "grid13": inst_scene("inst_grid", dims=(13, 13, 13))}
+STEP_CAMERAS = {"lights8": LIGHTS8_CAMERA, "grid13": INST_CAMERA}
+
+
+def _step_rays(name, n, seed):
+    cam = compile_camera(schema.CameraConfig.from_json(STEP_CAMERAS[name]),
+                         "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    o, d = camera.gen_rays(cam, (64, 64),
+                           torch.floor(torch.rand((n, 2), generator=gen)
+                                       * 64),
+                           torch.rand((n, 2), generator=gen))
+    return o.T.contiguous(), d.T.contiguous()
+
+
+@pytest.mark.parametrize("name", sorted(STEP_SCENES) + ["mixed",
+                                                        "mesh_glass",
+                                                        "inst_grid"])
+def test_host_step_matches_plain(name, host_lib):
+    """One step of the host build from a mid-trace carry (after 2 plain
+    steps) against ``step.step_plain``, and its backward against autograd
+    of the plain step, on the plain residuals, for random output
+    cotangents that are zero on the rays whose step differs. Forward: hit
+    equal; the carry within rtol 1e-4 / atol 1e-5 on all but 0.3% of rays
+    (libm's sin and cos here, PyTorch's there); the residuals of the other
+    rays that hit within rtol 1e-4 / atol 1e-4, rows, choices and
+    occlusion bits equal. Backward: rtol 2e-3 and an absolute floor of
+    1e-5 of each compared array's largest magnitude, as the whole-trace
+    backward's test."""
+    js = STEP_SCENES.get(name) or SCENES[name]
+    scene = compile_scene(schema.SceneConfig.from_json(js), "cpu")
+    tables = step.pack_step(scene)
+    if name == "grid13":
+        assert tables.sbb.shape[0] == 35 and step.route(scene, False) \
+            == "steps"
+    lay, bb = _lay(tables), _bb(tables)
+    oT, dT = (_step_rays(name, R, 10) if name in STEP_SCENES
+              else _rays(name, R, 10))
+    u8s = torch.rand((3, step.n_uni(scene.any_refract), R),
+                     generator=torch.Generator().manual_seed(11))
+    with torch.no_grad():
+        c0 = step.primary_carry(oT, dT)
+        for k in range(2):
+            c0 = step.step_plain(scene, tables, DECAY, c0, u8s[k])[0]
+        c1_p, hit_p, res_p = step.step_plain(scene, tables, DECAY, c0,
+                                             u8s[2], want_resid=True)
+    c1, hit, res = _host_step(host_lib, scene, tables, lay, bb, c0, u8s[2],
+                              True)
+    live = hit_p[0] > 0.5
+    assert torch.equal(hit, hit_p)
+    assert int(live.sum()) > R // 16   # lights8 is open: most rays leave
+    bad = (~torch.isclose(c1, c1_p, rtol=1e-4, atol=1e-5)).any(0)
+    assert int(bad.sum()) <= 0.003 * R, int(bad.sum())
+    good = live & ~bad
+    for r in _float_rows(scene):
+        torch.testing.assert_close(res[r, good], res_p[r, good], rtol=1e-4,
+                                   atol=1e-4, msg=f"row {r}")
+    exact = [step.RES_ROW] + [step.RES_LOK + li
+                              for li in range(scene.n_lights)]
+    if scene.any_refract:
+        exact.append(step.RES_CHOOSE)
+    if tables.layout[3]:
+        exact.append(step.res_xrow(scene.n_lights))
+    for r in exact:
+        assert torch.equal(res[r, good], res_p[r, good]), r
+    ct1 = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(step.CARRY_ROWS, R)).astype(np.float32))
+    ct1[:, bad] = 0.0
+    tab = tables.tab.detach().contiguous()
+    lights = tables.lights.detach().contiguous()
+    tri = tables.tri.detach().contiguous()
+    got = (torch.zeros_like(tab), torch.zeros_like(lights),
+           torch.empty_like(c0), torch.zeros(tri.shape[0], 4))
+    host_lib.host_step_bwd(
+        _p(tab), _p(lay), _opt(tri), _p(lights), scene.n_lights,
+        ctypes.c_float(DECAY), *_tex(scene, tables), _p(res_p.contiguous()),
+        _p(hit_p), _p(c0), _p(u8s[2]), R, int(scene.any_refract), _p(ct1),
+        _p(got[2]), _p(got[0]), _p(got[1]), _p(got[3]))
+    want = list(step.step_bwd_plain(scene, tables, DECAY, c0, u8s[2], ct1))
+    want[3] = torch.cat([want[3][:, 6:9], want[3][:, 11:12]], 1)
+    assert float(want[0].abs().max()) > 0
+    assert float(want[1].abs().max()) > 0
+    assert not got[2][step.C_LIVE].any()
+    for gname, g, w in zip(("d_tab", "d_lights", "d_c0", "d_tri"), got,
+                           want):
+        assert bool(torch.isfinite(g).all()), gname
+        atol = 1e-5 * max(float(w.abs().max()) if w.numel() else 0.0, 1e-30)
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=atol, msg=gname)
