@@ -251,10 +251,14 @@ INST_SMALL_DIMS = (6, 7, 7)
 # the sphere grid past the whole-trace kernels' rows
 STEP_NAMES = ("lights8", "inst_grid3k")
 # the leaves phase 21 trains: every trainable leaf of lights8; the albedos
-# and light power of inst_grid3k, whose sphere-position gradient (4,871 at
-# the first step, 21x per bounce back through the grid of convex mirrors)
-# moves spheres by tens of units at lr 1e-2 and makes the next gradient
-# non-finite
+# and light power of inst_grid3k. There the cotangents grow ~20x per bounce
+# step back through the grid of convex mirrors (inst_pos's gradient 4,871
+# at the first step), so SGD at lr 1e-2 moves spheres by tens of units and
+# the plane's inst_dir by 5-16. Trained on every leaf (--step-diagnosis),
+# a run can push the plane's roll sine w past 1, where the packing's
+# sqrt(1 - w^2) (linalg.rotate_y_mat, the reference's rotate_y) has no
+# derivative: the packed tables' derivative is then not finite with no
+# kernel run, while every step_bwd launch stays finite
 STEP_TRAIN_LEAVES = {"lights8": None,
                      "inst_grid3k": ("mat_albedo", "light_pwr")}
 LIGHTS8_CAMERA = {"pos": [0, -0.6, -0.25], "fov": 60}
@@ -288,6 +292,9 @@ N_CMP = 1 << 17
 OUTLIER_SHARE = 0.001
 IN_ERR = 1e-3
 TRAIN_STEPS = 3
+# --step-diagnosis: independent runs of inst_grid3k's every-leaf training
+# (its atomic sums make each run's path through the chaos its own)
+CHAOS_RUNS = 8
 TARGET_SPP = 4
 G_RTOL, G_FLOOR = 2e-3, 1e-5
 # a ray that meets a triangle is also held to this share of its own
@@ -295,6 +302,12 @@ G_RTOL, G_FLOOR = 2e-3, 1e-5
 # ILL_RATIO times as much as float64 moves the plain version (compare_bwd)
 RAY_FLOOR, ILL_RATIO = 1e-3, 10.0
 ILL_SHARE = 1e-4
+# phase 18's step backward: a ray whose largest input-carry cotangent
+# exceeds HEAVY times the median ray's (a grazing hit divides by d.n)
+# is held per ray only, at most HEAVY_SHARE of the rays; the per-ray
+# floors are taken within the carry's groups: o, d, and pwr, A, B
+HEAVY, HEAVY_SHARE = 1e3, 1e-2
+STEP_CARRY_GROUPS = ((0, 3), (3, 6), (6, 14))
 SUM_TOL = 4e-4
 # two float32 sums of the same terms in another order (the per-step path's
 # table cotangents against the whole trace's) differ by a share of the
@@ -1649,12 +1662,14 @@ def _busy_share(step_fn):
     return out, wall, busy * 1e-6, len(spans), by_name
 
 
-def phase_train(cfg, card, counts, name="slice room", moved=None,
-                leaves=None):
-    """The training main path: 3 steps of make_train_step at full width,
-    from perturbed albedos and light power (and the positions of the rows
-    of kind ``moved``: the mesh's triangles, or the grid's spheres), on
-    every trainable leaf or on ``leaves`` alone (the rest fixed)."""
+def train_setup(cfg, moved=None, leaves=None):
+    """The training main path's inputs at full width: the target (a
+    4-spp render of the scene through the render kernels) and the leaves
+    perturbed from it: albedos 0.5, light power x 0.3, and the positions of
+    the rows of kind ``moved`` (the mesh's triangles, or the grid's
+    spheres); every trainable leaf, or ``leaves`` alone (the rest fixed).
+    Returns (params, scene, cam, coords, target, gen, rows), ``rows`` the
+    leaves whose gradient must not vanish and on which rows."""
     import numpy as np
     import torch
 
@@ -1662,20 +1677,19 @@ def phase_train(cfg, card, counts, name="slice room", moved=None,
     from micro_raytracer_tpu_torch.models.compiler import (compile_camera,
                                                            compile_scene)
     from micro_raytracer_tpu_torch.models.render import morton_ray_order
-    from micro_raytracer_tpu_torch.ops import hit3, step
+    from micro_raytracer_tpu_torch.ops import step
     from micro_raytracer_tpu_torch.parallel import shard
 
     dev = torch.device("cuda")
     truth = compile_scene(cfg.scene, dev)
     cam = compile_camera(cfg.frame.cam, dev)
-    loss_cfg = cfg.rt.loss
     ys, xs = divmod(morton_ray_order(RES, RES), RES)
     coords = torch.from_numpy(np.stack([xs, ys], -1)).to(dev, torch.float32)
     gen = torch.Generator(device=dev).manual_seed(6 if moved is None else 12)
     tables = step.pack_step(truth)
     with torch.no_grad():      # the target, through the render kernels
         target = sum(tracer.trace_radiance(truth, cam, (RES, RES), BOUNCE,
-                                           loss_cfg, coords, gen, tables)
+                                           cfg.rt.loss, coords, gen, tables)
                      for _ in range(TARGET_SPP)) / TARGET_SPP
     params, scene = shard.split_params(truth)
     params = {k: v.detach().clone() for k, v in params.items()}
@@ -1683,7 +1697,6 @@ def phase_train(cfg, card, counts, name="slice room", moved=None,
     params["light_pwr"] = params["light_pwr"] * 0.3
     if leaves is not None:
         params = {k: params[k] for k in leaves}
-    # the leaves whose gradient must not vanish, and on which rows
     rows = {k: slice(None) for k in ("mat_albedo", "light_pwr", "inst_pos")
             if k in params}
     if moved is not None:
@@ -1694,6 +1707,23 @@ def phase_train(cfg, card, counts, name="slice room", moved=None,
         rows = {"inst_pos": seg, "inst_dir": seg} if moved == 3 \
             else {"inst_pos": seg}
     params = {k: v.requires_grad_(True) for k, v in params.items()}
+    return params, scene, cam, coords, target, gen, rows
+
+
+def phase_train(cfg, card, counts, name="slice room", moved=None,
+                leaves=None):
+    """The training main path: 3 steps of make_train_step at full width
+    from ``train_setup``'s leaves."""
+    import numpy as np
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+    from micro_raytracer_tpu_torch.parallel import shard
+
+    dev = torch.device("cuda")
+    loss_cfg = cfg.rt.loss
+    params, scene, cam, coords, target, gen, rows = train_setup(cfg, moved,
+                                                                leaves)
     start = params
     ts = shard.make_train_step((RES, RES), BOUNCE, device=dev)
     kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL,
@@ -2568,14 +2598,34 @@ def compare_step_fwd(name, scene, tables, decay, c0, u8, k):
     return err, bad, c1, res_p, hit_p, plain
 
 
+def step_bwd_ray_tol(w):
+    """Per-ray tolerance of a step's input-carry cotangent ``w`` (14, R):
+    G_RTOL of each entry and G_FLOOR of the ray's own largest magnitude in
+    the entry's group (o, d, and the fold's pwr, A and B), so that a ray
+    whose o or d cotangent a grazing hit blows up sets no floor for the
+    others."""
+    wa = w.abs()
+    tol = G_RTOL * wa
+    for a, b in STEP_CARRY_GROUPS:
+        tol[a:b] += G_FLOOR * wa[a:b].amax(0)
+    return tol
+
+
 def compare_step_bwd(name, scene, tables, decay, c0, u8, res, hit, bad,
                      gen):
     """The step's backward kernel on the plain residuals against autograd
-    of the plain step, for random output cotangents zero on the off-path
-    rays: per ray d_c0 within rtol G_RTOL and G_FLOOR of the array's
-    largest magnitude, a ray outside shown ill-conditioned by float64
-    (``ill_conditioned``'s rule) and at most ILL_SHARE of them; the table
-    cotangents within G_RTOL, G_FLOOR and SUM_TOL of the entry's mass.
+    of the plain step, for random output cotangents on every carry row,
+    zero on the off-path rays.
+
+    Per ray, d_c0 within ``step_bwd_ray_tol`` (rtol G_RTOL, G_FLOOR of the
+    ray's own group magnitude); a ray outside must be shown ill-conditioned
+    by float64 (``ill_conditioned``'s rule), at most ILL_SHARE of them. A
+    grazing hit divides the o and d cotangents by d.n (up to ~1e15), so
+    the rays whose largest cotangent exceeds HEAVY times the median ray's
+    (at most HEAVY_SHARE of them) and the ill-conditioned ones are held per
+    ray only: both sides drop them (the cotangents are linear in ct1) and
+    the table cotangents of the rest are held within G_RTOL, G_FLOOR of
+    the table's largest entry and SUM_TOL of the entry's mass.
     Returns (max abs err, plain ms, ct1)."""
     import torch
 
@@ -2592,13 +2642,14 @@ def compare_step_bwd(name, scene, tables, decay, c0, u8, res, hit, bad,
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    scale = float(want[2].abs().max())
-    e = (got[2] - want[2]).abs()
-    ill = (e > G_RTOL * want[2].abs() + G_FLOOR * scale).any(0)
+    if not bool(torch.isfinite(got[2]).all()):
+        raise AssertionError(f"{name} step_bwd: non-finite d_c0")
+    ill = ((got[2] - want[2]).abs() > step_bwd_ray_tol(want[2])).any(0)
     n_ill = int(ill.sum())
     if n_ill > ILL_SHARE * R:
         raise AssertionError(f"{name} step_bwd: {n_ill} rays disagree with "
-                             f"autograd of the plain step")
+                             f"autograd of the plain step (bound "
+                             f"{ILL_SHARE * R:.0f})")
     worst = 0.0
     if n_ill:
         idx = ill.nonzero()[:, 0]
@@ -2616,13 +2667,21 @@ def compare_step_bwd(name, scene, tables, decay, c0, u8, res, hit, bad,
             raise AssertionError(f"{name} step_bwd: a ray disagrees with the "
                                  f"plain step {worst:.3g} times as far as "
                                  f"float64 moves it")
-        sub = step_bwd_plain_chunked(scene, tables, decay,
-                                     *(t[:, idx] for t in (c0, u8, ct1)))
-        ct1[:, ill] = 0.0
+    mag = want[2].abs().amax(0)
+    typical = float(mag[~bad].median())
+    heavy = mag > HEAVY * typical
+    n_heavy = int(heavy.sum())
+    if n_heavy > HEAVY_SHARE * R:
+        raise AssertionError(f"{name} step_bwd: {n_heavy} rays have "
+                             f"cotangents over {HEAVY:g} times the median "
+                             f"ray's (bound {HEAVY_SHARE * R:.0f})")
+    err_ray = float((got[2] - want[2]).abs().max())
+    drop = ill | heavy
+    if bool(drop.any()):
+        ct1[:, drop] = 0.0
         got = step.step_bwd(scene, tables, decay, c0, u8, res, hit, ct1)
-        want = (want[0] - sub[0], want[1] - sub[1],
-                torch.where(ill, 0.0, want[2]), want[3] - sub[3]) + want[4:]
-    err, msg = 0.0, []
+        want = step_bwd_plain_chunked(scene, tables, decay, c0, u8, ct1)
+    err, msg = err_ray, []
     masses = (want[4], want[5], None, want[6])
     for gname, g, w, m in zip(("d_tab", "d_lights", "d_c0", "d_tri"), got,
                               want, masses):
@@ -2632,19 +2691,25 @@ def compare_step_bwd(name, scene, tables, decay, c0, u8, res, hit, bad,
             raise AssertionError(f"{name} step_bwd: non-finite {gname}")
         g = g.to(w.dtype)
         e = (g - w).abs()
-        tol = G_RTOL * w.abs() + G_FLOOR * float(w.abs().max())
-        if m is not None:
-            tol = tol + SUM_TOL * m
-        err = max(err, float(e.max()))
-        msg.append(f"{gname} {float(e.max()):.3g} (worst "
-                   f"{float((e / tol).max()):.3f} of its tolerance)")
+        if m is None:       # per ray, the dropped rays now zero on both
+            tol = step_bwd_ray_tol(w)
+        else:
+            tol = (G_RTOL * w.abs() + G_FLOOR * float(w.abs().max())
+                   + SUM_TOL * m)
+        share = torch.where(e > 0, e / tol, 0.0)
+        msg.append(f"{gname} {float(e.max()):.3g} of {float(w.abs().max()):.3g}"
+                   f" (worst {float(share.max()):.3f} of its tolerance)")
         if not bool((e <= tol).all()):
             raise AssertionError(f"{name} step_bwd: {gname} differs from "
                                  f"autograd on {int((e > tol).sum())} "
                                  f"entries")
-    log(f"{name} step_bwd {R} rays: matches autograd of the plain step "
-        f"({n_ill} rays shown ill-conditioned, at most {worst:.3g} times "
-        f"float64's move); max abs err {', '.join(msg)}")
+        if m is not None:
+            err = max(err, float(e.max()))
+    log(f"{name} step_bwd {R} rays: per ray, {n_ill} shown ill-conditioned "
+        f"(at most {worst:.3g} times float64's move), max abs err {err_ray:.3g}"
+        f"; {n_heavy} rays over {HEAVY:g} times the median ray's largest "
+        f"cotangent ({typical:.3g}) held per ray only; over the other "
+        f"{R - int(drop.sum())}: {', '.join(msg)}")
     return err, plain_ms, ct1
 
 
@@ -2695,7 +2760,7 @@ def step_work(scene, tables, c0, u8, res, hit, work):
             "live_in": live_in}
 
 
-def phase_step_kernels(results):
+def phase_step_kernels(results, names=STEP_NAMES):
     """Phase 18: the per-step kernels on ``lights8`` and ``inst_grid3k``
     at the frame (camera rays in Morton order, bounce 8): the render and
     train instances of step_fwd against each other and against the plain
@@ -2709,7 +2774,7 @@ def phase_step_kernels(results):
     from micro_raytracer_tpu_torch.ops import step
 
     dev = torch.device("cuda")
-    for name in STEP_NAMES:
+    for name in names:
         cfg, scene, tables, decay, cam = step_inputs(name, dev)
         gen = torch.Generator(device=dev).manual_seed(18)
         oT, dT = main_path_rays(cfg, gen, dev)
@@ -2966,6 +3031,187 @@ def phase_step_main(card, counts):
     phase_server(step_config("lights8"), requests=1)
     return out_res
 
+
+def step_kernels_alone():
+    """``--step-kernels``: phase 18 alone, each scene on its own, so that a
+    kernel at fault shows on both (the mutation checks). Returns the number
+    of scenes that failed."""
+    phase_build()
+    failed = 0
+    for name in STEP_NAMES:
+        try:
+            phase_step_kernels({}, (name,))
+            log(f"phase 18 on {name}: passed")
+        except AssertionError as e:
+            failed += 1
+            log(f"phase 18 on {name}: FAILED: {e}")
+    return failed
+
+
+def step_bwd_rows_ab(pairs=2, reps=10):
+    """``--step-diagnosis``, first part: ``lights8``'s step_bwd at each of
+    the nine steps of the frame (the train instance's residuals, random
+    output cotangents), its dense rows added in shared memory (the
+    wrapper's choice under 48 KB) and with global atomics, interleaved
+    (shared, global, global, shared per pair; CUDA-event means of ``reps``
+    launches). The two agree: ct0 bit for bit, the tables within rtol 1e-5
+    and 1e-6 of the table's largest entry. Returns {mode: [ms per pass,
+    each the sum over the nine steps]} and the per-step ms of each mode."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    dev = torch.device("cuda")
+    cfg, scene, tables, decay, _cam = step_inputs("lights8", dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    oT, dT = main_path_rays(cfg, gen, dev)
+    u8s = torch.rand((BOUNCE + 1, step.n_uni(scene.any_refract), RES * RES),
+                     generator=gen, device=dev)
+    c = step.primary_carry(oT, dT)
+    launches = []
+    for k in range(BOUNCE + 1):
+        c1, hit, res = step.step_fwd_train(scene, tables, decay, c, u8s[k])
+        ct1 = torch.randn((step.CARRY_ROWS, RES * RES), generator=gen,
+                          device=dev)
+        launches.append((c, u8s[k], res, hit, ct1))
+        c = c1
+    rule = step._step_shared_rows
+    modes = {"shared": rule, "global": lambda n_dense, L: False}
+    if not rule(tables.layout[1], scene.n_lights):
+        raise AssertionError("lights8: the step backward's rows are not in "
+                             "shared memory")
+
+    def run(mode, fn):
+        step._step_shared_rows = modes[mode]
+        try:
+            return fn()
+        finally:
+            step._step_shared_rows = rule
+
+    for a in launches:
+        s, g = (run(m, lambda: step.step_bwd(scene, tables, decay, *a))
+                for m in ("shared", "global"))
+        if not torch.equal(s[2], g[2]):
+            raise AssertionError("lights8 step_bwd: d_c0 differs between "
+                                 "shared and global rows")
+        for x, y in ((s[0], g[0]), (s[1], g[1])):
+            if not bool(torch.isclose(x, y, rtol=1e-5, atol=1e-6 * float(
+                    y.abs().max())).all()):
+                raise AssertionError("lights8 step_bwd: the table "
+                                     "cotangents differ between shared and "
+                                     "global rows")
+    sums, per_step = {"shared": [], "global": []}, {}
+    for _ in range(pairs):
+        for mode in ("shared", "global", "global", "shared"):
+            ms = run(mode, lambda: [cuda_ms(
+                lambda a=a: step.step_bwd(scene, tables, decay, *a), reps)
+                for a in launches])
+            sums[mode].append(sum(ms))
+            per_step[mode] = ms
+    log(f"lights8 step_bwd over the nine steps of a training step, shared "
+        f"rows {[f'{t:.3f}' for t in sums['shared']]} ms, global atomics "
+        f"{[f'{t:.3f}' for t in sums['global']]} ms (interleaved); per step, "
+        f"last pass: shared {[f'{t:.3f}' for t in per_step['shared']]}, "
+        f"global {[f'{t:.3f}' for t in per_step['global']]}")
+    return {"sum_ms": sums, "step_ms": per_step}
+
+
+def _finite_max(x):
+    """(all finite, the largest finite magnitude) of a tensor."""
+    import torch
+
+    fin = torch.isfinite(x)
+    big = torch.where(fin, x.abs(), torch.zeros_like(x)).max() \
+        if x.numel() else x.new_zeros(())
+    return bool(fin.all()), float(big)
+
+
+def inst3k_chaos():
+    """``--step-diagnosis``, second part: ``inst_grid3k`` trained on every
+    leaf (phase 21 without its two-leaf restriction) for TRAIN_STEPS steps
+    or until a leaf's gradient is not finite, every step_bwd launch
+    checked: a launch whose outputs are not finite on finite inputs raises.
+    For a leaf whose gradient is not finite: its rows and values, and the
+    derivative of the packed tables (``step.pack_step``) in that leaf, for
+    a cotangent of ones, with no kernel run. Returns the records."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+    from micro_raytracer_tpu_torch.parallel import shard
+
+    dev = torch.device("cuda")
+    cfg = step_config("inst_grid3k")
+    params, scene, cam, coords, target, gen, _rows = train_setup(cfg)
+    ts = shard.make_train_step((RES, RES), BOUNCE, device=dev)
+    orig = step.step_bwd
+    out = {"steps": []}
+    names = ("d_tab", "d_lights", "d_c0", "d_tri")
+
+    def checked(scene_, tables, decay, c0, u8, resid, hit, ct1):
+        res = orig(scene_, tables, decay, c0, u8, resid, hit, ct1)
+        rec = {"k": BOUNCE - len(launches), "ct1": _finite_max(ct1),
+               **{n: _finite_max(x) for n, x in zip(names, res)}}
+        launches.append(rec)
+        if rec["ct1"][0] and not all(rec[n][0] for n in names):
+            raise AssertionError(f"inst_grid3k: step_bwd at bounce step "
+                                 f"{rec['k']} is not finite on finite "
+                                 f"inputs: {rec}")
+        return res
+
+    step.step_bwd = checked
+    nonfinite = {}
+    try:
+        for it in range(TRAIN_STEPS):
+            launches = []
+            loss, new = ts.step(params, scene, cam, cfg.rt.loss, coords,
+                                target, gen)
+            torch.cuda.synchronize()
+            grads = {k: _finite_max(p.grad) for k, p in params.items()
+                     if p.grad is not None}
+            moved = {k: float((new[k] - params[k]).detach().abs().max())
+                     for k in params}
+            out["steps"].append({"loss": float(loss), "grads": grads,
+                                 "moved": moved, "launches": launches})
+            log(f"inst_grid3k, every leaf, step {it + 1}: loss "
+                f"{float(loss):.6g}; gradients (finite, largest) {grads}; "
+                f"largest move of each leaf {moved}; step_bwd (bounce "
+                f"step: largest ct1, d_c0) "
+                f"{[(r['k'], r['ct1'][1], r['d_c0'][1]) for r in launches]}")
+            nonfinite = {k: p.grad for k, p in params.items()
+                         if p.grad is not None
+                         and not bool(torch.isfinite(p.grad).all())}
+            if nonfinite:
+                break
+            params = new
+    finally:
+        step.step_bwd = orig
+    for k, g in nonfinite.items():
+        bad_rows = (~torch.isfinite(g)).reshape(g.shape[0], -1).any(1)
+        rows = bad_rows.nonzero()[:, 0]
+        p = params[k].detach()
+        leaf = p.clone().requires_grad_(True)
+        tables = step.pack_step(shard.merge_params(scene, {
+            **{n: v.detach() for n, v in params.items()}, k: leaf}))
+        outs = [t for t in (tables.tab, tables.lights, tables.tri)
+                if t.requires_grad]
+        jac = torch.autograd.grad(outs, leaf, [torch.ones_like(t)
+                                              for t in outs],
+                                  allow_unused=True)[0] if outs else None
+        jac_bad = torch.zeros_like(bad_rows) if jac is None else \
+            (~torch.isfinite(jac)).reshape(g.shape[0], -1).any(1)
+        rec = {"leaf": k, "rows": rows[:8].tolist(),
+               "values": p[rows[:8]].tolist(),
+               "pack_rows": jac_bad.nonzero()[:8, 0].tolist(),
+               "same_rows": bool(torch.equal(jac_bad, bad_rows))}
+        out.setdefault("nonfinite", []).append(rec)
+        log(f"inst_grid3k: the gradient of {k} is not finite on "
+            f"{int(bad_rows.sum())} rows {rec['rows']} (values "
+            f"{rec['values'][:3]}); the packed tables' derivative in {k}, "
+            f"no kernel run, is not finite on {int(jac_bad.sum())} rows, "
+            f"the same: {rec['same_rows']}")
+    return out
+
+
 def compaction_ab(card, pairs=5):
     """``--compaction``: the CLI's render loop of ``inst_grid``,
     ``mesh_opaque`` and ``mesh_glass`` (1080x1080, bounce 8, 16 spp) with
@@ -3049,6 +3295,24 @@ def main() -> int:
     if sys.argv[1:] == ["--compaction"]:
         phase_build()
         print(json.dumps({"compaction": compaction_ab(card)}))
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--step-kernels"]:
+        failed = step_kernels_alone()
+        print(card)
+        return 1 if failed else 0
+    if sys.argv[1:] == ["--step-diagnosis"]:
+        phase_build()
+        rows = step_bwd_rows_ab()
+        chaos = []
+        for _ in range(CHAOS_RUNS):
+            chaos.append(inst3k_chaos())
+            if "nonfinite" in chaos[-1]:
+                break
+        log(f"inst_grid3k trained on every leaf: {len(chaos)} runs of "
+            f"{TRAIN_STEPS} steps, "
+            f"{sum('nonfinite' not in c for c in chaos)} finite throughout")
+        print(json.dumps({"step_bwd_rows": rows, "inst_grid3k": chaos}))
         print(card)
         return 0
     if sys.argv[1:]:
