@@ -5,14 +5,15 @@
     python3 chip_smoke.py --render-only  # phase 1 and the render timing
     python3 chip_smoke.py --compaction   # renders with and without
                                          # live-first compaction
+    python3 chip_smoke.py --big          # phases 22-24 alone
 
 Phases, each of which raises on failure:
 
 1. card: CUDA present; name and power limit from nvidia-smi; TF32 off.
 2. build: nvcc builds every kernel source of ``micro_raytracer_tpu_torch/csrc``
    (``hit3.cu``, ``trace_fwd.cu`` with its render and train instances,
-   ``trace_bwd.cu``, ``step_fwd.cu``, ``step_bwd.cu``), one nvcc process
-   per source, all started together.
+   ``trace_bwd.cu``, ``step_fwd.cu``, ``step_bwd.cu``, ``tri.cu``), one nvcc
+   process per source, all started together.
 3. closest_hit kernel against its plain PyTorch version on the slice
    scene's row table, on 2^17 random rays and on the main path's input
    (the primary rays of the whole 1080x1080 frame in Morton order, as
@@ -48,9 +49,13 @@ Phases, each of which raises on failure:
    rtol 1e-4 / atol 1e-4 and the winner row, refract choice and occlusion
    bits equal. The backward kernel, fed the plain residuals and random
    output cotangents (zero on the outlier rays), agrees with autograd
-   through the plain trace (run in chunks of 2^17 rays at the frame's size)
-   within rtol 2e-3 and an absolute floor of 1e-5 of each array's largest
-   magnitude. Both kernels and both plain versions are timed.
+   through the plain trace within rtol 2e-3 and an absolute floor of 1e-5
+   of each array's largest magnitude; at the frame the kernel runs on the
+   whole frame and the per-ray cotangents of a fixed 2^17 of its rays are
+   held, with the table cotangents from a launch over those rays and the
+   plain backward on them alone (``frame_subset``; so in phases 9, 12, 15
+   and 18 too). Both kernels and both plain versions are timed (the plain
+   backward on the 2^17 rays).
 8. training main path: a target rendered with the true slice scene (the
    render kernels, 4 spp), ``mat_albedo`` and ``light_pwr`` perturbed,
    then 3 steps of ``make_train_step`` at 1080x1080, bounce 8, one path
@@ -167,6 +172,38 @@ Phases, each of which raises on failure:
    ``STEP_TRAIN_LEAVES``): BOUNCE + 1 launches each of step_fwd_train and
    step_bwd per step, no whole-trace kernel.
 
+22. meshes past the staged cull blocks: ``mesh_big`` / ``mesh_big_glass``
+   (``big_config``: the slice room at ten times its size with a torus of
+   65,536 triangles, pallas_tri.MAX_PRIMS, in 1,024 cull blocks, diffuse /
+   glass; the scene JSON names the mesh's OBJ file), routed to the
+   per-step path with the triangle segment swept on its own: rows 6, 7 and
+   8 (``tri_entry``, ``tri_entry_exit`` with every row's group exit and
+   with half the rows marked to refract, ``tri_group_exit`` fed row 6's
+   winner groups) against their plain versions on 2^17 random and 2^17
+   camera rays, rows and t bit for bit, row 8 equal to row 7's exit where
+   a triangle wins; on 2^17 camera rays step_fwd and step_fwd_train (their
+   kTriIn instances) at steps 0 and 2 and step_bwd at step 0 by phase 18's
+   rules, and the per-step trace against the plain per-step trace (phase
+   4's rule). Timed at the frame: each kernel at step 0 (every ray live)
+   and a sample's nine launches (the kTriIn step kernels fed the triangle
+   sweep's result, swept beforehand), and on ``mesh_big`` row 7 with no
+   row marked to refract (the opaque torus of ``mesh_big_mixed``); the
+   plain versions only on the 2^17-ray sets; the work behind the bounds
+   (slab tests, rows the cull leaves, exit rows, shadow rows) counted on a
+   fixed 2^17 of the frame's rays and scaled to the frame.
+23. big mesh main path: the CLI renders ``mesh_big`` from its JSON and OBJ
+   files at 1080x1080, bounce 8, 16 spp: one tri_entry and one step_fwd
+   launch per step and sample, no whole-trace kernel and no plain version;
+   BIG_RENDER_REPS renders for the spread, one profiled; ``mesh_big_glass``
+   rendered once (BIG_GLASS_SAMPLES spp, tri_entry_exit counted), and
+   ``mesh_big_mixed`` (the diffuse torus beside a glass sphere) once at 16
+   spp, tri_entry_exit counted; the HTTP service answers one ``mesh_big``
+   request.
+24. big mesh training: 3 steps of ``make_train_step`` on ``mesh_big`` as
+   phase 11 (albedos, light power and the torus' position perturbed):
+   tri_entry, step_fwd_train and step_bwd BOUNCE + 1 times per step,
+   finite gradients, non-zero on the torus rows.
+
 ``--compaction`` renders ``inst_grid``, ``mesh_opaque`` and ``mesh_glass``
 through the CLI with the JAX package's compaction cuts and without, in
 alternating order, for the medians that set ``tracer.compact_cuts``.
@@ -259,6 +296,15 @@ STEP_NAMES = ("lights8", "inst_grid3k")
 # sqrt(1 - w^2) (linalg.rotate_y_mat, the reference's rotate_y) has no
 # derivative: the packed tables' derivative is then not finite with no
 # kernel run, while every step_bwd launch stays finite
+# the meshes past the staged cull blocks (phases 22-24): the slice room at
+# BIG_SCALE times its size with a torus of BIG_TORUS quads (big_config)
+BIG_NAMES = ("mesh_big", "mesh_big_glass")
+# phase 23 also renders the opaque torus beside a glass sphere
+BIG_RENDER_NAMES = BIG_NAMES + ("mesh_big_mixed",)
+BIG_SCALE = 10.0
+BIG_TORUS = (256, 128)
+BIG_RENDER_REPS = 3
+BIG_GLASS_SAMPLES = 16
 STEP_TRAIN_LEAVES = {"lights8": None,
                      "inst_grid3k": ("mat_albedo", "light_pwr")}
 LIGHTS8_CAMERA = {"pos": [0, -0.6, -0.25], "fov": 60}
@@ -331,6 +377,10 @@ ROW_TEST_OPS = 73
 # barycentric and t bounds; tri_any: 33, 2, and 16 for the division-free
 # bounds.
 TRI_TEST_OPS, TRI_ANY_OPS = 47, 51
+# One slab test of a 64-row block's AABB (hit3.cuh block_touch): per axis
+# two differences, two products, a min and a max; then the interval's two
+# maxima, a minimum and the two comparisons.
+SLAB_OPS = 23
 # One live step of trace_fwd.cu without its sweeps: hit point, normal,
 # jittered normal and reflection, the fold (opaque scene); the refract side
 # adds the exit normal, its jitter and the refraction; each light adds its
@@ -688,16 +738,29 @@ def outlier_rays(a, b, rtol, atol):
     return (~torch.isclose(a, b, rtol=rtol, atol=atol)).any(dim=0)
 
 
+def frame_subset(R, device):
+    """The fixed N_CMP rays of a frame of R rays (every ray for R <= N_CMP)
+    on which a backward at the frame is held against its plain version:
+    the plain backward of a whole frame takes 25-101 s."""
+    import torch
+
+    if R <= N_CMP:
+        return None
+    gen = torch.Generator().manual_seed(N_CMP)
+    return torch.randperm(R, generator=gen)[:N_CMP].sort().values.to(device)
+
+
 def phase_build():
     """One nvcc per source, all started together; then bind every entry
     point (entry points of one source share its library)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from micro_raytracer_tpu_torch.ops import hit3, step
+    from micro_raytracer_tpu_torch.ops import hit3, step, tri
 
     kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL,
                step.STEP_KERNEL, step.STEP_TRAIN_KERNEL,
-               step.STEP_BWD_KERNEL)
+               step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL, tri.ENTRY_EXIT_KERNEL,
+               tri.EXIT_KERNEL)
     by_source = {k.source: k for k in kernels}
     t0 = time.perf_counter()
 
@@ -1052,6 +1115,15 @@ def phase_trace(cfg, results):
         raise AssertionError("CUDA radiance disagrees with the CPU path")
 
 
+class _NoSceneEcho(logging.Filter):
+    """Drops the CLI's and the HTTP service's echo of the scene they
+    render (``cli:render``, ``http:render``): a 65,536-triangle mesh makes
+    each one a line of megabytes."""
+
+    def filter(self, record):
+        return not str(record.msg).startswith(("cli:render", "http:render"))
+
+
 class _SampleLog(logging.Handler):
     """The CLI's ``cli:sample:<last sample>: <seconds>`` lines, one per
     pass of up to 64 samples."""
@@ -1067,11 +1139,11 @@ class _SampleLog(logging.Handler):
             self.seconds.append(float(record.args[1]))
 
 
-def render_cli(out, scene_args=SLICE_ARGS):
+def render_cli(out, scene_args=SLICE_ARGS, samples=SAMPLES):
     """One CLI render of the main path (the slice scene's flags, or a
-    scene JSON file): (render loop seconds, wall seconds). The loop's
-    seconds are the sum of the CLI's per-sample times, each taken after a
-    synchronize."""
+    scene JSON file) at ``samples`` spp: (render loop seconds, wall
+    seconds). The loop's seconds are the sum of the CLI's per-sample
+    times, each taken after a synchronize."""
     from micro_raytracer_tpu_torch.frontends import cli
 
     handler = _SampleLog()
@@ -1080,14 +1152,14 @@ def render_cli(out, scene_args=SLICE_ARGS):
     try:
         rc = cli.main(list(scene_args) + [
             "--res", str(RES), str(RES), "--ssaa", "1", "--bounce",
-            str(BOUNCE), "--sample", str(SAMPLES), "--device", "cuda",
+            str(BOUNCE), "--sample", str(samples), "--device", "cuda",
             "-v", "-o", out])
     finally:
         logging.getLogger("raytrace").removeHandler(handler)
     wall = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"CLI render failed: rc={rc}")
-    if handler.last != SAMPLES - 1:
+    if handler.last != samples - 1:
         raise AssertionError(f"CLI logged samples up to {handler.last}")
     return sum(handler.seconds), wall
 
@@ -1488,11 +1560,22 @@ def compare_bwd(scene, tables, decay, oT, dT, u8s, resid, n_live, bad, gen):
     cotangent is ~1e3 times its ray cotangents, and an error of 0.2% on
     them moves its row's sum. A ray outside only that must be shown
     ill-conditioned by float64 (``ill_conditioned``). At most ILL_SHARE of
-    the rays may be outside; both sides drop them (the cotangents are
-    linear in ctA, ctB). The table cotangents, sums over millions of steps
-    whose order differs, are then held within G_RTOL, G_FLOOR and SUM_TOL
-    of the entry's mass.
-    Returns the max abs error, the plain version's ms and the cotangents.
+    the rays may be outside; both sides drop them: their ctA, ctB are
+    zeroed and the kernel and the plain version run again. The table
+    cotangents, sums over millions of steps whose order differs, are then
+    held within G_RTOL, G_FLOOR and SUM_TOL of the entry's mass. An entry
+    outside is traced to the rays that carry the difference
+    (``table_culprits``); each must be shown ill-conditioned by float64 on
+    its own term of the entry (``ill_term``), and then both sides drop it
+    as above and every entry is held again, at the same tolerances (at
+    most ILL_SHARE of the rays dropped in all).
+    At the frame (more than N_CMP rays) the kernel runs on the whole frame
+    and its per-ray cotangents of ``frame_subset``'s rays are held; the
+    table cotangents come from a launch over that subset, whose per-ray
+    cotangents must equal the frame launch's, and the plain version runs
+    on the subset alone.
+    Returns the max abs error, the plain version's ms (on at most N_CMP
+    rays) and the cotangents of all the rays.
     """
     import numpy as np
     import torch
@@ -1504,7 +1587,24 @@ def compare_bwd(scene, tables, decay, oT, dT, u8s, resid, n_live, bad, gen):
                 for _ in range(2))
     ctA[:, bad] = 0.0
     ctB[:, bad] = 0.0
+    out_ct = (ctA, ctB)
+    sub = frame_subset(R, oT.device)
+    if sub is not None:
+        frame = step.trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA,
+                               ctB)
+        oT, dT, u8s, resid, ctA, ctB = (t[..., sub].contiguous() for t in (
+            oT, dT, u8s, resid, ctA, ctB))
+        n_live, bad = n_live[sub].contiguous(), bad[sub]
+        R = N_CMP
     got = step.trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB)
+    if sub is not None:
+        for name, g, f in (("d_oT", got[2], frame[2]),
+                           ("d_dT", got[3], frame[3])):
+            if not torch.equal(g, f[:, sub]):
+                raise AssertionError(f"trace_bwd: {name} of the frame's "
+                                     f"subset differs from the frame "
+                                     f"launch's")
+        del frame
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1513,7 +1613,8 @@ def compare_bwd(scene, tables, decay, oT, dT, u8s, resid, n_live, bad, gen):
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    # the absolute floors of the sums stay those of the whole frame
+    # the absolute floors are those of every compared ray, the ones
+    # dropped below included
     scales = [float(w.abs().max()) if w.numel() else 0.0 for w in want[:5]]
     ill = torch.zeros(R, dtype=torch.bool, device=oT.device)
     tri_ill = torch.zeros_like(ill)
@@ -1543,47 +1644,150 @@ def compare_bwd(scene, tables, decay, oT, dT, u8s, resid, n_live, bad, gen):
         log(f"trace_bwd: the rays on triangles differ from the plain "
             f"version at most {worst:.3g} times as much as float64 moves it")
         ill |= tri_ill
-    if bool(ill.any()):
-        idx = ill.nonzero()[:, 0]
-        sub = trace_bwd_plain_chunked(
-            scene, tables, decay, *(t[..., idx] for t in (oT, dT, u8s, ctA,
-                                                          ctB)))
-        ctA[:, ill] = 0.0
-        ctB[:, ill] = 0.0
-        got = step.trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA,
-                             ctB)
-        want = (want[0] - sub[0], want[1] - sub[1],
-                torch.where(ill, 0.0, want[2]),
-                torch.where(ill, 0.0, want[3]), want[4] - sub[4]) + want[5:]
-    err, msg = 0.0, []
-    masses = (want[5], want[6], None, None, want[7])
-    for name, g, w, m, scale in zip(("d_tab", "d_lights", "d_oT", "d_dT",
-                                     "d_tri"), got, want, masses, scales):
-        if not w.numel():
-            continue
-        if not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"trace_bwd: non-finite {name}")
-        g = g.to(w.dtype)
-        e = (g - w).abs()
-        tol = G_RTOL * w.abs() + G_FLOOR * scale
-        if m is not None:
-            tol = tol + SUM_TOL * m
-        err = max(err, float(e.max()))
-        msg.append(f"{name} {float(e.max()):.3g} of {scale:.3g} (worst "
-                   f"{float((e / tol).max()):.3f} of its tolerance)")
-        if not bool((e <= tol).all()):
+    args = (scene, tables, decay, oT, dT, u8s, resid, n_live)
+    for attempt in range(2):
+        if bool(ill.any()):
+            # both sides without the dropped rays
+            ctA[:, ill] = 0.0
+            ctB[:, ill] = 0.0
+            got = step.trace_bwd(scene, tables, decay, u8s, resid, n_live,
+                                 ctA, ctB)
+            want = trace_bwd_plain_chunked(scene, tables, decay, oT, dT, u8s,
+                                           ctA, ctB)
+            want = want[:2] + tuple(torch.where(ill, 0.0, w)
+                                    for w in want[2:4]) + want[4:]
+        err, msg, outside = 0.0, [], []
+        masses = (want[5], want[6], None, None, want[7])
+        for which, (name, g, w, m, scale) in enumerate(zip(
+                ("d_tab", "d_lights", "d_oT", "d_dT", "d_tri"), got, want,
+                masses, scales)):
+            if not w.numel():
+                continue
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"trace_bwd: non-finite {name}")
+            g = g.to(w.dtype)
+            e = (g - w).abs()
+            tol = G_RTOL * w.abs() + G_FLOOR * scale
+            if m is not None:
+                tol = tol + SUM_TOL * m
+            err = max(err, float(e.max()))
+            msg.append(f"{name} {float(e.max()):.3g} of {scale:.3g} (worst "
+                       f"{float((e / tol).max()):.3f} of its tolerance)")
+            if bool((e <= tol).all()):
+                continue
             worst = torch.topk((e / tol).flatten(), min(4, e.numel()))[1]
             at = [tuple(int(x) for x in np.unravel_index(int(i), e.shape))
                   for i in worst]
-            raise AssertionError(
-                f"trace_bwd: {name} differs from autograd on "
-                f"{int((e > tol).sum())} entries; worst (index: kernel, "
-                f"plain, tolerance): " + ", ".join(
-                    f"{ix}: {float(g[ix]):.6g}, {float(w[ix]):.6g}, "
-                    f"{float(tol[ix]):.3g}" for ix in at))
-    log(f"trace_bwd {R} rays: matches autograd of the plain trace; max abs "
-        f"err {', '.join(msg)}")
-    return err, plain_ms, ctA, ctB
+            what = (f"trace_bwd: {name} differs from autograd on "
+                    f"{int((e > tol).sum())} entries; worst (index: kernel, "
+                    f"plain, tolerance): " + ", ".join(
+                        f"{ix}: {float(g[ix]):.6g}, {float(w[ix]):.6g}, "
+                        f"{float(tol[ix]):.3g}" for ix in at))
+            if m is None or attempt or int((e > tol).sum()) > 4:
+                raise AssertionError(what)
+            log(what)
+            outside += [(which, ix, float(e[ix])) for ix in at
+                        if bool(e[ix] > tol[ix])]
+        if not outside:
+            break
+        for which, ix, diff in outside:
+            for j, k, p in table_culprits(*args, ctA, ctB, which, ix, diff):
+                ratio = ill_term(scene, tables, decay, oT, dT, u8s, ctA, ctB,
+                                 j, which, ix, k, p)
+                log(f"trace_bwd: ray {j} carries the kernel's difference at "
+                    f"{ix}: kernel {k:.6g}, plain {p:.6g}, {ratio:.3g} times "
+                    f"as far as float64 moves the plain term")
+                ill[j] = True
+        if float(ill.float().mean()) > ILL_SHARE:
+            raise AssertionError("trace_bwd: too many rays disagree with "
+                                 "autograd of the plain trace")
+    log(f"trace_bwd {R} rays{' of the frame' if sub is not None else ''}: "
+        f"matches autograd of the plain trace; max abs err "
+        f"{', '.join(msg)}")
+    return (err, plain_ms) + out_ct
+
+
+def table_culprits(scene, tables, decay, oT, dT, u8s, resid, n_live, ctA,
+                   ctB, which, ix, diff):
+    """The rays that carry the kernel's difference ``diff`` from the
+    plain version at entry ``ix`` of table cotangent ``which`` (0: d_tab,
+    1: d_lights, 4: d_tri): among the rays whose cotangents reach the entry
+    (a row's terms come from the steps that enter or exit it; a light's
+    from every ray), halved again and again, a half is searched on where
+    the kernel launched on it alone differs from the plain version on it
+    by a quarter of ``diff`` or more. Returns ``[(ray, kernel term, plain
+    term)]``; raises where the difference is spread over more rays than
+    ILL_SHARE allows."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    def terms(idx):
+        sel = [t[..., idx].contiguous() for t in (oT, dT, u8s, resid, ctA,
+                                                   ctB)]
+        g = step.trace_bwd(scene, tables, decay, sel[2], sel[3],
+                           n_live[idx].contiguous(), sel[4], sel[5])
+        w = trace_bwd_plain_chunked(scene, tables, decay, sel[0], sel[1],
+                                    sel[2], sel[4], sel[5])
+        return float(g[which][ix]), float(w[which][ix])
+
+    cap = max(1, int(ILL_SHARE * oT.shape[1]))
+    reach = ((ctA != 0) | (ctB != 0)).any(0)
+    if which != 1:
+        row = ix[0] + (tables.layout[1] if which == 4 else 0)
+        live = (torch.arange(u8s.shape[0], device=oT.device)[:, None]
+                < n_live[None])
+        # the exit row is kept where a group has more rows than one
+        cols = [step.RES_ROW] + ([step.res_xrow(scene.n_lights)]
+                                 if tables.layout[3] else [])
+        rows = torch.stack([resid[:, c] for c in cols])
+        reach &= ((rows == row) & live).any(0).any(0)
+    work, found = [reach.nonzero()[:, 0]], []
+    while work:
+        idx = work.pop()
+        if idx.numel() == 1:
+            found.append((int(idx[0]), *terms(idx)))
+            continue
+        half = idx.numel() // 2
+        for part in (idx[:half], idx[half:]):
+            k, p = terms(part)
+            if abs(k - p) >= 0.25 * diff:
+                work.append(part)
+        if len(work) + len(found) > cap:
+            raise AssertionError(f"trace_bwd: the difference at {ix} is "
+                                 f"spread over more than {cap} rays")
+    if not found:
+        raise AssertionError(f"trace_bwd: no ray carries the difference at "
+                             f"{ix}")
+    return found
+
+
+def ill_term(scene, tables, decay, oT, dT, u8s, ctA, ctB, j, which, ix, k,
+             p):
+    """Show that ray ``j``'s term at entry ``ix`` of table cotangent
+    ``which`` is ill-conditioned: the kernel's term ``k`` lies within
+    ILL_RATIO times the plain float32 term ``p``'s own distance from the
+    plain trace run in float64 on the ray. Returns that ratio; raises
+    otherwise."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    f64 = torch.float64
+    t64 = tables._replace(tab=tables.tab.to(f64),
+                          lights=tables.lights.to(f64),
+                          tri=tables.tri.to(f64))
+    g = step.trace_bwd_plain(scene, t64, decay, *(
+        t[..., j:j + 1].to(f64).contiguous()
+        for t in (oT, dT, u8s, ctA, ctB)))
+    p64 = float(g[which][ix])
+    ratio = abs(k - p) / abs(p - p64) if p != p64 else float("inf")
+    if not ratio <= ILL_RATIO:
+        raise AssertionError(
+            f"trace_bwd: ray {j}'s term at {ix} differs from the plain "
+            f"version {ratio:.3g} times as far as float64 moves it: kernel "
+            f"{k:.6g}, plain {p:.6g}, float64 {p64:.6g}")
+    return ratio
 
 
 def phase_train_kernels(cfg, results):
@@ -1662,6 +1866,24 @@ def _busy_share(step_fn):
     return out, wall, busy * 1e-6, len(spans), by_name
 
 
+def step_alone_ms(scene, tables, c, fn):
+    """CUDA-event ms of ``fn``, a ``step_fwd`` / ``step_fwd_train`` call on
+    the carry ``c`` of a scene past the staged triangle blocks, without the
+    triangle sweep it launches first: the sweep runs once beforehand and
+    ``step.tri_hits`` hands its result to the timed calls (the step kernel
+    alone; torch.profiler's kernel records on the card left out launches of
+    the long glass sweeps)."""
+    from micro_raytracer_tpu_torch.ops import step
+
+    hits = step.tri_hits(scene, tables, c)
+    sweep = step.tri_hits
+    step.tri_hits = lambda *_a, **_k: hits
+    try:
+        return cuda_ms(fn, 3)
+    finally:
+        step.tri_hits = sweep
+
+
 def train_setup(cfg, moved=None, leaves=None):
     """The training main path's inputs at full width: the target (a
     4-spp render of the scene through the render kernels) and the leaves
@@ -1717,7 +1939,8 @@ def phase_train(cfg, card, counts, name="slice room", moved=None,
     import numpy as np
     import torch
 
-    from micro_raytracer_tpu_torch.ops import hit3, step
+    from micro_raytracer_tpu_torch.models import schema
+    from micro_raytracer_tpu_torch.ops import hit3, step, tri
     from micro_raytracer_tpu_torch.parallel import shard
 
     dev = torch.device("cuda")
@@ -1728,7 +1951,8 @@ def phase_train(cfg, card, counts, name="slice room", moved=None,
     ts = shard.make_train_step((RES, RES), BOUNCE, device=dev)
     kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL,
                step.STEP_KERNEL, step.STEP_TRAIN_KERNEL,
-               step.STEP_BWD_KERNEL)
+               step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL, tri.ENTRY_EXIT_KERNEL,
+               tri.EXIT_KERNEL)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -1761,6 +1985,11 @@ def phase_train(cfg, card, counts, name="slice room", moved=None,
         # one step launch of each kind per bounce step and training step
         want.update({step.STEP_TRAIN_KERNEL.name: TRAIN_STEPS * (BOUNCE + 1),
                      step.STEP_BWD_KERNEL.name: TRAIN_STEPS * (BOUNCE + 1)})
+        if step.tri_split(scene.kind_counts[schema.KIND_TRIANGLE]):
+            # the triangle segment's sweep before each step
+            sweep = tri.ENTRY_EXIT_KERNEL if scene.any_refract \
+                else tri.ENTRY_KERNEL
+            want[sweep.name] = TRAIN_STEPS * (BOUNCE + 1)
     else:
         want.update({hit3.KERNEL.name: TRAIN_STEPS,
                      step.TRAIN_KERNEL.name: TRAIN_STEPS,
@@ -2625,8 +2854,10 @@ def compare_step_bwd(name, scene, tables, decay, c0, u8, res, hit, bad,
     (at most HEAVY_SHARE of them) and the ill-conditioned ones are held per
     ray only: both sides drop them (the cotangents are linear in ct1) and
     the table cotangents of the rest are held within G_RTOL, G_FLOOR of
-    the table's largest entry and SUM_TOL of the entry's mass.
-    Returns (max abs err, plain ms, ct1)."""
+    the table's largest entry and SUM_TOL of the entry's mass. At the
+    frame the per-ray cotangents of ``frame_subset``'s rays are held from
+    the frame's launch, the rest on that subset (``compare_bwd``).
+    Returns (max abs err, plain ms on at most N_CMP rays, ct1)."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
@@ -2634,7 +2865,20 @@ def compare_step_bwd(name, scene, tables, decay, c0, u8, res, hit, bad,
     R = c0.shape[1]
     ct1 = torch.randn((step.CARRY_ROWS, R), generator=gen, device=c0.device)
     ct1[:, bad] = 0.0
+    out_ct = ct1
+    sub = frame_subset(R, c0.device)
+    if sub is not None:
+        frame = step.step_bwd(scene, tables, decay, c0, u8, res, hit, ct1)[2]
+        c0, u8, res, hit, ct1 = (t[:, sub].contiguous()
+                                 for t in (c0, u8, res, hit, ct1))
+        bad = bad[sub]
+        R = N_CMP
     got = step.step_bwd(scene, tables, decay, c0, u8, res, hit, ct1)
+    if sub is not None:
+        if not torch.equal(got[2], frame[:, sub]):
+            raise AssertionError(f"{name} step_bwd: d_c0 of the frame's "
+                                 f"subset differs from the frame launch's")
+        del frame
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2710,7 +2954,7 @@ def compare_step_bwd(name, scene, tables, decay, c0, u8, res, hit, bad,
         f"; {n_heavy} rays over {HEAVY:g} times the median ray's largest "
         f"cotangent ({typical:.3g}) held per ray only; over the other "
         f"{R - int(drop.sum())}: {', '.join(msg)}")
-    return err, plain_ms, ct1
+    return err, plain_ms, out_ct
 
 
 def step_work(scene, tables, c0, u8, res, hit, work):
@@ -3032,6 +3276,486 @@ def phase_step_main(card, counts):
     return out_res
 
 
+# --- meshes past the staged cull blocks (phases 22-24) -----------------------
+
+def big_config(name):
+    """``mesh_big`` / ``mesh_big_glass``: the slice room at BIG_SCALE times
+    its size (every position, size, radius and the camera scaled; light
+    power is unchanged, as the direct light has no falloff) with its glass
+    sphere replaced by the torus at BIG_TORUS quads, 65,536 triangles
+    (pallas_tri.MAX_PRIMS) in 1,024 cull blocks, diffuse or glass
+    (MESH_MATS); ``mesh_big_mixed``: the diffuse torus, and the metal
+    sphere made of the glass sphere's material. The reference's |det| >=
+    E = 1e-4 window rejects a triangle whose edge cross product is shorter
+    than 1e-4 from every direction: 65,536 triangles on the room-sized
+    torus are 1.6e-5, so the room is scaled until they are 7e-4 to
+    1.6e-3."""
+    from micro_raytracer_tpu_torch.frontends import cli
+    from micro_raytracer_tpu_torch.models import schema
+
+    k = BIG_SCALE
+
+    def scaled(x):
+        return [float(v) * k for v in x]
+
+    cfg = cli.parse_render(cli.build_parser().parse_args(SLICE_ARGS)).to_json()
+    objs, glass = [], None
+    for o in cfg["scene"]["renderer"]:
+        if o["type"] == "sphere" and o["mat"]["glass"] > 0:
+            glass = o["mat"]
+            continue
+        o = dict(o, inst=[[scaled(p), q] for p, q in o["inst"]])
+        if "sizes" in o:
+            o["sizes"] = scaled(o["sizes"])
+        if "r" in o:
+            o["r"] = float(o["r"]) * k
+        objs.append(o)
+    if len(objs) != len(cfg["scene"]["renderer"]) - 1:
+        raise AssertionError("the slice scene's glass sphere is missing")
+    if name == "mesh_big_mixed":
+        objs = [dict(o, mat=glass) if o["type"] == "sphere" else o
+                for o in objs]
+    objs.append({"type": "mesh", "mesh": "torus.obj",
+                 "pos": scaled(TORUS_POS), "mat": MESH_MATS[
+                     "mesh_glass" if name == "mesh_big_glass"
+                     else "mesh_opaque"]})
+    cfg["scene"]["renderer"] = objs
+    cfg["scene"]["light"] = [dict(lt, pos=scaled(lt["pos"]))
+                             if "pos" in lt else lt
+                             for lt in cfg["scene"]["light"]]
+    cfg["frame"]["cam"] = dict(cfg["frame"]["cam"],
+                               pos=scaled(cfg["frame"]["cam"]["pos"]))
+    return cfg
+
+
+def big_torus():
+    """The (65,536, 3, 3) vertices of the big scenes' torus."""
+    return torus(*BIG_TORUS, R=0.16 * BIG_SCALE, r=0.06 * BIG_SCALE)
+
+
+def write_big(name, tmp):
+    """The scene JSON of ``name`` and its mesh as the OBJ file beside it
+    (the JSON names it by its path); returns the JSON's path."""
+    obj = os.path.join(tmp, "torus.obj")
+    if not os.path.exists(obj):
+        tris = big_torus().reshape(-1, 3)
+        with open(obj, "w") as f:
+            f.write("".join(f"v {x:.7g} {y:.7g} {z:.7g}\n"
+                            for x, y, z in tris))
+            f.write("".join(f"f {3 * i + 1} {3 * i + 2} {3 * i + 3}\n"
+                            for i in range(len(tris) // 3)))
+    cfg = big_config(name)
+    cfg["scene"]["renderer"][-1]["mesh"] = obj
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def big_render_config(name, tmp):
+    """The render config of ``name`` from its JSON file, timed: (cfg, the
+    host seconds of reading it, OBJ included, and of compiling its
+    scene)."""
+    from micro_raytracer_tpu_torch.models.compiler import compile_scene
+    from micro_raytracer_tpu_torch.models import schema
+
+    path = write_big(name, tmp)
+    t0 = time.perf_counter()
+    with open(path) as f:
+        cfg = schema.RenderConfig.from_json(json.load(f))
+    t1 = time.perf_counter()
+    compile_scene(cfg.scene, "cpu")
+    t2 = time.perf_counter()
+    return cfg, t1 - t0, t2 - t1
+
+
+def big_inputs(cfg, dev):
+    """(scene, tables, decay, cam) of a big scene on the card, checked:
+    65,536 triangles in 1,024 cull blocks, on the per-step path."""
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.compiler import (compile_camera,
+                                                           compile_scene)
+    from micro_raytracer_tpu_torch.ops import step
+
+    scene = compile_scene(cfg.scene, dev)
+    tables = step.pack_step(scene)
+    n_tri = tables.layout[2]
+    if (n_tri, tables.tbb.shape[0]) != (65536, 1024) \
+            or not step.tri_split(n_tri) \
+            or (step.route(scene, False), step.route(scene, True)) \
+            != ("steps", "steps"):
+        raise AssertionError(f"big scene: {n_tri} triangles, "
+                             f"{tables.tbb.shape[0]} blocks, not split")
+    return (scene, tables, tracer.decay_of(cfg.rt.loss),
+            compile_camera(cfg.frame.cam, dev))
+
+
+def compare_tri(tables, o, d, live=None):
+    """Rows 6, 7 (also with half the rows marked to refract, as the step
+    passes them) and 8 (tri_entry, tri_entry_exit, tri_group_exit fed row
+    6's winner groups) against their plain versions on rays ``o``, ``d``
+    (R, 3): rows and t bit for bit, and row 8's (tx, xrow) equal to row
+    7's wherever a triangle wins. Returns (hits, the plain versions'
+    ms)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, tri
+
+    t, tbb, n = tables.tri.detach(), tables.tbb, tables.layout[3]
+    got, want, ms = {}, {}, {}
+    got["entry"] = tri.tri_entry(t, o, d, tbb, n, live)
+    box = []
+    ms["entry"] = plain_ms(lambda: box.append(tri.entry_plain(t, o, d, tbb, n,
+                                                              live)))
+    want["entry"] = box.pop()
+    got["entry_exit"] = tri.tri_entry_exit(t, o, d, tbb, n, live)
+    ms["entry_exit"] = plain_ms(lambda: box.append(
+        tri.entry_exit_plain(t, o, d, tbb, n, live)))
+    want["entry_exit"] = box.pop()
+    refr = (torch.rand(t.shape[0], generator=torch.Generator(
+        device=o.device).manual_seed(7), device=o.device) < 0.5).float()
+    got["refracting"] = tri.tri_entry_exit(t, o, d, tbb, n, live, refr)
+    want["refracting"] = tri.entry_exit_plain(t, o, d, tbb, n, live, refr)
+    te, row = got["entry"]
+    won = te < tri.BIG * 0.5
+    wg = torch.where(won, t[row.long(), hit3._T_GID], -5.0).contiguous()
+    got["exit"] = tri.tri_group_exit(t, o, d, wg, n, live)
+    ms["exit"] = plain_ms(lambda: box.append(
+        tri.group_exit_plain(t, o, d, wg, n, live)))
+    want["exit"] = box.pop()
+    for what in got:
+        for g, w in zip(got[what], want[what]):
+            if not torch.equal(g, w):
+                raise AssertionError(f"tri {what}: differs from the plain "
+                                     f"version on {int((g != w).sum())} rays")
+    ee, gx = got["entry_exit"], got["exit"]
+    if not (torch.equal(gx[0][won], ee[2][won])
+            and torch.equal(gx[1][won], ee[3][won])):
+        raise AssertionError("tri_exit differs from tri_entry_exit's exit")
+    hits = int(won.sum())
+    log(f"tri kernels on {o.shape[0]} rays ({hits} hit the mesh): rows 6, 7 "
+        f"and 8 equal their plain versions bit for bit (plain "
+        f"{ {k: round(v, 1) for k, v in ms.items()} } ms)")
+    return hits, ms
+
+
+def tri_work(tables, o, d, need_exit):
+    """Per ray (R,) int64: the cull blocks slab-tested, the triangle rows
+    the entry sweep tests after the cull, and the exit rows (the winner
+    group's rows, refracting) of rows 6 / 7 for rays ``o``, ``d``."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    t, tbb, n = tables.tri.detach(), tables.tbb, tables.layout[3]
+    with torch.no_grad():
+        best = torch.full((o.shape[0],), hit3.BIG, device=o.device)
+        _b, row, tested = hit3._tri_entry(t, tbb, n, o, d, best)
+        exit_rows = torch.zeros_like(tested)
+        if need_exit:
+            w = row.clamp(min=0)
+            span = (t[w, hit3._T_GE].clamp(max=n)
+                    - t[w, hit3._T_GS]).to(torch.int64)
+            exit_rows = torch.where(row >= 0, span, 0)
+    slabs = torch.full_like(tested, tbb.shape[0])
+    return slabs, tested, exit_rows
+
+
+def tri_bounds(tables, R, live, slabs, rows, exit_rows, group_exit=False):
+    """Bounds of one launch of row 6 or 7 (``group_exit``: row 8) over R
+    rays, ``live`` of them live, with ``slabs``, ``rows`` and
+    ``exit_rows`` the blocks, entry rows and exit rows they test."""
+    table_b = tables.tri.numel() * 4 + tables.tbb.numel() * 4
+    if group_exit:
+        # rays (o, d), live, the group id in; tx, row out
+        return bound(R * (24 + 4 + 4 + 8) + table_b,
+                     exit_rows * TRI_TEST_OPS)
+    out_b = 16 if exit_rows else 8
+    return bound(R * (24 + 4 + out_b) + table_b,
+                 live * 3 + slabs * SLAB_OPS
+                 + (rows + exit_rows) * TRI_TEST_OPS)
+
+
+def phase_big_kernels(results):
+    """Phase 22: on ``mesh_big`` and ``mesh_big_glass``, rows 6-8 against
+    their plain versions on 2^17 random and 2^17 camera rays (rows and t
+    bit for bit); step_fwd and step_fwd_train (the kTriIn instances) and
+    step_bwd against the plain step on 2^17 camera rays with phase 18's
+    rules, and the per-step trace against the plain per-step trace. Timed
+    at the frame: each kernel's launch at step 0 (every ray live) and a
+    sample's nine. Plain versions run only on the 2^17-ray sets."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, step, tri
+
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_big_")
+    for name in BIG_NAMES:
+        cfg, t_read, t_compile = big_render_config(name, tmp)
+        scene, tables, decay, cam = big_inputs(cfg, dev)
+        log(f"{name}: read (OBJ of 65,536 triangles) {t_read:.3f} s, "
+            f"compiled on the host {t_compile:.3f} s")
+        glass = scene.any_refract
+        gen = torch.Generator(device=dev).manual_seed(22)
+        o, d = random_rays(N_CMP, gen, dev)
+        compare_tri(tables, o * BIG_SCALE, d)
+        o, d = camera_rays(cam, N_CMP, gen, dev)
+        hits, plain_tri = compare_tri(tables, o, d)
+        # the step kernels on 2^17 camera rays (phase 18's rules)
+        oc, dc = o.T.contiguous(), d.T.contiguous()
+        nu = step.n_uni(glass)
+        u = torch.rand((BOUNCE + 1, nu, N_CMP), generator=gen, device=dev)
+        c, carries = step.primary_carry(oc, dc), []
+        for k in range(BOUNCE + 1):
+            carries.append(c)
+            c = step.step_fwd(scene, tables, decay, c, u[k])[0]
+        cp = step.primary_carry(oc, dc)
+        for k in range(BOUNCE + 1):
+            cp, hit_p = plain_step_chunked(scene, tables, decay, cp, u[k])
+        bad = outlier_rays(c[8:14], cp[8:14], 1e-4, 1e-5)
+        share = float(bad.float().mean())
+        err_in = float((c - cp)[8:14][:, ~bad].abs().max())
+        log(f"{name} per-step trace {N_CMP} rays x {BOUNCE + 1} steps: "
+            f"{int(bad.sum())} rays outside rtol 1e-4 of the plain per-step "
+            f"trace (share {share:.5f}, bound {OUTLIER_SHARE}), {err_in:.3g} "
+            f"over the rest (bound {IN_ERR})")
+        if share > OUTLIER_SHARE or err_in > IN_ERR:
+            raise AssertionError(f"{name}: the per-step trace disagrees with "
+                                 f"the plain one")
+        del cp
+        errs_f = []
+        for k in (2, 0):
+            e, bad, _c1, res0, hit0, plain_t = compare_step_fwd(
+                name, scene, tables, decay, carries[k], u[k], k)
+            errs_f.append(e)
+        err_b, plain_b, _ct = compare_step_bwd(name, scene, tables, decay,
+                                               carries[0], u[0], res0, hit0,
+                                               bad, gen)
+        plain_f = plain_ms(lambda: plain_step_chunked(scene, tables, decay,
+                                                      carries[0], u[0]))
+        del carries
+        # the frame: the kernels at step 0 and over a sample's nine steps
+        oT, dT = main_path_rays(cfg, gen, dev)
+        R = oT.shape[1]
+        u8s = torch.rand((BOUNCE + 1, nu, R), generator=gen, device=dev)
+        cs = [step.primary_carry(oT, dT)]
+        for k in range(BOUNCE):
+            cs.append(step.step_fwd(scene, tables, decay, cs[-1], u8s[k])[0])
+        tri_ms = [cuda_ms(lambda c=c: step.tri_hits(scene, tables, c), 3)
+                  for c in cs]
+        step_ms = [step_alone_ms(scene, tables, c, lambda c=c, k=k:
+                                 step.step_fwd(scene, tables, decay, c,
+                                               u8s[k]))
+                   for k, c in enumerate(cs)]
+        c0 = cs[0]
+        del cs
+        sweep = "tri_entry_exit" if glass else "tri_entry"
+        log(f"{name} at the frame, per step: {sweep} "
+            f"{' + '.join(f'{t:.3f}' for t in tri_ms)} = {sum(tri_ms):.3f} "
+            f"ms, step_fwd {' + '.join(f'{t:.3f}' for t in step_ms)} = "
+            f"{sum(step_ms):.3f} ms a sample")
+        c1_t, hit_t, res_t = step.step_fwd_train(scene, tables, decay, c0,
+                                                 u8s[0])
+        ms_t = step_alone_ms(scene, tables, c0, lambda: step.step_fwd_train(
+            scene, tables, decay, c0, u8s[0]))
+        ct1 = torch.randn((step.CARRY_ROWS, R), generator=gen, device=dev)
+        ms_b = cuda_ms(lambda: step.step_bwd(scene, tables, decay, c0, u8s[0],
+                                             res_t, hit_t, ct1), 3)
+        t, tbb, n = tables.tri.detach(), tables.tbb, tables.layout[3]
+        th0 = step.tri_hits(scene, tables, c0)
+        wg = torch.where(th0[0] < tri.BIG * 0.5,
+                         t[th0[1].long(), hit3._T_GID], -5.0).contiguous()
+        ms_x = cuda_ms(lambda: tri.tri_group_exit(t, oT.T, dT.T, wg, n), 3)
+        # the opaque mesh in a refractive scene (mesh_big_mixed): row 7
+        # with no row marked to refract sweeps no group exit
+        ms_own = None
+        if not glass:
+            none = torch.zeros(t.shape[0], device=dev)
+            ms_own = cuda_ms(lambda: tri.tri_entry_exit(
+                t, c0[0:3].T, c0[3:6].T, tbb, n, c0[step.C_LIVE],
+                refr=none), 3)
+        # the work the frame's data asks for, counted on a fixed 2^17 of
+        # its rays and scaled to the frame
+        sub = frame_subset(R, dev)
+        os_, ds_ = oT.T[sub], dT.T[sub]
+        slabs, rows, exits = (x.sum() * R / N_CMP for x in tri_work(
+            tables, os_, ds_, True))
+        slabs, rows, exits = float(slabs), float(rows), float(exits)
+        work = {"sweep": 0, "shadow": 0}
+        cs = c0[:, sub].contiguous()
+        with torch.no_grad():
+            step._trace_plain(scene, tables, decay, cs[0:3], cs[3:6],
+                              u8s[0][:, sub][None].contiguous(), False, work,
+                              step.Segment(0, 1, cs),
+                              step.tri_hits(scene, tables, cs, plain=True))
+        work = {k: v * R / N_CMP for k, v in work.items()}
+        bw = step_work(scene, tables, c0, u8s[0], res_t, hit_t, work)
+        b_sweep = tri_bounds(tables, R, R, slabs, rows, exits if glass else 0)
+        b_exit = tri_bounds(tables, R, R, 0, 0, exits, group_exit=True)
+        log(f"{name} at step 0 ({R} rays, {bw['hits']} hit, {hits} of "
+            f"{N_CMP} camera rays on the mesh): {sweep} {tri_ms[0]:.3f} ms "
+            f"(plain {plain_tri['entry_exit' if glass else 'entry']:.1f} on "
+            f"{N_CMP} rays), bound {fmt_bound(b_sweep)}: per ray "
+            f"{slabs / R:.0f} block slab tests, {rows / R:.1f} entry rows, "
+            f"{exits / R:.1f} exit rows (of 65,536); tri_exit {ms_x:.3f} ms, "
+            f"bound {fmt_bound(b_exit)}; "
+            + (f"tri_entry_exit with no refracting row {ms_own:.3f} ms; "
+               if ms_own is not None else "")
+            + f"step_fwd {step_ms[0]:.3f} ms "
+            f"(plain {plain_f:.1f} on {N_CMP} rays), bound "
+            f"{fmt_bound(bw['step_fwd'])}; step_fwd_train {ms_t:.3f} ms "
+            f"(plain {plain_t:.1f}), bound "
+            f"{fmt_bound(bw['step_fwd_train'])}; step_bwd {ms_b:.3f} ms "
+            f"(plain {plain_b:.1f}), bound {fmt_bound(bw['step_bwd'])}; "
+            f"shadow triangle rows per hit "
+            f"{work['shadow'] / max(bw['hits'], 1):.2f}")
+        shape = {"at": "step 0 of the 1080x1080 frame, bounce 8",
+                 "plain_at": f"{N_CMP} camera rays"}
+        results[f"{sweep}/{name}"] = {
+            "max_abs_err": 0.0, "ms": tri_ms[0],
+            "plain_ms": plain_tri["entry_exit" if glass else "entry"],
+            **b_sweep, "library_ms": None, **shape, "step_ms": tri_ms,
+            "sample_ms": sum(tri_ms), "slabs_per_ray": slabs / R,
+            "rows_per_ray": rows / R, "exit_rows_per_ray": exits / R}
+        if ms_own is not None:
+            results[f"{sweep}/{name}"]["entry_exit_no_refract_ms"] = ms_own
+        if glass:
+            results[f"tri_exit/{name}"] = {
+                "max_abs_err": 0.0, "ms": ms_x, "plain_ms": plain_tri["exit"],
+                **b_exit, "library_ms": None, **shape}
+        results[f"step_fwd/{name}"] = {
+            "max_abs_err": max(errs_f), "ms": step_ms[0], "plain_ms": plain_f,
+            **bw["step_fwd"], "library_ms": None, **shape,
+            "step_ms": step_ms, "sample_ms": sum(step_ms)}
+        results[f"step_fwd_train/{name}"] = {
+            "max_abs_err": max(errs_f), "ms": ms_t, "plain_ms": plain_t,
+            **bw["step_fwd_train"], "library_ms": None, **shape}
+        results[f"step_bwd/{name}"] = {
+            "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
+            **bw["step_bwd"], "library_ms": None, **shape}
+
+
+def phase_big_main(card, counts):
+    """Phase 23: the CLI renders ``mesh_big`` from its JSON and OBJ files
+    at 1080x1080, bounce 8, 16 spp: one tri_entry and one step_fwd launch
+    per step and sample, no whole-trace kernel, no plain version; renders
+    for the spread (BIG_RENDER_REPS), one profiled; ``mesh_big_glass``
+    rendered once (BIG_GLASS_SAMPLES spp, tri_entry_exit counted);
+    ``mesh_big_mixed`` rendered once at 16 spp (tri_entry_exit counted,
+    sweeping the group exit of no torus row); the HTTP service answers one
+    ``mesh_big`` request."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from micro_raytracer_tpu_torch.ops import hit3, step, tri
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_big_main_")
+    kernels = (hit3.KERNEL, step.KERNEL, step.STEP_KERNEL, tri.ENTRY_KERNEL,
+               tri.ENTRY_EXIT_KERNEL, tri.EXIT_KERNEL)
+    out_res = {}
+    for name in BIG_RENDER_NAMES:
+        path = write_big(name, tmp)
+        out = os.path.join(tmp, f"{name}.png")
+        spp = BIG_GLASS_SAMPLES if name == "mesh_big_glass" else SAMPLES
+        for k in kernels:
+            k.launches = 0
+            k.plain_calls = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        render_s, wall = render_cli(out, [path], samples=spp)
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k.name: k.launches for k in kernels}
+        counts[name] = launched
+        sweep = tri.ENTRY_EXIT_KERNEL if name != "mesh_big" \
+            else tri.ENTRY_KERNEL
+        want = {k.name: 0 for k in kernels}
+        want.update({step.STEP_KERNEL.name: spp * (BOUNCE + 1),
+                     sweep.name: spp * (BOUNCE + 1)})
+        if launched != want or any(k.plain_calls for k in kernels):
+            raise AssertionError(f"{name} render: launches {launched} (want "
+                                 f"{want}), plain calls "
+                                 f"{[k.plain_calls for k in kernels]}")
+        img = np.asarray(Image.open(out))
+        if img.shape != (RES, RES, 3) or float(img.std()) < 5.0:
+            raise AssertionError(f"{name}: image {img.shape}, std "
+                                 f"{float(img.std()):.2f}")
+        rate = RES * RES * spp / render_s
+        log(f"{name} render ({spp} spp): render loop {render_s:.4f} s = "
+            f"{rate / 1e6:.3f}M rays/s, the CLI's wall {wall:.3f} s (reading "
+            f"the JSON and OBJ, compiling 65,536 triangles, writing the PNG "
+            f"included); peak device memory {peak / 2**30:.3f} GiB on {card}")
+        res = {"samples": spp, "render_s": render_s, "wall_s": wall,
+               "rays_per_s": rate, "peak_bytes": peak}
+        if name == "mesh_big":
+            loops = [render_s] + [render_cli(out, [path])[0]
+                                  for _ in range(BIG_RENDER_REPS - 1)]
+            res["spread"] = render_spread(loops, card)
+            ((loop_p, _w), wall_p, busy, n_ops, by_name) = _busy_share(
+                lambda: render_cli(out, [path]))
+            med = float(np.median(loops))
+            log(f"{name} render profile: the CLI's wall {wall_p:.4f} s "
+                f"(render loop {loop_p:.4f} s under the profiler), device "
+                f"busy {busy:.4f} s = {busy / med:.3f} of the unprofiled "
+                f"loop's median {med:.4f} s; {n_ops} device operations "
+                f"({n_ops / SAMPLES:.1f} per sample)")
+            for kname, t in sorted(by_name.items(), key=lambda x: -x[1])[:4]:
+                log(f"  {t * 1e3:9.3f} ms  {kname[:90]}")
+            res.update({"busy_s": busy, "busy_share": busy / med,
+                        "ops_per_sample": n_ops / SAMPLES})
+        out_res[name] = res
+    with open(write_big("mesh_big", tmp)) as f:
+        from micro_raytracer_tpu_torch.models import schema
+        phase_server(schema.RenderConfig.from_json(json.load(f)), requests=1)
+    return out_res
+
+
+def phase_big(card, results):
+    """Phases 22-24 on ``mesh_big`` and ``mesh_big_glass``: the kernels
+    (phase 22), the main path (23) and 3 training steps of ``mesh_big``
+    (24, as phase 11 trains mesh_glass: albedos, light power and the
+    torus' position perturbed). Returns (render results, render launch
+    counts, training launch counts, training results)."""
+    from micro_raytracer_tpu_torch.models import schema
+
+    phase_big_kernels(results)
+    counts, train_counts = {}, {}
+    res = phase_big_main(card, counts)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_big_train_")
+    cfg = big_render_config("mesh_big", tmp)[0]
+    train = phase_train(cfg, card, train_counts, "mesh_big",
+                        moved=schema.KIND_TRIANGLE)
+    return res, counts, train_counts, train
+
+
+def big_entries(results, counts, train_counts):
+    """The kernels line's entries of phases 22-24."""
+    from micro_raytracer_tpu_torch.ops import step, tri
+
+    tri_src = "micro_raytracer_tpu_torch/csrc/tri.cu"
+    step_src = "micro_raytracer_tpu_torch/csrc/step_fwd.cu"
+    pt = "micro_raytracer_tpu/ops/pallas_tri.py"
+    ps = "micro_raytracer_tpu/ops/pallas_step.py"
+    rows = [
+        ("tri_entry/mesh_big", tri_src, f"{pt}:207",
+         counts["mesh_big"][tri.ENTRY_KERNEL.name]),
+        ("tri_entry_exit/mesh_big_glass", tri_src, f"{pt}:226",
+         counts["mesh_big_glass"][tri.ENTRY_EXIT_KERNEL.name]),
+        ("tri_exit/mesh_big_glass", tri_src, f"{pt}:274",
+         counts["mesh_big_glass"][tri.EXIT_KERNEL.name]),
+        ("step_fwd/mesh_big", step_src, f"{ps}:1110",
+         counts["mesh_big"][step.STEP_KERNEL.name]),
+        ("step_fwd/mesh_big_glass", step_src, f"{ps}:1110",
+         counts["mesh_big_glass"][step.STEP_KERNEL.name]),
+        ("step_fwd_train/mesh_big", step_src, f"{ps}:1110",
+         train_counts[step.STEP_TRAIN_KERNEL.name]),
+        ("step_bwd/mesh_big", "micro_raytracer_tpu_torch/csrc/step_bwd.cu",
+         f"{ps}:3139", train_counts[step.STEP_BWD_KERNEL.name])]
+    return [{"name": n, "route": "cuda", "source": src, "replaces": rep_,
+             "launches": launches, **results[n]}
+            for n, src, rep_, launches in rows]
+
+
 def step_kernels_alone():
     """``--step-kernels``: phase 18 alone, each scene on its own, so that a
     kernel at fault shows on both (the mutation checks). Returns the number
@@ -3286,6 +4010,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    logging.getLogger("raytrace").addFilter(_NoSceneEcho())
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if sys.argv[1:] == ["--render-only"]:
@@ -3313,6 +4038,16 @@ def main() -> int:
             f"{TRAIN_STEPS} steps, "
             f"{sum('nonfinite' not in c for c in chaos)} finite throughout")
         print(json.dumps({"step_bwd_rows": rows, "inst_grid3k": chaos}))
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--big"]:
+        phase_build()
+        results = {}
+        big_res, counts, train_counts, big_train = phase_big(card, results)
+        log(f"big mesh render: {json.dumps(big_res)}")
+        log(f"big mesh training: {json.dumps(big_train)}")
+        print(json.dumps({"kernels": big_entries(results, counts,
+                                                  train_counts)}))
         print(card)
         return 0
     if sys.argv[1:]:
@@ -3369,6 +4104,9 @@ def main() -> int:
                                        step_train_counts[name], name,
                                        leaves=STEP_TRAIN_LEAVES[name])
     log(f"phases 18-21: {time.perf_counter() - t_start:.1f} s so far")
+    big_res, big_counts, big_train_counts, big_train = phase_big(card,
+                                                                 results)
+    log(f"phases 22-24: {time.perf_counter() - t_start:.1f} s so far")
 
     from micro_raytracer_tpu_torch.ops import hit3, step
 
@@ -3456,6 +4194,8 @@ def main() -> int:
              "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3139",
              "launches": tc[step.STEP_BWD_KERNEL.name],
              **results[f"step_bwd/{name}"]}]
+    log(f"big mesh render: {json.dumps(big_res)}")
+    log(f"big mesh training: {json.dumps(big_train)}")
     log(f"per-step render: {json.dumps(step_res)}")
     log(f"per-step training: {json.dumps(step_train)}")
     log(f"per-step route against the whole trace: "
@@ -3493,7 +4233,8 @@ def main() -> int:
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:3428",
          "launches": train_counts[step.BWD_KERNEL.name],
          **results["trace_bwd"]},
-    ] + mesh_kernels + tex_kernels + inst_kernels + step_entries
+    ] + mesh_kernels + tex_kernels + inst_kernels + step_entries \
+        + big_entries(results, big_counts, big_train_counts)
     log(f"render main path: {json.dumps(main_res)}")
     log(f"training main path: {json.dumps(train_res)}; closest_hit "
         f"launches {train_counts[hit3.KERNEL.name]}")

@@ -45,11 +45,21 @@
 // The dense rows are read from global memory through L1 and L2 (no row
 // bound: a 3,376-row table is 351 KB, past the 227 KB of shared memory);
 // the lights and the cull blocks' AABBs (the triangle segment's, at most
-// hit3.MAX_TRI_BLOCKS, or the sphere segment's, at most 64) are staged in
-// shared memory. The sphere cull holds 64 blocks per lane (StepMask), the
-// JAX package's bound (pallas_hit3._CAND_MAX); beyond that a segment
-// sweeps dense. A block whose lanes are all dead only passes its carry
-// through.
+// hit3.MAX_TRI_BLOCKS, past which the kTriIn instances below take over, or
+// the sphere segment's, at most 64) are staged in shared memory. The
+// sphere cull holds 64 blocks per lane (StepMask), the JAX package's bound
+// (pallas_hit3._CAND_MAX); beyond that a segment sweeps dense. A block
+// whose lanes are all dead only passes its carry through.
+//
+// kTriIn (a triangle segment of more blocks than hit3.MAX_TRI_BLOCKS, a
+// mesh of more than 16,384 triangles): the closest hit takes the triangle
+// segment's (te, row, tx, xrow) from tri.cu's launch before the step and
+// merges it with the dense rows by closest_hit_tri_pallas's rule
+// (micro_raytracer_tpu/ops/intersect.py:488-524): triangles are the last
+// segment, so a triangle wins only with te strictly below the dense rows'
+// best, and its group's exit is the triangles' exit. The shadow sweeps
+// read the block AABBs from global memory; nothing of the triangle segment
+// is staged, so it has no bound.
 //
 // Numerics: float32, -fmad=false, as trace_fwd.cu.
 #include "trace_step.cuh"
@@ -59,18 +69,80 @@ namespace mrt {
 // A lane's sphere-block mask in the per-step kernel: up to 64 blocks.
 using StepMask = unsigned long long;
 
+// The triangle segment's hit of each ray (kTriIn): te, the triangle-local
+// row, and on a refractive scene the group exit tx, xrow (tri.cu).
+struct TriIn {
+  const float* te;
+  const int* row;
+  const float* tx;
+  const int* xrow;
+};
+
+// Closest hit over the dense rows (spheres dense, as every triangle
+// instance sweeps them) merged with the triangle segment's hit `in` of ray
+// i; kNeedExit: the winner group's exit too.
+template <bool kNeedExit>
+__device__ __forceinline__ Hit closest_hit_in(const float* tab, int stride,
+                                              const Layout& L, float ox,
+                                              float oy, float oz, float dx,
+                                              float dy, float dz,
+                                              const TriIn& in, int i) {
+  float best = kBig;
+  int row = 0;
+  entry_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, ox, oy, oz, dx, dy,
+                     dz, best, row);
+  entry_seg<kPlane>(tab, stride, L.pln_start, L.pln_n, ox, oy, oz, dx, dy,
+                    dz, best, row);
+  entry_seg<kBox>(tab, stride, L.box_start, L.box_n, ox, oy, oz, dx, dy, dz,
+                  best, row);
+  const float tt = in.te[i];
+  const bool tri_won = tt < best;
+  if (tri_won) {
+    best = tt;
+    row = L.tri_start + in.row[i];
+  }
+  Hit h;
+  h.te = best;
+  h.row = row;
+  if (!kNeedExit) {
+    h.tx = best;
+    h.xrow = row;
+    return h;
+  }
+  float xbest = -kBig;
+  int xrow = 0;
+  if (tri_won) {
+    xbest = in.tx[i];
+    xrow = L.tri_start + in.xrow[i];
+  } else {
+    // miss lanes keep wg = BIG, which matches no row's group id
+    const float wg = best < kBig ? tab[row * stride + C_GID] : kBig;
+    exit_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, wg, ox, oy, oz, dx,
+                      dy, dz, xbest, xrow);
+    exit_seg<kPlane>(tab, stride, L.pln_start, L.pln_n, wg, ox, oy, oz, dx,
+                     dy, dz, xbest, xrow);
+    exit_seg<kBox>(tab, stride, L.box_start, L.box_n, wg, ox, oy, oz, dx, dy,
+                   dz, xbest, xrow);
+  }
+  h.tx = xbest;
+  h.xrow = xrow;
+  return h;
+}
+
 // One ray's bounce step from the carry `c0` to `c1` (both (14, R)) with
 // the step's uniforms `u8` (NU, R); hit_out (R,) the step's hit liveness;
 // kTrain: the step's residuals (CR, R) of a ray that hits. `tab` is the
 // whole row table in global memory, `s_lt` the lights and T.bb the cull
-// blocks in shared memory.
-template <bool kRefract, bool kTrain, bool kTri = false, bool kTex = false>
+// blocks in shared memory (kTriIn: T.bb in global memory, and the
+// triangle segment's hits in `tin`; kTriIn takes kTri).
+template <bool kRefract, bool kTrain, bool kTri = false, bool kTex = false,
+          bool kTriIn = false>
 __device__ __forceinline__ void step_ray(
     const float* tab, const Tris& T, const Layout& lay, const float* s_lt,
     int L, float dk, const Tex& tex, int i, int R,
     const float* __restrict__ c0, const float* __restrict__ u8,
     float* __restrict__ c1, float* __restrict__ hit_out,
-    float* __restrict__ resid) {
+    float* __restrict__ resid, const TriIn& tin = TriIn{}) {
   constexpr bool kSph = !kTri && !kTex;  // the sphere blocks (hit3.cuh)
   const float* c = c0 + i;
   V3 o = v3(c[(kC_O + 0) * R], c[(kC_O + 1) * R], c[(kC_O + 2) * R]);
@@ -81,9 +153,13 @@ __device__ __forceinline__ void step_ray(
   bool hit = false, alive = false;
   Hit h{};
   if (c[kC_LIVE * R] > 0.5f) {
-    h = closest_hit<kRefract, kTri, kSph, StepMask>(tab, kRowCols, lay, o.x,
-                                                    o.y, o.z, d.x, d.y, d.z,
-                                                    T);
+    if constexpr (kTriIn)
+      h = closest_hit_in<kRefract>(tab, kRowCols, lay, o.x, o.y, o.z, d.x,
+                                   d.y, d.z, tin, i);
+    else
+      h = closest_hit<kRefract, kTri, kSph, StepMask>(tab, kRowCols, lay,
+                                                      o.x, o.y, o.z, d.x,
+                                                      d.y, d.z, T);
     hit = h.te < kBig * 0.5f;
   }
   if (hit) {
@@ -255,6 +331,34 @@ __global__ void step_fwd_kernel(const float* __restrict__ tab,
       hit, resid);
 }
 
+// kTriIn: the lights alone in shared memory; the cull blocks' AABBs are
+// read from global memory, the triangle segment's hits from `tin`.
+template <bool kRefract, bool kTrain, bool kTex>
+__global__ void step_fwd_in_kernel(const float* __restrict__ tab,
+                                   mrt::Layout lay,
+                                   const float* __restrict__ tri,
+                                   const float* __restrict__ bb,
+                                   const float* __restrict__ lights, int L,
+                                   float dk, mrt::Tex tex,
+                                   const float* __restrict__ c0,
+                                   const float* __restrict__ u8, int R,
+                                   float* __restrict__ c1,
+                                   float* __restrict__ hit,
+                                   float* __restrict__ resid,
+                                   mrt::TriIn tin) {
+  extern __shared__ float smem[];
+  float* s_lt = smem;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (__syncthreads_or(i < R && c0[mrt::kC_LIVE * R + i] > 0.5f)) {
+    mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
+    __syncthreads();
+  }
+  if (i >= R) return;
+  mrt::step_ray<kRefract, kTrain, true, kTex, true>(
+      tab, mrt::Tris{tri, bb}, lay, s_lt, L, dk, tex, i, R, c0, u8, c1, hit,
+      resid, tin);
+}
+
 // The arguments every instance takes.
 struct Args {
   const float* tab;
@@ -272,6 +376,7 @@ struct Args {
   float* c1;
   float* hit;
   float* resid;
+  mrt::TriIn tin;  // te null: the triangle segment is swept in the kernel
 };
 
 template <bool kRefract, bool kTrain, bool kTri, bool kTex>
@@ -296,10 +401,37 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instance for the scene: refraction, triangles, textures
+template <bool kRefract, bool kTrain, bool kTex>
+int launch_in(const Args& a, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(a.L) * mrt::kLightCols *
+                      sizeof(float);
+  auto kernel = step_fwd_in_kernel<kRefract, kTrain, kTex>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int threads = 128;
+  const int blocks = (a.R + threads - 1) / threads;
+  kernel<<<blocks, threads, smem, stream>>>(
+      a.tab, a.lay, a.tri, a.bb, a.lights, a.L, a.dk, a.tex, a.c0, a.u8, a.R,
+      a.c1, a.hit, a.resid, a.tin);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance for the scene: refraction, triangles (swept here or, with
+// a.tin, taken from tri.cu), textures
 template <bool kTrain>
 int dispatch(const Args& a, int refract, cudaStream_t s) {
   const bool tri = a.lay.tri_n > 0, tex = a.tex.slots != 0;
+  if (a.tin.te != nullptr) {
+    if (refract)
+      return tex ? launch_in<true, kTrain, true>(a, s)
+                 : launch_in<true, kTrain, false>(a, s);
+    return tex ? launch_in<false, kTrain, true>(a, s)
+               : launch_in<false, kTrain, false>(a, s);
+  }
   if (refract) {
     if (tri)
       return tex ? launch<true, kTrain, true, true>(a, s)
@@ -321,7 +453,10 @@ int dispatch(const Args& a, int refract, cudaStream_t s) {
 // sbb with up to 64 blocks), then the carry in c0 (14, R), the step's
 // uniforms u8 (NU, R), and out the carry c1 (14, R) and the hit liveness
 // hit (R,); the train instance also writes resid (CR, R), the rows of a ray
-// that hits.
+// that hits. tte (null: the kernel sweeps the triangles, bb staged in
+// shared memory) selects the kTriIn instance: the triangle segment's te,
+// row (R,) from mrt_tri_entry or, refracting, te, row, tx, xrow (R,) from
+// mrt_tri_entry_exit, with bb read from global memory.
 extern "C" int mrt_step_fwd(const float* tab, int P, int sph_start,
                             int sph_n, int pln_start, int pln_n,
                             int box_start, int box_n, const float* tri,
@@ -331,14 +466,16 @@ extern "C" int mrt_step_fwd(const float* tab, int P, int sph_start,
                             const int* maps, const float* atlas,
                             const int* tmeta, int slots, const float* c0,
                             const float* u8, int R, int refract, float* c1,
-                            float* hit, void* stream) {
+                            float* hit, const float* tte, const int* trow,
+                            const float* ttx, const int* txrow,
+                            void* stream) {
   (void)P;
   const Args a{tab,
                mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
                            box_n, tri_start, tri_n, n_cb, n_sb},
                tri, bb, sbb, lights, L, dk,
                mrt::Tex{maps, atlas, tmeta, slots}, c0, u8, R, c1, hit,
-               nullptr};
+               nullptr, mrt::TriIn{tte, trow, ttx, txrow}};
   return dispatch<false>(a, refract, static_cast<cudaStream_t>(stream));
 }
 
@@ -349,14 +486,15 @@ extern "C" int mrt_step_fwd_train(
     const float* lights, int L, float dk, const int* maps,
     const float* atlas, const int* tmeta, int slots, const float* c0,
     const float* u8, int R, int refract, float* c1, float* hit,
-    float* resid, void* stream) {
+    float* resid, const float* tte, const int* trow, const float* ttx,
+    const int* txrow, void* stream) {
   (void)P;
   const Args a{tab,
                mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
                            box_n, tri_start, tri_n, n_cb, n_sb},
                tri, bb, sbb, lights, L, dk,
                mrt::Tex{maps, atlas, tmeta, slots}, c0, u8, R, c1, hit,
-               resid};
+               resid, mrt::TriIn{tte, trow, ttx, txrow}};
   return dispatch<true>(a, refract, static_cast<cudaStream_t>(stream));
 }
 #endif  // __CUDACC__

@@ -64,7 +64,9 @@ TRI_COLS = 16
 _T_G, _T_H, _T_THR, _T_GID, _T_GS, _T_GE = 0, 9, 12, 13, 14, 15
 CB = 64                  # rows per cull block (the compiler's split leaf)
 BB_COLS = 8              # block AABB: lo (3), hi (3), padding (2)
-# shared-memory bound on the block AABBs the kernels stage: 256 * 32 B
+# shared-memory bound on the block AABBs the whole-trace, primary-hit and
+# per-step kernels stage: 256 * 32 B; past it the per-step path takes the
+# triangle segment's hits from csrc/tri.cu (ops/step.py route)
 MAX_TRI_BLOCKS = 256
 # a sphere segment of at least this many rows gets cull blocks
 # (pallas_hit3._DENSE_CULL_MIN), at most SPH_MAX_BLOCKS of them
@@ -731,9 +733,17 @@ def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
     return te, row, tx, xrow
 
 
-def check_cull_tables(layout, tri, tbb, sbb):
+def tri_blocks(n_tri: int) -> int:
+    """Cull blocks of a triangle segment of ``n_tri`` rows
+    (:func:`tri_tables`: none for one block or less)."""
+    return -(-n_tri // CB) if n_tri > CB else 0
+
+
+def check_cull_tables(layout, tri, tbb, sbb, max_tri_blocks=MAX_TRI_BLOCKS):
     """Validate the triangle tables and the cull blocks of a kernel
-    launch."""
+    launch; ``max_tri_blocks``: the most triangle cull blocks the kernel
+    stages (None: it stages none, the route's rule for the per-step
+    kernels)."""
     if sbb is not None:
         sph = sph_cull_rows(layout)
         if sph is None or layout[2]:
@@ -747,9 +757,9 @@ def check_cull_tables(layout, tri, tbb, sbb):
     if tbb is not None:
         n_cb = -(-layout[2] // CB)
         require_cuda_tensor("tbb", tbb, torch.float32, (n_cb, BB_COLS))
-        if n_cb > MAX_TRI_BLOCKS:
+        if max_tri_blocks is not None and n_cb > max_tri_blocks:
             raise ValueError(f"triangle segment: {n_cb} cull blocks exceed "
-                             f"the shared-memory bound of {MAX_TRI_BLOCKS}")
+                             f"the shared-memory bound of {max_tri_blocks}")
 
 
 def any_hit(tab, layout, o, d, tri=None, tbb=None, sbb=None):

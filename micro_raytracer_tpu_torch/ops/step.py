@@ -61,9 +61,15 @@ from a carry, with its residuals (a ray that is dead or misses passes its
 carry through; pwr decays on every lane); on the card :func:`step_fwd`
 (the render instance), or under a gradient :class:`StepFunction`
 (:func:`step_fwd_train`, then :func:`step_bwd`). Composed over the K
-steps it is the whole trace bit for bit. Both paths take at most
-``hit3.MAX_TRI_BLOCKS`` triangle cull blocks (16,384 triangles) and raise
-past them on the card. No path falls back to another.
+steps it is the whole trace bit for bit. A triangle segment of more than
+``hit3.MAX_TRI_BLOCKS`` cull blocks (a mesh of more than 16,384 triangles,
+more block AABBs than the kernels stage) takes the per-step path, where
+each step first sweeps the triangle segment alone (:func:`tri_hits`:
+``tri.tri_entry``, or ``tri.tri_entry_exit`` on a refractive scene, on
+the carry's rays) and the step then merges that hit with the dense rows
+(the kernels' kTriIn instances; :func:`merge_tri_hits` in the plain step),
+the JAX package's ``closest_hit_tri_pallas``. No path falls back to
+another.
 """
 
 from __future__ import annotations
@@ -76,12 +82,13 @@ import torch
 from ..models import schema
 from ..utils.kernels import (CudaKernel, ptr, require_cuda_tensor,
                              stream_ptr)
-from . import hit3, intersect, linalg, rng
+from . import hit3, intersect, linalg, rng, tri as tri_ops
 from .linalg import EPS
 
 # attribute columns of the row table after the sweep columns
 # (pallas_step._C_ALB.._C_EMI)
 _C_ALB, _C_RGH, _C_MET, _C_GLS, _C_OPA, _C_EMI = 18, 21, 22, 23, 24, 25
+_OMAP = schema.MaterialConfig.MAP_KEYS.index("omap")   # a slot of ``maps``
 ROW_COLS = 26
 LIGHT_COLS = 11
 MAX_LIGHTS = 4
@@ -172,10 +179,12 @@ BWD_KERNEL = CudaKernel(
 _STEP_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
               + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS
               + [_c_ptr, _c_ptr, _c_int, _c_int])
+# ... c1, hit (train: resid), the triangle segment's te, row, tx, xrow
+# (kTriIn; null otherwise), stream
 STEP_KERNEL = CudaKernel("step_fwd", "step_fwd.cu", _HEADERS, "mrt_step_fwd",
-                         _STEP_ARGS + [_c_ptr] * 3)
+                         _STEP_ARGS + [_c_ptr] * 7)
 STEP_TRAIN_KERNEL = CudaKernel("step_fwd_train", "step_fwd.cu", _HEADERS,
-                               "mrt_step_fwd_train", _STEP_ARGS + [_c_ptr] * 4)
+                               "mrt_step_fwd_train", _STEP_ARGS + [_c_ptr] * 8)
 STEP_BWD_KERNEL = CudaKernel(
     "step_bwd", "step_bwd.cu", _BWD_HEADERS, "mrt_step_bwd",
     [_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
@@ -231,17 +240,25 @@ def check_scene(scene) -> None:
 def route(scene, train: bool) -> str:
     """The path of a trace of ``scene`` (``train``: a gradient is
     wanted): ``"trace"``, the whole-trace kernels, for at most
-    :data:`MAX_LIGHTS` lights and at most :data:`MAX_ROWS` sphere, plane
-    and box rows (:data:`BWD_MAX_ROWS` in training); ``"steps"``, the
-    per-step path (:func:`trace_steps`), past either bound — exactly where
-    the whole-trace wrappers raise. The rule is the same on every device.
-    Both paths take at most ``hit3.MAX_TRI_BLOCKS`` triangle cull blocks,
-    16,384 triangles, and raise past them on the card."""
+    :data:`MAX_LIGHTS` lights, at most :data:`MAX_ROWS` sphere, plane and
+    box rows (:data:`BWD_MAX_ROWS` in training) and at most
+    ``hit3.MAX_TRI_BLOCKS`` triangle cull blocks (16,384 triangles);
+    ``"steps"``, the per-step path (:func:`trace_steps`), past any of them
+    — exactly where the whole-trace wrappers raise. The rule is the same
+    on every device."""
     n_dense = hit3.seg_layout(scene.kind_counts)[1]
     if scene.n_lights > MAX_LIGHTS or \
-            n_dense > (BWD_MAX_ROWS if train else MAX_ROWS):
+            n_dense > (BWD_MAX_ROWS if train else MAX_ROWS) or \
+            tri_split(scene.kind_counts[schema.KIND_TRIANGLE]):
         return "steps"
     return "trace"
+
+
+def tri_split(n_tri: int) -> bool:
+    """Whether a triangle segment of ``n_tri`` rows has more cull blocks
+    than the kernels stage (``hit3.MAX_TRI_BLOCKS``): the per-step path
+    then sweeps it on its own before each step (:func:`tri_hits`)."""
+    return hit3.tri_blocks(n_tri) > hit3.MAX_TRI_BLOCKS
 
 
 def pack_step(scene) -> TraceTables:
@@ -500,9 +517,12 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
                         seg)
 
 
-def _trace_plain(scene, tables, decay, oT, dT, u8s, want_resid, work, seg):
+def _trace_plain(scene, tables, decay, oT, dT, u8s, want_resid, work, seg,
+                 thit=None):
     """:func:`trace_plain` without its call count (the plain step runs
-    it too)."""
+    it too). ``thit``: the triangle segment's hits of a one-step segment
+    (:func:`tri_hits`), merged with the dense rows' sweep
+    (:func:`merge_tri_hits`) in place of the sweep over every row."""
     tab, lights, layout = tables.tab, tables.lights, tables.layout
     L, refract = scene.n_lights, scene.any_refract
     mode = primary_mode(scene)
@@ -526,10 +546,14 @@ def _trace_plain(scene, tables, decay, oT, dT, u8s, want_resid, work, seg):
     for k in range(seg.k0, seg.k1):
         u8 = u8s[k] if seg.rid is None else u8s[k][:, seg.rid]
         u, u_emit = unpack_uniforms(u8, refract)
-        te, row, tx, xrow = hit3.sweep_plain(tab, layout, o, d, mode,
-                                             tables.tri, tables.tbb,
-                                             tables.sbb)
-        if work is not None and k:
+        if thit is None:
+            te, row, tx, xrow = hit3.sweep_plain(tab, layout, o, d, mode,
+                                                 tables.tri, tables.tbb,
+                                                 tables.sbb)
+        else:
+            te, row, tx, xrow = merge_tri_hits(tab, layout, o, d, mode,
+                                               tables.sbb, thit)
+        if work is not None and k and thit is None:
             work["sweep"] += int(hit3.tri_rows_tested(
                 tab, layout, o, d, mode, tables.tri, tables.tbb)[live].sum())
             if tables.sbb is not None:
@@ -636,10 +660,66 @@ def primary_carry(oT, dT):
                       torch.zeros((3, R), dtype=oT.dtype, device=oT.device)])
 
 
+def tri_hits(scene, tables, c0, plain=False):
+    """The triangle segment's hits of the carry ``c0``'s live rays where
+    the step kernels do not sweep it (:func:`tri_split`), else None:
+    ``tri.tri_entry``'s ``(te, row)``, or on a refractive scene
+    ``tri.tri_entry_exit``'s ``(te, row, tx, xrow)`` with the group exit
+    swept only for winners on :func:`tri_refracts`' rows, triangle-local
+    rows, culled per ray with the segment's cull blocks (a dead lane
+    misses). ``plain``: the plain versions on any device, differentiable in
+    the triangle table and the carry (the plain step's); else the wrappers,
+    which launch the kernel on the card (no gradient: the step's backward
+    kernel transposes the winner's t)."""
+    layout = tables.layout
+    if not tri_split(layout[2]):
+        return None
+    args = (tables.tri, c0[0:3].T, c0[3:6].T)
+    if not plain:
+        args = tuple(t.detach() for t in args)
+    args += (tables.tbb, layout[3], c0[C_LIVE], plain)
+    if not scene.any_refract:
+        return tri_ops.TriEntry.apply(*args)
+    return tri_ops.TriEntryExit.apply(*args, tri_refracts(tables))
+
+
+def tri_refracts(tables):
+    """``(Pt,)`` float32, 1 on the triangle rows whose material can
+    refract: opacity below 1 or an opacity map. A step reads the group exit
+    only where the entry side refracts, which takes ``u < 1 - opacity``, so
+    a winner on any other row needs no exit."""
+    start, n = tables.layout[1], tables.layout[2]
+    with torch.no_grad():
+        can = tables.tab[start:start + n, _C_OPA] < 1.0
+        if tables.maps is not None:
+            can = can | (tables.maps[start:start + n, _OMAP] >= 0)
+        return can.to(torch.float32)
+
+
+def merge_tri_hits(tab, layout, o, d, mode, sbb, thit):
+    """``(te, row, tx, xrow)`` of the closest hit from the dense rows'
+    sweep and the triangle segment's hits ``thit`` (:func:`tri_hits`), by
+    the rule of the JAX package's ``closest_hit_tri_pallas``
+    (intersect.py:488-524): the triangles are the last segment, so they win
+    only with a t strictly below the dense rows' best, and then the exit is
+    theirs."""
+    dense = (layout[0], layout[1], 0, 0)
+    te, row, tx, xrow = hit3.sweep_plain(tab, dense, o, d, mode, sbb=sbb)
+    won = thit[0] < te
+    te = torch.where(won, thit[0], te)
+    row = torch.where(won, layout[1] + thit[1], row)
+    if mode != hit3.MODE_EXIT:
+        return te, row, te, row
+    tx = torch.where(won, thit[2], tx)
+    xrow = torch.where(won, layout[1] + thit[3], xrow)
+    return te, row, tx, xrow
+
+
 def _step_plain(scene, tables, decay, c0, u8, want_resid):
     """:func:`step_plain` without its call count."""
     out = _trace_plain(scene, tables, decay, c0[0:3], c0[3:6], u8[None],
-                       want_resid, None, Segment(0, 1, c0))
+                       want_resid, None, Segment(0, 1, c0),
+                       tri_hits(scene, tables, c0, plain=True))
     hit, c1 = out[2], out[3]
     # a ray that is dead or misses keeps its ray (the plain step moves it)
     c1 = torch.cat([torch.where(hit > 0.5, c1[:6], c0[:6]), c1[6:]])
@@ -678,10 +758,13 @@ def step_bwd_plain(scene, tables, decay, c0, u8, ct1):
 
 # --- kernel wrappers --------------------------------------------------------
 
-def _table_args(scene, tables, max_dense, what):
+def _table_args(scene, tables, max_dense, what,
+                max_tri_blocks=hit3.MAX_TRI_BLOCKS):
     """Validate the row, light and triangle tables of a launch (``max_dense``:
-    the kernel's bound on the dense rows, None for none); their leading C
-    arguments (the dense rows, the dense and triangle layouts)."""
+    the kernel's bound on the dense rows, None for none; ``max_tri_blocks``:
+    its bound on the triangle cull blocks, hit3.check_cull_tables); their
+    leading C arguments (the dense rows, the dense and triangle
+    layouts)."""
     tab, lights, layout = tables.tab, tables.lights, tables.layout
     P = tab.shape[0]
     require_cuda_tensor("table", tab, torch.float32, (P, ROW_COLS))
@@ -695,7 +778,8 @@ def _table_args(scene, tables, max_dense, what):
     if scene.has_maps and tables.sbb is not None:
         raise ValueError("sphere cull blocks for a textured scene "
                          "(hit3.sph_table)")
-    hit3.check_cull_tables(layout, tables.tri, tables.tbb, tables.sbb)
+    hit3.check_cull_tables(layout, tables.tri, tables.tbb, tables.sbb,
+                           max_tri_blocks)
     return [ptr(tab), n_dense,
             *hit3.table_args(layout, tables.tri, tables.tbb, tables.sbb),
             ptr(lights)]
@@ -865,21 +949,36 @@ def _step_args(scene, tables, decay, c0, u8):
     require_cuda_tensor("c0", c0, torch.float32, (CARRY_ROWS, R))
     require_cuda_tensor("u8", u8, torch.float32,
                         (n_uni(scene.any_refract), R))
-    tab_args = (_table_args(scene, tables, None, "step")
+    tab_args = (_table_args(scene, tables, None, "step", None)
                 + [L, float(decay), *_tex_args(scene, tables)])
     return tab_args, [ptr(c0), ptr(u8), R, int(scene.any_refract)]
+
+
+def _tri_in_args(scene, tables, c0):
+    """The kTriIn pointers of a step launch: on a scene past the staged
+    cull blocks the triangle segment's hits, launched here
+    (:func:`tri_hits`; te, row, tx, xrow, the last two null on an opaque
+    scene), else four nulls; and the tensors that must outlive the
+    launch."""
+    with torch.no_grad():
+        thit = tri_hits(scene, tables, c0) if c0.shape[1] else None
+    if thit is None:
+        return [None] * 4, ()
+    return [ptr(t) for t in thit] + [None] * (4 - len(thit)), thit
 
 
 def step_fwd(scene, tables, decay, c0, u8):
     """Launch ``mrt_step_fwd`` (the render instance) on CUDA tensors: one
     bounce step from the carry ``c0``; returns :func:`step_plain`'s
-    ``(c1, hit)``."""
+    ``(c1, hit)``. On a scene past the staged cull blocks the triangle
+    segment's hits (:func:`tri_hits` of ``c0``) are launched first."""
     tab_args, ray_args = _step_args(scene, tables, decay, c0, u8)
     R = c0.shape[1]
     c1 = torch.empty_like(c0)
     hit = torch.empty((1, R), dtype=torch.float32, device=c0.device)
+    tin, _keep = _tri_in_args(scene, tables, c0)
     if R:
-        STEP_KERNEL.launch(*tab_args, *ray_args, ptr(c1), ptr(hit),
+        STEP_KERNEL.launch(*tab_args, *ray_args, ptr(c1), ptr(hit), *tin,
                            stream_ptr(c0.device))
     return c1, hit
 
@@ -894,9 +993,10 @@ def step_fwd_train(scene, tables, decay, c0, u8):
     hit = torch.empty((1, R), dtype=torch.float32, device=c0.device)
     resid = torch.empty((scene_res_rows(scene, tables.layout), R),
                         dtype=torch.float32, device=c0.device)
+    tin, _keep = _tri_in_args(scene, tables, c0)
     if R:
         STEP_TRAIN_KERNEL.launch(*tab_args, *ray_args, ptr(c1), ptr(hit),
-                                 ptr(resid), stream_ptr(c0.device))
+                                 ptr(resid), *tin, stream_ptr(c0.device))
     return c1, hit, resid
 
 

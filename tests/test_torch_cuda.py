@@ -81,6 +81,8 @@ the exact value); the other rays' d_oT and d_dT, and the table
 cotangents summed over all rays, are held as above.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -93,8 +95,8 @@ from micro_raytracer_tpu_torch.ops import hit3, step
 from torch_inst_helpers import CAMERA as INST_CAMERA
 from torch_inst_helpers import inst_scene
 from torch_inst_helpers import render_json as inst_json
-from torch_mesh_helpers import (CLUSTERED_LIT, aimed_rays, mesh_scene,
-                                small_torus, two_tori)
+from torch_mesh_helpers import (CLUSTERED_LIT, aimed_rays, big_mesh,
+                                mesh_scene, small_torus, two_tori)
 from torch_port_helpers import (MIXED, MIXED_OPAQUE, TIES,  # noqa: F401
                                 cuda_device, outlier_rows, rays)
 from torch_tex_helpers import CAMERAS, max_flips, render_json, tex_scene
@@ -750,24 +752,101 @@ def test_steps_equal_whole_trace(name, cuda_device):
 
 
 @pytest.mark.cuda
-def test_route_refuses_past_256_triangle_blocks(cuda_device):
-    """A mesh past hit3.MAX_TRI_BLOCKS cull blocks (16,384 triangles) is
-    refused on the card by both routes, with 1 light and with 5."""
-    rng = np.random.default_rng(7)
-    tris = rng.uniform(-1, 1, (257 * 64, 3, 3)).astype(np.float32) * 0.05
-    for n_lights in (1, 5):
-        js = {"renderer": [{"type": "mesh", "mesh": tris.tolist(),
-                            "pos": [0, 1, 0]}],
-              "light": [{"type": "point", "pos": [0, -1, i]}
-                        for i in range(n_lights)]}
+@pytest.mark.parametrize("n_lights", [1, 5])
+def test_route_renders_and_trains_past_256_triangle_blocks(n_lights,
+                                                           cuda_device):
+    """A mesh past hit3.MAX_TRI_BLOCKS cull blocks (``big_mesh``: 16,448
+    rows, 257 blocks), diffuse, glass, and diffuse beside a glass sphere,
+    with 1 light and with 5: rows 6, 7 (also with the step's refracting
+    rows) and 8 (``csrc/tri.cu``) equal their plain versions bit for bit on
+    a carry with dead lanes; the render takes the per-step path, one
+    tri_entry (a refractive scene: tri_entry_exit) and one step_fwd launch
+    per step,
+    and matches the plain per-step trace (the trace tolerance above); a
+    gradient takes step_fwd_train and step_bwd per step, finite, with
+    non-zero cotangents of the mesh's instance positions."""
+    from micro_raytracer_tpu_torch.ops import tri
+
+    kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL,
+               step.STEP_KERNEL, step.STEP_TRAIN_KERNEL,
+               step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL,
+               tri.ENTRY_EXIT_KERNEL, tri.EXIT_KERNEL)
+    R, K = 1 << 12, 4
+    for glass, glass_sphere in ((False, False), (True, False),
+                                (False, True)):
+        js = big_mesh(glass, n_lights, glass_sphere)
         scene = compile_scene(schema.SceneConfig.from_json(js), cuda_device)
         tables = step.pack_step(scene)
-        o, d = (t.T.contiguous() for t in _rays(256, cuda_device))
-        u8s = torch.rand((2, 4, 256), device=cuda_device)
-        assert step.route(scene, False) == (
-            "trace" if n_lights == 1 else "steps")
-        with pytest.raises(ValueError, match="cull blocks exceed"):
-            step.trace_packed(scene, tables, 0.85, o, d, u8s)
+        assert tables.tbb.shape[0] == 257
+        assert step.route(scene, False) == step.route(scene, True) == "steps"
+        o, d = aimed_rays(compile_scene(schema.SceneConfig.from_json(js),
+                                        "cpu"), R, 3)
+        oT = torch.from_numpy(o.T.copy()).to(cuda_device)
+        dT = torch.from_numpy(d.T.copy()).to(cuda_device)
+        c = step.primary_carry(oT, dT)
+        c[step.C_LIVE, ::10] = 0.0
+        args = (tables.tri.detach(), c[0:3].T, c[3:6].T)
+        n = tables.layout[3]
+        te, row = tri.tri_entry(*args, tables.tbb, n, c[step.C_LIVE])
+        want = tri.entry_plain(*args, tables.tbb, n, c[step.C_LIVE])
+        assert torch.equal(te, want[0]) and torch.equal(row, want[1])
+        assert int((te < tri.BIG * 0.5).sum()) > R // 4
+        ee = tri.tri_entry_exit(*args, tables.tbb, n, c[step.C_LIVE])
+        want = tri.entry_exit_plain(*args, tables.tbb, n, c[step.C_LIVE])
+        for g, w in zip(ee, want):
+            assert torch.equal(g, w)
+        refr = step.tri_refracts(tables)
+        got = tri.tri_entry_exit(*args, tables.tbb, n, c[step.C_LIVE],
+                                 refr=refr)
+        want = tri.entry_exit_plain(*args, tables.tbb, n, c[step.C_LIVE],
+                                    refr=refr)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        wg = torch.where(te < tri.BIG * 0.5,
+                         tables.tri[row.long(), hit3._T_GID].detach(), -5.0)
+        gx = tri.tri_group_exit(*args, wg.contiguous(), n, c[step.C_LIVE])
+        want = tri.group_exit_plain(*args, wg, n, c[step.C_LIVE])
+        for g, w in zip(gx, want):
+            assert torch.equal(g, w)
+        won = te < tri.BIG * 0.5
+        assert torch.equal(gx[0][won], ee[2][won])
+        assert torch.equal(gx[1][won], ee[3][won])
+        # the render: the per-step path through the kernels
+        u8s = torch.rand((K, step.n_uni(scene.any_refract), R),
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(4), device=cuda_device)
+        for k in kernels:
+            k.launches = k.plain_calls = 0
+        with torch.no_grad():
+            A, B, fl = step.trace_packed(scene, tables, 0.85, oT, dT, u8s)
+        sweep = tri.ENTRY_EXIT_KERNEL if scene.any_refract \
+            else tri.ENTRY_KERNEL
+        want_l = {k.name: 0 for k in kernels}
+        want_l.update({sweep.name: K, step.STEP_KERNEL.name: K})
+        assert {k.name: k.launches for k in kernels} == want_l
+        assert not any(k.plain_calls for k in kernels)
+        cp = step.primary_carry(oT, dT)
+        for k in range(K):
+            cp, hit_p = step.step_plain(scene, tables, 0.85, cp, u8s[k])
+            fl_p = hit_p if k == 0 else fl_p
+        assert torch.equal(fl, fl_p)
+        _off_path(A, B, cp[8:11], cp[11:14])
+        # training: the step's train instance and backward
+        for k in kernels:
+            k.launches = k.plain_calls = 0
+        pos = scene.inst_pos.detach().clone().requires_grad_(True)
+        s2 = dataclasses.replace(scene, inst_pos=pos)
+        t2 = step.pack_step(s2)
+        A, B, _fl = step.trace_packed(s2, t2, 0.85, oT, dT, u8s)
+        (A.sum() + B.sum()).backward()
+        want_l = {k.name: 0 for k in kernels}
+        want_l.update({sweep.name: K, step.STEP_TRAIN_KERNEL.name: K,
+                       step.STEP_BWD_KERNEL.name: K})
+        assert {k.name: k.launches for k in kernels} == want_l
+        g = pos.grad
+        s = scene.seg(schema.KIND_TRIANGLE)
+        assert bool(torch.isfinite(g).all())
+        assert float(g[s].abs().max()) > 0
 
 
 @pytest.mark.cuda

@@ -146,3 +146,31 @@ def aimed_rays(scene, n, seed):
     d = b[:, :3] + rng.random((n, 3)) * (b[:, 3:6] - b[:, :3]) - o
     return o, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
         np.float32)
+
+
+def big_tris(n=8224, seed=5):
+    """``n`` small random triangles (edges ~0.06: their cross products pass
+    the reference's |det| >= 1e-4 window) with centres in a 0.8-wide
+    cube."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-0.4, 0.4, (n, 1, 3))
+    return (c + rng.uniform(-0.04, 0.04, (n, 3, 3))).astype(np.float32)
+
+
+def big_mesh(glass=False, n_lights=1, glass_sphere=False):
+    """A mesh past hit3.MAX_TRI_BLOCKS: :func:`big_tris` instanced twice
+    (two groups, 16,448 rows in 257 cull blocks), diffuse or glass, beside
+    a metal sphere (``glass_sphere``: a glass one) over a plane, under
+    ``n_lights`` point lights."""
+    mat = {"opacity": 0.0, "glass": 0.1} if glass else {"rough": 0.5}
+    sphere_mat = {"opacity": 0.0, "glass": 0.1} if glass_sphere \
+        else {"metal": 1, "rough": 0.2}
+    return {"renderer": [
+        {"type": "mesh", "mesh": big_tris().tolist(), "mat": mat,
+         "inst": [[[-0.3, 0.6, 0.0], [0, 0, -1, 0]],
+                  [[0.35, 0.9, 0.2], [0, 0.3, 0.9, 0.2]]]},
+        {"type": "sphere", "r": 0.25, "pos": [0.6, 0.2, -0.1],
+         "mat": sphere_mat},
+        {"type": "plane", "n": [0, 0, 1], "pos": [0, 0, -0.6]},
+    ], "light": [{"type": "point", "pos": [0.2 * i - 0.4, -1, 1.5],
+                  "pwr": 0.6} for i in range(n_lights)]}

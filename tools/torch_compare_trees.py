@@ -8,18 +8,21 @@ then every output compared.
     python3 tools/torch_compare_trees.py time <tree> <tag>
 
 ``dump`` imports the package and ``chip_smoke.py`` of ``<tree>`` and runs,
-on the slice room, the two mesh scenes and the two textured stand-ins of
-``chip_smoke.py``, 2^18 camera rays (seed 31) through the primary-hit pass,
-both instances of the trace kernel and the backward kernel, and saves every
-output. ``compare``
+on the slice room, the two mesh scenes, the two textured and the
+Instance-class stand-ins of ``chip_smoke.py``, 2^18 camera rays (seed 31)
+through the primary-hit pass, both instances of the trace kernel and the
+backward kernel, and on its per-step stand-ins (where it has them) one step
+of both instances of the step kernel from the primaries, a second step,
+and the step's backward; it saves every output (a step's residuals on the
+rays that hit, the rest unwritten). ``compare``
 holds two dumps equal: every per-ray output bit for bit, the table
 cotangents (shared-memory and atomic sums in no fixed order) within rtol
 1e-5 and 1e-6 of the largest magnitude. It exits 1 when they differ.
 ``time`` builds ``<tree>``'s kernels and prints ``<tag>`` and one JSON
 object: the CUDA-event ms of each kernel (``chip_smoke.cuda_ms``) at the
 full frame of each scene that tree's ``chip_smoke.py`` has (the room, the
-mesh scenes and, where present, the textured and Instance-class
-stand-ins). Run the trees
+mesh scenes and, where present, the textured, Instance-class and per-step
+stand-ins; the step kernels at step 0). Run the trees
 interleaved in one call (parent, change, change, parent) to compare them.
 """
 
@@ -30,6 +33,8 @@ import sys
 NAMES = ("te0", "row0", "tx0", "xrow0", "A", "B", "first_live", "A_train",
          "B_train", "first_live_train", "resid", "n_live", "d_oT", "d_dT",
          "d_tab", "d_lights", "d_tri")
+STEP_OUTS = ("c1", "hit", "c1_train", "hit_train", "resid", "c2", "d_tab",
+             "d_lights", "d_c0", "d_tri")
 SUMS = ("d_tab", "d_lights", "d_tri")
 
 
@@ -47,7 +52,8 @@ def dump(tree, out):
 
     dev = torch.device("cuda")
     res = {}
-    for name in ("room", "mesh_glass", "mesh_opaque", *cs.TEX_NAMES):
+    for name in ("room", "mesh_glass", "mesh_opaque", *cs.TEX_NAMES,
+                 *getattr(cs, "INST_NAMES", ())):
         cfg = _config(cs, name)
         scene = compile_scene(cfg.scene, dev)
         tables = step.pack_step(scene)
@@ -65,8 +71,27 @@ def dump(tree, out):
                     for _ in range(2))
         g = step.trace_bwd(scene, tables, decay, u8s, train[3], train[4],
                            ctA, ctB)
-        res[name] = [t.cpu() for t in (*hit0, *fwd, *train, g[2], g[3], g[0],
-                                       g[1], g[4])]
+        res[name] = dict(zip(NAMES, [t.cpu() for t in (
+            *hit0, *fwd, *train, g[2], g[3], g[0], g[1], g[4])]))
+    for name in getattr(cs, "STEP_NAMES", ()):
+        cfg = cs.step_config(name)
+        scene = compile_scene(cfg.scene, dev)
+        tables = step.pack_step(scene)
+        decay = tracer.decay_of(cfg.rt.loss)
+        gen = torch.Generator(device=dev).manual_seed(31)
+        o, d = cs.camera_rays(compile_camera(cfg.frame.cam, dev), 1 << 18,
+                              gen, dev)
+        c0 = step.primary_carry(o.T.contiguous(), d.T.contiguous())
+        u8 = torch.rand((step.n_uni(scene.any_refract), c0.shape[1]),
+                        generator=gen, device=dev)
+        c1, hit = step.step_fwd(scene, tables, decay, c0, u8)
+        c1t, hitt, resid = step.step_fwd_train(scene, tables, decay, c0, u8)
+        c2 = step.step_fwd(scene, tables, decay, c1, u8)[0]
+        ct1 = torch.randn(c0.shape, generator=gen, device=dev)
+        g = step.step_bwd(scene, tables, decay, c0, u8, resid, hitt, ct1)
+        res[name] = dict(zip(STEP_OUTS, [t.cpu() for t in (
+            c1, hit, c1t, hitt, resid[:, hitt[0] > 0.5], c2, g[0], g[1],
+            g[2], g[3])]))
     torch.save(res, out)
 
 
@@ -95,7 +120,7 @@ def time_tree(tree, tag):
     cs.phase_build()
     names = ["room", *cs.MESH_NAMES, *getattr(cs, "TEX_NAMES", ()),
              *getattr(cs, "INST_NAMES", ())]
-    out = {}
+    out = _time_steps(cs, dev)
     for name in names:
         cfg = _config(cs, name)
         scene = compile_scene(cfg.scene, dev)
@@ -123,13 +148,45 @@ def time_tree(tree, tag):
     print(tag, json.dumps(out), flush=True)
 
 
+def _time_steps(cs, dev):
+    """The step kernels' ms at step 0 of the frame of each per-step
+    stand-in of the tree's chip_smoke.py."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.compiler import compile_scene
+    from micro_raytracer_tpu_torch.ops import step
+
+    out = {}
+    for name in getattr(cs, "STEP_NAMES", ()):
+        cfg = cs.step_config(name)
+        scene = compile_scene(cfg.scene, dev)
+        tables = step.pack_step(scene)
+        decay = tracer.decay_of(cfg.rt.loss)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        c0 = step.primary_carry(*cs.main_path_rays(cfg, gen, dev))
+        u8 = torch.rand((step.n_uni(scene.any_refract), c0.shape[1]),
+                        generator=gen, device=dev)
+        _c1, hit, resid = step.step_fwd_train(scene, tables, decay, c0, u8)
+        ct1 = torch.randn(c0.shape, generator=gen, device=dev)
+        out[name] = {
+            "step_fwd": cs.cuda_ms(lambda: step.step_fwd(
+                scene, tables, decay, c0, u8), 10),
+            "step_fwd_train": cs.cuda_ms(lambda: step.step_fwd_train(
+                scene, tables, decay, c0, u8), 10),
+            "step_bwd": cs.cuda_ms(lambda: step.step_bwd(
+                scene, tables, decay, c0, u8, resid, hit, ct1), 10)}
+    return out
+
+
 def compare(a_path, b_path):
     import torch
 
     a, b = torch.load(a_path), torch.load(b_path)
     same = True
     for scene in a:
-        for name, x, y in zip(NAMES, a[scene], b[scene]):
+        for name in a[scene]:
+            x, y = a[scene][name], b[scene][name]
             if name in SUMS:
                 scale = float(y.abs().max()) if y.numel() else 0.0
                 ok = torch.allclose(x, y, rtol=1e-5,
