@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                # from the repository root
     python3 chip_smoke.py --render-only  # phase 1 and the render timing
+    python3 chip_smoke.py --train-only   # phases 1-2 and phase 8 alone
     python3 chip_smoke.py --compaction   # renders with and without
                                          # live-first compaction
     python3 chip_smoke.py --big          # phases 22-24 alone
@@ -64,8 +65,11 @@ Phases, each of which raises on failure:
    counters at one ``closest_hit``, ``trace_fwd_train`` and ``trace_bwd``
    per step and no plain version. It prints the seconds per step, fwd+bwd
    rays/s and peak device memory, then profiles one more step from the
-   starting parameters for the device's busy share, its operation count
+   starting parameters for the device's busy time (over that step's wall:
+   the busy share; and over the timed steps' mean), its operation count
    and its kernel times.
+   ``--train-only`` runs phases 1, 2 and this one; beside another tree's
+   package it times that tree's training step the same way.
 9. mesh kernels: the two mesh scenes (the slice room with the glass sphere
    replaced by a 960-triangle torus: ``mesh_glass``, glass, whose sweeps
    take the group exit, and ``mesh_opaque``, diffuse, whose entry sweeps
@@ -126,9 +130,10 @@ Phases, each of which raises on failure:
    trace (phase 4's rule), the train instance (bit for bit the render
    instance; residuals against ``trace_plain(want_resid=True)``) and the
    backward (phase 9's rule) on ``inst_grid``, on camera rays and at the
-   frame; the render compacted at steps 2, 4 and 6 against the unsegmented
-   one, bit for bit (as phases 9 and 12 do for each scene whose render
-   compacts). Timed and bounded at the frame; the sphere rows the
+   frame; the render compacted at steps 2, 4 and 6 (the JAX package's
+   cuts; the port renders this opaque grid whole) against the unsegmented
+   one, bit for bit, as phases 9 and 12 do for each scene whose render
+   compacts. Timed and bounded at the frame; the sphere rows the
    cull leaves come from the plain version (``hit3.sph_rows_tested``,
    ``trace_plain(work=...)``), the block slab tests are not counted.
 16. Instance-class main path: the CLI renders ``inst_grid`` from a JSON
@@ -204,9 +209,10 @@ Phases, each of which raises on failure:
    tri_entry, step_fwd_train and step_bwd BOUNCE + 1 times per step,
    finite gradients, non-zero on the torus rows.
 
-``--compaction`` renders ``inst_grid``, ``mesh_opaque`` and ``mesh_glass``
-through the CLI with the JAX package's compaction cuts and without, in
-alternating order, for the medians that set ``tracer.compact_cuts``.
+``--compaction`` renders ``inst_grid``, ``inst_glass``, ``mesh_opaque``
+and ``mesh_glass`` through the CLI with the JAX package's compaction cuts
+and without, in alternating order, for the medians that set
+``tracer.compact_cuts``.
 
 Every kernel's entry in the JSON line carries its bound: the larger of the
 bytes it must move (inputs read once, outputs written once) over 3.35 TB/s
@@ -224,7 +230,10 @@ operations (``TEX_SIDE_OPS`` and the texture constants below). Where the
 main path renders in segments, a render entry's ``ms`` is the segments'
 summed kernel time (``segment_ms``), with the unsegmented instance's time
 beside it (``unsegmented_ms``); its bound is that of the whole trace, the
-same function of the same inputs.
+same function of the same inputs. The whole-trace kernels' entries of the
+room and of ``inst_grid`` (rows 1, 1t and 3) also carry the registers and
+spilled bytes per thread ``nvcc`` gave their instance and the warps per SM
+the card keeps resident of it (``step.instance_resources``).
 
 It prints a JSON line of per-kernel results and the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -1827,14 +1836,28 @@ def phase_train_kernels(cfg, results):
     log(f"trace_bwd {RES * RES} rays: kernel {ms_b:.3f} ms, plain "
         f"{plain_b:.3f} ms, bound {fmt_bound(work['trace_bwd'])}")
     log(f"trace_fwd bound {fmt_bound(work['trace_fwd'])}")
-    results["trace_fwd"].update(work["trace_fwd"])
+    use = resources(scene, tables)
+    results["trace_fwd"].update(work["trace_fwd"], **use["trace_fwd"])
     results["trace_fwd_train"] = {"max_abs_err": max(errs_f), "ms": ms_f,
                                   "plain_ms": plain_f,
                                   **work["trace_fwd_train"],
-                                  "library_ms": None}
+                                  "library_ms": None,
+                                  **use["trace_fwd_train"]}
     results["trace_bwd"] = {"max_abs_err": max(errs_b), "ms": ms_b,
                             "plain_ms": plain_b, **work["trace_bwd"],
-                            "library_ms": None}
+                            "library_ms": None, **use["trace_bwd"]}
+
+
+def resources(scene, tables, name="room"):
+    """Registers, spilled bytes and resident warps per SM of the render,
+    train and backward instances of the whole trace on this scene
+    (``step.instance_resources``), logged."""
+    from micro_raytracer_tpu_torch.ops import step
+
+    use = {w: step.instance_resources(scene, tables, w)
+           for w in ("trace_fwd", "trace_fwd_train", "trace_bwd")}
+    log(f"{name} instances: {json.dumps(use)}")
+    return use
 
 
 def _busy_share(step_fn):
@@ -2017,14 +2040,22 @@ def phase_train(cfg, card, counts, name="slice room", moved=None,
         lambda: ts.step(start, scene, cam, loss_cfg, coords, target, gen))
     if not np.isfinite(float(loss)):
         raise AssertionError(f"profiled training step: loss {float(loss)}")
+    # the busy share is of the profiled step's wall; the profiler slows
+    # the host (a host-bound step's wall grows 2-3x under it) and lengthens
+    # kernels a little, so the busy time is also given over the timed
+    # steps' mean, an estimate that can pass 1 on a device-bound step
     log(f"{name} training profile, one step from the starting parameters: "
-        f"wall {wall:.4f} s, device busy {busy:.4f} s = {busy / wall:.3f} of "
-        f"the step, {n_ops} device operations (kernels, copies, fills)")
+        f"wall {wall:.4f} s under the profiler, device busy {busy:.4f} s = "
+        f"{busy / wall:.3f} of that wall ({busy / step_s:.3f} of an "
+        f"unprofiled step, {step_s:.4f} s), {n_ops} device operations "
+        f"(kernels, copies, fills)")
     for kname, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
         log(f"  {t * 1e3:9.3f} ms  {kname[:90]}")
     return {"step_s": step_s, "steps_s": secs,
             "fwd_bwd_rays_per_s": rays / step_s, "peak_bytes": peak,
-            "busy_share": busy / wall, "lr": lr, "losses": losses}
+            "busy_share": busy / wall, "busy_s": busy,
+            "profiled_wall_s": wall, "busy_of_step": busy / step_s,
+            "lr": lr, "losses": losses}
 def torus(n_major=30, n_minor=16, R=0.16, r=0.06, tilt=TORUS_TILT):
     """(2 * n_major * n_minor, 3, 3) vertices of a closed torus in object
     space (the formula of tests/torch_mesh_helpers.py)."""
@@ -2552,17 +2583,22 @@ def phase_inst_kernels(results):
                                               u8s, hit0), 2)
     plain_ms = cuda_ms(lambda: plain_trace(scene, tables, decay, oT, dT,
                                            u8s), 1)
-    # the compacted render against the unsegmented one (radiance bit for
-    # bit) and the segments' kernel time; then both renders timed from the
+    # where the main path compacts, the compacted render against the
+    # unsegmented one and the segments' kernel time (none: inst_grid
+    # renders whole); then the render compacted at the JAX package's cuts
+    # against the whole one, radiance bit for bit, both timed from the
     # primaries
     seg = check_segmented(name, scene, tables, decay, cfg.rt.loss, oT, dT,
                           u8s, hit0, ms)
-    cuts = seg["cuts"]
+    cuts = tracer.jax_cuts(scene, BOUNCE + 1)
 
     def render(c):
         return tracer.trace_fused(scene, tables, BOUNCE, oT.T, dT.T,
                                   cfg.rt.loss, u8s, cuts=c)
 
+    if not torch.equal(render([]), render(cuts)):
+        raise AssertionError(f"{name}: the render compacted at {cuts} "
+                             f"differs from the whole one")
     ms_flat, ms_split = cuda_ms(lambda: render([]), 3), \
         cuda_ms(lambda: render(cuts), 3)
     log(f"{name} render of {RES * RES} rays x {BOUNCE + 1} steps: "
@@ -2604,15 +2640,17 @@ def phase_inst_kernels(results):
         f"{plain_t:.3f} ms, bound {fmt_bound(bw['trace_fwd_train'])}; "
         f"trace_bwd: kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms, bound "
         f"{fmt_bound(bw['trace_bwd'])}")
+    use = resources(scene, tables, name)
     results[f"trace_fwd/{name}"] = {
         "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
-        **bw["trace_fwd"], "library_ms": None, **seg}
+        **bw["trace_fwd"], "library_ms": None, **seg, **use["trace_fwd"]}
     results[f"trace_fwd_train/{name}"] = {
         "max_abs_err": max(errs_t), "ms": ms_t, "plain_ms": plain_t,
-        **bw["trace_fwd_train"], "library_ms": None}
+        **bw["trace_fwd_train"], "library_ms": None,
+        **use["trace_fwd_train"]}
     results[f"trace_bwd/{name}"] = {
         "max_abs_err": max(errs_b), "ms": ms_b, "plain_ms": plain_b,
-        **bw["trace_bwd"], "library_ms": None}
+        **bw["trace_bwd"], "library_ms": None, **use["trace_bwd"]}
     results["sph_rows/inst_grid"] = {
         "dense_closest_hit_ms": dense_hit, "dense_trace_fwd_ms": dense_ms,
         "closest_hit_per_ray": sph,
@@ -3938,8 +3976,9 @@ def inst3k_chaos():
 
 def compaction_ab(card, pairs=5):
     """``--compaction``: the CLI's render loop of ``inst_grid``,
-    ``mesh_opaque`` and ``mesh_glass`` (1080x1080, bounce 8, 16 spp) with
-    the JAX package's compaction cuts and without, in alternating order
+    ``inst_glass``, ``mesh_opaque`` and ``mesh_glass`` (1080x1080, bounce
+    8, 16 spp) with the JAX package's compaction cuts (steps 2, 4, 6 on a
+    culled sphere grid, 3, 6 on a mesh) and without, in alternating order
     (off, on, on, off, ...) after one warm-up render of each: the median
     and range of rays/s of each side. The cuts are set by replacing
     ``tracer.compact_cuts`` in this process."""
@@ -3948,21 +3987,21 @@ def compaction_ab(card, pairs=5):
     from micro_raytracer_tpu_torch.models import tracer
 
     rule = tracer.compact_cuts
-    jax_rule = tracer.jax_cuts
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ab_")
     out_res = {}
     try:
-        for name in ("inst_grid", "mesh_opaque", "mesh_glass"):
+        for name in ("inst_grid", "inst_glass", "mesh_opaque", "mesh_glass"):
             cfg = inst_json(name) if name.startswith("inst") \
                 else mesh_config(name).to_json()
+            cuts = [2, 4, 6] if name.startswith("inst") else [3, 6]
             path = write_json(os.path.join(tmp, f"{name}.json"), cfg)
             out = os.path.join(tmp, f"{name}.png")
             loops = {"off": [], "on": []}
 
             def run(side):
                 tracer.compact_cuts = (
-                    (lambda scene, steps, inference: jax_rule(scene, steps)
-                     if inference else [])
+                    (lambda scene, steps, inference:
+                     [c for c in cuts if c < steps] if inference else [])
                     if side == "on" else
                     (lambda scene, steps, inference: []))
                 return render_cli(out, [path])[0]
@@ -4015,6 +4054,11 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if sys.argv[1:] == ["--render-only"]:
         print(json.dumps({"render": render_only(card)}))
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--train-only"]:
+        phase_build()
+        print(json.dumps({"train": phase_train(slice_config(), card, {})}))
         print(card)
         return 0
     if sys.argv[1:] == ["--compaction"]:

@@ -19,8 +19,8 @@
 // Lights: any number; a light's occlusion bit is read from its residual
 // row when its term is transposed and its cotangent row (11 floats) goes
 // straight to the block's accumulator, so no per-light state is kept
-// (step_bwd_any below; the whole trace's step_bwd holds kMaxLights rows in
-// registers, and sharing its light loop moved the whole-trace backward's
+// (step_bwd_any below; the whole trace's step_bwd unrolls its light loop
+// to kMaxLights, and sharing this loop moved the whole-trace backward's
 // registers: 168 to 182 on mesh_opaque, 29% slower).
 //
 // Row cotangents: accumulated in the kernel, not scattered after it. The
@@ -28,10 +28,9 @@
 // of shared memory (ops/step.py _step_shared_rows: about 540 rows with 8
 // lights), add into per-block accumulators with shared atomics; each block
 // writes its partial sums, and a second kernel adds them in block order
-// (trace_bwd.cu's scheme, whose 1,024-row bound this kernel does not
-// have). Past that, the dense rows add into d_tab with global atomics, as
-// triangle rows always do: a table that large spreads its hits over many
-// rows. Every row keeps its own cotangent. On the H100 the shared rows
+// (no row bound). Past that, the dense rows add into d_tab with global
+// atomics, as triangle rows always do: a table that large spreads its hits
+// over many rows. Every row keeps its own cotangent. On the H100 the shared rows
 // take 5.7 ms for the nine launches of a lights8 training step (7 hot
 // rows), global atomics on the same rows 10.5 (chip_smoke.py
 // --step-diagnosis).

@@ -19,15 +19,16 @@
 // dHTg, l.3579-3594 and 3686-3694). The one-hot MXU fetch and scatter of
 // the Pallas kernel become an exact row read and per-row accumulation.
 //
-// One thread per ray walks its steps from the last live one (the ray's
-// n_live) down to 0, carrying the cotangents of o, d and A in registers;
-// the cotangent of B is the trace output's ctB at every step (B is never
-// saved: it enters only additively). pwr = dk^k is recomputed. Each step
-// recomputes its primal values at the selected hit (entry, or exit when the
-// refract branch was chosen) from the residuals o, d, A, te, tx, the winner
-// row, the saved choice and the occlusion bits — no sweep — and then
-// transposes the fold, the direct light, the sampled direction, the
-// material reads, the hit point and normal, and the winner t.
+// Each ray walks its steps from the last live one (the ray's n_live) down
+// to 0, carrying the cotangents of o, d and A; the cotangent of B is the
+// trace output's ctB at every step (B is never saved: it enters only
+// additively). pwr = dk^k is recomputed. Each step recomputes its primal
+// values at the selected hit (entry, or exit when the refract branch was
+// chosen) from the residuals o, d, A, te, tx, the winner row, the saved
+// choice and the occlusion bits — no sweep — and then transposes the fold,
+// the direct light, the sampled direction, the material reads, the hit
+// point and normal, and the winner t (ray_step_bwd, one step;
+// trace_ray_bwd, a ray's whole walk).
 //
 // Textures (kTex; pallas_step.py _tex_base_bwd l.2564 as used by
 // _step_comp_bwd l.2837, 2865 and _step_comp_bwd_same l.2920, the saved
@@ -43,31 +44,46 @@
 // Cotangents of the row table (its 22 differentiable columns: frame,
 // position, plane normal / box sizes / raw normal, radius, albedo, rough,
 // metal, glass; valid, group id, opacity and emit get none) and of the
-// light table: for the dense rows (spheres, planes, boxes) and the lights
-// they accumulate per block in shared memory; each block writes its
-// partial sums, and a second kernel adds the partials in block order. The
-// dense rows hit are few (a room is a dozen rows), so per-ray global
-// atomics would serialise on them; shared atomics serialise only within a
-// block. Triangle rows (and their (Pt, 4) Woop cotangents) add with global
-// atomics straight into d_tab / d_tri: a mesh's hits spread over hundreds
-// of rows, so the atomics rarely meet, and a shared accumulator of every
-// row would not fit beside the dense rows. Every row keeps its own
-// cotangent (none is folded onto a group's first row).
+// light table. Every row keeps its own cotangent (none is folded onto a
+// group's first row).
 //
-// Run to run: d_o and d_d are per ray and bitwise repeatable. d_tab,
-// d_lights and d_tri are not: the order in which a block's threads add into
-// shared memory, and the order of the global atomics on triangle rows,
-// vary, so those sums vary at float32 rounding level (the cross-block sum
-// of the dense partials is in fixed order). The card test bounds the
-// difference of two runs.
+// The kernel. A warp takes 32 rays and walks k from its longest ray's
+// last live step down, one step at a time for all its lanes; a lane whose
+// ray has no step k sits that step out (the longest lane set the warp's
+// pace before too). So at each k the warp's lanes hold one step each, and
+// their row cotangents are scattered together (warp_rows): lanes that
+// share a row with enough others (kAggShared, kAggGlobal) are summed
+// across the warp first (a reduce-scatter over 31 shuffles that leaves
+// column g's sum on lane g) and added once per nonzero column; the other
+// lanes add their own nonzero columns. A dense room puts most of a warp on
+// one to three rows, where per-lane adds on one address serialise 32 ways
+// (the parent design's shared float atomics: 7.97 ms of the room's frame,
+// 1.45 with those adds made racy plain adds; tools/torch_compare_trees.py
+// ablate). The dense rows accumulate in float64, per block in shared
+// memory while they and the lane slots fit kSharedBytes, else (the
+// Instance grid's 1,008 rows) straight into the global float64 sums;
+// triangle rows (and their (Pt, 4) Woop cotangents) go to d_tab and d_tri
+// lane by lane with float atomics: a mesh's hits spread over hundreds of
+// rows. Each visible light's cotangent row goes, as soon as its term is
+// transposed, into the lane's own float64 slots in shared memory (plain
+// adds, no atomics), so no light's row is held in registers. Blocks
+// persist (as many as fit on the card, warps striding over the rays) and
+// add their shared sums into the global float64 sums once, at the end; a
+// second kernel writes them to d_tab's dense rows and d_lights.
+//
+// Run to run: d_o and d_d are per ray and bitwise repeatable, and equal
+// the per-ray walk's (trace_ray_bwd) bit for bit. The table cotangents
+// are float64 sums of float32 terms (a warp's row sums are float32) in an
+// order that varies, rounded to float32 once; triangle rows are float32
+// atomic sums. The card test bounds the difference of two runs.
 //
 // What bounds it on the H100: bytes. A live step reads 4*CR bytes of
-// residuals (res_rows_all) and 4*NU of uniforms and does a few hundred float ops without
-// a sweep; the dense rows, the lights and their accumulators live in
-// shared memory: P*(26 + 22)*4 bytes, so step.BWD_MAX_ROWS = 1024 dense
-// rows (192 KB); triangle rows are read from global memory (no bound).
-// Blocks of 128 threads loop over rays (grid-stride) so that the partials
-// stay at most 1024 blocks deep.
+// residuals (res_rows_all) and 4*NU of uniforms and does a few hundred
+// float ops without a sweep. The winner rows are read from global memory
+// through L1 (a table of a dozen rows stays there; step.BWD_MAX_ROWS =
+// 1024 dense rows is 104 KB); the lights are staged in shared memory.
+// Registers: __launch_bounds__(kThreads, kMinBlocks) holds a thread to
+// 128, so that 16 warps fit on an SM.
 //
 // Numerics: float32, -fmad=false; every division and sqrt is guarded
 // before the op, so that no NaN reaches a cotangent through an unselected
@@ -81,9 +97,62 @@
 
 namespace mrt {
 
-// One ray's whole backward. `s_tab` holds the dense rows, `g_tab` the whole
-// row table. `acc` adds into the row, triangle and light accumulators:
-// acc.row(row, d_at), acc.tri(local row, d_gh) and acc.light(d_lt).
+// Step k of ray i transposed: the step's residuals and uniforms read,
+// pwr = dk^k recomputed, step_bwd run at the chosen side. Returns the
+// chosen row; d_at and d_gh (zeroed by the caller) take its cotangents,
+// lacc.light(li, row) each visible light's. `s_tab` holds the dense rows,
+// `g_tab` the whole row table.
+template <bool kRefract, bool kTri, bool kTex, class LightAcc>
+__device__ __forceinline__ int ray_step_bwd(
+    const float* s_tab, const float* g_tab, const Tris& T, const Layout& lay,
+    const float* s_lt, int L, float dk, const Tex& tex, int i, int R,
+    const float* __restrict__ resid, int k, const float* __restrict__ u8s,
+    V3 ctB, V3& ct_o, V3& ct_d, V3& ct_A, float* d_at, float* d_gh,
+    LightAcc& lacc) {
+  constexpr int NU = kRefract ? 8 : 4;
+  const int CR = res_rows_all<kRefract, kTri, kTex>(L, tex.slots);
+  const float* r = resid + static_cast<size_t>(k) * CR * R + i;
+  const V3 o = v3(r[(R_O + 0) * R], r[(R_O + 1) * R], r[(R_O + 2) * R]);
+  const V3 d = v3(r[(R_D + 0) * R], r[(R_D + 1) * R], r[(R_D + 2) * R]);
+  const V3 A = v3(r[(R_A + 0) * R], r[(R_A + 1) * R], r[(R_A + 2) * R]);
+  const bool choose = kRefract && r[R_CHOOSE * R] > 0.5f;
+  // the chosen side's row: the exit row when the refract branch was
+  // taken (without triangles every group is one row, so it is the entry
+  // row and no exit row is saved)
+  const int row = static_cast<int>(
+      r[((kTri && choose) ? res_xrow(L) : static_cast<int>(R_ROW)) * R]);
+  const int kind = row_kind<kTri>(row, lay);
+  const float* at = row_at<kTri>(s_tab, g_tab, row, lay);
+  const float* tr =
+      kind == kRowTri ? T.tab + (row - lay.tri_start) * kTriCols : nullptr;
+  // the chosen side's map ids and saved texels (the exit side's rows
+  // follow the entry side's)
+  Texels tv{};
+  if constexpr (kTex) {
+    const int side_rows = tex_side_rows(tex.slots);
+#pragma unroll
+    for (int s = 0; s < kMapSlots; ++s)
+      tv.id[s] = __ldg(tex.maps + row * kMapSlots + s);
+    read_texels(r, res_rows<kTri>(L) + (choose ? side_rows : 0), R,
+                tex.slots, tv);
+  }
+  bool lok[kMaxLights];
+#pragma unroll
+  for (int li = 0; li < kMaxLights; ++li)
+    lok[li] = li < L && r[(R_LOK + li) * R] > 0.5f;
+  float pwr = 1.0f;  // dk^k as the forward computed it
+  for (int j = 0; j < k; ++j) pwr = pwr * dk;
+  const float* u = u8s + static_cast<size_t>(k) * NU * R + i;
+  step_bwd<kRefract, kTex>(at, tv, kind, tr, s_lt, L, o, d, A,
+                           choose ? r[R_TX * R] : r[R_TE * R], choose, lok,
+                           u, R, pwr, ctB, ct_o, ct_d, ct_A, d_at, d_gh,
+                           lacc);
+  return row;
+}
+
+// One ray's whole backward, step by step from its last live one. `acc`
+// adds into the row, triangle and light accumulators: acc.row(row, d_at),
+// acc.tri(local row, d_gh) and acc.light(li, light row).
 template <bool kRefract, bool kTri, bool kTex, class Acc>
 __device__ __forceinline__ void trace_ray_bwd(
     const float* s_tab, const float* g_tab, const Tris& T, const Layout& lay,
@@ -91,57 +160,17 @@ __device__ __forceinline__ void trace_ray_bwd(
     int i, int R, const float* __restrict__ resid, int n,
     const float* __restrict__ u8s, V3 ctA, V3 ctB, V3& ct_o, V3& ct_d,
     Acc& acc) {
-  constexpr int NU = kRefract ? 8 : 4;
-  const int CR = res_rows_all<kRefract, kTri, kTex>(L, tex.slots);
-  const int side_rows = kTex ? tex_side_rows(tex.slots) : 0;
   ct_o = v3(0.0f, 0.0f, 0.0f);
   ct_d = ct_o;
   V3 ct_A = ctA;
   for (int k = n - 1; k >= 0; --k) {
-    const float* r = resid + static_cast<size_t>(k) * CR * R + i;
-    const V3 o = v3(r[(R_O + 0) * R], r[(R_O + 1) * R], r[(R_O + 2) * R]);
-    const V3 d = v3(r[(R_D + 0) * R], r[(R_D + 1) * R], r[(R_D + 2) * R]);
-    const V3 A = v3(r[(R_A + 0) * R], r[(R_A + 1) * R], r[(R_A + 2) * R]);
-    const bool choose = kRefract && r[R_CHOOSE * R] > 0.5f;
-    // the chosen side's row: the exit row when the refract branch was
-    // taken (without triangles every group is one row, so it is the entry
-    // row and no exit row is saved)
-    const int row = static_cast<int>(
-        r[((kTri && choose) ? res_xrow(L) : static_cast<int>(R_ROW)) * R]);
-    const int kind = row_kind<kTri>(row, lay);
-    const float* at = row_at<kTri>(s_tab, g_tab, row, lay);
-    const float* tr =
-        kind == kRowTri ? T.tab + (row - lay.tri_start) * kTriCols : nullptr;
-    // the chosen side's map ids and saved texels (the exit side's rows
-    // follow the entry side's)
-    Texels tv{};
-    if constexpr (kTex) {
-#pragma unroll
-      for (int s = 0; s < kMapSlots; ++s)
-        tv.id[s] = __ldg(tex.maps + row * kMapSlots + s);
-      read_texels(r, res_rows<kTri>(L) + (choose ? side_rows : 0), R,
-                  tex.slots, tv);
-    }
-    bool lok[kMaxLights];
-#pragma unroll
-    for (int li = 0; li < kMaxLights; ++li)
-      lok[li] = li < L && r[(R_LOK + li) * R] > 0.5f;
-    float pwr = 1.0f;  // dk^k as the forward computed it
-    for (int j = 0; j < k; ++j) pwr = pwr * dk;
-    const float* u = u8s + static_cast<size_t>(k) * NU * R + i;
-    float d_at[kRowCols];
-#pragma unroll
-    for (int c = 0; c < kRowCols; ++c) d_at[c] = 0.0f;
-    float d_lt[kMaxLights * kLightCols];
-#pragma unroll
-    for (int c = 0; c < kMaxLights * kLightCols; ++c) d_lt[c] = 0.0f;
-    float d_gh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    step_bwd<kRefract, kTex>(at, tv, kind, tr, s_lt, L, o, d, A,
-                       choose ? r[R_TX * R] : r[R_TE * R], choose, lok, u, R,
-                       pwr, ctB, ct_o, ct_d, ct_A, d_at, d_gh, d_lt);
+    float d_at[kRowCols] = {};
+    float d_gh[4] = {};
+    const int row = ray_step_bwd<kRefract, kTri, kTex>(
+        s_tab, g_tab, T, lay, s_lt, L, dk, tex, i, R, resid, k, u8s, ctB,
+        ct_o, ct_d, ct_A, d_at, d_gh, acc);
     acc.row(row, d_at);
-    if (kTri && kind == kRowTri) acc.tri(row - lay.tri_start, d_gh);
-    acc.light(d_lt);
+    if (kTri && row >= lay.tri_start) acc.tri(row - lay.tri_start, d_gh);
   }
 }
 
@@ -150,124 +179,193 @@ __device__ __forceinline__ void trace_ray_bwd(
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
+#include "grid.cuh"
+
 namespace {
 
-// accumulators of one block: the dense rows and the lights in shared
-// memory; with kTri, triangle rows straight into the global d_tab and
-// d_tri (zeroed by the wrapper)
-template <bool kTri>
-struct SharedAcc {
-  float* rows;    // (n_dense, kGradCols)
-  float* lights;  // (L, kLightCols)
-  int L;
-  int n_dense;
-  float* g_tab;   // (P, kRowCols)
-  float* g_tri;   // (Pt, 4)
-  __device__ void row(int row, const float* d_at) {
-    if (kTri && row >= n_dense) {
-      float* dst = g_tab + static_cast<size_t>(row) * mrt::kRowCols;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;    // threads per block
+constexpr int kMinBlocks = 2;    // blocks per SM the register budget keeps
+// lanes on one row from which the warp sums them before adding: into
+// shared memory (a conflicting add there retries) and into global memory
+// (each add is an L2 operation)
+constexpr int kAggShared = 8;
+constexpr int kAggGlobal = 2;
+// a block's lane slots and dense-row accumulator stay in shared memory
+// while they fit this (two blocks per SM)
+constexpr int kSharedBytes = 100 * 1024;
+
+// A lane's light accumulator: its own column of the warp's (L * 11, 32)
+// float64 slots in shared memory, so plain adds (no atomics, no bank
+// conflicts).
+struct LaneLights {
+  double* s;  // the lane's slot of light column 0
+  __device__ __forceinline__ void light(int li, const float* g) {
 #pragma unroll
-      for (int g = 0; g < mrt::kGradCols; ++g) {
-        const int c = mrt::tab_col(g);
-        if (d_at[c] != 0.0f) atomicAdd(dst + c, d_at[c]);
-      }
-      return;
-    }
-    float* dst = rows + row * mrt::kGradCols;
-#pragma unroll
-    for (int g = 0; g < mrt::kGradCols; ++g)
-      atomicAdd(dst + g, d_at[mrt::tab_col(g)]);
-  }
-  __device__ void tri(int t, const float* d_gh) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (d_gh[k] != 0.0f) atomicAdd(g_tri + 4 * t + k, d_gh[k]);
-  }
-  __device__ void light(const float* d_lt) {
-#pragma unroll
-    for (int li = 0; li < mrt::kMaxLights; ++li) {
-      if (li >= L) break;
-#pragma unroll
-      for (int c = 0; c < mrt::kLightCols; ++c)
-        if (c != 6) atomicAdd(lights + li * mrt::kLightCols + c,
-                              d_lt[li * mrt::kLightCols + c]);
-    }
+    for (int c = 0; c < mrt::kLightCols; ++c)
+      if (c != 6) s[(li * mrt::kLightCols + c) * 32] += g[c];
   }
 };
 
-template <bool kRefract, bool kTri, bool kTex>
-__global__ void trace_bwd_kernel(const float* __restrict__ tab, int P,
-                                 mrt::Layout lay,
-                                 const float* __restrict__ tri,
-                                 const float* __restrict__ lights, int L,
-                                 float dk, mrt::Tex tex,
-                                 const float* __restrict__ resid,
-                                 const int* __restrict__ n_live,
-                                 const float* __restrict__ u8s, int R,
-                                 const float* __restrict__ ctA,
-                                 const float* __restrict__ ctB,
-                                 float* __restrict__ d_o,
-                                 float* __restrict__ d_d,
-                                 float* __restrict__ partials,
-                                 float* __restrict__ d_tab,
-                                 float* __restrict__ d_tri) {
-  extern __shared__ float smem[];
-  float* s_tab = smem;
-  float* s_lt = s_tab + P * mrt::kRowCols;
-  float* s_acc = s_lt + L * mrt::kLightCols;
-  const int n_acc = P * mrt::kGradCols + L * mrt::kLightCols;
-  mrt::stage(s_tab, tab, P, mrt::kRowCols, mrt::kRowCols);
-  mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
-  for (int c = threadIdx.x; c < n_acc; c += blockDim.x) s_acc[c] = 0.0f;
-  __syncthreads();
-  SharedAcc<kTri> acc{s_acc, s_acc + P * mrt::kGradCols, L, P, d_tab, d_tri};
-  const mrt::Tris T{tri, nullptr};
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < R;
-       i += gridDim.x * blockDim.x) {
-    mrt::V3 ct_o, ct_d;
-    mrt::trace_ray_bwd<kRefract, kTri, kTex>(
-        s_tab, tab, T, lay, s_lt, L, dk, tex, i, R, resid, n_live[i], u8s,
-        mrt::v3(ctA[i], ctA[R + i], ctA[2 * R + i]),
-        mrt::v3(ctB[i], ctB[R + i], ctB[2 * R + i]), ct_o, ct_d, acc);
-    d_o[i] = ct_o.x;
-    d_o[R + i] = ct_o.y;
-    d_o[2 * R + i] = ct_o.z;
-    d_d[i] = ct_d.x;
-    d_d[R + i] = ct_d.y;
-    d_d[2 * R + i] = ct_d.z;
+// Reduce-scatter of 32 values per lane over the warp: returns on lane l
+// the sum over the lanes of v[l] (a butterfly that halves the values each
+// round: 31 shuffles). v is overwritten.
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[32],
+                                                    int lane) {
+#pragma unroll
+  for (int h = 16; h >= 1; h >>= 1) {
+    const bool upper = (lane & h) != 0;
+#pragma unroll
+    for (int j = 0; j < h; ++j) {
+      const float send = upper ? v[j] : v[h + j];
+      const float keep = upper ? v[h + j] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFull, send, h);
+    }
   }
-  __syncthreads();
-  float* part = partials + static_cast<size_t>(blockIdx.x) * n_acc;
-  for (int c = threadIdx.x; c < n_acc; c += blockDim.x) part[c] = s_acc[c];
+  return v[0];
 }
 
-// the dense rows of d_tab (P, 26) and d_lights (L, 11): the partials
-// summed in block order
-__global__ void reduce_kernel(const float* __restrict__ partials, int blocks,
-                              int P, int L, float* __restrict__ d_tab,
+// Adds each lane's row cotangents d_at (row `row`, -1 for none) into the
+// (P, 26) float64 accumulator: `s_rows` in shared memory when `shared`,
+// else `g_rows` in global memory. A row held by `agg` lanes or more is
+// summed over the warp first and added once per nonzero column; the other
+// lanes add their own nonzero columns.
+__device__ __forceinline__ void warp_rows(bool shared, double* s_rows,
+                                          double* g_rows, int row,
+                                          const float* d_at, int lane) {
+  const int agg = shared ? kAggShared : kAggGlobal;
+  const unsigned peers = __match_any_sync(kFull, row);
+  const bool big = row >= 0 && __popc(peers) >= agg;
+  unsigned leads = __ballot_sync(kFull, big && lane == __ffs(peers) - 1);
+  while (leads) {
+    const int l = __ffs(leads) - 1;
+    leads &= leads - 1;
+    const int r = __shfl_sync(kFull, row, l);
+    float v[32];
+#pragma unroll
+    for (int g = 0; g < 32; ++g)
+      v[g] = (g < mrt::kGradCols && row == r) ? d_at[mrt::tab_col(g)] : 0.0f;
+    const float s = warp_transpose_sum(v, lane);
+    if (lane < mrt::kGradCols && s != 0.0f) {
+      const int e = r * mrt::kRowCols + mrt::tab_col(lane);
+      if (shared)
+        atomicAdd(s_rows + e, static_cast<double>(s));
+      else
+        atomicAdd(g_rows + e, static_cast<double>(s));
+    }
+  }
+  if (row >= 0 && !big) {
+#pragma unroll
+    for (int g = 0; g < mrt::kGradCols; ++g) {
+      const int c = mrt::tab_col(g);
+      if (d_at[c] == 0.0f) continue;
+      const int e = row * mrt::kRowCols + c;
+      if (shared)
+        atomicAdd(s_rows + e, static_cast<double>(d_at[c]));
+      else
+        atomicAdd(g_rows + e, static_cast<double>(d_at[c]));
+    }
+  }
+}
+
+template <bool kRefract, bool kTri, bool kTex>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    trace_bwd_kernel(const float* __restrict__ tab, int P, mrt::Layout lay,
+                     const float* __restrict__ tri,
+                     const float* __restrict__ lights, int L, float dk,
+                     mrt::Tex tex, const float* __restrict__ resid,
+                     const int* __restrict__ n_live,
+                     const float* __restrict__ u8s, int R,
+                     const float* __restrict__ ctA,
+                     const float* __restrict__ ctB, float* __restrict__ d_o,
+                     float* __restrict__ d_d, int shared_rows,
+                     double* __restrict__ acc, float* __restrict__ d_tab,
+                     float* __restrict__ d_tri) {
+  extern __shared__ double smem[];
+  const int nl = L * mrt::kLightCols;
+  const int warps = blockDim.x >> 5;
+  double* s_lane = smem;                     // (warps, L * 11, 32)
+  double* s_rows = s_lane + warps * nl * 32;  // (P, 26) when shared_rows
+  const int n_acc = warps * nl * 32 + (shared_rows ? P * mrt::kRowCols : 0);
+  float* s_lt = reinterpret_cast<float*>(smem + n_acc);  // (L, 11)
+  mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
+  for (int c = threadIdx.x; c < n_acc; c += blockDim.x) smem[c] = 0.0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  LaneLights lacc{s_lane + warp * nl * 32 + lane};
+  const mrt::Tris T{tri, nullptr};
+  const mrt::V3 zero = mrt::v3(0.0f, 0.0f, 0.0f);
+  for (int base = (blockIdx.x * warps + warp) * 32; base < R;
+       base += gridDim.x * warps * 32) {
+    const int i = base + lane;
+    const bool in = i < R;
+    const int n = in ? n_live[i] : 0;
+    const int top = __reduce_max_sync(kFull, n);
+    mrt::V3 ct_o = zero, ct_d = zero;
+    mrt::V3 ct_A = in ? mrt::v3(ctA[i], ctA[R + i], ctA[2 * R + i]) : zero;
+    const mrt::V3 cB =
+        in ? mrt::v3(ctB[i], ctB[R + i], ctB[2 * R + i]) : zero;
+    for (int k = top - 1; k >= 0; --k) {
+      float d_at[mrt::kRowCols] = {};
+      float d_gh[4] = {};
+      int row = -1;
+      if (k < n)
+        row = mrt::ray_step_bwd<kRefract, kTri, kTex>(
+            tab, tab, T, lay, s_lt, L, dk, tex, i, R, resid, k, u8s, cB,
+            ct_o, ct_d, ct_A, d_at, d_gh, lacc);
+      if (kTri && row >= lay.tri_start) {
+        // a triangle row: straight into the global tables
+        float* dst = d_tab + static_cast<size_t>(row) * mrt::kRowCols;
+#pragma unroll
+        for (int g = 0; g < mrt::kGradCols; ++g) {
+          const int c = mrt::tab_col(g);
+          if (d_at[c] != 0.0f) atomicAdd(dst + c, d_at[c]);
+        }
+        const int t = row - lay.tri_start;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (d_gh[j] != 0.0f) atomicAdd(d_tri + 4 * t + j, d_gh[j]);
+        row = -1;
+      }
+      warp_rows(shared_rows != 0, s_rows, acc, row, d_at, lane);
+    }
+    if (in) {
+      d_o[i] = ct_o.x;
+      d_o[R + i] = ct_o.y;
+      d_o[2 * R + i] = ct_o.z;
+      d_d[i] = ct_d.x;
+      d_d[R + i] = ct_d.y;
+      d_d[2 * R + i] = ct_d.z;
+    }
+  }
+  __syncthreads();
+  // the block's sums, once, into acc: each light column over every lane's
+  // slot (in a fixed order), then the shared rows' nonzero entries
+  double* g_lights = acc + P * mrt::kRowCols;
+  for (int c = threadIdx.x; c < nl; c += blockDim.x) {
+    if (c % mrt::kLightCols == 6) continue;
+    double s = 0.0;
+    for (int w = 0; w < warps; ++w)
+      for (int l = 0; l < 32; ++l) s += s_lane[(w * nl + c) * 32 + l];
+    if (s != 0.0) atomicAdd(g_lights + c, s);
+  }
+  if (shared_rows)
+    for (int c = threadIdx.x; c < P * mrt::kRowCols; c += blockDim.x)
+      if (s_rows[c] != 0.0) atomicAdd(acc + c, s_rows[c]);
+}
+
+// d_tab's dense rows and d_lights from the float64 sums
+__global__ void finish_kernel(const double* __restrict__ acc, int P, int L,
+                              float* __restrict__ d_tab,
                               float* __restrict__ d_lights) {
   const int n_rows = P * mrt::kRowCols;
-  const int n_out = n_rows + L * mrt::kLightCols;
-  const int n_acc = P * mrt::kGradCols + L * mrt::kLightCols;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_out) return;
-  int src;  // accumulator index, or -1 for a column with no cotangent
-  if (j < n_rows) {
-    const int row = j / mrt::kRowCols, c = j % mrt::kRowCols;
-    const bool none = c == mrt::C_VALID || c == mrt::C_GID ||
-                      c == mrt::A_OPA || c == mrt::A_EMI;
-    src = none ? -1 : row * mrt::kGradCols + mrt::grad_col(c);
-  } else {
-    src = P * mrt::kGradCols + (j - n_rows);
-  }
-  float s = 0.0f;
-  if (src >= 0)
-    for (int b = 0; b < blocks; ++b)
-      s += partials[static_cast<size_t>(b) * n_acc + src];
   if (j < n_rows)
-    d_tab[j] = s;
-  else
-    d_lights[j - n_rows] = s;
+    d_tab[j] = static_cast<float>(acc[j]);
+  else if (j < n_rows + L * mrt::kLightCols)
+    d_lights[j - n_rows] = static_cast<float>(acc[j]);
 }
 
 // The arguments every instance takes.
@@ -288,62 +386,98 @@ struct Args {
   const float* ctB;
   float* d_o;
   float* d_d;
-  float* partials;
-  int blocks;
+  double* acc;
   float* d_tab;
   float* d_lights;
   float* d_tri;
 };
 
+// shared memory of a block: each lane's light slots, the dense rows'
+// accumulator while both fit kSharedBytes, and the lights
+size_t lane_bytes(int L) {
+  return static_cast<size_t>(kThreads) * L * mrt::kLightCols * sizeof(double);
+}
+
+bool rows_shared(int P, int L) {
+  return lane_bytes(L) + static_cast<size_t>(P) * mrt::kRowCols *
+                             sizeof(double) <=
+         static_cast<size_t>(kSharedBytes);
+}
+
+size_t smem_bytes(int P, int L) {
+  return lane_bytes(L) +
+         (rows_shared(P, L)
+              ? static_cast<size_t>(P) * mrt::kRowCols * sizeof(double)
+              : 0) +
+         static_cast<size_t>(L) * mrt::kLightCols * sizeof(float);
+}
+
 template <bool kRefract, bool kTri, bool kTex>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(a.P) * (mrt::kRowCols + mrt::kGradCols) +
-       static_cast<size_t>(a.L) * 2 * mrt::kLightCols) *
-      sizeof(float);
-  auto kernel = trace_bwd_kernel<kRefract, kTri, kTex>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<a.blocks, mrt::kBwdThreads, smem, stream>>>(
+  const auto kernel = trace_bwd_kernel<kRefract, kTri, kTex>;
+  const size_t smem = smem_bytes(a.P, a.L);
+  int per_sm = 0, sms = 0;
+  int e = mrt::resident_blocks(kernel, kThreads, smem, &per_sm, &sms);
+  if (e) return e;
+  // persistent: as many blocks as the card keeps resident (grid.cuh)
+  const int blocks = std::max(
+      1, std::min((a.R + kThreads - 1) / kThreads, sms * per_sm));
+  kernel<<<blocks, kThreads, smem, stream>>>(
       a.tab, a.P, a.lay, a.tri, a.lights, a.L, a.dk, a.tex, a.resid,
-      a.n_live, a.u8s, a.R, a.ctA, a.ctB, a.d_o, a.d_d, a.partials, a.d_tab,
-      a.d_tri);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+      a.n_live, a.u8s, a.R, a.ctA, a.ctB, a.d_o, a.d_d,
+      rows_shared(a.P, a.L) ? 1 : 0, a.acc, a.d_tab, a.d_tri);
+  e = static_cast<int>(cudaGetLastError());
+  if (e != cudaSuccess) return e;
   const int n_out = a.P * mrt::kRowCols + a.L * mrt::kLightCols;
-  reduce_kernel<<<(n_out + 127) / 128, 128, 0, stream>>>(
-      a.partials, a.blocks, a.P, a.L, a.d_tab, a.d_lights);
+  finish_kernel<<<(n_out + 255) / 256, 256, 0, stream>>>(
+      a.acc, a.P, a.L, a.d_tab, a.d_lights);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the launch and the occupancy query of one instance
+struct Launch {
+  const Args& a;
+  cudaStream_t s;
+  template <bool kRefract, bool kTri, bool kTex>
+  int run() const {
+    return launch<kRefract, kTri, kTex>(a, s);
+  }
+};
+
+struct Occupancy {
+  int P, L;
+  int* per_sm;
+  template <bool kRefract, bool kTri, bool kTex>
+  int run() const {
+    return mrt::resident_blocks(trace_bwd_kernel<kRefract, kTri, kTex>,
+                                kThreads, smem_bytes(P, L), per_sm);
+  }
+};
+
 // the instance for the scene: refraction, triangles, textures
-int dispatch(const Args& a, int refract, cudaStream_t s) {
-  const bool tri = a.lay.tri_n > 0, tex = a.tex.slots != 0;
+template <class F>
+int dispatch(bool refract, bool tri, bool tex, const F& f) {
   if (refract) {
     if (tri)
-      return tex ? launch<true, true, true>(a, s)
-                 : launch<true, true, false>(a, s);
-    return tex ? launch<true, false, true>(a, s)
-               : launch<true, false, false>(a, s);
+      return tex ? f.template run<true, true, true>()
+                 : f.template run<true, true, false>();
+    return tex ? f.template run<true, false, true>()
+               : f.template run<true, false, false>();
   }
   if (tri)
-    return tex ? launch<false, true, true>(a, s)
-               : launch<false, true, false>(a, s);
-  return tex ? launch<false, false, true>(a, s)
-             : launch<false, false, false>(a, s);
+    return tex ? f.template run<false, true, true>()
+               : f.template run<false, true, false>();
+  return tex ? f.template run<false, false, true>()
+             : f.template run<false, false, false>();
 }
 
 }  // namespace
 
 // P: the dense rows (tri_start); maps, atlas, tmeta and slots as in
-// mrt_trace_fwd (nulls and 0 without textures); blocks: the grid size the
-// wrapper sized `partials` for, (blocks, P*22 + L*11) floats; d_tab (all
-// rows) and d_tri (Pt, 4) zeroed by the wrapper. The cull blocks are not
-// read (the backward does not sweep).
+// mrt_trace_fwd (nulls and 0 without textures); acc: P * 26 + L * 11
+// float64 sums, d_tab (all rows) and d_tri (Pt, 4), all zeroed by the
+// wrapper; the kernel writes d_tab's dense rows and d_lights from acc.
+// The cull blocks are not read (the backward does not sweep).
 extern "C" int mrt_trace_bwd(const float* tab, int P, int sph_start,
                              int sph_n, int pln_start, int pln_n,
                              int box_start, int box_n, const float* tri,
@@ -354,17 +488,30 @@ extern "C" int mrt_trace_bwd(const float* tab, int P, int sph_start,
                              const int* tmeta, int slots, const float* resid,
                              const int* n_live, const float* u8s, int R,
                              int refract, const float* ctA, const float* ctB,
-                             float* d_o, float* d_d, float* partials,
-                             int blocks, float* d_tab, float* d_lights,
-                             float* d_tri, void* stream) {
+                             float* d_o, float* d_d, double* acc,
+                             float* d_tab, float* d_lights, float* d_tri,
+                             void* stream) {
   (void)bb;
   (void)sbb;
   const Args a{tab, P,
                mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
                            box_n, tri_start, tri_n, n_cb, n_sb},
                tri, lights, L, dk, mrt::Tex{maps, atlas, tmeta, slots},
-               resid, n_live, u8s, R, ctA, ctB, d_o, d_d, partials, blocks,
-               d_tab, d_lights, d_tri};
-  return dispatch(a, refract, static_cast<cudaStream_t>(stream));
+               resid, n_live, u8s, R, ctA, ctB, d_o, d_d, acc, d_tab,
+               d_lights, d_tri};
+  return dispatch(refract != 0, tri_n > 0, slots != 0,
+                  Launch{a, static_cast<cudaStream_t>(stream)});
+}
+
+// Resident warps per SM of the instance a scene of P dense rows and L
+// lights launches (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// *warps; returns a CUDA error code.
+extern "C" int mrt_trace_bwd_occupancy(int P, int L, int refract, int tri,
+                                       int tex, int* warps) {
+  int per_sm = 0;
+  const int e =
+      dispatch(refract != 0, tri != 0, tex != 0, Occupancy{P, L, &per_sm});
+  *warps = per_sm * (kThreads / 32);
+  return e;
 }
 #endif  // __CUDACC__

@@ -1,7 +1,7 @@
 // The per-step transposes of the whole-trace backward (trace_bwd.cu): the
 // winner t, the hit point and normal, the fold, the direct light and the
-// sampled direction of one step (step_bwd), with the whole trace's lights
-// in registers (at most kMaxLights). The per-step backward (step_bwd.cu)
+// sampled direction of one step (step_bwd), with the whole trace's light
+// loop unrolled to kMaxLights. The per-step backward (step_bwd.cu)
 // shares the transposes around them and walks any number of lights. See
 // trace_bwd.cu for what each transposes and its numerics.
 #pragma once
@@ -11,7 +11,8 @@
 namespace mrt {
 
 constexpr int kGradCols = 22;  // differentiable columns of a row
-// threads per block; ops/step.py sizes the grid and the partials with it
+// threads per block of step_bwd.cu; ops/step.py sizes its grid and
+// partials with it
 constexpr int kBwdThreads = 128;
 
 // accumulator column of row-table column c (c not in 16, 17, 24, 25)
@@ -223,9 +224,11 @@ __device__ __forceinline__ float side_bwd(const float* at, int kind,
 // the saved texels `tv` of that side (kTex). In: the
 // step's residuals, uniforms u (stride R), pwr, the cotangents ct_o, ct_d
 // of the step's output ray, ct_A of its output A, and ctB. Out: ct_o,
-// ct_d, ct_A of the step's input; d_at (the chosen row's 26 columns), d_gh
-// (its triangle cotangents) and d_lt (the lights') accumulate.
-template <bool kRefract, bool kTex>
+// ct_d, ct_A of the step's input; d_at (the chosen row's 26 columns) and
+// d_gh (its triangle cotangents) accumulate, and each visible light's
+// cotangent row (11 floats) goes to lacc.light(li, row) as soon as it is
+// transposed, so no light's row is held past its own term.
+template <bool kRefract, bool kTex, class LightAcc>
 __device__ __forceinline__ void step_bwd(const float* at, const Texels& tv,
                                          int kind,
                                          const float* tr, const float* s_lt,
@@ -234,7 +237,7 @@ __device__ __forceinline__ void step_bwd(const float* at, const Texels& tv,
                                          const float* u, int R, float pwr,
                                          V3 ctB, V3& ct_o, V3& ct_d, V3& ct_A,
                                          float* d_at, float* d_gh,
-                                         float* d_lt) {
+                                         LightAcc& lacc) {
   // ---- primal recompute at the selected hit ----
   const V3 p = add(o, scale(d, t_c));
   const Normal nm = normal_full(at, p, kind);
@@ -291,7 +294,7 @@ __device__ __forceinline__ void step_bwd(const float* at, const Texels& tv,
                             (o_col.z * diff * lc.z + spec) * pl);
       if (lok[li]) l_col = add(l_col, contrib);
       if (!lok[li]) continue;
-      float* g = d_lt + li * kLightCols;
+      float g[kLightCols] = {};
       const float cc[3] = {ct_lcol.x, ct_lcol.y, ct_lcol.z};
       const float oc[3] = {o_col.x, o_col.y, o_col.z};
       const float lcc[3] = {lc.x, lc.y, lc.z};
@@ -334,6 +337,7 @@ __device__ __forceinline__ void step_bwd(const float* at, const Texels& tv,
         g[2] += ct_lv.z;
         ct_p = sub(ct_p, ct_lv);
       }
+      lacc.light(li, g);
     }
   }
   const V3 a_f = b_emit ? v3(0.0f, 0.0f, 0.0f)

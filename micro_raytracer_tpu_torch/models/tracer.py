@@ -16,9 +16,9 @@ the JAX package) for CPU tensors; a scene past the whole-trace kernels'
 bounds (more than 4 lights, or more dense rows than they stage) takes
 the per-step path there (``step.route``, ``step.trace_steps``).
 
-A render (no gradient) of a scene with a long sphere segment or a
-refractive one with triangles runs in segments with live-first compaction
-between them (:func:`compact_cuts`, :func:`compact_perm`), the JAX
+A render (no gradient) of a refractive scene with a long sphere segment
+or with triangles runs in segments with live-first compaction between
+them (:func:`compact_cuts`, :func:`compact_perm`), the JAX
 package's ``trace_segment`` path; its radiance is the unsegmented trace's
 bit for bit.
 
@@ -41,7 +41,6 @@ import torch
 
 from ..ops import hit3, rng, step
 from . import camera as camera_mod
-from . import schema
 from .compiler import CameraArrays, SceneArrays
 
 
@@ -72,16 +71,15 @@ def jax_cuts(scene: SceneArrays, steps: int):
 
 
 def compact_cuts(scene: SceneArrays, steps: int, inference: bool):
-    """The cuts of a render: :func:`jax_cuts`, except on an opaque scene
-    with triangles, and none for a trace that needs a gradient or that
-    takes the per-step path (``step.route``; the JAX package's per-step
-    scan does not compact either). On the H100 the CLI renders the
-    sphere-grid class 39% faster compacted and a refractive mesh (its exit
-    passes sweep every triangle row) 4% faster, but an opaque mesh, whose
-    culled sweeps are short and whose room keeps its lanes alive, 7%
-    slower (PERF.md, ``chip_smoke.py --compaction``)."""
-    if not inference or (scene.kind_counts[schema.KIND_TRIANGLE]
-                         and not scene.any_refract) \
+    """The cuts of a render: :func:`jax_cuts` on a refractive scene, and
+    none on an opaque one, for a trace that needs a gradient or for one
+    that takes the per-step path (``step.route``; the JAX package's
+    per-step scan does not compact either). On the H100 the CLI renders
+    the refractive classes 3% faster compacted (``inst_glass``,
+    ``mesh_glass``), and the opaque ones 7-10% faster whole
+    (``mesh_opaque``, and ``inst_grid``, whose whole render refills its
+    lanes; PERF.md, ``chip_smoke.py --compaction``)."""
+    if not inference or not scene.any_refract \
             or step.route(scene, False) == "steps":
         return []
     return jax_cuts(scene, steps)

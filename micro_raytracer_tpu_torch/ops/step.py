@@ -80,8 +80,8 @@ from typing import NamedTuple
 import torch
 
 from ..models import schema
-from ..utils.kernels import (CudaKernel, ptr, require_cuda_tensor,
-                             stream_ptr)
+from ..utils.kernels import (CudaKernel, ptr, ptxas_table,
+                             require_cuda_tensor, stream_ptr)
 from . import hit3, intersect, linalg, rng, tri as tri_ops
 from .linalg import EPS
 
@@ -96,12 +96,13 @@ MAX_LIGHTS = 4
 # rows: 2048 rows * 104 B + lights + hit3.MAX_TRI_BLOCKS block AABBs; the
 # triangle rows stay in global memory (any count)
 MAX_ROWS = 2048
-# the backward kernel also keeps a (P, 22) accumulator of those rows in
-# shared memory: 1024 rows * 192 B + lights = 192 KB of the 227 KB a block
-# may use; triangle rows accumulate in global memory
+# the training bound on those rows (the backward kernel reads them from
+# global memory and sums their cotangents in shared memory while they fit,
+# past that with global atomics; csrc/trace_bwd.cu)
 BWD_MAX_ROWS = 1024
 _GRAD_COLS = 22           # row-table columns with a cotangent
-_BWD_THREADS, _BWD_MAX_BLOCKS = 128, 1024   # csrc/trace_bwd.cuh kBwdThreads
+# csrc/trace_bwd.cuh kBwdThreads: step_bwd.cu's block size
+_BWD_THREADS, _BWD_MAX_BLOCKS = 128, 1024
 # the per-step kernels (csrc/step_fwd.cu, csrc/step_bwd.cu) read the rows
 # from global memory (no row bound) and stage the lights in shared memory:
 # the backward the lights and their accumulators, 2 * 2048 * 44 B = 176 KB
@@ -164,17 +165,28 @@ _FWD_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
              + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS + [_c_ptr] * 7
              + [_c_int] * 3)
 _HEADERS = ("hit3.cuh", "trace_step.cuh")
-KERNEL = CudaKernel("trace_fwd", "trace_fwd.cu", _HEADERS, "mrt_trace_fwd",
-                    _FWD_ARGS + [_c_int, _c_int] + [_c_ptr] * 7)
-TRAIN_KERNEL = CudaKernel("trace_fwd_train", "trace_fwd.cu", _HEADERS,
-                          "mrt_trace_fwd_train", _FWD_ARGS + [_c_ptr] * 6)
+_TRACE_HEADERS = _HEADERS + ("grid.cuh",)
+# ... k0, k1, c0, rid, A, B, first_live, cout, the refill counters, stream
+KERNEL = CudaKernel("trace_fwd", "trace_fwd.cu", _TRACE_HEADERS,
+                    "mrt_trace_fwd",
+                    _FWD_ARGS + [_c_int, _c_int] + [_c_ptr] * 8)
+TRAIN_KERNEL = CudaKernel("trace_fwd_train", "trace_fwd.cu", _TRACE_HEADERS,
+                          "mrt_trace_fwd_train", _FWD_ARGS + [_c_ptr] * 7)
+# resident warps per SM of a whole-trace instance (not launches)
+FWD_OCCUPANCY = CudaKernel("trace_fwd_occupancy", "trace_fwd.cu",
+                           _TRACE_HEADERS, "mrt_trace_fwd_occupancy",
+                           [_c_int] * 16 + [_c_ptr])
 _BWD_HEADERS = _HEADERS + ("trace_bwd.cuh",)
 BWD_KERNEL = CudaKernel(
-    "trace_bwd", "trace_bwd.cu", _BWD_HEADERS, "mrt_trace_bwd",
+    "trace_bwd", "trace_bwd.cu", _BWD_HEADERS + ("grid.cuh",),
+    "mrt_trace_bwd",
     [_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
     + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS + [_c_ptr] * 3
-    + [_c_int] * 2
-    + [_c_ptr] * 5 + [_c_int] + [_c_ptr] * 4)
+    + [_c_int] * 2 + [_c_ptr] * 9)
+BWD_OCCUPANCY = CudaKernel("trace_bwd_occupancy", "trace_bwd.cu",
+                           _BWD_HEADERS + ("grid.cuh",),
+                           "mrt_trace_bwd_occupancy",
+                           [_c_int] * 5 + [_c_ptr])
 # the per-step path: tables as the trace kernels', then c0, u8, R, refract
 _STEP_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
               + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS
@@ -865,8 +877,11 @@ def trace_fwd(scene, tables, decay, oT, dT, u8s, hit0, seg=None):
     B = torch.empty_like(A)
     fl = torch.empty((1, R), dtype=torch.float32, device=oT.device)
     if R:
+        nxt = None if seg is not None else _refill_counter(
+            scene, tables, False, oT.device)
         KERNEL.launch(*args, *seg_args, ptr(A), ptr(B), ptr(fl),
                       None if cout is None else ptr(cout),
+                      None if nxt is None else ptr(nxt),
                       stream_ptr(oT.device))
     return (A, B, fl) if seg is None else (A, B, fl, cout)
 
@@ -885,9 +900,89 @@ def trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0):
                         dtype=torch.float32, device=oT.device)
     n_live = torch.empty(R, dtype=torch.int32, device=oT.device)
     if R:
+        nxt = _refill_counter(scene, tables, True, oT.device)
         TRAIN_KERNEL.launch(*args, ptr(A), ptr(B), ptr(fl), ptr(resid),
-                            ptr(n_live), stream_ptr(oT.device))
+                            ptr(n_live), None if nxt is None else ptr(nxt),
+                            stream_ptr(oT.device))
     return A, B, fl, resid, n_live
+
+
+def refills(scene, tables, train: bool) -> bool:
+    """Whether a whole (unsegmented) trace launch refills its lanes
+    (csrc/trace_fwd.cu): on dense-row scenes (no triangles, no textures)
+    the render always, and training where the sphere segment has cull
+    blocks (the Instance class: 37% faster on its frame; in the room,
+    where rays live long, the refilled lanes' scattered residual stores
+    made it 29% slower; tools/torch_compare_trees.py ablate)."""
+    if tables.layout[2] or scene.has_maps:
+        return False
+    return not train or tables.sbb is not None
+
+
+# the refill counters of each (device, stream): two int32, zeroed once;
+# the kernel leaves them zeroed, and launches on one stream run in order
+_COUNTERS = {}
+
+
+def _refill_counter(scene, tables, train, dev):
+    """The counters from which a refilling launch's lanes take their next
+    rays, or None (:func:`refills`)."""
+    if not refills(scene, tables, train):
+        return None
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    nxt = _COUNTERS.get(key)
+    if nxt is None:
+        nxt = _COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return nxt
+
+
+def instance_resources(scene, tables, which: str) -> dict:
+    """What the card gives the whole-trace instance that a launch of
+    ``which`` (``"trace_fwd"``, ``"trace_fwd_train"`` or ``"trace_bwd"``)
+    on these tables runs: registers and spilled bytes (stores + loads) per
+    thread from ``nvcc``'s log, and resident warps per SM
+    (:func:`resident_warps`). Builds the kernel if needed."""
+    t = hit3.table_args(tables.layout, tables.tri, tables.tbb, tables.sbb)
+    tri, tex = t[8] > 0, bool(scene.has_maps)
+    if which == "trace_bwd":
+        kernel, flags = BWD_KERNEL, (scene.any_refract, tri, tex)
+    else:
+        train = which == "trace_fwd_train"
+        refill = refills(scene, tables, train)
+        kernel = KERNEL if which == "trace_fwd" else TRAIN_KERNEL
+        flags = (scene.any_refract, train, False, tri, tex, refill)
+    kernel.fn()
+    key = (f"{kernel.source[:-3]}_kernelI"
+           + "".join(f"Lb{int(bool(f))}E" for f in flags) + "E")
+    found = [v for k, v in ptxas_table(kernel.build_log).items() if key in k]
+    regs, st, ld = found[0] if found else (None, None, None)
+    return {"registers": regs,
+            "spill_bytes": None if st is None else st + ld,
+            "warps_per_sm": resident_warps(scene, tables, which)}
+
+
+def resident_warps(scene, tables, which: str) -> int:
+    """Warps per SM that the card keeps resident of the whole-trace
+    instance a launch of ``which`` (``"trace_fwd"``, ``"trace_fwd_train"``
+    or ``"trace_bwd"``) on these tables takes
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    t = hit3.table_args(tables.layout, tables.tri, tables.tbb, tables.sbb)
+    slots = _tex_args(scene, tables)[3]
+    refract = int(scene.any_refract)
+    warps = ctypes.c_int(0)
+    if which == "trace_bwd":
+        rc = BWD_OCCUPANCY.fn()(t[7], scene.n_lights, refract, int(t[8] > 0),
+                                int(slots > 0), ctypes.byref(warps))
+    else:
+        # P, the six dense ints, tri_start, tri_n, n_cb, n_sb
+        train = which == "trace_fwd_train"
+        rc = FWD_OCCUPANCY.fn()(t[7], *t[:6], t[7], t[8], t[10], t[12],
+                                scene.n_lights, slots, refract, int(train),
+                                int(refills(scene, tables, train)),
+                                ctypes.byref(warps))
+    if rc:
+        raise RuntimeError(f"occupancy of {which}: CUDA error {rc}")
+    return warps.value
 
 
 def trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB):
@@ -914,20 +1009,20 @@ def trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB):
     d_tab = torch.zeros((tab.shape[0], ROW_COLS), dtype=torch.float32,
                         device=dev)
     d_lights = torch.zeros_like(lights)
-    d_oT = torch.zeros((3, R), dtype=torch.float32, device=dev)
-    d_dT = torch.zeros_like(d_oT)
+    # every ray's d_o and d_d are written
+    d_oT = torch.empty((3, R), dtype=torch.float32, device=dev)
+    d_dT = torch.empty_like(d_oT)
     d_tri4 = torch.zeros((layout[2], 4), dtype=torch.float32, device=dev)
     if R:
-        blocks = min(-(-R // _BWD_THREADS), _BWD_MAX_BLOCKS)
-        partials = torch.empty(
-            (blocks, layout[1] * _GRAD_COLS + L * LIGHT_COLS),
-            dtype=torch.float32, device=dev)
+        # the float64 sums of the dense rows and the lights
+        acc = torch.zeros(layout[1] * ROW_COLS + L * LIGHT_COLS,
+                          dtype=torch.float64, device=dev)
         BWD_KERNEL.launch(
             *args, L, float(decay), *_tex_args(scene, tables), ptr(resid),
             ptr(n_live), ptr(u8s), R, int(scene.any_refract), ptr(ctA),
-            ptr(ctB), ptr(d_oT),
-            ptr(d_dT), ptr(partials), blocks, ptr(d_tab), ptr(d_lights),
-            ptr(d_tri4) if layout[2] else None, stream_ptr(dev))
+            ptr(ctB), ptr(d_oT), ptr(d_dT), ptr(acc), ptr(d_tab),
+            ptr(d_lights), ptr(d_tri4) if layout[2] else None,
+            stream_ptr(dev))
     d_tri = torch.zeros((layout[2], hit3.TRI_COLS), dtype=torch.float32,
                         device=dev)
     d_tri[:, 6:9] = d_tri4[:, :3]

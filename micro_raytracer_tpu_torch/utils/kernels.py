@@ -5,7 +5,9 @@ Each kernel is a plain C entry point of a ``.cu`` file under
 ``nvcc`` into a shared library under ``micro_raytracer_tpu_torch/build``
 (git-ignored), named after the source, and loaded with ctypes; entry points
 of one file share its library, and a library is rebuilt when the hash of
-its sources or flags changes. Pointers cross as ``tensor.data_ptr()`` and the stream as
+its sources or flags changes; ``nvcc``'s output (``-Xptxas -v``: each
+kernel's registers and spills) is kept beside it. Pointers cross as
+``tensor.data_ptr()`` and the stream as
 ``torch.cuda.current_stream().cuda_stream``; every entry point returns
 ``cudaGetLastError()`` after its launch, and :meth:`CudaKernel.launch`
 raises on anything but 0.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -90,6 +93,9 @@ class CudaKernel:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.source} "
                                f"(rc={res.returncode}):\n{self.build_log}")
+        with open(f"{tmp}.log", "w") as fh:
+            fh.write(self.build_log)
+        os.replace(f"{tmp}.log", f"{out}.log")
         # atomic: a concurrent build never loads a partial library
         os.replace(tmp, out)
 
@@ -100,6 +106,9 @@ class CudaKernel:
                 path = self.library_path()
                 if not os.path.exists(path):
                     self._build(path)
+                elif os.path.exists(f"{path}.log"):
+                    with open(f"{path}.log") as fh:
+                        self.build_log = fh.read()
                 lib = ctypes.CDLL(path)
                 f = getattr(lib, self.symbol)
                 f.argtypes = self.argtypes
@@ -113,6 +122,28 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1
+
+
+def ptxas_table(log: str) -> dict:
+    """``{entry function: (registers, spill store bytes, spill load
+    bytes)}`` of an ``nvcc -Xptxas -v`` log (mangled names)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def ptr(t) -> ctypes.c_void_p:

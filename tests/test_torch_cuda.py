@@ -28,7 +28,11 @@ cotangents that are zero on those rays: rtol 2e-3 with an absolute floor of
 1e-5 of the largest magnitude of each compared array, as the CPU tests hold
 the plain trace against the JAX package. Two backward runs give equal
 per-ray cotangents, and table cotangents within rtol 1e-5 / 1e-6 of the
-largest magnitude: a block adds into shared memory in no fixed order.
+largest magnitude: the kernel adds them in no fixed order (float64 sums
+for the sphere, plane and box rows and the lights, float32 atomics for
+triangle rows). Three layouts of a warp's lanes test the backward's
+warp-aggregated scatter: one row for all 32 lanes, up to 32 rows, and
+live-step counts far apart (``test_trace_bwd_warp_layouts``).
 
 Mesh scenes (``torch_mesh_helpers``: the 960-triangle torus, glass or
 diffuse, in the slice room; rays from inside the room): the closest-hit
@@ -456,10 +460,40 @@ def test_trace_fwd_train_matches_render_and_plain(name, cuda_device):
         assert torch.equal(res[:, r][live], res_r[:, r][live]), r
 
 
-def _bwd_case(name, device):
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mixed", "inst_grid"])
+def test_refill_leaves_its_counters_zeroed(name, cuda_device):
+    """The lane refill's ray counters (``step.refills``: the render of a
+    dense-row scene, and training with sphere cull blocks) are zero again
+    after each launch, so repeated launches on one stream, of different
+    sizes, give the same outputs as the first."""
+    scene, tables, oT, dT, u8s = _train_inputs(name, cuda_device)
+    hit0 = step.primary_hits(scene, tables, oT, dT)
+    assert step.refills(scene, tables, False)
+    assert step.refills(scene, tables, True) == (tables.sbb is not None)
+    first = step.trace_fwd(scene, tables, 0.85, oT, dT, u8s, hit0)
+    h = oT.shape[1] // 3
+    half = step.trace_fwd(scene, tables, 0.85, oT[:, :h].contiguous(),
+                          dT[:, :h].contiguous(), u8s[..., :h].contiguous(),
+                          [t[:h].contiguous() for t in hit0])
+    train = step.trace_fwd_train(scene, tables, 0.85, oT, dT, u8s, hit0)
+    again = step.trace_fwd(scene, tables, 0.85, oT, dT, u8s, hit0)
+    torch.cuda.synchronize()
+    for a, b, c, t in zip(first, again, half, train):
+        assert torch.equal(a, b) and torch.equal(a, t)
+        assert torch.equal(a[:, :h], c)
+    for nxt in step._COUNTERS.values():
+        assert int(nxt.abs().sum()) == 0
+
+
+def _bwd_case(name, device, rays=None):
     """The backward kernel and autograd through the plain trace, both at
-    the plain forward's residuals, for cotangents zero on off-path rays."""
+    the plain forward's residuals, for cotangents zero on off-path rays
+    (``rays``: lane-major ``(oT, dT)`` of the same count in place of the
+    scene's own)."""
     scene, tables, oT, dT, u8s = _train_inputs(name, device)
+    if rays is not None:
+        oT, dT = rays
     R = oT.shape[1]
     hit0 = step.primary_hits(scene, tables, oT, dT)
     A, B, _fl, _res, n_live = step.trace_fwd_train(scene, tables, 0.85, oT,
@@ -479,8 +513,60 @@ def _bwd_case(name, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_trace_bwd_matches_autograd_of_plain(name, cuda_device):
-    scene, tables, oT, dT, u8s, res, n_live, ctA, ctB = _bwd_case(
-        name, cuda_device)
+    _hold_bwd(name, *_bwd_case(name, cuda_device))
+
+
+def _warp_rays(case, device, R=1 << 14):
+    """The scene and lane-major rays of a warp layout of the backward's
+    scatter: ``one_row``, MIXED's floor seen from above (every lane of a
+    warp first hits one row: the worst conflict); ``many_rows``,
+    inst_grid's camera rays shuffled (a warp's lanes hit spheres all over
+    the grid: up to 32 rows); ``mixed_live``, rays from random points of
+    the open MIXED scene (paths of 1 to 9 steps in one warp)."""
+    if case == "one_row":
+        rng = np.random.default_rng(11)
+        o = np.stack([rng.uniform(-1.8, -1.2, R), rng.uniform(-1.8, -1.2, R),
+                      rng.uniform(0.5, 1.0, R)], 1)
+        d = np.stack([rng.normal(0.0, 0.05, R), rng.normal(0.0, 0.05, R),
+                      -np.ones(R)], 1)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        o, d = (torch.from_numpy(a.astype(np.float32)).to(device)
+                for a in (o, d))
+        return "mixed", (o.T.contiguous(), d.T.contiguous())
+    name = "inst_grid" if case == "many_rows" else "mixed"
+    o, d = _rays(R, device, seed=3, name=name)
+    if case == "many_rows":
+        perm = torch.from_numpy(np.random.default_rng(12).permutation(R))
+        o, d = o[perm.to(device)], d[perm.to(device)]
+    return name, (o.T.contiguous(), d.T.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_row", "many_rows", "mixed_live"])
+def test_trace_bwd_warp_layouts(case, cuda_device):
+    """The warp-aggregated scatter of the backward kernel against autograd
+    of the plain trace where a warp's lanes share one row, hold up to 32
+    rows, or have live-step counts far apart."""
+    name, rays = _warp_rays(case, cuda_device)
+    args = _bwd_case(name, cuda_device, rays)
+    res, n_live = args[5], args[6]
+    rows = res[0, step.RES_ROW].long().view(-1, 32)
+    live = (n_live > 0).view(-1, 32)
+    if case == "one_row":
+        one = live.all(1) & (rows == rows[:, :1]).all(1)
+        assert float(one.float().mean()) >= 0.9
+    elif case == "many_rows":
+        distinct = [len(set(r[m].tolist())) for r, m in zip(rows, live)]
+        assert np.mean(distinct) >= 16
+    else:
+        n = n_live.view(-1, 32)
+        assert float((n.max(1).values - n.min(1).values).float().mean()) >= 3
+    _hold_bwd(name, *args)
+
+
+def _hold_bwd(name, scene, tables, oT, dT, u8s, res, n_live, ctA, ctB):
+    """The backward kernel against autograd of the plain trace (module
+    docstring: the per-ray rule, the ill-conditioned rays, the tables)."""
     before = step.BWD_KERNEL.launches
     got = step.trace_bwd(scene, tables, 0.85, u8s, res, n_live, ctA, ctB)
     assert step.BWD_KERNEL.launches == before + 1

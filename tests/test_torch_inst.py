@@ -254,8 +254,9 @@ def test_trace_radiance_matches_jax(name, monkeypatch):
     """A 32 x 32 frame of the small stand-in through the JAX package's
     trace_radiance (its whole-trace kernel) and the port's
     trace_radiance_u from the same draws, ray by ray. At bounce 1 every
-    ray is held to the rule (all but 0.5% of rays). At bounce 3 (both
-    sides compacting at step 2) the grid's convex mirrors amplify a
+    ray is held to the rule (all but 0.5% of rays). At bounce 3 (the JAX
+    package compacting at step 2, and the port on the glass grid) the
+    grid's convex mirrors amplify a
     first-hit t that differs in its last bits (JAX's XLA contracts
     products into fused multiply-adds, the port rounds each), and a
     camera direction that differs in its last bit can turn a path onto
@@ -268,7 +269,7 @@ def test_trace_radiance_matches_jax(name, monkeypatch):
     xs, ys = np.meshgrid(np.arange(32), np.arange(32))
     coords = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)
     key = jax.random.PRNGKey(4)
-    for bounce, cuts in ((1, []), (3, [2])):
+    for bounce, cuts in ((1, []), (3, [2] if ps.any_refract else [])):
         want = np.asarray(jtr.trace_radiance(
             js, jcam, (32, 32), bounce, jnp.float32(0.15),
             jnp.asarray(coords), key, inference=True))
@@ -308,9 +309,11 @@ def test_compact_cuts_rule():
     """The JAX package's rule (jax_cuts): a sphere-cull class without
     triangles compacts at 2, 4 and 6, a triangle class at 3 and 6, a room
     never; a sphere grid whose spheres the port sweeps dense (textured)
-    neither. The default (compact_cuts) follows it but leaves opaque mesh
-    scenes whole, and a trace that needs a gradient never compacts."""
+    neither. The default (compact_cuts) follows it on refractive scenes
+    and leaves opaque ones whole, and a trace that needs a gradient never
+    compacts."""
     inst = _scene("inst_grid")[1]
+    glass = _scene("inst_glass")[1]
     mesh = {name: port_scene(jcomp.compile_scene(schema.SceneConfig
                                                  .from_json(mesh_scene(
                                                      name, small_torus()))))
@@ -324,7 +327,9 @@ def test_compact_cuts_rule():
     tex = port_scene(jcomp.compile_scene(schema.SceneConfig.from_json(
         tex_grid360())))
     assert ttr.jax_cuts(tex, 9) == [] and ttr.compact_cuts(tex, 9, True) == []
-    assert ttr.compact_cuts(inst, 9, True) == [2, 4, 6]
+    assert ttr.compact_cuts(inst, 9, True) == []
+    assert ttr.jax_cuts(glass, 9) == ttr.compact_cuts(glass, 9, True) \
+        == [2, 4, 6]
     assert ttr.compact_cuts(mesh["mesh_glass"], 9, True) == [3, 6]
     assert ttr.compact_cuts(mesh["mesh_opaque"], 9, True) == []
     assert ttr.compact_cuts(room, 9, True) == []
@@ -391,14 +396,16 @@ def test_trace_grad_matches_pallas_vjp(name):
 
 
 def test_cli_renders_an_instanced_scene(tmp_path):
-    """The CLI renders the small stand-in from a JSON file through the
-    plain trace, one trace call per segment of each sample (bounce 2: one
-    cut, at step 2)."""
-    cfg = tmp_path / "inst.json"
-    cfg.write_text(json.dumps(render_json("inst_grid", small=True)))
-    out = tmp_path / "inst.png"
-    before = step.KERNEL.plain_calls
-    assert tcli.main([str(cfg), "--device", "cpu", "-o", str(out)]) == 0
-    assert step.KERNEL.plain_calls == before + 2 * 2
-    img = np.asarray(Image.open(out))
-    assert img.shape == (32, 32, 3) and img.std() > 5.0
+    """The CLI renders the small stand-ins from JSON files through the
+    plain trace, one trace call per segment of each sample: the opaque
+    grid whole, the glass one in two segments (bounce 2: one cut, at step
+    2)."""
+    for name, segments in (("inst_grid", 1), ("inst_glass", 2)):
+        cfg = tmp_path / f"{name}.json"
+        cfg.write_text(json.dumps(render_json(name, small=True)))
+        out = tmp_path / f"{name}.png"
+        before = step.KERNEL.plain_calls
+        assert tcli.main([str(cfg), "--device", "cpu", "-o", str(out)]) == 0
+        assert step.KERNEL.plain_calls == before + 2 * segments
+        img = np.asarray(Image.open(out))
+        assert img.shape == (32, 32, 3) and img.std() > 5.0

@@ -104,7 +104,6 @@ struct HostAcc {
   float* d_tab;
   float* d_lights;
   float* d_tri;
-  int L;
   void row(int row, const float* d_at) {
     for (int c = 0; c < mrt::kRowCols; ++c)
       d_tab[row * mrt::kRowCols + c] += d_at[c];
@@ -112,9 +111,9 @@ struct HostAcc {
   void tri(int t, const float* d_gh) {
     for (int k = 0; k < 4; ++k) d_tri[4 * t + k] += d_gh[k];
   }
-  void light(const float* d_lt) {
-    for (int c = 0; c < L * mrt::kLightCols; ++c)
-      if (c % mrt::kLightCols != 6) d_lights[c] += d_lt[c];
+  void light(int li, const float* g) {
+    for (int c = 0; c < mrt::kLightCols; ++c)
+      if (c != 6) d_lights[li * mrt::kLightCols + c] += g[c];
   }
 };
 }  // namespace
@@ -179,6 +178,52 @@ extern "C" void host_fwd_train(const float* tab, const int* lay10,
   host_fwd<true>(tab, lay10, tri, bb, lights, L, dk, maps, atlas, tmeta,
                  slots, mrt::Seg{0, K}, o0, d0, te0, row0, tx0, xrow0, u8s,
                  R, refract, A, B, fl, resid, n_live);
+}
+
+// the dense-row whole traces' step (mrt::ray_step): each ray stepped from
+// its primary until it dies or K steps, its outputs written when it ends
+// (the train instance when resid is not null)
+template <bool kRefract, bool kTrain>
+static void ray_steps(const float* tab, const mrt::Tris& T,
+    const mrt::Layout& lay, const float* lights, int L, float dk,
+    const float* o0, const float* d0, const float* te0, const int* row0,
+    const float* tx0, const int* xrow0, const float* u8s, int K, int R,
+    float* A, float* B, float* fl, float* resid, int* n_live) {
+  for (int i = 0; i < R; ++i) {
+    mrt::Carry c{mrt::v3(o0[i], o0[R + i], o0[2 * R + i]),
+                 mrt::v3(d0[i], d0[R + i], d0[2 * R + i]),
+                 mrt::v3(1.0f, 1.0f, 1.0f), mrt::v3(0.0f, 0.0f, 0.0f),
+                 1.0f};
+    const mrt::Hit h0{te0[i], row0[i], tx0[i], xrow0[i]};
+    float first_live = 0.0f;
+    int n = 0;
+    for (int k = 0; k < K; ++k)
+      if (!mrt::ray_step<kRefract, kTrain>(tab, T, lay, lights, L, dk, i, R,
+                                           k, h0, u8s, c, first_live, resid,
+                                           n))
+        break;
+    A[i] = c.A.x; A[R + i] = c.A.y; A[2 * R + i] = c.A.z;
+    B[i] = c.B.x; B[R + i] = c.B.y; B[2 * R + i] = c.B.z;
+    fl[i] = first_live;
+    if (kTrain) n_live[i] = n;
+  }
+}
+
+extern "C" void host_ray_steps(const float* tab, const int* lay10,
+    const float* bb, const float* lights, int L, float dk, const float* o0,
+    const float* d0, const float* te0, const int* row0, const float* tx0,
+    const int* xrow0, const float* u8s, int K, int R, int refract, float* A,
+    float* B, float* fl, float* resid, int* n_live) {
+  const mrt::Layout lay = layout(lay10);
+  const mrt::Tris T{nullptr, bb};
+  auto run = [&](auto fn) {
+    fn(tab, T, lay, lights, L, dk, o0, d0, te0, row0, tx0, xrow0, u8s, K,
+       R, A, B, fl, resid, n_live);
+  };
+  if (refract)
+    resid ? run(ray_steps<true, true>) : run(ray_steps<true, false>);
+  else
+    resid ? run(ray_steps<false, true>) : run(ray_steps<false, false>);
 }
 
 // the render instance over steps [k0, k1) from carry c0 (or the
@@ -269,7 +314,7 @@ extern "C" void host_bwd(const float* tab, const int* lay10,
   const mrt::Layout lay = layout(lay10);
   const mrt::Tris T{tri, nullptr};
   const mrt::Tex tex{maps, atlas, tmeta, slots};
-  HostAcc acc{d_tab, d_lights, d_tri, L};
+  HostAcc acc{d_tab, d_lights, d_tri};
   const bool tri_ = lay.tri_n > 0;
   auto run = [&](auto fn) {
     fn(tab, T, lay, lights, L, dk, tex, resid, n_live, u8s, R, refract, ctA,
@@ -279,6 +324,73 @@ extern "C" void host_bwd(const float* tab, const int* lay10,
   else if (tri_) run(bwd_rays<true, false>);
   else if (slots) run(bwd_rays<false, true>);
   else run(bwd_rays<false, false>);
+}
+
+// the backward kernel's walk: 32 rays at a time, step k from the group's
+// longest ray down, each ray's step k (mrt::ray_step_bwd) where it has one
+template <bool kRefract, bool kTri, bool kTex>
+static void bwd_warps(const float* tab, const mrt::Tris& T,
+    const mrt::Layout& lay, const float* lights, int L, float dk,
+    const mrt::Tex& tex, const float* resid, const int* n_live,
+    const float* u8s, int R, const float* ctA, const float* ctB,
+    float* d_o, float* d_d, HostAcc& acc) {
+  for (int base = 0; base < R; base += 32) {
+    const int lanes = R - base < 32 ? R - base : 32;
+    mrt::V3 co[32], cd[32], ca[32], cb[32];
+    int top = 0;
+    for (int l = 0; l < lanes; ++l) {
+      const int i = base + l;
+      co[l] = cd[l] = mrt::v3(0.0f, 0.0f, 0.0f);
+      ca[l] = mrt::v3(ctA[i], ctA[R + i], ctA[2 * R + i]);
+      cb[l] = mrt::v3(ctB[i], ctB[R + i], ctB[2 * R + i]);
+      top = n_live[i] > top ? n_live[i] : top;
+    }
+    for (int k = top - 1; k >= 0; --k)
+      for (int l = 0; l < lanes; ++l) {
+        if (k >= n_live[base + l]) continue;
+        float d_at[mrt::kRowCols] = {};
+        float d_gh[4] = {};
+        const int row = mrt::ray_step_bwd<kRefract, kTri, kTex>(
+            tab, tab, T, lay, lights, L, dk, tex, base + l, R, resid, k, u8s,
+            cb[l], co[l], cd[l], ca[l], d_at, d_gh, acc);
+        acc.row(row, d_at);
+        if (kTri && row >= lay.tri_start)
+          acc.tri(row - lay.tri_start, d_gh);
+      }
+    for (int l = 0; l < lanes; ++l) {
+      const int i = base + l;
+      d_o[i] = co[l].x; d_o[R + i] = co[l].y; d_o[2 * R + i] = co[l].z;
+      d_d[i] = cd[l].x; d_d[R + i] = cd[l].y; d_d[2 * R + i] = cd[l].z;
+    }
+  }
+}
+
+extern "C" void host_bwd_warps(const float* tab, const int* lay10,
+    const float* tri, const float* lights, int L, float dk,
+    const int* maps, const float* atlas, const int* tmeta, int slots,
+    const float* resid, const int* n_live, const float* u8s, int R,
+    int refract, const float* ctA, const float* ctB, float* d_o, float* d_d,
+    float* d_tab, float* d_lights, float* d_tri) {
+  const mrt::Layout lay = layout(lay10);
+  const mrt::Tris T{tri, nullptr};
+  const mrt::Tex tex{maps, atlas, tmeta, slots};
+  HostAcc acc{d_tab, d_lights, d_tri};
+  auto run = [&](auto fn) {
+    fn(tab, T, lay, lights, L, dk, tex, resid, n_live, u8s, R, ctA, ctB,
+       d_o, d_d, acc);
+  };
+  const bool tri_ = lay.tri_n > 0, tex_ = slots != 0;
+  if (refract) {
+    if (tri_ && tex_) run(bwd_warps<true, true, true>);
+    else if (tri_) run(bwd_warps<true, true, false>);
+    else if (tex_) run(bwd_warps<true, false, true>);
+    else run(bwd_warps<true, false, false>);
+  } else {
+    if (tri_ && tex_) run(bwd_warps<false, true, true>);
+    else if (tri_) run(bwd_warps<false, true, false>);
+    else if (tex_) run(bwd_warps<false, false, true>);
+    else run(bwd_warps<false, false, false>);
+  }
 }
 
 // the per-step kernels' bodies: one bounce step of every ray from the
@@ -604,6 +716,102 @@ def test_host_trace_bwd_matches_autograd_of_plain(name, host_lib):
         assert bool(torch.isfinite(g).all()), gname
         atol = 1e-5 * max(float(w.abs().max()) if w.numel() else 0.0, 1e-30)
         torch.testing.assert_close(g, w, rtol=2e-3, atol=atol, msg=gname)
+
+
+@pytest.mark.parametrize("name", ["mixed", "mixed_opaque", "ties",
+                                  "inst_grid", "inst_glass"])
+def test_host_ray_steps_equal_trace_ray(name, host_lib):
+    """The dense-row whole traces' step (``mrt::ray_step``, which computes
+    a refractive step's exit side only where the draw can choose it) run
+    step by step per ray gives ``mrt::trace_ray``'s A, B, first_live,
+    residuals and live-step counts bit for bit (the exit side at every
+    hit: the mesh, textured and segment instances), in render and in
+    train mode."""
+    scene = compile_scene(schema.SceneConfig.from_json(SCENES[name]), "cpu")
+    tables = step.pack_step(scene)
+    assert not tables.layout[2] and not scene.has_maps
+    tab = tables.tab.detach().contiguous()
+    lights = tables.lights.detach().contiguous()
+    oT, dT = _rays(name, R, 3)
+    u8s = torch.rand((K, step.n_uni(scene.any_refract), R),
+                     generator=torch.Generator().manual_seed(4))
+    lay, bb, L = _lay(tables), _bb(tables), scene.n_lights
+    with torch.no_grad():
+        hit0 = [t.contiguous() for t in hit3.closest_hit_plain(
+            tab, tables.layout, oT.T, dT.T, step.primary_mode(scene),
+            tables.tri, tables.tbb, tables.sbb)]
+    CR = step.scene_res_rows(scene, tables.layout)
+    outs = []
+    for steps in (False, True):
+        out = (torch.empty(3, R), torch.empty(3, R), torch.empty(1, R),
+               torch.zeros(K, CR, R), torch.empty(R, dtype=torch.int32))
+        if steps:
+            host_lib.host_ray_steps(
+                _p(tab), _p(lay), _opt(bb), _p(lights), L,
+                ctypes.c_float(DECAY), _p(oT), _p(dT), *map(_p, hit0),
+                _p(u8s), K, R, int(scene.any_refract), *map(_p, out))
+        else:
+            host_lib.host_fwd_train(
+                _p(tab), _p(lay), None, _opt(bb), _p(lights), L,
+                ctypes.c_float(DECAY), None, None, None, 0, _p(oT), _p(dT),
+                *map(_p, hit0), _p(u8s), K, R, int(scene.any_refract),
+                *map(_p, out))
+        outs.append(out)
+    render = (torch.empty(3, R), torch.empty(3, R), torch.empty(1, R))
+    host_lib.host_ray_steps(
+        _p(tab), _p(lay), _opt(bb), _p(lights), L, ctypes.c_float(DECAY),
+        _p(oT), _p(dT), *map(_p, hit0), _p(u8s), K, R,
+        int(scene.any_refract), *map(_p, render), None, None)
+    # the render instance's trace_ray
+    full = (torch.empty(3, R), torch.empty(3, R), torch.empty(1, R))
+    host_lib.host_fwd_render(
+        _p(tab), _p(lay), None, _opt(bb), _p(lights), L,
+        ctypes.c_float(DECAY), None, None, None, 0, _p(oT), _p(dT),
+        *map(_p, hit0), _p(u8s), R, int(scene.any_refract), 0, K, None,
+        None, *map(_p, full), None)
+    (a, b) = outs
+    assert int(a[4].sum()) > R // 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    for x, y, z in zip(a[:3], render, full):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.parametrize("name", ["mixed", "mesh_glass", "tex_blocks",
+                                  "inst_grid"])
+def test_host_warp_walk_equals_ray_walk(name, host_lib):
+    """The backward kernel's order of work (32 rays at a time, one step
+    of each at a time from the group's longest ray down, through
+    ``mrt::ray_step_bwd``) gives each ray's d_oT and d_dT bit for bit as
+    the per-ray walk (``mrt::trace_ray_bwd``) does, and the table
+    cotangents within float32 summation order (rtol 1e-5, 1e-6 of the
+    largest)."""
+    scene, tables, lay, _o, _d, u8s, bad, _mine, (res, n_live) = _case(
+        name, host_lib)
+    rng = np.random.default_rng(6)
+    ctA, ctB = (torch.from_numpy(rng.normal(size=(3, R)).astype(np.float32))
+                for _ in range(2))
+    tab = tables.tab.detach().contiguous()
+    lights = tables.lights.detach().contiguous()
+    tri = tables.tri.detach().contiguous()
+    outs = []
+    for fn in (host_lib.host_bwd, host_lib.host_bwd_warps):
+        got = (torch.zeros_like(tab), torch.zeros_like(lights),
+               torch.zeros(3, R), torch.zeros(3, R),
+               torch.zeros(tri.shape[0], 4))
+        fn(_p(tab), _p(lay), _opt(tri), _p(lights), scene.n_lights,
+           ctypes.c_float(DECAY), *_tex(scene, tables), _p(res.contiguous()),
+           _p(n_live), _p(u8s), R, int(scene.any_refract), _p(ctA), _p(ctB),
+           _p(got[2]), _p(got[3]), _p(got[0]), _p(got[1]), _p(got[4]))
+        outs.append(got)
+    (a, b), n = outs, n_live.view(-1, 32)
+    assert float((n.max(1).values - n.min(1).values).float().mean()) > 0
+    assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+    for gname, g, w in zip(("d_tab", "d_lights", "d_tri"),
+                           (b[0], b[1], b[4]), (a[0], a[1], a[4])):
+        assert float(w.abs().max() if w.numel() else 1.0) > 0, gname
+        atol = 1e-6 * max(float(w.abs().max()) if w.numel() else 0.0, 1e-30)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=atol, msg=gname)
 
 
 @pytest.mark.parametrize("name", ["mesh_glass", "mesh_opaque", "clustered",
