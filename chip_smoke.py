@@ -182,11 +182,15 @@ Phases, each of which raises on failure:
    65,536 triangles, pallas_tri.MAX_PRIMS, in 1,024 cull blocks, diffuse /
    glass; the scene JSON names the mesh's OBJ file), routed to the
    per-step path with the triangle segment swept on its own: rows 6, 7 and
-   8 (``tri_entry``, ``tri_entry_exit`` with every row's group exit and
-   with half the rows marked to refract, ``tri_group_exit`` fed row 6's
-   winner groups) against their plain versions on 2^17 random and 2^17
-   camera rays, rows and t bit for bit, row 8 equal to row 7's exit where
-   a triangle wins; on 2^17 camera rays step_fwd and step_fwd_train (their
+   8 (``tri_entry`` and ``tri_entry_exit``, the two-level walk through the
+   cull blocks' superblocks, with every row's group exit and with half the
+   rows marked to refract; ``tri_group_exit`` fed row 6's winner groups)
+   against their plain versions on 2^17 random and 2^17 camera rays, rows
+   and t bit for bit, row 7's entry equal to row 6's, and row 7's culled
+   exit equal to row 8's unculled one where a triangle wins but on phantom
+   exits (the unculled exit's hit point outside its block's AABB, at most
+   PHANTOM_SHARE of the rays; also at each step of the glass frame); on
+   2^17 camera rays step_fwd and step_fwd_train (their
    kTriIn instances) at steps 0 and 2 and step_bwd at step 0 by phase 18's
    rules, and the per-step trace against the plain per-step trace (phase
    4's rule). Timed at the frame: each kernel at step 0 (every ray live)
@@ -194,8 +198,10 @@ Phases, each of which raises on failure:
    sweep's result, swept beforehand), and on ``mesh_big`` row 7 with no
    row marked to refract (the opaque torus of ``mesh_big_mixed``); the
    plain versions only on the 2^17-ray sets; the work behind the bounds
-   (slab tests, rows the cull leaves, exit rows, shadow rows) counted on a
-   fixed 2^17 of the frame's rays and scaled to the frame.
+   (superblock and block slab tests, rows the walk leaves, culled exit
+   rows, shadow rows; beside them the one-level walk's: every block's slab
+   test and the whole group's exit rows) counted at each step on a fixed
+   2^17 of the frame's rays and scaled to the frame.
 23. big mesh main path: the CLI renders ``mesh_big`` from its JSON and OBJ
    files at 1080x1080, bounce 8, 16 spp: one tri_entry and one step_fwd
    launch per step and sample, no whole-trace kernel and no plain version;
@@ -223,7 +229,8 @@ below) and the data-dependent parts — live steps, occluded
 lights, refract choices, the triangle rows the cull leaves — read from
 this run's residuals and plain versions. A sweep counts the scene's valid
 rows only: the kernels skip the invalid rows that pad each kind segment to
-a multiple of 8. The block slab tests of the cull are not counted. On a
+a multiple of 8. The block slab tests of the cull are not counted, but
+for rows 6 and 7, whose work is mostly those tests. On a
 textured scene the map ids, the atlas and its meta are read once, like
 every other table, and each hit side's uv and each texel fetch count as
 operations (``TEX_SIDE_OPS`` and the texture constants below). Where the
@@ -345,6 +352,10 @@ RENDER_REPS = 10
 STEP_RENDER_REPS = 5
 N_CMP = 1 << 17
 OUTLIER_SHARE = 0.001
+# row 7's culled group exit may drop a phantom exit hit (outside its
+# block's slacked AABB) that row 8's unculled exit finds: at most this share
+# of the rays whose entry won, each shown to be such a phantom
+PHANTOM_SHARE = 0.001
 IN_ERR = 1e-3
 TRAIN_STEPS = 3
 # --step-diagnosis: independent runs of inst_grid3k's every-leaf training
@@ -3432,27 +3443,30 @@ def compare_tri(tables, o, d, live=None):
     """Rows 6, 7 (also with half the rows marked to refract, as the step
     passes them) and 8 (tri_entry, tri_entry_exit, tri_group_exit fed row
     6's winner groups) against their plain versions on rays ``o``, ``d``
-    (R, 3): rows and t bit for bit, and row 8's (tx, xrow) equal to row
-    7's wherever a triangle wins. Returns (hits, the plain versions'
-    ms)."""
+    (R, 3): rows and t bit for bit; row 7's entry equal to row 6's; row 7's
+    culled exit equal to row 8's unculled one wherever a triangle wins,
+    but on phantom exits (``check_phantoms``). Returns (hits, the plain
+    versions' ms, the phantom exits)."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import hit3, tri
 
     t, tbb, n = tables.tri.detach(), tables.tbb, tables.layout[3]
+    tsb = tables.tsb
     got, want, ms = {}, {}, {}
-    got["entry"] = tri.tri_entry(t, o, d, tbb, n, live)
+    got["entry"] = tri.tri_entry(t, o, d, tbb, n, live, tsb=tsb)
     box = []
     ms["entry"] = plain_ms(lambda: box.append(tri.entry_plain(t, o, d, tbb, n,
                                                               live)))
     want["entry"] = box.pop()
-    got["entry_exit"] = tri.tri_entry_exit(t, o, d, tbb, n, live)
+    got["entry_exit"] = tri.tri_entry_exit(t, o, d, tbb, n, live, tsb=tsb)
     ms["entry_exit"] = plain_ms(lambda: box.append(
         tri.entry_exit_plain(t, o, d, tbb, n, live)))
     want["entry_exit"] = box.pop()
     refr = (torch.rand(t.shape[0], generator=torch.Generator(
         device=o.device).manual_seed(7), device=o.device) < 0.5).float()
-    got["refracting"] = tri.tri_entry_exit(t, o, d, tbb, n, live, refr)
+    got["refracting"] = tri.tri_entry_exit(t, o, d, tbb, n, live, refr,
+                                           tsb=tsb)
     want["refracting"] = tri.entry_exit_plain(t, o, d, tbb, n, live, refr)
     te, row = got["entry"]
     won = te < tri.BIG * 0.5
@@ -3467,51 +3481,230 @@ def compare_tri(tables, o, d, live=None):
                 raise AssertionError(f"tri {what}: differs from the plain "
                                      f"version on {int((g != w).sum())} rays")
     ee, gx = got["entry_exit"], got["exit"]
-    if not (torch.equal(gx[0][won], ee[2][won])
-            and torch.equal(gx[1][won], ee[3][won])):
-        raise AssertionError("tri_exit differs from tri_entry_exit's exit")
+    if not (torch.equal(ee[0], te) and torch.equal(ee[1], row)):
+        raise AssertionError("tri_entry_exit's entry differs from tri_entry")
+    phantoms = check_phantoms(tables, o[won], d[won],
+                              (ee[2][won], ee[3][won]),
+                              (gx[0][won], gx[1][won]), "2^17 rays")
     hits = int(won.sum())
     log(f"tri kernels on {o.shape[0]} rays ({hits} hit the mesh): rows 6, 7 "
-        f"and 8 equal their plain versions bit for bit (plain "
+        f"and 8 equal their plain versions bit for bit, row 7's entry row "
+        f"6; row 7's culled exit row 8's unculled one but on {phantoms} "
+        f"phantom exits (plain "
         f"{ {k: round(v, 1) for k, v in ms.items()} } ms)")
-    return hits, ms
+    return hits, ms, phantoms
 
 
-def tri_work(tables, o, d, need_exit):
-    """Per ray (R,) int64: the cull blocks slab-tested, the triangle rows
-    the entry sweep tests after the cull, and the exit rows (the winner
-    group's rows, refracting) of rows 6 / 7 for rays ``o``, ``d``."""
+def check_phantoms(tables, o, d, culled, full, where):
+    """Row 7's culled group exit ``culled`` (tx, xrow) against row 8's
+    unculled ``full`` on the rays ``o``, ``d`` whose entry won: every ray
+    where they differ must be a phantom exit (its unculled exit hit point
+    outside its block's slacked AABB, ``tri.culled_exit_phantoms``), and
+    the phantoms at most PHANTOM_SHARE of those rays. Returns their
+    count."""
+    from micro_raytracer_tpu_torch.ops import tri
+
+    differs, phantom = tri.culled_exit_phantoms(tables.tbb, o, d, culled,
+                                                full)
+    n_diff, n_ph = int(differs.sum()), int(phantom.sum())
+    if n_diff != n_ph or n_ph > PHANTOM_SHARE * max(o.shape[0], 1):
+        raise AssertionError(
+            f"row 7's culled exit differs from row 8's on {n_diff} of "
+            f"{o.shape[0]} rays ({where}), {n_ph} of them phantom exits "
+            f"(cap {PHANTOM_SHARE} of the rays)")
+    return n_ph
+
+
+def _slabs(boxes, o, invd):
+    """``(tmin, tmax)`` ``(m, k)`` of rays ``o`` (m, 3) against ``k``
+    AABBs ``boxes`` (k, 8): ``hit3._slab``'s operations, broadcast."""
+    import torch
+
+    tmin = tmax = None
+    for k in range(3):
+        t1 = (boxes[None, :, k] - o[:, None, k]) * invd[:, None, k]
+        t2 = (boxes[None, :, 3 + k] - o[:, None, k]) * invd[:, None, k]
+        near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tmin = near if tmin is None else torch.maximum(tmin, near)
+        tmax = far if tmax is None else torch.minimum(tmax, far)
+    return tmin, tmax
+
+
+def _pair_blocks(t, n, o, d, ray, blk, wg=None):
+    """For (ray, block) pairs: the block's smallest valid t (BIG where
+    none), or with the group ids ``wg`` (per ray) its largest t over rows
+    of the ray's group (-BIG where none), by ``hit3._tri_block``'s
+    operations on each pair's rows."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import hit3
 
-    t, tbb, n = tables.tri.detach(), tables.tbb, tables.layout[3]
-    with torch.no_grad():
-        best = torch.full((o.shape[0],), hit3.BIG, device=o.device)
-        _b, row, tested = hit3._tri_entry(t, tbb, n, o, d, best)
-        exit_rows = torch.zeros_like(tested)
-        if need_exit:
-            w = row.clamp(min=0)
-            span = (t[w, hit3._T_GE].clamp(max=n)
-                    - t[w, hit3._T_GS]).to(torch.int64)
-            exit_rows = torch.where(row >= 0, span, 0)
-    slabs = torch.full_like(tested, tbb.shape[0])
-    return slabs, tested, exit_rows
+    out = []
+    for a in range(0, ray.shape[0], 1 << 15):
+        r, b = ray[a:a + (1 << 15)], blk[a:a + (1 << 15)]
+        idx = b[:, None] * hit3.CB + torch.arange(hit3.CB, device=b.device)
+        rows = t[idx.clamp(max=n - 1)]                     # (P, CB, 16)
+        g = [rows[..., k] for k in range(9)]
+        h = [rows[..., hit3._T_H + k] for k in range(3)]
+        oc = [o[r][:, None, k] for k in range(3)]
+        dc = [d[r][:, None, k] for k in range(3)]
+
+        def prod(k, v):
+            return g[3 * k] * v[0] + g[3 * k + 1] * v[1] + g[3 * k + 2] * v[2]
+
+        oxt, oyt, ozt = (prod(k, oc) + h[k] for k in range(3))
+        dxt, dyt, dzt = (prod(k, dc) for k in range(3))
+        ok = torch.abs(dzt) >= rows[..., hit3._T_THR]
+        tt = -ozt / torch.where(ok, dzt, 1.0)
+        u = oxt + tt * dxt
+        v = oyt + tt * dyt
+        ok = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) \
+            & (tt >= 0.0) & (idx < n)
+        if wg is None:
+            out.append(torch.where(ok, tt, hit3.BIG).amin(1))
+        else:
+            ok = ok & (rows[..., hit3._T_GID] == wg[r][:, None])
+            out.append(torch.where(ok, tt, -hit3.BIG).amax(1))
+    return torch.cat(out) if out else torch.zeros(0, device=ray.device)
 
 
-def tri_bounds(tables, R, live, slabs, rows, exit_rows, group_exit=False):
+def tri_work(tables, o, d, refr=None):
+    """Per ray (R,) float64, the work of rows 6 / 7 on rays ``o``, ``d``
+    by the two-level walk of ``csrc/tri.cu`` (``tri_walk``), simulated in
+    its order: ``sup`` superblock tests (a staged run of 64's bound, then
+    its superblocks into the mask, a set bit again), ``blocks`` block slab
+    tests (a passing superblock's blocks into the mask, a set bit again),
+    ``rows`` the entry rows swept, and for the winners on ``refr``'s rows
+    (None: every row; no exit where ``refr`` is False) the culled group
+    exit's ``exit_sup``, ``exit_blocks`` and ``exit_rows``; beside them the
+    one-level walk's ``slabs_one_level`` (every block) and
+    ``exit_rows_unculled`` (the winner group's rows). The slab intervals of
+    every ray and box are taken at once, and each block's best t for the
+    rays that meet it at all; the walk then steps through the blocks in
+    order."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, tri
+
+    t, tbb, tsb, n = (tables.tri.detach(), tables.tbb, tables.tsb,
+                      tables.layout[3])
+    R, dev, BIG, f64 = o.shape[0], o.device, hit3.BIG, torch.float64
+    SB, CB, nb = tri.SUPER, hit3.CB, -(-n // hit3.CB)
+    n_sup = -(-nb // SB)
+    staged = min(n_sup, 256)       # tri.cu kSupStaged
+    chunks = torch.stack([torch.cat([tsb[c:c + 64, :3].amin(0),
+                                     tsb[c:c + 64, 3:6].amax(0)])
+                          for c in range(0, n_sup, 64)])
+    bnum = torch.arange(nb, device=dev)
+
+    def walk(o, d, leave, b_lo, b_hi, wg=None, gs=None, ge=None):
+        """The walk of rays ``o``, ``d`` over blocks [b_lo, b_hi) (per
+        ray): (superblock tests, block tests, rows swept)."""
+        m = o.shape[0]
+        invd = hit3._inv_dir(d)
+        sup = torch.zeros(m, dtype=f64, device=dev)
+        blk = torch.zeros_like(sup)
+        rows = torch.zeros_like(sup)
+        best = torch.full((m,), -BIG if leave else BIG, device=dev)
+
+        def test(tmin, tmax, bst):
+            bst = bst if tmin.dim() == 1 else bst[:, None]
+            near = tmax >= torch.maximum(tmin, torch.zeros_like(tmin))
+            return near & ((tmax >= bst) if leave else (tmin <= bst))
+
+        inb = (bnum[None] >= b_lo[:, None]) & (bnum[None] < b_hi[:, None])
+        bt = _slabs(tbb[:nb], o, invd)
+        st = _slabs(tsb, o, invd)
+        ct = _slabs(chunks, o, invd)
+        # each block's best t for the rays that meet it at all
+        ray, bk = torch.nonzero(test(*bt, best) & inb, as_tuple=True)
+        res = torch.full((m, nb), -BIG if leave else BIG, device=dev)
+        res[ray, bk] = _pair_blocks(t, n, o, d, ray, bk, wg)
+        lo_r = torch.clamp(bnum * CB, max=n)
+        hi_r = torch.clamp(bnum * CB + CB, max=n)
+        if gs is not None:
+            lo_r = torch.maximum(lo_r[None], gs[:, None])
+            hi_r = torch.minimum(hi_r[None], ge[:, None])
+        cnt = torch.clamp(hi_r - lo_r, min=0).to(f64)
+        cnt = cnt.expand(m, nb) if cnt.dim() == 2 else cnt[None].expand(m, nb)
+        s_lo, s_hi = b_lo // SB, (b_hi - 1) // SB + 1
+        for c in range(0, n_sup, 64):
+            span = torch.arange(c, min(c + 64, n_sup), device=dev)
+            ins = (span[None] >= s_lo[:, None]) & (span[None] < s_hi[:, None])
+            if c + 64 <= staged or staged == n_sup:
+                # the run's bound (tri.cu chunk_bounds), tested first
+                any_in = ins.any(1)
+                sup += any_in.double()
+                ok = test(ct[0][:, c // 64], ct[1][:, c // 64], best)
+                ins = ins & (ok & any_in)[:, None]
+            mask = test(st[0][:, span], st[1][:, span], best) & ins
+            sup += ins.sum(1).double()
+            for j, s in enumerate(range(c, c + span.numel())):
+                sup += mask[:, j].double()
+                s_ok = mask[:, j] & test(st[0][:, s], st[1][:, s], best)
+                b0, b1 = s * SB, min((s + 1) * SB, nb)
+                b_in = s_ok[:, None] & inb[:, b0:b1]
+                blk += b_in.sum(1).double()
+                bmask = test(bt[0][:, b0:b1], bt[1][:, b0:b1], best) & b_in
+                for k, b in enumerate(range(b0, b1)):
+                    blk += bmask[:, k].double()
+                    touch = bmask[:, k] & test(bt[0][:, b], bt[1][:, b], best)
+                    rows += torch.where(touch, cnt[:, b], 0.0)
+                    best = torch.where(touch, (torch.maximum if leave else
+                                               torch.minimum)(best,
+                                                              res[:, b]),
+                                       best)
+        return sup, blk, rows
+
+    zero = torch.zeros(R, dtype=torch.int64, device=dev)
+    work = dict(zip(("sup", "blocks", "rows"),
+                    walk(o, d, False, zero, zero + nb)))
+    te, row = tri.entry_plain(t, o, d, tbb, n)
+    won = te < BIG * 0.5
+    if refr is not None:
+        won = won & (refr[row.long()] > 0.5)
+    w = row.long()
+    gs = t[w, hit3._T_GS].long()
+    ge = torch.clamp(t[w, hit3._T_GE].long(), max=n)
+    for k in ("exit_sup", "exit_blocks", "exit_rows"):
+        work[k] = torch.zeros(R, dtype=f64, device=dev)
+    # the exit walks the winners only
+    wi = torch.nonzero(won).flatten()
+    if wi.numel():
+        ex = walk(o[wi], d[wi], True, gs[wi] // CB, (ge[wi] - 1) // CB + 1,
+                  t[w[wi], hit3._T_GID], gs[wi], ge[wi])
+        for k, v in zip(("exit_sup", "exit_blocks", "exit_rows"), ex):
+            work[k][wi] = v
+    work["slabs_one_level"] = torch.full((R,), float(nb), dtype=f64,
+                                         device=dev)
+    work["exit_rows_unculled"] = torch.where(won, ge - gs, 0).double()
+    return work
+
+
+def tri_bounds(tables, R, live, work, which="walk", group_exit=False):
     """Bounds of one launch of row 6 or 7 (``group_exit``: row 8) over R
-    rays, ``live`` of them live, with ``slabs``, ``rows`` and
-    ``exit_rows`` the blocks, entry rows and exit rows they test."""
+    rays, ``live`` of them live, with ``work`` the summed counts of
+    ``tri_work`` (scaled to the R rays): ``which`` "walk" counts the
+    two-level walk's superblock and block tests, rows and culled exit rows,
+    "one_level" the parent design's work (every block's slab test, the
+    rows, the whole group's exit rows)."""
     table_b = tables.tri.numel() * 4 + tables.tbb.numel() * 4
     if group_exit:
         # rays (o, d), live, the group id in; tx, row out
         return bound(R * (24 + 4 + 4 + 8) + table_b,
-                     exit_rows * TRI_TEST_OPS)
-    out_b = 16 if exit_rows else 8
+                     work["exit_rows_unculled"] * TRI_TEST_OPS)
+    exit_b = work["exit_rows_unculled"] > 0
+    out_b = 16 if exit_b else 8
+    if which == "walk":
+        slabs = work["sup"] + work["blocks"] + work["exit_sup"] \
+            + work["exit_blocks"]
+        rows = work["rows"] + work["exit_rows"]
+        table_b += tables.tsb.numel() * 4
+    else:
+        slabs = work["slabs_one_level"]
+        rows = work["rows"] + work["exit_rows_unculled"]
     return bound(R * (24 + 4 + out_b) + table_b,
-                 live * 3 + slabs * SLAB_OPS
-                 + (rows + exit_rows) * TRI_TEST_OPS)
+                 live * 3 + slabs * SLAB_OPS + rows * TRI_TEST_OPS)
 
 
 def phase_big_kernels(results):
@@ -3536,9 +3729,10 @@ def phase_big_kernels(results):
         glass = scene.any_refract
         gen = torch.Generator(device=dev).manual_seed(22)
         o, d = random_rays(N_CMP, gen, dev)
-        compare_tri(tables, o * BIG_SCALE, d)
+        phantoms = compare_tri(tables, o * BIG_SCALE, d)[2]
         o, d = camera_rays(cam, N_CMP, gen, dev)
-        hits, plain_tri = compare_tri(tables, o, d)
+        hits, plain_tri, ph = compare_tri(tables, o, d)
+        phantoms += ph
         # the step kernels on 2^17 camera rays (phase 18's rules)
         oc, dc = o.T.contiguous(), d.T.contiguous()
         nu = step.n_uni(glass)
@@ -3581,6 +3775,36 @@ def phase_big_kernels(results):
             cs.append(step.step_fwd(scene, tables, decay, cs[-1], u8s[k])[0])
         tri_ms = [cuda_ms(lambda c=c: step.tri_hits(scene, tables, c), 3)
                   for c in cs]
+        t, tbb, n = tables.tri.detach(), tables.tbb, tables.layout[3]
+        refr = step.tri_refracts(tables)
+        # the work at each step, counted on a fixed 2^17 of the frame's
+        # rays and scaled to the frame; on the glass torus row 7's culled
+        # exit against row 8's unculled one at each step of the frame
+        sub = frame_subset(R, dev)
+        works, frame_ph, won_rays = [], 0, 0
+        for c in cs:
+            cs_ = c[:, sub]
+            live_s = cs_[step.C_LIVE] > 0.5
+            o_s, d_s = cs_[0:3].T[live_s], cs_[3:6].T[live_s]
+            w = tri_work(tables, o_s, d_s, refr if glass else refr * 0.0)
+            works.append({k: float(v.sum()) * R / N_CMP for k, v in w.items()}
+                         | {"live": float(live_s.sum()) * R / N_CMP})
+            if glass:
+                ee = step.tri_hits(scene, tables, c)
+                won = ee[0] < tri.BIG * 0.5
+                wg = torch.where(won, t[ee[1].long(), hit3._T_GID],
+                                 -5.0).contiguous()
+                gx = tri.tri_group_exit(t, c[0:3].T, c[3:6].T, wg, n,
+                                        c[step.C_LIVE])
+                frame_ph += check_phantoms(
+                    tables, c[0:3].T[won], c[3:6].T[won],
+                    (ee[2][won], ee[3][won]), (gx[0][won], gx[1][won]),
+                    "the frame")
+                won_rays += int(won.sum())
+        if glass:
+            log(f"{name} at the frame: row 7's culled exit equals row 8's "
+                f"unculled one at every step but on {frame_ph} phantom "
+                f"exits of {won_rays} winning rays")
         step_ms = [step_alone_ms(scene, tables, c, lambda c=c, k=k:
                                  step.step_fwd(scene, tables, decay, c,
                                                u8s[k]))
@@ -3599,7 +3823,6 @@ def phase_big_kernels(results):
         ct1 = torch.randn((step.CARRY_ROWS, R), generator=gen, device=dev)
         ms_b = cuda_ms(lambda: step.step_bwd(scene, tables, decay, c0, u8s[0],
                                              res_t, hit_t, ct1), 3)
-        t, tbb, n = tables.tri.detach(), tables.tbb, tables.layout[3]
         th0 = step.tri_hits(scene, tables, c0)
         wg = torch.where(th0[0] < tri.BIG * 0.5,
                          t[th0[1].long(), hit3._T_GID], -5.0).contiguous()
@@ -3611,14 +3834,7 @@ def phase_big_kernels(results):
             none = torch.zeros(t.shape[0], device=dev)
             ms_own = cuda_ms(lambda: tri.tri_entry_exit(
                 t, c0[0:3].T, c0[3:6].T, tbb, n, c0[step.C_LIVE],
-                refr=none), 3)
-        # the work the frame's data asks for, counted on a fixed 2^17 of
-        # its rays and scaled to the frame
-        sub = frame_subset(R, dev)
-        os_, ds_ = oT.T[sub], dT.T[sub]
-        slabs, rows, exits = (x.sum() * R / N_CMP for x in tri_work(
-            tables, os_, ds_, True))
-        slabs, rows, exits = float(slabs), float(rows), float(exits)
+                refr=none, tsb=tables.tsb), 3)
         work = {"sweep": 0, "shadow": 0}
         cs = c0[:, sub].contiguous()
         with torch.no_grad():
@@ -3628,15 +3844,25 @@ def phase_big_kernels(results):
                               step.tri_hits(scene, tables, cs, plain=True))
         work = {k: v * R / N_CMP for k, v in work.items()}
         bw = step_work(scene, tables, c0, u8s[0], res_t, hit_t, work)
-        b_sweep = tri_bounds(tables, R, R, slabs, rows, exits if glass else 0)
-        b_exit = tri_bounds(tables, R, R, 0, 0, exits, group_exit=True)
+        w0 = works[0]
+        b_sweep = tri_bounds(tables, R, R, w0)
+        b_old = tri_bounds(tables, R, R, w0, "one_level")
+        b_sample = sum(tri_bounds(tables, R, w["live"], w)["bound_ms"]
+                       for w in works)
+        b_sample_old = sum(tri_bounds(tables, R, w["live"], w,
+                                      "one_level")["bound_ms"]
+                           for w in works)
+        b_exit = tri_bounds(tables, R, R, w0, group_exit=True)
+        per_ray = {k: v / R for k, v in w0.items() if k != "live"}
         log(f"{name} at step 0 ({R} rays, {bw['hits']} hit, {hits} of "
             f"{N_CMP} camera rays on the mesh): {sweep} {tri_ms[0]:.3f} ms "
             f"(plain {plain_tri['entry_exit' if glass else 'entry']:.1f} on "
-            f"{N_CMP} rays), bound {fmt_bound(b_sweep)}: per ray "
-            f"{slabs / R:.0f} block slab tests, {rows / R:.1f} entry rows, "
-            f"{exits / R:.1f} exit rows (of 65,536); tri_exit {ms_x:.3f} ms, "
-            f"bound {fmt_bound(b_exit)}; "
+            f"{N_CMP} rays), bound {fmt_bound(b_sweep)} (the one-level "
+            f"walk's {fmt_bound(b_old)}); a sample's nine {sum(tri_ms):.3f} "
+            f"ms, bound {b_sample:.4f} ms (one-level {b_sample_old:.4f}); "
+            f"per ray at step 0 "
+            f"{ {k: round(v, 3) for k, v in per_ray.items()} }; "
+            f"tri_exit {ms_x:.3f} ms, bound {fmt_bound(b_exit)}; "
             + (f"tri_entry_exit with no refracting row {ms_own:.3f} ms; "
                if ms_own is not None else "")
             + f"step_fwd {step_ms[0]:.3f} ms "
@@ -3653,8 +3879,11 @@ def phase_big_kernels(results):
             "max_abs_err": 0.0, "ms": tri_ms[0],
             "plain_ms": plain_tri["entry_exit" if glass else "entry"],
             **b_sweep, "library_ms": None, **shape, "step_ms": tri_ms,
-            "sample_ms": sum(tri_ms), "slabs_per_ray": slabs / R,
-            "rows_per_ray": rows / R, "exit_rows_per_ray": exits / R}
+            "sample_ms": sum(tri_ms), "sample_bound_ms": b_sample,
+            "bound_ms_one_level": b_old["bound_ms"],
+            "sample_bound_ms_one_level": b_sample_old,
+            "per_ray_step0": per_ray, "phantom_exits": phantoms
+            + frame_ph}
         if ms_own is not None:
             results[f"{sweep}/{name}"]["entry_exit_no_refract_ms"] = ms_own
         if glass:

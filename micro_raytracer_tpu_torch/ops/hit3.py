@@ -420,10 +420,9 @@ def _inv_dir(d):
     return 1.0 / torch.where(d == 0.0, EPS, d)
 
 
-def _slab_touch(bb, o, invd, best):
-    """(R,) bool: does each ray enter block AABB ``bb`` ``(8,)`` at or
-    before its ``best`` t? (pallas_hit3's ``_slab`` and ``touch``, per ray;
-    hit3.cuh block_touch)."""
+def _slab(bb, o, invd):
+    """(tmin, tmax) (R,) of each ray's slab interval against block AABB
+    ``bb`` ``(8,)`` (pallas_hit3's ``_slab``, per ray)."""
     tmin = tmax = None
     for k in range(3):
         t1 = (bb[k] - o[:, k]) * invd[:, k]
@@ -431,8 +430,25 @@ def _slab_touch(bb, o, invd, best):
         near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
         tmin = near if tmin is None else torch.maximum(tmin, near)
         tmax = far if tmax is None else torch.minimum(tmax, far)
+    return tmin, tmax
+
+
+def _slab_touch(bb, o, invd, best):
+    """(R,) bool: does each ray enter block AABB ``bb`` ``(8,)`` at or
+    before its ``best`` t? (pallas_hit3's ``_slab`` and ``touch``, per ray;
+    hit3.cuh block_touch)."""
+    tmin, tmax = _slab(bb, o, invd)
     return (tmax >= torch.maximum(tmin, torch.zeros_like(tmin))) \
         & (tmin <= best)
+
+
+def _slab_leave(bb, o, invd, best):
+    """(R,) bool: does each ray meet block AABB ``bb`` ``(8,)`` and leave
+    it at or after its ``best`` exit t? (the culled exit's test; tri.cu
+    block_leave)."""
+    tmin, tmax = _slab(bb, o, invd)
+    return (tmax >= torch.maximum(tmin, torch.zeros_like(tmin))) \
+        & (tmax >= best)
 
 
 def _blocks(n):
@@ -466,18 +482,26 @@ def _tri_entry(tri, tbb, n, o, d, best):
     return best, row, tested
 
 
-def _tri_exit(tri, n, o, d, wg, best):
+def _tri_exit(tri, n, o, d, wg, best, tbb=None):
     """Exit pass over the triangle rows of group ``wg``: the largest t,
     ties to the lowest row, after the dense segments' ``best`` (no
-    gradient). Returns the new best, the triangle-local exit row (-1: none
-    improved ``best``) and the rows of the group each ray tested (the
-    kernel sweeps only the winner group's row range)."""
+    gradient). With the cull blocks ``tbb``, block by block in row order,
+    a block the ray misses or leaves before its best exit t so far is
+    skipped (the culled exit of ``csrc/tri.cu``'s row 7; a group's
+    farthest hit lies in its block's AABB, so only a phantom hit outside
+    it is dropped); without, every row of the group is tested (the
+    whole-trace and row 8's exit). Returns the new best and the
+    triangle-local exit row (-1: none improved ``best``)."""
     R = o.shape[0]
     row = torch.full((R,), -1, dtype=torch.int64, device=o.device)
     gid = tri[:, _T_GID]
-    for lo, hi in _blocks(n):
+    invd = _inv_dir(d) if tbb is not None else None
+    for b, (lo, hi) in enumerate(_blocks(n)):
         t, ok = _tri_block(tri[lo:hi], o, d)
-        me = torch.where(ok & (gid[None, lo:hi] == wg[:, None]), t, -BIG)
+        ok = ok & (gid[None, lo:hi] == wg[:, None])
+        if tbb is not None:
+            ok = ok & _slab_leave(tbb[b], o, invd, best)[:, None]
+        me = torch.where(ok, t, -BIG)
         bm = me.amax(dim=1)
         br = intersect.first_index(me == bm[:, None]).long()
         upd = bm > best

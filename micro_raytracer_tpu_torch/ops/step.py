@@ -233,6 +233,9 @@ class TraceTables(NamedTuple):
     tmeta: torch.Tensor | None = None
     # (n_sb, hit3.BB_COLS) cull blocks of a long sphere segment, or None
     sbb: torch.Tensor | None = None
+    # the triangle cull blocks' superblocks (tri_ops.superbounds) where the
+    # segment is swept on its own (tri_split), else None
+    tsb: torch.Tensor | None = None
 
 
 def n_uni(need_exit: bool) -> int:
@@ -297,8 +300,9 @@ def pack_step(scene) -> TraceTables:
         tex = (scene.mat_maps[m].to(torch.int32).contiguous(),
                *intersect.tex_tables(scene))
     layout = hit3.seg_layout(scene.kind_counts, scene.kind_sweep)
+    tsb = tri_ops.superbounds(tbb) if tri_split(layout[2]) else None
     return TraceTables(frames, tab, lights, layout, tri, tbb, *tex,
-                       sbb=hit3.sph_table(scene, layout))
+                       sbb=hit3.sph_table(scene, layout), tsb=tsb)
 
 
 def primary_mode(scene) -> int:
@@ -682,7 +686,8 @@ def tri_hits(scene, tables, c0, plain=False):
     misses). ``plain``: the plain versions on any device, differentiable in
     the triangle table and the carry (the plain step's); else the wrappers,
     which launch the kernel on the card (no gradient: the step's backward
-    kernel transposes the winner's t)."""
+    kernel transposes the winner's t) and walk the cull blocks through
+    their superblocks (``tables.tsb``)."""
     layout = tables.layout
     if not tri_split(layout[2]):
         return None
@@ -691,8 +696,9 @@ def tri_hits(scene, tables, c0, plain=False):
         args = tuple(t.detach() for t in args)
     args += (tables.tbb, layout[3], c0[C_LIVE], plain)
     if not scene.any_refract:
-        return tri_ops.TriEntry.apply(*args)
-    return tri_ops.TriEntryExit.apply(*args, tri_refracts(tables))
+        return tri_ops.TriEntry.apply(*args, tables.tsb)
+    return tri_ops.TriEntryExit.apply(*args, tri_refracts(tables),
+                                      tables.tsb)
 
 
 def tri_refracts(tables):

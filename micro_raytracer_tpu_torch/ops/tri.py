@@ -15,9 +15,15 @@ ties.
 
 With the segment's cull blocks ``tbb`` the entry sweeps cull per ray as
 the port's other triangle sweeps do (``hit3._tri_entry``): a block the ray
-misses, or enters beyond its best t so far, is skipped. pallas_tri sweeps
-every row; the two differ only on "phantom" ``|det| >= E`` hits outside
-their block's AABB. Exits never cull.
+misses, or enters beyond its best t so far, is skipped. The kernels walk
+the blocks through superblocks of :data:`SUPER` blocks (``tsb``,
+:func:`superbounds`, built with the table), which skip only blocks the
+one-level walk skips, so the outputs are the one-level walk's bit for
+bit. :func:`tri_entry_exit`'s group exit culls too (``hit3._tri_exit``
+with ``tbb``): a block the ray misses, or leaves before its best exit t so
+far, is skipped. pallas_tri sweeps every row; the two differ only on
+"phantom" ``|det| >= E`` hits outside their block's AABB. The group exit
+of :func:`tri_group_exit` never culls.
 
 The per-step path (``ops/step.py``) launches :func:`tri_entry` (opaque
 scenes) or :func:`tri_entry_exit` (refractive ones) before each bounce step
@@ -49,8 +55,12 @@ from . import hit3
 BIG = hit3.BIG
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
-# the table, its rows to sweep, its cull blocks and their count
-_TAB = [_c_ptr, _c_int, _c_ptr, _c_int]
+# cull blocks per superblock (csrc/tri.cu kSupBlocks)
+SUPER = 16
+
+# the table, its rows to sweep, its cull blocks and their count, their
+# superblocks and their count
+_TAB = [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_int]
 # o, d, their ray and component strides, live
 _RAYS = [_c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
 ENTRY_KERNEL = CudaKernel("tri_entry", "tri.cu", ("hit3.cuh",),
@@ -77,6 +87,29 @@ def from_pallas_consts(AT, HT, thr, gid):
     gs, ge = hit3._group_ranges(gid)
     return torch.cat([AT, HT, thr, gid[:, None], gs.to(torch.float32)[:, None],
                       ge.to(torch.float32)[:, None]], 1)
+
+
+def superbounds(tbb):
+    """The superblocks' AABBs ``(ceil(n_cb / SUPER), 8)`` ``[lo (3) | hi
+    (3) | 0 0]`` over the cull blocks ``tbb`` (``hit3.tri_blockbounds``):
+    each the componentwise minimum and maximum of its blocks' two corners,
+    no slack added and no arithmetic, so a superblock's slab interval
+    holds each of its blocks' under IEEE rounding. Both corners count
+    because a block of invalid rows only is inverted (``lo`` = BIG above
+    ``hi`` = -BIG), and its slab test, which orders each axis' two
+    distances, passes for nearly every ray. Culling data, built once per
+    table without a gradient."""
+    with torch.no_grad():
+        tbb = tbb.detach()
+        lo = torch.minimum(tbb[:, :3], tbb[:, 3:6])
+        hi = torch.maximum(tbb[:, :3], tbb[:, 3:6])
+        pad = (-tbb.shape[0]) % SUPER
+        lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=BIG)
+        hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-BIG)
+        lo = lo.view(-1, SUPER, 3).amin(1)
+        hi = hi.view(-1, SUPER, 3).amax(1)
+        return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])],
+                         1).contiguous()
 
 
 def winner_t(tri, o, d, row):
@@ -119,21 +152,23 @@ def _entry(tri, o, d, tbb, n, live):
         return te, torch.where(miss, 0, row).to(torch.int32)
 
 
-def _exit(tri, o, d, wg, n):
-    """(tx, xrow) of group ``wg`` (R,) over the first ``n`` rows, no cull
-    (``hit3._tri_exit``); -BIG and 0 where the group has no hit."""
+def _exit(tri, o, d, wg, n, tbb=None):
+    """(tx, xrow) of group ``wg`` (R,) over the first ``n`` rows, culled
+    with the cull blocks ``tbb`` (``hit3._tri_exit``); -BIG and 0 where the
+    group has no hit."""
     best = torch.full((o.shape[0],), -BIG, dtype=o.dtype, device=o.device)
-    tx, xrow = hit3._tri_exit(tri, _rows(tri, n), o, d, wg, best)
+    tx, xrow = hit3._tri_exit(tri, _rows(tri, n), o, d, wg, best, tbb)
     return tx, torch.where(xrow < 0, 0, xrow).to(torch.int32)
 
 
 def entry_exit_plain(tri, o, d, tbb=None, n=None, live=None, refr=None):
     """Plain PyTorch :func:`tri_entry_exit` (any device, no gradient):
     :func:`entry_plain`'s ``(te, row)``, then ``(tx, xrow)`` of the
-    farthest valid row of the winner's group, never culled (``tx = -BIG``,
-    ``xrow = 0`` on a miss or a dead lane). ``refr`` ``(Pt,)``: where the
-    winner's row has no 1 there, its exit is the winner itself (``tx = te``,
-    ``xrow = row``), its group unswept."""
+    farthest valid row of the winner's group, culled per ray with ``tbb``
+    as the kernel's exit is (``tx = -BIG``, ``xrow = 0`` on a miss or a
+    dead lane). ``refr`` ``(Pt,)``: where the winner's row has no 1 there,
+    its exit is the winner itself (``tx = te``, ``xrow = row``), its group
+    unswept."""
     ENTRY_EXIT_KERNEL.plain_calls += 1
     with torch.no_grad():
         te, row = _entry(tri, o, d, tbb, n, live)
@@ -143,7 +178,7 @@ def entry_exit_plain(tri, o, d, tbb=None, n=None, live=None, refr=None):
             own = hit & ~(refr[row.long()] > 0.5)
             hit = hit & ~own
         wg = torch.where(hit, tri[row.long(), hit3._T_GID].detach(), BIG)
-        tx, xrow = _exit(tri.detach(), o.detach(), d.detach(), wg, n)
+        tx, xrow = _exit(tri.detach(), o.detach(), d.detach(), wg, n, tbb)
         if own is not None:
             tx, xrow = torch.where(own, te, tx), torch.where(own, row, xrow)
         return te, row, tx, xrow
@@ -164,19 +199,47 @@ def group_exit_plain(tri, o, d, wg, n=None, live=None):
         return tx, xrow
 
 
+def culled_exit_phantoms(tbb, o, d, culled, full):
+    """Where a culled group exit ``culled`` ``(tx, xrow)`` (row 7's)
+    differs from the unculled ``full`` (row 8's, or :func:`group_exit_plain`)
+    on rays ``o``, ``d`` ``(R, 3)``: ``(differs, phantom)`` ``(R,)`` bool.
+    Where the two differ the cull skipped the block of the unculled exit
+    row; ``phantom`` marks the rays whose unculled exit hit point (``o + tx
+    d`` in float64) lies outside that block's slacked AABB in ``tbb``, the
+    only hits a cull may drop. ``differs & ~phantom`` are faults."""
+    with torch.no_grad():
+        differs = ~((culled[0] == full[0]) & (culled[1] == full[1]))
+        b = (full[1].long() // hit3.CB).clamp(0, tbb.shape[0] - 1)
+        p = o.double() + full[0].double()[:, None] * d.double()
+        box = tbb[b].double()
+        outside = ((p < box[:, :3]) | (p > box[:, 3:6])).any(1)
+        return differs, differs & outside & (full[0] > -BIG * 0.5)
+
+
 # --- kernel wrappers --------------------------------------------------------
 
-def _launch_args(tri, o, d, tbb, n, live, what):
-    """Validate a launch's table, cull blocks and rays; their C
-    arguments."""
+def _launch_args(tri, o, d, tbb, n, live, what, tsb=None):
+    """Validate a launch's table, cull blocks (with ``tsb``: and their
+    superblocks) and rays; their C arguments."""
     Pt = tri.shape[0]
     require_cuda_tensor("tri", tri, torch.float32, (Pt, hit3.TRI_COLS))
     n = _rows(tri, n)
+    # the kernels read rows and AABBs as 16-byte loads
+    for name, x in (("tri", tri), ("tbb", tbb), ("tsb", tsb)):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
     if not 0 <= n <= Pt:
         raise ValueError(f"{what}: {n} rows to sweep of a {Pt}-row table")
     if tbb is not None:
-        require_cuda_tensor("tbb", tbb, torch.float32,
-                            (-(-Pt // hit3.CB), hit3.BB_COLS))
+        n_cb = -(-Pt // hit3.CB)
+        require_cuda_tensor("tbb", tbb, torch.float32, (n_cb, hit3.BB_COLS))
+        if tsb is None:
+            raise ValueError(f"{what}: cull blocks without their superblocks "
+                             f"(tri.superbounds)")
+        require_cuda_tensor("tsb", tsb, torch.float32,
+                            (-(-n_cb // SUPER), hit3.BB_COLS))
+    elif tsb is not None:
+        raise ValueError(f"{what}: superblocks without cull blocks")
     R = o.shape[0]
     require_cuda_tensor("o", o, torch.float32, (R, 3), contiguous=False)
     require_cuda_tensor("d", d, torch.float32, (R, 3), contiguous=False)
@@ -190,15 +253,17 @@ def _launch_args(tri, o, d, tbb, n, live, what):
             raise ValueError(f"{what}: live's stride {live.stride(0)} is not "
                              f"the rays' {o.stride(0)}")
     table = [ptr(tri), n, None if tbb is None else ptr(tbb),
-             0 if tbb is None else tbb.shape[0]]
+             0 if tbb is None else tbb.shape[0],
+             None if tsb is None else ptr(tsb),
+             0 if tsb is None else tsb.shape[0]]
     rays = [ptr(o), ptr(d), *o.stride(), None if live is None else ptr(live)]
     return table, rays, R
 
 
-def _entry_fwd(tri, o, d, tbb, n, live):
+def _entry_fwd(tri, o, d, tbb, n, live, tsb=None):
     if o.device.type == "cpu":
         return entry_plain(tri, o, d, tbb, n, live)
-    table, rays, R = _launch_args(tri, o, d, tbb, n, live, "tri_entry")
+    table, rays, R = _launch_args(tri, o, d, tbb, n, live, "tri_entry", tsb)
     te = torch.empty(R, dtype=torch.float32, device=o.device)
     row = torch.empty(R, dtype=torch.int32, device=o.device)
     if R:
@@ -207,10 +272,11 @@ def _entry_fwd(tri, o, d, tbb, n, live):
     return te, row
 
 
-def _entry_exit_fwd(tri, o, d, tbb, n, live, refr):
+def _entry_exit_fwd(tri, o, d, tbb, n, live, refr, tsb=None):
     if o.device.type == "cpu":
         return entry_exit_plain(tri, o, d, tbb, n, live, refr)
-    table, rays, R = _launch_args(tri, o, d, tbb, n, live, "tri_entry_exit")
+    table, rays, R = _launch_args(tri, o, d, tbb, n, live, "tri_entry_exit",
+                                  tsb)
     if refr is not None:
         require_cuda_tensor("refr", refr, torch.float32, (tri.shape[0],))
     te = torch.empty(R, dtype=torch.float32, device=o.device)
@@ -265,12 +331,13 @@ class TriEntry(torch.autograd.Function):
     table's ``G[2]``, ``h[2]``, ``o`` and ``d`` through the winner row's t
     (pallas_tri._tri_entry_bwd); ``row`` has none. ``plain``: run
     :func:`entry_plain` on any device (the plain step's sweep), else the
-    wrapper's dispatch."""
+    wrapper's dispatch; ``tsb``: the superblocks of ``tbb``, which the
+    kernel walks (:func:`superbounds`)."""
 
     @staticmethod
-    def forward(ctx, tri, o, d, tbb, n, live, plain=False):
-        te, row = (entry_plain if plain else _entry_fwd)(tri, o, d, tbb, n,
-                                                         live)
+    def forward(ctx, tri, o, d, tbb, n, live, plain=False, tsb=None):
+        te, row = entry_plain(tri, o, d, tbb, n, live) if plain else \
+            _entry_fwd(tri, o, d, tbb, n, live, tsb)
         ctx.save_for_backward(tri, o, d, row, te)
         ctx.mark_non_differentiable(row)
         return te, row
@@ -280,19 +347,21 @@ class TriEntry(torch.autograd.Function):
         tri, o, d, row, te = ctx.saved_tensors
         return (*_winner_grads(ctx, tri, o, d,
                                [(row, te < BIG * 0.5, ct_te)]),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 class TriEntryExit(torch.autograd.Function):
     """:func:`tri_entry_exit` under autograd: ``te``'s and ``tx``'s
     cotangents reach the table, ``o`` and ``d`` through their rows' t
-    (pallas_tri._tri_ee_bwd). ``plain`` as :class:`TriEntry`'s; ``refr``
-    as :func:`tri_entry_exit`'s."""
+    (pallas_tri._tri_ee_bwd). ``plain`` and ``tsb`` as
+    :class:`TriEntry`'s; ``refr`` as :func:`tri_entry_exit`'s."""
 
     @staticmethod
-    def forward(ctx, tri, o, d, tbb, n, live, plain=False, refr=None):
-        te, row, tx, xrow = (entry_exit_plain if plain else _entry_exit_fwd)(
-            tri, o, d, tbb, n, live, refr)
+    def forward(ctx, tri, o, d, tbb, n, live, plain=False, refr=None,
+                tsb=None):
+        te, row, tx, xrow = entry_exit_plain(tri, o, d, tbb, n, live,
+                                             refr) if plain else \
+            _entry_exit_fwd(tri, o, d, tbb, n, live, refr, tsb)
         ctx.save_for_backward(tri, o, d, row, te, xrow, tx)
         ctx.mark_non_differentiable(row, xrow)
         return te, row, tx, xrow
@@ -303,7 +372,7 @@ class TriEntryExit(torch.autograd.Function):
         return (*_winner_grads(ctx, tri, o, d,
                                [(row, te < BIG * 0.5, ct_te),
                                 (xrow, tx > -BIG * 0.5, ct_tx)]),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 class TriGroupExit(torch.autograd.Function):
@@ -326,25 +395,28 @@ class TriGroupExit(torch.autograd.Function):
                 None, None, None)
 
 
-def tri_entry(tri, o, d, tbb=None, n=None, live=None):
+def tri_entry(tri, o, d, tbb=None, n=None, live=None, tsb=None):
     """``(te, row)`` of the nearest valid triangle of each ray among the
     first ``n`` rows of ``tri`` ``(Pt, 16)`` (default all), culled per ray
-    with the cull blocks ``tbb``. ``o``, ``d``: ``(R, 3)`` float32 views of
-    any stride (equal strides), such as the carry's ``c[0:3].T``; ``live``
-    ``(R,)`` (the carry's live row, the rays' stride): a dead lane misses.
-    CUDA tensors launch ``mrt_tri_entry``, CPU tensors run
-    :func:`entry_plain`; differentiable in ``tri``, ``o`` and ``d``."""
-    return TriEntry.apply(tri, o, d, tbb, n, live)
+    with the cull blocks ``tbb``, walked through their superblocks ``tsb``
+    (:func:`superbounds`; the kernel needs them with ``tbb``). ``o``,
+    ``d``: ``(R, 3)`` float32 views of any stride (equal strides), such as
+    the carry's ``c[0:3].T``; ``live`` ``(R,)`` (the carry's live row, the
+    rays' stride): a dead lane misses. CUDA tensors launch
+    ``mrt_tri_entry``, CPU tensors run :func:`entry_plain`; differentiable
+    in ``tri``, ``o`` and ``d``."""
+    return TriEntry.apply(tri, o, d, tbb, n, live, False, tsb)
 
 
-def tri_entry_exit(tri, o, d, tbb=None, n=None, live=None, refr=None):
+def tri_entry_exit(tri, o, d, tbb=None, n=None, live=None, refr=None,
+                   tsb=None):
     """:func:`tri_entry` and ``(tx, xrow)`` of the farthest valid row of
-    the winner's group: ``(te, row, tx, xrow)``. ``refr`` ``(Pt,)`` float32
-    (default every row): the rows whose group exit is swept; a winner on
-    another row is its own exit (``tx = te``, ``xrow = row``). CUDA tensors
-    launch ``mrt_tri_entry_exit``, CPU tensors run
-    :func:`entry_exit_plain`."""
-    return TriEntryExit.apply(tri, o, d, tbb, n, live, False, refr)
+    the winner's group, culled per ray with ``tbb``: ``(te, row, tx,
+    xrow)``. ``refr`` ``(Pt,)`` float32 (default every row): the rows whose
+    group exit is swept; a winner on another row is its own exit (``tx =
+    te``, ``xrow = row``). CUDA tensors launch ``mrt_tri_entry_exit``, CPU
+    tensors run :func:`entry_exit_plain`."""
+    return TriEntryExit.apply(tri, o, d, tbb, n, live, False, refr, tsb)
 
 
 def tri_group_exit(tri, o, d, wg, n=None, live=None):

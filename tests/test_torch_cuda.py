@@ -842,10 +842,12 @@ def test_steps_equal_whole_trace(name, cuda_device):
 def test_route_renders_and_trains_past_256_triangle_blocks(n_lights,
                                                            cuda_device):
     """A mesh past hit3.MAX_TRI_BLOCKS cull blocks (``big_mesh``: 16,448
-    rows, 257 blocks), diffuse, glass, and diffuse beside a glass sphere,
-    with 1 light and with 5: rows 6, 7 (also with the step's refracting
-    rows) and 8 (``csrc/tri.cu``) equal their plain versions bit for bit on
-    a carry with dead lanes; the render takes the per-step path, one
+    rows, 257 blocks in 17 superblocks), diffuse, glass, and diffuse beside
+    a glass sphere, with 1 light and with 5: rows 6, 7 (also with the
+    step's refracting rows) and 8 (``csrc/tri.cu``) equal their plain
+    versions bit for bit on a carry with dead lanes, row 7's entry row 6's,
+    and row 7's culled exit row 8's unculled one but on phantom exits
+    (``tri.culled_exit_phantoms``); the render takes the per-step path, one
     tri_entry (a refractive scene: tri_entry_exit) and one step_fwd launch
     per step,
     and matches the plain per-step trace (the trace tolerance above); a
@@ -873,17 +875,19 @@ def test_route_renders_and_trains_past_256_triangle_blocks(n_lights,
         c[step.C_LIVE, ::10] = 0.0
         args = (tables.tri.detach(), c[0:3].T, c[3:6].T)
         n = tables.layout[3]
-        te, row = tri.tri_entry(*args, tables.tbb, n, c[step.C_LIVE])
+        te, row = tri.tri_entry(*args, tables.tbb, n, c[step.C_LIVE],
+                                tsb=tables.tsb)
         want = tri.entry_plain(*args, tables.tbb, n, c[step.C_LIVE])
         assert torch.equal(te, want[0]) and torch.equal(row, want[1])
         assert int((te < tri.BIG * 0.5).sum()) > R // 4
-        ee = tri.tri_entry_exit(*args, tables.tbb, n, c[step.C_LIVE])
+        ee = tri.tri_entry_exit(*args, tables.tbb, n, c[step.C_LIVE],
+                                tsb=tables.tsb)
         want = tri.entry_exit_plain(*args, tables.tbb, n, c[step.C_LIVE])
         for g, w in zip(ee, want):
             assert torch.equal(g, w)
         refr = step.tri_refracts(tables)
         got = tri.tri_entry_exit(*args, tables.tbb, n, c[step.C_LIVE],
-                                 refr=refr)
+                                 refr=refr, tsb=tables.tsb)
         want = tri.entry_exit_plain(*args, tables.tbb, n, c[step.C_LIVE],
                                     refr=refr)
         for g, w in zip(got, want):
@@ -895,8 +899,12 @@ def test_route_renders_and_trains_past_256_triangle_blocks(n_lights,
         for g, w in zip(gx, want):
             assert torch.equal(g, w)
         won = te < tri.BIG * 0.5
-        assert torch.equal(gx[0][won], ee[2][won])
-        assert torch.equal(gx[1][won], ee[3][won])
+        assert torch.equal(ee[0], te) and torch.equal(ee[1], row)
+        differs, phantom = tri.culled_exit_phantoms(
+            tables.tbb, args[1][won], args[2][won], (ee[2][won], ee[3][won]),
+            (gx[0][won], gx[1][won]))
+        assert torch.equal(differs, phantom)
+        assert int(phantom.sum()) <= 0.001 * int(won.sum())
         # the render: the per-step path through the kernels
         u8s = torch.rand((K, step.n_uni(scene.any_refract), R),
                          generator=torch.Generator(device=cuda_device)
@@ -933,6 +941,82 @@ def test_route_renders_and_trains_past_256_triangle_blocks(n_lights,
         s = scene.seg(schema.KIND_TRIANGLE)
         assert bool(torch.isfinite(g).all())
         assert float(g[s].abs().max()) > 0
+
+
+def _odd_rays(ps, tbb, kind, n):
+    """float32 numpy (o, d) ``(n, 3)`` for the two-level walk: ``aimed``
+    (:func:`aimed_rays`), ``axis`` (aimed, one or two direction components
+    zero, two NaN rays), ``inside`` (origins inside random blocks'
+    AABBs)."""
+    rng = np.random.default_rng(17)
+    o, d = aimed_rays(ps, n, 11)
+    if kind == "axis":
+        k = np.arange(n) % 3
+        d = d.copy()
+        d[np.arange(n), k] = 0.0
+        d[::4, (k[::4] + 1) % 3] = 0.0
+        d[d.sum(1) == 0.0, 0] = 1.0
+        o = o.copy()
+        o[5, 1] = np.nan
+        d[9, 2] = np.nan
+    elif kind == "inside":
+        b = tbb[rng.integers(0, len(tbb), n)]
+        o = b[:, :3] + rng.random((n, 3)) * (b[:, 3:6] - b[:, :3])
+        d = rng.normal(size=(n, 3))
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["aimed", "axis", "inside"])
+def test_two_level_walk_matches_plain(kind, cuda_device):
+    """Rows 6 and 7 of ``csrc/tri.cu`` (the two-level walk, the culled
+    group exit) on 10,006 glass triangles (``big_tris(5003)`` instanced
+    twice: 157 cull blocks in 10 superblocks, the last partial, a group
+    boundary inside a block), with a tenth of the lanes dead, over all
+    rows and over a row count inside the last block: equal to the plain
+    versions bit for bit (also with the step's refracting rows), row 7's
+    entry row 6's, and row 7's exit row 8's but on phantom exits."""
+    from micro_raytracer_tpu_torch.ops import tri
+    from torch_mesh_helpers import big_tris
+
+    js = big_mesh(True)
+    js["renderer"][0]["mesh"] = big_tris(5003, seed=6).tolist()
+    ps = compile_scene(schema.SceneConfig.from_json(js), "cpu")
+    scene = compile_scene(schema.SceneConfig.from_json(js), cuda_device)
+    tables = step.pack_step(scene)
+    # 157 blocks: the whole-trace kernels' bound, so the table build makes
+    # no superblocks; the wrappers take them from tri.superbounds
+    t, tbb = tables.tri.detach(), tables.tbb
+    tsb = tri.superbounds(tbb)
+    n_tri = tables.layout[3]
+    assert (t.shape[0], n_tri, tbb.shape[0], tsb.shape[0]) == \
+        (10008, 10006, 157, 10)
+    R = 1 << 12
+    o, d = _odd_rays(ps, tbb.cpu().numpy(), kind, R)
+    c = step.primary_carry(torch.from_numpy(o.T.copy()).to(cuda_device),
+                           torch.from_numpy(d.T.copy()).to(cuda_device))
+    c[step.C_LIVE, 3::10] = 0.0
+    o, d, live = c[0:3].T, c[3:6].T, c[step.C_LIVE]
+    for n in (n_tri, n_tri - 37):
+        te, row = tri.tri_entry(t, o, d, tbb, n, live, tsb=tsb)
+        want = tri.entry_plain(t, o, d, tbb, n, live)
+        assert torch.equal(te, want[0]) and torch.equal(row, want[1])
+        won = te < tri.BIG * 0.5
+        assert int(won.sum()) > R // 20
+        for refr in (None, step.tri_refracts(tables)):
+            ee = tri.tri_entry_exit(t, o, d, tbb, n, live, refr, tsb=tsb)
+            want = tri.entry_exit_plain(t, o, d, tbb, n, live, refr)
+            for g, w in zip(ee, want):
+                assert torch.equal(g, w)
+        assert torch.equal(ee[0], te) and torch.equal(ee[1], row)
+        wg = torch.where(won, t[row.long(), hit3._T_GID], -5.0).contiguous()
+        gx = tri.tri_group_exit(t, o, d, wg, n, live)
+        differs, phantom = tri.culled_exit_phantoms(
+            tbb, o[won], d[won], (ee[2][won], ee[3][won]),
+            (gx[0][won], gx[1][won]))
+        assert torch.equal(differs, phantom)
+        assert int(phantom.sum()) <= 0.001 * int(won.sum())
 
 
 @pytest.mark.cuda

@@ -34,6 +34,18 @@ winner on the mesh needs no group exit).
   group exit of refracting rows only (``big_mixed``).
 * The host C++ build of ``csrc/tri.cu``'s per-ray functions equals the
   plain versions bit for bit (rays read from a carry with dead lanes);
+  its two-level walk equals the one-level walk of ``hit3.cuh`` and the
+  plain entry bit for bit, its culled group exit ``entry_exit_plain`` (and
+  the unculled exit but on phantom exits, ``tri.culled_exit_phantoms``,
+  whose gate fails on a mutant cull), on random, camera, axis-parallel
+  (and NaN) rays and rays from inside blocks, on ``big_glass`` and on
+  ``odd_glass`` (10,006 triangles: a partial last block and superblock, a
+  group boundary inside a block), over all rows and a row count inside
+  the last block, with the superblocks staged or read from global memory;
+  ``tri.superbounds`` and the chunk bounds are exact min / max (an
+  inverted block of invalid rows included); the culled plain exit
+  (``hit3._tri_exit`` with the cull blocks) matches ``pallas_tri``'s group
+  exit;
   the host build of ``step_fwd.cu``'s kTriIn instance equals its kTri
   instance bit for bit on the torus scenes, whose segments it can sweep
   itself, and matches the plain step on the big scenes by
@@ -94,8 +106,18 @@ def _small():
     ]}
 
 
+def _odd():
+    """10,006 glass triangles, :func:`big_tris` (5,003) instanced twice: a
+    multiple of neither 64 nor a superblock's 1,024 rows (157 cull blocks
+    in 10 superblocks, the last of 13 blocks), and the second group starts
+    inside block 78."""
+    js = big(True)
+    js["renderer"][0]["mesh"] = big_tris(5003, seed=6).tolist()
+    return js
+
+
 SCENES = {"small": _small, "big": big, "big_glass": lambda: big(True),
-          "big_mixed": lambda: big(glass_sphere=True)}
+          "big_mixed": lambda: big(glass_sphere=True), "odd_glass": _odd}
 
 
 @functools.lru_cache(maxsize=None)
@@ -476,29 +498,48 @@ _HARNESS = r"""
 #include "tri.cu"
 #include "step_fwd.cu"
 
+// mode 0: row 6, 1: row 7, 2: row 8; 4: the one-level entry walk
+// (hit3.cuh tri_entry), 5: it and the unculled group exit (hit3.cuh
+// tri_exit). The first n_staged superblocks are read from `sb_staged`.
 extern "C" void host_tri(int mode, const float* tri, int n, const float* bb,
-    int n_cb, const float* o, const float* d, int s_ray, int s_comp,
+    int n_cb, const float* sb, const float* sb_staged, int n_sb,
+    int n_staged, const float* o, const float* d, int s_ray, int s_comp,
     const float* live, const float* refr, const float* wg, int R,
     float* te, int* row, float* tx, int* xrow) {
   const mrt::Tris T{tri, bb};
   const mrt::Layout L{0, 0, 0, 0, 0, 0, 0, n, mode == 2 ? 0 : n_cb, 0};
+  float chunks[64 * mrt::kBbCols];
+  mrt::chunk_bounds(sb_staged, n_staged, chunks, 0, 1);
+  const mrt::Supers S{sb_staged, sb, chunks, n_sb, n_staged};
   const mrt::TriRays q{o, d, s_ray, s_comp, live};
   for (int i = 0; i < R; ++i) {
     float oo[3], dd[3];
     mrt::Hit h{mrt::kBig, 0, -mrt::kBig, 0};
     if (mrt::tri_ray(q, i, oo, dd)) {
-      if (mode == 0)
-        mrt::tri_entry_ray(T, L, oo, dd, h.te, h.row);
-      else if (mode == 1)
-        h = mrt::tri_entry_exit_ray(T, L, refr, oo, dd);
-      else
+      if (mode == 0) {
+        mrt::tri_entry_ray(T, L, S, oo, dd, h.te, h.row);
+      } else if (mode == 1) {
+        h = mrt::tri_entry_exit_ray(T, L, S, refr, oo, dd);
+      } else if (mode == 2) {
         mrt::tri_group_exit_ray(T, L, wg[i], oo, dd, h.tx, h.xrow);
+      } else {
+        mrt::tri_entry(T, L, L.n_cb > 0, oo[0], oo[1], oo[2], dd[0], dd[1],
+                       dd[2], h.te, h.row);
+        if (mode == 5 && h.te < mrt::kBig)
+          mrt::tri_exit(T, L, h.row, oo[0], oo[1], oo[2], dd[0], dd[1],
+                        dd[2], h.tx, h.xrow);
+      }
     }
     te[i] = h.te;
     row[i] = h.row;
     tx[i] = h.tx;
     xrow[i] = h.xrow;
   }
+}
+
+// the bounds of each run of 64 of n superblock AABBs (tri.cu chunk_bounds)
+extern "C" void host_chunks(const float* sup, int n, float* out) {
+  mrt::chunk_bounds(sup, n, out, 0, 1);
 }
 
 template <bool kRefract, bool kTrain, bool kTriIn>
@@ -561,14 +602,23 @@ def _p(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _host_tri(lib, mode, t, tbb, c, wg=None, refr=None):
-    """The host build's row 6 / 7 / 8 on the carry ``c``'s rays and live
-    row: (te, row, tx, xrow)."""
+def _host_tri(lib, mode, t, tbb, c, wg=None, refr=None, n_rows=None,
+              staged=None):
+    """The host build's row 6 / 7 / 8 (modes 0-2; 4, 5: the one-level
+    walk, and with the unculled exit) on the carry ``c``'s rays and live
+    row over the first ``n_rows`` rows (default all), the superblocks of
+    ``tbb`` read from a staged copy up to ``staged`` (default all): (te,
+    row, tx, xrow)."""
     n = c.shape[1]
     te, tx = torch.empty(n), torch.empty(n)
     row, xrow = (torch.empty(n, dtype=torch.int32) for _ in "ab")
-    lib.host_tri(mode, _p(t), t.shape[0], _p(tbb),
-                 0 if tbb is None else tbb.shape[0], _p(c), _p(c[3:]), 1, n,
+    tsb = None if tbb is None else tri.superbounds(tbb)
+    n_sb = 0 if tsb is None else tsb.shape[0]
+    staged = n_sb if staged is None else min(staged, n_sb)
+    copy = None if tsb is None else tsb[:staged].clone()
+    lib.host_tri(mode, _p(t), t.shape[0] if n_rows is None else n_rows,
+                 _p(tbb), 0 if tbb is None else tbb.shape[0], _p(tsb),
+                 _p(copy), n_sb, staged, _p(c), _p(c[3:]), 1, n,
                  _p(c[step.C_LIVE:]), _p(refr), _p(wg), n, _p(te), _p(row),
                  _p(tx), _p(xrow))
     return te, row, tx, xrow
@@ -615,6 +665,193 @@ def test_host_tri_matches_plain(mode, host_tri):
         assert torch.equal(g, w)
     dead = live < 0.5
     assert bool((got[0][dead] == (-tri.BIG if mode == 2 else tri.BIG)).all())
+
+
+def _walk_rays(name, kind, n=R):
+    """float32 (o, d) ``(n, 3)`` for the two-level walk's tests on the
+    scene's culled tables: ``aimed`` (:func:`aimed_rays`), ``camera`` (a
+    pinhole grid facing the mesh), ``axis`` (aimed rays with one or two
+    direction components zero, and two NaN rays), ``inside`` (origins
+    inside random blocks' AABBs, random directions)."""
+    ps = _scene(name)[1]
+    tbb = _culled(name)[1].numpy()
+    rng = np.random.default_rng(17)
+    o, d = aimed_rays(ps, n, 11)
+    if kind == "camera":
+        c = (tbb[:, :3].min(0) + tbb[:, 3:6].max(0)) / 2
+        eye = c + np.array([0.1, -2.5, 0.5])
+        f = (c - eye) / np.linalg.norm(c - eye)
+        r = np.cross(f, [0.0, 0.0, 1.0])
+        r /= np.linalg.norm(r)
+        u = np.cross(r, f)
+        side = int(np.sqrt(n))
+        ys, xs = np.divmod(np.arange(n), side)
+        px, py = (xs / side - 0.5) * 0.8, (ys / side - 0.5) * 0.8
+        d = f + px[:, None] * r + py[:, None] * u
+        o = np.broadcast_to(eye, d.shape)
+    elif kind == "axis":
+        k = np.arange(n) % 3
+        d = d.copy()
+        d[np.arange(n), k] = 0.0
+        d[::4, (k[::4] + 1) % 3] = 0.0
+        d[d.sum(1) == 0.0, 0] = 1.0
+        o = o.copy()
+        o[5, 1] = np.nan
+        d[9, 2] = np.nan
+    elif kind == "inside":
+        b = tbb[rng.integers(0, len(tbb), n)]
+        o = b[:, :3] + rng.random((n, 3)) * (b[:, 3:6] - b[:, :3])
+        d = rng.normal(size=(n, 3))
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _ray_carry(o, d):
+    return step.primary_carry(torch.from_numpy(o.T.copy()),
+                              torch.from_numpy(d.T.copy()))
+
+
+@pytest.mark.parametrize("kind", ["aimed", "camera", "axis", "inside"])
+@pytest.mark.parametrize("name", ["odd_glass", "big_glass"])
+def test_host_two_level_walk_equals_one_level(name, kind, host_tri):
+    """The host build of rows 6 and 7 through the superblocks (the first 3
+    superblocks read from a staged copy, or all of them) against the
+    one-level walk (hit3.cuh tri_entry) and the plain versions: the entry
+    (te, row) equal bit for bit, the culled group exit equal to
+    ``entry_exit_plain``'s bit for bit, and against the unculled exit
+    (hit3.cuh tri_exit, and row 8 = ``group_exit_plain``) different only
+    on phantom exit hits, outside their block's AABB. Over all rows, and
+    over a row count inside the last superblock and its last block."""
+    t, tbb = _culled(name)
+    t = t.detach().contiguous()
+    c = _ray_carry(*_walk_rays(name, kind))
+    c[step.C_LIVE, 3::10] = 0.0
+    o, d, live = c[0:3].T, c[3:6].T, c[step.C_LIVE]
+    Pt = t.shape[0]
+    for n in (Pt, Pt - 37 - 64 * (Pt % 64 == 0)):
+        one = _host_tri(host_tri, 5, t, tbb, c, n_rows=n)
+        want = tri.entry_exit_plain(t, o, d, tbb, n, live)
+        assert torch.equal(one[0], want[0]) and torch.equal(one[1], want[1])
+        hit = want[0] < tri.BIG * 0.5
+        assert int(hit.sum()) > (R // 4 if kind == "aimed" else R // 20)
+        for staged in (3, None):
+            two = _host_tri(host_tri, 0, t, tbb, c, n_rows=n, staged=staged)
+            assert torch.equal(two[0], one[0]) and torch.equal(two[1], one[1])
+            ee = _host_tri(host_tri, 1, t, tbb, c, n_rows=n, staged=staged)
+            for g, w in zip(ee, want):
+                assert torch.equal(g, w)
+        wg = torch.where(hit, t[want[1].long(), hit3._T_GID],
+                         -5.0).contiguous()
+        full = _host_tri(host_tri, 2, t, None, c, wg=wg, n_rows=n)[2:]
+        plain = tri.group_exit_plain(t, o, d, wg, n, live)
+        assert torch.equal(full[0], plain[0]) and torch.equal(full[1],
+                                                              plain[1])
+        assert torch.equal(one[2][hit], full[0][hit])
+        assert torch.equal(one[3][hit], full[1][hit])
+        differs, phantom = tri.culled_exit_phantoms(
+            tbb, o[hit], d[hit], (ee[2][hit], ee[3][hit]),
+            (full[0][hit], full[1][hit]))
+        assert torch.equal(differs, phantom), int((differs & ~phantom).sum())
+    if kind == "axis":
+        assert bool((two[0][[5, 9]] == tri.BIG).all())
+
+
+def test_superbounds_hold_their_blocks():
+    """Each superblock's AABB is the exact componentwise min / max of its
+    blocks' corners (16 blocks, the last superblock partial), so its slab
+    interval holds each block's: on the walk's rays, a block that any ray
+    touches (entry, at any best) lies in a superblock it touches."""
+    t, tbb = _culled("odd_glass")
+    tsb = tri.superbounds(tbb)
+    assert tsb.shape == (-(-tbb.shape[0] // tri.SUPER), hit3.BB_COLS)
+    for s in range(tsb.shape[0]):
+        blk = tbb[s * tri.SUPER:(s + 1) * tri.SUPER]
+        lo = torch.minimum(blk[:, :3], blk[:, 3:6]).amin(0)
+        hi = torch.maximum(blk[:, :3], blk[:, 3:6]).amax(0)
+        assert torch.equal(tsb[s, :3], lo) and torch.equal(tsb[s, 3:6], hi)
+    o, d = (torch.from_numpy(x) for x in _walk_rays("odd_glass", "axis"))
+    invd = hit3._inv_dir(d)
+    # a block of invalid rows only is inverted (lo above hi) and touches
+    # nearly every ray: its superblock must too
+    tbb = tbb.clone()
+    tbb[21, :3], tbb[21, 3:6] = tri.BIG - 1e-4, -(tri.BIG - 1e-4)
+    tsb = tri.superbounds(tbb)
+    for best in (torch.full((R,), tri.BIG), torch.rand(R) * 3.0):
+        for b in range(tbb.shape[0]):
+            inner = hit3._slab_touch(tbb[b], o, invd, best)
+            outer = hit3._slab_touch(tsb[b // tri.SUPER], o, invd, best)
+            assert not bool((inner & ~outer).any()), b
+    # every ray but the two NaN ones
+    assert int(hit3._slab_touch(tbb[21], o, invd, best).sum()) == R - 2
+
+
+def test_host_chunk_bounds(host_tri):
+    """The host build of ``tri.cu``'s chunk bounds (the bound of each run
+    of 64 superblocks, tested before their masks) over 150 random
+    superblock AABBs: each run's componentwise min / max, exactly."""
+    rng = np.random.default_rng(23)
+    lo = rng.normal(size=(150, 3)).astype(np.float32)
+    base = torch.from_numpy(np.concatenate(
+        [lo, lo + rng.random((150, 3)).astype(np.float32),
+         np.zeros((150, 2), np.float32)], 1))
+    # each position of a run in turn holds its run's extremes
+    for p in range(64):
+        sup = base.clone()
+        sup[p::64, :3] -= 10.0
+        sup[p::64, 3:6] += 10.0
+        out = torch.zeros((3, hit3.BB_COLS))
+        host_tri.host_chunks(_p(sup), 150, _p(out))
+        for c in range(3):
+            run = sup[64 * c:64 * (c + 1)]
+            assert torch.equal(out[c, :3], run[:, :3].amin(0)), p
+            assert torch.equal(out[c, 3:6], run[:, 3:6].amax(0)), p
+
+
+def test_culled_exit_phantom_gate_can_fail():
+    """The gate of the culled exit (``tri.culled_exit_phantoms``): the
+    culled plain exit passes it; a mutant cull (each block's AABB shrunk
+    to its middle half, so real exits are skipped) fails it on many
+    rays."""
+    t, tbb = _culled("odd_glass")
+    t = t.detach()
+    o, d = (torch.from_numpy(x) for x in _walk_rays("odd_glass", "aimed"))
+    te, row, tx, xrow = tri.entry_exit_plain(t, o, d, tbb)
+    hit = te < tri.BIG * 0.5
+    wg = torch.where(hit, t[row.long(), hit3._T_GID], -5.0)
+    full = tri.group_exit_plain(t, o, d, wg)
+    differs, phantom = tri.culled_exit_phantoms(tbb, o, d, (tx, xrow), full)
+    assert not bool((differs & ~phantom).any())
+    mid, half = (tbb[:, :3] + tbb[:, 3:6]) / 2, (tbb[:, 3:6] - tbb[:, :3]) / 4
+    shrunk = torch.cat([mid - half, mid + half, tbb[:, 6:]], 1)
+    bad = tri.entry_exit_plain(t, o, d, shrunk)
+    differs, phantom = tri.culled_exit_phantoms(
+        tbb, o[hit], d[hit], (bad[2][hit], bad[3][hit]),
+        (full[0][hit], full[1][hit]))
+    assert int((differs & ~phantom).sum()) > int(hit.sum()) // 10
+
+
+@pytest.mark.parametrize("name", ["big_glass", "odd_glass"])
+def test_culled_exit_matches_pallas_tri(name):
+    """``hit3._tri_exit`` with the cull blocks (row 7's culled exit) fed
+    the JAX entry's winner groups: the exit rows of pallas_tri's group
+    exit, t within rtol 1e-5 / atol 1e-6, on the aimed rays (no phantom
+    exit among them)."""
+    AT, HT, thr, gid, _t = _consts(name)
+    o, d = _rays(name) if name == "big_glass" else _walk_rays(name, "aimed")
+    te_j, row_j = _jax_entry(name, o, d)
+    hit = te_j < jpt._BIG * 0.5
+    assert hit.sum() > R // 4
+    wg = np.where(hit, gid[row_j], -5.0).astype(np.float32)
+    tx_j, xrow_j = (np.asarray(x) for x in jpt.tri_group_exit(
+        AT, HT, thr, gid[:, None], jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(wg)))
+    t, tbb = _culled(name)
+    best = torch.full((R,), -tri.BIG)
+    tx, xrow = hit3._tri_exit(t.detach(), t.shape[0], torch.from_numpy(o),
+                              torch.from_numpy(d), torch.from_numpy(wg),
+                              best, tbb)
+    np.testing.assert_array_equal(xrow.numpy()[hit], xrow_j[hit])
+    _close_t(tx, tx_j, hit)
 
 
 def _lay(tables):
