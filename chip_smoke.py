@@ -1859,14 +1859,16 @@ def phase_train_kernels(cfg, results):
                             "library_ms": None, **use["trace_bwd"]}
 
 
-def resources(scene, tables, name="room"):
+def resources(scene, tables, name="room", kernels=("trace_fwd",
+                                                   "trace_fwd_train",
+                                                   "trace_bwd")):
     """Registers, spilled bytes and resident warps per SM of the render,
-    train and backward instances of the whole trace on this scene
+    train and backward instances of the whole trace (or of ``kernels``,
+    such as the per-step ones) on this scene
     (``step.instance_resources``), logged."""
     from micro_raytracer_tpu_torch.ops import step
 
-    use = {w: step.instance_resources(scene, tables, w)
-           for w in ("trace_fwd", "trace_fwd_train", "trace_bwd")}
+    use = {w: step.instance_resources(scene, tables, w) for w in kernels}
     log(f"{name} instances: {json.dumps(use)}")
     return use
 
@@ -2757,11 +2759,8 @@ def step_inputs(name, dev):
             compile_camera(cfg.frame.cam, dev))
 
 
-def plain_step_chunked(scene, tables, decay, c0, u8, want_resid=False,
-                       work=None):
-    """``step.step_plain`` over chunks of rays (``chunk_for``); ``work``
-    (a dict) gains the sphere and triangle rows the step's sweeps test
-    (``trace_plain``'s counts, the closest-hit sweep included)."""
+def plain_step_chunked(scene, tables, decay, c0, u8, want_resid=False):
+    """``step.step_plain`` over chunks of rays (``chunk_for``)."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
@@ -2773,16 +2772,6 @@ def plain_step_chunked(scene, tables, decay, c0, u8, want_resid=False,
         c = c0[:, s:s + chunk].contiguous()
         u = u8[:, s:s + chunk].contiguous()
         outs.append(step.step_plain(scene, tables, decay, c, u, want_resid))
-        if work is not None:
-            # the same step as step 1 of a segment: trace_plain counts the
-            # closest-hit sweep of every step after the first
-            w = {"sweep": 0, "shadow": 0}
-            with torch.no_grad():
-                step._trace_plain(scene, tables, decay, c[0:3], c[3:6],
-                                  torch.stack([u, u]), False, w,
-                                  step.Segment(1, 2, c))
-            for k, v in w.items():
-                work[k] = work.get(k, 0) + v
     return tuple(torch.cat(x, -1) for x in zip(*outs))
 
 
@@ -3006,14 +2995,228 @@ def compare_step_bwd(name, scene, tables, decay, c0, u8, res, hit, bad,
     return err, plain_ms, out_ct
 
 
+def sph_walk_work(tables, o, d, on, shadow):
+    """Per ray (m,) float64, what ``csrc/step_fwd.cu``'s walks of a culled
+    sphere segment test for the rays ``o``, ``d`` ``(m, 3)`` where ``on``:
+    ``slabs`` block and sub-block slab tests, ``rows`` sphere rows. The
+    closest hit (``sph_entry_nearest``): every block's slab test, then the
+    touched blocks nearest first (an origin inside the blocks' AABB) or
+    lowest first while their entry t is at or before the best, each
+    block's sub-blocks tested (their boxes grown, ``sub_touch``) at the
+    best then and a passing sub-block's rows swept; a shadow walk
+    (``shadow``, ``sph_any_sub``): the touched blocks lowest first, each
+    block's sub-blocks tested and a touched sub-block's rows up to the
+    first hit, which ends the walk. From the plain row and slab tests, in
+    the kernel's order."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models import schema
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    BIG, f64 = hit3.BIG, torch.float64
+    sbb, ssb, SUB, CB = tables.sbb, tables.ssb, hit3.SPH_SUB, hit3.CB
+    _kind, s0, c, n = tables.layout[0][0]
+    nb, nsub, m = sbb.shape[0], -(-n // SUB), o.shape[0]
+    fr, ipos, pa, pr, valid, _gid = hit3.split_sweep(tables.tab.detach())
+    t0, _t1, ok = hit3._kind_block(schema.KIND_SPHERE, s0, s0 + n, fr, ipos,
+                                   pa, pr, valid, o, d)
+    pad = nsub * SUB - n
+    ok = torch.nn.functional.pad(ok, (0, pad)).view(m, nsub, SUB)
+    t = torch.where(ok, torch.nn.functional.pad(t0, (0, pad)).view(
+        m, nsub, SUB), BIG)
+    sub_min, sub_any = t.amin(-1), ok.any(-1)
+    first = torch.where(sub_any, ok.to(torch.int8).argmax(-1) + 1,
+                        SUB).to(f64)
+    cnt = torch.clamp(n - torch.arange(nsub, device=o.device) * SUB,
+                      max=SUB).to(f64)
+    invd = hit3._inv_dir(d)
+    b_min, b_max = _slabs(sbb, o, invd)
+    # the sub-blocks' boxes grown by g (1 + |o - centre|^2) (sub_touch)
+    sb = ssb[:nsub]
+    q = o[:, None] - 0.5 * (sb[None, :, :3] + sb[None, :, 3:6])
+    grow = sb[None, :, 6] * (1.0 + (q * q).sum(-1))
+    t1 = (sb[None, :, :3] - grow[..., None] - o[:, None]) * invd[:, None]
+    t2 = (sb[None, :, 3:6] + grow[..., None] - o[:, None]) * invd[:, None]
+    s_min = torch.minimum(t1, t2).amax(-1)
+    s_max = torch.maximum(t1, t2).amin(-1)
+    del q, grow, t1, t2
+    touch = (b_max >= torch.clamp(b_min, min=0.0)) & (b_min <= BIG) \
+        & on[:, None]
+    s_near = s_max >= torch.clamp(s_min, min=0.0)
+    seg = torch.cat([sbb[:, :3].amin(0), sbb[:, 3:6].amax(0)])
+    inside = ((o >= seg[:3]) & (o <= seg[3:])).all(1)
+    slabs = on.to(f64) * nb
+    rows = torch.zeros(m, dtype=f64, device=o.device)
+    subs = [(k, min(k + CB // SUB, nsub)) for k in range(0, nsub, CB // SUB)]
+
+    def take(idx, a):
+        return a.gather(1, idx[:, None])[:, 0]
+
+    if not shadow:
+        key = torch.where(touch, b_min, float("inf"))
+        # nearest first from inside the blocks' box, else lowest first
+        order = torch.where(inside[:, None],
+                            torch.argsort(key, dim=1, stable=True),
+                            torch.arange(nb, device=o.device)[None])
+        best = torch.full((m,), BIG, device=o.device)
+        active = on.clone()
+        for j in range(nb):
+            b = order[:, j]
+            go_b = take(b, key) <= best
+            # nearest first stops at the first block beyond the best
+            active = active & (go_b | ~inside)
+            visit = active & go_b
+            for k in range(CB // SUB):
+                si = torch.clamp(b * (CB // SUB) + k, max=nsub - 1)
+                inb = visit & (b * (CB // SUB) + k < nsub)
+                slabs += inb.to(f64)
+                go = inb & take(si, s_near) & (take(si, s_min) <= best)
+                rows += torch.where(go, take(si, cnt[None].expand(m, -1)),
+                                    0.0)
+                best = torch.where(go, torch.minimum(best, take(si, sub_min)),
+                                   best)
+        return slabs, rows
+    found = ~on
+    for b, (lo, hi) in enumerate(subs):
+        visit = touch[:, b] & ~found
+        for sb in range(lo, hi):
+            slabs += visit.to(f64)
+            go = visit & s_near[:, sb]
+            rows += torch.where(go, torch.where(sub_any[:, sb], first[:, sb],
+                                                cnt[sb]), 0.0)
+            found = found | (go & sub_any[:, sb])
+            visit = visit & ~found
+    return slabs, rows
+
+
+def tri_any_work(tables, o, d, on):
+    """Per ray (m,) float64, what the kTriIn shadow walk
+    (``tri_walk.cuh tri_any_walk``) tests for the rays where ``on``:
+    ``slabs`` the chunk bound, the superblocks of a met chunk, the blocks
+    of each met superblock up to the first hit; ``rows`` the triangle rows
+    of each met block up to the first hit, which ends the walk. Assumes
+    one staged chunk (at most 64 superblocks, ``mesh_big``'s 64)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, tri
+
+    BIG, f64, SB, CB = hit3.BIG, torch.float64, tri.SUPER, hit3.CB
+    t, tbb, tsb, n = (tables.tri.detach(), tables.tbb, tables.tsb,
+                      tables.layout[3])
+    nb, ns, m = -(-n // CB), tsb.shape[0], o.shape[0]
+    assert ns <= 64
+    invd = hit3._inv_dir(d)
+
+    def met(box):
+        lo, hi = _slabs(box, o, invd)
+        return (hi >= torch.clamp(lo, min=0.0)) & (lo <= BIG)
+
+    chunk = torch.cat([tsb[:, :3].amin(0), tsb[:, 3:6].amax(0)])[None]
+    walk = on & met(chunk)[:, 0]
+    slabs = on.to(f64) + walk.to(f64) * ns
+    rows = torch.zeros(m, dtype=f64, device=o.device)
+    idx = torch.nonzero(walk).flatten()
+    if not idx.numel():
+        return slabs, rows
+    o, d, invd = o[idx], d[idx], invd[idx]
+    s_met = met(tsb)
+    b_met = met(tbb[:nb])
+    found = torch.zeros(idx.numel(), dtype=torch.bool, device=o.device)
+    s_tests = torch.zeros(idx.numel(), dtype=f64, device=o.device)
+    r_cnt = torch.zeros_like(s_tests)
+    for sp in range(ns):
+        visit = s_met[:, sp] & ~found
+        if not bool(visit.any()):
+            continue
+        b0, b1 = sp * SB, min(sp * SB + SB, nb)
+        s_tests += visit.to(f64) * (b1 - b0)
+        for b in range(b0, b1):
+            go = visit & b_met[:, b] & ~found
+            if not bool(go.any()):
+                continue
+            lo, hi = b * CB, min(b * CB + CB, n)
+            hits = hit3._tri_block_any(t[lo:hi], o, d)
+            h_any = hits.any(1)
+            f = torch.where(h_any, hits.to(torch.int8).argmax(1) + 1,
+                            hi - lo).to(f64)
+            r_cnt += torch.where(go, f, 0.0)
+            found = found | (go & h_any)
+    slabs[idx] += s_tests
+    rows[idx] = r_cnt
+    return slabs, rows
+
+
+def step_walk_work(scene, tables, c, res, hit, sub):
+    """The walks' work of one step launch on the carry ``c`` with the
+    train instance's residuals ``res`` and hit ``hit``, counted on the
+    rays ``sub`` of the frame and scaled to it: ``sph_sweep`` /
+    ``sph_shadow`` the sphere rows of the closest-hit and the shadow walks
+    (:func:`sph_walk_work`), ``shadow`` the triangle rows of the kTriIn
+    shadow walks (:func:`tri_any_work`; the dense rows sweep first, and a
+    ray they occlude walks no triangle), ``slabs`` the block, sub-block
+    and superblock slab tests of both. A shadow ray leaves its entry point
+    toward each light, as the train instance (every ray that hits)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    work = {"sph_sweep": 0.0, "sph_shadow": 0.0, "shadow": 0.0,
+            "slabs": 0.0, "sweep": 0.0}
+    tri_in = step.tri_split(tables.layout[2])
+    if tables.sbb is None and not tri_in:
+        return work
+    R = c.shape[1]
+    scale = R / sub.numel()
+    cs = c[:, sub]
+    live = cs[step.C_LIVE] > 0.5
+    h = hit[0, sub] > 0.5
+    r = res[:, sub]
+    o, d = cs[0:3].T.contiguous(), cs[3:6].T.contiguous()
+    chunk = 1 << 12
+
+    def add(key, fn, *args):
+        sl = torch.zeros(0, dtype=torch.float64, device=c.device)
+        rw = torch.zeros_like(sl)
+        for k in range(0, o.shape[0], chunk):
+            a, b = fn(tables, *(x[k:k + chunk] for x in args))
+            sl, rw = torch.cat([sl, a]), torch.cat([rw, b])
+        work["slabs"] += float(sl.sum()) * scale
+        work[key] += float(rw.sum()) * scale
+
+    if tables.sbb is not None:
+        add("sph_sweep", lambda t, a, b, m: sph_walk_work(t, a, b, m, False),
+            o, d, live)
+    ro = r[step.RES_O:step.RES_O + 3].T
+    rd = r[step.RES_D:step.RES_D + 3].T
+    p_e = ro + rd * r[step.RES_TE][:, None]
+    dense = (tables.layout[0], tables.layout[1], 0, 0)
+    for li in range(scene.n_lights):
+        lv = step._light_vec(tables.lights[li].detach(), p_e)
+        ln = lv * (1.0 / torch.sqrt((lv * lv).sum(1, keepdim=True)))
+        so = (p_e + ln * hit3.EPS).contiguous()
+        ln = ln.contiguous()
+        if tables.sbb is not None:
+            add("sph_shadow",
+                lambda t, a, b, m: sph_walk_work(t, a, b, m, True), so, ln,
+                h)
+        if tri_in:
+            occ = torch.cat([hit3.sweep_plain(
+                tables.tab.detach(), dense, so[k:k + chunk],
+                ln[k:k + chunk], hit3.MODE_ANY)[0] < 0.0
+                for k in range(0, so.shape[0], chunk)])
+            add("shadow", tri_any_work, so, ln, h & ~occ)
+    return work
+
+
 def step_work(scene, tables, c0, u8, res, hit, work):
     """Bounds of one launch of step_fwd, step_fwd_train and step_bwd on
     these inputs, from the work their data asks for: every ray live on
     entry sweeps the rows (a culled sphere segment: the rows ``work``
     counts), a ray that hits tests its group's exit row on a refractive
     scene and sweeps once per light (a visible light every row, an
-    occluded one at least one), then shades; the backward transposes the
-    step of every ray that hit."""
+    occluded one at least one), then shades; the walks' slab tests
+    (``work["slabs"]``, :func:`step_walk_work`); the backward transposes
+    the step of every ray that hit."""
     from micro_raytracer_tpu_torch.ops import step
 
     R = c0.shape[1]
@@ -3036,7 +3239,8 @@ def step_work(scene, tables, c0, u8, res, hit, work):
     fwd_ops = ((live_in * P + exits + vis * P + occ + sph) * ROW_TEST_OPS
                + S * (FWD_STEP_OPS + L * FWD_LIGHT_OPS)
                + (S * FWD_REFRACT_OPS if scene.any_refract else 0)
-               + work["sweep"] * TRI_TEST_OPS + work["shadow"] * TRI_ANY_OPS)
+               + work["sweep"] * TRI_TEST_OPS + work["shadow"] * TRI_ANY_OPS
+               + work.get("slabs", 0) * SLAB_OPS)
     tables_b = table_bytes(scene, tables)
     CR = step.scene_res_rows(scene, tables.layout)
     # carry in and out, hit out, uniforms per ray
@@ -3053,6 +3257,62 @@ def step_work(scene, tables, c0, u8, res, hit, work):
             "live_in": live_in}
 
 
+# the rays of a frame on which a sample's walks are counted for its bound
+N_WORK = 1 << 14
+STEP_KERNELS = ("step_fwd", "step_fwd_train", "step_bwd")
+
+
+def step_sample(scene, tables, decay, carries, u8s, gen, alone=False):
+    """A sample's nine steps of the frame from its ``carries``: each step's
+    train instance (its residuals), step_bwd timed on them (CUDA-event ms,
+    random output cotangents), the walks' work counted on ``N_WORK`` of the
+    frame's rays (:func:`step_walk_work`) and each launch's bounds
+    (:func:`step_work`); ``alone``: the train instance without the
+    triangle sweep before it (a kTriIn scene). Returns the per-step bwd ms,
+    work and bounds, and the summed bounds of a sample's nine step_fwd
+    and step_bwd launches."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    R = carries[0].shape[1]
+    sub = frame_subset(R, carries[0].device)
+    sub = torch.arange(R, device=carries[0].device) if sub is None \
+        else sub[:N_WORK]
+    out = {"bwd_ms": [], "work": [], "bounds": []}
+    ct1 = torch.randn((step.CARRY_ROWS, R), generator=gen,
+                      device=carries[0].device)
+    for k, c in enumerate(carries):
+        _c1, hit, res = step.step_fwd_train(scene, tables, decay, c, u8s[k])
+        out["bwd_ms"].append(cuda_ms(lambda: step.step_bwd(
+            scene, tables, decay, c, u8s[k], res, hit, ct1), 3))
+        work = step_walk_work(scene, tables, c, res, hit, sub)
+        out["work"].append(work)
+        out["bounds"].append(step_work(scene, tables, c, u8s[k], res, hit,
+                                       work))
+        del res
+    out["fwd_bound"] = sum(b["step_fwd"]["bound_ms"] for b in out["bounds"])
+    out["bwd_bound"] = sum(b["step_bwd"]["bound_ms"] for b in out["bounds"])
+    return out
+
+
+def per_ray(work, R):
+    """A step's work counts (:func:`step_walk_work`) per ray of R."""
+    return {k: round(v / R, 2) for k, v in work.items()}
+
+
+def log_sample(name, fwd_ms, sample):
+    """Log a sample's nine step_fwd and step_bwd launches beside their
+    bounds (:func:`step_sample`)."""
+    log(f"{name} a sample's nine steps: step_fwd "
+        f"{' + '.join(f'{t:.3f}' for t in fwd_ms)} = {sum(fwd_ms):.3f} ms, "
+        f"bound {sample['fwd_bound']:.4f} ms; step_bwd "
+        f"{' + '.join(f'{t:.3f}' for t in sample['bwd_ms'])} = "
+        f"{sum(sample['bwd_ms']):.3f} ms, bound {sample['bwd_bound']:.4f} "
+        f"ms; live rays "
+        f"{[b['live_in'] for b in sample['bounds']]}")
+
+
 def phase_step_kernels(results, names=STEP_NAMES):
     """Phase 18: the per-step kernels on ``lights8`` and ``inst_grid3k``
     at the frame (camera rays in Morton order, bounce 8): the render and
@@ -3060,8 +3320,10 @@ def phase_step_kernels(results, names=STEP_NAMES):
     step at steps 0 and 2 (from the kernel's carry), step_bwd against
     autograd of the plain step at step 0; the per-step trace's
     radiance against the plain per-step trace's (phase 4's rule). Timed
-    and bounded at step 0, a launch with every ray live; each step's
-    kernel time and their sum, a sample's, are logged beside."""
+    and bounded at step 0, a launch with every ray live, and over a
+    sample's nine launches of step_fwd and of step_bwd (fed each step's
+    train residuals), each beside the sum of its nine bounds, counted
+    from each step's work (:func:`step_sample`)."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
@@ -3130,8 +3392,6 @@ def phase_step_kernels(results, names=STEP_NAMES):
         c0, u8 = carries[0], u8s[0]
         err_b, plain_b, ct1 = compare_step_bwd(name, scene, tables, decay,
                                                c0, u8, res0, hit0, bad, gen)
-        work = {}
-        plain_step_chunked(scene, tables, decay, c0, u8, work=work)
         plain_f = plain_ms(lambda: plain_step_chunked(scene, tables, decay,
                                                       c0, u8))
         ms_f = cuda_ms(lambda: step.step_fwd(scene, tables, decay, c0, u8),
@@ -3140,26 +3400,34 @@ def phase_step_kernels(results, names=STEP_NAMES):
                                                    u8), 5)
         ms_b = cuda_ms(lambda: step.step_bwd(scene, tables, decay, c0, u8,
                                              res0, hit0, ct1), 5)
-        bw = step_work(scene, tables, c0, u8, res0, hit0, work)
+        del res0
+        sample = step_sample(scene, tables, decay, carries, u8s, gen)
+        bw = sample["bounds"][0]
         log(f"{name} at step 0 ({bw['live_in']} rays, {bw['hits']} hit): "
             f"step_fwd {ms_f:.3f} ms (plain {plain_f:.1f}), bound "
             f"{fmt_bound(bw['step_fwd'])}; step_fwd_train {ms_t:.3f} ms "
             f"(plain {plain_t:.1f}), bound {fmt_bound(bw['step_fwd_train'])}"
             f"; step_bwd {ms_b:.3f} ms (plain {plain_b:.1f}), bound "
-            f"{fmt_bound(bw['step_bwd'])}; sphere rows tested "
-            f"{ {k: v for k, v in work.items() if k.startswith('sph')} }")
+            f"{fmt_bound(bw['step_bwd'])}; walks per ray at step 0 "
+            f"{per_ray(sample['work'][0], RES * RES)}")
+        log_sample(name, step_ms, sample)
+        use = resources(scene, tables, name, STEP_KERNELS)
         shape = {"at": "step 0 of the 1080x1080 frame, bounce 8"}
         results[f"step_fwd/{name}"] = {
             "max_abs_err": max(errs_f), "ms": ms_f, "plain_ms": plain_f,
             **bw["step_fwd"], "library_ms": None, **shape,
-            "step_ms": step_ms, "sample_ms": sum(step_ms)}
+            "step_ms": step_ms, "sample_ms": sum(step_ms),
+            "sample_bound_ms": sample["fwd_bound"], **use["step_fwd"]}
         results[f"step_fwd_train/{name}"] = {
             "max_abs_err": max(errs_f), "ms": ms_t, "plain_ms": plain_t,
-            **bw["step_fwd_train"], "library_ms": None, **shape}
+            **bw["step_fwd_train"], "library_ms": None, **shape,
+            **use["step_fwd_train"]}
         results[f"step_bwd/{name}"] = {
             "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
-            **bw["step_bwd"], "library_ms": None, **shape}
-        del carries, res0
+            **bw["step_bwd"], "library_ms": None, **shape,
+            "step_ms": sample["bwd_ms"], "sample_ms": sum(sample["bwd_ms"]),
+            "sample_bound_ms": sample["bwd_bound"], **use["step_bwd"]}
+        del carries
 
 
 def phase_step_route(results):
@@ -3714,7 +3982,9 @@ def phase_big_kernels(results):
     step_bwd against the plain step on 2^17 camera rays with phase 18's
     rules, and the per-step trace against the plain per-step trace. Timed
     at the frame: each kernel's launch at step 0 (every ray live) and a
-    sample's nine. Plain versions run only on the 2^17-ray sets."""
+    sample's nine, step_fwd's and step_bwd's beside the sum of their nine
+    bounds (:func:`step_sample`). Plain versions run only on the 2^17-ray
+    sets."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import hit3, step, tri
@@ -3809,6 +4079,7 @@ def phase_big_kernels(results):
                                  step.step_fwd(scene, tables, decay, c,
                                                u8s[k]))
                    for k, c in enumerate(cs)]
+        sample = step_sample(scene, tables, decay, cs, u8s, gen)
         c0 = cs[0]
         del cs
         sweep = "tri_entry_exit" if glass else "tri_entry"
@@ -3835,15 +4106,8 @@ def phase_big_kernels(results):
             ms_own = cuda_ms(lambda: tri.tri_entry_exit(
                 t, c0[0:3].T, c0[3:6].T, tbb, n, c0[step.C_LIVE],
                 refr=none, tsb=tables.tsb), 3)
-        work = {"sweep": 0, "shadow": 0}
-        cs = c0[:, sub].contiguous()
-        with torch.no_grad():
-            step._trace_plain(scene, tables, decay, cs[0:3], cs[3:6],
-                              u8s[0][:, sub][None].contiguous(), False, work,
-                              step.Segment(0, 1, cs),
-                              step.tri_hits(scene, tables, cs, plain=True))
-        work = {k: v * R / N_CMP for k, v in work.items()}
-        bw = step_work(scene, tables, c0, u8s[0], res_t, hit_t, work)
+        work = sample["work"][0]
+        bw = sample["bounds"][0]
         w0 = works[0]
         b_sweep = tri_bounds(tables, R, R, w0)
         b_old = tri_bounds(tables, R, R, w0, "one_level")
@@ -3871,8 +4135,11 @@ def phase_big_kernels(results):
             f"(plain {plain_t:.1f}), bound "
             f"{fmt_bound(bw['step_fwd_train'])}; step_bwd {ms_b:.3f} ms "
             f"(plain {plain_b:.1f}), bound {fmt_bound(bw['step_bwd'])}; "
-            f"shadow triangle rows per hit "
-            f"{work['shadow'] / max(bw['hits'], 1):.2f}")
+            f"shadow walk per hit: triangle rows "
+            f"{work['shadow'] / max(bw['hits'], 1):.2f}, slab tests "
+            f"{work['slabs'] / max(bw['hits'], 1):.2f}")
+        log_sample(name, step_ms, sample)
+        use = resources(scene, tables, name, STEP_KERNELS)
         shape = {"at": "step 0 of the 1080x1080 frame, bounce 8",
                  "plain_at": f"{N_CMP} camera rays"}
         results[f"{sweep}/{name}"] = {
@@ -3893,13 +4160,17 @@ def phase_big_kernels(results):
         results[f"step_fwd/{name}"] = {
             "max_abs_err": max(errs_f), "ms": step_ms[0], "plain_ms": plain_f,
             **bw["step_fwd"], "library_ms": None, **shape,
-            "step_ms": step_ms, "sample_ms": sum(step_ms)}
+            "step_ms": step_ms, "sample_ms": sum(step_ms),
+            "sample_bound_ms": sample["fwd_bound"], **use["step_fwd"]}
         results[f"step_fwd_train/{name}"] = {
             "max_abs_err": max(errs_f), "ms": ms_t, "plain_ms": plain_t,
-            **bw["step_fwd_train"], "library_ms": None, **shape}
+            **bw["step_fwd_train"], "library_ms": None, **shape,
+            **use["step_fwd_train"]}
         results[f"step_bwd/{name}"] = {
             "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
-            **bw["step_bwd"], "library_ms": None, **shape}
+            **bw["step_bwd"], "library_ms": None, **shape,
+            "step_ms": sample["bwd_ms"], "sample_ms": sum(sample["bwd_ms"]),
+            "sample_bound_ms": sample["bwd_bound"], **use["step_bwd"]}
 
 
 def phase_big_main(card, counts):
@@ -4042,8 +4313,9 @@ def step_kernels_alone():
 def step_bwd_rows_ab(pairs=2, reps=10):
     """``--step-diagnosis``, first part: ``lights8``'s step_bwd at each of
     the nine steps of the frame (the train instance's residuals, random
-    output cotangents), its dense rows added in shared memory (the
-    wrapper's choice under 48 KB) and with global atomics, interleaved
+    output cotangents), its dense rows summed in float64 per block in
+    shared memory (the wrapper's choice, ``step._step_shared_rows``) and
+    straight into the global float64 sums, interleaved
     (shared, global, global, shared per pair; CUDA-event means of ``reps``
     launches). The two agree: ct0 bit for bit, the tables within rtol 1e-5
     and 1e-6 of the table's largest entry. Returns {mode: [ms per pass,
@@ -4100,7 +4372,7 @@ def step_bwd_rows_ab(pairs=2, reps=10):
             sums[mode].append(sum(ms))
             per_step[mode] = ms
     log(f"lights8 step_bwd over the nine steps of a training step, shared "
-        f"rows {[f'{t:.3f}' for t in sums['shared']]} ms, global atomics "
+        f"rows {[f'{t:.3f}' for t in sums['shared']]} ms, global rows "
         f"{[f'{t:.3f}' for t in sums['global']]} ms (interleaved); per step, "
         f"last pass: shared {[f'{t:.3f}' for t in per_step['shared']]}, "
         f"global {[f'{t:.3f}' for t in per_step['global']]}")

@@ -18,32 +18,44 @@
 //
 // Lights: any number; a light's occlusion bit is read from its residual
 // row when its term is transposed and its cotangent row (11 floats) goes
-// straight to the block's accumulator, so no per-light state is kept
+// straight to the accumulator, so no per-light state is kept
 // (step_bwd_any below; the whole trace's step_bwd unrolls its light loop
 // to kMaxLights, and sharing this loop moved the whole-trace backward's
 // registers: 168 to 182 on mesh_opaque, 29% slower).
 //
-// Row cotangents: accumulated in the kernel, not scattered after it. The
-// lights always, and the dense rows when they and the lights fit in 48 KB
-// of shared memory (ops/step.py _step_shared_rows: about 540 rows with 8
-// lights), add into per-block accumulators with shared atomics; each block
-// writes its partial sums, and a second kernel adds them in block order
-// (no row bound). Past that, the dense rows add into d_tab with global
-// atomics, as triangle rows always do: a table that large spreads its hits
-// over many rows. Every row keeps its own cotangent. On the H100 the shared rows
-// take 5.7 ms for the nine launches of a lights8 training step (7 hot
-// rows), global atomics on the same rows 10.5 (chip_smoke.py
-// --step-diagnosis).
+// The kernel scatters as trace_bwd.cu does (trace_bwd.cuh warp_rows). A
+// warp takes 32 rays, and each lane holds one step, so every lane of a
+// warp runs the step together: a lane whose ray missed or was dead runs it
+// on zeros and adds nothing (a warp with no hit only passes its
+// cotangents through). Rows shared by enough lanes of the warp are summed
+// by a reduce-scatter and added once per nonzero column; the dense rows
+// go into float64 sums, per block in shared memory while they fit beside
+// the lights (ops/step.py _step_shared_rows; lights8's 24 rows), else
+// straight into the global float64 sums (inst_grid3k's 3,384 rows);
+// triangle rows and their (Pt, 4) Woop cotangents go lane by lane into
+// d_tab and d_tri with float atomics. Each light's row, as every lane
+// walks the lights in the same order, is summed over the warp by a
+// reduce-scatter of its 11 columns (26 shuffles; skipped where no lane
+// sees the light) and added by the column's lane to the warp's own
+// float64 slots in shared memory, (warps, L, 11), with plain adds: 5.5 KB
+// a block for 8 lights, 704 B a light; where the slots and the rows do not
+// fit, to the global float64 sums. Blocks persist and add their sums once;
+// a second kernel writes d_tab's dense rows and d_lights. Lane-by-lane
+// float atomics on shared rows and lights serialise up to 32 ways
+// (lights8: 7 hot rows, 8 lights), and a kernel that sums per-block
+// partials serially costs a launch more (PERF.md, row 5's ablation).
 //
-// Run to run: the per-ray d_o, d_d, d_pwr, d_A and d_B repeat bit for bit;
-// the table cotangents vary at float32 rounding level (the order of the
-// atomic adds).
+// Run to run: the per-ray d_o, d_d, d_pwr, d_A and d_B repeat bit for bit
+// and equal the per-ray walk's; the table cotangents are float64 sums of
+// float32 terms (a warp's sums are float32) in an order that varies,
+// rounded to float32 once; triangle rows are float32 atomic sums.
 //
 // What bounds it on the H100: bytes. A ray reads 56 bytes of output
 // cotangent, writes 56 of input cotangent, and a ray that hit reads 4*CR
 // bytes of residuals, 4*NU of uniforms and its pwr, and does a few
 // hundred float ops without a sweep. The rows are read from global memory
-// (the winner rows only).
+// (the winner rows only). Registers: __launch_bounds__(kThreads,
+// kMinBlocks) holds a thread to 128.
 //
 // Numerics: float32, -fmad=false, as trace_bwd.cu.
 #include "trace_bwd.cuh"
@@ -55,13 +67,16 @@ namespace mrt {
 // number L): a light's occlusion bit is its residual row (`lok`, stride
 // R), and a visible light's cotangent row goes to acc.light(li, row) as
 // soon as it is transposed. Also out: ct_pwr, the cotangent of the step's
-// pwr through the fold.
+// pwr through the fold. Every light calls acc.light(li, row) in light order
+// (a zero row for an occluded light, on an emit draw, or where `act` is
+// false: a lane that runs the step on zeros beside its warp).
 template <bool kRefract, bool kTex, class Acc>
 __device__ __forceinline__ void step_bwd_any(
     const float* at, const Texels& tv, int kind, const float* tr,
     const float* s_lt, int L, const float* lok, V3 o, V3 d, V3 A, float t_c,
     bool choose, const float* u, int R, float pwr, V3 ctB, V3& ct_o,
-    V3& ct_d, V3& ct_A, float& ct_pwr, float* d_at, float* d_gh, Acc& acc) {
+    V3& ct_d, V3& ct_A, float& ct_pwr, float* d_at, float* d_gh, Acc& acc,
+    bool act = true) {
   // ---- primal recompute at the selected hit ----
   const V3 p = add(o, scale(d, t_c));
   const Normal nm = normal_full(at, p, kind);
@@ -88,14 +103,13 @@ __device__ __forceinline__ void step_bwd_any(
   V3 ct_dd = v3(0.0f, 0.0f, 0.0f);  // cotangent of d from this step
   const V3 ct_af = mul(ct_A, A);
   const V3 ct_bf = mul(ctB, A);
-  if (b_emit) {
-    // a = 0, b = albedo
-    ct_alb = ct_bf;
-  } else {
-    ct_alb = scale(ct_af, pwr);
-    const V3 ct_lcol = scale(ct_bf, pwr);
-    const V3 o_col = scale(alb, 1.0f - met);
-    for (int li = 0; li < L; ++li) {
+  // a = 0, b = albedo on an emit draw
+  ct_alb = b_emit ? ct_bf : scale(ct_af, pwr);
+  const V3 ct_lcol = scale(ct_bf, pwr);
+  const V3 o_col = scale(alb, 1.0f - met);
+  for (int li = 0; li < L; ++li) {
+    float g[kLightCols] = {};  // this light's cotangent row
+    if (act && !b_emit && lok[li * R] > 0.5f) {
       const float* lt = s_lt + li * kLightCols;
       const V3 lv = light_vec(lt, p);
       const float s_lv = dot(lv, lv);
@@ -114,10 +128,7 @@ __device__ __forceinline__ void step_bwd_any(
       const V3 contrib = v3((o_col.x * diff * lc.x + spec) * pl,
                             (o_col.y * diff * lc.y + spec) * pl,
                             (o_col.z * diff * lc.z + spec) * pl);
-      const bool ok = lok[li * R] > 0.5f;
-      if (ok) l_col = add(l_col, contrib);
-      if (!ok) continue;
-      float g[kLightCols] = {};  // this light's cotangent row
+      l_col = add(l_col, contrib);
       const float cc[3] = {ct_lcol.x, ct_lcol.y, ct_lcol.z};
       const float oc[3] = {o_col.x, o_col.y, o_col.z};
       const float lcc[3] = {lc.x, lc.y, lc.z};
@@ -162,8 +173,8 @@ __device__ __forceinline__ void step_bwd_any(
         g[2] += ct_lv.z;
         ct_p = sub(ct_p, ct_lv);
       }
-      acc.light(li, g);
     }
+    acc.light(li, g);
   }
   const V3 a_f = b_emit ? v3(0.0f, 0.0f, 0.0f)
                         : v3(pwr * (0.5f + alb.x), pwr * (0.5f + alb.y),
@@ -245,31 +256,48 @@ __device__ __forceinline__ void step_bwd_any(
 // One ray's step backward: ct1 the cotangent of the output carry, ct0 that
 // of the input carry c0 (both (14, R)); resid (CR, R) and hit (R,) from
 // the train instance; u8 (NU, R) the step's uniforms. `acc` adds into the
-// row, triangle and light accumulators.
-template <bool kRefract, bool kTri, bool kTex, class Acc>
+// row, triangle and light accumulators: acc.row(row, d_at) once (row -1
+// for none), acc.tri for a triangle row, acc.light for every light.
+// kWarp: every lane of a warp calls it together (lanes past R too), and a
+// lane whose ray missed or was dead runs the step on zeros (row 0 of the
+// table, nothing added), so that acc's light and row sums are warp-wide;
+// otherwise a ray that missed returns after passing its cotangents
+// through.
+template <bool kRefract, bool kTri, bool kTex, bool kWarp = false, class Acc>
 __device__ __forceinline__ void step_ray_bwd(
     const float* tab, const Tris& T, const Layout& lay, const float* s_lt,
     int L, float dk, const Tex& tex, int i, int R,
     const float* __restrict__ resid, const float* __restrict__ hit,
     const float* __restrict__ c0, const float* __restrict__ u8,
     const float* __restrict__ ct1, float* __restrict__ ct0, Acc& acc) {
-  const float* g1 = ct1 + i;
+  const bool in = !kWarp || i < R;
+  const int j = in ? i : 0;  // the column read (a lane past R reads ray 0)
+  const float* g1 = ct1 + j;
   V3 ct_o = v3(g1[(kC_O + 0) * R], g1[(kC_O + 1) * R], g1[(kC_O + 2) * R]);
   V3 ct_d = v3(g1[(kC_D + 0) * R], g1[(kC_D + 1) * R], g1[(kC_D + 2) * R]);
   V3 ct_A = v3(g1[(kC_A + 0) * R], g1[(kC_A + 1) * R], g1[(kC_A + 2) * R]);
   const V3 ct_B =
       v3(g1[(kC_B + 0) * R], g1[(kC_B + 1) * R], g1[(kC_B + 2) * R]);
   float ct_pwr = g1[kC_PWR * R] * dk;  // pwr1 = pwr0 * dk on every lane
-  if (hit[i] > 0.5f) {
-    const float* r = resid + i;
+  const bool on = in && hit[j] > 0.5f;
+  if (kWarp || on) {
+    const float* r = resid + j;
     const int side_rows = kTex ? tex_side_rows(tex.slots) : 0;
-    const V3 o = v3(r[(R_O + 0) * R], r[(R_O + 1) * R], r[(R_O + 2) * R]);
-    const V3 d = v3(r[(R_D + 0) * R], r[(R_D + 1) * R], r[(R_D + 2) * R]);
-    const V3 A = v3(r[(R_A + 0) * R], r[(R_A + 1) * R], r[(R_A + 2) * R]);
-    const bool choose = kRefract && r[R_CHOOSE * R] > 0.5f;
+    // the rows an unwritten residual column holds are never read
+    const V3 zero = v3(0.0f, 0.0f, 0.0f);
+    const V3 o =
+        on ? v3(r[(R_O + 0) * R], r[(R_O + 1) * R], r[(R_O + 2) * R]) : zero;
+    const V3 d =
+        on ? v3(r[(R_D + 0) * R], r[(R_D + 1) * R], r[(R_D + 2) * R]) : zero;
+    const V3 A =
+        on ? v3(r[(R_A + 0) * R], r[(R_A + 1) * R], r[(R_A + 2) * R]) : zero;
+    const bool choose = on && kRefract && r[R_CHOOSE * R] > 0.5f;
     // the chosen side's row (trace_bwd.cu trace_ray_bwd)
-    const int row = static_cast<int>(
-        r[((kTri && choose) ? res_xrow(L) : static_cast<int>(R_ROW)) * R]);
+    const int row =
+        on ? static_cast<int>(r[((kTri && choose) ? res_xrow(L)
+                                                  : static_cast<int>(R_ROW)) *
+                                R])
+           : 0;
     const int kind = row_kind<kTri>(row, lay);
     const float* at = tab + row * kRowCols;
     const float* tr =
@@ -279,23 +307,31 @@ __device__ __forceinline__ void step_ray_bwd(
 #pragma unroll
       for (int s = 0; s < kMapSlots; ++s)
         tv.id[s] = __ldg(tex.maps + row * kMapSlots + s);
-      read_texels(r, res_rows<kTri>(L) + (choose ? side_rows : 0), R,
-                  tex.slots, tv);
+      if (on)
+        read_texels(r, res_rows<kTri>(L) + (choose ? side_rows : 0), R,
+                    tex.slots, tv);
     }
     float d_at[kRowCols];
 #pragma unroll
     for (int k = 0; k < kRowCols; ++k) d_at[k] = 0.0f;
     float d_gh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     float ct_pwr_fold;
+    V3 s_o = ct_o, s_d = ct_d, s_A = ct_A;
     step_bwd_any<kRefract, kTex>(
         at, tv, kind, tr, s_lt, L, r + R_LOK * R, o, d, A,
-        choose ? r[R_TX * R] : r[R_TE * R], choose, u8 + i, R,
-        c0[kC_PWR * R + i], ct_B, ct_o, ct_d, ct_A, ct_pwr_fold, d_at, d_gh,
-        acc);
-    ct_pwr += ct_pwr_fold;
-    acc.row(row, d_at);
-    if (kTri && kind == kRowTri) acc.tri(row - lay.tri_start, d_gh);
+        on ? (choose ? r[R_TX * R] : r[R_TE * R]) : 0.0f, choose, u8 + j, R,
+        c0[kC_PWR * R + j], ct_B, s_o, s_d, s_A, ct_pwr_fold, d_at, d_gh, acc,
+        on);
+    if (on) {
+      ct_o = s_o;
+      ct_d = s_d;
+      ct_A = s_A;
+      ct_pwr += ct_pwr_fold;
+      if (kTri && kind == kRowTri) acc.tri(row - lay.tri_start, d_gh);
+    }
+    acc.row(on ? row : -1, d_at);
   }
+  if (!in) return;
   float* g0 = ct0 + i;
   const float v[kCarryRows] = {ct_o.x, ct_o.y, ct_o.z, ct_d.x, ct_d.y,
                                ct_d.z, ct_pwr, 0.0f, ct_A.x, ct_A.y,
@@ -309,110 +345,179 @@ __device__ __forceinline__ void step_ray_bwd(
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
+#include "grid.cuh"
+
 namespace {
 
-// accumulators of one block: the lights, and the dense rows when `rows` is
-// set, in shared memory; otherwise dense rows, and with kTri triangle rows
-// always, straight into the global d_tab and d_tri (zeroed by the wrapper)
+using mrt::kFull;
+constexpr int kThreads = 256;  // threads per block
+constexpr int kMinBlocks = 2;  // blocks per SM the register budget keeps
+// lanes on one row from which the warp sums them before adding: into
+// shared memory and into global memory (trace_bwd.cu's values)
+constexpr int kAggShared = 8;
+constexpr int kAggGlobal = 2;
+
+// The accumulators of one warp: dense rows (trace_bwd.cuh warp_rows) into
+// the block's float64 rows in shared memory (`s_rows`, or null: the global
+// float64 sums `g_rows`), triangle rows and their Woop cotangents lane by
+// lane into the global float32 d_tab and d_tri, each light's row summed
+// over the warp into the warp's float64 slots `lights` (L, 11) in shared
+// memory or, where they did not fit, into the global float64 sums.
 template <bool kTri>
-struct StepAcc {
-  float* rows;    // (n_dense, kGradCols), or null
-  float* lights;  // (L, kLightCols)
+struct WarpAcc {
+  double* s_rows;
+  double* g_rows;
+  double* lights;
+  bool lights_shared;
   int n_dense;
-  float* g_tab;   // (P, kRowCols)
-  float* g_tri;   // (Pt, 4)
-  __device__ void row(int row, const float* d_at) {
-    if (!rows || (kTri && row >= n_dense)) {
+  float* g_tab;  // (P, kRowCols) float32
+  float* g_tri;  // (Pt, 4)
+  int lane;
+  __device__ __forceinline__ void row(int row, const float* d_at) {
+    if (kTri && row >= n_dense) {
+      // a triangle row: straight into the global table
       float* dst = g_tab + static_cast<size_t>(row) * mrt::kRowCols;
 #pragma unroll
       for (int g = 0; g < mrt::kGradCols; ++g) {
         const int c = mrt::tab_col(g);
         if (d_at[c] != 0.0f) atomicAdd(dst + c, d_at[c]);
       }
-      return;
+      row = -1;
     }
-    float* dst = rows + row * mrt::kGradCols;
-#pragma unroll
-    for (int g = 0; g < mrt::kGradCols; ++g)
-      atomicAdd(dst + g, d_at[mrt::tab_col(g)]);
+    mrt::warp_rows<kAggShared, kAggGlobal>(s_rows != nullptr, s_rows, g_rows,
+                                           row, d_at, lane);
   }
-  __device__ void tri(int t, const float* d_gh) {
+  __device__ __forceinline__ void tri(int t, const float* d_gh) {
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       if (d_gh[k] != 0.0f) atomicAdd(g_tri + 4 * t + k, d_gh[k]);
   }
-  __device__ void light(int li, const float* g) {
+  __device__ __forceinline__ void light(int li, const float* g) {
+    bool any = false;
 #pragma unroll
-    for (int c = 0; c < mrt::kLightCols; ++c)
-      if (c != 6) atomicAdd(lights + li * mrt::kLightCols + c, g[c]);
+    for (int c = 0; c < mrt::kLightCols; ++c) any |= g[c] != 0.0f;
+    if (!__any_sync(kFull, any)) return;
+    float v[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) v[c] = c < mrt::kLightCols ? g[c] : 0.0f;
+    const float s = mrt::warp_transpose_sum16<mrt::kLightCols>(v, lane);
+    if (lane < mrt::kLightCols && lane != 6 && s != 0.0f) {
+      double* dst = lights + li * mrt::kLightCols + lane;
+      if (lights_shared)
+        *dst += static_cast<double>(s);  // this lane's column alone
+      else
+        atomicAdd(dst, static_cast<double>(s));
+    }
   }
 };
 
-template <bool kRefract, bool kTri, bool kTex>
-__global__ void step_bwd_kernel(const float* __restrict__ tab, int P,
-                                mrt::Layout lay,
-                                const float* __restrict__ tri,
-                                const float* __restrict__ lights, int L,
-                                float dk, mrt::Tex tex,
-                                const float* __restrict__ resid,
-                                const float* __restrict__ hit,
-                                const float* __restrict__ c0,
-                                const float* __restrict__ u8, int R,
-                                const float* __restrict__ ct1,
-                                float* __restrict__ ct0, int shared_rows,
-                                float* __restrict__ partials,
-                                float* __restrict__ d_tab,
-                                float* __restrict__ d_tri) {
-  extern __shared__ float smem[];
-  float* s_lt = smem;
-  float* s_acc = s_lt + L * mrt::kLightCols;
-  const int n_rows = shared_rows ? P * mrt::kGradCols : 0;
-  const int n_acc = n_rows + L * mrt::kLightCols;
-  mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
-  for (int c = threadIdx.x; c < n_acc; c += blockDim.x) s_acc[c] = 0.0f;
-  __syncthreads();
-  StepAcc<kTri> acc{shared_rows ? s_acc : nullptr, s_acc + n_rows, P, d_tab,
-                    d_tri};
-  const mrt::Tris T{tri, nullptr};
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < R;
-       i += gridDim.x * blockDim.x)
-    mrt::step_ray_bwd<kRefract, kTri, kTex>(tab, T, lay, s_lt, L, dk, tex, i,
-                                            R, resid, hit, c0, u8, ct1, ct0,
-                                            acc);
-  __syncthreads();
-  float* part = partials + static_cast<size_t>(blockIdx.x) * n_acc;
-  for (int c = threadIdx.x; c < n_acc; c += blockDim.x) part[c] = s_acc[c];
+// The shared memory of a block: the warps' light slots (warps, L, 11) and
+// the dense rows (P, 26) in float64 where asked (rows_shared) and they
+// fit kSharedBytes beside the slots, and the lights (L, 11) in float32.
+constexpr size_t kSharedBytes = 100 * 1024;
+
+size_t slot_bytes(int L) {
+  return static_cast<size_t>(kThreads / 32) * L * mrt::kLightCols *
+         sizeof(double);
 }
 
-// the shared accumulators' sums in block order: the dense rows of d_tab
-// (P, 26) when they were shared, and d_lights (L, 11)
-__global__ void reduce_kernel(const float* __restrict__ partials, int blocks,
-                              int P, int L, int shared_rows,
+bool slots_shared(int P, int L, int rows_shared) {
+  return slot_bytes(L) + (rows_shared ? static_cast<size_t>(P) *
+                                            mrt::kRowCols * sizeof(double)
+                                      : 0) <=
+         kSharedBytes;
+}
+
+size_t smem_bytes(int P, int L, int rows_shared) {
+  return (rows_shared
+              ? static_cast<size_t>(P) * mrt::kRowCols * sizeof(double)
+              : 0) +
+         (slots_shared(P, L, rows_shared) ? slot_bytes(L) : 0) +
+         static_cast<size_t>(L) * mrt::kLightCols * sizeof(float);
+}
+
+template <bool kRefract, bool kTri, bool kTex>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    step_bwd_kernel(const float* __restrict__ tab, int P, mrt::Layout lay,
+                    const float* __restrict__ tri,
+                    const float* __restrict__ lights, int L, float dk,
+                    mrt::Tex tex, const float* __restrict__ resid,
+                    const float* __restrict__ hit,
+                    const float* __restrict__ c0,
+                    const float* __restrict__ u8, int R,
+                    const float* __restrict__ ct1, float* __restrict__ ct0,
+                    int rows_shared, int lights_shared,
+                    double* __restrict__ acc, float* __restrict__ d_tab,
+                    float* __restrict__ d_tri) {
+  extern __shared__ double smem[];
+  const int nl = L * mrt::kLightCols;
+  const int warps = blockDim.x >> 5;
+  const int n_rows = rows_shared ? P * mrt::kRowCols : 0;
+  const int n_slots = lights_shared ? warps * nl : 0;
+  double* s_rows = smem;                // (P, 26) when rows_shared
+  double* s_slots = smem + n_rows;      // (warps, L, 11) when lights_shared
+  float* s_lt = reinterpret_cast<float*>(s_slots + n_slots);  // (L, 11)
+  mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
+  for (int c = threadIdx.x; c < n_rows + n_slots; c += blockDim.x)
+    smem[c] = 0.0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double* g_lights = acc + P * mrt::kRowCols;
+  WarpAcc<kTri> wacc{rows_shared ? s_rows : nullptr,
+                     acc,
+                     lights_shared ? s_slots + warp * nl : g_lights,
+                     lights_shared != 0,
+                     P,
+                     d_tab,
+                     d_tri,
+                     lane};
+  const mrt::Tris T{tri, nullptr};
+  for (int base = (blockIdx.x * warps + warp) * 32; base < R;
+       base += gridDim.x * warps * 32) {
+    const int i = base + lane;
+    const bool on = i < R && hit[i] > 0.5f;
+    if (__any_sync(kFull, on)) {
+      mrt::step_ray_bwd<kRefract, kTri, kTex, true>(
+          tab, T, lay, s_lt, L, dk, tex, i, R, resid, hit, c0, u8, ct1, ct0,
+          wacc);
+    } else if (i < R) {
+      // no lane of the warp hit: the cotangents pass through
+#pragma unroll
+      for (int k = 0; k < mrt::kCarryRows; ++k) {
+        const float g = ct1[k * R + i];
+        ct0[k * R + i] = k == mrt::kC_PWR ? g * dk
+                         : k == mrt::kC_LIVE ? 0.0f
+                                             : g;
+      }
+    }
+  }
+  __syncthreads();
+  // the block's sums, once, into acc: each light column over the warps'
+  // slots (in a fixed order), then the shared rows' nonzero entries
+  if (lights_shared)
+    for (int c = threadIdx.x; c < nl; c += blockDim.x) {
+      if (c % mrt::kLightCols == 6) continue;
+      double s = 0.0;
+      for (int w = 0; w < warps; ++w) s += s_slots[w * nl + c];
+      if (s != 0.0) atomicAdd(g_lights + c, s);
+    }
+  if (rows_shared)
+    for (int c = threadIdx.x; c < n_rows; c += blockDim.x)
+      if (s_rows[c] != 0.0) atomicAdd(acc + c, s_rows[c]);
+}
+
+// d_tab's dense rows and d_lights from the float64 sums
+__global__ void finish_kernel(const double* __restrict__ acc, int P, int L,
                               float* __restrict__ d_tab,
                               float* __restrict__ d_lights) {
-  const int n_tab = shared_rows ? P * mrt::kRowCols : 0;
-  const int n_out = n_tab + L * mrt::kLightCols;
-  const int n_rows = shared_rows ? P * mrt::kGradCols : 0;
-  const int n_acc = n_rows + L * mrt::kLightCols;
+  const int n_rows = P * mrt::kRowCols;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_out) return;
-  int src;  // accumulator index, or -1 for a column with no cotangent
-  if (j < n_tab) {
-    const int row = j / mrt::kRowCols, c = j % mrt::kRowCols;
-    const bool none = c == mrt::C_VALID || c == mrt::C_GID ||
-                      c == mrt::A_OPA || c == mrt::A_EMI;
-    src = none ? -1 : row * mrt::kGradCols + mrt::grad_col(c);
-  } else {
-    src = n_rows + (j - n_tab);
-  }
-  float s = 0.0f;
-  if (src >= 0)
-    for (int b = 0; b < blocks; ++b)
-      s += partials[static_cast<size_t>(b) * n_acc + src];
-  if (j < n_tab)
-    d_tab[j] = s;
-  else
-    d_lights[j - n_tab] = s;
+  if (j < n_rows)
+    d_tab[j] = static_cast<float>(acc[j]);
+  else if (j < n_rows + L * mrt::kLightCols)
+    d_lights[j - n_rows] = static_cast<float>(acc[j]);
 }
 
 // The arguments every instance takes.
@@ -432,9 +537,8 @@ struct Args {
   int R;
   const float* ct1;
   float* ct0;
-  int shared_rows;
-  float* partials;
-  int blocks;
+  int rows_shared;
+  double* acc;
   float* d_tab;
   float* d_lights;
   float* d_tri;
@@ -442,46 +546,63 @@ struct Args {
 
 template <bool kRefract, bool kTri, bool kTex>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(a.shared_rows ? a.P : 0) * mrt::kGradCols +
-       static_cast<size_t>(a.L) * 2 * mrt::kLightCols) *
-      sizeof(float);
-  auto kernel = step_bwd_kernel<kRefract, kTri, kTex>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<a.blocks, mrt::kBwdThreads, smem, stream>>>(
+  const auto kernel = step_bwd_kernel<kRefract, kTri, kTex>;
+  const size_t smem = smem_bytes(a.P, a.L, a.rows_shared);
+  int per_sm = 0, sms = 0;
+  int e = mrt::resident_blocks(kernel, kThreads, smem, &per_sm, &sms);
+  if (e) return e;
+  // persistent: as many blocks as the card keeps resident (grid.cuh)
+  const int blocks = std::max(
+      1, std::min((a.R + kThreads - 1) / kThreads, sms * per_sm));
+  kernel<<<blocks, kThreads, smem, stream>>>(
       a.tab, a.P, a.lay, a.tri, a.lights, a.L, a.dk, a.tex, a.resid, a.hit,
-      a.c0, a.u8, a.R, a.ct1, a.ct0, a.shared_rows, a.partials, a.d_tab,
+      a.c0, a.u8, a.R, a.ct1, a.ct0, a.rows_shared,
+      slots_shared(a.P, a.L, a.rows_shared) ? 1 : 0, a.acc, a.d_tab,
       a.d_tri);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_out =
-      (a.shared_rows ? a.P * mrt::kRowCols : 0) + a.L * mrt::kLightCols;
-  if (n_out)
-    reduce_kernel<<<(n_out + 127) / 128, 128, 0, stream>>>(
-        a.partials, a.blocks, a.P, a.L, a.shared_rows, a.d_tab, a.d_lights);
+  e = static_cast<int>(cudaGetLastError());
+  if (e != cudaSuccess) return e;
+  const int n_out = a.P * mrt::kRowCols + a.L * mrt::kLightCols;
+  finish_kernel<<<(n_out + 255) / 256, 256, 0, stream>>>(
+      a.acc, a.P, a.L, a.d_tab, a.d_lights);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the launch and the occupancy query of one instance
+struct Launch {
+  const Args& a;
+  cudaStream_t s;
+  template <bool kRefract, bool kTri, bool kTex>
+  int run() const {
+    return launch<kRefract, kTri, kTex>(a, s);
+  }
+};
+
+struct Occupancy {
+  int P, L, rows_shared;
+  int* per_sm;
+  template <bool kRefract, bool kTri, bool kTex>
+  int run() const {
+    return mrt::resident_blocks(step_bwd_kernel<kRefract, kTri, kTex>,
+                                kThreads, smem_bytes(P, L, rows_shared),
+                                per_sm);
+  }
+};
+
 // the instance for the scene: refraction, triangles, textures
-int dispatch(const Args& a, int refract, cudaStream_t s) {
-  const bool tri = a.lay.tri_n > 0, tex = a.tex.slots != 0;
+template <class F>
+int dispatch(bool refract, bool tri, bool tex, const F& f) {
   if (refract) {
     if (tri)
-      return tex ? launch<true, true, true>(a, s)
-                 : launch<true, true, false>(a, s);
-    return tex ? launch<true, false, true>(a, s)
-               : launch<true, false, false>(a, s);
+      return tex ? f.template run<true, true, true>()
+                 : f.template run<true, true, false>();
+    return tex ? f.template run<true, false, true>()
+               : f.template run<true, false, false>();
   }
   if (tri)
-    return tex ? launch<false, true, true>(a, s)
-               : launch<false, true, false>(a, s);
-  return tex ? launch<false, false, true>(a, s)
-             : launch<false, false, false>(a, s);
+    return tex ? f.template run<false, true, true>()
+               : f.template run<false, true, false>();
+  return tex ? f.template run<false, false, true>()
+             : f.template run<false, false, false>();
 }
 
 }  // namespace
@@ -490,10 +611,10 @@ int dispatch(const Args& a, int refract, cudaStream_t s) {
 // not read); resid (CR, R) and hit (R,) from mrt_step_fwd_train, the input
 // carry c0 (14, R) (its pwr row is read), the step's uniforms u8 (NU, R),
 // the output carry's cotangent ct1 (14, R); out the input carry's ct0
-// (14, R). shared_rows: the dense rows accumulate in shared memory
-// (else with global atomics into d_tab); blocks: the grid size the wrapper
-// sized `partials` for, (blocks, shared_rows ? P*22 : 0 + L*11) floats;
-// d_tab (all rows) and d_tri (Pt, 4) zeroed by the wrapper.
+// (14, R). rows_shared: the dense rows accumulate per block in shared
+// memory (else straight into the global float64 sums); acc: P * 26 + L *
+// 11 float64 sums, d_tab (all rows) and d_tri (Pt, 4), all zeroed by the
+// wrapper; the kernel writes d_tab's dense rows and d_lights from acc.
 extern "C" int mrt_step_bwd(const float* tab, int P, int sph_start,
                             int sph_n, int pln_start, int pln_n,
                             int box_start, int box_n, const float* tri,
@@ -504,17 +625,31 @@ extern "C" int mrt_step_bwd(const float* tab, int P, int sph_start,
                             const int* tmeta, int slots, const float* resid,
                             const float* hit, const float* c0,
                             const float* u8, int R, int refract,
-                            const float* ct1, float* ct0, int shared_rows,
-                            float* partials, int blocks, float* d_tab,
-                            float* d_lights, float* d_tri, void* stream) {
+                            const float* ct1, float* ct0, int rows_shared,
+                            double* acc, float* d_tab, float* d_lights,
+                            float* d_tri, void* stream) {
   (void)bb;
   (void)sbb;
   const Args a{tab, P,
                mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
                            box_n, tri_start, tri_n, n_cb, n_sb},
                tri, lights, L, dk, mrt::Tex{maps, atlas, tmeta, slots},
-               resid, hit, c0, u8, R, ct1, ct0, shared_rows, partials,
-               blocks, d_tab, d_lights, d_tri};
-  return dispatch(a, refract, static_cast<cudaStream_t>(stream));
+               resid, hit, c0, u8, R, ct1, ct0, rows_shared, acc, d_tab,
+               d_lights, d_tri};
+  return dispatch(refract != 0, tri_n > 0, slots != 0,
+                  Launch{a, static_cast<cudaStream_t>(stream)});
+}
+
+// Resident warps per SM of the instance a scene of P dense rows and L
+// lights launches (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// *warps; returns a CUDA error code.
+extern "C" int mrt_step_bwd_occupancy(int P, int L, int rows_shared,
+                                      int refract, int tri, int tex,
+                                      int* warps) {
+  int per_sm = 0;
+  const int e = dispatch(refract != 0, tri != 0, tex != 0,
+                         Occupancy{P, L, rows_shared, &per_sm});
+  *warps = per_sm * (kThreads / 32);
+  return e;
 }
 #endif  // __CUDACC__

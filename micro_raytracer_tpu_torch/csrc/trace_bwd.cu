@@ -185,7 +185,8 @@ __device__ __forceinline__ void trace_ray_bwd(
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using mrt::kFull;
+using mrt::LaneLights;
 constexpr int kThreads = 256;    // threads per block
 constexpr int kMinBlocks = 2;    // blocks per SM the register budget keeps
 // lanes on one row from which the warp sums them before adding: into
@@ -196,79 +197,6 @@ constexpr int kAggGlobal = 2;
 // a block's lane slots and dense-row accumulator stay in shared memory
 // while they fit this (two blocks per SM)
 constexpr int kSharedBytes = 100 * 1024;
-
-// A lane's light accumulator: its own column of the warp's (L * 11, 32)
-// float64 slots in shared memory, so plain adds (no atomics, no bank
-// conflicts).
-struct LaneLights {
-  double* s;  // the lane's slot of light column 0
-  __device__ __forceinline__ void light(int li, const float* g) {
-#pragma unroll
-    for (int c = 0; c < mrt::kLightCols; ++c)
-      if (c != 6) s[(li * mrt::kLightCols + c) * 32] += g[c];
-  }
-};
-
-// Reduce-scatter of 32 values per lane over the warp: returns on lane l
-// the sum over the lanes of v[l] (a butterfly that halves the values each
-// round: 31 shuffles). v is overwritten.
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[32],
-                                                    int lane) {
-#pragma unroll
-  for (int h = 16; h >= 1; h >>= 1) {
-    const bool upper = (lane & h) != 0;
-#pragma unroll
-    for (int j = 0; j < h; ++j) {
-      const float send = upper ? v[j] : v[h + j];
-      const float keep = upper ? v[h + j] : v[j];
-      v[j] = keep + __shfl_xor_sync(kFull, send, h);
-    }
-  }
-  return v[0];
-}
-
-// Adds each lane's row cotangents d_at (row `row`, -1 for none) into the
-// (P, 26) float64 accumulator: `s_rows` in shared memory when `shared`,
-// else `g_rows` in global memory. A row held by `agg` lanes or more is
-// summed over the warp first and added once per nonzero column; the other
-// lanes add their own nonzero columns.
-__device__ __forceinline__ void warp_rows(bool shared, double* s_rows,
-                                          double* g_rows, int row,
-                                          const float* d_at, int lane) {
-  const int agg = shared ? kAggShared : kAggGlobal;
-  const unsigned peers = __match_any_sync(kFull, row);
-  const bool big = row >= 0 && __popc(peers) >= agg;
-  unsigned leads = __ballot_sync(kFull, big && lane == __ffs(peers) - 1);
-  while (leads) {
-    const int l = __ffs(leads) - 1;
-    leads &= leads - 1;
-    const int r = __shfl_sync(kFull, row, l);
-    float v[32];
-#pragma unroll
-    for (int g = 0; g < 32; ++g)
-      v[g] = (g < mrt::kGradCols && row == r) ? d_at[mrt::tab_col(g)] : 0.0f;
-    const float s = warp_transpose_sum(v, lane);
-    if (lane < mrt::kGradCols && s != 0.0f) {
-      const int e = r * mrt::kRowCols + mrt::tab_col(lane);
-      if (shared)
-        atomicAdd(s_rows + e, static_cast<double>(s));
-      else
-        atomicAdd(g_rows + e, static_cast<double>(s));
-    }
-  }
-  if (row >= 0 && !big) {
-#pragma unroll
-    for (int g = 0; g < mrt::kGradCols; ++g) {
-      const int c = mrt::tab_col(g);
-      if (d_at[c] == 0.0f) continue;
-      const int e = row * mrt::kRowCols + c;
-      if (shared)
-        atomicAdd(s_rows + e, static_cast<double>(d_at[c]));
-      else
-        atomicAdd(g_rows + e, static_cast<double>(d_at[c]));
-    }
-  }
-}
 
 template <bool kRefract, bool kTri, bool kTex>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -329,7 +257,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           if (d_gh[j] != 0.0f) atomicAdd(d_tri + 4 * t + j, d_gh[j]);
         row = -1;
       }
-      warp_rows(shared_rows != 0, s_rows, acc, row, d_at, lane);
+      mrt::warp_rows<kAggShared, kAggGlobal>(shared_rows != 0, s_rows, acc,
+                                             row, d_at, lane);
     }
     if (in) {
       d_o[i] = ct_o.x;

@@ -3,7 +3,9 @@
 // sampled direction of one step (step_bwd), with the whole trace's light
 // loop unrolled to kMaxLights. The per-step backward (step_bwd.cu)
 // shares the transposes around them and walks any number of lights. See
-// trace_bwd.cu for what each transposes and its numerics.
+// trace_bwd.cu for what each transposes and its numerics. Both backward
+// kernels scatter their cotangents with the warp-wide sums at the end of
+// this file (device code only).
 #pragma once
 
 #include "trace_step.cuh"
@@ -11,9 +13,6 @@
 namespace mrt {
 
 constexpr int kGradCols = 22;  // differentiable columns of a row
-// threads per block of step_bwd.cu; ops/step.py sizes its grid and
-// partials with it
-constexpr int kBwdThreads = 128;
 
 // accumulator column of row-table column c (c not in 16, 17, 24, 25)
 __device__ __forceinline__ int grad_col(int c) { return c < 16 ? c : c - 2; }
@@ -413,3 +412,107 @@ __device__ __forceinline__ void step_bwd(const float* at, const Texels& tv,
 }
 
 }  // namespace mrt
+
+#ifdef __CUDACC__
+namespace mrt {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// A lane's light accumulator: its own column of the warp's (L * 11, 32)
+// float64 slots in shared memory, so plain adds (no atomics, no bank
+// conflicts).
+struct LaneLights {
+  double* s;  // the lane's slot of light column 0
+  __device__ __forceinline__ void light(int li, const float* g) {
+#pragma unroll
+    for (int c = 0; c < kLightCols; ++c)
+      if (c != 6) s[(li * kLightCols + c) * 32] += g[c];
+  }
+};
+
+// Reduce-scatter of 32 values per lane over the warp: returns on lane l
+// the sum over the lanes of v[l] (a butterfly that halves the values each
+// round: 31 shuffles). v is overwritten.
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[32],
+                                                    int lane) {
+#pragma unroll
+  for (int h = 16; h >= 1; h >>= 1) {
+    const bool upper = (lane & h) != 0;
+#pragma unroll
+    for (int j = 0; j < h; ++j) {
+      const float send = upper ? v[j] : v[h + j];
+      const float keep = upper ? v[h + j] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFull, send, h);
+    }
+  }
+  return v[0];
+}
+
+// The same for the first kN of 16 values (the rest zero): the two
+// half-warps added first (kN shuffles), then the butterfly over 16 lanes
+// (15); lane l gets the sum of v[l % 16]. v is overwritten.
+template <int kN>
+__device__ __forceinline__ float warp_transpose_sum16(float (&v)[16],
+                                                      int lane) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) v[j] += __shfl_xor_sync(kFull, v[j], 16);
+#pragma unroll
+  for (int h = 8; h >= 1; h >>= 1) {
+    const bool upper = (lane & h) != 0;
+#pragma unroll
+    for (int j = 0; j < h; ++j) {
+      const float send = upper ? v[j] : v[h + j];
+      const float keep = upper ? v[h + j] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFull, send, h);
+    }
+  }
+  return v[0];
+}
+
+// Adds each lane's row cotangents d_at (row `row`, -1 for none) into the
+// (P, 26) float64 accumulator: `s_rows` in shared memory when `shared`,
+// else `g_rows` in global memory. A row held by kAggShared (shared) or
+// kAggGlobal (global) lanes or more is summed over the warp first and
+// added once per nonzero column; the other lanes add their own nonzero
+// columns. Every lane of the warp calls it.
+template <int kAggShared, int kAggGlobal>
+__device__ __forceinline__ void warp_rows(bool shared, double* s_rows,
+                                          double* g_rows, int row,
+                                          const float* d_at, int lane) {
+  const int agg = shared ? kAggShared : kAggGlobal;
+  const unsigned peers = __match_any_sync(kFull, row);
+  const bool big = row >= 0 && __popc(peers) >= agg;
+  unsigned leads = __ballot_sync(kFull, big && lane == __ffs(peers) - 1);
+  while (leads) {
+    const int l = __ffs(leads) - 1;
+    leads &= leads - 1;
+    const int r = __shfl_sync(kFull, row, l);
+    float v[32];
+#pragma unroll
+    for (int g = 0; g < 32; ++g)
+      v[g] = (g < kGradCols && row == r) ? d_at[tab_col(g)] : 0.0f;
+    const float s = warp_transpose_sum(v, lane);
+    if (lane < kGradCols && s != 0.0f) {
+      const int e = r * kRowCols + tab_col(lane);
+      if (shared)
+        atomicAdd(s_rows + e, static_cast<double>(s));
+      else
+        atomicAdd(g_rows + e, static_cast<double>(s));
+    }
+  }
+  if (row >= 0 && !big) {
+#pragma unroll
+    for (int g = 0; g < kGradCols; ++g) {
+      const int c = tab_col(g);
+      if (d_at[c] == 0.0f) continue;
+      const int e = row * kRowCols + c;
+      if (shared)
+        atomicAdd(s_rows + e, static_cast<double>(d_at[c]));
+      else
+        atomicAdd(g_rows + e, static_cast<double>(d_at[c]));
+    }
+  }
+}
+
+}  // namespace mrt
+#endif  // __CUDACC__

@@ -75,6 +75,9 @@ MAX_TRI_BLOCKS = 256
 # 32-bit mask per lane), the per-step kernel up to 64 (csrc/hit3.cuh)
 DENSE_CULL_MIN = 256
 SPH_MAX_BLOCKS = 64
+# rows per sub-block of a culled sphere segment: the per-step forward
+# tests a swept block's sub-blocks before their rows (csrc/step_fwd.cu)
+SPH_SUB = 8
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
 KERNEL = CudaKernel(
@@ -239,13 +242,13 @@ def sph_cull_rows(layout):
     return None
 
 
-def sph_blockbounds(scene):
+def sph_blockbounds(scene, rows=CB):
     """World AABBs ``(n_sb, 8)`` ``[lo (3) | hi (3) | 0 0]`` of the sphere
     segment's 64-row blocks (pallas_hit3._sphere_blockbounds without its
-    padding to 8 rows): centre +- r of each valid row (the instance frame
-    is a rotation, so the radius holds), a slack of 1e-4 + 1e-4 * extent,
-    and a non-finite bound tests always. Culling data, built without a
-    gradient."""
+    padding to 8 rows; ``rows``: blocks of that many rows): centre +- r of
+    each valid row (the instance frame is a rotation, so the radius
+    holds), a slack of 1e-4 + 1e-4 * extent, and a non-finite bound tests
+    always. Culling data, built without a gradient."""
     with torch.no_grad():
         s = scene.seg(schema.KIND_SPHERE)
         ip = scene.inst_pos[s].detach()
@@ -253,12 +256,12 @@ def sph_blockbounds(scene):
         valid = scene.prim_valid[s][:, None]
         lo = torch.where(valid, ip - r, BIG)
         hi = torch.where(valid, ip + r, -BIG)
-        pad = (-lo.shape[0]) % CB
+        pad = (-lo.shape[0]) % rows
         lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=BIG)
         hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-BIG)
-        n_sb = lo.shape[0] // CB
-        lo = lo.reshape(n_sb, CB, 3).amin(dim=1)
-        hi = hi.reshape(n_sb, CB, 3).amax(dim=1)
+        n_sb = lo.shape[0] // rows
+        lo = lo.reshape(n_sb, rows, 3).amin(dim=1)
+        hi = hi.reshape(n_sb, rows, 3).amax(dim=1)
         eps = 1e-4 + 1e-4 * torch.clamp(hi - lo, min=0.0)
         lo, hi = lo - eps, hi + eps
         bad = ~(torch.isfinite(lo) & torch.isfinite(hi))
@@ -280,6 +283,36 @@ def sph_table(scene, layout):
     """The sphere segment's cull blocks (:func:`sph_blockbounds`) where
     :func:`sph_culled`, else None."""
     return sph_blockbounds(scene) if sph_culled(scene, layout) else None
+
+
+def sph_walk_tables(scene, layout, tab):
+    """What the per-step forward's sphere walks read besides the cull
+    blocks, where :func:`sph_culled` (else ``(None, None)``): the sphere
+    segment's sweep columns packed 16 floats a row (frame (9), instance
+    position (3), radius, valid, 0, 0: four 16-byte loads where the row
+    table's 26-float rows take fourteen), and the AABBs of its
+    :data:`SPH_SUB`-row sub-blocks (:func:`sph_blockbounds` of those) with
+    each box's growth factor g = 1e-3 + 2e-6 / r (r its smallest valid
+    radius) in column 6: the kernel grows a sub-block's box by g (1 + |o -
+    centre|^2) for a ray from o, past the sphere test's rounding
+    (csrc/step_fwd.cu sub_touch). Built once per table, without a
+    gradient."""
+    if not sph_culled(scene, layout):
+        return None, None
+    with torch.no_grad():
+        _kind, s, c, _n = layout[0][0]
+        t = tab.detach()[s:s + c]
+        rows = torch.cat([t[:, :_C_PA], t[:, _C_PR:_C_VALID + 1],
+                          torch.zeros_like(t[:, :2])], 1).contiguous()
+        sub = sph_blockbounds(scene, SPH_SUB)
+        seg = scene.seg(schema.KIND_SPHERE)
+        r = torch.where(scene.prim_valid[seg], scene.prim_r[seg].detach(),
+                        BIG)
+        r = torch.nn.functional.pad(r, (0, sub.shape[0] * SPH_SUB
+                                        - r.shape[0]), value=BIG)
+        r = r.view(-1, SPH_SUB).amin(1)
+        sub[:, 6] = 1e-3 + 2e-6 / torch.clamp(r, min=1e-6)
+        return rows, sub
 
 
 def tri_tables(scene, frames):

@@ -100,18 +100,19 @@ MAX_ROWS = 2048
 # global memory and sums their cotangents in shared memory while they fit,
 # past that with global atomics; csrc/trace_bwd.cu)
 BWD_MAX_ROWS = 1024
-_GRAD_COLS = 22           # row-table columns with a cotangent
-# csrc/trace_bwd.cuh kBwdThreads: step_bwd.cu's block size
-_BWD_THREADS, _BWD_MAX_BLOCKS = 128, 1024
 # the per-step kernels (csrc/step_fwd.cu, csrc/step_bwd.cu) read the rows
-# from global memory (no row bound) and stage the lights in shared memory:
-# the backward the lights and their accumulators, 2 * 2048 * 44 B = 176 KB
+# from global memory (no row bound) and stage the lights in shared memory,
+# 2048 * 44 B = 88 KB (the backward's float64 sums beside them take at most
+# _STEP_SHARED_BYTES)
 STEP_MAX_LIGHTS = 2048
-# the per-step backward accumulates the dense rows' cotangents in shared
-# memory while they and the lights' fit this budget, else in global memory
-# (shared: 5.7 ms for the nine launches of a lights8 training step on an
-# H100, global atomics 10.5; chip_smoke.py --step-diagnosis)
-_STEP_SHARED_BYTES = 48 * 1024
+# the per-step backward sums the dense rows' cotangents in float64 per
+# block in shared memory while they and its warps' light slots fit this
+# budget (csrc/step_bwd.cu kSharedBytes), else straight into the global
+# float64 sums (chip_smoke.py --step-diagnosis times both on lights8)
+_STEP_SHARED_BYTES = 100 * 1024
+# warps per block of csrc/step_bwd.cu (kThreads / 32), each with its own
+# float64 slots of the lights' cotangents
+_STEP_BWD_WARPS = 8
 
 # residual rows per step (csrc/trace_step.cuh): the step's input ray o, d
 # and throughput A, its entry and exit t, entry winner row, refract choice,
@@ -192,17 +193,30 @@ _STEP_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
               + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS
               + [_c_ptr, _c_ptr, _c_int, _c_int])
 # ... c1, hit (train: resid), the triangle segment's te, row, tx, xrow
-# (kTriIn; null otherwise), stream
-STEP_KERNEL = CudaKernel("step_fwd", "step_fwd.cu", _HEADERS, "mrt_step_fwd",
-                         _STEP_ARGS + [_c_ptr] * 7)
-STEP_TRAIN_KERNEL = CudaKernel("step_fwd_train", "step_fwd.cu", _HEADERS,
-                               "mrt_step_fwd_train", _STEP_ARGS + [_c_ptr] * 8)
+# and its cull blocks' superblocks and their count (kTriIn; null and 0
+# otherwise), the sphere walk tables (sbb's; null otherwise), the refill
+# counters (_counters), stream
+_STEP_HEADERS = _HEADERS + ("tri_walk.cuh", "grid.cuh")
+STEP_KERNEL = CudaKernel("step_fwd", "step_fwd.cu", _STEP_HEADERS,
+                         "mrt_step_fwd",
+                         _STEP_ARGS + [_c_ptr] * 7 + [_c_int] + [_c_ptr] * 4)
+STEP_TRAIN_KERNEL = CudaKernel("step_fwd_train", "step_fwd.cu",
+                               _STEP_HEADERS, "mrt_step_fwd_train",
+                               _STEP_ARGS + [_c_ptr] * 8 + [_c_int]
+                               + [_c_ptr] * 4)
+# resident warps per SM of a per-step forward instance (not launches)
+STEP_OCCUPANCY = CudaKernel("step_fwd_occupancy", "step_fwd.cu",
+                            _STEP_HEADERS, "mrt_step_fwd_occupancy",
+                            [_c_int] * 11 + [_c_ptr])
 STEP_BWD_KERNEL = CudaKernel(
-    "step_bwd", "step_bwd.cu", _BWD_HEADERS, "mrt_step_bwd",
+    "step_bwd", "step_bwd.cu", _BWD_HEADERS + ("grid.cuh",), "mrt_step_bwd",
     [_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
     + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS + [_c_ptr] * 4
-    + [_c_int] * 2 + [_c_ptr] * 2 + [_c_int, _c_ptr, _c_int]
-    + [_c_ptr] * 4)
+    + [_c_int] * 2 + [_c_ptr] * 2 + [_c_int] + [_c_ptr] * 5)
+STEP_BWD_OCCUPANCY = CudaKernel("step_bwd_occupancy", "step_bwd.cu",
+                                _BWD_HEADERS + ("grid.cuh",),
+                                "mrt_step_bwd_occupancy",
+                                [_c_int] * 6 + [_c_ptr])
 
 
 class Segment(NamedTuple):
@@ -236,6 +250,11 @@ class TraceTables(NamedTuple):
     # the triangle cull blocks' superblocks (tri_ops.superbounds) where the
     # segment is swept on its own (tri_split), else None
     tsb: torch.Tensor | None = None
+    # with sbb, the per-step forward's sphere walk tables
+    # (hit3.sph_walk_tables): the packed sphere rows (n, 16) and the
+    # sub-blocks' AABBs (n_sub, hit3.BB_COLS), else None
+    srows: torch.Tensor | None = None
+    ssb: torch.Tensor | None = None
 
 
 def n_uni(need_exit: bool) -> int:
@@ -301,8 +320,10 @@ def pack_step(scene) -> TraceTables:
                *intersect.tex_tables(scene))
     layout = hit3.seg_layout(scene.kind_counts, scene.kind_sweep)
     tsb = tri_ops.superbounds(tbb) if tri_split(layout[2]) else None
+    srows, ssb = hit3.sph_walk_tables(scene, layout, tab)
     return TraceTables(frames, tab, lights, layout, tri, tbb, *tex,
-                       sbb=hit3.sph_table(scene, layout), tsb=tsb)
+                       sbb=hit3.sph_table(scene, layout), tsb=tsb,
+                       srows=srows, ssb=ssb)
 
 
 def primary_mode(scene) -> int:
@@ -930,11 +951,9 @@ def refills(scene, tables, train: bool) -> bool:
 _COUNTERS = {}
 
 
-def _refill_counter(scene, tables, train, dev):
-    """The counters from which a refilling launch's lanes take their next
-    rays, or None (:func:`refills`)."""
-    if not refills(scene, tables, train):
-        return None
+def _counters(dev):
+    """The two int32 counters of a refilling launch on the current stream
+    of ``dev`` (the kernel leaves them zeroed for the next one)."""
     key = (dev, torch.cuda.current_stream(dev).cuda_stream)
     nxt = _COUNTERS.get(key)
     if nxt is None:
@@ -942,23 +961,43 @@ def _refill_counter(scene, tables, train, dev):
     return nxt
 
 
+def _refill_counter(scene, tables, train, dev):
+    """The counters from which a refilling launch's lanes take their next
+    rays, or None (:func:`refills`)."""
+    return _counters(dev) if refills(scene, tables, train) else None
+
+
 def instance_resources(scene, tables, which: str) -> dict:
-    """What the card gives the whole-trace instance that a launch of
-    ``which`` (``"trace_fwd"``, ``"trace_fwd_train"`` or ``"trace_bwd"``)
-    on these tables runs: registers and spilled bytes (stores + loads) per
-    thread from ``nvcc``'s log, and resident warps per SM
+    """What the card gives the instance that a launch of ``which``
+    (``"trace_fwd"``, ``"trace_fwd_train"``, ``"trace_bwd"``,
+    ``"step_fwd"``, ``"step_fwd_train"`` or ``"step_bwd"``) on these
+    tables runs: registers and spilled bytes (stores + loads) per thread
+    from ``nvcc``'s log, and resident warps per SM
     (:func:`resident_warps`). Builds the kernel if needed."""
     t = hit3.table_args(tables.layout, tables.tri, tables.tbb, tables.sbb)
     tri, tex = t[8] > 0, bool(scene.has_maps)
+    refract = scene.any_refract
     if which == "trace_bwd":
-        kernel, flags = BWD_KERNEL, (scene.any_refract, tri, tex)
+        kernel, name, flags = BWD_KERNEL, "trace_bwd", (refract, tri, tex)
+    elif which == "step_bwd":
+        kernel, name, flags = STEP_BWD_KERNEL, "step_bwd", (refract, tri,
+                                                            tex)
+    elif which.startswith("step_fwd"):
+        train = which == "step_fwd_train"
+        kernel = STEP_TRAIN_KERNEL if train else STEP_KERNEL
+        if tri_split(tables.layout[2]):
+            name, flags = "step_fwd_in", (refract, train, tex)
+        else:
+            # kCull: a culled sphere segment (its walk tables)
+            name, flags = "step_fwd", (refract, train, tri, tex,
+                                       not tri and not tex and t[12] > 0)
     else:
         train = which == "trace_fwd_train"
         refill = refills(scene, tables, train)
         kernel = KERNEL if which == "trace_fwd" else TRAIN_KERNEL
-        flags = (scene.any_refract, train, False, tri, tex, refill)
+        name, flags = "trace_fwd", (refract, train, False, tri, tex, refill)
     kernel.fn()
-    key = (f"{kernel.source[:-3]}_kernelI"
+    key = (f"{name}_kernelI"
            + "".join(f"Lb{int(bool(f))}E" for f in flags) + "E")
     found = [v for k, v in ptxas_table(kernel.build_log).items() if key in k]
     regs, st, ld = found[0] if found else (None, None, None)
@@ -968,22 +1007,34 @@ def instance_resources(scene, tables, which: str) -> dict:
 
 
 def resident_warps(scene, tables, which: str) -> int:
-    """Warps per SM that the card keeps resident of the whole-trace
-    instance a launch of ``which`` (``"trace_fwd"``, ``"trace_fwd_train"``
-    or ``"trace_bwd"``) on these tables takes
+    """Warps per SM that the card keeps resident of the instance a launch
+    of ``which`` (as :func:`instance_resources`) on these tables takes
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     t = hit3.table_args(tables.layout, tables.tri, tables.tbb, tables.sbb)
     slots = _tex_args(scene, tables)[3]
     refract = int(scene.any_refract)
+    L = scene.n_lights
     warps = ctypes.c_int(0)
     if which == "trace_bwd":
-        rc = BWD_OCCUPANCY.fn()(t[7], scene.n_lights, refract, int(t[8] > 0),
+        rc = BWD_OCCUPANCY.fn()(t[7], L, refract, int(t[8] > 0),
                                 int(slots > 0), ctypes.byref(warps))
+    elif which == "step_bwd":
+        n_dense = tables.layout[1]
+        rc = STEP_BWD_OCCUPANCY.fn()(
+            n_dense, L, int(_step_shared_rows(n_dense, L)), refract,
+            int(t[8] > 0), int(slots > 0), ctypes.byref(warps))
+    elif which.startswith("step_fwd"):
+        # sph_n, pln_n, box_n, tri_n, n_cb, n_sb
+        rc = STEP_OCCUPANCY.fn()(t[1], t[3], t[5], t[8], t[10], t[12], L,
+                                 slots, refract,
+                                 int(which == "step_fwd_train"),
+                                 int(tri_split(tables.layout[2])),
+                                 ctypes.byref(warps))
     else:
         # P, the six dense ints, tri_start, tri_n, n_cb, n_sb
         train = which == "trace_fwd_train"
         rc = FWD_OCCUPANCY.fn()(t[7], *t[:6], t[7], t[8], t[10], t[12],
-                                scene.n_lights, slots, refract, int(train),
+                                L, slots, refract, int(train),
                                 int(refills(scene, tables, train)),
                                 ctypes.byref(warps))
     if rc:
@@ -1038,6 +1089,20 @@ def trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB):
 
 # --- the per-step path: kernel wrappers -------------------------------------
 
+def _sph_walk_args(tables):
+    """The sphere walk tables' C arguments of a forward step launch (two
+    nulls without sphere cull blocks)."""
+    if tables.sbb is None:
+        return [None, None]
+    for name in ("srows", "ssb"):
+        t = getattr(tables, name)
+        require_cuda_tensor(name, t, torch.float32, (t.shape[0], 16 if name
+                                                     == "srows" else 8))
+        if t.data_ptr() % 16:
+            raise ValueError(f"step kernel: {name} is not 16-byte aligned")
+    return [ptr(tables.srows), ptr(tables.ssb)]
+
+
 def _step_args(scene, tables, decay, c0, u8):
     """Validate a per-step launch's inputs; its leading C arguments (the
     tables, then the carry ``c0``, the uniforms ``u8``, R and refract for
@@ -1056,16 +1121,21 @@ def _step_args(scene, tables, decay, c0, u8):
 
 
 def _tri_in_args(scene, tables, c0):
-    """The kTriIn pointers of a step launch: on a scene past the staged
+    """The kTriIn arguments of a step launch: on a scene past the staged
     cull blocks the triangle segment's hits, launched here
     (:func:`tri_hits`; te, row, tx, xrow, the last two null on an opaque
-    scene), else four nulls; and the tensors that must outlive the
-    launch."""
+    scene), and its superblocks ``tables.tsb`` and their count, else four
+    nulls, a null and 0; and the tensors that must outlive the launch."""
     with torch.no_grad():
         thit = tri_hits(scene, tables, c0) if c0.shape[1] else None
     if thit is None:
-        return [None] * 4, ()
-    return [ptr(t) for t in thit] + [None] * (4 - len(thit)), thit
+        return [None] * 5 + [0], ()
+    tsb = tables.tsb
+    require_cuda_tensor("tsb", tsb, torch.float32, (tsb.shape[0], 8))
+    if tsb.data_ptr() % 16:
+        raise ValueError("step kernel: tsb is not 16-byte aligned")
+    return ([ptr(t) for t in thit] + [None] * (4 - len(thit))
+            + [ptr(tsb), tsb.shape[0]], thit)
 
 
 def step_fwd(scene, tables, decay, c0, u8):
@@ -1080,7 +1150,8 @@ def step_fwd(scene, tables, decay, c0, u8):
     tin, _keep = _tri_in_args(scene, tables, c0)
     if R:
         STEP_KERNEL.launch(*tab_args, *ray_args, ptr(c1), ptr(hit), *tin,
-                           stream_ptr(c0.device))
+                           *_sph_walk_args(tables),
+                           ptr(_counters(c0.device)), stream_ptr(c0.device))
     return c1, hit
 
 
@@ -1097,14 +1168,16 @@ def step_fwd_train(scene, tables, decay, c0, u8):
     tin, _keep = _tri_in_args(scene, tables, c0)
     if R:
         STEP_TRAIN_KERNEL.launch(*tab_args, *ray_args, ptr(c1), ptr(hit),
-                                 ptr(resid), *tin, stream_ptr(c0.device))
+                                 ptr(resid), *tin, *_sph_walk_args(tables),
+                                 ptr(_counters(c0.device)),
+                                 stream_ptr(c0.device))
     return c1, hit, resid
 
 
 def _step_shared_rows(n_dense: int, L: int) -> bool:
-    """Whether the per-step backward accumulates the dense rows in shared
-    memory (beside the lights and their accumulators)."""
-    return (n_dense * _GRAD_COLS + 2 * L * LIGHT_COLS) * 4 \
+    """Whether the per-step backward sums the dense rows per block in
+    shared memory (float64, beside its warps' light slots)."""
+    return (n_dense * ROW_COLS + _STEP_BWD_WARPS * L * LIGHT_COLS) * 8 \
         <= _STEP_SHARED_BYTES
 
 
@@ -1116,7 +1189,7 @@ def step_bwd(scene, tables, decay, c0, u8, resid, hit, ct1):
     the input carry ``(CARRY_ROWS, R)`` (o, d, pwr, A, B; the live row 0)
     and the triangle table ``(Pt, 16)`` (its ``G[2]`` and ``h[2]``
     columns). The table cotangents vary from run to run at float32
-    rounding level (csrc/step_bwd.cu)."""
+    rounding level (float64 sums rounded once; csrc/step_bwd.cu)."""
     L = scene.n_lights
     R = c0.shape[1]
     for name, t, shape in (
@@ -1134,14 +1207,13 @@ def step_bwd(scene, tables, decay, c0, u8, resid, hit, ct1):
     ct0 = torch.empty_like(c0)
     d_tri4 = torch.zeros((layout[2], 4), dtype=torch.float32, device=dev)
     if R:
-        blocks = min(-(-R // _BWD_THREADS), _BWD_MAX_BLOCKS)
-        partials = torch.empty(
-            (blocks, (n_dense * _GRAD_COLS if shared else 0)
-             + L * LIGHT_COLS), dtype=torch.float32, device=dev)
+        # the float64 sums of the dense rows and the lights
+        acc = torch.zeros(n_dense * ROW_COLS + L * LIGHT_COLS,
+                          dtype=torch.float64, device=dev)
         STEP_BWD_KERNEL.launch(
             *tab_args, ptr(resid), ptr(hit), ptr(c0), ptr(u8), R,
             int(scene.any_refract), ptr(ct1), ptr(ct0), int(shared),
-            ptr(partials), blocks, ptr(d_tab), ptr(d_lights),
+            ptr(acc), ptr(d_tab), ptr(d_lights),
             ptr(d_tri4) if layout[2] else None, stream_ptr(dev))
     d_tri = torch.zeros((layout[2], hit3.TRI_COLS), dtype=torch.float32,
                         device=dev)

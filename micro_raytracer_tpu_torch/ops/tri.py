@@ -63,14 +63,15 @@ SUPER = 16
 _TAB = [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_int]
 # o, d, their ray and component strides, live
 _RAYS = [_c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
-ENTRY_KERNEL = CudaKernel("tri_entry", "tri.cu", ("hit3.cuh",),
+_HEADERS = ("hit3.cuh", "tri_walk.cuh")
+ENTRY_KERNEL = CudaKernel("tri_entry", "tri.cu", _HEADERS,
                           "mrt_tri_entry",
                           _TAB + _RAYS + [_c_int] + [_c_ptr] * 3)
-ENTRY_EXIT_KERNEL = CudaKernel("tri_entry_exit", "tri.cu", ("hit3.cuh",),
+ENTRY_EXIT_KERNEL = CudaKernel("tri_entry_exit", "tri.cu", _HEADERS,
                                "mrt_tri_entry_exit",
                                _TAB + _RAYS + [_c_ptr, _c_int]
                                + [_c_ptr] * 5)
-EXIT_KERNEL = CudaKernel("tri_exit", "tri.cu", ("hit3.cuh",), "mrt_tri_exit",
+EXIT_KERNEL = CudaKernel("tri_exit", "tri.cu", _HEADERS, "mrt_tri_exit",
                          [_c_ptr, _c_int] + _RAYS + [_c_ptr, _c_int]
                          + [_c_ptr] * 3)
 

@@ -760,6 +760,15 @@ def test_step_kernels_match_plain(name, cuda_device):
     ct1 = torch.from_numpy(np.random.default_rng(5).normal(
         size=(step.CARRY_ROWS, R)).astype(np.float32)).to(cuda_device)
     ct1[:, bad] = 0.0
+    _hold_step_bwd(name, scene, tables, c0, u8, res_p, hit_p, ct1)
+
+
+def _hold_step_bwd(name, scene, tables, c0, u8, res_p, hit_p, ct1):
+    """step_bwd against autograd of the plain step (the rule above, a
+    sphere grid's rays outside shown ill-conditioned by float64), then
+    run to run: the per-ray cotangents bit for bit, the tables' sums at
+    float32 rounding."""
+    R = c0.shape[1]
     before = step.STEP_BWD_KERNEL.launches
     got = step.step_bwd(scene, tables, 0.85, c0, u8, res_p, hit_p, ct1)
     assert step.STEP_BWD_KERNEL.launches == before + 1
@@ -799,6 +808,139 @@ def test_step_kernels_match_plain(name, cuda_device):
                            (again[0], again[1], again[3])):
         if w.numel():
             _close(gname, g, w, rtol=1e-5, floor=1e-6)
+    return got
+
+
+def _lit_plane(n_lights):
+    """A ground plane and one sphere under ``n_lights`` point lights (the
+    per-step path: more than 4)."""
+    rng = np.random.default_rng(n_lights)
+    lights = [{"type": "point", "pos": [float(x), float(y), 2.0],
+               "pwr": 0.2} for x, y in rng.uniform(-2, 2, (n_lights, 2))]
+    return {"renderer": [
+        {"type": "plane", "n": [0, 0, 1], "pos": [0, 0, 0],
+         "mat": {"rough": 0.4}},
+        {"type": "sphere", "r": 0.3, "pos": [0.8, 0.8, 0.3]}],
+        "light": lights}
+
+
+def _warp_step_case(case, device, R=1 << 14):
+    """A per-step backward case whose warps hold: ``one_row`` every lane on
+    the ground plane; ``distinct_rows`` up to 32 sphere rows (the 13^3
+    grid's camera rays, shuffled); ``mixed`` the mixed scene's rays;
+    ``dead_lanes`` the grid's rays with four lanes in seven dead;
+    ``triangle_rows`` the glass torus; ``many_lights`` 200 lights, whose
+    warp slots do not fit in shared memory (the global float64 sums).
+    Returns (name, scene, tables, c0, u8)."""
+    if case in ("one_row", "many_lights"):
+        L = 8 if case == "one_row" else 200
+        scene = compile_scene(schema.SceneConfig.from_json(_lit_plane(L)),
+                              device)
+        tables = step.pack_step(scene)
+        rng = np.random.default_rng(7)
+        o = np.stack([rng.uniform(-2.0, 0.2, R), rng.uniform(-2.0, 0.2, R),
+                      np.full(R, 1.5)], 1)
+        d = np.stack([rng.normal(0, 0.05, R), rng.normal(0, 0.05, R),
+                      -np.ones(R)], 1)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        c0 = step.primary_carry(
+            *(torch.from_numpy(a.T.astype(np.float32)).contiguous()
+              .to(device) for a in (o, d)))
+        u8 = torch.rand((step.n_uni(scene.any_refract), R),
+                        generator=torch.Generator(device=device)
+                        .manual_seed(4), device=device)
+        return "lit_plane", scene, tables, c0, u8
+    name = {"distinct_rows": "grid13", "dead_lanes": "grid13",
+            "mixed": "mixed", "triangle_rows": "mesh_glass"}[case]
+    scene, tables, c0, u8 = _step_case(name, device, R)
+    if case == "triangle_rows":
+        # primaries from inside the room aimed at the torus's blocks
+        rng = np.random.default_rng(6)
+        o = rng.uniform(-0.3, 0.3, (R, 3))
+        bb = tables.tbb.cpu().numpy()[rng.integers(0, len(tables.tbb), R)]
+        d = bb[:, :3] + rng.random((R, 3)) * (bb[:, 3:6] - bb[:, :3]) - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        c0 = step.primary_carry(
+            *(torch.from_numpy(np.ascontiguousarray(a.T, np.float32))
+              .to(device) for a in (o, d)))
+    if case == "distinct_rows":
+        perm = torch.from_numpy(np.random.default_rng(12).permutation(R))
+        c0, u8 = c0[:, perm.to(device)], u8[:, perm.to(device)]
+    if case == "dead_lanes":
+        lane = torch.arange(R, device=device) % 7
+        c0 = c0.clone()
+        c0[step.C_LIVE, (lane == 1) | (lane == 2) | (lane == 4)
+           | (lane == 6)] = 0.0
+    return name, scene, tables, c0.contiguous(), u8.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lights8", "grid13", "mesh_glass"])
+def test_step_bwd_run_to_run(name, cuda_device, monkeypatch):
+    """step_bwd twice, and with the dense rows summed in global memory
+    instead of per block in shared memory: the per-ray cotangents bit for
+    bit, the table sums (float64, in no fixed order) within rtol 1e-5."""
+    scene, tables, c0, u8 = _step_case(name, cuda_device)
+    _c1, hit, res = step.step_fwd_train(scene, tables, 0.85, c0, u8)
+    ct1 = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(step.CARRY_ROWS, c0.shape[1])).astype(np.float32)).to(
+        cuda_device)
+    runs = [step.step_bwd(scene, tables, 0.85, c0, u8, res, hit, ct1)
+            for _ in range(2)]
+    monkeypatch.setattr(step, "_step_shared_rows", lambda n, L: False)
+    runs.append(step.step_bwd(scene, tables, 0.85, c0, u8, res, hit, ct1))
+    a = runs[0]
+    for b in runs[1:]:
+        assert torch.equal(a[2], b[2])
+        for gname, g, w in zip(("d_tab", "d_lights", "d_tri"),
+                               (a[0], a[1], a[3]), (b[0], b[1], b[3])):
+            if w.numel():
+                _close(gname, g, w, rtol=1e-5, floor=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_row", "distinct_rows", "mixed",
+                                  "dead_lanes", "triangle_rows",
+                                  "many_lights"])
+def test_step_bwd_warp_layouts(case, cuda_device):
+    """step_bwd's warp-wide sums (rows summed by a reduce-scatter, each
+    light's row per warp) against autograd of the plain step where a
+    warp's lanes share one row, hold up to 32 rows, have dead lanes among
+    them, sit on triangle rows (float atomics), or see more lights than
+    the warps' shared slots hold; and each ray's cotangents do not depend
+    on its warp: the same rays shuffled give the same d_c0 bit for bit."""
+    name, scene, tables, c0, u8 = _warp_step_case(case, cuda_device)
+    R = c0.shape[1]
+    _c1, hit_p, res_p = step.step_plain(scene, tables, 0.85, c0, u8,
+                                        want_resid=True)
+    hit = hit_p[0] > 0.5
+    rows = torch.where(hit, res_p[step.RES_ROW], -1.0).view(-1, 32)
+    if case == "one_row":
+        same = (rows == rows[:, :1]).all(1) & (rows[:, 0] >= 0)
+        assert float(same.float().mean()) >= 0.9
+    elif case == "distinct_rows":
+        distinct = [len(set(r[r >= 0].tolist())) for r in rows]
+        assert np.mean(distinct) >= 12
+    elif case == "dead_lanes":
+        assert 0.2 < float(hit.float().mean()) < 0.5
+    elif case == "triangle_rows":
+        assert int((res_p[step.RES_ROW][hit] >= tables.layout[1]).sum()) \
+            > R // 8
+    elif case == "many_lights":
+        # float64 slots of each warp past the shared-memory budget
+        assert step._STEP_BWD_WARPS * scene.n_lights * step.LIGHT_COLS \
+            * 8 > step._STEP_SHARED_BYTES
+    ct1 = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(step.CARRY_ROWS, R)).astype(np.float32)).to(cuda_device)
+    got = _hold_step_bwd(name, scene, tables, c0, u8, res_p, hit_p, ct1)
+    perm = torch.from_numpy(np.random.default_rng(9).permutation(R)).to(
+        cuda_device)
+    shuf = step.step_bwd(scene, tables, 0.85, c0[:, perm].contiguous(),
+                         u8[:, perm].contiguous(),
+                         res_p[:, perm].contiguous(),
+                         hit_p[:, perm].contiguous(),
+                         ct1[:, perm].contiguous())
+    assert torch.equal(shuf[2], got[2][:, perm])
 
 
 @pytest.mark.cuda

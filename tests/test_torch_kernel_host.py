@@ -395,44 +395,55 @@ extern "C" void host_bwd_warps(const float* tab, const int* lay10,
 
 // the per-step kernels' bodies: one bounce step of every ray from the
 // carry c0, the render (train = 0) or train instance
-template <bool kTrain, bool kTri, bool kTex>
+template <bool kTrain, bool kTri, bool kTex, bool kCull = false>
 static void step_rays(const float* tab, const mrt::Tris& T,
     const mrt::Layout& lay, const float* lights, int L, float dk,
     const mrt::Tex& tex, const float* c0, const float* u8, int R,
-    int refract, float* c1, float* hit, float* resid) {
+    int refract, float* c1, float* hit, float* resid,
+    const mrt::SphPack& sph) {
+  float tb[64];  // the lane's sphere-block entry t (shared memory there)
+  const mrt::StepWalk W{tb, 1, sph};
   for (int i = 0; i < R; ++i) {
     if (refract)
-      mrt::step_ray<true, kTrain, kTri, kTex>(tab, T, lay, lights, L, dk,
-                                              tex, i, R, c0, u8, c1, hit,
-                                              resid);
+      mrt::step_ray<true, kTrain, kTri, kTex, false, kCull>(
+          tab, T, lay, lights, L, dk, tex, i, R, c0, u8, c1, hit, resid, W);
     else
-      mrt::step_ray<false, kTrain, kTri, kTex>(tab, T, lay, lights, L, dk,
-                                               tex, i, R, c0, u8, c1, hit,
-                                               resid);
+      mrt::step_ray<false, kTrain, kTri, kTex, false, kCull>(
+          tab, T, lay, lights, L, dk, tex, i, R, c0, u8, c1, hit, resid, W);
   }
 }
 
+// srows, ssb: the sphere walk tables (null without sphere cull blocks)
 extern "C" void host_step_fwd(const float* tab, const int* lay10,
     const float* tri, const float* bb, const float* lights, int L, float dk,
     const int* maps, const float* atlas, const int* tmeta, int slots,
     const float* c0, const float* u8, int R, int refract, int train,
-    float* c1, float* hit, float* resid) {
+    const float* srows, const float* ssb, float* c1, float* hit,
+    float* resid) {
   const mrt::Layout lay = layout(lay10);
   const mrt::Tris T{tri, bb};
   const mrt::Tex tex{maps, atlas, tmeta, slots};
+  float seg[mrt::kBbCols];  // the sphere blocks' AABB (shared memory there)
+  if (srows) mrt::chunk_bounds(bb, lay.n_sb, seg, 0, 1);
+  const mrt::SphPack sph{srows, ssb, seg};
   const bool tri_ = lay.tri_n > 0;
   auto run = [&](auto fn) {
-    fn(tab, T, lay, lights, L, dk, tex, c0, u8, R, refract, c1, hit, resid);
+    fn(tab, T, lay, lights, L, dk, tex, c0, u8, R, refract, c1, hit, resid,
+       sph);
   };
+  // the instances of a culled sphere segment walk its blocks nearest
+  // first and its sub-blocks (srows, ssb)
   if (train) {
     if (tri_ && slots) run(step_rays<true, true, true>);
     else if (tri_) run(step_rays<true, true, false>);
     else if (slots) run(step_rays<true, false, true>);
+    else if (srows) run(step_rays<true, false, false, true>);
     else run(step_rays<true, false, false>);
   } else {
     if (tri_ && slots) run(step_rays<false, true, true>);
     else if (tri_) run(step_rays<false, true, false>);
     else if (slots) run(step_rays<false, false, true>);
+    else if (srows) run(step_rays<false, false, false, true>);
     else run(step_rays<false, false, false>);
   }
 }
@@ -909,7 +920,8 @@ def _host_step(lib, scene, tables, lay, bb, c0, u8, train):
         _opt(tables.tri.detach().contiguous()), _opt(bb),
         _p(tables.lights.detach().contiguous()), scene.n_lights,
         ctypes.c_float(DECAY), *_tex(scene, tables), _p(c0), _p(u8), n,
-        int(scene.any_refract), int(train), _p(c1), _p(hit), _p(resid))
+        int(scene.any_refract), int(train), _opt(tables.srows),
+        _opt(tables.ssb), _p(c1), _p(hit), _p(resid))
     return (c1, hit, resid) if train else (c1, hit)
 
 

@@ -546,26 +546,33 @@ template <bool kRefract, bool kTrain, bool kTriIn>
 static void tri_steps(const float* tab, const mrt::Tris& T,
     const mrt::Layout& lay, const float* lights, int L, float dk,
     const float* c0, const float* u8, int R, float* c1, float* hit,
-    float* resid, const mrt::TriIn& tin) {
+    float* resid, const mrt::TriIn& tin, const mrt::Supers& S) {
   const mrt::Tex tex{nullptr, nullptr, nullptr, 0};
   for (int i = 0; i < R; ++i)
     mrt::step_ray<kRefract, kTrain, true, false, kTriIn>(
-        tab, T, lay, lights, L, dk, tex, i, R, c0, u8, c1, hit, resid, tin);
+        tab, T, lay, lights, L, dk, tex, i, R, c0, u8, c1, hit, resid,
+        mrt::StepWalk{nullptr, 0, {}, tin, S});
 }
 
 // one bounce step of a triangle scene: the kTri instance (tri_in = 0,
-// the kernel sweeps the triangles) or kTriIn (their hits from tte...)
+// the kernel sweeps the triangles) or kTriIn (their hits from tte...,
+// the shadow sweeps through the n_sb superblocks sb, the first n_staged
+// read from sb_staged)
 extern "C" void host_tri_step(const float* tab, const int* l,
     const float* tri, const float* bb, const float* lights, int L, float dk,
     const float* c0, const float* u8, int R, int refract, int train,
     const float* tte, const int* trow, const float* ttx, const int* txrow,
+    const float* sb, const float* sb_staged, int n_sb, int n_staged,
     float* c1, float* hit, float* resid) {
   const mrt::Layout lay{l[0], l[1], l[2], l[3], l[4],
                         l[5], l[6], l[7], l[8], l[9]};
   const mrt::Tris T{tri, bb};
   const mrt::TriIn tin{tte, trow, ttx, txrow};
+  float chunks[64 * mrt::kBbCols];
+  mrt::chunk_bounds(sb_staged, n_staged, chunks, 0, 1);
+  const mrt::Supers S{sb_staged, sb, chunks, n_sb, n_staged};
   auto run = [&](auto fn) {
-    fn(tab, T, lay, lights, L, dk, c0, u8, R, c1, hit, resid, tin);
+    fn(tab, T, lay, lights, L, dk, c0, u8, R, c1, hit, resid, tin, S);
   };
   const int sel = (refract ? 4 : 0) + (train ? 2 : 0) + (tte ? 1 : 0);
   switch (sel) {
@@ -869,11 +876,12 @@ def _host_step(lib, scene, tables, c0, u8, train, thit):
     keep = [t.detach().contiguous() for t in (tables.tab, tables.tri,
                                                tables.lights)]
     lay = _lay(tables)
+    tsb = tri.superbounds(tables.tbb)
     lib.host_tri_step(
         _p(keep[0]), _p(lay), _p(keep[1]), _p(tables.tbb), _p(keep[2]),
         scene.n_lights, ctypes.c_float(DECAY), _p(c0), _p(u8), n,
-        int(scene.any_refract), int(train), *(_p(x) for x in tin), _p(c1),
-        _p(hit), _p(resid))
+        int(scene.any_refract), int(train), *(_p(x) for x in tin), _p(tsb),
+        _p(tsb), tsb.shape[0], tsb.shape[0], _p(c1), _p(hit), _p(resid))
     return c1, hit, resid
 
 

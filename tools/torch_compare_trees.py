@@ -8,6 +8,7 @@ then every output compared.
     python3 tools/torch_compare_trees.py time <tree> <tag> [scene ...]
     python3 tools/torch_compare_trees.py ablate <tree> <workdir>
     python3 tools/torch_compare_trees.py ablate <tree> <workdir> tri|walk
+    python3 tools/torch_compare_trees.py ablate <tree> <workdir> step|steps
     python3 tools/torch_compare_trees.py big_main <tree> <tag>
     python3 tools/torch_compare_trees.py pairs <tree_a> <tree_b> [pairs]
     python3 tools/torch_compare_trees.py reference <tree> <out.pt> <scene>...
@@ -16,9 +17,11 @@ then every output compared.
 on the slice room, the two mesh scenes, the two textured and the
 Instance-class stand-ins of ``chip_smoke.py``, 2^18 camera rays (seed 31)
 through the primary-hit pass, both instances of the trace kernel and the
-backward kernel, and on its per-step stand-ins (where it has them) one step
-of both instances of the step kernel from the primaries, a second step,
-and the step's backward, and on its big meshes (``mesh_big``,
+backward kernel, and on its per-step stand-ins and big meshes (where it
+has them) a sample's nine steps of the render instance of the step kernel
+from 2^18 camera rays (each from the tree's own carry), the train
+instance and the step's backward at steps 0 and 3, and on its big meshes
+(``mesh_big``,
 ``mesh_big_glass``) rows 6, 7 (every row refracting, and the step's
 refracting rows) and 8 on 2^18 camera rays at steps 0 and 2 and on 2^17
 random rays; it saves every output (a step's residuals on the
@@ -31,13 +34,17 @@ within rtol 1e-5 and 1e-6 of the largest magnitude, each sum's worst entry
 printed;
 where a row- or light-table sum differs, it also prints how far each
 tree's own sum moves when the backward runs on the two halves of the rays
-and the halves are added in float64 (the dump keeps those sums). It exits
-1 when they differ.
+and the halves are added in float64 (the dump keeps those sums). Where a
+per-step carry differs it names the rays and keeps them, with their input
+carry and uniforms, in ``carry_diffs.pt`` beside ``<b.pt>``. It exits 1
+when they differ.
 ``time`` builds ``<tree>``'s kernels and prints ``<tag>`` and one JSON
 object: the CUDA-event ms of each kernel (``chip_smoke.cuda_ms``) at the
 full frame of each scene that tree's ``chip_smoke.py`` has (the room, the
 mesh scenes and, where present, the textured, Instance-class and per-step
-stand-ins; the step kernels at step 0; where a render runs in segments,
+stand-ins; the step kernels at each of a sample's nine steps, the
+backward fed each step's train residuals (``steps`` names these alone);
+where a render runs in segments,
 their summed time; on the big meshes rows 6 / 7 at each of a sample's
 nine steps of the frame, row 8 at step 0 and the whole step at step 0),
 or at the scenes named (``big`` for the big meshes), and the registers
@@ -66,6 +73,17 @@ removed, its slab tests removed, or row 7's exit removed) on the big
 meshes, and prints the walk's per-ray work at each step
 (``_walk_stats``); ``walk`` the two-level walk's options
 (``TRI_WALK_ABLATIONS``).
+
+``ablate <tree> <workdir> step`` times the per-step kernels (rows 4-5)
+instead: variants of their one-level design (``STEP_ABLATIONS``: step_fwd's
+shadow sweeps removed, its sphere rows or kTriIn shadow rows removed, the
+kTriIn shadow walk stopped after its first block; step_bwd's row or light
+adds made plain adds, its reduce kernel removed) on ``lights8``,
+``inst_grid3k`` and the big meshes at step 0 and over a sample's nine
+launches, every variant on the carries the unchanged tree stepped and
+saved (the unchanged tree also on each carry with its live lanes first),
+and prints the walks' per-ray work at each step (``_step_stats``);
+``steps`` the redesigned walk's options (``STEP_WALK_ABLATIONS``).
 
 ``big_main`` runs a tree's big-mesh main path (``chip_smoke.py`` phases
 23-24: the CLI renders of the three big scenes, one HTTP request, 3
@@ -103,8 +121,8 @@ import sys
 NAMES = ("te0", "row0", "tx0", "xrow0", "A", "B", "first_live", "A_train",
          "B_train", "first_live_train", "resid", "n_live", "d_oT", "d_dT",
          "d_tab", "d_lights", "d_tri")
-STEP_OUTS = ("c1", "hit", "c1_train", "hit_train", "resid", "c2", "d_tab",
-             "d_lights", "d_c0", "d_tri")
+STEP_OUTS = ("c1_train", "hit_train", "resid", "d_tab", "d_lights", "d_c0",
+             "d_tri")
 SUMS = ("d_tab", "d_lights", "d_tri")
 SPLIT = "_split"   # a sum from the rays' two halves, added in float64
 
@@ -155,25 +173,31 @@ def dump(tree, out):
         for j, key in ((0, "d_tab"), (1, "d_lights")):
             res[name][key + SPLIT] = (halves[0][j].double()
                                       + halves[1][j].double()).cpu()
-    for name in getattr(cs, "STEP_NAMES", ()):
-        cfg = cs.step_config(name)
-        scene = compile_scene(cfg.scene, dev)
-        tables = step.pack_step(scene)
-        decay = tracer.decay_of(cfg.rt.loss)
+    for name in (*getattr(cs, "STEP_NAMES", ()),
+                 *getattr(cs, "BIG_NAMES", ())):
+        cfg, scene, tables, decay = _step_setup(cs, name, dev)
         gen = torch.Generator(device=dev).manual_seed(31)
         o, d = cs.camera_rays(compile_camera(cfg.frame.cam, dev), 1 << 18,
                               gen, dev)
-        c0 = step.primary_carry(o.T.contiguous(), d.T.contiguous())
-        u8 = torch.rand((step.n_uni(scene.any_refract), c0.shape[1]),
-                        generator=gen, device=dev)
-        c1, hit = step.step_fwd(scene, tables, decay, c0, u8)
-        c1t, hitt, resid = step.step_fwd_train(scene, tables, decay, c0, u8)
-        c2 = step.step_fwd(scene, tables, decay, c1, u8)[0]
-        ct1 = torch.randn(c0.shape, generator=gen, device=dev)
-        g = step.step_bwd(scene, tables, decay, c0, u8, resid, hitt, ct1)
-        res[name] = dict(zip(STEP_OUTS, [t.cpu() for t in (
-            c1, hit, c1t, hitt, resid[:, hitt[0] > 0.5], c2, g[0], g[1],
-            g[2], g[3])]))
+        c = step.primary_carry(o.T.contiguous(), d.T.contiguous())
+        u8s = torch.rand((cs.BOUNCE + 1, step.n_uni(scene.any_refract),
+                          c.shape[1]), generator=gen, device=dev)
+        ct1 = torch.randn(c.shape, generator=gen, device=dev)
+        rec = {"c@0": c.cpu(), "u8s": u8s.cpu()}
+        # a sample's nine steps from the same primaries, each from the
+        # tree's own carry; the train instance and the backward at steps
+        # 0 and 3
+        for k in range(cs.BOUNCE + 1):
+            if k in (0, 3):
+                c1t, hitt, resid = step.step_fwd_train(scene, tables, decay,
+                                                       c, u8s[k])
+                g = step.step_bwd(scene, tables, decay, c, u8s[k], resid,
+                                  hitt, ct1)
+                rec.update({f"{key}@{k}": t.cpu() for key, t in zip(
+                    STEP_OUTS, (c1t, hitt, resid[:, hitt[0] > 0.5], *g))})
+            c, hit = step.step_fwd(scene, tables, decay, c, u8s[k])
+            rec[f"c@{k + 1}"], rec[f"hit@{k}"] = c.cpu(), hit.cpu()
+        res[f"{name} steps"] = rec
     for name in getattr(cs, "BIG_NAMES", ()):
         cfg, scene, tables, decay = _big_setup(cs, name, dev)
         gen = torch.Generator(device=dev).manual_seed(31)
@@ -422,16 +446,19 @@ def time_tree(tree, tag, *only):
     dev = torch.device("cuda")
     if only:
         for k in (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL,
-                  step.BWD_KERNEL, step.STEP_KERNEL, tri.ENTRY_KERNEL):
+                  step.BWD_KERNEL, step.STEP_KERNEL, step.STEP_BWD_KERNEL,
+                  tri.ENTRY_KERNEL):
             k.fn()
     else:
         cs.phase_build()
     names = ["room", *cs.MESH_NAMES, *getattr(cs, "TEX_NAMES", ()),
              *getattr(cs, "INST_NAMES", ())]
     names = [n for n in names if not only or n in only]
-    out = {} if only else _time_steps(cs, dev)
+    out = _time_steps(cs, dev) if not only or "steps" in only else {}
     out["ptxas"] = {**ptxas_table(step.KERNEL.build_log),
-                    **ptxas_table(step.BWD_KERNEL.build_log)}
+                    **ptxas_table(step.BWD_KERNEL.build_log),
+                    **step_ptxas(step.STEP_KERNEL.build_log,
+                                 step.STEP_BWD_KERNEL.build_log)}
     if not only or "big" in only:
         out["big"] = _time_big(cs, dev)
         out["ptxas"].update(tri_ptxas(tri.ENTRY_KERNEL.build_log))
@@ -519,33 +546,310 @@ def _ptxas(log):
 
 
 def _time_steps(cs, dev):
-    """The step kernels' ms at step 0 of the frame of each per-step
-    stand-in of the tree's chip_smoke.py."""
-    import torch
+    """The step kernels at the frame of each per-step stand-in of the
+    tree's chip_smoke.py and of its big meshes (:func:`_step_sample`):
+    step 0 and a sample's nine launches."""
+    out = {}
+    for name in (*getattr(cs, "STEP_NAMES", ()),
+                 *getattr(cs, "BIG_NAMES", ())):
+        cfg, scene, tables, decay = _step_setup(cs, name, dev)
+        carries, u8s = _step_carries(cs, cfg, scene, tables, decay, dev)
+        out[name] = _step_sample(cs, scene, tables, decay, carries, u8s)
+        del carries, u8s
+    return out
 
+
+# --- the per-step kernels (rows 4-5) at the frame ----------------------------
+
+def _step_setup(cs, name, dev):
+    """(cfg, scene, tables, decay) of a per-step scene of a tree's
+    ``chip_smoke.py``: a per-step stand-in or a big mesh."""
+    if name in getattr(cs, "BIG_NAMES", ()):
+        return _big_setup(cs, name, dev)
     from micro_raytracer_tpu_torch.models import tracer
     from micro_raytracer_tpu_torch.models.compiler import compile_scene
     from micro_raytracer_tpu_torch.ops import step
 
+    cfg = cs.step_config(name)
+    scene = compile_scene(cfg.scene, dev)
+    return cfg, scene, step.pack_step(scene), tracer.decay_of(cfg.rt.loss)
+
+
+def _step_carries(cs, cfg, scene, tables, decay, dev, path=None):
+    """The carries ``(BOUNCE + 1, 14, R)`` of a sample's nine steps of the
+    frame (camera rays in Morton order, seed 2; step 0 first) and their
+    uniforms, stepped by the tree's step_fwd; with ``path``, loaded from
+    there when it exists (saved there otherwise), so that every variant of
+    an ablation times the same inputs."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    if path is not None and os.path.exists(path):
+        c, u8s = torch.load(path)
+        return c.to(dev), u8s.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    oT, dT = cs.main_path_rays(cfg, gen, dev)
+    u8s = torch.rand((cs.BOUNCE + 1, step.n_uni(scene.any_refract),
+                      oT.shape[1]), generator=gen, device=dev)
+    c = [step.primary_carry(oT, dT)]
+    for k in range(cs.BOUNCE):
+        c.append(step.step_fwd(scene, tables, decay, c[-1], u8s[k])[0])
+    c = torch.stack(c)
+    if path is not None:
+        torch.save((c.cpu(), u8s.cpu()), path)
+    return c, u8s
+
+
+def _live_first(c, u8):
+    """The carry ``c`` and uniforms ``u8`` with the live lanes first (in
+    order): the same work, its dead lanes in whole dead blocks."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    perm = torch.argsort((c[step.C_LIVE] <= 0.5).to(torch.int8), stable=True)
+    return c[:, perm].contiguous(), u8[:, perm].contiguous()
+
+
+def _step_sample(cs, scene, tables, decay, carries, u8s, packed=False):
+    """CUDA-event ms of step_fwd at each of a sample's nine steps (the
+    kTriIn instances without the triangle sweep they launch first,
+    ``chip_smoke.step_alone_ms``), of step_fwd_train at step 0, and of
+    step_bwd at each step fed that step's train residuals; the live share
+    of each step's lanes; ``packed``: step_fwd also on each carry with its
+    live lanes first (:func:`_live_first`)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    gen = torch.Generator(device=carries.device).manual_seed(5)
+    ct1 = torch.randn(carries.shape[1:], generator=gen,
+                      device=carries.device)
+    out = {"live": [], "fwd": [], "bwd": [], "fwd_packed": []}
+    for k in range(carries.shape[0]):
+        c, u = carries[k], u8s[k]
+        out["live"].append(float((c[step.C_LIVE] > 0.5).float().mean()))
+        out["fwd"].append(cs.step_alone_ms(
+            scene, tables, c,
+            lambda c=c, u=u: step.step_fwd(scene, tables, decay, c, u)))
+        if packed:
+            cp, up = _live_first(c, u)
+            out["fwd_packed"].append(cs.step_alone_ms(
+                scene, tables, cp,
+                lambda: step.step_fwd(scene, tables, decay, cp, up)))
+            del cp, up
+        _c1, hit, resid = step.step_fwd_train(scene, tables, decay, c, u)
+        if k == 0:
+            out["train0"] = cs.step_alone_ms(
+                scene, tables, c,
+                lambda: step.step_fwd_train(scene, tables, decay, c, u))
+        out["bwd"].append(cs.cuda_ms(lambda: step.step_bwd(
+            scene, tables, decay, c, u, resid, hit, ct1), 3))
+        del resid
+    for key in ("fwd", "bwd", "fwd_packed"):
+        out[key + "_sample"] = sum(out[key])
+    if not packed:
+        del out["fwd_packed"], out["fwd_packed_sample"]
+    return out
+
+
+def _sph_walks(tables, o, d, live, any_hit):
+    """Per ray (``o``, ``d`` (n, 3), ``live`` (n,)) of a scene with sphere
+    cull blocks: the blocks its slab test touches at all, and the blocks a
+    closest-hit walk (``any_hit``: a shadow walk, to its first hit) sweeps
+    in the lowest-first order of hit3.cuh sph_entry / sph_any and in
+    nearest-first order (entry t ascending, stopping at the first block
+    that begins beyond the best t). From the plain row tests."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models import schema
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    BIG = hit3.BIG
+    sbb = tables.sbb
+    nb = sbb.shape[0]
+    kind, s, c, n = tables.layout[0][0]
+    assert kind == schema.KIND_SPHERE
+    fr, ipos, pa, pr, valid, _gid = hit3.split_sweep(tables.tab.detach())
+    t0, _t1, ok = hit3._kind_block(kind, s, s + c, fr, ipos, pa, pr, valid,
+                                   o, d)
+    pad = nb * hit3.CB - c
+    ok = torch.nn.functional.pad(ok, (0, pad)).view(-1, nb, hit3.CB)
+    t0 = torch.nn.functional.pad(t0, (0, pad)).view(-1, nb, hit3.CB)
+    bmin = torch.where(ok, t0, BIG).amin(-1)
+    bany = ok.any(-1)
+    invd = hit3._inv_dir(d)
+    tmin = torch.stack([hit3._slab(sbb[b], o, invd)[0] for b in range(nb)], 1)
+    touch = torch.stack([hit3._slab_touch(sbb[b], o, invd,
+                                          torch.full_like(o[:, 0], BIG))
+                         for b in range(nb)], 1) & live[:, None]
+    key = torch.where(touch, tmin, float("inf"))
+    order = torch.argsort(key, dim=1, stable=True)
+    out = {"touched": touch.sum(1)}
+    for walk in ("lowest", "nearest"):
+        best = torch.full_like(o[:, 0], BIG)
+        found = torch.zeros_like(live)
+        on = live.clone()
+        swept = torch.zeros_like(out["touched"])
+        for j in range(nb):
+            b = torch.full_like(order[:, 0], j) if walk == "lowest" \
+                else order[:, j]
+            tm = key.gather(1, b[:, None])[:, 0]
+            if any_hit:
+                sw = on & torch.isfinite(tm) & ~found
+                found |= sw & bany.gather(1, b[:, None])[:, 0]
+            else:
+                sw = on & (tm <= best)
+                best = torch.minimum(best, torch.where(
+                    sw, bmin.gather(1, b[:, None])[:, 0], BIG))
+                if walk == "nearest":
+                    on &= sw
+            swept += sw
+        out[walk] = swept
+    return out
+
+
+def _tri_any_walks(tables, o, d, live):
+    """Per shadow ray of a kTriIn scene: the slab tests of the one-level
+    walk (hit3.cuh tri_any_seg: every block in order up to the first that
+    holds a hit) and of a two-level walk over the superblocks (the chunk
+    bound, the superblocks where the chunk is met, the blocks of each met
+    superblock in order up to the first hit), and the triangle rows each
+    sweeps (a swept block's rows up to its first hit). From the plain
+    triangle tests."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, tri
+
+    BIG = hit3.BIG
+    t, tbb, n = tables.tri.detach(), tables.tbb, tables.layout[3]
+    nb = tbb.shape[0]
+    sup = tri.superbounds(tbb)
+    ns = sup.shape[0]
+    invd = hit3._inv_dir(d)
+    big = torch.full_like(o[:, 0], BIG)
+    ok = hit3._tri_block_any(t[:n], o, d)
+    ok = torch.nn.functional.pad(ok, (0, nb * hit3.CB - n)).view(
+        -1, nb, hit3.CB)
+    first = torch.where(ok.any(-1), hit3.intersect.first_index(
+        ok.view(-1, hit3.CB)).view(-1, nb).long() + 1, hit3.CB)
+    touch = torch.stack([hit3._slab_touch(tbb[b], o, invd, big)
+                         for b in range(nb)], 1) & live[:, None]
+    hit_b = touch & ok.any(-1)
+    idx = torch.arange(nb, device=o.device)
+    stop = torch.where(hit_b.any(1), torch.where(hit_b, idx, nb).amin(1),
+                       nb - 1)
+    upto = idx[None, :] <= stop[:, None]
+    one_rows = torch.where(touch & upto, first, 0).sum(1)
+    one_tests = torch.where(live, stop + 1, 0)
+    s_touch = torch.stack([hit3._slab_touch(sup[s], o, invd, big)
+                           for s in range(ns)], 1) & live[:, None]
+    blk_sup = idx // tri.SUPER
+    met = s_touch[:, blk_sup]
+    sup_upto = blk_sup[None, :] <= (stop // tri.SUPER)[:, None]
+    two_tests = torch.where(live, 1 + ns * s_touch.any(1), 0) + (
+        met & sup_upto & (idx[None, :] % tri.SUPER == 0)).sum(1) * tri.SUPER
+    return {"one_level_tests": one_tests, "two_level_tests": two_tests,
+            "rows": one_rows, "occluded": hit_b.any(1)}
+
+
+def _step_stats(cs, dev, carries_dir):
+    """Per-ray work of the per-step kernels at each of a sample's nine
+    steps of each per-step scene, on 4,096 warps (32 consecutive rays of
+    the frame's Morton order) drawn at random: live lanes per warp and
+    the share of warps with none; on ``inst_grid3k`` the closest-hit
+    sweep's touched sphere blocks and the blocks swept before the best t
+    lowest first and nearest first (mean over live rays and the busiest
+    lane of a warp), the same for each shadow walk (to its first hit);
+    on the big meshes each shadow ray's slab tests one level and two
+    levels (256 of the warps). From the plain sweeps, on the tree's own
+    tables and the saved carries."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
     out = {}
-    for name in getattr(cs, "STEP_NAMES", ()):
-        cfg = cs.step_config(name)
-        scene = compile_scene(cfg.scene, dev)
-        tables = step.pack_step(scene)
-        decay = tracer.decay_of(cfg.rt.loss)
-        gen = torch.Generator(device=dev).manual_seed(2)
-        c0 = step.primary_carry(*cs.main_path_rays(cfg, gen, dev))
-        u8 = torch.rand((step.n_uni(scene.any_refract), c0.shape[1]),
-                        generator=gen, device=dev)
-        _c1, hit, resid = step.step_fwd_train(scene, tables, decay, c0, u8)
-        ct1 = torch.randn(c0.shape, generator=gen, device=dev)
-        out[name] = {
-            "step_fwd": cs.cuda_ms(lambda: step.step_fwd(
-                scene, tables, decay, c0, u8), 10),
-            "step_fwd_train": cs.cuda_ms(lambda: step.step_fwd_train(
-                scene, tables, decay, c0, u8), 10),
-            "step_bwd": cs.cuda_ms(lambda: step.step_bwd(
-                scene, tables, decay, c0, u8, resid, hit, ct1), 10)}
+    for name in ("lights8", "inst_grid3k", *getattr(cs, "BIG_NAMES", ())):
+        cfg, scene, tables, decay = _step_setup(cs, name, dev)
+        carries, _u8s = _step_carries(
+            cs, cfg, scene, tables, decay, dev,
+            os.path.join(carries_dir, f"{name}.pt"))
+        R = carries.shape[2]
+        g = torch.Generator().manual_seed(5)
+        big = name in getattr(cs, "BIG_NAMES", ())
+        nw = 256 if big else 4096
+        warps = torch.randperm(R // 32, generator=g)[:nw].sort().values
+        sub = (warps[:, None] * 32 + torch.arange(32)).flatten().to(dev)
+        steps = []
+        for k in range(carries.shape[0]):
+            c = carries[k][:, sub]
+            o, d = c[0:3].T.contiguous(), c[3:6].T.contiguous()
+            live = c[step.C_LIVE] > 0.5
+            lw = live.view(-1, 32).sum(1).float()
+            rec = {"live_lanes_per_warp": float(lw.mean()),
+                   "dead_warps": float((lw == 0).float().mean())}
+
+            def stats(w, mask, tag):
+                for key, v in w.items():
+                    if v.dtype == torch.bool:
+                        continue
+                    v = torch.where(mask, v, 0).float()
+                    rec[f"{tag}{key}"] = float(v.sum() / max(int(mask.sum()),
+                                                             1))
+                    rec[f"{tag}{key}_warp_max"] = float(
+                        v.view(-1, 32).amax(1).mean())
+
+            te = torch.cat([hit3.sweep_plain(
+                tables.tab.detach(), (tables.layout[0], tables.layout[1], 0,
+                                      0), o[s:s + 4096], d[s:s + 4096],
+                hit3.MODE_ENTRY, sbb=tables.sbb)[0]
+                for s in range(0, o.shape[0], 4096)])
+            if big:
+                th = step.tri_hits(scene, tables, c.contiguous())
+                te = torch.minimum(te, th[0])
+            hit = live & (te < hit3.BIG * 0.5)
+            rec["hit"] = float(hit.float().mean())
+            if tables.sbb is not None:
+                w = {}
+                for s in range(0, o.shape[0], 4096):
+                    part = _sph_walks(tables, o[s:s + 4096], d[s:s + 4096],
+                                      live[s:s + 4096], False)
+                    for key, v in part.items():
+                        w.setdefault(key, []).append(v)
+                stats({key: torch.cat(v) for key, v in w.items()}, live,
+                      "entry_")
+            p = o + d * te[:, None]
+            for li in range(scene.n_lights):
+                if not (tables.sbb is not None or big):
+                    break
+                lv = step._light_vec(tables.lights[li].detach(), p)
+                ln = lv / torch.sqrt((lv * lv).sum(1, keepdim=True))
+                so = p + ln * hit3.EPS
+                on = hit
+                if big:
+                    # the dense rows are swept first: a shadow ray they
+                    # occlude walks no triangle block
+                    on = hit & ~torch.cat([hit3.sweep_plain(
+                        tables.tab.detach(), (tables.layout[0],
+                                              tables.layout[1], 0, 0),
+                        so[s:s + 4096], ln[s:s + 4096],
+                        hit3.MODE_ANY)[0] < 0.0
+                        for s in range(0, o.shape[0], 4096)])
+                w = {}
+                for s in range(0, o.shape[0], 1024 if big else 4096):
+                    e = s + (1024 if big else 4096)
+                    part = (_tri_any_walks(tables, so[s:e], ln[s:e],
+                                           on[s:e]) if big else
+                            _sph_walks(tables, so[s:e], ln[s:e], on[s:e],
+                                       True))
+                    for key, v in part.items():
+                        w.setdefault(key, []).append(v)
+                stats({key: torch.cat(v) for key, v in w.items()}, on,
+                      f"shadow{li}_")
+            steps.append(rec)
+        out[name] = steps
+        del carries
     return out
 
 
@@ -628,7 +932,7 @@ TRI_ABLATIONS = {
 # superblocks of 32 blocks, row 7's culled group exit removed, the rows
 # read by hit3.cuh tri_hit's scalar loads, no chunk bound
 TRI_WALK_ABLATIONS = {
-    "walk_sup32": [("tri.cu", "constexpr int kSupBlocks = 16;",
+    "walk_sup32": [("tri_walk.cuh", "constexpr int kSupBlocks = 16;",
                     "constexpr int kSupBlocks = 32;"),
                    ("tri.py", "SUPER = 16", "SUPER = 32")],
     "walk_noexit": [("tri.cu", "  } else if (L.n_cb == 0) {\n    tri_exit(T, "
@@ -639,15 +943,140 @@ TRI_WALK_ABLATIONS = {
                      "  } else if (true) {\n    h.tx = h.te;\n    h.xrow = "
                      "h.row;\n  } else {")],
     "walk_scalar_rows": [
-        ("tri.cu", "tri_hit4(T.tab + i * kTriCols, ox, oy, oz, dx, dy, dz, "
-         "t, gid);",
+        ("tri_walk.cuh", "tri_hit4(T.tab + i * kTriCols, ox, oy, oz, dx, dy, "
+         "dz, t, gid);",
          "tri_hit(T.tab + i * kTriCols, ox, oy, oz, dx, dy, dz, t);\n"
          "          gid = __ldg(T.tab + i * kTriCols + T_GID);")],
     "walk_nochunk": [
-        ("tri.cu", "    const bool chunked =\n        c + kChunk <= "
+        ("tri_walk.cuh", "    const bool chunked =\n        c + kChunk <= "
          "S.n_staged || (S.n_staged == S.n && c < S.n);",
          "    const bool chunked = false;")],
 }
+
+
+# the per-step kernels' variants (``ablate <tree> <workdir> step``), on the
+# one-level design of rows 4-5 (lowest-first blocks, one ray per thread,
+# float-atomic scatter): step_fwd's shadow sweeps removed; the sphere
+# cull's row sweeps removed (the slab tests kept); the kTriIn shadow walk
+# (hit3.cuh tri_any_seg) with its rows removed, or stopped after the first
+# block it touches; step_bwd's row adds (shared and global) or light adds
+# made plain racy adds, or its reduce kernel removed. The dead lanes are
+# measured without a variant: the same carry with its live lanes first
+# (``fwd_packed``).
+_SPH_ENTRY_ROWS = ("    const int lo = b * kCullRows;\n"
+                   "    entry_seg<kSphere>(tab, stride, L.sph_start + lo,\n"
+                   "                       imin(kCullRows, L.sph_n - lo), ox, "
+                   "oy, oz, dx, dy, dz,\n                       best, row);")
+_SPH_ANY_ROWS = ("    const int lo = low_bit(m) * kCullRows;\n"
+                 "    if (any_seg<kSphere>(tab, stride, L.sph_start + lo,\n"
+                 "                         imin(kCullRows, L.sph_n - lo), ox, "
+                 "oy, oz, dx, dy,\n                         dz))\n"
+                 "      return true;")
+_TRI_ANY_ROWS = ("      if (tri_any(T.tab + i * kTriCols, ox, oy, oz, dx, dy, "
+                 "dz)) return true;\n  }\n  return false;")
+STEP_ABLATIONS = {
+    "step_noshadow": [(
+        "step_fwd.cu",
+        "        const bool ok = !any_hit<kTri, kSph, StepMask>(\n"
+        "            tab, kRowCols, lay, so.x, so.y, so.z, ln_e.x, ln_e.y, "
+        "ln_e.z, T);",
+        "        const bool ok = so.x == so.x;")],
+    "step_sph_slabs_only": [
+        ("hit3.cuh", _SPH_ENTRY_ROWS, "    row += b;"),
+        ("hit3.cuh", _SPH_ANY_ROWS,
+         "    if (low_bit(m) * kCullRows == L.sph_n + 1) return true;")],
+    "step_tri_any_slabs_only": [(
+        "hit3.cuh",
+        "    for (int i = lo; i < hi; ++i)\n" + _TRI_ANY_ROWS,
+        "    if (hi == L.tri_n + 1) return true;\n  }\n  return false;")],
+    "step_tri_any_first_block": [(
+        "hit3.cuh", _TRI_ANY_ROWS,
+        _TRI_ANY_ROWS.replace("  }\n  return false;",
+                              "    return false;\n  }\n  return false;"))],
+    "bwd_rows_plainadd": [
+        ("step_bwd.cu", "if (d_at[c] != 0.0f) atomicAdd(dst + c, d_at[c]);",
+         "if (d_at[c] != 0.0f) dst[c] += d_at[c];"),
+        ("step_bwd.cu", "atomicAdd(dst + g, d_at[mrt::tab_col(g)]);",
+         "dst[g] += d_at[mrt::tab_col(g)];")],
+    "bwd_lights_plainadd": [(
+        "step_bwd.cu",
+        "if (c != 6) atomicAdd(lights + li * mrt::kLightCols + c, g[c]);",
+        "if (c != 6) lights[li * mrt::kLightCols + c] += g[c];")],
+    "bwd_noreduce": [("step_bwd.cu", "  if (n_out)\n    reduce_kernel<<<",
+                      "  if (false)\n    reduce_kernel<<<")],
+}
+
+
+# the per-step forward's walk options (``ablate <tree> <workdir> steps``):
+# the sphere blocks walked lowest first by every ray, the sub-blocks'
+# tests removed (every row of a visited block swept), the sub-blocks'
+# boxes not grown (timing only: a far ray's hits may be dropped), the
+# warps not refilled (each its 32 rays in place)
+STEP_WALK_ABLATIONS = {
+    "sw_lowest_first": [
+        ("step_fwd.cu", "  const bool inside = ox >= g[0]",
+         "  const bool inside = false && ox >= g[0]")],
+    "sw_no_sub": [(
+        "step_fwd.cu",
+        "    if (!sub_touch(P.sub + s * kBbCols, ox, oy, oz, ix, iy, iz, "
+        "best))\n      continue;\n", "")],
+    "sw_bare_sub": [(
+        "step_fwd.cu",
+        "  const float grow = b.z * (1.0f + qx * qx + qy * qy + qz * qz);",
+        "  const float grow = 0.0f * (b.z + qx + qy + qz);")],
+    "sw_no_refill": [(
+        "step_fwd.cu",
+        "    if (j < R && !on) dead(j);\n    const unsigned bal = "
+        "__ballot_sync(kFull, on);",
+        "    if (j < R && !on) dead(j);\n    if (on) live(j);\n"
+        "    const unsigned bal = __ballot_sync(kFull, false);")],
+}
+
+
+def _step_mode(tree, tag, carries_dir, what):
+    """``_step_time``: a tree's step kernels on the per-step scenes at the
+    frame (:func:`_step_sample` on the saved carries; the unchanged tree,
+    ``tag`` base, also live-first), with ``csrc/step_*.cu``'s registers;
+    ``_step_stats``: the walks' per-ray work (:func:`_step_stats`)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    os.chdir(tree)
+    import torch
+
+    import chip_smoke as cs
+    from micro_raytracer_tpu_torch.ops import step
+
+    dev = torch.device("cuda")
+    os.makedirs(carries_dir, exist_ok=True)
+    if what == "stats":
+        print("step_stats", json.dumps(_step_stats(cs, dev, carries_dir)),
+              flush=True)
+        return
+    out = {}
+    for name in ("lights8", "inst_grid3k", *getattr(cs, "BIG_NAMES", ())):
+        cfg, scene, tables, decay = _step_setup(cs, name, dev)
+        carries, u8s = _step_carries(
+            cs, cfg, scene, tables, decay, dev,
+            os.path.join(carries_dir, f"{name}.pt"))
+        out[name] = _step_sample(cs, scene, tables, decay, carries, u8s,
+                                 packed=tag == "base")
+        del carries, u8s
+    out["ptxas"] = step_ptxas(step.STEP_KERNEL.build_log,
+                              step.STEP_BWD_KERNEL.build_log)
+    print(tag, json.dumps(out), flush=True)
+
+
+def step_ptxas(*logs):
+    """``{kernel<template flags>: [registers, spill stores, spill loads]}``
+    for the per-step kernels of ``nvcc -Xptxas -v`` logs."""
+    out = {}
+    for log in logs:
+        for name, v in _ptxas(log).items():
+            k = re.search(r"(step_(?:fwd|fwd_in|bwd)_kernel)I((?:Lb[01]E)+)",
+                          name)
+            if k:
+                flags = ",".join(re.findall(r"Lb([01])E", k.group(2)))
+                out[f"{k.group(1)}<{flags}>"] = list(v)
+    return out
 
 
 def ablate(tree, work, which="room"):
@@ -656,8 +1085,9 @@ def ablate(tree, work, which="room"):
     me = os.path.abspath(__file__)
     pkg = "micro_raytracer_tpu_torch"
     trees = {}
-    variants = {"tri": TRI_ABLATIONS, "walk": TRI_WALK_ABLATIONS}.get(
-        which, ABLATIONS)
+    variants = {"tri": TRI_ABLATIONS, "walk": TRI_WALK_ABLATIONS,
+                "step": STEP_ABLATIONS,
+                "steps": STEP_WALK_ABLATIONS}.get(which, ABLATIONS)
     tri_set = which in ("tri", "walk")
     for name, patches in {"base": [], **variants}.items():
         dst = os.path.join(work, name)
@@ -678,6 +1108,9 @@ def ablate(tree, work, which="room"):
         else:
             print(f"ablate {name}: not applicable", flush=True)
     kernels = ("step.STEP_KERNEL, tri.ENTRY_KERNEL" if tri_set else
+               "step.STEP_KERNEL, step.STEP_TRAIN_KERNEL, "
+               "step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL, "
+               "tri.ENTRY_EXIT_KERNEL" if which in ("step", "steps") else
                "hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, "
                "step.BWD_KERNEL")
     build = ("import sys; sys.path.insert(0, sys.argv[1]); "
@@ -688,6 +1121,16 @@ def ablate(tree, work, which="room"):
     for p in procs:
         p.wait()
     order = ["base", *[n for n in trees if n != "base"], "base"]
+    if which in ("step", "steps"):
+        # the base tree steps the frame first and saves the carries that
+        # every variant times
+        carries = os.path.join(work, "carries")
+        for name in order:
+            subprocess.run([sys.executable, me, "_step_time", trees[name],
+                            name, carries], check=True)
+        subprocess.run([sys.executable, me, "_step_stats", trees["base"],
+                        carries], check=True)
+        return
     for name in order:
         if tri_set:
             subprocess.run([sys.executable, me, "_tri_time", trees[name],
@@ -792,13 +1235,14 @@ def compare(a_path, b_path):
 
     a, b = torch.load(a_path), torch.load(b_path)
     same = True
+    diffs = {}
     for scene in a:
         for name in a[scene]:
             if name.endswith(SPLIT):
                 continue
             x, y = a[scene][name], b[scene][name]
             note = ""
-            if name in SUMS:
+            if name.split("@")[0] in SUMS:
                 scale = float(y.abs().max()) if y.numel() else 0.0
                 tol = 1e-5 * y.abs() + 1e-6 * max(scale, 1e-30)
                 ratio = (x - y).abs() / tol
@@ -821,6 +1265,19 @@ def compare(a_path, b_path):
                 ok = torch.equal(x, y)
                 if not ok and x.shape == y.shape:
                     note = f" ({int((x != y).sum())} elements)"
+                if not ok and x.dim() == 2 and x.shape == y.shape \
+                        and name.startswith("c@"):
+                    # a carry: the rays that differ, with their input
+                    # carry and uniforms, kept for a closer look
+                    cols = ((x != y) & ~(x.isnan() & y.isnan())).any(0)
+                    idx = cols.nonzero()[:, 0]
+                    k = int(name[2:])
+                    diffs[(scene, name)] = {
+                        "idx": idx, "a": x[:, idx], "b": y[:, idx],
+                        "c_in": a[scene][f"c@{k - 1}"][:, idx],
+                        "u8": a[scene]["u8s"][k - 1][:, idx]}
+                    note += f" (rays {idx[:8].tolist()}, rows " \
+                        f"{((x != y).any(1)).nonzero()[:, 0].tolist()})"
                 if not ok and name.split("_", 1)[-1] in CULLED_EXIT:
                     # a culled exit against an unculled one: reported,
                     # held ray by ray in chip_smoke.py phase 22
@@ -829,6 +1286,11 @@ def compare(a_path, b_path):
             print(f"{scene} {name}: {'equal' if ok else 'DIFFERS'}{note}")
             same &= ok
     print("ALL SAME" if same else "OUTPUTS DIFFER")
+    if diffs:
+        out = os.path.join(os.path.dirname(os.path.abspath(b_path)),
+                           "carry_diffs.pt")
+        torch.save(diffs, out)
+        print(f"the differing carries' rays: {out}")
     return 0 if same else 1
 
 
@@ -1029,6 +1491,10 @@ if __name__ == "__main__":
         _tri_mode(*sys.argv[2:], "time")
     elif sys.argv[1:2] == ["_tri_stats"] and len(sys.argv) == 3:
         _tri_mode(sys.argv[2], "", "stats")
+    elif sys.argv[1:2] == ["_step_time"] and len(sys.argv) == 5:
+        _step_mode(*sys.argv[2:], "time")
+    elif sys.argv[1:2] == ["_step_stats"] and len(sys.argv) == 4:
+        _step_mode(sys.argv[2], "", sys.argv[3], "stats")
     elif sys.argv[1:2] == ["pairs"] and len(sys.argv) in (4, 5):
         pairs(*sys.argv[2:])
     elif sys.argv[1:2] == ["_room_worker"] and len(sys.argv) == 3:
