@@ -7,13 +7,16 @@
     python3 chip_smoke.py --compaction   # renders with and without
                                          # live-first compaction
     python3 chip_smoke.py --big          # phases 22-24 alone
+    python3 chip_smoke.py --gate <tree> [runs]  # the timing gate against
+                                         # another checkout (below)
 
 Phases, each of which raises on failure:
 
 1. card: CUDA present; name and power limit from nvidia-smi; TF32 off.
 2. build: nvcc builds every kernel source of ``micro_raytracer_tpu_torch/csrc``
    (``hit3.cu``, ``trace_fwd.cu`` with its render and train instances,
-   ``trace_bwd.cu``, ``step_fwd.cu``, ``step_bwd.cu``, ``tri.cu``), one nvcc
+   ``trace_bwd.cu``, ``step_fwd.cu``, ``step_fwd_many.cu``, ``step_bwd.cu``,
+   ``tri.cu``), one nvcc
    process per source, all started together.
 3. closest_hit kernel against its plain PyTorch version on the slice
    scene's row table, on 2^17 random rays and on the main path's input
@@ -81,7 +84,11 @@ Phases, each of which raises on failure:
    frame, where they are timed; the triangle rows each sweep tests after
    the cull come from the plain version (``hit3.tri_rows_tested``,
    ``trace_plain(work=...)``). ``mesh_glass``'s render, compacted at steps
-   3 and 6, against the unsegmented one at the frame, bit for bit.
+   3 and 6, against the unsegmented one at the frame, bit for bit. On
+   ``mesh_glass`` the exit-mode sweep, whose triangle entry and group exit
+   cull per block, against the unculled plain sweep (the JAX package's) on
+   2^17 camera and 2^17 random rays: equal but on phantom entries and
+   exits (phase 22's rule, at most PHANTOM_SHARE of the rays).
 10. mesh main path: the CLI renders ``mesh_opaque`` and ``mesh_glass``,
    written as scene JSON files, at 1080x1080, bounce 8, 16 spp: both
    kernels once per sample and no plain version (launch counters), a
@@ -121,21 +128,27 @@ Phases, each of which raises on failure:
 15. Instance-class kernels: the stand-ins ``inst_grid`` (the class of
    Instance.json: a 10 x 10 x 10 grid of instanced spheres over a plane,
    1,008 rows, the sphere segment culled in 16 blocks of 64 rows) and
-   ``inst_glass`` (343 spheres, a twentieth glass: dense entry sweeps,
-   culled shadow sweeps), built here (tests/torch_inst_helpers.py imports
-   them). closest_hit in all three modes against its plain version, rows
-   and t bit for bit, on 2^17 random rays, 2^17 camera rays and the frame
-   of ``inst_grid`` and on 2^17 rays of each kind of ``inst_glass``; the
-   culled sweeps against the kernel's own dense sweeps, bit for bit; the
-   trace (phase 4's rule), the train instance (bit for bit the render
-   instance; residuals against ``trace_plain(want_resid=True)``) and the
-   backward (phase 9's rule) on ``inst_grid``, on camera rays and at the
-   frame; the render compacted at steps 2, 4 and 6 (the JAX package's
-   cuts; the port renders this opaque grid whole) against the unsegmented
-   one, bit for bit, as phases 9 and 12 do for each scene whose render
-   compacts. Timed and bounded at the frame; the sphere rows the
-   cull leaves come from the plain version (``hit3.sph_rows_tested``,
-   ``trace_plain(work=...)``), the block slab tests are not counted.
+   ``inst_glass`` (343 spheres, a twentieth glass: exit-mode sweeps whose
+   exit is the winner row's own), built here (tests/torch_inst_helpers.py
+   imports them); the kernels walk their sphere segments through 8-row
+   sub-blocks (csrc/sph_walk.cuh). closest_hit in all three modes against
+   its plain version, rows and t bit for bit, on 2^17 random rays, 2^17
+   camera rays and the frame of ``inst_grid`` and on 2^17 rays of each
+   kind of ``inst_glass``; the culled sweeps against the kernel's own
+   dense sweeps, bit for bit, in every mode; on 2^17 camera rays of
+   ``inst_glass`` the trace (phase 4's rule), its compacted render against
+   the unsegmented one bit for bit, and the train instance (phase 7's
+   rule); the trace (phase 4's rule), the train instance (bit for bit the
+   render instance; residuals against ``trace_plain(want_resid=True)``)
+   and the backward (phase 9's rule) on ``inst_grid``, on camera rays and
+   at the frame; the render compacted at steps 2, 4 and 6 (the JAX
+   package's cuts; the port renders this opaque grid whole) against the
+   unsegmented one, bit for bit, as phases 9 and 12 do for each scene
+   whose render compacts. Timed and bounded at the frame; the sphere rows
+   the walk leaves and its block and sub-block slab tests are counted on
+   N_WORK of the frame's rays (``sph_walk_work``, ``whole_walk_work``) and
+   scaled, the lowest-first walk's bound (``hit3.sph_rows_tested``,
+   ``trace_plain(work=...)``) beside them.
 16. Instance-class main path: the CLI renders ``inst_grid`` from a JSON
    file at 1080x1080, bounce 8, 16 spp: one primary-hit launch per sample
    and one trace launch per segment of its render (``tracer.compact_cuts``)
@@ -159,7 +172,7 @@ Phases, each of which raises on failure:
    per-step trace against the plain per-step trace on 2^17 camera rays
    (phase 4's rule). Timed and bounded at step 0 (every ray live).
 19. per-step route: on the slice room, ``mesh_glass``, ``tex_blocks`` and
-   ``inst_grid`` (2^17 camera rays, bounce 8) the per-step path equals the
+   ``inst_grid`` (2^15 camera rays, bounce 8) the per-step path equals the
    whole trace: A, B and first_live bit for bit, under a gradient d_oT
    and d_dT bit for bit and the table cotangents within rtol 1e-5, 1e-6 of
    each table's largest magnitude and ORDER_TOL of the entry's mass.
@@ -175,7 +188,12 @@ Phases, each of which raises on failure:
    x 0.3, against a 4-spp target; lr 1e-2, steps 2-3 timed; every leaf of
    ``lights8``, ``mat_albedo`` and ``light_pwr`` of ``inst_grid3k``,
    ``STEP_TRAIN_LEAVES``): BOUNCE + 1 launches each of step_fwd_train and
-   step_bwd per step, no whole-trace kernel.
+   step_bwd per step, no whole-trace kernel. Then ``lights_many``
+   (``lights8``'s geometry under 2,051 lights, past the STEP_MAX_LIGHTS
+   staged in shared memory) on 4,096 camera rays, bounce 1: the per-step
+   render against the plain per-step trace, and at step 0, on 1,024 of the
+   rays, step_fwd and step_fwd_train and step_bwd against their plain
+   versions (phase 18's rules).
 
 22. meshes past the staged cull blocks: ``mesh_big`` / ``mesh_big_glass``
    (``big_config``: the slice room at ten times its size with a torus of
@@ -190,7 +208,7 @@ Phases, each of which raises on failure:
    exit equal to row 8's unculled one where a triangle wins but on phantom
    exits (the unculled exit's hit point outside its block's AABB, at most
    PHANTOM_SHARE of the rays; also at each step of the glass frame); on
-   2^17 camera rays step_fwd and step_fwd_train (their
+   2^15 of the camera rays step_fwd and step_fwd_train (their
    kTriIn instances) at steps 0 and 2 and step_bwd at step 0 by phase 18's
    rules, and the per-step trace against the plain per-step trace (phase
    4's rule). Timed at the frame: each kernel at step 0 (every ray live)
@@ -214,6 +232,16 @@ Phases, each of which raises on failure:
    phase 11 (albedos, light power and the torus' position perturbed):
    tri_entry, step_fwd_train and step_bwd BOUNCE + 1 times per step,
    finite gradients, non-zero on the torus rows.
+
+``--gate <tree> [runs]`` times every whole-trace kernel of the room, mesh,
+textured and Instance-class stand-ins at the frame and the per-step
+kernels of ``lights8`` and ``inst_grid3k`` in ``<tree>`` (the parent) and
+in this script's own tree, a worker process each, in ``runs`` (GATE_RUNS)
+interleaved runs (parent, change, change, parent, ...), each timing
+spanning GATE_MS of launches, and fails a kernel whose median in this
+tree exceeds both the parent's by more than GATE_TOL (2%) and the
+parent's slowest run: a single run of a short launch spreads further
+than 2%.
 
 ``--compaction`` renders ``inst_grid``, ``inst_glass``, ``mesh_opaque``
 and ``mesh_glass`` through the CLI with the JAX package's compaction cuts
@@ -351,6 +379,9 @@ RENDER_REPS = 10
 # inst_grid3k takes nine launches over 3,384 rows)
 STEP_RENDER_REPS = 5
 N_CMP = 1 << 17
+# the rays of the per-step checks that run a plain step nine times
+# (phases 19 and 22: the per-step route and the big meshes' per-step trace)
+N_STEP_CMP = 1 << 15
 OUTLIER_SHARE = 0.001
 # row 7's culled group exit may drop a phantom exit hit (outside its
 # block's slacked AABB) that row 8's unculled exit finds: at most this share
@@ -593,6 +624,29 @@ def lights8():
     }
 
 
+def lights_many(n=2051):
+    """``lights8``'s geometry under ``n`` lights, past the per-step
+    kernels' STEP_MAX_LIGHTS staged ones (the rest read from global
+    memory): point lights at seeded random places above the scene and
+    every eighth a directional light, their powers summing to about 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(n)
+    lights = []
+    for i in range(n):
+        c = [float(v) for v in rng.uniform(0.5, 1.0, 3)]
+        if i % 8 == 7:
+            lights.append({"type": "dir", "pwr": 1.0 / n, "color": c,
+                           "dir": [float(v) for v in rng.uniform(-1, 1, 2)]
+                           + [-1.0]})
+        else:
+            lights.append({"type": "point", "pwr": 1.0 / n, "color": c,
+                           "pos": [float(rng.uniform(-2.5, 2.5)),
+                                   float(rng.uniform(0.0, 4.0)),
+                                   float(rng.uniform(0.3, 2.5))]})
+    return dict(lights8(), light=lights)
+
+
 def lights8_json(res=None):
     """The render JSON of ``lights8`` at the main path's size."""
     res = RES if res is None else res
@@ -780,7 +834,12 @@ def phase_build():
     kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL,
                step.STEP_KERNEL, step.STEP_TRAIN_KERNEL,
                step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL, tri.ENTRY_EXIT_KERNEL,
-               tri.EXIT_KERNEL)
+               tri.EXIT_KERNEL,
+               # the lights past the staged ones (a parent tree timed by
+               # --gate may have no such library)
+               *(k for k in (getattr(step, "STEP_MANY_KERNEL", None),
+                             getattr(step, "STEP_MANY_TRAIN_KERNEL", None))
+                 if k is not None))
     by_source = {k.source: k for k in kernels}
     t0 = time.perf_counter()
 
@@ -922,6 +981,56 @@ def sph_rows_tested(tables, o, d, mode):
                for s in range(0, o.shape[0], chunk))
 
 
+def work_subset(R, device):
+    """N_WORK fixed rays of a frame of R on which a walk's per-ray work
+    is counted and scaled to the frame."""
+    import torch
+
+    gen = torch.Generator().manual_seed(N_WORK)
+    return torch.randperm(R, generator=gen)[:N_WORK].to(device)
+
+
+def whole_walk_work(scene, tables, resid, n_live):
+    """What the whole trace's walks of a culled sphere segment
+    (``csrc/sph_walk.cuh``) test over a trace whose train instance wrote
+    ``resid`` and ``n_live``, counted on N_WORK of its rays
+    (``sph_walk_work``, each live step's closest hit after step 0 and each
+    light's shadow ray from the entry point) and scaled to the frame:
+    ``{"sph_sweep", "sph_shadow"}`` rows and ``"sph_slabs"`` block and
+    sub-block slab tests."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import step
+
+    K, _CR, R = resid.shape
+    sub = work_subset(R, resid.device)
+    n = n_live[sub].long()
+    lights = tables.lights
+    out = {"sph_sweep": 0.0, "sph_shadow": 0.0, "sph_slabs": 0.0}
+    for k in range(K):
+        on = k < n
+        if not bool(on.any()):
+            break
+        r = resid[k][:, sub]
+        o, d = r[step.RES_O:step.RES_O + 3].T, r[step.RES_D:step.RES_D + 3].T
+        te = torch.where(on, r[step.RES_TE], 0.0)
+        if k:
+            slabs, rows = sph_walk_work(tables, o, d, on, False)
+            out["sph_sweep"] += float(rows.sum())
+            out["sph_slabs"] += float(slabs.sum())
+        p = o + d * te[:, None]
+        for li in range(scene.n_lights):
+            lt = lights[li]
+            lv = torch.where(lt[6] > 0.5, lt[3:6].expand_as(p), lt[0:3] - p)
+            ln = lv / torch.sqrt((lv * lv).sum(1, keepdim=True))
+            so = p + ln * 1e-4
+            slabs, rows = sph_walk_work(tables, so, ln, on, True)
+            out["sph_shadow"] += float(rows.sum())
+            out["sph_slabs"] += float(slabs.sum())
+    scale = R / sub.numel()
+    return {k: v * scale for k, v in out.items()}
+
+
 def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
     """closest_hit and its plain version timed on the main path's input
     (lane-major primaries as (R, 3) views), and the bound of that input:
@@ -931,24 +1040,45 @@ def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
     mesh's rows for a triangle winner, counted with the triangles); a
     culled sphere segment counts the rows the cull leaves. Returns the
     result and the triangle and sphere rows tested per ray."""
+    import torch
+
     from micro_raytracer_tpu_torch.ops import hit3, step
 
     mode = step.primary_mode(scene)
     args = (tables.tab, tables.layout, oT.T, dT.T, mode, tables.tri,
             tables.tbb, tables.sbb)
-    ms = cuda_ms(lambda: hit3.closest_hit(*args), reps)
+    walk = None if tables.sbb is None else (tables.srows, tables.ssb)
+    ms = cuda_ms(lambda: hit3.closest_hit(*args, walk), reps)
     plain_ms = cuda_ms(lambda: plain_hit(tables, oT.T, dT.T, mode),
                        plain_reps)
     R, P = oT.shape[1], valid_rows(scene, tables) - sph_rows(scene, tables)
-    te, row = hit3.closest_hit(*args)[:2]
+    te, row = hit3.closest_hit(*args, walk)[:2]
     dense_hits = (te < hit3.BIG * 0.5) & (row < tables.layout[1])
     exits = int(dense_hits.sum()) if scene.any_refract else 0
     tri_rows = int(hit3.tri_rows_tested(*args[:-1]).sum())
-    sph = sph_rows_tested(tables, oT.T, dT.T, mode) if tables.sbb is not None \
-        else 0
+    sph, slabs, extra = 0, 0, {}
+    if tables.sbb is not None:
+        # the kernel's walk (sub-blocks, csrc/sph_walk.cuh) counted on
+        # N_WORK of the frame's rays and scaled; the parent's lowest-first
+        # walk of whole 64-row blocks beside it (its bound)
+        sub = work_subset(R, oT.device)
+        o, d = oT.T[sub], dT.T[sub]
+        on = torch.ones(sub.numel(), dtype=torch.bool, device=oT.device)
+        w_slabs, w_rows = sph_walk_work(tables, o, d, on, False)
+        scale = R / sub.numel()
+        sph = float(w_rows.sum()) * scale
+        slabs = float(w_slabs.sum()) * scale
+        old = sph_rows_tested(tables, o, d, mode) * scale
+        extra = {"lowest_first_bound_ms": bound(
+            R * (24 + 16) + table_bytes(scene, tables),
+            (R * P + old + exits) * ROW_TEST_OPS)["bound_ms"],
+            "sph_rows_per_ray": sph / R, "slabs_per_ray": slabs / R,
+            "lowest_first_rows_per_ray": old / R}
     b = bound(R * (24 + 16) + table_bytes(scene, tables),
-              (R * P + sph + exits) * ROW_TEST_OPS + tri_rows * TRI_TEST_OPS)
-    return {"ms": ms, "plain_ms": plain_ms, **b}, tri_rows / R, sph / R
+              (R * P + sph + exits) * ROW_TEST_OPS + tri_rows * TRI_TEST_OPS
+              + slabs * SLAB_OPS)
+    return ({"ms": ms, "plain_ms": plain_ms, **b, **extra}, tri_rows / R,
+            sph / R)
 
 
 def phase_hit(cfg, results):
@@ -1375,7 +1505,8 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
     if tables.sbb is not None:
         # the sphere rows the sweeps test (a shadow ray's to its first
         # hit); an occluded light's row past them is left out
-        sph = tri_work["sph_sweep"] + tri_work["sph_shadow"]
+        sph = (tri_work["sph_sweep"] + tri_work["sph_shadow"]
+               + tri_work.get("sph_slabs", 0) * SLAB_OPS / ROW_TEST_OPS)
         occ = 0
     chosen = (int(((resid[:, step.RES_CHOOSE] > 0.5) & live).sum())
               if scene.any_refract else 0)
@@ -2148,6 +2279,11 @@ def phase_mesh_kernels(results):
             err = max(err, compare_hit(
                 step.pack_step(compile_scene(alone, dev)),
                 *random_rays(N_CMP, gen, dev)))
+        if scene.any_refract:
+            # the culled exit-mode sweep against the unculled one
+            for where, (o_, d_) in (("camera", (o, d)),
+                                    ("random", random_rays(N_CMP, gen, dev))):
+                check_culled_exit(tables, o_, d_, f"{name}, {where} rays")
         oT, dT = main_path_rays(cfg, gen, dev)   # the main path's input
         err = max(err, compare_hit(tables, oT.T, dT.T))
         res, rows, _sph = time_hit(scene, tables, oT, dT, plain_reps=1)
@@ -2216,6 +2352,54 @@ def phase_mesh_kernels(results):
             "max_abs_err": max(errs_b), "ms": ms_b, "plain_ms": plain_b,
             **bw["trace_bwd"], "library_ms": None}
         del resid
+
+
+def check_culled_exit(tables, o, d, where):
+    """The exit-mode closest-hit kernel, whose triangle entry and group
+    exit cull per block, against the unculled plain sweep (the JAX
+    package's: ``hit3.sweep_plain`` without the cull blocks), on rays
+    ``o``, ``d``: the entry equal but on phantom entries (the unculled
+    winner's hit point outside its block's slacked AABB), and where a
+    triangle wins, the exit equal but on phantom exits
+    (``check_phantoms``, phase 22's rule); at most PHANTOM_SHARE of the
+    rays. Returns the phantoms' count."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    got = hit3.closest_hit(tables.tab, tables.layout, o, d, hit3.MODE_EXIT,
+                           tables.tri, tables.tbb)
+    chunk = chunk_for(tables, PLAIN_FWD_CHUNK)
+    with torch.no_grad():
+        full = [torch.cat(x) for x in zip(*(
+            hit3.sweep_plain(tables.tab, tables.layout, o[s:s + chunk],
+                             d[s:s + chunk], hit3.MODE_EXIT, tables.tri,
+                             None) for s in range(0, o.shape[0], chunk)))]
+    s0 = tables.layout[1]
+    same = (got[0] == full[0]) & (got[1] == full[1])
+    k = (full[1].long() - s0)
+    tri_won = (full[0] < hit3.BIG * 0.5) & (k >= 0)
+    b = (k.clamp(min=0) // hit3.CB).clamp(max=tables.tbb.shape[0] - 1)
+    p = o.double() + full[0].double()[:, None] * d.double()
+    box = tables.tbb[b].double()
+    outside = tri_won & ((p < box[:, :3]) | (p > box[:, 3:6])).any(1)
+    n_entry = int((~same).sum())
+    if bool((~same & ~outside).any()):
+        raise AssertionError(f"the culled exit-mode entry differs from the "
+                             f"unculled one on {n_entry} rays ({where}), "
+                             f"{int((~same & outside).sum())} of them "
+                             f"phantoms")
+    won = same & tri_won
+    n_ph = check_phantoms(tables, o[won], d[won],
+                          (got[2][won], got[3][won] - s0),
+                          (full[2][won], full[3][won] - s0), where)
+    if n_entry + n_ph > PHANTOM_SHARE * o.shape[0]:
+        raise AssertionError(f"{n_entry} phantom entries and {n_ph} phantom "
+                             f"exits of {o.shape[0]} rays ({where})")
+    log(f"culled exit-mode closest_hit ({where}, {o.shape[0]} rays, "
+        f"{int(won.sum())} triangle winners): equal to the unculled sweep "
+        f"but on {n_entry} phantom entries and {n_ph} phantom exits")
+    return n_entry + n_ph
 
 
 def segments(cfg) -> int:
@@ -2525,12 +2709,13 @@ def grid_rays(n, gen, device):
 
 
 def compare_cull(tables, o, d):
-    """The closest-hit kernel with the sphere cull blocks against itself
-    without them (the dense sweep): entry-only and any-hit rows and t bit
-    for bit."""
+    """The closest-hit kernel with the sphere cull blocks (its walk
+    through the sub-blocks, csrc/sph_walk.cuh) against itself without them
+    (the dense sweep): rows and t bit for bit in every mode (the exit, the
+    winner row's own t1, against the dense sweep over its group)."""
     from micro_raytracer_tpu_torch.ops import hit3
 
-    for mode in (hit3.MODE_ENTRY, hit3.MODE_ANY):
+    for mode in (hit3.MODE_ENTRY, hit3.MODE_EXIT, hit3.MODE_ANY):
         args = (tables.tab, tables.layout, o, d, mode, tables.tri,
                 tables.tbb)
         culled = hit3.closest_hit(*args, tables.sbb)
@@ -2540,7 +2725,7 @@ def compare_cull(tables, o, d):
             raise AssertionError(f"the sphere cull changes {n} outputs of "
                                  f"mode {mode}")
     log(f"closest_hit {o.shape[0]} rays: the culled sweeps equal the dense "
-        f"ones bit for bit (entry, any-hit)")
+        f"ones bit for bit (entry, exit, any-hit)")
 
 
 def phase_inst_kernels(results):
@@ -2556,11 +2741,30 @@ def phase_inst_kernels(results):
     from micro_raytracer_tpu_torch.ops import step
 
     dev = torch.device("cuda")
-    _cfg, _scene, tables, _decay, cam = inst_inputs("inst_glass", dev)
+    g_cfg, g_scene, tables, g_decay, cam = inst_inputs("inst_glass", dev)
     gen = torch.Generator(device=dev).manual_seed(15)
     compare_hit(tables, *grid_rays(N_CMP, gen, dev), exact=True)
     compare_hit(tables, *camera_rays(cam, N_CMP, gen, dev), exact=True)
     compare_cull(tables, *camera_rays(cam, N_CMP, gen, dev))
+    # the exit-mode walk's trace instances on 2^17 camera rays: the render
+    # (phase 4's rule), its segments (the main path compacts this scene)
+    # against it bit for bit, the train instance (phase 7's rule)
+    o, d = camera_rays(cam, N_CMP, gen, dev)
+    ob, db = o.T.contiguous(), d.T.contiguous()
+    u = torch.rand((BOUNCE + 1, step.n_uni(True), N_CMP), generator=gen,
+                   device=dev)
+    compare_trace(g_scene, tables, g_decay, ob, db, u, work={})
+    h0 = step.primary_hits(g_scene, tables, ob, db)
+    check_segmented("inst_glass", g_scene, tables, g_decay, g_cfg.rt.loss,
+                    ob, db, u, h0, cuda_ms(lambda: step.trace_fwd(
+                        g_scene, tables, g_decay, ob, db, u, h0), 2))
+    n = N_MESH_BWD
+    compare_train_fwd(g_scene, tables, g_decay, ob[:, :n].contiguous(),
+                      db[:, :n].contiguous(), u[..., :n].contiguous(),
+                      step.primary_hits(g_scene, tables,
+                                        ob[:, :n].contiguous(),
+                                        db[:, :n].contiguous()), work={})
+    del u, h0
     name = "inst_grid"
     cfg, scene, tables, decay, cam = inst_inputs(name, dev)
     nu = step.n_uni(scene.any_refract)
@@ -2638,17 +2842,27 @@ def phase_inst_kernels(results):
                                           want_resid=True), 1)
     ms_b = cuda_ms(lambda: step.trace_bwd(scene, tables, decay, u8s, resid,
                                           nl, ctA, ctB), 5)
-    bw = trace_work(scene, tables, u8s, resid, nl, work)
+    # the bound of the walks through sub-blocks (csrc/sph_walk.cuh), and
+    # beside it the parent's lowest-first walk of 64-row blocks
+    # (trace_plain's counts)
+    bw_old = trace_work(scene, tables, u8s, resid, nl, work)
+    walk = whole_walk_work(scene, tables, resid, nl)
+    bw = trace_work(scene, tables, u8s, resid, nl, {**work, **walk})
     S = bw["live_steps"]
     L = scene.n_lights
     later = int((nl.long() - 1).clamp(min=0).sum())
     log(f"{name} trace_fwd {RES * RES} rays x {BOUNCE + 1} steps ({S} live "
         f"steps): kernel {ms:.3f} ms (without the cull {dense_ms:.3f} ms), "
         f"plain {plain_ms:.3f} ms, bound "
-        f"{fmt_bound(bw['trace_fwd'])}; sphere rows tested (of "
-        f"{scene.kind_sweep[0]}): {work['sph_sweep'] / max(later, 1):.1f} "
-        f"per closest-hit sweep after step 0, "
-        f"{work['sph_shadow'] / max(S * L, 1):.1f} per shadow sweep")
+        f"{fmt_bound(bw['trace_fwd'])} (lowest-first walk "
+        f"{fmt_bound(bw_old['trace_fwd'])}); sphere rows tested (of "
+        f"{scene.kind_sweep[0]}): {walk['sph_sweep'] / max(later, 1):.1f} "
+        f"per closest-hit sweep after step 0 "
+        f"({work['sph_sweep'] / max(later, 1):.1f} lowest first), "
+        f"{walk['sph_shadow'] / max(S * L, 1):.1f} per shadow sweep "
+        f"({work['sph_shadow'] / max(S * L, 1):.1f}), "
+        f"{walk['sph_slabs'] / max(later + S * L, 1):.1f} slab tests per "
+        f"sweep")
     log(f"{name} trace_fwd_train: kernel {ms_t:.3f} ms, plain "
         f"{plain_t:.3f} ms, bound {fmt_bound(bw['trace_fwd_train'])}; "
         f"trace_bwd: kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms, bound "
@@ -2656,19 +2870,25 @@ def phase_inst_kernels(results):
     use = resources(scene, tables, name)
     results[f"trace_fwd/{name}"] = {
         "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
-        **bw["trace_fwd"], "library_ms": None, **seg, **use["trace_fwd"]}
+        **bw["trace_fwd"], "library_ms": None, **seg, **use["trace_fwd"],
+        "lowest_first_bound_ms": bw_old["trace_fwd"]["bound_ms"]}
     results[f"trace_fwd_train/{name}"] = {
         "max_abs_err": max(errs_t), "ms": ms_t, "plain_ms": plain_t,
         **bw["trace_fwd_train"], "library_ms": None,
-        **use["trace_fwd_train"]}
+        **use["trace_fwd_train"],
+        "lowest_first_bound_ms": bw_old["trace_fwd_train"]["bound_ms"]}
     results[f"trace_bwd/{name}"] = {
         "max_abs_err": max(errs_b), "ms": ms_b, "plain_ms": plain_b,
         **bw["trace_bwd"], "library_ms": None, **use["trace_bwd"]}
     results["sph_rows/inst_grid"] = {
         "dense_closest_hit_ms": dense_hit, "dense_trace_fwd_ms": dense_ms,
         "closest_hit_per_ray": sph,
-        "sweep_per_step": work["sph_sweep"] / max(later, 1),
-        "shadow_per_sweep": work["sph_shadow"] / max(S * L, 1)}
+        "sweep_per_step": walk["sph_sweep"] / max(later, 1),
+        "shadow_per_sweep": walk["sph_shadow"] / max(S * L, 1),
+        "slabs_per_sweep": walk["sph_slabs"] / max(later + S * L, 1),
+        "lowest_first_sweep_per_step": work["sph_sweep"] / max(later, 1),
+        "lowest_first_shadow_per_sweep": work["sph_shadow"]
+        / max(S * L, 1)}
     del resid
 
 
@@ -3430,6 +3650,80 @@ def phase_step_kernels(results, names=STEP_NAMES):
         del carries
 
 
+def phase_many_lights(results):
+    """Past the staged lights (``lights_many``: 2,051 lights, the first
+    ``step.STEP_MAX_LIGHTS`` staged in shared memory, the rest read from
+    global memory) on 4,096 camera rays (a 64 x 64 frame's worth), bounce
+    1 (the plain step walks the lights one at a time: about 12 s a step
+    here): the per-step render (``trace_steps``, 2 launches of
+    ``step_fwd_many.cu``)
+    against the plain per-step trace (phase 4's rule); at step 0 the
+    render and train instances of step_fwd against each other and the
+    plain step, and step_bwd against autograd of the plain step on 1,024
+    of the rays (phase 18's rules): a training step's kernels."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models import schema
+    from micro_raytracer_tpu_torch.models.compiler import (compile_camera,
+                                                           compile_scene)
+    from micro_raytracer_tpu_torch.ops import step
+
+    dev = torch.device("cuda")
+    name = "lights_many"
+    scene = compile_scene(schema.SceneConfig.from_json(lights_many()), dev)
+    tables = step.pack_step(scene)
+    if scene.n_lights <= step.STEP_MAX_LIGHTS or \
+            step.route(scene, True) != "steps":
+        raise AssertionError(f"{name}: {scene.n_lights} lights")
+    cam = compile_camera(schema.CameraConfig.from_json(LIGHTS8_CAMERA), dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    n = 64 * 64
+    o, d = camera_rays(cam, n, gen, dev)
+    oT, dT = o.T.contiguous(), d.T.contiguous()
+    K = 2
+    u8s = torch.rand((K, step.n_uni(scene.any_refract), n), generator=gen,
+                     device=dev)
+    decay = 0.85
+    before = step.STEP_MANY_KERNEL.launches
+    A, B, fl = step.trace_steps(scene, tables, decay, oT, dT, u8s)
+    if step.STEP_MANY_KERNEL.launches != before + K:
+        raise AssertionError(f"{name}: "
+                             f"{step.STEP_MANY_KERNEL.launches - before} "
+                             f"launches of step_fwd_many.cu, want {K}")
+    cp, carries = step.primary_carry(oT, dT), []
+    for k in range(K):
+        carries.append(cp)
+        cp, hit_p = plain_step_chunked(scene, tables, decay, cp, u8s[k])
+        if k == 0:
+            fl_p = hit_p
+    if not torch.equal(fl, fl_p):
+        raise AssertionError(f"{name}: first_live differs from the plain "
+                             f"per-step trace")
+    bad = outlier_rays(A, cp[8:11], 1e-4, 1e-5) \
+        | outlier_rays(B, cp[11:14], 1e-4, 1e-5)
+    share = float(bad.float().mean())
+    err_in = float(max((A - cp[8:11])[:, ~bad].abs().max(),
+                       (B - cp[11:14])[:, ~bad].abs().max()))
+    if share > OUTLIER_SHARE or err_in > IN_ERR or \
+            float(B.abs().max()) <= 0.0:
+        raise AssertionError(f"{name}: the per-step trace disagrees with "
+                             f"the plain one ({share}, {err_in})")
+    m = 1024
+    c0, u0 = carries[0][:, :m].contiguous(), u8s[0][:, :m].contiguous()
+    e, bad0, _c1, res0, hit0, _ms = compare_step_fwd(name, scene, tables,
+                                                     decay, c0, u0, 0)
+    err_b, _plain_b, _ct = compare_step_bwd(name, scene, tables, decay, c0,
+                                            u0, res0, hit0, bad0, gen)
+    errs = [e]
+    log(f"{name}: {scene.n_lights} lights ({step.STEP_MAX_LIGHTS} staged), "
+        f"{n} rays x {K} steps: the per-step trace matches the "
+        f"plain one ({int(bad.sum())} rays outside rtol 1e-4, {err_in:.3g} "
+        f"over the rest); step_fwd, step_fwd_train and step_bwd match "
+        f"their plain versions")
+    results["many_lights"] = {"lights": scene.n_lights, "rays": n,
+                              "max_abs_err": max(errs), "bwd_err": err_b}
+
+
 def phase_step_route(results):
     """Phase 19: the per-step path against the whole trace on the scenes
     the whole trace takes — the slice room, ``mesh_glass``, ``tex_blocks``
@@ -3461,10 +3755,10 @@ def phase_step_route(results):
         if step.route(scene, True) != "trace":
             raise AssertionError(f"{name} is not on the whole-trace route")
         cam = compile_camera(cfg.frame.cam, dev)
-        o, d = camera_rays(cam, N_CMP, gen, dev)
+        o, d = camera_rays(cam, N_STEP_CMP, gen, dev)
         oT, dT = o.T.contiguous(), d.T.contiguous()
-        u8s = torch.rand((BOUNCE + 1, step.n_uni(scene.any_refract), N_CMP),
-                         generator=gen, device=dev)
+        u8s = torch.rand((BOUNCE + 1, step.n_uni(scene.any_refract),
+                          N_STEP_CMP), generator=gen, device=dev)
         whole = step.trace_packed(scene, tables, 0.85, oT, dT, u8s)
         steps = step.trace_steps(scene, tables, 0.85, oT, dT, u8s)
         for what, a, b in zip(("A", "B", "first_live"), whole, steps):
@@ -3472,7 +3766,7 @@ def phase_step_route(results):
                 raise AssertionError(f"{name}: the per-step {what} differs "
                                      f"from the whole trace's on "
                                      f"{int((a != b).any(0).sum())} rays")
-        ctA, ctB = (torch.randn((3, N_CMP), generator=gen, device=dev)
+        ctA, ctB = (torch.randn((3, N_STEP_CMP), generator=gen, device=dev)
                     for _ in "ab")
 
         def grads(fn):
@@ -3504,7 +3798,7 @@ def phase_step_route(results):
                 raise AssertionError(f"{name}: the per-step {tname} differs "
                                      f"from the whole trace's ({r:.3g} of "
                                      f"its tolerance)")
-        log(f"{name} per-step route on {N_CMP} rays: A, B, first_live, "
+        log(f"{name} per-step route on {N_STEP_CMP} rays: A, B, first_live, "
             f"d_oT and d_dT equal the whole trace's bit for bit; table "
             f"cotangents within {worst} of their tolerance")
         out[name] = worst
@@ -4003,10 +4297,12 @@ def phase_big_kernels(results):
         o, d = camera_rays(cam, N_CMP, gen, dev)
         hits, plain_tri, ph = compare_tri(tables, o, d)
         phantoms += ph
-        # the step kernels on 2^17 camera rays (phase 18's rules)
-        oc, dc = o.T.contiguous(), d.T.contiguous()
+        # the step kernels on 2^15 of the camera rays (phase 18's rules)
+        oc = o[:N_STEP_CMP].T.contiguous()
+        dc = d[:N_STEP_CMP].T.contiguous()
         nu = step.n_uni(glass)
-        u = torch.rand((BOUNCE + 1, nu, N_CMP), generator=gen, device=dev)
+        u = torch.rand((BOUNCE + 1, nu, N_STEP_CMP), generator=gen,
+                       device=dev)
         c, carries = step.primary_carry(oc, dc), []
         for k in range(BOUNCE + 1):
             carries.append(c)
@@ -4017,7 +4313,7 @@ def phase_big_kernels(results):
         bad = outlier_rays(c[8:14], cp[8:14], 1e-4, 1e-5)
         share = float(bad.float().mean())
         err_in = float((c - cp)[8:14][:, ~bad].abs().max())
-        log(f"{name} per-step trace {N_CMP} rays x {BOUNCE + 1} steps: "
+        log(f"{name} per-step trace {N_STEP_CMP} rays x {BOUNCE + 1} steps: "
             f"{int(bad.sum())} rays outside rtol 1e-4 of the plain per-step "
             f"trace (share {share:.5f}, bound {OUTLIER_SHARE}), {err_in:.3g} "
             f"over the rest (bound {IN_ERR})")
@@ -4531,6 +4827,232 @@ def compaction_ab(card, pairs=5):
     return out_res
 
 
+# the timing gate against another tree (``--gate``): interleaved runs of
+# each tree, a kernel's median held to within GATE_TOL of the other's
+GATE_RUNS = 7
+GATE_TOL = 0.02
+# each timing of a kernel spans at least this much device time (ms): a
+# timing of a few launches of a short kernel spread 4% over runs of one
+# tree
+GATE_MS = 25.0
+
+
+def _segment_launches(scene, tables, decay, oT, dT, u8s, hit0):
+    """The trace launches of a render that compacts (tracer.compact_cuts),
+    each on the carry and ray ids the render hands it, as one function
+    (None where the render is whole)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.ops import step
+
+    K = u8s.shape[0]
+    cuts = tracer.compact_cuts(scene, K, True)
+    if not cuts:
+        return None
+    bounds = [0, *cuts, K]
+    segs, carry, rid = [], None, None
+    for k0, k1 in zip(bounds[:-1], bounds[1:]):
+        seg = step.Segment(k0, k1, carry, rid)
+        segs.append((seg, hit0 if k0 == 0 else None))
+        carry = step.trace_fwd(scene, tables, decay, oT, dT, u8s,
+                               segs[-1][1], seg)[3]
+        if k1 < K:
+            perm = tracer.compact_perm(carry[step.C_LIVE] > 0.5)
+            carry = carry[:, perm]
+            rid = (perm if rid is None else rid[perm]).to(torch.int32)
+
+    def run():
+        for seg, h0 in segs:
+            step.trace_fwd(scene, tables, decay, oT, dT, u8s, h0, seg)
+
+    return run
+
+
+def _gate_kernels():
+    """``{key: (function, reps)}``: every whole-trace kernel at the main
+    path's frame on the room, the mesh, textured and Instance-class
+    stand-ins (closest_hit, trace_fwd, the segments of a compacting render,
+    trace_fwd_train, trace_bwd), and the per-step kernels on lights8 and
+    inst_grid3k (step_fwd and step_bwd at step 0, step_fwd over a sample's
+    nine launches); and ``{key: registers and warps per SM}`` of the
+    whole-trace instances."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.compiler import compile_scene
+    from micro_raytracer_tpu_torch.ops import step
+
+    dev = torch.device("cuda")
+    fns, info = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cfgs = [("room", slice_config())] \
+        + [(n, mesh_config(n)) for n in MESH_NAMES] \
+        + [(n, tex_config(n)) for n in TEX_NAMES] \
+        + [(n, inst_config(n)) for n in INST_NAMES]
+    for name, cfg in cfgs:
+        scene = compile_scene(cfg.scene, dev)
+        tables = step.pack_step(scene)
+        decay = tracer.decay_of(cfg.rt.loss)
+        oT, dT = main_path_rays(cfg, gen, dev)
+        u8s = torch.rand((BOUNCE + 1, step.n_uni(scene.any_refract),
+                          oT.shape[1]), generator=gen, device=dev)
+        hit0 = step.primary_hits(scene, tables, oT, dT)
+        res = step.trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0)
+        ct = torch.randn((3, oT.shape[1]), generator=gen, device=dev)
+        a = (scene, tables, decay, oT, dT, u8s)
+        fns[f"closest_hit/{name}"] = (
+            lambda a=a: step.primary_hits(a[0], a[1], a[3], a[4]), 20)
+        fns[f"trace_fwd/{name}"] = (
+            lambda a=a, h=hit0: step.trace_fwd(*a, h), 5)
+        seg = _segment_launches(*a, hit0)
+        if seg is not None:
+            fns[f"trace_fwd_segments/{name}"] = (seg, 5)
+        if name in ("room", "mesh_glass", "tex_blocks", "inst_grid",
+                    "inst_glass"):
+            fns[f"trace_fwd_train/{name}"] = (
+                lambda a=a, h=hit0: step.trace_fwd_train(*a, h), 5)
+            fns[f"trace_bwd/{name}"] = (
+                lambda a=a, r=res, c=ct: step.trace_bwd(
+                    *a[:3], a[5], r[3], r[4], c, c), 5)
+        for w in ("trace_fwd", "trace_fwd_train"):
+            info[f"{w}/{name}"] = step.instance_resources(scene, tables, w)
+    for name in STEP_NAMES:
+        cfg, scene, tables, decay, _cam = step_inputs(name, dev)
+        oT, dT = main_path_rays(cfg, gen, dev)
+        u8s = torch.rand((BOUNCE + 1, step.n_uni(scene.any_refract),
+                          oT.shape[1]), generator=gen, device=dev)
+        c = step.primary_carry(oT, dT)
+        carries = [c]
+        for k in range(BOUNCE):
+            carries.append(step.step_fwd(scene, tables, decay, carries[-1],
+                                         u8s[k])[0])
+        _c1, hit, res = step.step_fwd_train(scene, tables, decay, c, u8s[0])
+        ct1 = torch.randn(c.shape, generator=gen, device=dev)
+        a = (scene, tables, decay)
+        fns[f"step_fwd/{name}@0"] = (
+            lambda a=a, c=c, u=u8s: step.step_fwd(*a, c, u[0]), 10)
+        fns[f"step_fwd/{name}/sample"] = (
+            lambda a=a, cs=carries, u=u8s: [step.step_fwd(*a, c, u[k])
+                                           for k, c in enumerate(cs)], 2)
+        fns[f"step_bwd/{name}@0"] = (
+            lambda a=a, c=c, u=u8s, r=res, h=hit, g=ct1: step.step_bwd(
+                *a, c, u[0], r, h, g), 10)
+        for w in ("step_fwd", "step_bwd"):
+            info[f"{w}/{name}"] = step.instance_resources(scene, tables, w)
+    return fns, info
+
+
+def _gate_worker(tree):
+    """A worker of ``--gate``: builds ``tree``'s kernels, sets up
+    ``_gate_kernels``, prints ``ready``; then answers ``probe`` with one
+    JSON line of each kernel's ms over one launch, ``reps <JSON>`` by
+    taking those launches per timing, and each ``run`` with one JSON line
+    of every kernel's CUDA-event ms; at the end of its input, one line of
+    the instances' registers and warps."""
+    phase_build()
+    fns, info = _gate_kernels()
+    print("ready", flush=True)
+    for line in sys.stdin:
+        cmd = line.strip()
+        if cmd == "probe":
+            print(json.dumps({k: cuda_ms(f, 1) for k, (f, _r)
+                              in fns.items()}), flush=True)
+        elif cmd.startswith("reps "):
+            reps = json.loads(cmd[5:])
+            fns = {k: (f, reps.get(k, r)) for k, (f, r) in fns.items()}
+        elif cmd == "run":
+            print(json.dumps({k: cuda_ms(f, reps) for k, (f, reps)
+                              in fns.items()}), flush=True)
+        else:
+            break
+    print(json.dumps(info), flush=True)
+    return 0
+
+
+def gate(other, runs=GATE_RUNS, tol=GATE_TOL):
+    """``--gate <tree>``: every kernel of ``_gate_kernels`` in ``<tree>``
+    (the parent) and in this script's own tree, a worker process each on
+    the one card, timed in ``runs`` interleaved runs (parent, change,
+    change, parent, ...), each timing spanning GATE_MS. A kernel passes
+    where the change's median is at most ``1 + tol`` times the parent's or
+    at most the parent's slowest run (inside its spread); prints each
+    kernel's medians, ranges and ratio, the instances' registers and warps
+    per SM, and the keys that failed; returns 1 if any did. A single run of
+    a short launch spreads more than 2%, and two worker processes of one
+    tree can differ by 4% on a 0.27 ms kernel (PERF.md): the
+    median of interleaved runs against the parent's range decides."""
+    import numpy as np
+
+    me = os.path.abspath(__file__)
+    trees = {"parent": os.path.abspath(other),
+             "change": os.path.dirname(me)}
+    procs = {t: subprocess.Popen(
+        [sys.executable, me, "--gate-worker", path], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True) for t, path in trees.items()}
+    try:
+        for t, p in procs.items():
+            while True:
+                line = p.stdout.readline()
+                if not line:
+                    raise RuntimeError(f"gate: the {t} worker ended")
+                if line.strip() == "ready":
+                    break
+        # the launches per timing: as many as span GATE_MS in the faster
+        # tree, the same in both
+        probe = {}
+        for t, p in procs.items():
+            p.stdin.write("probe\n")
+            p.stdin.flush()
+            probe[t] = json.loads(p.stdout.readline())
+        reps = {k: max(1, math.ceil(GATE_MS / max(min(
+            probe["parent"][k], probe["change"][k]), 1e-3)))
+            for k in probe["change"] if k in probe["parent"]}
+        for p in procs.values():
+            p.stdin.write("reps " + json.dumps(reps) + "\n")
+            p.stdin.flush()
+        times = {t: [] for t in trees}
+        for r in range(runs):
+            for t in (("parent", "change") if r % 2 == 0
+                      else ("change", "parent")):
+                procs[t].stdin.write("run\n")
+                procs[t].stdin.flush()
+                times[t].append(json.loads(procs[t].stdout.readline()))
+        info = {}
+        for t, p in procs.items():
+            p.stdin.close()
+            info[t] = json.loads(p.stdout.readline())
+            p.wait(timeout=120)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    out, failed = {}, []
+    for key in times["change"][0]:
+        if key not in times["parent"][0]:
+            continue
+        rec = {}
+        for t in trees:
+            v = [run[key] for run in times[t]]
+            rec[t] = {"median_ms": float(np.median(v)), "min_ms": min(v),
+                      "max_ms": max(v)}
+        rec["ratio"] = rec["change"]["median_ms"] / rec["parent"]["median_ms"]
+        # within tol of the parent's median, or inside its runs' range
+        rec["pass"] = rec["ratio"] <= 1.0 + tol or \
+            rec["change"]["median_ms"] <= rec["parent"]["max_ms"]
+        if not rec["pass"]:
+            failed.append(key)
+        out[key] = rec
+        log(f"gate {key}: parent {rec['parent']['median_ms']:.4f} ms "
+            f"[{rec['parent']['min_ms']:.4f}, {rec['parent']['max_ms']:.4f}]"
+            f", change {rec['change']['median_ms']:.4f} ms "
+            f"[{rec['change']['min_ms']:.4f}, {rec['change']['max_ms']:.4f}]"
+            f", ratio {rec['ratio']:.4f}{'' if rec['pass'] else ' FAIL'}")
+    print(json.dumps({"gate": out, "runs": runs, "tol": tol, "reps": reps,
+                      "instances": info, "failed": failed}))
+    return 1 if failed else 0
+
+
 def main() -> int:
     try:
         import torch
@@ -4540,7 +5062,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # a worker of --gate imports the package of the tree it times
+    worker = sys.argv[1:2] == ["--gate-worker"] and len(sys.argv) == 3
+    sys.path.insert(0, os.path.abspath(sys.argv[2]) if worker
+                    else os.path.dirname(os.path.abspath(__file__)))
     try:
         import micro_raytracer_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -4553,6 +5078,12 @@ def main() -> int:
     logging.getLogger("raytrace").addFilter(_NoSceneEcho())
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if worker:
+        return _gate_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--gate"] and len(sys.argv) in (3, 4):
+        rc = gate(sys.argv[2], *(int(a) for a in sys.argv[3:]))
+        print(card)
+        return rc
     if sys.argv[1:] == ["--render-only"]:
         print(json.dumps({"render": render_only(card)}))
         print(card)
@@ -4648,7 +5179,9 @@ def main() -> int:
         step_train[name] = phase_train(step_config(name), card,
                                        step_train_counts[name], name,
                                        leaves=STEP_TRAIN_LEAVES[name])
-    log(f"phases 18-21: {time.perf_counter() - t_start:.1f} s so far")
+    phase_many_lights(results)
+    log(f"phases 18-21 and the lights past the staged ones: "
+        f"{time.perf_counter() - t_start:.1f} s so far")
     big_res, big_counts, big_train_counts, big_train = phase_big(card,
                                                                  results)
     log(f"phases 22-24: {time.perf_counter() - t_start:.1f} s so far")
@@ -4783,7 +5316,9 @@ def main() -> int:
     log(f"render main path: {json.dumps(main_res)}")
     log(f"training main path: {json.dumps(train_res)}; closest_hit "
         f"launches {train_counts[hit3.KERNEL.name]}")
-    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    total = time.perf_counter() - t_start
+    log(f"all phases passed in {total:.1f} s")
+    print(f"chip_smoke: all phases passed in {total:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,14 +25,23 @@
 // mode 0: entry only (tx = te, xrow = row); 1: entry and group exit;
 // 2: any-hit (te = -BIG on a hit, BIG otherwise; row = xrow = 0).
 // A scene without triangles runs the kTri = false instance, the code of
-// the dense-only kernel.
+// the dense-only kernel. A scene without triangles or textures whose sphere
+// segment has cull blocks runs the kWalk instance (sph_walk.cuh): the
+// block stages the sphere sub-blocks' and blocks' AABBs, the lanes'
+// columns of block entry t and the planes' and boxes' sweep rows, and
+// reads the packed sphere rows srows from global memory, where it staged
+// the whole dense table (72 KB for the 1,000-sphere grid) and swept whole
+// 64-row blocks.
 #include <cuda_runtime.h>
 
 #include "hit3.cuh"
+#include "sph_walk.cuh"
 
 namespace {
 
-template <bool kTri>
+constexpr int kThreads = 256;
+
+template <bool kTri, bool kWalk>
 __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
                                    int stride, mrt::Layout lay,
                                    const float* __restrict__ tri,
@@ -44,24 +53,58 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
                                    int mode, float* __restrict__ te,
                                    int* __restrict__ row,
                                    float* __restrict__ tx,
-                                   int* __restrict__ xrow) {
+                                   int* __restrict__ xrow,
+                                   const float* __restrict__ srows,
+                                   const float* __restrict__ ssb) {
   extern __shared__ float s_tab[];
-  mrt::stage(s_tab, tab, P, stride, mrt::kSweepCols);
+  mrt::SphWalk W{};
+  if constexpr (kWalk) {
+    // sub-block AABBs, block AABBs, the blocks' AABB, the lanes' entry-t
+    // columns, then the planes' and boxes' sweep rows (launch's smem)
+    const int ns = (lay.sph_n + mrt::kSubRows - 1) / mrt::kSubRows;
+    float* s_sub = s_tab;
+    float* s_bb = s_sub + ns * mrt::kBbCols;
+    float* s_seg = s_bb + lay.n_sb * mrt::kBbCols;
+    float* s_tb = s_seg + mrt::kBbCols;
+    float* s_pb = s_tb + lay.n_sb * kThreads;
+    mrt::stage(s_sub, ssb, ns, mrt::kBbCols, mrt::kBbCols);
+    mrt::stage(s_bb, sbb, lay.n_sb, mrt::kBbCols, mrt::kBbCols);
+    mrt::stage(s_pb, tab + lay.pln_start * stride, P - lay.pln_start, stride,
+               mrt::kSweepCols);
+    __syncthreads();
+    mrt::chunk_bounds(s_bb, lay.n_sb, s_seg, threadIdx.x, 6);
+    __syncthreads();
+    W = mrt::SphWalk{mrt::SphPack{srows, s_sub, s_seg}, s_bb,
+                     s_tb + threadIdx.x, kThreads,
+                     s_pb - lay.pln_start * mrt::kSweepCols};
+  } else {
+    mrt::stage(s_tab, tab, P, stride, mrt::kSweepCols);
+    if (kTri)
+      mrt::stage(s_tab + P * mrt::kSweepCols, bb, lay.n_cb, mrt::kBbCols,
+                 mrt::kBbCols);
+    else
+      mrt::stage(s_tab + P * mrt::kSweepCols, sbb, lay.n_sb, mrt::kBbCols,
+                 mrt::kBbCols);
+    __syncthreads();
+  }
   mrt::Tris T{tri, s_tab + P * mrt::kSweepCols};
-  if (kTri)
-    mrt::stage(s_tab + P * mrt::kSweepCols, bb, lay.n_cb, mrt::kBbCols,
-               mrt::kBbCols);
-  else
-    mrt::stage(s_tab + P * mrt::kSweepCols, sbb, lay.n_sb, mrt::kBbCols,
-               mrt::kBbCols);
-  __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   const size_t b = static_cast<size_t>(i) * ray_stride;
   const float ox = o[b], oy = o[b + comp_stride], oz = o[b + 2 * comp_stride];
   const float dx = d[b], dy = d[b + comp_stride], dz = d[b + 2 * comp_stride];
   mrt::Hit h;
-  if (mode == 2) {
+  if constexpr (kWalk) {
+    if (mode == 2) {
+      const bool hit = mrt::walk_any_hit(lay, W, ox, oy, oz, dx, dy, dz);
+      h = mrt::Hit{hit ? -mrt::kBig : mrt::kBig, 0,
+                   hit ? -mrt::kBig : mrt::kBig, 0};
+    } else if (mode == 1) {
+      h = mrt::walk_closest_hit<true>(lay, W, ox, oy, oz, dx, dy, dz);
+    } else {
+      h = mrt::walk_closest_hit<false>(lay, W, ox, oy, oz, dx, dy, dz);
+    }
+  } else if (mode == 2) {
     const bool hit = mrt::any_hit<kTri>(s_tab, mrt::kSweepCols, lay, ox, oy,
                                         oz, dx, dy, dz, T);
     h.te = hit ? -mrt::kBig : mrt::kBig;
@@ -81,27 +124,33 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
   xrow[i] = h.xrow;
 }
 
-template <bool kTri>
+template <bool kTri, bool kWalk>
 int launch(const float* tab, int P, int stride, const mrt::Layout& lay,
            const float* tri, const float* bb, const float* sbb,
            const float* o, const float* d,
            int ray_stride, int comp_stride, int R, int mode, float* te,
-           int* row, float* tx, int* xrow, cudaStream_t stream) {
+           int* row, float* tx, int* xrow, const float* srows,
+           const float* ssb, cudaStream_t stream) {
+  const int ns = (lay.sph_n + mrt::kSubRows - 1) / mrt::kSubRows;
   const size_t smem =
-      (static_cast<size_t>(P) * mrt::kSweepCols +
-       static_cast<size_t>(kTri ? lay.n_cb : lay.n_sb) * mrt::kBbCols) *
-      sizeof(float);
+      kWalk ? (static_cast<size_t>(ns + lay.n_sb + 1) * mrt::kBbCols +
+               static_cast<size_t>(lay.n_sb) * kThreads +
+               static_cast<size_t>(P - lay.pln_start) * mrt::kSweepCols) *
+                  sizeof(float)
+            : (static_cast<size_t>(P) * mrt::kSweepCols +
+               static_cast<size_t>(kTri ? lay.n_cb : lay.n_sb) *
+                   mrt::kBbCols) *
+                  sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        closest_hit_kernel<kTri>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        closest_hit_kernel<kTri, kWalk>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int threads = 256;
-  const int blocks = (R + threads - 1) / threads;
-  closest_hit_kernel<kTri><<<blocks, threads, smem, stream>>>(
+  const int blocks = (R + kThreads - 1) / kThreads;
+  closest_hit_kernel<kTri, kWalk><<<blocks, kThreads, smem, stream>>>(
       tab, P, stride, lay, tri, bb, sbb, o, d, ray_stride, comp_stride, R,
-      mode, te, row, tx, xrow);
+      mode, te, row, tx, xrow, srows, ssb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -109,7 +158,9 @@ int launch(const float* tab, int P, int stride, const mrt::Layout& lay,
 
 // P: the dense rows (tri_start); tri: the (Pt, 16) triangle table, or null
 // with tri_n = 0; bb: the (n_cb, 8) block AABBs, or null with n_cb = 0;
-// sbb: the sphere segment's (n_sb, 8) block AABBs, or null with n_sb = 0.
+// sbb: the sphere segment's (n_sb, 8) block AABBs, or null with n_sb = 0;
+// with sbb, srows and ssb its packed rows and sub-block AABBs
+// (hit3.sph_walk_tables, 16-byte aligned), else nulls.
 extern "C" int mrt_closest_hit(const float* tab, int P, int stride,
                                int sph_start, int sph_n, int pln_start,
                                int pln_n, int box_start, int box_n,
@@ -118,14 +169,24 @@ extern "C" int mrt_closest_hit(const float* tab, int P, int stride,
                                int n_sb, const float* o,
                                const float* d, int ray_stride,
                                int comp_stride, int R, int mode, float* te,
-                               int* row, float* tx, int* xrow, void* stream) {
+                               int* row, float* tx, int* xrow,
+                               const float* srows, const float* ssb,
+                               void* stream) {
   const mrt::Layout lay{sph_start, sph_n, pln_start, pln_n, box_start,
                         box_n,     tri_start, tri_n, n_cb,    n_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tri_n > 0 ? launch<true>(tab, P, stride, lay, tri, bb, sbb, o, d,
-                                  ray_stride, comp_stride, R, mode, te, row,
-                                  tx, xrow, s)
-                   : launch<false>(tab, P, stride, lay, tri, bb, sbb, o, d,
-                                   ray_stride, comp_stride, R, mode, te, row,
-                                   tx, xrow, s);
+  if (tri_n > 0)
+    return launch<true, false>(tab, P, stride, lay, tri, bb, sbb, o, d,
+                               ray_stride, comp_stride, R, mode, te, row, tx,
+                               xrow, srows, ssb, s);
+  if (n_sb > 0) {
+    if (srows == nullptr || ssb == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch<false, true>(tab, P, stride, lay, tri, bb, sbb, o, d,
+                               ray_stride, comp_stride, R, mode, te, row, tx,
+                               xrow, srows, ssb, s);
+  }
+  return launch<false, false>(tab, P, stride, lay, tri, bb, sbb, o, d,
+                              ray_stride, comp_stride, R, mode, te, row, tx,
+                              xrow, srows, ssb, s);
 }

@@ -48,17 +48,25 @@
 // the blocks its ray touches as a bit mask: 32 bits (`unsigned`) in the
 // whole-trace and primary-hit kernels, whose dense rows (step.MAX_ROWS)
 // hold at most 32 blocks, 64 (`unsigned long long`) in the per-step
-// kernel (step_fwd.cu), up to the JAX package's 64 blocks.
+// kernel (step_fwd.cu), up to the JAX package's 64 blocks. The kernels
+// walk such a segment through sph_walk.cuh instead (8-row sub-blocks,
+// nearest first from inside it; the whole trace's and the primary-hit
+// kernel's kWalk instances, step_fwd.cu's kCull ones), to the same t and
+// row; this walk is the reference the host tests hold them to.
 //
 // Per-ray block cull: the segment is cut into 64-row blocks (the compiler's
-// median-split leaf) with world AABBs (hit3.tri_blockbounds). Where the JAX
-// package culls — entry-only sweeps and any-hit sweeps, never an exit pass
-// — a ray slab-tests each block and skips it when it misses the AABB or
-// enters it beyond the ray's best t so far. The JAX kernel cut the same
-// blocks per 1024-ray tile (a block is swept for the whole tile if one lane
-// needs it); one thread per ray makes the per-ray test natural. Both drop
-// only "phantom" |det| >= E hits outside their block's AABB, and the plain
-// version (ops/hit3.py) applies this same rule, so the two agree ray by ray.
+// median-split leaf) with world AABBs (hit3.tri_blockbounds). Every entry
+// and any-hit sweep culls — a ray slab-tests each block and skips it when
+// it misses the AABB or enters it beyond the ray's best t so far — and so
+// does the group exit of a refractive scene's sweeps (tri_exit_culled: a
+// block the ray leaves before its best exit t so far is skipped), where the
+// JAX package culls only entry-only and any-hit sweeps. The JAX kernel cut
+// the same blocks per 1024-ray tile (a block is swept for the whole tile if
+// one lane needs it); one thread per ray makes the per-ray test natural.
+// Both drop only "phantom" |det| >= E hits outside their block's AABB, and
+// the plain version (ops/hit3.py) applies this same rule, so the two agree
+// ray by ray; a culled exit differs from the unculled one only on a phantom
+// exit.
 //
 // What bounds it on the H100: arithmetic. Each ray runs ~40 float ops per
 // row and per sweep, the row table is a few KB read from shared memory as
@@ -315,6 +323,25 @@ __device__ __forceinline__ bool block_touch(const float* bb, float ox,
   return tmax >= nan_max(tmin, 0.0f) && tmin <= best;
 }
 
+// Does the ray (o, 1/d) meet block AABB `bb` and leave it at or after
+// `best`? (the culled exit's test; ops/hit3.py _slab_leave)
+__device__ __forceinline__ bool block_leave(const float* bb, float ox,
+                                            float oy, float oz, float ix,
+                                            float iy, float iz, float best) {
+  const float o[3] = {ox, oy, oz};
+  const float inv[3] = {ix, iy, iz};
+  float tmin = 0.0f, tmax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float t1 = (bb[k] - o[k]) * inv[k];
+    const float t2 = (bb[3 + k] - o[k]) * inv[k];
+    const float near = nan_min(t1, t2), far = nan_max(t1, t2);
+    tmin = k == 0 ? near : nan_max(tmin, near);
+    tmax = k == 0 ? far : nan_min(tmax, far);
+  }
+  return tmax >= nan_max(tmin, 0.0f) && tmax >= best;
+}
+
 // 1 / d with EPS for a zero component (the slab test's inverse direction)
 __device__ __forceinline__ float inv_dir(float d) {
   return 1.0f / (d == 0.0f ? kEps : d);
@@ -458,13 +485,55 @@ __device__ __forceinline__ void tri_exit(const Tris& T, const Layout& L,
   }
 }
 
+// The exit pass of closest_hit over the triangle rows of the winner's
+// group (the winner is triangle-local row `w`), culled per ray where the
+// segment has cull blocks: block by block over the group's rows, a block
+// the ray misses or leaves before its best exit t so far is skipped
+// (block_leave), then tri_exit's rows, strict `>`, rows ascending. A
+// group's farthest hit lies inside its block's AABB, so only a phantom
+// |det| >= E exit outside it is dropped (ops/tri.py culled_exit_phantoms),
+// and the plain version (ops/hit3.py _tri_exit with the cull blocks)
+// drops the same: csrc/tri.cu's culled group exit (row 7) walked one
+// level, the torus's 15 blocks being one superblock.
+__device__ __forceinline__ void tri_exit_culled(const Tris& T,
+                                                const Layout& L, int w,
+                                                float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                float& best, int& row) {
+  const float* wr = T.tab + w * kTriCols;
+  const float wg = __ldg(wr + T_GID);
+  const int hi = imin(static_cast<int>(__ldg(wr + T_GE)), L.tri_n);
+  const bool cull = L.n_cb > 0;
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  for (int lo = static_cast<int>(__ldg(wr + T_GS)); lo < hi;) {
+    const int b = lo / kCullRows, be = imin((b + 1) * kCullRows, hi);
+    if (!cull ||
+        block_leave(T.bb + b * kBbCols, ox, oy, oz, ix, iy, iz, best)) {
+      for (int i = lo; i < be; ++i) {
+        const float* r = T.tab + i * kTriCols;
+        if (__ldg(r + T_GID) != wg) continue;
+        float t;
+        const float v = tri_hit(r, ox, oy, oz, dx, dy, dz, t) ? t : -kBig;
+        if (v > best) {
+          best = v;
+          row = L.tri_start + i;
+        }
+      }
+    }
+    lo = be;
+  }
+}
+
 // Closest hit of ray (o, d) over the table `tab` (the dense rows; rows of
 // `stride` floats whose first kSweepCols are the sweep columns) and, with
-// kTri, the triangle segment. kNeedExit: entry and group exit, never
-// culled; otherwise entry only, culled (the triangle blocks; with kSph the
-// sphere blocks, in the instances of scenes without triangles or textures,
-// which alone get them: hit3.sph_table). Mask: the type of a lane's
-// sphere-block mask (the blocks it may hold).
+// kTri, the triangle segment. The triangle entry culls per ray (its
+// blocks); kNeedExit: entry and group exit, the triangle group's exit
+// culled too (tri_exit_culled), the dense rows never; otherwise entry
+// only, with kSph the sphere blocks culled too (lowest first; the
+// instances of scenes without triangles or textures, which alone get them:
+// hit3.sph_table; the whole-trace and primary-hit kernels walk them with
+// sph_walk.cuh instead). Mask: the type of a lane's sphere-block mask (the
+// blocks it may hold).
 template <bool kNeedExit, bool kTri = false, bool kSph = !kTri,
           class Mask = unsigned>
 __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
@@ -481,8 +550,7 @@ __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
   entry_seg<kBox>(tab, stride, L.box_start, L.box_n, ox, oy, oz, dx, dy, dz,
                   best, row);
   if (kTri)
-    tri_entry(T, L, !kNeedExit && L.n_cb > 0, ox, oy, oz, dx, dy, dz, best,
-              row);
+    tri_entry(T, L, L.n_cb > 0, ox, oy, oz, dx, dy, dz, best, row);
   Hit h;
   h.te = best;
   h.row = row;
@@ -495,7 +563,8 @@ __device__ __forceinline__ Hit closest_hit(const float* tab, int stride,
   int xrow = 0;
   if (kTri && best < kBig && row >= L.tri_start) {
     // a triangle's group holds triangle rows only
-    tri_exit(T, L, row - L.tri_start, ox, oy, oz, dx, dy, dz, xbest, xrow);
+    tri_exit_culled(T, L, row - L.tri_start, ox, oy, oz, dx, dy, dz, xbest,
+                    xrow);
   } else {
     // miss lanes keep wg = BIG, which matches no row's group id
     const float wg = best < kBig ? tab[row * stride + C_GID] : kBig;

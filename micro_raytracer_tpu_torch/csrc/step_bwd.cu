@@ -73,7 +73,8 @@ namespace mrt {
 template <bool kRefract, bool kTex, class Acc>
 __device__ __forceinline__ void step_bwd_any(
     const float* at, const Texels& tv, int kind, const float* tr,
-    const float* s_lt, int L, const float* lok, V3 o, V3 d, V3 A, float t_c,
+    const LightTab& s_lt, int L, const float* lok, V3 o, V3 d, V3 A,
+    float t_c,
     bool choose, const float* u, int R, float pwr, V3 ctB, V3& ct_o,
     V3& ct_d, V3& ct_A, float& ct_pwr, float* d_at, float* d_gh, Acc& acc,
     bool act = true) {
@@ -110,7 +111,7 @@ __device__ __forceinline__ void step_bwd_any(
   for (int li = 0; li < L; ++li) {
     float g[kLightCols] = {};  // this light's cotangent row
     if (act && !b_emit && lok[li * R] > 0.5f) {
-      const float* lt = s_lt + li * kLightCols;
+      const float* lt = s_lt.row(li);
       const V3 lv = light_vec(lt, p);
       const float s_lv = dot(lv, lv);
       const float invl = 1.0f / sqrtf(s_lv > 0.0f ? s_lv : 1.0f);
@@ -265,7 +266,7 @@ __device__ __forceinline__ void step_bwd_any(
 // through.
 template <bool kRefract, bool kTri, bool kTex, bool kWarp = false, class Acc>
 __device__ __forceinline__ void step_ray_bwd(
-    const float* tab, const Tris& T, const Layout& lay, const float* s_lt,
+    const float* tab, const Tris& T, const Layout& lay, const LightTab& s_lt,
     int L, float dk, const Tex& tex, int i, int R,
     const float* __restrict__ resid, const float* __restrict__ hit,
     const float* __restrict__ c0, const float* __restrict__ u8,
@@ -435,10 +436,15 @@ size_t smem_bytes(int P, int L, int rows_shared) {
               ? static_cast<size_t>(P) * mrt::kRowCols * sizeof(double)
               : 0) +
          (slots_shared(P, L, rows_shared) ? slot_bytes(L) : 0) +
-         static_cast<size_t>(L) * mrt::kLightCols * sizeof(float);
+         static_cast<size_t>(std::min(L, mrt::kStagedLights)) *
+             mrt::kLightCols * sizeof(float);
 }
 
-template <bool kRefract, bool kTri, bool kTex>
+// kMany: more lights than the block stages (kStagedLights); the rest are
+// read from global memory (a kernel of its own, so that the others keep
+// their code: reading the lights through two pointers spilled 36 B more
+// on lights8 and cost its step 3.9%, PERF.md)
+template <bool kRefract, bool kTri, bool kTex, bool kMany>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     step_bwd_kernel(const float* __restrict__ tab, int P, mrt::Layout lay,
                     const float* __restrict__ tri,
@@ -458,8 +464,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int n_slots = lights_shared ? warps * nl : 0;
   double* s_rows = smem;                // (P, 26) when rows_shared
   double* s_slots = smem + n_rows;      // (warps, L, 11) when lights_shared
-  float* s_lt = reinterpret_cast<float*>(s_slots + n_slots);  // (L, 11)
-  mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
+  // (min(L, kStagedLights), 11): the rest read from global memory
+  float* s_lt = reinterpret_cast<float*>(s_slots + n_slots);
+  mrt::stage(s_lt, lights, mrt::staged_lights(L), mrt::kLightCols,
+             mrt::kLightCols);
+  const mrt::LightTab lts =
+      kMany ? mrt::LightTab{s_lt, lights} : mrt::LightTab{s_lt};
   for (int c = threadIdx.x; c < n_rows + n_slots; c += blockDim.x)
     smem[c] = 0.0;
   __syncthreads();
@@ -480,7 +490,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const bool on = i < R && hit[i] > 0.5f;
     if (__any_sync(kFull, on)) {
       mrt::step_ray_bwd<kRefract, kTri, kTex, true>(
-          tab, T, lay, s_lt, L, dk, tex, i, R, resid, hit, c0, u8, ct1, ct0,
+          tab, T, lay, lts, L, dk, tex, i, R, resid, hit, c0, u8, ct1, ct0,
           wacc);
     } else if (i < R) {
       // no lane of the warp hit: the cotangents pass through
@@ -544,9 +554,9 @@ struct Args {
   float* d_tri;
 };
 
-template <bool kRefract, bool kTri, bool kTex>
+template <bool kRefract, bool kTri, bool kTex, bool kMany>
 int launch(const Args& a, cudaStream_t stream) {
-  const auto kernel = step_bwd_kernel<kRefract, kTri, kTex>;
+  const auto kernel = step_bwd_kernel<kRefract, kTri, kTex, kMany>;
   const size_t smem = smem_bytes(a.P, a.L, a.rows_shared);
   int per_sm = 0, sms = 0;
   int e = mrt::resident_blocks(kernel, kThreads, smem, &per_sm, &sms);
@@ -573,7 +583,9 @@ struct Launch {
   cudaStream_t s;
   template <bool kRefract, bool kTri, bool kTex>
   int run() const {
-    return launch<kRefract, kTri, kTex>(a, s);
+    return a.L > mrt::kStagedLights
+               ? launch<kRefract, kTri, kTex, true>(a, s)
+               : launch<kRefract, kTri, kTex, false>(a, s);
   }
 };
 
@@ -582,9 +594,14 @@ struct Occupancy {
   int* per_sm;
   template <bool kRefract, bool kTri, bool kTex>
   int run() const {
-    return mrt::resident_blocks(step_bwd_kernel<kRefract, kTri, kTex>,
-                                kThreads, smem_bytes(P, L, rows_shared),
-                                per_sm);
+    const size_t smem = smem_bytes(P, L, rows_shared);
+    return L > mrt::kStagedLights
+               ? mrt::resident_blocks(
+                     step_bwd_kernel<kRefract, kTri, kTex, true>, kThreads,
+                     smem, per_sm)
+               : mrt::resident_blocks(
+                     step_bwd_kernel<kRefract, kTri, kTex, false>, kThreads,
+                     smem, per_sm);
   }
 };
 

@@ -80,7 +80,7 @@
 //
 // Numerics: float32, -fmad=false, as trace_fwd.cu.
 #include "trace_step.cuh"
-#include "tri_walk.cuh"
+#include "sph_walk.cuh"
 
 namespace mrt {
 
@@ -145,221 +145,6 @@ __device__ __forceinline__ Hit closest_hit_in(const float* tab, int stride,
   h.tx = xbest;
   h.xrow = xrow;
   return h;
-}
-
-// (tmin, tmax) of the ray (o, 1/d) against block AABB `bb`: hit3.cuh
-// block_touch's operations in its order, so the same bits.
-__device__ __forceinline__ void block_slab(const float* bb, float ox,
-                                           float oy, float oz, float ix,
-                                           float iy, float iz, float& tmin,
-                                           float& tmax) {
-  const float o[3] = {ox, oy, oz};
-  const float inv[3] = {ix, iy, iz};
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float t1 = (bb[k] - o[k]) * inv[k];
-    const float t2 = (bb[3 + k] - o[k]) * inv[k];
-    const float near = nan_min(t1, t2), far = nan_max(t1, t2);
-    tmin = k == 0 ? near : nan_max(tmin, near);
-    tmax = k == 0 ? far : nan_min(tmax, far);
-  }
-}
-
-// The culled sphere segment's tables of the per-step walks
-// (ops/hit3.py sph_walk_tables): its rows packed 16 floats a row (frame,
-// position, radius, valid) and the AABBs of its kSubRows-row sub-blocks
-// [lo | hi | g | 0], both in global memory, 16-byte aligned (rows are
-// segment-local); and in the kernels' shared memory the AABB of all its
-// blocks, `seg` [lo | hi].
-struct SphPack {
-  const float* rows;
-  const float* sub;
-  const float* seg = nullptr;
-};
-constexpr int kSubRows = 8;  // ops/hit3.py SPH_SUB
-constexpr int kSubs = kCullRows / kSubRows;
-
-// hit3.cuh row_hit<kSphere> of packed row `a` (frame f, position i,
-// radius, valid): four 16-byte loads, then row_hit's operations in its
-// order, so the same t0, t1 and hit bit for bit. (row_hit itself is left
-// as it is: sharing this code with it compiled the whole-trace kernel's
-// instances to other registers.)
-__device__ __forceinline__ bool sph_hit4(const float* a, float ox, float oy,
-                                         float oz, float dx, float dy,
-                                         float dz, float& t0, float& t1) {
-  const F4 r0 = ld4g(a), r1 = ld4g(a + 4), r2 = ld4g(a + 8),
-           r3 = ld4g(a + 12);
-  const float f[9] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w, r2.x};
-  const float ix = r2.y, iy = r2.z, iz = r2.w, rad = r3.x;
-  const float rx = ox - ix, ry = oy - iy, rz = oz - iz;
-  const float opx = f[0] * rx + f[1] * ry + f[2] * rz + ix;
-  const float opy = f[3] * rx + f[4] * ry + f[5] * rz + iy;
-  const float opz = f[6] * rx + f[7] * ry + f[8] * rz + iz;
-  const float dpx = f[0] * dx + f[1] * dy + f[2] * dz;
-  const float dpy = f[3] * dx + f[4] * dy + f[5] * dz;
-  const float dpz = f[6] * dx + f[7] * dy + f[8] * dz;
-  const float ox_ = opx - ix, oy_ = opy - iy, oz_ = opz - iz;
-  const float qa = dpx * dpx + dpy * dpy + dpz * dpz;
-  const float bq = 2.0f * (ox_ * dpx + oy_ * dpy + oz_ * dpz);
-  const float c = ox_ * ox_ + oy_ * oy_ + oz_ * oz_ - rad * rad;
-  const float disc = bq * bq - 4.0f * qa * c;
-  const float sq = sqrtf(disc >= 0.0f ? nan_max(disc, 1e-12f) : 1.0f);
-  const float a2 = qa == 0.0f ? 1.0f : 2.0f * qa;
-  t0 = (-bq - sq) / a2;
-  t1 = (-bq + sq) / a2;
-  const bool ok = (disc >= 0.0f) && (t0 >= 0.0f);
-  return ok && r3.y > 0.5f && isfinite(t0) && isfinite(t1);
-}
-
-// Does the ray (o, 1/d) enter sub-block AABB `sb` at or before `best`,
-// the box grown by g (1 + |o - c|^2), c its centre and g = sb[6]? A row
-// the sphere test (hit3.cuh sphere_hit) reports hit lies inside the box
-// so grown, and its t0 is at least the grown box's entry t: the test's
-// rounding, on a ray that grazes the sphere from a distance |o - c|,
-// moves its closest approach by about 1e-7 |o - c|^2 / r and, where the
-// discriminant is near zero, its t0 by about 3.5e-4 |o - c| (the square
-// root of the discriminant's rounding), and g (ops/hit3.py
-// sph_walk_tables) is 1e-3 + 2e-6 / r, at least twice both. So a skipped
-// sub-block holds no row a whole block's sweep would have taken: a far
-// ray's sphere hits can lie outside the slacked boxes (about 0.01 at 200
-// units), and a sub-block culled at its bare box would drop them.
-__device__ __forceinline__ bool sub_touch(const float* sb, float ox,
-                                          float oy, float oz, float ix,
-                                          float iy, float iz, float best) {
-  const F4 a = ld4g(sb), b = ld4g(sb + 4);
-  const float qx = ox - 0.5f * (a.x + a.w), qy = oy - 0.5f * (a.y + b.x),
-              qz = oz - 0.5f * (a.z + b.y);
-  const float grow = b.z * (1.0f + qx * qx + qy * qy + qz * qz);
-  const float lo[3] = {a.x - grow, a.y - grow, a.z - grow};
-  const float hi[3] = {a.w + grow, b.x + grow, b.y + grow};
-  const float o[3] = {ox, oy, oz};
-  const float inv[3] = {ix, iy, iz};
-  float tmin = 0.0f, tmax = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float t1 = (lo[k] - o[k]) * inv[k];
-    const float t2 = (hi[k] - o[k]) * inv[k];
-    const float near = nan_min(t1, t2), far = nan_max(t1, t2);
-    tmin = k == 0 ? near : nan_max(tmin, near);
-    tmax = k == 0 ? far : nan_min(tmax, far);
-  }
-  return tmax >= nan_max(tmin, 0.0f) && tmin <= best;
-}
-
-// The rows of sphere block b, sub-block by sub-block: a sub-block whose
-// grown AABB (sub_touch) the ray does not enter at or before `best`
-// (kAny: does not meet; best is BIG) is skipped. Entry (kAny false): a hit
-// takes the best when its (t, row) is the smaller pair, so a tie goes to
-// the lowest row in any order of blocks; kAny: true at the first hit.
-template <bool kAny>
-__device__ __forceinline__ bool sph_block_rows(const Layout& L,
-                                               const SphPack& P, int b,
-                                               float ox, float oy, float oz,
-                                               float dx, float dy, float dz,
-                                               float ix, float iy, float iz,
-                                               float& best, int& row) {
-  for (int s = b * kSubs; s < b * kSubs + kSubs; ++s) {
-    const int r0 = s * kSubRows;
-    if (r0 >= L.sph_n) break;
-    if (!sub_touch(P.sub + s * kBbCols, ox, oy, oz, ix, iy, iz, best))
-      continue;
-    const int r1 = imin(r0 + kSubRows, L.sph_n);
-    for (int i = r0; i < r1; ++i) {
-      float t0, t1;
-      if (!sph_hit4(P.rows + i * 16, ox, oy, oz, dx, dy, dz, t0, t1))
-        continue;
-      if (kAny) return true;
-      const int r = L.sph_start + i;
-      if (t0 < best || (t0 == best && r < row)) {
-        best = t0;
-        row = r;
-      }
-    }
-  }
-  return false;
-}
-
-// Entry sweep of the sphere segment through its cull blocks `sbb`: the
-// blocks the ray's slab test touches at all (hit3.cuh sph_touched), their
-// entry t kept in `tb` (the lane's column of shared memory, stride ts),
-// each swept sub-block by sub-block (sph_block_rows). A ray whose origin
-// lies inside the segment's AABB (P.seg: a bounced ray inside the grid)
-// visits them nearest first, in ascending entry t until the next begins
-// beyond `best`; any other ray lowest first, skipping a block it does not
-// enter at or before `best`: hit3.cuh sph_entry's walk.
-//
-// Why the nearest-first walk gives the lowest-first walk's t and row: a
-// sphere's hit point lies inside its block's AABB (centre +- r with a
-// slack of 1e-4 + 1e-4 * extent, hit3.sph_blockbounds), so a hit's t is
-// at least its block's entry t; a block skipped here begins beyond the
-// best t, so its hits lose to it, and a block skipped there did likewise.
-// Both walks thus give the smallest (t, row) over the rows of every
-// touched block, the dense sweep's. The sphere test's rounding can put a
-// grazing hit outside its block's box (a phantom), where the two orders
-// could part, only from origins some tens of units away (sub_touch's
-// estimate against the slack); inside the segment's box the origins are
-// within its diagonal of every sphere. The host tests
-// (test_torch_step_walk.py) and the outputs of tools/torch_compare_trees.py
-// hold the two equal ray by ray. Bounced rays inside a grid meet many
-// blocks, and the lowest-first walk swept each whose entry came before its
-// best so far, all 64 rows of it.
-template <class Mask>
-__device__ __forceinline__ void sph_entry_nearest(
-    const Layout& L, const float* sbb, const SphPack& P, float* tb, int ts,
-    float ox, float oy, float oz, float dx, float dy, float dz, float& best,
-    int& row) {
-  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-  Mask m = 0u;
-  for (int b = 0; b < L.n_sb; ++b) {
-    float tmin, tmax;
-    block_slab(sbb + b * kBbCols, ox, oy, oz, ix, iy, iz, tmin, tmax);
-    if (tmax >= nan_max(tmin, 0.0f) && tmin <= kBig) {
-      m |= Mask(1) << b;
-      tb[b * ts] = tmin;
-    }
-  }
-  const float* g = P.seg;
-  const bool inside = ox >= g[0] && oy >= g[1] && oz >= g[2] &&
-                      ox <= g[3] && oy <= g[4] && oz <= g[5];
-  while (m) {
-    int nb = low_bit(m);
-    float nt = tb[nb * ts];
-    if (inside) {
-      for (Mask q = m & (m - 1u); q; q &= q - 1u) {
-        const int b = low_bit(q);
-        const float t = tb[b * ts];
-        if (t < nt) {
-          nt = t;
-          nb = b;
-        }
-      }
-      if (!(nt <= best)) break;
-    }
-    m &= ~(Mask(1) << nb);
-    if (nt <= best)
-      sph_block_rows<false>(L, P, nb, ox, oy, oz, dx, dy, dz, ix, iy, iz,
-                            best, row);
-  }
-}
-
-// Any-hit over the sphere segment: hit3.cuh sph_any's walk (the touched
-// blocks lowest first: a shadow ray leaves its origin's block, which a
-// nearest-first walk would take first), each block sub-block by sub-block.
-template <class Mask>
-__device__ __forceinline__ bool sph_any_sub(const Layout& L,
-                                            const float* sbb,
-                                            const SphPack& P, float ox,
-                                            float oy, float oz, float dx,
-                                            float dy, float dz) {
-  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-  float big = kBig;
-  int row = 0;
-  for (Mask m = sph_touched<Mask>(L, sbb, ox, oy, oz, ix, iy, iz); m;
-       m &= m - 1u)
-    if (sph_block_rows<true>(L, P, low_bit(m), ox, oy, oz, dx, dy, dz, ix,
-                             iy, iz, big, row))
-      return true;
-  return false;
 }
 
 // The closest hit of the per-step kernels: hit3.cuh closest_hit's, or
@@ -443,14 +228,15 @@ struct StepWalk {
 // One ray's bounce step from the carry `c0` to `c1` (both (14, R)) with
 // the step's uniforms `u8` (NU, R); hit_out (R,) the step's hit liveness;
 // kTrain: the step's residuals (CR, R) of a ray that hits. `tab` is the
-// whole row table in global memory, `s_lt` the lights and T.bb the cull
+// whole row table in global memory, `s_lt` the lights (staged in shared
+// memory, past kStagedLights read from global memory) and T.bb the cull
 // blocks in shared memory (kTriIn: T.bb in global memory; kTriIn takes
 // kTri), `W` what the walks read besides; kCull: the sphere segment has
 // cull blocks and W its walk tables (kCull takes !kTri, !kTex).
 template <bool kRefract, bool kTrain, bool kTri = false, bool kTex = false,
           bool kTriIn = false, bool kCull = false>
 __device__ __forceinline__ void step_ray(
-    const float* tab, const Tris& T, const Layout& lay, const float* s_lt,
+    const float* tab, const Tris& T, const Layout& lay, const LightTab& s_lt,
     int L, float dk, const Tex& tex, int i, int R,
     const float* __restrict__ c0, const float* __restrict__ u8,
     float* __restrict__ c1, float* __restrict__ hit_out,
@@ -544,7 +330,7 @@ __device__ __forceinline__ void step_ray(
     V3 l_col = v3(0.0f, 0.0f, 0.0f);
     if (kTrain || !b_emit) {
       for (int li = 0; li < L; ++li) {
-        const float* lt = s_lt + li * kLightCols;
+        const float* lt = s_lt.row(li);
         const V3 lv_e = light_vec(lt, p_e);
         const V3 ln_e = scale(lv_e, 1.0f / sqrtf(dot(lv_e, lv_e)));
         const V3 so = add(p_e, scale(ln_e, kEps));
@@ -619,9 +405,16 @@ __device__ __forceinline__ void step_ray(
 
 #include "grid.cuh"
 
+#ifndef MRT_STEP_FWD_MANY
+#define MRT_STEP_FWD_MANY 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 128;
+
+// the instances this library holds: kMany (step_fwd_many.cu) or not
+constexpr bool kManyLib = MRT_STEP_FWD_MANY != 0;
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -683,7 +476,14 @@ __device__ __forceinline__ void release_counters(int* next) {
 // paid for its live lanes' walks beside its dead ones (PERF.md, row 4's
 // ablation: the same carries with their live rays first took 16-40% off a
 // sample). kTri and kTex instances step one ray per thread.
-template <bool kRefract, bool kTrain, bool kTri, bool kTex, bool kCull>
+// kMany (here and in step_fwd_in_kernel): more lights than a block stages
+// (kStagedLights), the rest read from global memory: instances of their
+// own, so that the others keep their code (the two pointers cost them 1-5
+// registers, PERF.md), built in a library of their own
+// (step_fwd_many.cu, MRT_STEP_FWD_MANY) so that the two compile side by
+// side
+template <bool kRefract, bool kTrain, bool kTri, bool kTex, bool kCull,
+          bool kMany>
 __global__ void step_fwd_kernel(const float* __restrict__ tab,
                                 mrt::Layout lay,
                                 const float* __restrict__ tri,
@@ -700,12 +500,15 @@ __global__ void step_fwd_kernel(const float* __restrict__ tab,
   constexpr bool kSph = !kTri && !kTex;
   extern __shared__ float smem[];
   float* s_lt = smem;
-  float* s_bb = s_lt + L * mrt::kLightCols;
+  const int nl = mrt::staged_lights(L);
+  float* s_bb = s_lt + nl * mrt::kLightCols;
+  const mrt::LightTab lts =
+      kMany ? mrt::LightTab{s_lt, lights} : mrt::LightTab{s_lt};
   if constexpr (kSph) {
     __shared__ int s_q[2 * kThreads];
     __shared__ float s_seg[mrt::kBbCols];
     float* s_tb = s_bb + lay.n_sb * mrt::kBbCols;
-    mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
+    mrt::stage(s_lt, lights, nl, mrt::kLightCols, mrt::kLightCols);
     mrt::stage(s_bb, sbb, lay.n_sb, mrt::kBbCols, mrt::kBbCols);
     __syncthreads();
     // the AABB of all the sphere blocks (at most 64: one chunk)
@@ -718,12 +521,12 @@ __global__ void step_fwd_kernel(const float* __restrict__ tab,
         R, c0, next, s_q + 2 * (threadIdx.x & ~31u),
         [&](int j) {
           mrt::step_ray<kRefract, kTrain, kTri, kTex, false, kCull>(
-              tab, T, lay, s_lt, L, dk, tex, j, R, c0, u8, c1, hit, resid,
+              tab, T, lay, lts, L, dk, tex, j, R, c0, u8, c1, hit, resid,
               W);
         },
         [&](int j) {
           mrt::step_ray<kRefract, kTrain, kTri, kTex>(
-              tab, T, lay, s_lt, L, dk, tex, j, R, c0, u8, c1, hit, resid);
+              tab, T, lay, lts, L, dk, tex, j, R, c0, u8, c1, hit, resid);
         });
     release_counters(next);
     return;
@@ -731,14 +534,14 @@ __global__ void step_fwd_kernel(const float* __restrict__ tab,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   // a block whose lanes are all dead only passes its carry through
   if (__syncthreads_or(i < R && c0[mrt::kC_LIVE * R + i] > 0.5f)) {
-    mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
+    mrt::stage(s_lt, lights, nl, mrt::kLightCols, mrt::kLightCols);
     if (kTri)
       mrt::stage(s_bb, bb, lay.n_cb, mrt::kBbCols, mrt::kBbCols);
     __syncthreads();
   }
   if (i >= R) return;
   mrt::step_ray<kRefract, kTrain, kTri, kTex>(
-      tab, mrt::Tris{tri, s_bb}, lay, s_lt, L, dk, tex, i, R, c0, u8, c1,
+      tab, mrt::Tris{tri, s_bb}, lay, lts, L, dk, tex, i, R, c0, u8, c1,
       hit, resid);
 }
 
@@ -746,7 +549,7 @@ __global__ void step_fwd_kernel(const float* __restrict__ tab,
 // chunks' bounds, tri_walk.cuh) in shared memory; the cull blocks' AABBs
 // are read from global memory, the triangle segment's hits from `tin`.
 // Its warps refill (step_fwd_kernel).
-template <bool kRefract, bool kTrain, bool kTex>
+template <bool kRefract, bool kTrain, bool kTex, bool kMany>
 __global__ void step_fwd_in_kernel(const float* __restrict__ tab,
                                    mrt::Layout lay,
                                    const float* __restrict__ tri,
@@ -765,7 +568,10 @@ __global__ void step_fwd_in_kernel(const float* __restrict__ tab,
   __shared__ __align__(16) mrt::Staged st;
   __shared__ int s_q[2 * kThreads];
   float* s_lt = smem;
-  mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
+  mrt::stage(s_lt, lights, mrt::staged_lights(L), mrt::kLightCols,
+             mrt::kLightCols);
+  const mrt::LightTab lts =
+      kMany ? mrt::LightTab{s_lt, lights} : mrt::LightTab{s_lt};
   const mrt::Supers S = mrt::stage_supers(st, tsb, n_tsb);  // synchronizes
   const mrt::Tris T{tri, bb};
   const mrt::StepWalk W{nullptr, 0, {}, tin, S};
@@ -773,11 +579,11 @@ __global__ void step_fwd_in_kernel(const float* __restrict__ tab,
       R, c0, next, s_q + 2 * (threadIdx.x & ~31u),
       [&](int j) {
         mrt::step_ray<kRefract, kTrain, true, kTex, true>(
-            tab, T, lay, s_lt, L, dk, tex, j, R, c0, u8, c1, hit, resid, W);
+            tab, T, lay, lts, L, dk, tex, j, R, c0, u8, c1, hit, resid, W);
       },
       [&](int j) {
         mrt::step_ray<kRefract, kTrain, true, kTex, true>(
-            tab, T, lay, s_lt, L, dk, tex, j, R, c0, u8, c1, hit, resid);
+            tab, T, lay, lts, L, dk, tex, j, R, c0, u8, c1, hit, resid);
       });
   release_counters(next);
 }
@@ -813,14 +619,16 @@ template <bool kRefract, bool kTri, bool kTex, bool kCull>
 size_t smem_bytes(const mrt::Layout& lay, int L) {
   const int n_bb = kTri ? lay.n_cb : kTex ? 0 : lay.n_sb;
   const int n_tb = kCull && !kRefract ? lay.n_sb * kThreads : 0;
-  return (static_cast<size_t>(L) * mrt::kLightCols +
+  return (static_cast<size_t>(std::min(L, mrt::kStagedLights)) *
+              mrt::kLightCols +
           static_cast<size_t>(n_bb) * mrt::kBbCols + n_tb) *
          sizeof(float);
 }
 
-// the kTriIn instances': the lights
+// the kTriIn instances': the staged lights
 size_t smem_in_bytes(int L) {
-  return static_cast<size_t>(L) * mrt::kLightCols * sizeof(float);
+  return static_cast<size_t>(std::min(L, mrt::kStagedLights)) *
+         mrt::kLightCols * sizeof(float);
 }
 
 // blocks of a launch: one per kThreads rays, or where the warps refill
@@ -836,9 +644,23 @@ struct Launch {
   cudaStream_t s;
   template <bool kRefract, bool kTrain, bool kTri, bool kTex, bool kCull>
   int run() const {
+    if ((a.L > mrt::kStagedLights) != kManyLib)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return go<kRefract, kTrain, kTri, kTex, kCull, kManyLib>();
+  }
+  template <bool kRefract, bool kTrain, bool kTex>
+  int run_in() const {
+    if ((a.L > mrt::kStagedLights) != kManyLib)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return go_in<kRefract, kTrain, kTex, kManyLib>();
+  }
+  template <bool kRefract, bool kTrain, bool kTri, bool kTex, bool kCull,
+            bool kMany>
+  int go() const {
     constexpr bool kRefill = !kTri && !kTex;
     const size_t smem = smem_bytes<kRefract, kTri, kTex, kCull>(a.lay, a.L);
-    const auto kernel = step_fwd_kernel<kRefract, kTrain, kTri, kTex, kCull>;
+    const auto kernel =
+        step_fwd_kernel<kRefract, kTrain, kTri, kTex, kCull, kMany>;
     int per_sm = 0, sms = 0;
     const int e = mrt::resident_blocks(kernel, kThreads, smem, &per_sm, &sms);
     if (e) return e;
@@ -849,10 +671,10 @@ struct Launch {
         a.u8, a.R, a.c1, a.hit, a.resid, a.sph, a.next);
     return static_cast<int>(cudaGetLastError());
   }
-  template <bool kRefract, bool kTrain, bool kTex>
-  int run_in() const {
+  template <bool kRefract, bool kTrain, bool kTex, bool kMany>
+  int go_in() const {
     const size_t smem = smem_in_bytes(a.L);
-    const auto kernel = step_fwd_in_kernel<kRefract, kTrain, kTex>;
+    const auto kernel = step_fwd_in_kernel<kRefract, kTrain, kTex, kMany>;
     int per_sm = 0, sms = 0;
     const int e = mrt::resident_blocks(kernel, kThreads, smem, &per_sm, &sms);
     if (e) return e;
@@ -871,14 +693,19 @@ struct Occupancy {
   int* per_sm;
   template <bool kRefract, bool kTrain, bool kTri, bool kTex, bool kCull>
   int run() const {
+    if ((L > mrt::kStagedLights) != kManyLib)
+      return static_cast<int>(cudaErrorInvalidValue);
     return mrt::resident_blocks(
-        step_fwd_kernel<kRefract, kTrain, kTri, kTex, kCull>, kThreads,
-        smem_bytes<kRefract, kTri, kTex, kCull>(lay, L), per_sm);
+        step_fwd_kernel<kRefract, kTrain, kTri, kTex, kCull, kManyLib>,
+        kThreads, smem_bytes<kRefract, kTri, kTex, kCull>(lay, L), per_sm);
   }
   template <bool kRefract, bool kTrain, bool kTex>
   int run_in() const {
-    return mrt::resident_blocks(step_fwd_in_kernel<kRefract, kTrain, kTex>,
-                                kThreads, smem_in_bytes(L), per_sm);
+    if ((L > mrt::kStagedLights) != kManyLib)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return mrt::resident_blocks(
+        step_fwd_in_kernel<kRefract, kTrain, kTex, kManyLib>, kThreads,
+        smem_in_bytes(L), per_sm);
   }
 };
 

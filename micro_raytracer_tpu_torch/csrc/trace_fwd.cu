@@ -110,11 +110,26 @@
 // tests together are one L1 broadcast instead. A scene without triangles runs
 // the kTri = false instances: the code of the dense-only kernel.
 //
+// A scene without triangles or textures whose sphere segment has cull
+// blocks (the Instance class) runs the kWalk instances (render, segment and
+// train): staging its row table (104 B a row, 105 KB for the 1,000-sphere
+// grid) left 2 blocks, 8 warps, per SM. They stage the sphere segment's
+// 8-row sub-blocks' and 64-row blocks' AABBs, each lane's column of block
+// entry t, the lights and the planes' and boxes' sweep rows, and walk the
+// spheres through sph_walk.cuh (nearest first from inside the grid, the
+// packed rows srows read with 16-byte loads through the read-only cache;
+// on a refractive scene the exit is the winner row's own t1); the winners'
+// attributes come from the global row table. Their hits are those of the
+// lowest-first walk of whole 64-row blocks (hit3.cuh, and the plain culled
+// sweep), so their outputs are that design's bit for bit
+// (tools/torch_compare_trees.py compare) and the per-step path's.
+//
 // Numerics: float32 throughout; 1/sqrt as 1.0f/sqrtf, sincosf at full
 // precision, -fmad=false (see hit3.cuh). The train instance's A, B and
 // first_live equal the render instance's bit for bit: the residual stores
 // are the only difference.
 #include "trace_step.cuh"
+#include "sph_walk.cuh"
 
 namespace mrt {
 
@@ -128,10 +143,41 @@ struct Seg {
   float* cout = nullptr;
 };
 
+// The closest hit and the occlusion of a step: hit3.cuh's sweeps over the
+// dense rows `s_tab` (and with kTri the triangle segment), or with kWalk (a
+// culled sphere segment, no triangles or textures) sph_walk.cuh's walks
+// of W.
+template <bool kRefract, bool kTri, bool kSph, bool kWalk>
+__device__ __forceinline__ Hit sweep_hit(const float* s_tab, const Tris& T,
+                                         const Layout& lay,
+                                         const SphWalk& W, const V3& o,
+                                         const V3& d) {
+  if constexpr (kWalk)
+    return walk_closest_hit<kRefract>(lay, W, o.x, o.y, o.z, d.x, d.y, d.z);
+  else
+    return closest_hit<kRefract, kTri, kSph>(s_tab, kRowCols, lay, o.x, o.y,
+                                             o.z, d.x, d.y, d.z, T);
+}
+
+template <bool kTri, bool kSph, bool kWalk>
+__device__ __forceinline__ bool sweep_any(const float* s_tab, const Tris& T,
+                                          const Layout& lay,
+                                          const SphWalk& W, const V3& o,
+                                          const V3& d) {
+  if constexpr (kWalk)
+    return walk_any_hit(lay, W, o.x, o.y, o.z, d.x, d.y, d.z);
+  else
+    return any_hit<kTri, kSph>(s_tab, kRowCols, lay, o.x, o.y, o.z, d.x,
+                               d.y, d.z, T);
+}
+
 // One ray's trace over the steps of `sg` (the body of both instances;
 // the train instance runs the whole trace). `s_tab` holds the dense rows,
-// `g_tab` the whole row table (triangle rows are read there).
-template <bool kRefract, bool kTrain, bool kTri = false, bool kTex = false>
+// `g_tab` the whole row table (triangle rows are read there); kWalk (a
+// culled sphere segment, no triangles or textures): the sweeps walk W and
+// `s_tab` is the global row table.
+template <bool kRefract, bool kTrain, bool kTri = false, bool kTex = false,
+          bool kWalk = false>
 __device__ __forceinline__ void trace_ray(
     const float* s_tab, const float* g_tab, const Tris& T, const Layout& lay,
     const float* s_lt, int L, float dk, const Tex& tex,
@@ -139,9 +185,11 @@ __device__ __forceinline__ void trace_ray(
     const float* __restrict__ d0, Hit h0, const float* __restrict__ u8s,
     float* __restrict__ A_out, float* __restrict__ B_out,
     float* __restrict__ fl_out, float* __restrict__ resid,
-    int* __restrict__ n_live) {
+    int* __restrict__ n_live, const SphWalk& W = SphWalk{}) {
   constexpr int NU = kRefract ? 8 : 4;
   constexpr bool kSph = !kTri && !kTex;  // the sphere blocks (hit3.cuh)
+  static_assert(kSph || !kWalk, "only scenes without triangles or "
+                                "textures walk a culled sphere segment");
   const int CR = res_rows_all<kRefract, kTri, kTex>(L, tex.slots);
   const int side_rows = kTex ? tex_side_rows(tex.slots) : 0;
   V3 o, d, A, B;
@@ -169,9 +217,8 @@ __device__ __forceinline__ void trace_ray(
   for (int k = sg.k0; live && k < sg.k1; ++k) {
     const float* u = u8s + static_cast<size_t>(k) * NU * R + col;
     const Hit h = k == 0 ? h0
-                         : closest_hit<kRefract, kTri, kSph>(
-                               s_tab, kRowCols, lay, o.x, o.y, o.z, d.x, d.y,
-                               d.z, T);
+                         : sweep_hit<kRefract, kTri, kSph, kWalk>(
+                               s_tab, T, lay, W, o, d);
     const bool hit = h.te < kBig * 0.5f;
     if (k == 0) first_live = hit ? 1.0f : 0.0f;
     if (!hit) {  // dead from here on: a = 1, b = 0 every later step
@@ -191,8 +238,7 @@ __device__ __forceinline__ void trace_ray(
       const V3 lv = light_vec(s_lt + li * kLightCols, p_e);
       const V3 ln = scale(lv, 1.0f / sqrtf(dot(lv, lv)));
       const V3 so = add(p_e, scale(ln, kEps));
-      light_ok[li] = !any_hit<kTri, kSph>(s_tab, kRowCols, lay, so.x, so.y,
-                                          so.z, ln.x, ln.y, ln.z, T);
+      light_ok[li] = !sweep_any<kTri, kSph, kWalk>(s_tab, T, lay, W, so, ln);
     }
 
     const int kind_e = row_kind<kTri>(h.row, lay);
@@ -345,20 +391,22 @@ struct Carry {
 // Advances the carry `c`; `h0` is the primary hit (read at k = 0 only).
 // Sets first_live at k = 0 and, in train mode, writes the step's
 // residuals and n = k + 1. Returns whether the ray lives on: false when it
-// missed (the carry unchanged) or its emit draw ended the path.
-template <bool kRefract, bool kTrain>
+// missed (the carry unchanged) or its emit draw ended the path. kWalk: the
+// sweeps walk the culled sphere segment of W (sph_walk.cuh), and `s_tab`
+// is the global row table (the winners' attributes are read there).
+template <bool kRefract, bool kTrain, bool kWalk = false>
 __device__ __forceinline__ bool ray_step(
     const float* s_tab, const Tris& T, const Layout& lay, const float* s_lt,
     int L, float dk, int i, int R, int k, const Hit& h0,
     const float* __restrict__ u8s, Carry& c, float& first_live,
-    float* __restrict__ resid, int& n) {
+    float* __restrict__ resid, int& n, const SphWalk& W = SphWalk{}) {
   constexpr int NU = kRefract ? 8 : 4;
   const int CR = res_rows_all<kRefract, false, false>(L, 0);
   const float* u = u8s + static_cast<size_t>(k) * NU * R + i;
-  const Hit h = k == 0 ? h0
-                       : closest_hit<kRefract, false, true>(
-                             s_tab, kRowCols, lay, c.o.x, c.o.y, c.o.z,
-                             c.d.x, c.d.y, c.d.z, T);
+  const Hit h =
+      k == 0 ? h0
+             : sweep_hit<kRefract, false, true, kWalk>(s_tab, T, lay, W, c.o,
+                                                       c.d);
   const bool hit = h.te < kBig * 0.5f;
   if (k == 0) first_live = hit ? 1.0f : 0.0f;
   if (!hit) return false;  // dead from here on: a = 1, b = 0 every later step
@@ -375,8 +423,7 @@ __device__ __forceinline__ bool ray_step(
     const V3 lv = light_vec(s_lt + li * kLightCols, p_e);
     const V3 ln = scale(lv, 1.0f / sqrtf(dot(lv, lv)));
     const V3 so = add(p_e, scale(ln, kEps));
-    light_ok[li] = !any_hit<false, true>(s_tab, kRowCols, lay, so.x, so.y,
-                                         so.z, ln.x, ln.y, ln.z, T);
+    light_ok[li] = !sweep_any<false, true, kWalk>(s_tab, T, lay, W, so, ln);
   }
 
   const int kind_e = row_kind<false>(h.row, lay);
@@ -528,9 +575,11 @@ __device__ __forceinline__ mrt::Carry primary(int i, int R,
 }
 
 // kDense: a dense-row whole trace (ray_step); kRefill: its lanes refill
-// from next[0], next[1] counting the blocks that finished (module comment)
+// from next[0], next[1] counting the blocks that finished (module comment);
+// kWalk: a scene without triangles or textures whose sphere segment has
+// cull blocks, walked through sph_walk.cuh (module comment)
 template <bool kRefract, bool kTrain, bool kSeg, bool kTri, bool kTex,
-          bool kRefill>
+          bool kRefill, bool kWalk>
 __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
                                  mrt::Layout lay,
                                  const float* __restrict__ tri,
@@ -554,9 +603,12 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
                                  float* __restrict__ cout,
                                  float* __restrict__ resid,
                                  int* __restrict__ n_live,
-                                 int* __restrict__ next) {
+                                 int* __restrict__ next,
+                                 const float* __restrict__ srows,
+                                 const float* __restrict__ ssb) {
   constexpr bool kDense = !kSeg && !kTri && !kTex;
   static_assert(kDense || !kRefill, "only dense-row whole traces refill");
+  static_assert(!kWalk || (!kTri && !kTex), "kWalk: spheres, planes, boxes");
   extern __shared__ float smem[];
   float* s_tab = smem;
   float* s_lt = smem + P * mrt::kRowCols;
@@ -567,8 +619,35 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
   // lanes are all dead only passes its carry through
   const mrt::Seg sg = kSeg ? mrt::Seg{k0, k1, c0, rid, cout}
                            : mrt::Seg{0, K};
-  if (!sg.c0 ||
-      __syncthreads_or(i < R && sg.c0[mrt::kC_LIVE * R + i] > 0.5f)) {
+  mrt::SphWalk W{};
+  if constexpr (kWalk) {
+    // the sphere sub-blocks' and blocks' AABBs, the AABB of all the blocks,
+    // the lanes' columns of block entry t, the lights and the planes' and
+    // boxes' sweep rows in shared memory (smem_bytes); the sphere rows are
+    // read from srows, the winners' attributes from the global table
+    const int ns = (lay.sph_n + mrt::kSubRows - 1) / mrt::kSubRows;
+    float* s_sub = smem;
+    s_bb = s_sub + ns * mrt::kBbCols;
+    float* s_seg = s_bb + lay.n_sb * mrt::kBbCols;
+    float* s_tb = s_seg + mrt::kBbCols;
+    s_lt = s_tb + lay.n_sb * kThreads;
+    float* s_pb = s_lt + L * mrt::kLightCols;
+    if (!sg.c0 ||
+        __syncthreads_or(i < R && sg.c0[mrt::kC_LIVE * R + i] > 0.5f)) {
+      mrt::stage(s_sub, ssb, ns, mrt::kBbCols, mrt::kBbCols);
+      mrt::stage(s_bb, sbb, lay.n_sb, mrt::kBbCols, mrt::kBbCols);
+      mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
+      mrt::stage(s_pb, tab + lay.pln_start * mrt::kRowCols,
+                 P - lay.pln_start, mrt::kRowCols, mrt::kSweepCols);
+      __syncthreads();
+      mrt::chunk_bounds(s_bb, lay.n_sb, s_seg, threadIdx.x, 6);
+      __syncthreads();
+    }
+    W = mrt::SphWalk{mrt::SphPack{srows, s_sub, s_seg}, s_bb,
+                     s_tb + threadIdx.x, kThreads,
+                     s_pb - lay.pln_start * mrt::kSweepCols};
+  } else if (!sg.c0 ||
+             __syncthreads_or(i < R && sg.c0[mrt::kC_LIVE * R + i] > 0.5f)) {
     mrt::stage(s_tab, tab, P, mrt::kRowCols, mrt::kRowCols);
     mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
     if (kTri)
@@ -577,6 +656,9 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
       mrt::stage(s_bb, sbb, lay.n_sb, mrt::kBbCols, mrt::kBbCols);
     __syncthreads();
   }
+  // the rows the steps sweep and fetch: the staged dense rows, or the
+  // global table where the walk reads its own
+  const float* rows = kWalk ? tab : s_tab;
   const mrt::Tris T{tri, s_bb};
   if constexpr (kRefill) {
     // Persistent lanes: each holds one ray at a time and runs it one step
@@ -612,9 +694,10 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
       }
       if (__all_sync(kFull, done)) break;
       if (!live) continue;
-      live = mrt::ray_step<kRefract, kTrain>(s_tab, T, lay, s_lt, L, dk, ray,
-                                             R, k, h0, u8s, c, first_live,
-                                             resid, n);
+      live = mrt::ray_step<kRefract, kTrain, kWalk>(rows, T, lay, s_lt, L,
+                                                    dk, ray, R, k, h0, u8s,
+                                                    c, first_live, resid, n,
+                                                    W);
       if (++k == K) live = false;
       if (!live)
         store_ray<kTrain>(ray, R, c, first_live, n, A_out, B_out, fl_out,
@@ -637,9 +720,9 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
     float first_live = 0.0f;
     int n = 0;
     for (int k = 0; k < K; ++k)
-      if (!mrt::ray_step<kRefract, kTrain>(s_tab, T, lay, s_lt, L, dk, i, R,
-                                           k, h0, u8s, c, first_live, resid,
-                                           n))
+      if (!mrt::ray_step<kRefract, kTrain, kWalk>(rows, T, lay, s_lt, L, dk,
+                                                  i, R, k, h0, u8s, c,
+                                                  first_live, resid, n, W))
         break;
     store_ray<kTrain>(i, R, c, first_live, n, A_out, B_out, fl_out, n_live);
   } else {
@@ -647,9 +730,9 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
     const mrt::Hit h0 = sg.k0 == 0
                             ? mrt::Hit{te0[i], row0[i], tx0[i], xrow0[i]}
                             : mrt::Hit{};
-    mrt::trace_ray<kRefract, kTrain, kTri, kTex>(
-        s_tab, tab, T, lay, s_lt, L, dk, tex, i, R, sg, o0, d0, h0, u8s,
-        A_out, B_out, fl_out, resid, n_live);
+    mrt::trace_ray<kRefract, kTrain, kTri, kTex, kWalk>(
+        rows, tab, T, lay, s_lt, L, dk, tex, i, R, sg, o0, d0, h0, u8s,
+        A_out, B_out, fl_out, resid, n_live, W);
   }
 }
 
@@ -683,10 +766,22 @@ struct Args {
   float* resid;
   int* n_live;
   int* next;  // the refill counters, zeroed, or null: no refill
+  // a culled sphere segment's packed rows and sub-block AABBs
+  // (hit3.sph_walk_tables), or nulls
+  const float* srows;
+  const float* ssb;
 };
 
-template <bool kSeg, bool kTri, bool kTex>
+template <bool kSeg, bool kTri, bool kTex, bool kWalk>
 size_t smem_bytes(const Args& a) {
+  if constexpr (kWalk) {
+    const int ns = (a.lay.sph_n + mrt::kSubRows - 1) / mrt::kSubRows;
+    return (static_cast<size_t>(ns + a.lay.n_sb + 1) * mrt::kBbCols +
+            static_cast<size_t>(a.lay.n_sb) * kThreads +
+            static_cast<size_t>(a.L) * mrt::kLightCols +
+            static_cast<size_t>(a.P - a.lay.pln_start) * mrt::kSweepCols) *
+           sizeof(float);
+  }
   return (static_cast<size_t>(a.P) * mrt::kRowCols +
           static_cast<size_t>(a.L) * mrt::kLightCols +
           static_cast<size_t>(kTri ? a.lay.n_cb : kTex ? 0 : a.lay.n_sb) *
@@ -699,11 +794,11 @@ size_t smem_bytes(const Args& a) {
 struct Launch {
   cudaStream_t stream;
   template <bool kRefract, bool kTrain, bool kSeg, bool kTri, bool kTex,
-            bool kRefill>
+            bool kRefill, bool kWalk>
   int run(const Args& a) const {
-    const size_t smem = smem_bytes<kSeg, kTri, kTex>(a);
+    const size_t smem = smem_bytes<kSeg, kTri, kTex, kWalk>(a);
     auto kernel =
-        trace_fwd_kernel<kRefract, kTrain, kSeg, kTri, kTex, kRefill>;
+        trace_fwd_kernel<kRefract, kTrain, kSeg, kTri, kTex, kRefill, kWalk>;
     int per_sm = 0, sms = 0;
     const int e = mrt::resident_blocks(kernel, kThreads, smem, &per_sm, &sms);
     if (e) return e;
@@ -712,7 +807,8 @@ struct Launch {
     kernel<<<blocks, kThreads, smem, stream>>>(
         a.tab, a.P, a.lay, a.tri, a.bb, a.sbb, a.lights, a.L, a.dk, a.tex,
         a.o0, a.d0, a.te0, a.row0, a.tx0, a.xrow0, a.u8s, a.K, a.R, a.k0,
-        a.k1, a.c0, a.rid, a.A, a.B, a.fl, a.cout, a.resid, a.n_live, a.next);
+        a.k1, a.c0, a.rid, a.A, a.B, a.fl, a.cout, a.resid, a.n_live, a.next,
+        a.srows, a.ssb);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -721,29 +817,41 @@ struct Launch {
 struct Occupancy {
   int* per_sm;
   template <bool kRefract, bool kTrain, bool kSeg, bool kTri, bool kTex,
-            bool kRefill>
+            bool kRefill, bool kWalk>
   int run(const Args& a) const {
     return mrt::resident_blocks(
-        trace_fwd_kernel<kRefract, kTrain, kSeg, kTri, kTex, kRefill>,
-        kThreads, smem_bytes<kSeg, kTri, kTex>(a), per_sm);
+        trace_fwd_kernel<kRefract, kTrain, kSeg, kTri, kTex, kRefill, kWalk>,
+        kThreads, smem_bytes<kSeg, kTri, kTex, kWalk>(a), per_sm);
   }
 };
 
 // the refill choice: a dense-row whole trace's render always refills (it
 // needs the counter), its train instance where it is given one; the
-// other instances never do
+// other instances never do. The walk: a scene without triangles or
+// textures whose sphere segment has cull blocks (its whole traces refill)
 template <bool kRefract, bool kTrain, bool kSeg, bool kTri, bool kTex,
           class Op>
 int pick(const Args& a, const Op& op) {
+  const bool walk = a.lay.n_sb > 0;
   if constexpr (!kSeg && !kTri && !kTex) {
     if (a.next)
-      return op.template run<kRefract, kTrain, kSeg, kTri, kTex, true>(a);
+      return walk ? op.template run<kRefract, kTrain, kSeg, kTri, kTex, true,
+                                    true>(a)
+                  : op.template run<kRefract, kTrain, kSeg, kTri, kTex, true,
+                                    false>(a);
     if constexpr (kTrain)
-      return op.template run<kRefract, kTrain, kSeg, kTri, kTex, false>(a);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (!walk)
+        return op.template run<kRefract, kTrain, kSeg, kTri, kTex, false,
+                               false>(a);
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if constexpr (!kTri && !kTex) {
+    return walk ? op.template run<kRefract, kTrain, kSeg, kTri, kTex, false,
+                                  true>(a)
+                : op.template run<kRefract, kTrain, kSeg, kTri, kTex, false,
+                                  false>(a);
   } else {
-    return op.template run<kRefract, kTrain, kSeg, kTri, kTex, false>(a);
+    return op.template run<kRefract, kTrain, kSeg, kTri, kTex, false, false>(
+        a);
   }
 }
 
@@ -792,14 +900,17 @@ extern "C" int mrt_trace_fwd(const float* tab, int P, int sph_start,
                              const int* xrow0, const float* u8s, int K, int R,
                              int refract, int k0, int k1, const float* c0,
                              const int* rid, float* A, float* B, float* fl,
-                             float* cout, int* next, void* stream) {
+                             float* cout, int* next, const float* srows,
+                             const float* ssb, void* stream) {
+  if (n_sb > 0 && (srows == nullptr || ssb == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{tab, P,
                mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
                            box_n, tri_start, tri_n, n_cb, n_sb},
                tri, bb, sbb, lights, L, dk,
                mrt::Tex{maps, atlas, tmeta, slots}, o0, d0, te0, row0, tx0,
                xrow0, u8s, K, R, k0, k1, c0, rid, A, B, fl, cout, nullptr,
-               nullptr, next};
+               nullptr, next, srows, ssb};
   const bool seg = k0 != 0 || k1 != K || c0 || rid || cout;
   const Launch op{static_cast<cudaStream_t>(stream)};
   return seg ? dispatch<false, true>(a, refract, op)
@@ -815,14 +926,16 @@ extern "C" int mrt_trace_fwd_train(
     const float* d0, const float* te0, const int* row0, const float* tx0,
     const int* xrow0, const float* u8s, int K, int R, int refract, float* A,
     float* B, float* fl, float* resid, int* n_live, int* next,
-    void* stream) {
+    const float* srows, const float* ssb, void* stream) {
+  if (n_sb > 0 && (srows == nullptr || ssb == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{tab, P,
                mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
                            box_n, tri_start, tri_n, n_cb, n_sb},
                tri, bb, sbb, lights, L, dk,
                mrt::Tex{maps, atlas, tmeta, slots}, o0, d0, te0, row0, tx0,
                xrow0, u8s, K, R, 0, K, nullptr, nullptr, A, B, fl, nullptr,
-               resid, n_live, next};
+               resid, n_live, next, srows, ssb};
   return dispatch<true, false>(a, refract,
                                Launch{static_cast<cudaStream_t>(stream)});
 }

@@ -41,6 +41,28 @@ namespace mrt {
 constexpr int kRowCols = kSweepCols + 8;
 constexpr int kLightCols = 11;
 constexpr int kMaxLights = 4;
+
+// The light table of a per-step launch (any number of lights): its first
+// kStagedLights rows staged in shared memory (`staged`), the rest read
+// from the whole table in global memory (`all`; ops/step.py
+// STEP_MAX_LIGHTS). One pointer serves as both where every row is in one
+// place.
+constexpr int kStagedLights = 2048;
+struct LightTab {
+  const float* staged;
+  const float* all;
+  __device__ __forceinline__ LightTab(const float* t) : staged(t), all(t) {}
+  __device__ __forceinline__ LightTab(const float* s, const float* g)
+      : staged(s), all(g) {}
+  __device__ __forceinline__ const float* row(int li) const {
+    return (li < kStagedLights ? staged : all) + li * kLightCols;
+  }
+};
+
+// the rows of L lights a per-step block stages
+__device__ __forceinline__ int staged_lights(int L) {
+  return L < kStagedLights ? L : kStagedLights;
+}
 // attribute columns of the row table (pallas_step._C_*): frame, position
 // and plane normal / box sizes are the sweep columns
 enum AttrCol {

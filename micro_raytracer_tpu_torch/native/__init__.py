@@ -3,9 +3,9 @@
 The reference's runtime is native (Rust: hand-rolled HTTP server http.rs,
 PNG/JPEG via the image crate); this module binds the same repo-root library
 the JAX package uses — a C++ PNG encoder and HTTP/1.1 transport, built with
-``make -C native`` and loaded here. Everything has a pure-Python fallback:
-``available()`` gates use, and the build is attempted on demand when g++ is
-present.
+``make -C native`` or on demand here (:func:`build`, the Makefile's flags,
+one process at a time) when g++ is present, and loaded here. Everything has
+a pure-Python fallback: ``available()`` gates use.
 """
 
 from __future__ import annotations
@@ -24,20 +24,48 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
+def build(native_dir: str) -> str | None:
+    """``native_dir``'s ``libmrt_native.so``, built from its
+    ``mrt_native.cpp`` with the Makefile's flags if it is missing; None
+    where it cannot be built. Processes that build at once (test workers)
+    take turns under an exclusive lock on ``libmrt_native.so.lock`` beside
+    it, and the library is compiled to a temporary file and renamed into
+    place, so no process loads a half-written library."""
+    import fcntl
+
+    so = os.path.join(native_dir, "libmrt_native.so")
+    if os.path.exists(so):
+        return so
+    src = os.path.join(native_dir, "mrt_native.cpp")
+    if not os.path.exists(src):
+        return None
+    try:
+        with open(so + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if os.path.exists(so):
+                return so
+            tmp = f"{so}.{os.getpid()}.tmp"
+            try:
+                subprocess.run(
+                    [os.environ.get("CXX", "g++"), "-O2", "-fPIC",
+                     "-std=c++17", src, "-shared", "-pthread", "-lz", "-o",
+                     tmp], check=True, capture_output=True, timeout=120)
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+    except (subprocess.SubprocessError, OSError):
+        return None
+    return so
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_SO):
-            src = os.path.join(_REPO, "native", "mrt_native.cpp")
-            if not os.path.exists(src):
-                return None
-            try:
-                subprocess.run(["make", "-C", os.path.join(_REPO, "native")],
-                               check=True, capture_output=True, timeout=120)
-            except (subprocess.SubprocessError, OSError):
-                return None
+        if build(os.path.dirname(_SO)) is None:
+            return None
         try:
             lib = ctypes.CDLL(_SO)
         except OSError:

@@ -19,20 +19,25 @@ triangles or textures are cut into 64-row blocks too, behind world AABBs
 (:func:`sph_blockbounds`): a
 sphere's hit point lies inside its block's AABB, so skipping a block the
 ray does not enter before its best t drops no hit, and the culled sweep
-gives the dense sweep's t and row. Entry-only and any-hit sweeps cull
-(the shadow sweeps of refractive scenes too); exit sweeps stay dense.
+gives the dense sweep's t and row. Every entry and any-hit sweep culls;
+the exit of such a scene is the winner row's own (every group there is
+one row). The kernels walk the blocks through 8-row sub-blocks, nearest
+first from inside the segment (``csrc/sph_walk.cuh``, on the packed rows
+of :func:`sph_walk_tables`), with the same t and row.
 
 Triangles: the entry test is pallas_tri._tri_block's Woop form (``|d'_z| >=
 thr``, then ``t = -o'_z / d'_z`` and the barycentric bounds), the any-hit
 test its division-free ``_tri_block_any``, and a triangle's exit t is its
 entry t. Culling is per ray: the ray slab-tests each 64-row block's AABB
 and skips the block when it misses it, or when the block begins beyond the
-ray's best t so far. It applies where the JAX package culls — entry-only
-sweeps and any-hit sweeps of a segment of more than one block, never an
-exit pass — and the kernel and the plain version apply the same rule, so
-they agree ray by ray. (The JAX package culls per 1024-ray tile; the two
-differ only on "phantom" grazing hits outside their block's AABB, which the
-``|det| >= E`` rule admits.)
+ray's best t so far. It applies to every entry and any-hit sweep of a
+segment of more than one block, and to the group exit of a refractive
+scene (a block the ray leaves before its best exit t so far is skipped,
+``ops/tri.py``'s row 7 rule), and the kernel and the plain version apply
+the same rule, so they agree ray by ray. (The JAX package culls per
+1024-ray tile, and never in an exit pass; the two differ only on
+"phantom" grazing hits outside their block's AABB, which the ``|det| >=
+E`` rule admits: ``tri.culled_exit_phantoms`` marks them.)
 
 :func:`closest_hit` launches the kernel for CUDA tensors and runs
 :func:`closest_hit_plain` for CPU tensors; there is no other path. On the
@@ -81,11 +86,12 @@ SPH_SUB = 8
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
 KERNEL = CudaKernel(
-    "hit3", "hit3.cu", ("hit3.cuh",), "mrt_closest_hit",
+    "hit3", "hit3.cu", ("hit3.cuh", "tri_walk.cuh", "sph_walk.cuh"),
+    "mrt_closest_hit",
     [_c_ptr, _c_int, _c_int] + [_c_int] * 6 + [_c_ptr, _c_int, _c_int,
                                                   _c_ptr, _c_int, _c_ptr,
                                                   _c_int]
-    + [_c_ptr, _c_ptr] + [_c_int] * 4 + [_c_ptr] * 4 + [_c_ptr])
+    + [_c_ptr, _c_ptr] + [_c_int] * 4 + [_c_ptr] * 4 + [_c_ptr] * 3)
 # entry only (tx = te); entry and group exit; any-hit (te = -BIG on a hit)
 MODE_ENTRY, MODE_EXIT, MODE_ANY = 0, 1, 2
 
@@ -251,23 +257,28 @@ def sph_blockbounds(scene, rows=CB):
     always. Culling data, built without a gradient."""
     with torch.no_grad():
         s = scene.seg(schema.KIND_SPHERE)
-        ip = scene.inst_pos[s].detach()
-        r = scene.prim_r[s].detach()[:, None]
-        valid = scene.prim_valid[s][:, None]
-        lo = torch.where(valid, ip - r, BIG)
-        hi = torch.where(valid, ip + r, -BIG)
-        pad = (-lo.shape[0]) % rows
-        lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=BIG)
-        hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-BIG)
-        n_sb = lo.shape[0] // rows
-        lo = lo.reshape(n_sb, rows, 3).amin(dim=1)
-        hi = hi.reshape(n_sb, rows, 3).amax(dim=1)
-        eps = 1e-4 + 1e-4 * torch.clamp(hi - lo, min=0.0)
-        lo, hi = lo - eps, hi + eps
-        bad = ~(torch.isfinite(lo) & torch.isfinite(hi))
-        lo = torch.where(bad, -BIG, lo)
-        hi = torch.where(bad, BIG, hi)
-        return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], 1)
+        return _sphere_boxes(scene.inst_pos[s].detach(),
+                             scene.prim_r[s].detach()[:, None],
+                             scene.prim_valid[s][:, None], rows)
+
+
+def _sphere_boxes(ip, r, valid, rows):
+    """:func:`sph_blockbounds` of sphere centres ``ip`` (n, 3), radii
+    ``r`` and valid flags ``valid`` (n, 1) in runs of ``rows`` rows."""
+    lo = torch.where(valid, ip - r, BIG)
+    hi = torch.where(valid, ip + r, -BIG)
+    pad = (-lo.shape[0]) % rows
+    lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=BIG)
+    hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-BIG)
+    n_sb = lo.shape[0] // rows
+    lo = lo.reshape(n_sb, rows, 3).amin(dim=1)
+    hi = hi.reshape(n_sb, rows, 3).amax(dim=1)
+    eps = 1e-4 + 1e-4 * torch.clamp(hi - lo, min=0.0)
+    lo, hi = lo - eps, hi + eps
+    bad = ~(torch.isfinite(lo) & torch.isfinite(hi))
+    lo = torch.where(bad, -BIG, lo)
+    hi = torch.where(bad, BIG, hi)
+    return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], 1)
 
 
 def sph_culled(scene, layout) -> bool:
@@ -286,32 +297,39 @@ def sph_table(scene, layout):
 
 
 def sph_walk_tables(scene, layout, tab):
-    """What the per-step forward's sphere walks read besides the cull
-    blocks, where :func:`sph_culled` (else ``(None, None)``): the sphere
-    segment's sweep columns packed 16 floats a row (frame (9), instance
-    position (3), radius, valid, 0, 0: four 16-byte loads where the row
-    table's 26-float rows take fourteen), and the AABBs of its
-    :data:`SPH_SUB`-row sub-blocks (:func:`sph_blockbounds` of those) with
-    each box's growth factor g = 1e-3 + 2e-6 / r (r its smallest valid
-    radius) in column 6: the kernel grows a sub-block's box by g (1 + |o -
-    centre|^2) for a ray from o, past the sphere test's rounding
-    (csrc/step_fwd.cu sub_touch). Built once per table, without a
-    gradient."""
+    """What the sphere walks read besides the cull blocks, where
+    :func:`sph_culled` (else ``(None, None)``): :func:`walk_tables` of the
+    row table."""
     if not sph_culled(scene, layout):
         return None, None
+    return walk_tables(tab, layout)
+
+
+def walk_tables(tab, layout):
+    """The walk tables of the culled sphere segment (the first segment) of
+    row table ``tab`` (its first 18 columns the sweep columns): its sweep
+    columns packed 16 floats a row (frame (9), instance position (3),
+    radius, valid, 0, 0: four 16-byte loads where the row table's 26-float
+    rows take fourteen), and the AABBs of its :data:`SPH_SUB`-row
+    sub-blocks (:func:`sph_blockbounds` of those, from the rows' centres,
+    radii and valid flags) with each box's growth factor g = 1e-3 + 2e-6 /
+    r (r its smallest valid radius) in column 6: the kernels grow a
+    sub-block's box by g (1 + |o - centre|^2) for a ray from o, past the
+    sphere test's rounding (csrc/sph_walk.cuh sub_touch). Without a
+    gradient; the per-step and whole-trace kernels read them
+    (``step.pack_step`` builds them once per table)."""
     with torch.no_grad():
         _kind, s, c, _n = layout[0][0]
         t = tab.detach()[s:s + c]
         rows = torch.cat([t[:, :_C_PA], t[:, _C_PR:_C_VALID + 1],
                           torch.zeros_like(t[:, :2])], 1).contiguous()
-        sub = sph_blockbounds(scene, SPH_SUB)
-        seg = scene.seg(schema.KIND_SPHERE)
-        r = torch.where(scene.prim_valid[seg], scene.prim_r[seg].detach(),
-                        BIG)
-        r = torch.nn.functional.pad(r, (0, sub.shape[0] * SPH_SUB
-                                        - r.shape[0]), value=BIG)
-        r = r.view(-1, SPH_SUB).amin(1)
-        sub[:, 6] = 1e-3 + 2e-6 / torch.clamp(r, min=1e-6)
+        r = t[:, _C_PR:_C_VALID]
+        valid = t[:, _C_VALID:_C_GID] > 0.5
+        sub = _sphere_boxes(t[:, _C_IP:_C_PA], r, valid, SPH_SUB)
+        rr = torch.where(valid[:, 0], r[:, 0], BIG)
+        rr = torch.nn.functional.pad(rr, (0, (-c) % SPH_SUB), value=BIG)
+        rr = rr.view(-1, SPH_SUB).amin(1)
+        sub[:, 6] = 1e-3 + 2e-6 / torch.clamp(rr, min=1e-6)
         return rows, sub
 
 
@@ -633,15 +651,18 @@ def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
     winner): on a tie the lowest row takes it all, as in the kernels, where
     autograd of the min itself would split it among the tied rows (two
     boxes with a common face, a ray starting on it). With the sphere
-    cull blocks ``sbb``, entry-only and any-hit sweeps skip the blocks the
-    kernel skips (:func:`_sph_cull`)."""
+    cull blocks ``sbb``, every sweep skips the blocks the kernel skips
+    (:func:`_sph_cull`; an exit, the winner's own row, is unaffected);
+    with the triangle cull blocks ``tbb`` every triangle entry culls, and
+    the group exit too (:func:`_tri_exit`'s culled form: the kernels'
+    ``tri_exit_culled``)."""
     fr, ipos, pa, pr, valid, gid = split_sweep(tab)
     segs, tri_start, _n_tri, tri_n = layout
     has_tri = _need_tri(layout, tri)
     R = o.shape[0]
     parts = [_kind_block(kind, s, s + c, fr, ipos, pa, pr, valid, o, d)
              for kind, s, c, _n in segs]
-    if sbb is not None and mode != MODE_EXIT:
+    if sbb is not None:
         # the sphere segment is the first (sph_cull_rows)
         t0s, t1s, oks = parts[0]
         with torch.no_grad():
@@ -672,9 +693,7 @@ def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
         te, row = torch.full((R,), BIG, dtype=o.dtype, device=o.device), zero
     if has_tri:
         with torch.no_grad():
-            _b, trow, _n = _tri_entry(
-                tri, tbb if mode == MODE_ENTRY else None, tri_n, o, d,
-                te.detach())
+            _b, trow, _n = _tri_entry(tri, tbb, tri_n, o, d, te.detach())
         won = trow >= 0
         te = torch.where(won, _tri_t(tri, trow.clamp(min=0), o, d), te)
         row = torch.where(won, (tri_start + trow).to(torch.int32), row)
@@ -694,7 +713,7 @@ def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
                               device=o.device), zero
     if has_tri:
         with torch.no_grad():
-            _b, xr = _tri_exit(tri, tri_n, o, d, wg, tx.detach())
+            _b, xr = _tri_exit(tri, tri_n, o, d, wg, tx.detach(), tbb)
         won = xr >= 0
         tx = torch.where(won, _tri_t(tri, xr.clamp(min=0), o, d), tx)
         xrow = torch.where(won, (tri_start + xr).to(torch.int32), xrow)
@@ -704,8 +723,9 @@ def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
 def tri_rows_tested(tab, layout, o, d, mode, tri, tbb):
     """(R,) int64: the triangle rows the kernel tests for these rays in
     ``mode``, by its culling rule (entry: the rows of each touched block;
-    exit: also the winner group's rows when a triangle wins; any-hit: rows
-    up to the first hit). Counts the work behind a kernel's bound."""
+    exit: also the winner group's rows in each block the culled exit
+    sweeps when a triangle wins; any-hit: rows up to the first hit).
+    Counts the work behind a kernel's bound."""
     R = o.shape[0]
     if not layout[2]:
         return torch.zeros(R, dtype=torch.int64, device=o.device)
@@ -718,27 +738,49 @@ def tri_rows_tested(tab, layout, o, d, mode, tri, tbb):
             return _tri_any(tri, tbb, tri_n, o, d, dense)[1]
         te = sweep_plain(tab, (layout[0], layout[1], 0, 0), o, d,
                          MODE_ENTRY)[0]
-        best, trow, tested = _tri_entry(
-            tri, tbb if mode == MODE_ENTRY else None, tri_n, o, d, te)
+        best, trow, tested = _tri_entry(tri, tbb, tri_n, o, d, te)
         if mode == MODE_EXIT:
-            w = trow.clamp(min=0)
-            span = (tri[w, _T_GE].clamp(max=tri_n)
-                    - tri[w, _T_GS]).to(torch.int64)
-            tested += torch.where(trow >= 0, span, 0)
+            tested += _tri_exit_rows(tri, tbb, tri_n, o, d, trow)
         return tested
 
 
+def _tri_exit_rows(tri, tbb, n, o, d, trow):
+    """(R,) int64: the rows of the winner's group (triangle-local winner
+    ``trow``, -1: none) in the blocks the culled exit sweeps (the kernels'
+    ``tri_exit_culled``: every block of the group without ``tbb``)."""
+    w = trow.clamp(min=0)
+    gs = tri[w, _T_GS].long()
+    ge = tri[w, _T_GE].clamp(max=n).long()
+    gid = tri[w, _T_GID]
+    won = trow >= 0
+    tested = torch.zeros_like(trow)
+    best = torch.full((o.shape[0],), -BIG, dtype=o.dtype, device=o.device)
+    invd = _inv_dir(d) if tbb is not None else None
+    for b, (lo, hi) in enumerate(_blocks(n)):
+        span = (ge.clamp(max=hi) - gs.clamp(min=lo)).clamp(min=0)
+        go = won & (span > 0)
+        if tbb is not None:
+            go = go & _slab_leave(tbb[b], o, invd, best)
+        tested += torch.where(go, span, 0)
+        t, ok = _tri_block(tri[lo:hi], o, d)
+        ok = ok & (tri[None, lo:hi, _T_GID] == gid[:, None]) & go[:, None]
+        best = torch.maximum(best, torch.where(ok, t, -BIG).amax(dim=1))
+    return tested
+
+
 def sph_rows_tested(tab, layout, o, d, mode, sbb):
-    """(R,) int64: the sphere rows the kernel tests for these rays in
-    ``mode``, by its culling rule (entry: the rows of each touched block;
-    any-hit: rows up to the first hit; exit, or no cull blocks: every row
-    of the sweep). Counts the work behind a kernel's bound."""
+    """(R,) int64: the sphere rows the lowest-first walk of 64-row blocks
+    (``hit3.cuh`` ``sph_entry`` / ``sph_any``) tests for these rays in
+    ``mode``, by its culling rule (entry and exit: the rows of each
+    touched block; any-hit: rows up to the first hit; no cull blocks:
+    every row of the sweep). Counts the work behind a kernel's bound (the
+    sub-block walks of ``csrc/sph_walk.cuh``: ``chip_smoke.sph_walk_work``)."""
     R = o.shape[0]
     segs = layout[0]
     if not segs or segs[0][0] != schema.KIND_SPHERE:
         return torch.zeros(R, dtype=torch.int64, device=o.device)
     n = segs[0][3]
-    if sbb is None or mode == MODE_EXIT:
+    if sbb is None:
         return torch.full((R,), n, dtype=torch.int64, device=o.device)
     with torch.no_grad():
         o, d = o.detach(), d.detach()
@@ -748,12 +790,26 @@ def sph_rows_tested(tab, layout, o, d, mode, sbb):
         return _sph_cull(sbb, n, o, d, t0, ok, mode)[1]
 
 
+def check_walk_tables(srows, ssb, layout):
+    """Validate the sphere walk tables of a launch (16-byte aligned CUDA
+    tensors of the segment's rows and sub-blocks); their pointers."""
+    c = layout[0][0][2]
+    for name, t, shape in (("srows", srows, (c, 16)),
+                           ("ssb", ssb, (-(-c // SPH_SUB), BB_COLS))):
+        require_cuda_tensor(name, t, torch.float32, shape)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    return [ptr(srows), ptr(ssb)]
+
+
 def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
-                sbb=None):
+                sbb=None, walk=None):
     """``(te, row, tx, xrow)`` of rays ``o``/``d`` ``(R, 3)`` float32
     against the row table ``tab`` ``(P, C >= 18)`` and, for a scene with
     triangles, its :func:`tri_tables` ``tri`` and ``tbb``; with a long
-    sphere segment, its cull blocks ``sbb`` (:func:`sph_table`).
+    sphere segment, its cull blocks ``sbb`` (:func:`sph_table`) and the
+    walk tables ``walk`` = ``(srows, ssb)`` (:func:`sph_walk_tables`;
+    None: built here from ``tab``).
 
     CUDA tensors launch ``mrt_closest_hit``; the rays may be any strided
     view, such as the transpose of lane-major ``(3, R)`` rays. CPU tensors
@@ -778,6 +834,10 @@ def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
                          f"box rows exceed the shared-memory bound of "
                          f"{MAX_ROWS}")
     check_cull_tables(layout, tri, tbb, sbb)
+    walk_ptrs = [None, None]
+    if sbb is not None:
+        walk = walk_tables(tab, layout) if walk is None else walk
+        walk_ptrs = check_walk_tables(*walk, layout)
     te = torch.empty(R, dtype=torch.float32, device=o.device)
     tx = torch.empty_like(te)
     row = torch.empty(R, dtype=torch.int32, device=o.device)
@@ -786,7 +846,8 @@ def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
         KERNEL.launch(ptr(tab), n_dense, C,
                       *table_args(layout, tri, tbb, sbb),
                       ptr(o), ptr(d), *o.stride(), R, mode, ptr(te),
-                      ptr(row), ptr(tx), ptr(xrow), stream_ptr(o.device))
+                      ptr(row), ptr(tx), ptr(xrow), *walk_ptrs,
+                      stream_ptr(o.device))
     return te, row, tx, xrow
 
 
@@ -819,7 +880,7 @@ def check_cull_tables(layout, tri, tbb, sbb, max_tri_blocks=MAX_TRI_BLOCKS):
                              f"the shared-memory bound of {max_tri_blocks}")
 
 
-def any_hit(tab, layout, o, d, tri=None, tbb=None, sbb=None):
+def any_hit(tab, layout, o, d, tri=None, tbb=None, sbb=None, walk=None):
     """(R,) bool: does each ray hit any valid row?"""
-    return closest_hit(tab, layout, o, d, MODE_ANY, tri, tbb,
-                       sbb)[0] < BIG * 0.5
+    return closest_hit(tab, layout, o, d, MODE_ANY, tri, tbb, sbb,
+                       walk)[0] < BIG * 0.5

@@ -101,9 +101,10 @@ MAX_ROWS = 2048
 # past that with global atomics; csrc/trace_bwd.cu)
 BWD_MAX_ROWS = 1024
 # the per-step kernels (csrc/step_fwd.cu, csrc/step_bwd.cu) read the rows
-# from global memory (no row bound) and stage the lights in shared memory,
-# 2048 * 44 B = 88 KB (the backward's float64 sums beside them take at most
-# _STEP_SHARED_BYTES)
+# from global memory (no row bound) and stage the first STEP_MAX_LIGHTS
+# lights in shared memory, 2048 * 44 B = 88 KB (the backward's float64 sums
+# beside them take at most _STEP_SHARED_BYTES), the rest read from global
+# memory (trace_step.cuh LightTab): no light bound
 STEP_MAX_LIGHTS = 2048
 # the per-step backward sums the dense rows' cotangents in float64 per
 # block in shared memory while they and its warps' light slots fit this
@@ -166,13 +167,15 @@ _FWD_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
              + [_c_ptr, _c_int, ctypes.c_float] + _TEX_ARGS + [_c_ptr] * 7
              + [_c_int] * 3)
 _HEADERS = ("hit3.cuh", "trace_step.cuh")
-_TRACE_HEADERS = _HEADERS + ("grid.cuh",)
-# ... k0, k1, c0, rid, A, B, first_live, cout, the refill counters, stream
+_TRACE_HEADERS = _HEADERS + ("grid.cuh", "tri_walk.cuh",
+                             "sph_walk.cuh")
+# ... k0, k1, c0, rid, A, B, first_live, cout, the refill counters, the
+# sphere walk tables (srows, ssb), stream
 KERNEL = CudaKernel("trace_fwd", "trace_fwd.cu", _TRACE_HEADERS,
                     "mrt_trace_fwd",
-                    _FWD_ARGS + [_c_int, _c_int] + [_c_ptr] * 8)
+                    _FWD_ARGS + [_c_int, _c_int] + [_c_ptr] * 10)
 TRAIN_KERNEL = CudaKernel("trace_fwd_train", "trace_fwd.cu", _TRACE_HEADERS,
-                          "mrt_trace_fwd_train", _FWD_ARGS + [_c_ptr] * 7)
+                          "mrt_trace_fwd_train", _FWD_ARGS + [_c_ptr] * 9)
 # resident warps per SM of a whole-trace instance (not launches)
 FWD_OCCUPANCY = CudaKernel("trace_fwd_occupancy", "trace_fwd.cu",
                            _TRACE_HEADERS, "mrt_trace_fwd_occupancy",
@@ -196,7 +199,7 @@ _STEP_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
 # and its cull blocks' superblocks and their count (kTriIn; null and 0
 # otherwise), the sphere walk tables (sbb's; null otherwise), the refill
 # counters (_counters), stream
-_STEP_HEADERS = _HEADERS + ("tri_walk.cuh", "grid.cuh")
+_STEP_HEADERS = _HEADERS + ("tri_walk.cuh", "sph_walk.cuh", "grid.cuh")
 STEP_KERNEL = CudaKernel("step_fwd", "step_fwd.cu", _STEP_HEADERS,
                          "mrt_step_fwd",
                          _STEP_ARGS + [_c_ptr] * 7 + [_c_int] + [_c_ptr] * 4)
@@ -208,6 +211,20 @@ STEP_TRAIN_KERNEL = CudaKernel("step_fwd_train", "step_fwd.cu",
 STEP_OCCUPANCY = CudaKernel("step_fwd_occupancy", "step_fwd.cu",
                             _STEP_HEADERS, "mrt_step_fwd_occupancy",
                             [_c_int] * 11 + [_c_ptr])
+# the same entry points for scenes of more than STEP_MAX_LIGHTS lights
+# (csrc/step_fwd_many.cu: their instances, in a library of their own)
+_MANY_HEADERS = _STEP_HEADERS + ("step_fwd.cu",)
+STEP_MANY_KERNEL = CudaKernel("step_fwd_many", "step_fwd_many.cu",
+                              _MANY_HEADERS, "mrt_step_fwd",
+                              STEP_KERNEL.argtypes)
+STEP_MANY_TRAIN_KERNEL = CudaKernel("step_fwd_many_train",
+                                    "step_fwd_many.cu", _MANY_HEADERS,
+                                    "mrt_step_fwd_train",
+                                    STEP_TRAIN_KERNEL.argtypes)
+STEP_MANY_OCCUPANCY = CudaKernel("step_fwd_many_occupancy",
+                                 "step_fwd_many.cu", _MANY_HEADERS,
+                                 "mrt_step_fwd_occupancy",
+                                 STEP_OCCUPANCY.argtypes)
 STEP_BWD_KERNEL = CudaKernel(
     "step_bwd", "step_bwd.cu", _BWD_HEADERS + ("grid.cuh",), "mrt_step_bwd",
     [_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
@@ -869,7 +886,21 @@ def primary_hits(scene, tables, oT, dT):
     primaries, in :func:`primary_mode`: the trace kernels' ``hit0``."""
     return hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T,
                             primary_mode(scene), tables.tri, tables.tbb,
-                            tables.sbb)
+                            tables.sbb, _walk(tables))
+
+
+def _walk(tables):
+    """The sphere walk tables ``(srows, ssb)`` of a culled sphere segment,
+    or None."""
+    return None if tables.sbb is None else (tables.srows, tables.ssb)
+
+
+def _walk_args(tables):
+    """The sphere walk tables' C arguments of a whole-trace launch (two
+    nulls without sphere cull blocks)."""
+    if tables.sbb is None:
+        return [None, None]
+    return hit3.check_walk_tables(tables.srows, tables.ssb, tables.layout)
 
 
 def _seg_args(seg, K, R, dev):
@@ -909,7 +940,7 @@ def trace_fwd(scene, tables, decay, oT, dT, u8s, hit0, seg=None):
         KERNEL.launch(*args, *seg_args, ptr(A), ptr(B), ptr(fl),
                       None if cout is None else ptr(cout),
                       None if nxt is None else ptr(nxt),
-                      stream_ptr(oT.device))
+                      *_walk_args(tables), stream_ptr(oT.device))
     return (A, B, fl) if seg is None else (A, B, fl, cout)
 
 
@@ -930,7 +961,7 @@ def trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0):
         nxt = _refill_counter(scene, tables, True, oT.device)
         TRAIN_KERNEL.launch(*args, ptr(A), ptr(B), ptr(fl), ptr(resid),
                             ptr(n_live), None if nxt is None else ptr(nxt),
-                            stream_ptr(oT.device))
+                            *_walk_args(tables), stream_ptr(oT.device))
     return A, B, fl, resid, n_live
 
 
@@ -980,22 +1011,27 @@ def instance_resources(scene, tables, which: str) -> dict:
     if which == "trace_bwd":
         kernel, name, flags = BWD_KERNEL, "trace_bwd", (refract, tri, tex)
     elif which == "step_bwd":
-        kernel, name, flags = STEP_BWD_KERNEL, "step_bwd", (refract, tri,
-                                                            tex)
+        kernel, name, flags = STEP_BWD_KERNEL, "step_bwd", (
+            refract, tri, tex, scene.n_lights > STEP_MAX_LIGHTS)
     elif which.startswith("step_fwd"):
         train = which == "step_fwd_train"
-        kernel = STEP_TRAIN_KERNEL if train else STEP_KERNEL
+        many = scene.n_lights > STEP_MAX_LIGHTS
+        kernel = _step_kernels(scene)[1 if train else 0]
         if tri_split(tables.layout[2]):
-            name, flags = "step_fwd_in", (refract, train, tex)
+            name, flags = "step_fwd_in", (refract, train, tex, many)
         else:
             # kCull: a culled sphere segment (its walk tables)
             name, flags = "step_fwd", (refract, train, tri, tex,
-                                       not tri and not tex and t[12] > 0)
+                                       not tri and not tex and t[12] > 0,
+                                       many)
     else:
         train = which == "trace_fwd_train"
         refill = refills(scene, tables, train)
         kernel = KERNEL if which == "trace_fwd" else TRAIN_KERNEL
-        name, flags = "trace_fwd", (refract, train, False, tri, tex, refill)
+        # the walk of a culled sphere segment (its own instances)
+        walk = not tri and not tex and t[12] > 0
+        name, flags = "trace_fwd", (refract, train, False, tri, tex, refill,
+                                    walk)
     kernel.fn()
     key = (f"{name}_kernelI"
            + "".join(f"Lb{int(bool(f))}E" for f in flags) + "E")
@@ -1025,7 +1061,7 @@ def resident_warps(scene, tables, which: str) -> int:
             int(t[8] > 0), int(slots > 0), ctypes.byref(warps))
     elif which.startswith("step_fwd"):
         # sph_n, pln_n, box_n, tri_n, n_cb, n_sb
-        rc = STEP_OCCUPANCY.fn()(t[1], t[3], t[5], t[8], t[10], t[12], L,
+        rc = _step_kernels(scene)[2].fn()(t[1], t[3], t[5], t[8], t[10], t[12], L,
                                  slots, refract,
                                  int(which == "step_fwd_train"),
                                  int(tri_split(tables.layout[2])),
@@ -1108,9 +1144,6 @@ def _step_args(scene, tables, decay, c0, u8):
     tables, then the carry ``c0``, the uniforms ``u8``, R and refract for
     the forward; the backward takes the tables' and adds its own)."""
     L = scene.n_lights
-    if L > STEP_MAX_LIGHTS:
-        raise ValueError(f"step kernel: {L} lights exceed its shared-memory "
-                         f"bound of {STEP_MAX_LIGHTS}")
     R = c0.shape[1]
     require_cuda_tensor("c0", c0, torch.float32, (CARRY_ROWS, R))
     require_cuda_tensor("u8", u8, torch.float32,
@@ -1138,6 +1171,15 @@ def _tri_in_args(scene, tables, c0):
             + [ptr(tsb), tsb.shape[0]], thit)
 
 
+def _step_kernels(scene):
+    """The step forward's render, train and occupancy entry points for
+    the scene: those of ``csrc/step_fwd_many.cu`` past STEP_MAX_LIGHTS
+    lights, else ``csrc/step_fwd.cu``'s."""
+    if scene.n_lights > STEP_MAX_LIGHTS:
+        return STEP_MANY_KERNEL, STEP_MANY_TRAIN_KERNEL, STEP_MANY_OCCUPANCY
+    return STEP_KERNEL, STEP_TRAIN_KERNEL, STEP_OCCUPANCY
+
+
 def step_fwd(scene, tables, decay, c0, u8):
     """Launch ``mrt_step_fwd`` (the render instance) on CUDA tensors: one
     bounce step from the carry ``c0``; returns :func:`step_plain`'s
@@ -1149,9 +1191,10 @@ def step_fwd(scene, tables, decay, c0, u8):
     hit = torch.empty((1, R), dtype=torch.float32, device=c0.device)
     tin, _keep = _tri_in_args(scene, tables, c0)
     if R:
-        STEP_KERNEL.launch(*tab_args, *ray_args, ptr(c1), ptr(hit), *tin,
-                           *_sph_walk_args(tables),
-                           ptr(_counters(c0.device)), stream_ptr(c0.device))
+        _step_kernels(scene)[0].launch(
+            *tab_args, *ray_args, ptr(c1), ptr(hit), *tin,
+            *_sph_walk_args(tables), ptr(_counters(c0.device)),
+            stream_ptr(c0.device))
     return c1, hit
 
 
@@ -1167,10 +1210,10 @@ def step_fwd_train(scene, tables, decay, c0, u8):
                         dtype=torch.float32, device=c0.device)
     tin, _keep = _tri_in_args(scene, tables, c0)
     if R:
-        STEP_TRAIN_KERNEL.launch(*tab_args, *ray_args, ptr(c1), ptr(hit),
-                                 ptr(resid), *tin, *_sph_walk_args(tables),
-                                 ptr(_counters(c0.device)),
-                                 stream_ptr(c0.device))
+        _step_kernels(scene)[1].launch(
+            *tab_args, *ray_args, ptr(c1), ptr(hit), ptr(resid), *tin,
+            *_sph_walk_args(tables), ptr(_counters(c0.device)),
+            stream_ptr(c0.device))
     return c1, hit, resid
 
 

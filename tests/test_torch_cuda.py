@@ -95,7 +95,7 @@ from micro_raytracer_tpu_torch.frontends import cli
 from micro_raytracer_tpu_torch.models import schema
 from micro_raytracer_tpu_torch.models import tracer as ttr
 from micro_raytracer_tpu_torch.models.compiler import compile_scene
-from micro_raytracer_tpu_torch.ops import hit3, step
+from micro_raytracer_tpu_torch.ops import hit3, step, tri
 from torch_inst_helpers import CAMERA as INST_CAMERA
 from torch_inst_helpers import inst_scene
 from torch_inst_helpers import render_json as inst_json
@@ -995,8 +995,6 @@ def test_route_renders_and_trains_past_256_triangle_blocks(n_lights,
     and matches the plain per-step trace (the trace tolerance above); a
     gradient takes step_fwd_train and step_bwd per step, finite, with
     non-zero cotangents of the mesh's instance positions."""
-    from micro_raytracer_tpu_torch.ops import tri
-
     kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL,
                step.STEP_KERNEL, step.STEP_TRAIN_KERNEL,
                step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL,
@@ -1119,7 +1117,6 @@ def test_two_level_walk_matches_plain(kind, cuda_device):
     rows and over a row count inside the last block: equal to the plain
     versions bit for bit (also with the step's refracting rows), row 7's
     entry row 6's, and row 7's exit row 8's but on phantom exits."""
-    from micro_raytracer_tpu_torch.ops import tri
     from torch_mesh_helpers import big_tris
 
     js = big_mesh(True)
@@ -1205,3 +1202,110 @@ def test_cli_and_training_run_the_step_kernels(cuda_device, tmp_path):
     for k in ("mat_albedo", "light_pwr", "light_color"):
         g = params[k].grad
         assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["inst_grid", "inst_glass"])
+def test_sphere_walk_instances_match_per_step_path(name, cuda_device):
+    """The whole trace's and the primary-hit kernel's walk of a culled
+    sphere segment (csrc/sph_walk.cuh: sub-blocks, nearest first from
+    inside the grid, the winner row's own exit): closest_hit equals the
+    dense sweep in every mode on camera rays; the render instance equals
+    the per-step path (whose step_fwd walks the same blocks; on the glass
+    grid its exit-mode entry is dense) bit for bit, the train instance the
+    render instance, and where the render compacts, its segments the
+    whole render. (A whole trace with the blocks culled may differ from
+    the dense one on a phantom any-hit: 1 ray of 8,192 on inst_grid's
+    plain versions.)"""
+    scene = _scene(name, cuda_device)
+    tables = step.pack_step(scene)
+    R = 1 << 15
+    o, d = _rays(R, cuda_device, seed=3, name=name)
+    for mode in (hit3.MODE_EXIT, hit3.MODE_ENTRY, hit3.MODE_ANY):
+        got = hit3.closest_hit(tables.tab, tables.layout, o, d, mode,
+                               sbb=tables.sbb,
+                               walk=(tables.srows, tables.ssb))
+        want = hit3.closest_hit(tables.tab, tables.layout, o, d, mode)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), mode
+    oT, dT = o.T.contiguous(), d.T.contiguous()
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    u8s = torch.rand((9, step.n_uni(scene.any_refract), R), generator=gen,
+                     device=cuda_device)
+    hit0 = step.primary_hits(scene, tables, oT, dT)
+    A, B, fl = step.trace_fwd(scene, tables, 0.85, oT, dT, u8s, hit0)
+    A_s, B_s, fl_s = step.trace_steps(scene, tables, 0.85, oT, dT, u8s)
+    assert torch.equal(A, A_s) and torch.equal(B, B_s)
+    assert torch.equal(fl, fl_s) and bool(fl.any())
+    train = step.trace_fwd_train(scene, tables, 0.85, oT, dT, u8s, hit0)
+    for g, w in zip(train[:3], (A, B, fl)):
+        assert torch.equal(g, w)
+    assert step.instance_resources(scene, tables, "trace_fwd")["registers"]
+    cuts = ttr.compact_cuts(scene, 9, True)
+    if cuts:
+        renders = [ttr.trace_fused(scene, tables, 8, o, d, 0.15, u8s, cuts=c)
+                   for c in ([], cuts)]
+        assert torch.equal(*renders)
+
+
+@pytest.mark.cuda
+def test_culled_triangle_exit_differs_only_on_phantoms(cuda_device):
+    """The exit-mode closest hit on the glass torus, its triangle entry
+    and group exit culled per block, against the plain culled sweep (bit
+    for bit) and the unculled plain sweep: equal but on phantom entries
+    and exits (tri.culled_exit_phantoms), none on these rays."""
+    scene = _scene("mesh_glass", cuda_device)
+    tables = step.pack_step(scene)
+    o, d = _rays(1 << 15, cuda_device, seed=5, name="mesh_glass")
+    args = (tables.tab, tables.layout, o, d, hit3.MODE_EXIT, tables.tri)
+    got = hit3.closest_hit(*args, tables.tbb)
+    for g, w in zip(got, hit3.closest_hit_plain(*args, tables.tbb)):
+        assert torch.equal(g, w)
+    full = hit3.closest_hit_plain(*args, None)
+    assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
+    s = tables.layout[1]
+    won = got[1] >= s
+    assert int(won.sum()) > 1000
+    differs, phantom = tri.culled_exit_phantoms(
+        tables.tbb, o[won], d[won], (got[2][won], got[3][won] - s),
+        (full[2][won], full[3][won] - s))
+    assert not bool((differs & ~phantom).any())
+    assert int(differs.sum()) == 0
+
+
+@pytest.mark.cuda
+def test_step_kernels_past_the_staged_lights(cuda_device):
+    """``chip_smoke.lights_many`` (2,051 lights: 2,048 staged in shared
+    memory, the rest read from global memory): step_fwd and
+    step_fwd_train against each other and the plain step, step_bwd
+    against autograd of the plain step, as test_step_kernels_match_plain
+    holds them."""
+    from chip_smoke import lights_many
+
+    scene = compile_scene(schema.SceneConfig.from_json(lights_many()),
+                          cuda_device)
+    tables = step.pack_step(scene)
+    assert scene.n_lights > step.STEP_MAX_LIGHTS
+    R = 1 << 12
+    o, d = _rays(R, cuda_device, seed=6, name="mixed")
+    c0 = step.primary_carry(o.T.contiguous(), d.T.contiguous())
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    u8 = torch.rand((step.n_uni(scene.any_refract), R), generator=gen,
+                    device=cuda_device)
+    c1, hit = step.step_fwd(scene, tables, 0.85, c0, u8)
+    c1_t, hit_t, res = step.step_fwd_train(scene, tables, 0.85, c0, u8)
+    assert torch.equal(c1, c1_t) and torch.equal(hit, hit_t)
+    c1_p, hit_p, res_p = step.step_plain(scene, tables, 0.85, c0, u8,
+                                         want_resid=True)
+    assert torch.equal(hit, hit_p) and int(hit.sum()) > R // 4
+    bad = (~torch.isclose(c1, c1_p, rtol=TRACE_RTOL,
+                          atol=TRACE_ATOL)).any(0)
+    assert int(bad.sum()) <= TRACE_CAP * R, int(bad.sum())
+    live = (hit[0] > 0.5) & ~bad
+    lok = [step.RES_LOK + li for li in range(scene.n_lights)]
+    assert torch.equal(res[lok][:, live], res_p[lok][:, live])
+    assert float(c1[11:14].abs().max()) > 0
+    ct1 = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(step.CARRY_ROWS, R)).astype(np.float32)).to(cuda_device)
+    ct1[:, bad] = 0.0
+    _hold_step_bwd("lights_many", scene, tables, c0, u8, res_p, hit_p, ct1)

@@ -142,7 +142,8 @@ def test_sph_cull_gate():
 @pytest.mark.parametrize("name", ["grid360", "inst_grid"])
 def test_culled_sweep_equals_dense(name, mode):
     """The culled sweep gives the dense sweep's rows and t bit for bit,
-    and in entry-only and any-hit sweeps tests fewer sphere rows."""
+    and in every mode tests fewer sphere rows (an exit-mode sweep culls
+    its entry too; its exit is the winner row's own)."""
     _js, ps = _scene(name)
     tables = step.pack_step(ps)
     o, d = _rays(2048, 7)
@@ -155,10 +156,7 @@ def test_culled_sweep_equals_dense(name, mode):
     n = tables.layout[0][0][3]
     tested = hit3.sph_rows_tested(tables.tab, tables.layout, o, d, mode,
                                   tables.sbb).float().mean()
-    if mode == hit3.MODE_EXIT:
-        assert float(tested) == n
-    else:
-        assert float(tested) < 0.5 * n
+    assert float(tested) < 0.5 * n
 
 
 @functools.lru_cache(maxsize=None)

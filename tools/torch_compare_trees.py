@@ -9,6 +9,7 @@ then every output compared.
     python3 tools/torch_compare_trees.py ablate <tree> <workdir>
     python3 tools/torch_compare_trees.py ablate <tree> <workdir> tri|walk
     python3 tools/torch_compare_trees.py ablate <tree> <workdir> step|steps
+    python3 tools/torch_compare_trees.py ablate <tree> <workdir> sweep
     python3 tools/torch_compare_trees.py big_main <tree> <tag>
     python3 tools/torch_compare_trees.py pairs <tree_a> <tree_b> [pairs]
     python3 tools/torch_compare_trees.py reference <tree> <out.pt> <scene>...
@@ -84,6 +85,16 @@ launches, every variant on the carries the unchanged tree stepped and
 saved (the unchanged tree also on each carry with its live lanes first),
 and prints the walks' per-ray work at each step (``_step_stats``);
 ``steps`` the redesigned walk's options (``STEP_WALK_ABLATIONS``).
+
+``ablate <tree> <workdir> sweep`` times the whole trace's sweeps
+(``SWEEP_ABLATIONS``: the exit sweeps removed, the entries culled in exit
+mode, both, the row table read from global memory instead of shared) as
+``time`` does on ``mesh_glass``, ``inst_grid`` and ``inst_glass`` (rows 1,
+1t, 2; warps per SM of each instance), then on the unchanged tree the
+warps per SM of ``inst_grid``'s instance at each count of staged rows
+(``_occupancy_table``) and the per-step route against the whole trace,
+whole and compacted, render and training, on ``inst_grid`` and
+``inst_glass`` (``_routes``).
 
 ``big_main`` runs a tree's big-mesh main path (``chip_smoke.py`` phases
 23-24: the CLI renders of the three big scenes, one HTTP request, 3
@@ -455,7 +466,8 @@ def time_tree(tree, tag, *only):
              *getattr(cs, "INST_NAMES", ())]
     names = [n for n in names if not only or n in only]
     out = _time_steps(cs, dev) if not only or "steps" in only else {}
-    out["ptxas"] = {**ptxas_table(step.KERNEL.build_log),
+    out["ptxas"] = {**hit_ptxas(hit3.KERNEL.build_log),
+                    **ptxas_table(step.KERNEL.build_log),
                     **ptxas_table(step.BWD_KERNEL.build_log),
                     **step_ptxas(step.STEP_KERNEL.build_log,
                                  step.STEP_BWD_KERNEL.build_log)}
@@ -474,10 +486,6 @@ def time_tree(tree, tag, *only):
         hit0 = step.primary_hits(scene, tables, oT, dT)
         res = step.trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0)
         ct = torch.randn((3, oT.shape[1]), generator=gen, device=dev)
-        args = (tables.tab, tables.layout, oT.T, dT.T,
-                step.primary_mode(scene), tables.tri, tables.tbb)
-        if getattr(tables, "sbb", None) is not None:
-            args += (tables.sbb,)
         out[name] = {
             "trace_fwd": cs.cuda_ms(lambda: step.trace_fwd(
                 scene, tables, decay, oT, dT, u8s, hit0), 10),
@@ -485,9 +493,13 @@ def time_tree(tree, tag, *only):
                 scene, tables, decay, oT, dT, u8s, hit0), 10),
             "trace_bwd": cs.cuda_ms(lambda: step.trace_bwd(
                 scene, tables, decay, u8s, res[3], res[4], ct, ct), 10),
-            "closest_hit": cs.cuda_ms(lambda: hit3.closest_hit(*args), 20)}
+            "closest_hit": cs.cuda_ms(lambda: step.primary_hits(
+                scene, tables, oT, dT), 20)}
         # where the render runs in segments (tracer.compact_cuts), their
         # summed kernel time: the segment instances
+        if hasattr(step, "resident_warps"):
+            out[name]["warps"] = {w: step.resident_warps(scene, tables, w)
+                                  for w in ("trace_fwd", "trace_fwd_train")}
         seg = cs.check_segmented(name, scene, tables, decay, cfg.rt.loss, oT,
                                  dT, u8s, hit0, out[name]["trace_fwd"])
         if seg:
@@ -501,6 +513,18 @@ def ptxas_table(log):
     out = {}
     for name, v in _ptxas(log).items():
         k = re.search(r"(trace_(?:fwd|bwd)_kernel)I((?:Lb[01]E)+)", name)
+        if k:
+            flags = ",".join(re.findall(r"Lb([01])E", k.group(2)))
+            out[f"{k.group(1)}<{flags}>"] = list(v)
+    return out
+
+
+def hit_ptxas(log):
+    """``{closest_hit_kernel<template flags>: [registers, spill stores,
+    spill loads]}`` of the primary-hit kernel's ``nvcc -Xptxas -v`` log."""
+    out = {}
+    for name, v in _ptxas(log).items():
+        k = re.search(r"(closest_hit_kernel)I((?:Lb[01]E)+)", name)
         if k:
             flags = ",".join(re.findall(r"Lb([01])E", k.group(2)))
             out[f"{k.group(1)}<{flags}>"] = list(v)
@@ -1033,6 +1057,135 @@ STEP_WALK_ABLATIONS = {
 }
 
 
+# the whole trace's sweeps (``ablate <tree> <workdir> sweep``), on rows 1,
+# 1t and 2 of mesh_glass, inst_grid and inst_glass: the exit sweeps removed
+# (every closest hit its own exit), the entries culled in exit mode (the
+# triangle and sphere blocks as in entry mode; the phantom differences
+# allowed), both, and the rows read from the global row table instead of
+# shared memory (trace_fwd.cu stages no rows: more warps per SM). Timing
+# only: the variants' outputs are wrong.
+_SW_EXIT = "  if (!kNeedExit) {\n    h.tx = best;\n    h.xrow = row;"
+_SW_CULL = [
+    ("hit3.cuh", "kSph && !kNeedExit && L.n_sb > 0", "kSph && L.n_sb > 0"),
+    ("hit3.cuh", "tri_entry(T, L, !kNeedExit && L.n_cb > 0,",
+     "tri_entry(T, L, L.n_cb > 0,")]
+SWEEP_ABLATIONS = {
+    "sweep_noexit": [("hit3.cuh", _SW_EXIT, _SW_EXIT.replace("!kNeedExit",
+                                                          "true"))],
+    "sweep_cull_entry": _SW_CULL,
+    "sweep_cull_entry_noexit": _SW_CULL + [
+        ("hit3.cuh", _SW_EXIT, _SW_EXIT.replace("!kNeedExit", "true"))],
+    "sweep_rows_global": [
+        ("trace_fwd.cu", "  float* s_tab = smem;\n  float* s_lt = smem + P * "
+         "mrt::kRowCols;", "  const float* s_tab = tab;\n  float* s_lt = "
+         "smem;"),
+        ("trace_fwd.cu", "    mrt::stage(s_tab, tab, P, mrt::kRowCols, "
+         "mrt::kRowCols);\n", ""),
+        ("trace_fwd.cu", "  return (static_cast<size_t>(a.P) * mrt::kRowCols "
+         "+", "  return (static_cast<size_t>(0) * mrt::kRowCols +")],
+}
+SWEEP_SCENES = ("mesh_glass", "inst_grid", "inst_glass")
+
+
+def _routes(cs, dev):
+    """The per-step route against the whole trace, whole and compacted, on
+    ``inst_grid`` and ``inst_glass`` at the frame (one sample, 16 CUDA-event
+    runs each, the primary-hit pass included): render (``trace_fused``
+    with no cuts and with the JAX package's cuts; ``step.trace_steps``)
+    and a training pass (forward and backward of the whole trace's
+    ``TraceFunction``; of the per-step path's ``StepFunction`` chain)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.compiler import compile_scene
+    from micro_raytracer_tpu_torch.ops import step
+
+    out = {}
+    for name in ("inst_grid", "inst_glass"):
+        cfg = cs.inst_config(name)
+        scene = compile_scene(cfg.scene, dev)
+        tables = step.pack_step(scene)
+        decay = tracer.decay_of(cfg.rt.loss)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        oT, dT = cs.main_path_rays(cfg, gen, dev)
+        u8s = torch.rand((cs.BOUNCE + 1, step.n_uni(scene.any_refract),
+                          oT.shape[1]), generator=gen, device=dev)
+        ct = torch.randn((3, oT.shape[1]), generator=gen, device=dev)
+        loss = cfg.rt.loss
+        cuts = tracer.jax_cuts(scene, cs.BOUNCE + 1)
+
+        def render(c):
+            return tracer.trace_fused(scene, tables, cs.BOUNCE, oT.T, dT.T,
+                                      loss, u8s, cuts=c)
+
+        def steps():
+            return step.trace_steps(scene, tables, decay, oT, dT, u8s)
+
+        tab = tables.tab.detach().requires_grad_(True)
+        gt = tables._replace(tab=tab)
+
+        def train_whole():
+            A, B, _fl = step.TraceFunction.apply(
+                tab, gt.lights, gt.tri, oT, dT, scene, gt, decay, u8s)
+            torch.autograd.grad(((A + B) * ct).sum(), tab)
+
+        def train_steps():
+            A, B, _fl = step.trace_steps(scene, gt, decay, oT, dT, u8s)
+            torch.autograd.grad(((A + B) * ct).sum(), tab)
+
+        same = torch.equal(steps()[1], step.trace_packed(
+            scene, tables, decay, oT, dT, u8s)[1])
+        out[name] = {
+            "render_whole_ms": cs.cuda_ms(lambda: render([]), 16),
+            "render_compacted_ms": cs.cuda_ms(lambda: render(cuts), 16),
+            "cuts": cuts,
+            "render_steps_ms": cs.cuda_ms(steps, 16),
+            "train_whole_ms": cs.cuda_ms(train_whole, 8),
+            "train_steps_ms": cs.cuda_ms(train_steps, 8),
+            "steps_equal_whole": same}
+        print("route", name, json.dumps(out[name]), flush=True)
+    return out
+
+
+def _occupancy_table(cs, dev):
+    """Resident warps per SM of ``inst_grid``'s whole-trace render instance
+    against the rows its shared memory holds (each row 104 B beside its
+    lights and cull blocks): the card's ``cudaOccupancy`` answer for the
+    row counts of the Instance class."""
+    import ctypes
+
+    from micro_raytracer_tpu_torch.models.compiler import compile_scene
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    scene = compile_scene(cs.inst_config("inst_grid").scene, dev)
+    tables = step.pack_step(scene)
+    t = hit3.table_args(tables.layout, tables.tri, tables.tbb, tables.sbb)
+    out = {}
+    for P in (0, 64, 128, 256, 384, 512, 768, 1008, 1536, 2048):
+        for train in (0, 1):
+            w = ctypes.c_int(0)
+            rc = step.FWD_OCCUPANCY.fn()(
+                P, *t[:6], t[7], t[8], t[10], t[12], scene.n_lights, 0,
+                int(scene.any_refract), train, 1, ctypes.byref(w))
+            out[f"{P} rows{' train' if train else ''}"] = \
+                None if rc else w.value
+    return out
+
+
+def _sweep_extra(tree):
+    """The unchanged tree's routes and occupancy table (``ablate ...
+    sweep``)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    os.chdir(tree)
+    import torch
+
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    print("occupancy", json.dumps(_occupancy_table(cs, dev)), flush=True)
+    print("routes", json.dumps(_routes(cs, dev)), flush=True)
+
+
 def _step_mode(tree, tag, carries_dir, what):
     """``_step_time``: a tree's step kernels on the per-step scenes at the
     frame (:func:`_step_sample` on the saved carries; the unchanged tree,
@@ -1086,8 +1239,8 @@ def ablate(tree, work, which="room"):
     pkg = "micro_raytracer_tpu_torch"
     trees = {}
     variants = {"tri": TRI_ABLATIONS, "walk": TRI_WALK_ABLATIONS,
-                "step": STEP_ABLATIONS,
-                "steps": STEP_WALK_ABLATIONS}.get(which, ABLATIONS)
+                "step": STEP_ABLATIONS, "steps": STEP_WALK_ABLATIONS,
+                "sweep": SWEEP_ABLATIONS}.get(which, ABLATIONS)
     tri_set = which in ("tri", "walk")
     for name, patches in {"base": [], **variants}.items():
         dst = os.path.join(work, name)
@@ -1108,6 +1261,9 @@ def ablate(tree, work, which="room"):
         else:
             print(f"ablate {name}: not applicable", flush=True)
     kernels = ("step.STEP_KERNEL, tri.ENTRY_KERNEL" if tri_set else
+               "hit3.KERNEL, step.KERNEL, step.BWD_KERNEL, step.STEP_KERNEL, "
+               "step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL" if which == "sweep"
+               else
                "step.STEP_KERNEL, step.STEP_TRAIN_KERNEL, "
                "step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL, "
                "tri.ENTRY_EXIT_KERNEL" if which in ("step", "steps") else
@@ -1130,6 +1286,13 @@ def ablate(tree, work, which="room"):
                             name, carries], check=True)
         subprocess.run([sys.executable, me, "_step_stats", trees["base"],
                         carries], check=True)
+        return
+    if which == "sweep":
+        for name in order:
+            subprocess.run([sys.executable, me, "time", trees[name], name,
+                            *SWEEP_SCENES], check=True)
+        subprocess.run([sys.executable, me, "_sweep_extra", trees["base"]],
+                       check=True)
         return
     for name in order:
         if tri_set:
@@ -1495,6 +1658,8 @@ if __name__ == "__main__":
         _step_mode(*sys.argv[2:], "time")
     elif sys.argv[1:2] == ["_step_stats"] and len(sys.argv) == 4:
         _step_mode(sys.argv[2], "", sys.argv[3], "stats")
+    elif sys.argv[1:2] == ["_sweep_extra"] and len(sys.argv) == 3:
+        _sweep_extra(sys.argv[2])
     elif sys.argv[1:2] == ["pairs"] and len(sys.argv) in (4, 5):
         pairs(*sys.argv[2:])
     elif sys.argv[1:2] == ["_room_worker"] and len(sys.argv) == 3:
