@@ -119,9 +119,22 @@ Phases, each of which raises on failure:
    be left out as shown texel flips: rays outside tolerance with a texel
    coordinate within 1e-4 of an integer at a live step (``trace_plain``'s
    ``work["tex_edge"]``). The plain forward runs in chunks of 2^18 rays.
+   ``tex_blocks``'s box segment is walked (``csrc/box_walk.cuh``, the
+   kBox instances of ``hit3.cu`` and ``trace_fwd.cu``): its closest hit in
+   every mode and its render at the frame also equal the dense instances
+   (the same tables without the walk) bit for bit, no dense winner lies
+   outside the walk's boxes (``hit3.box_walk_phantoms``, at most
+   PHANTOM_SHARE), and it logs the box rows and slab tests per sweep
+   (``trace_plain``'s counts, ``hit3.box_walk_work``; the render's bound
+   counts the exit side only on the steps whose draw can choose it), the
+   dense
+   instances' times and bounds beside the walk's, registers and warps per
+   SM.
 13. textured main path: the CLI renders both stand-ins from JSON files at
    1080x1080, bounce 8, 16 spp: both kernels once per sample and no plain
-   version; ten renders each for the spread of rays/s, one profiled; the
+   version, every launch of ``tex_blocks`` the box walk's instances (the
+   wrappers count them, ``CudaKernel.variants``) and none of
+   ``tex_dof``'s; ten renders each for the spread of rays/s, one profiled; the
    HTTP service answers one ``tex_dof`` request.
 14. textured training: 3 steps of ``make_train_step`` on ``tex_blocks``
    at 1080x1080, bounce 8, one path per pixel, as phase 8.
@@ -544,13 +557,16 @@ def tex_dof(small=False):
     }
 
 
-def tex_blocks(small=False):
+def tex_blocks(small=False, grid=None):
     """``tex_blocks`` (the class of Minecraft.json): a 16 x 16 grid of unit
     boxes at stepped heights over a plane (257 rows), eight instanced box
-    objects whose 64 x 48 cross-atlas textures use all six map slots."""
+    objects whose 64 x 48 cross-atlas textures use all six map slots
+    (``small``: a 4 x 4 grid, 16 x 12 textures; ``grid``: a grid x grid
+    one)."""
     import numpy as np
 
-    grid, cell = (4, 4) if small else (16, 16)
+    grid, cell = ((4, 4) if small else (16, 16)) if grid is None \
+        else (grid, 4 if small else 16)
     rng = np.random.default_rng(21)
     heights = rng.integers(0, 4, (grid, grid)) * 0.25
     which = rng.permutation(np.arange(grid * grid) % len(BLOCK_MATS))
@@ -899,7 +915,7 @@ def plain_hit(tables, o, d, mode):
              else max(o.shape[0], 1))
     outs = [hit3.closest_hit_plain(tables.tab, tables.layout, o[s:s + chunk],
                                    d[s:s + chunk], mode, tables.tri,
-                                   tables.tbb, tables.sbb)
+                                   tables.tbb, tables.sbb, tables.box)
             for s in range(0, o.shape[0], chunk)]
     return tuple(torch.cat(x) for x in zip(*outs))
 
@@ -915,7 +931,8 @@ def compare_hit(tables, o, d, exact=False):
     err = 0.0
     cull = (tables.tri, tables.tbb, tables.sbb)
     for mode in (hit3.MODE_EXIT, hit3.MODE_ENTRY, hit3.MODE_ANY):
-        got = hit3.closest_hit(tables.tab, tables.layout, o, d, mode, *cull)
+        got = hit3.closest_hit(tables.tab, tables.layout, o, d, mode, *cull,
+                               box=tables.box)
         ref = plain_hit(tables, o, d, mode)
         for name, g, r in zip(("te", "row", "tx", "xrow"), got, ref):
             if g.dtype == torch.int32 or exact:
@@ -957,17 +974,20 @@ def table_bytes(scene, tables) -> int:
     """The row, light and triangle tables (and cull blocks) a kernel
     reads."""
     n = tables.tab.numel() + scene.n_lights * 11 + tables.tri.numel()
-    for bb in (tables.tbb, tables.sbb):
+    for bb in (tables.tbb, tables.sbb,
+               None if tables.box is None else tables.box.tab):
         n += 0 if bb is None else bb.numel()
     return 4 * n
 
 
-def sph_rows(scene, tables) -> int:
-    """The valid sphere rows of a scene whose sphere segment is culled
-    (counted from the plain version instead), else 0."""
+def walked_rows(scene, tables) -> int:
+    """The rows a walk tests in place of a dense sweep, counted from the
+    plain versions instead: the valid sphere rows of a culled sphere
+    segment and the boxes of a walked box segment (else 0)."""
+    n = 0 if tables.box is None else tables.box.n
     if tables.sbb is None:
-        return 0
-    return int(scene.prim_valid[scene.seg(0)].sum())
+        return n
+    return n + int(scene.prim_valid[scene.seg(0)].sum())
 
 
 def sph_rows_tested(tables, o, d, mode):
@@ -1038,8 +1058,10 @@ def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
     cull leaves (the plain version counts them), and on refractive scenes
     the winner's group on the exit side (one row for a dense winner, the
     mesh's rows for a triangle winner, counted with the triangles); a
-    culled sphere segment counts the rows the cull leaves. Returns the
-    result and the triangle and sphere rows tested per ray."""
+    culled sphere segment counts the rows the cull leaves, a walked box
+    segment the rows and slab tests of its walk and no exit row (the
+    winner's entry test gives its t1). Returns the result and the
+    triangle and sphere (or box) rows tested per ray."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import hit3, step
@@ -1048,11 +1070,13 @@ def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
     args = (tables.tab, tables.layout, oT.T, dT.T, mode, tables.tri,
             tables.tbb, tables.sbb)
     walk = None if tables.sbb is None else (tables.srows, tables.ssb)
-    ms = cuda_ms(lambda: hit3.closest_hit(*args, walk), reps)
+    box = tables.box
+    ms = cuda_ms(lambda: hit3.closest_hit(*args, walk, box), reps)
     plain_ms = cuda_ms(lambda: plain_hit(tables, oT.T, dT.T, mode),
                        plain_reps)
-    R, P = oT.shape[1], valid_rows(scene, tables) - sph_rows(scene, tables)
-    te, row = hit3.closest_hit(*args, walk)[:2]
+    R = oT.shape[1]
+    P = valid_rows(scene, tables) - walked_rows(scene, tables)
+    te, row = hit3.closest_hit(*args, walk, box)[:2]
     dense_hits = (te < hit3.BIG * 0.5) & (row < tables.layout[1])
     exits = int(dense_hits.sum()) if scene.any_refract else 0
     tri_rows = int(hit3.tri_rows_tested(*args[:-1]).sum())
@@ -1074,6 +1098,22 @@ def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
             (R * P + old + exits) * ROW_TEST_OPS)["bound_ms"],
             "sph_rows_per_ray": sph / R, "slabs_per_ray": slabs / R,
             "lowest_first_rows_per_ray": old / R}
+    if box is not None:
+        # the walk's box rows and slab tests (hit3.box_walk_work) on
+        # N_WORK of the frame's rays, scaled; the dense sweep's bound
+        # beside it
+        sub = work_subset(R, oT.device)
+        b_rows, b_slabs = hit3.box_walk_work(tables.tab, tables.layout,
+                                             oT.T[sub], dT.T[sub], mode, box)
+        scale = R / sub.numel()
+        sph = float(b_rows.sum()) * scale
+        slabs = float(b_slabs.sum()) * scale
+        extra = {"dense_bound_ms": bound(
+            R * (24 + 16) + table_bytes(scene, tables),
+            (R * (P + box.n) + exits) * ROW_TEST_OPS)["bound_ms"],
+            "box_rows_per_ray": sph / R, "slabs_per_ray": slabs / R}
+        # the walk's exit is the winner's own t1, kept from its entry test
+        exits = 0
     b = bound(R * (24 + 16) + table_bytes(scene, tables),
               (R * P + sph + exits) * ROW_TEST_OPS + tri_rows * TRI_TEST_OPS
               + slabs * SLAB_OPS)
@@ -1125,7 +1165,7 @@ def plain_trace(scene, tables, decay, oT, dT, u8s, want_resid=False,
             want_resid=want_resid, work=w))
         if w is not None:
             for k in ("sweep", "shadow", "sph_sweep", "sph_shadow",
-                      "tex_fetch"):
+                      "box_sweep", "box_shadow", "box_slabs", "tex_fetch"):
                 work[k] = work.get(k, 0) + w.get(k, 0)
             edges.append(w.get("tex_edge", torch.zeros(
                 sl.stop - sl.start, dtype=torch.bool, device=oT.device)))
@@ -1466,7 +1506,8 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
 
     K, NU, R = u8s.shape
     # a culled sphere segment's rows are counted by the plain version
-    L, P = scene.n_lights, valid_rows(scene, tables) - sph_rows(scene, tables)
+    L = scene.n_lights
+    P = valid_rows(scene, tables) - walked_rows(scene, tables)
     n = n_live.long()
     idx = torch.arange(R, device=n.device)
     live = torch.arange(K, device=n.device)[:, None] < n[None]     # (K, R)
@@ -1495,7 +1536,8 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
     # hit also tests its group's exit (one row here)
     later = int((n - 1).clamp(min=0).sum())
     sweeps = later + int(((n > 0) & (n < K) & ~killed).sum())
-    exits = later if scene.any_refract else 0
+    # (the box walk's exit is the winner's own t1, from its entry test)
+    exits = later if scene.any_refract and tables.box is None else 0
     # shadow sweeps: a visible light tests every row, an occluded one at
     # least one
     lok = resid[:, step.RES_LOK:step.RES_LOK + L] > 0.5            # (K, L, R)
@@ -1508,14 +1550,36 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
         sph = (tri_work["sph_sweep"] + tri_work["sph_shadow"]
                + tri_work.get("sph_slabs", 0) * SLAB_OPS / ROW_TEST_OPS)
         occ = 0
+    if tables.box is not None:
+        # the box rows the walk tests and its node and leaf slab tests
+        # (trace_plain's counts; a shadow ray's rows to its first hit)
+        sph += (tri_work["box_sweep"] + tri_work["box_shadow"]
+                + tri_work["box_slabs"] * SLAB_OPS / ROW_TEST_OPS)
+        occ = 0
     chosen = (int(((resid[:, step.RES_CHOOSE] > 0.5) & live).sum())
               if scene.any_refract else 0)
+    # the live steps whose exit side (its point, normal, refraction and
+    # texels) is computed: every one on a refractive scene, but in the
+    # walked box segment's render (ray_step) only where the draw can
+    # choose it, u6 < min(1 - opacity, 0.85) at the entry side (its
+    # texel where the opacity is mapped); its train instance computes all
+    x_train = live if scene.any_refract else torch.zeros_like(live)
+    x_fwd = x_train
+    if tables.box is not None and scene.any_refract:
+        row_e = torch.where(live, resid[:, step.RES_ROW].long(), 0)
+        opa = tables.tab[row_e, step._C_OPA]
+        if scene.has_maps and scene.map_slots[4]:
+            r4 = step.res_rows(L, tables.layout[3]) + sum(
+                3 if s == 0 else 1 for s in range(4) if scene.map_slots[s])
+            opa = torch.where(tables.maps[row_e, 4] >= 0, resid[:, r4], opa)
+        x_fwd = live & (u8s[:, 6] < torch.clamp(1.0 - opa, max=0.85))
     fwd_ops = ((sweeps * P + exits + vis * P + occ + sph) * ROW_TEST_OPS
-               + S * (FWD_STEP_OPS + L * FWD_LIGHT_OPS)
-               + (S * FWD_REFRACT_OPS if scene.any_refract else 0))
+               + S * (FWD_STEP_OPS + L * FWD_LIGHT_OPS))
     if tri_work is not None:
         fwd_ops += (tri_work["sweep"] * TRI_TEST_OPS
                     + tri_work["shadow"] * TRI_ANY_OPS)
+    train_ops = fwd_ops + int(x_train.sum()) * FWD_REFRACT_OPS
+    fwd_ops += int(x_fwd.sum()) * FWD_REFRACT_OPS
     tables_b = table_bytes(scene, tables)
     # primaries, hits and outputs per ray; uniforms per live step
     fwd_b = R * (24 + 16 + 28) + S * NU * 4 + tables_b
@@ -1530,29 +1594,32 @@ def trace_work(scene, tables, u8s, resid, n_live, tri_work=None):
              + d_tables_b)
     fetches = 0
     if scene.has_maps:
-        # operations per live step and hit side (the exit side on a
-        # refractive scene): the uv and the map ids, and each texel fetch;
-        # bytes: the map ids, the atlas and its meta read once (a few
-        # hundred KB, held in L2), the backward the map ids only
-        rows = [resid[:, step.RES_ROW].long()]
-        if scene.any_refract:
-            rows.append(resid[:, step.res_xrow(L)].long()
-                        if tables.layout[3] else rows[0])
-        for r in rows:
-            r = torch.where(live, r, 0)
-            fetches += int(((tables.maps[r] >= 0).sum(-1) * live).sum())
-        sides = S * len(rows)
+        # operations per live step and hit side (the exit side on the
+        # steps that compute it, above): the uv and the map ids, and each
+        # texel fetch; bytes: the map ids, the atlas and its meta read once
+        # (a few hundred KB, held in L2), the backward the map ids only
+        r_e = resid[:, step.RES_ROW].long()
+        r_x = (resid[:, step.res_xrow(L)].long() if tables.layout[3]
+               else r_e)
+        fetch_e, fetch_x = ((tables.maps[torch.where(live, r, 0)] >= 0)
+                            .sum(-1) * live for r in (r_e, r_x))
+        fetches = int(fetch_e.sum()) + int((fetch_x * x_fwd).sum())
+        fetches_t = int(fetch_e.sum()) + int((fetch_x * x_train).sum())
         maps_b = 4 * tables.maps.numel()
         tex_b = maps_b + 4 * (tables.atlas.numel() + tables.tmeta.numel())
-        fwd_ops += sides * TEX_SIDE_OPS + fetches * TEX_FETCH_OPS
+        fwd_ops += ((S + int(x_fwd.sum())) * TEX_SIDE_OPS
+                    + fetches * TEX_FETCH_OPS)
+        train_ops += ((S + int(x_train.sum())) * TEX_SIDE_OPS
+                      + fetches_t * TEX_FETCH_OPS)
         fwd_b += tex_b
         train_b += tex_b
         bwd_ops += S * TEX_BWD_OPS
         bwd_b += maps_b
     return {"trace_fwd": bound(fwd_b, fwd_ops),
-            "trace_fwd_train": bound(train_b, fwd_ops),
+            "trace_fwd_train": bound(train_b, train_ops),
             "trace_bwd": bound(bwd_b, bwd_ops), "live_steps": S,
-            "texel_fetches": fetches}
+            "texel_fetches": fetches,
+            "exit_side_steps": int(x_fwd.sum())}
 
 
 def compare_train_fwd(scene, tables, decay, oT, dT, u8s, hit0, work=None):
@@ -2541,11 +2608,44 @@ def tex_inputs(name, dev):
             compile_camera(cfg.frame.cam, dev))
 
 
+def compare_box_walk(scene, tables, o, d):
+    """The box walk's instance of closest_hit against the dense instance
+    (the same tables without the walk) in every mode, rows and t bit for
+    bit; the dense winners outside the walk's grown boxes
+    (``hit3.box_walk_phantoms``), at most PHANTOM_SHARE of the hits (none
+    expected). Returns the phantoms."""
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    n_ph = 0
+    for mode in (hit3.MODE_ENTRY, hit3.MODE_EXIT, hit3.MODE_ANY):
+        args = (tables.tab, tables.layout, o, d, mode)
+        walk = hit3.closest_hit(*args, box=tables.box)
+        dense = hit3.closest_hit(*args)
+        n = sum(int((w != f).sum()) for w, f in zip(walk, dense))
+        if mode != hit3.MODE_ANY:
+            n_ph += int(hit3.box_walk_phantoms(*args[:4], dense[0], dense[1],
+                                               tables.box).sum())
+        if n:
+            raise AssertionError(f"the box walk changes {n} outputs of "
+                                 f"mode {mode}")
+    hits = int((dense[0] < hit3.BIG * 0.5).sum())
+    if n_ph > PHANTOM_SHARE * max(hits, 1):
+        raise AssertionError(f"{n_ph} box winners outside the walk's boxes")
+    log(f"closest_hit {o.shape[0]} rays: the box walk equals the dense "
+        f"sweep bit for bit (entry, exit, any-hit); {n_ph} phantoms")
+    return n_ph
+
+
 def phase_tex_kernels(results):
     """Phase 12: every textured kernel (the closest-hit pass, the render
     and train instances of the trace, the backward) on both stand-ins
     against its plain version, on 2^17 camera rays and at the full frame,
-    where it is timed and bounded."""
+    where it is timed and bounded; on tex_blocks, whose box segment is
+    walked (csrc/box_walk.cuh), the walk's instances against the dense
+    ones too (closest_hit in every mode, the render instance at the
+    frame, bit for bit), with the rows and slab tests per sweep, the
+    dense instances' times and bounds beside, registers and warps per
+    SM."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import step
@@ -2558,6 +2658,12 @@ def phase_tex_kernels(results):
         o, d = camera_rays(cam, N_CMP, gen, dev)
         oT, dT = main_path_rays(cfg, gen, dev)
         err = max(compare_hit(tables, o, d), compare_hit(tables, oT.T, dT.T))
+        walked = tables.box is not None
+        if walked != (name == "tex_blocks"):
+            raise AssertionError(f"{name}: box walk tables {walked}")
+        dense = tables._replace(box=None)
+        if walked:
+            compare_box_walk(scene, tables, oT.T, dT.T)
         res_h, _rows, _sph = time_hit(scene, tables, oT, dT, plain_reps=1)
         results[f"closest_hit/{name}"] = {"max_abs_err": err, **res_h,
                                           "library_ms": None}
@@ -2572,6 +2678,26 @@ def phase_tex_kernels(results):
         hit0 = step.primary_hits(scene, tables, oT, dT)
         ms = cuda_ms(lambda: step.trace_fwd(scene, tables, decay, oT, dT,
                                             u8s, hit0), 5)
+        extra, extra_t = {}, {}
+        if walked:
+            # the walk's render instance against the dense one at the
+            # frame, bit for bit, and the dense instances' times
+            out = step.trace_fwd(scene, tables, decay, oT, dT, u8s, hit0)
+            h_d = step.primary_hits(scene, dense, oT, dT)
+            ref = step.trace_fwd(scene, dense, decay, oT, dT, u8s, h_d)
+            n = sum(int((a != b).sum()) for a, b in zip(out, ref))
+            if n or not all(torch.equal(a, b) for a, b in zip(hit0, h_d)):
+                raise AssertionError(f"{name}: the box walk's render "
+                                     f"differs from the dense one ({n})")
+            del out, ref
+            extra = {"dense_ms": cuda_ms(lambda: step.trace_fwd(
+                scene, dense, decay, oT, dT, u8s, hit0), 3)}
+            extra_t = {"dense_ms": cuda_ms(lambda: step.trace_fwd_train(
+                scene, dense, decay, oT, dT, u8s, hit0), 3)}
+            res_h["dense_ms"] = cuda_ms(lambda: step.primary_hits(
+                scene, dense, oT, dT), 10)
+            log(f"{name} the box walk's render instance equals the dense one "
+                f"bit for bit at the frame")
         seg = check_segmented(name, scene, tables, decay, cfg.rt.loss, oT,
                               dT, u8s, hit0, ms)
         plain_ms = cuda_ms(lambda: plain_trace(scene, tables, decay, oT, dT,
@@ -2594,11 +2720,41 @@ def phase_tex_kernels(results):
                                               resid, nl, ctA, ctB), 5)
         bw = trace_work(scene, tables, u8s, resid, nl, work)
         S = bw["live_steps"]
+        if walked:
+            # the dense sweep's bound beside the walk's, and the walk's rows
+            # and slab tests per sweep (closest hits after step 0, shadow
+            # rays), with the instances' registers and warps per SM
+            bw_d = trace_work(scene, dense, u8s, resid, nl, {
+                k: v for k, v in work.items() if not k.startswith("box")})
+            later = int((nl.long() - 1).clamp(min=0).sum())
+            L = scene.n_lights
+            walk = {"box_rows_per_sweep": work["box_sweep"] / max(later, 1),
+                    "box_rows_per_shadow": work["box_shadow"] / max(S * L, 1),
+                    "slabs_per_sweep": work["box_slabs"]
+                    / max(later + S * L, 1)}
+            use = resources(scene, tables, name)
+            log(f"{name} box walk: {walk['box_rows_per_sweep']:.2f} box rows "
+                f"a closest hit after step 0, "
+                f"{walk['box_rows_per_shadow']:.2f} a shadow ray (of "
+                f"{tables.box.n}), "
+                f"{walk['slabs_per_sweep']:.2f} node and leaf slab tests a "
+                f"sweep; closest_hit {res_h['box_rows_per_ray']:.2f} box rows "
+                f"and {res_h['slabs_per_ray']:.2f} slab tests a ray, dense "
+                f"instance {res_h['dense_ms']:.3f} ms; trace_fwd dense "
+                f"instance {extra['dense_ms']:.3f} ms, train "
+                f"{extra_t['dense_ms']:.3f} ms; dense bounds: trace "
+                f"{fmt_bound(bw_d['trace_fwd'])}, closest_hit "
+                f"{res_h['dense_bound_ms']:.4f} ms")
+            extra = {**extra, **use["trace_fwd"], **walk,
+                     "dense_bound_ms": bw_d["trace_fwd"]["bound_ms"]}
+            extra_t = {**extra_t, **use["trace_fwd_train"],
+                       "dense_bound_ms": bw_d["trace_fwd_train"]["bound_ms"]}
         log(f"{name} closest_hit {RES * RES} rays: kernel "
             f"{res_h['ms']:.3f} ms, plain {res_h['plain_ms']:.3f} ms, bound "
             f"{fmt_bound(res_h)}")
         log(f"{name} trace_fwd {RES * RES} rays x {BOUNCE + 1} steps ({S} "
-            f"live steps, {bw['texel_fetches']} texel fetches): kernel "
+            f"live steps, {bw['exit_side_steps']} with the exit side, "
+            f"{bw['texel_fetches']} texel fetches): kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms (chunks of "
             f"{PLAIN_FWD_CHUNK} rays), bound {fmt_bound(bw['trace_fwd'])}")
         log(f"{name} trace_fwd_train: kernel {ms_t:.3f} ms, plain "
@@ -2607,10 +2763,10 @@ def phase_tex_kernels(results):
             f"{fmt_bound(bw['trace_bwd'])}")
         results[f"trace_fwd/{name}"] = {
             "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
-            **bw["trace_fwd"], "library_ms": None, **seg}
+            **bw["trace_fwd"], "library_ms": None, **seg, **extra}
         results[f"trace_fwd_train/{name}"] = {
             "max_abs_err": max(errs_t), "ms": ms_t, "plain_ms": plain_t,
-            **bw["trace_fwd_train"], "library_ms": None}
+            **bw["trace_fwd_train"], "library_ms": None, **extra_t}
         results[f"trace_bwd/{name}"] = {
             "max_abs_err": max(errs_b), "ms": ms_b, "plain_ms": plain_b,
             **bw["trace_bwd"], "library_ms": None}
@@ -2619,7 +2775,8 @@ def phase_tex_kernels(results):
 
 def phase_tex_main(card, counts):
     """Phase 13: the CLI renders both textured stand-ins from JSON files
-    (counted, checked, ten timed renders each, one profiled); the HTTP
+    (counted, the box walk's launches too, checked, ten timed renders
+    each, one profiled); the HTTP
     service answers one tex_dof request."""
     import numpy as np
     from PIL import Image
@@ -2635,6 +2792,7 @@ def phase_tex_main(card, counts):
         out = os.path.join(tmp, f"{name}.png")
         for k in (hit3.KERNEL, step.KERNEL):
             k.launches = 0
+            k.variants = {}
             k.plain_calls = 0
         render_s, wall = render_cli(out, [path])
         launched = {k.name: k.launches for k in (hit3.KERNEL, step.KERNEL)}
@@ -2646,6 +2804,16 @@ def phase_tex_main(card, counts):
             raise AssertionError(f"{name} render: launches {launched}, "
                                  f"plain calls {hit3.KERNEL.plain_calls}, "
                                  f"{step.KERNEL.plain_calls}")
+        # tex_blocks's every launch runs the box walk's instances (the
+        # wrappers count them at the launch), tex_dof's none
+        walked = {k.name: k.variants.get("box_walk", 0)
+                  for k in (hit3.KERNEL, step.KERNEL)}
+        want = launched if name == "tex_blocks" else dict.fromkeys(walked, 0)
+        if walked != want:
+            raise AssertionError(f"{name} render: box walk launches "
+                                 f"{walked}, want {want}")
+        log(f"{name} CLI render: launches {launched}, of them the box "
+            f"walk's {walked}, no plain calls")
         img = np.asarray(Image.open(out))
         if img.shape != (RES, RES, 3) or float(img.std()) < 5.0:
             raise AssertionError(f"{name}: image {img.shape}, std "
@@ -3442,7 +3610,7 @@ def step_work(scene, tables, c0, u8, res, hit, work):
     R = c0.shape[1]
     NU = u8.shape[0]
     L = scene.n_lights
-    P = valid_rows(scene, tables) - sph_rows(scene, tables)
+    P = valid_rows(scene, tables) - walked_rows(scene, tables)
     live_in = int((c0[step.C_LIVE] > 0.5).sum())
     h = hit[0] > 0.5
     S = int(h.sum())
@@ -5191,6 +5359,7 @@ def main() -> int:
     fwd_src = "micro_raytracer_tpu_torch/csrc/trace_fwd.cu"
     hit_src = "micro_raytracer_tpu_torch/csrc/hit3.cu"
     bwd_src = "micro_raytracer_tpu_torch/csrc/trace_bwd.cu"
+    box_src = "micro_raytracer_tpu_torch/csrc/box_walk.cuh"
     mesh_kernels = [
         {"name": f"closest_hit/{name}", "route": "cuda", "source": hit_src,
          "replaces": "micro_raytracer_tpu/ops/pallas_hit3.py:399",
@@ -5223,9 +5392,13 @@ def main() -> int:
              "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",
              "launches": tex_counts[name][step.KERNEL.name],
              **results[f"trace_fwd/{name}"]}]
+        if name == "tex_blocks":
+            # the box walk's instances (csrc/box_walk.cuh)
+            for k in tex_kernels[-2:]:
+                k["walk_source"] = box_src
     tex_kernels += [
         {"name": "trace_fwd_train/tex_blocks", "route": "cuda",
-         "source": fwd_src,
+         "source": fwd_src, "walk_source": box_src,
          "replaces": "micro_raytracer_tpu/ops/pallas_step.py:1313",
          "launches": tex_train_counts[step.TRAIN_KERNEL.name],
          **results["trace_fwd_train/tex_blocks"]},

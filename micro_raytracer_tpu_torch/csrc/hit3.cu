@@ -31,9 +31,15 @@
 // columns of block entry t and the planes' and boxes' sweep rows, and
 // reads the packed sphere rows srows from global memory, where it staged
 // the whole dense table (72 KB for the 1,000-sphere grid) and swept whole
-// 64-row blocks.
+// 64-row blocks. A textured scene without triangles whose box segment has
+// walk tables (hit3.box_culled, the Minecraft class) runs the kBox instance
+// (box_walk.cuh): the block stages the walk's node and leaf AABBs and its
+// packed rows (16 KB for 256 boxes), the lanes' columns of entry t and the
+// sweep rows before the box segment, and walks the boxes nearest first,
+// where it swept every box row of the staged table.
 #include <cuda_runtime.h>
 
+#include "box_walk.cuh"
 #include "hit3.cuh"
 #include "sph_walk.cuh"
 
@@ -41,7 +47,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTri, bool kWalk>
+template <bool kTri, bool kWalk, bool kBox>
 __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
                                    int stride, mrt::Layout lay,
                                    const float* __restrict__ tri,
@@ -55,10 +61,22 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
                                    float* __restrict__ tx,
                                    int* __restrict__ xrow,
                                    const float* __restrict__ srows,
-                                   const float* __restrict__ ssb) {
+                                   const float* __restrict__ ssb,
+                                   const float* __restrict__ bw, int n_bw) {
   extern __shared__ float s_tab[];
   mrt::SphWalk W{};
-  if constexpr (kWalk) {
+  mrt::BoxWalk BW{};
+  if constexpr (kBox) {
+    // the walk's tables (its rows where they fit), the lanes' entry-t
+    // columns, then the sweep rows before the box segment (launch's smem)
+    float* s_tb = s_tab + mrt::box_staged_floats(n_bw);
+    float* s_pb = s_tb + (mrt::box_nodes(n_bw) + mrt::kBoxFan) * kThreads;
+    mrt::box_stage(s_tab, bw, n_bw);
+    mrt::stage(s_pb, tab, lay.box_start, stride, mrt::kSweepCols);
+    __syncthreads();
+    BW = mrt::BoxWalk{s_tab, mrt::box_rows_at(s_tab, bw, n_bw),
+                      s_tb + threadIdx.x, kThreads, s_pb, n_bw};
+  } else if constexpr (kWalk) {
     // sub-block AABBs, block AABBs, the blocks' AABB, the lanes' entry-t
     // columns, then the planes' and boxes' sweep rows (launch's smem)
     const int ns = (lay.sph_n + mrt::kSubRows - 1) / mrt::kSubRows;
@@ -94,7 +112,17 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
   const float ox = o[b], oy = o[b + comp_stride], oz = o[b + 2 * comp_stride];
   const float dx = d[b], dy = d[b + comp_stride], dz = d[b + 2 * comp_stride];
   mrt::Hit h;
-  if constexpr (kWalk) {
+  if constexpr (kBox) {
+    if (mode == 2) {
+      const bool hit = mrt::box_any_hit(lay, BW, ox, oy, oz, dx, dy, dz);
+      h = mrt::Hit{hit ? -mrt::kBig : mrt::kBig, 0,
+                   hit ? -mrt::kBig : mrt::kBig, 0};
+    } else if (mode == 1) {
+      h = mrt::box_closest_hit<true>(lay, BW, ox, oy, oz, dx, dy, dz);
+    } else {
+      h = mrt::box_closest_hit<false>(lay, BW, ox, oy, oz, dx, dy, dz);
+    }
+  } else if constexpr (kWalk) {
     if (mode == 2) {
       const bool hit = mrt::walk_any_hit(lay, W, ox, oy, oz, dx, dy, dz);
       h = mrt::Hit{hit ? -mrt::kBig : mrt::kBig, 0,
@@ -124,16 +152,20 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
   xrow[i] = h.xrow;
 }
 
-template <bool kTri, bool kWalk>
+template <bool kTri, bool kWalk, bool kBox>
 int launch(const float* tab, int P, int stride, const mrt::Layout& lay,
            const float* tri, const float* bb, const float* sbb,
            const float* o, const float* d,
            int ray_stride, int comp_stride, int R, int mode, float* te,
            int* row, float* tx, int* xrow, const float* srows,
-           const float* ssb, cudaStream_t stream) {
+           const float* ssb, const float* bw, int n_bw,
+           cudaStream_t stream) {
   const int ns = (lay.sph_n + mrt::kSubRows - 1) / mrt::kSubRows;
   const size_t smem =
-      kWalk ? (static_cast<size_t>(ns + lay.n_sb + 1) * mrt::kBbCols +
+      kBox ? (static_cast<size_t>(mrt::box_smem_floats(n_bw, kThreads)) +
+              static_cast<size_t>(lay.box_start) * mrt::kSweepCols) *
+                 sizeof(float)
+      : kWalk ? (static_cast<size_t>(ns + lay.n_sb + 1) * mrt::kBbCols +
                static_cast<size_t>(lay.n_sb) * kThreads +
                static_cast<size_t>(P - lay.pln_start) * mrt::kSweepCols) *
                   sizeof(float)
@@ -143,14 +175,14 @@ int launch(const float* tab, int P, int stride, const mrt::Layout& lay,
                   sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        closest_hit_kernel<kTri, kWalk>,
+        closest_hit_kernel<kTri, kWalk, kBox>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int blocks = (R + kThreads - 1) / kThreads;
-  closest_hit_kernel<kTri, kWalk><<<blocks, kThreads, smem, stream>>>(
+  closest_hit_kernel<kTri, kWalk, kBox><<<blocks, kThreads, smem, stream>>>(
       tab, P, stride, lay, tri, bb, sbb, o, d, ray_stride, comp_stride, R,
-      mode, te, row, tx, xrow, srows, ssb);
+      mode, te, row, tx, xrow, srows, ssb, bw, n_bw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -160,7 +192,9 @@ int launch(const float* tab, int P, int stride, const mrt::Layout& lay,
 // with tri_n = 0; bb: the (n_cb, 8) block AABBs, or null with n_cb = 0;
 // sbb: the sphere segment's (n_sb, 8) block AABBs, or null with n_sb = 0;
 // with sbb, srows and ssb its packed rows and sub-block AABBs
-// (hit3.sph_walk_tables, 16-byte aligned), else nulls.
+// (hit3.sph_walk_tables, 16-byte aligned), else nulls; bw / n_bw: a walked
+// box segment's tables (hit3.box_walk_tables, 16-byte aligned) and its
+// boxes, or null and 0.
 extern "C" int mrt_closest_hit(const float* tab, int P, int stride,
                                int sph_start, int sph_n, int pln_start,
                                int pln_n, int box_start, int box_n,
@@ -171,22 +205,31 @@ extern "C" int mrt_closest_hit(const float* tab, int P, int stride,
                                int comp_stride, int R, int mode, float* te,
                                int* row, float* tx, int* xrow,
                                const float* srows, const float* ssb,
-                               void* stream) {
+                               const float* bw, int n_bw, void* stream) {
   const mrt::Layout lay{sph_start, sph_n, pln_start, pln_n, box_start,
                         box_n,     tri_start, tri_n, n_cb,    n_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_bw > 0 && (bw == nullptr || tri_n > 0 || n_sb > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (tri_n > 0)
-    return launch<true, false>(tab, P, stride, lay, tri, bb, sbb, o, d,
-                               ray_stride, comp_stride, R, mode, te, row, tx,
-                               xrow, srows, ssb, s);
+    return launch<true, false, false>(tab, P, stride, lay, tri, bb, sbb, o,
+                                      d, ray_stride, comp_stride, R, mode,
+                                      te, row, tx, xrow, srows, ssb, bw,
+                                      n_bw, s);
   if (n_sb > 0) {
     if (srows == nullptr || ssb == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
-    return launch<false, true>(tab, P, stride, lay, tri, bb, sbb, o, d,
-                               ray_stride, comp_stride, R, mode, te, row, tx,
-                               xrow, srows, ssb, s);
+    return launch<false, true, false>(tab, P, stride, lay, tri, bb, sbb, o,
+                                      d, ray_stride, comp_stride, R, mode,
+                                      te, row, tx, xrow, srows, ssb, bw,
+                                      n_bw, s);
   }
-  return launch<false, false>(tab, P, stride, lay, tri, bb, sbb, o, d,
-                              ray_stride, comp_stride, R, mode, te, row, tx,
-                              xrow, srows, ssb, s);
+  if (n_bw > 0)
+    return launch<false, false, true>(tab, P, stride, lay, tri, bb, sbb, o,
+                                      d, ray_stride, comp_stride, R, mode,
+                                      te, row, tx, xrow, srows, ssb, bw,
+                                      n_bw, s);
+  return launch<false, false, false>(tab, P, stride, lay, tri, bb, sbb, o, d,
+                                     ray_stride, comp_stride, R, mode, te,
+                                     row, tx, xrow, srows, ssb, bw, n_bw, s);
 }

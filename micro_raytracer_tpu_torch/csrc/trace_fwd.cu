@@ -124,12 +124,34 @@
 // sweep), so their outputs are that design's bit for bit
 // (tools/torch_compare_trees.py compare) and the per-step path's.
 //
+// A textured scene without triangles whose box segment holds at least
+// hit3.BOX_CULL_MIN valid boxes (hit3.box_culled, the Minecraft class)
+// runs the kBox instances (render, segment and train): every one of its
+// sweeps tested all the box rows, 98% of its bound (on an H100 a flat
+// per-box cull took 40% off: tools/torch_compare_trees.py ablate ...
+// tex). They stage the box walk's node and leaf AABBs and packed rows
+// (box_walk.cuh; 18 KB for 256 boxes), each lane's column of node and
+// leaf entry t, the sweep rows before the box segment and the lights,
+// walk the boxes nearest first, and take a refractive step's exit from
+// the winner's own entry test (the group scan over every row cost 5-7%);
+// the winners' attributes come from the global row table. Their whole
+// render always refills lanes through ray_step (textured: each side's
+// texels applied as trace_ray applies them, the exit side's only where
+// the draw can choose it): a warp of one ray per thread ran 2.42x the
+// lane-steps its rays need (tools/torch_compare_trees.py ablate ... tex),
+// and on an H100 the render went from 0.178 to 0.128 of the dense
+// instance's time (chip_smoke.py --gate before and after the refill);
+// the train instance keeps trace_ray, which saves both sides' texels at
+// every hit. The walk gives the dense sweep's t and row,
+// so their outputs are the dense instances' bit for bit.
+//
 // Numerics: float32 throughout; 1/sqrt as 1.0f/sqrtf, sincosf at full
 // precision, -fmad=false (see hit3.cuh). The train instance's A, B and
 // first_live equal the render instance's bit for bit: the residual stores
 // are the only difference.
 #include "trace_step.cuh"
 #include "sph_walk.cuh"
+#include "box_walk.cuh"
 
 namespace mrt {
 
@@ -146,25 +168,32 @@ struct Seg {
 // The closest hit and the occlusion of a step: hit3.cuh's sweeps over the
 // dense rows `s_tab` (and with kTri the triangle segment), or with kWalk (a
 // culled sphere segment, no triangles or textures) sph_walk.cuh's walks
-// of W.
-template <bool kRefract, bool kTri, bool kSph, bool kWalk>
+// of W, or with kBox (a walked box segment, textured, no triangles)
+// box_walk.cuh's walks of B.
+template <bool kRefract, bool kTri, bool kSph, bool kWalk, bool kBox = false>
 __device__ __forceinline__ Hit sweep_hit(const float* s_tab, const Tris& T,
                                          const Layout& lay,
                                          const SphWalk& W, const V3& o,
-                                         const V3& d) {
-  if constexpr (kWalk)
+                                         const V3& d,
+                                         const BoxWalk& B = BoxWalk{}) {
+  if constexpr (kBox)
+    return box_closest_hit<kRefract>(lay, B, o.x, o.y, o.z, d.x, d.y, d.z);
+  else if constexpr (kWalk)
     return walk_closest_hit<kRefract>(lay, W, o.x, o.y, o.z, d.x, d.y, d.z);
   else
     return closest_hit<kRefract, kTri, kSph>(s_tab, kRowCols, lay, o.x, o.y,
                                              o.z, d.x, d.y, d.z, T);
 }
 
-template <bool kTri, bool kSph, bool kWalk>
+template <bool kTri, bool kSph, bool kWalk, bool kBox = false>
 __device__ __forceinline__ bool sweep_any(const float* s_tab, const Tris& T,
                                           const Layout& lay,
                                           const SphWalk& W, const V3& o,
-                                          const V3& d) {
-  if constexpr (kWalk)
+                                          const V3& d,
+                                          const BoxWalk& B = BoxWalk{}) {
+  if constexpr (kBox)
+    return box_any_hit(lay, B, o.x, o.y, o.z, d.x, d.y, d.z);
+  else if constexpr (kWalk)
     return walk_any_hit(lay, W, o.x, o.y, o.z, d.x, d.y, d.z);
   else
     return any_hit<kTri, kSph>(s_tab, kRowCols, lay, o.x, o.y, o.z, d.x,
@@ -174,10 +203,11 @@ __device__ __forceinline__ bool sweep_any(const float* s_tab, const Tris& T,
 // One ray's trace over the steps of `sg` (the body of both instances;
 // the train instance runs the whole trace). `s_tab` holds the dense rows,
 // `g_tab` the whole row table (triangle rows are read there); kWalk (a
-// culled sphere segment, no triangles or textures): the sweeps walk W and
-// `s_tab` is the global row table.
+// culled sphere segment, no triangles or textures) or kBox (a walked box
+// segment, textured, no triangles): the sweeps walk W or B and `s_tab` is
+// the global row table.
 template <bool kRefract, bool kTrain, bool kTri = false, bool kTex = false,
-          bool kWalk = false>
+          bool kWalk = false, bool kBox = false>
 __device__ __forceinline__ void trace_ray(
     const float* s_tab, const float* g_tab, const Tris& T, const Layout& lay,
     const float* s_lt, int L, float dk, const Tex& tex,
@@ -185,11 +215,14 @@ __device__ __forceinline__ void trace_ray(
     const float* __restrict__ d0, Hit h0, const float* __restrict__ u8s,
     float* __restrict__ A_out, float* __restrict__ B_out,
     float* __restrict__ fl_out, float* __restrict__ resid,
-    int* __restrict__ n_live, const SphWalk& W = SphWalk{}) {
+    int* __restrict__ n_live, const SphWalk& W = SphWalk{},
+    const BoxWalk& BW = BoxWalk{}) {
   constexpr int NU = kRefract ? 8 : 4;
   constexpr bool kSph = !kTri && !kTex;  // the sphere blocks (hit3.cuh)
   static_assert(kSph || !kWalk, "only scenes without triangles or "
                                 "textures walk a culled sphere segment");
+  static_assert(!kBox || (kTex && !kTri), "only textured scenes without "
+                                          "triangles walk a box segment");
   const int CR = res_rows_all<kRefract, kTri, kTex>(L, tex.slots);
   const int side_rows = kTex ? tex_side_rows(tex.slots) : 0;
   V3 o, d, A, B;
@@ -217,8 +250,8 @@ __device__ __forceinline__ void trace_ray(
   for (int k = sg.k0; live && k < sg.k1; ++k) {
     const float* u = u8s + static_cast<size_t>(k) * NU * R + col;
     const Hit h = k == 0 ? h0
-                         : sweep_hit<kRefract, kTri, kSph, kWalk>(
-                               s_tab, T, lay, W, o, d);
+                         : sweep_hit<kRefract, kTri, kSph, kWalk, kBox>(
+                               s_tab, T, lay, W, o, d, BW);
     const bool hit = h.te < kBig * 0.5f;
     if (k == 0) first_live = hit ? 1.0f : 0.0f;
     if (!hit) {  // dead from here on: a = 1, b = 0 every later step
@@ -238,7 +271,8 @@ __device__ __forceinline__ void trace_ray(
       const V3 lv = light_vec(s_lt + li * kLightCols, p_e);
       const V3 ln = scale(lv, 1.0f / sqrtf(dot(lv, lv)));
       const V3 so = add(p_e, scale(ln, kEps));
-      light_ok[li] = !sweep_any<kTri, kSph, kWalk>(s_tab, T, lay, W, so, ln);
+      light_ok[li] =
+          !sweep_any<kTri, kSph, kWalk, kBox>(s_tab, T, lay, W, so, ln, BW);
     }
 
     const int kind_e = row_kind<kTri>(h.row, lay);
@@ -393,20 +427,27 @@ struct Carry {
 // residuals and n = k + 1. Returns whether the ray lives on: false when it
 // missed (the carry unchanged) or its emit draw ended the path. kWalk: the
 // sweeps walk the culled sphere segment of W (sph_walk.cuh), and `s_tab`
-// is the global row table (the winners' attributes are read there).
-template <bool kRefract, bool kTrain, bool kWalk = false>
+// is the global row table (the winners' attributes are read there). kTex
+// and kBox (a textured scene whose box segment is walked, BW; render mode
+// only: the train instance saves the exit side's texels at every hit): the
+// sides' texels `tex` applied as trace_ray applies them.
+template <bool kRefract, bool kTrain, bool kWalk = false, bool kTex = false,
+          bool kBox = false>
 __device__ __forceinline__ bool ray_step(
     const float* s_tab, const Tris& T, const Layout& lay, const float* s_lt,
     int L, float dk, int i, int R, int k, const Hit& h0,
     const float* __restrict__ u8s, Carry& c, float& first_live,
-    float* __restrict__ resid, int& n, const SphWalk& W = SphWalk{}) {
+    float* __restrict__ resid, int& n, const SphWalk& W = SphWalk{},
+    const Tex& tex = Tex{}, const BoxWalk& BW = BoxWalk{}) {
+  static_assert(!kTex || (kBox && !kTrain), "a textured step: the box "
+                                            "walk's render instance");
   constexpr int NU = kRefract ? 8 : 4;
   const int CR = res_rows_all<kRefract, false, false>(L, 0);
   const float* u = u8s + static_cast<size_t>(k) * NU * R + i;
   const Hit h =
       k == 0 ? h0
-             : sweep_hit<kRefract, false, true, kWalk>(s_tab, T, lay, W, c.o,
-                                                       c.d);
+             : sweep_hit<kRefract, false, !kTex, kWalk, kBox>(
+                   s_tab, T, lay, W, c.o, c.d, BW);
   const bool hit = h.te < kBig * 0.5f;
   if (k == 0) first_live = hit ? 1.0f : 0.0f;
   if (!hit) return false;  // dead from here on: a = 1, b = 0 every later step
@@ -423,12 +464,15 @@ __device__ __forceinline__ bool ray_step(
     const V3 lv = light_vec(s_lt + li * kLightCols, p_e);
     const V3 ln = scale(lv, 1.0f / sqrtf(dot(lv, lv)));
     const V3 so = add(p_e, scale(ln, kEps));
-    light_ok[li] = !sweep_any<false, true, kWalk>(s_tab, T, lay, W, so, ln);
+    light_ok[li] =
+        !sweep_any<false, !kTex, kWalk, kBox>(s_tab, T, lay, W, so, ln, BW);
   }
 
   const int kind_e = row_kind<false>(h.row, lay);
   const V3 n_e = normal_full(atE, p_e, kind_e).n;
-  const Side<false> sE(atE, Texels{});
+  Texels tE{};
+  if constexpr (kTex) side_texels(tex, h.row, atE, p_e, kind_e, tE);
+  const Side<kTex> sE(atE, tE);
   const float opa_e = sE.col(A_OPA);
 
   // reflect from the entry hit (rt.rs:559-572)
@@ -437,15 +481,18 @@ __device__ __forceinline__ bool ray_step(
   const V3 refl = safe_norm(sub(c.d, scale(nr, 2.0f * dot(c.d, nr))));
 
   V3 next_dir = refl, from_p = p_e, norm_c = n_e;
-  Side<false> sC = sE;  // the chosen side's material
+  Side<kTex> sC = sE;  // the chosen side's material
   bool choose = false;
   if (kRefract && u[6 * R] < fminf(1.0f - opa_e, 0.85f)) {
     // refract from the exit hit (rt.rs:574-589, 1054-1058), only where
     // the draw can choose it
     const float* atX = s_tab + h.xrow * kRowCols;
     const V3 p_x = add(c.o, scale(c.d, h.tx));
-    const V3 n_x = normal_full(atX, p_x, row_kind<false>(h.xrow, lay)).n;
-    const Side<false> sX(atX, Texels{});
+    const int kind_x = row_kind<false>(h.xrow, lay);
+    const V3 n_x = normal_full(atX, p_x, kind_x).n;
+    Texels tX{};
+    if constexpr (kTex) side_texels(tex, h.xrow, atX, p_x, kind_x, tX);
+    const Side<kTex> sX(atX, tX);
     const float rough_f =
         rough_override(sX, u[3 * R]) ? 1.0f : sX.col(A_RGH);
     const V3 nf = sphere_rand(n_x, rough_f, u[4 * R], u[5 * R]);
@@ -577,9 +624,11 @@ __device__ __forceinline__ mrt::Carry primary(int i, int R,
 // kDense: a dense-row whole trace (ray_step); kRefill: its lanes refill
 // from next[0], next[1] counting the blocks that finished (module comment);
 // kWalk: a scene without triangles or textures whose sphere segment has
-// cull blocks, walked through sph_walk.cuh (module comment)
+// cull blocks, walked through sph_walk.cuh; kBox: a textured scene without
+// triangles whose box segment is walked through box_walk.cuh (module
+// comment)
 template <bool kRefract, bool kTrain, bool kSeg, bool kTri, bool kTex,
-          bool kRefill, bool kWalk>
+          bool kRefill, bool kWalk, bool kBox>
 __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
                                  mrt::Layout lay,
                                  const float* __restrict__ tri,
@@ -605,10 +654,15 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
                                  int* __restrict__ n_live,
                                  int* __restrict__ next,
                                  const float* __restrict__ srows,
-                                 const float* __restrict__ ssb) {
+                                 const float* __restrict__ ssb,
+                                 const float* __restrict__ bw, int n_bw) {
   constexpr bool kDense = !kSeg && !kTri && !kTex;
-  static_assert(kDense || !kRefill, "only dense-row whole traces refill");
+  static_assert(kDense || (kBox && !kSeg && !kTrain) || !kRefill,
+                "only dense-row whole traces and the box walk's whole "
+                "render refill");
   static_assert(!kWalk || (!kTri && !kTex), "kWalk: spheres, planes, boxes");
+  static_assert(!kBox || (kTex && !kTri && !kWalk), "kBox: textured, no "
+                                                    "triangles");
   extern __shared__ float smem[];
   float* s_tab = smem;
   float* s_lt = smem + P * mrt::kRowCols;
@@ -620,6 +674,7 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
   const mrt::Seg sg = kSeg ? mrt::Seg{k0, k1, c0, rid, cout}
                            : mrt::Seg{0, K};
   mrt::SphWalk W{};
+  mrt::BoxWalk BW{};
   if constexpr (kWalk) {
     // the sphere sub-blocks' and blocks' AABBs, the AABB of all the blocks,
     // the lanes' columns of block entry t, the lights and the planes' and
@@ -646,6 +701,25 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
     W = mrt::SphWalk{mrt::SphPack{srows, s_sub, s_seg}, s_bb,
                      s_tb + threadIdx.x, kThreads,
                      s_pb - lay.pln_start * mrt::kSweepCols};
+  } else if constexpr (kBox) {
+    // the box walk's tables (its rows where they fit), the lanes' columns
+    // of entry t, the sweep rows before the box segment and the lights in
+    // shared memory (smem_bytes); the winners' attributes come from the
+    // global table
+    const int nt = mrt::box_nodes(n_bw) + mrt::kBoxFan;
+    float* s_tb = smem + mrt::box_staged_floats(n_bw);
+    float* s_pb = s_tb + nt * kThreads;
+    s_lt = s_pb + lay.box_start * mrt::kSweepCols;
+    const float* rows_at = mrt::box_rows_at(smem, bw, n_bw);
+    if (!sg.c0 ||
+        __syncthreads_or(i < R && sg.c0[mrt::kC_LIVE * R + i] > 0.5f)) {
+      mrt::box_stage(smem, bw, n_bw);
+      mrt::stage(s_pb, tab, lay.box_start, mrt::kRowCols, mrt::kSweepCols);
+      mrt::stage(s_lt, lights, L, mrt::kLightCols, mrt::kLightCols);
+      __syncthreads();
+    }
+    BW = mrt::BoxWalk{smem, rows_at, s_tb + threadIdx.x, kThreads, s_pb,
+                      n_bw};
   } else if (!sg.c0 ||
              __syncthreads_or(i < R && sg.c0[mrt::kC_LIVE * R + i] > 0.5f)) {
     mrt::stage(s_tab, tab, P, mrt::kRowCols, mrt::kRowCols);
@@ -658,7 +732,7 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
   }
   // the rows the steps sweep and fetch: the staged dense rows, or the
   // global table where the walk reads its own
-  const float* rows = kWalk ? tab : s_tab;
+  const float* rows = kWalk || kBox ? tab : s_tab;
   const mrt::Tris T{tri, s_bb};
   if constexpr (kRefill) {
     // Persistent lanes: each holds one ray at a time and runs it one step
@@ -694,10 +768,9 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
       }
       if (__all_sync(kFull, done)) break;
       if (!live) continue;
-      live = mrt::ray_step<kRefract, kTrain, kWalk>(rows, T, lay, s_lt, L,
-                                                    dk, ray, R, k, h0, u8s,
-                                                    c, first_live, resid, n,
-                                                    W);
+      live = mrt::ray_step<kRefract, kTrain, kWalk, kTex, kBox>(
+          rows, T, lay, s_lt, L, dk, ray, R, k, h0, u8s, c, first_live,
+          resid, n, W, tex, BW);
       if (++k == K) live = false;
       if (!live)
         store_ray<kTrain>(ray, R, c, first_live, n, A_out, B_out, fl_out,
@@ -730,9 +803,9 @@ __global__ void trace_fwd_kernel(const float* __restrict__ tab, int P,
     const mrt::Hit h0 = sg.k0 == 0
                             ? mrt::Hit{te0[i], row0[i], tx0[i], xrow0[i]}
                             : mrt::Hit{};
-    mrt::trace_ray<kRefract, kTrain, kTri, kTex, kWalk>(
+    mrt::trace_ray<kRefract, kTrain, kTri, kTex, kWalk, kBox>(
         rows, tab, T, lay, s_lt, L, dk, tex, i, R, sg, o0, d0, h0, u8s,
-        A_out, B_out, fl_out, resid, n_live, W);
+        A_out, B_out, fl_out, resid, n_live, W, BW);
   }
 }
 
@@ -770,10 +843,20 @@ struct Args {
   // (hit3.sph_walk_tables), or nulls
   const float* srows;
   const float* ssb;
+  // a walked box segment's tables (hit3.box_walk_tables) and its boxes,
+  // or null and 0
+  const float* bw;
+  int n_bw;
 };
 
-template <bool kSeg, bool kTri, bool kTex, bool kWalk>
+template <bool kSeg, bool kTri, bool kTex, bool kWalk, bool kBox>
 size_t smem_bytes(const Args& a) {
+  if constexpr (kBox) {
+    return (static_cast<size_t>(mrt::box_smem_floats(a.n_bw, kThreads)) +
+            static_cast<size_t>(a.lay.box_start) * mrt::kSweepCols +
+            static_cast<size_t>(a.L) * mrt::kLightCols) *
+           sizeof(float);
+  }
   if constexpr (kWalk) {
     const int ns = (a.lay.sph_n + mrt::kSubRows - 1) / mrt::kSubRows;
     return (static_cast<size_t>(ns + a.lay.n_sb + 1) * mrt::kBbCols +
@@ -794,11 +877,11 @@ size_t smem_bytes(const Args& a) {
 struct Launch {
   cudaStream_t stream;
   template <bool kRefract, bool kTrain, bool kSeg, bool kTri, bool kTex,
-            bool kRefill, bool kWalk>
+            bool kRefill, bool kWalk, bool kBox>
   int run(const Args& a) const {
-    const size_t smem = smem_bytes<kSeg, kTri, kTex, kWalk>(a);
-    auto kernel =
-        trace_fwd_kernel<kRefract, kTrain, kSeg, kTri, kTex, kRefill, kWalk>;
+    const size_t smem = smem_bytes<kSeg, kTri, kTex, kWalk, kBox>(a);
+    auto kernel = trace_fwd_kernel<kRefract, kTrain, kSeg, kTri, kTex,
+                                   kRefill, kWalk, kBox>;
     int per_sm = 0, sms = 0;
     const int e = mrt::resident_blocks(kernel, kThreads, smem, &per_sm, &sms);
     if (e) return e;
@@ -808,7 +891,7 @@ struct Launch {
         a.tab, a.P, a.lay, a.tri, a.bb, a.sbb, a.lights, a.L, a.dk, a.tex,
         a.o0, a.d0, a.te0, a.row0, a.tx0, a.xrow0, a.u8s, a.K, a.R, a.k0,
         a.k1, a.c0, a.rid, a.A, a.B, a.fl, a.cout, a.resid, a.n_live, a.next,
-        a.srows, a.ssb);
+        a.srows, a.ssb, a.bw, a.n_bw);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -817,18 +900,21 @@ struct Launch {
 struct Occupancy {
   int* per_sm;
   template <bool kRefract, bool kTrain, bool kSeg, bool kTri, bool kTex,
-            bool kRefill, bool kWalk>
+            bool kRefill, bool kWalk, bool kBox>
   int run(const Args& a) const {
     return mrt::resident_blocks(
-        trace_fwd_kernel<kRefract, kTrain, kSeg, kTri, kTex, kRefill, kWalk>,
-        kThreads, smem_bytes<kSeg, kTri, kTex, kWalk>(a), per_sm);
+        trace_fwd_kernel<kRefract, kTrain, kSeg, kTri, kTex, kRefill, kWalk,
+                         kBox>,
+        kThreads, smem_bytes<kSeg, kTri, kTex, kWalk, kBox>(a), per_sm);
   }
 };
 
 // the refill choice: a dense-row whole trace's render always refills (it
 // needs the counter), its train instance where it is given one; the
 // other instances never do. The walk: a scene without triangles or
-// textures whose sphere segment has cull blocks (its whole traces refill)
+// textures whose sphere segment has cull blocks (its whole traces
+// refill); the box walk: a textured scene without triangles whose box
+// segment has walk tables (its whole render always refills)
 template <bool kRefract, bool kTrain, bool kSeg, bool kTri, bool kTex,
           class Op>
 int pick(const Args& a, const Op& op) {
@@ -836,22 +922,33 @@ int pick(const Args& a, const Op& op) {
   if constexpr (!kSeg && !kTri && !kTex) {
     if (a.next)
       return walk ? op.template run<kRefract, kTrain, kSeg, kTri, kTex, true,
-                                    true>(a)
+                                    true, false>(a)
                   : op.template run<kRefract, kTrain, kSeg, kTri, kTex, true,
-                                    false>(a);
+                                    false, false>(a);
     if constexpr (kTrain)
       if (!walk)
         return op.template run<kRefract, kTrain, kSeg, kTri, kTex, false,
-                               false>(a);
+                               false, false>(a);
     return static_cast<int>(cudaErrorInvalidValue);
   } else if constexpr (!kTri && !kTex) {
     return walk ? op.template run<kRefract, kTrain, kSeg, kTri, kTex, false,
-                                  true>(a)
+                                  true, false>(a)
                 : op.template run<kRefract, kTrain, kSeg, kTri, kTex, false,
-                                  false>(a);
+                                  false, false>(a);
+  } else if constexpr (kTex && !kTri) {
+    if (a.n_bw == 0)
+      return op.template run<kRefract, kTrain, kSeg, kTri, kTex, false, false,
+                             false>(a);
+    if constexpr (!kSeg && !kTrain)
+      return a.next ? op.template run<kRefract, kTrain, kSeg, kTri, kTex,
+                                      true, false, true>(a)
+                    : static_cast<int>(cudaErrorInvalidValue);
+    else
+      return op.template run<kRefract, kTrain, kSeg, kTri, kTex, false,
+                             false, true>(a);
   } else {
-    return op.template run<kRefract, kTrain, kSeg, kTri, kTex, false, false>(
-        a);
+    return op.template run<kRefract, kTrain, kSeg, kTri, kTex, false, false,
+                           false>(a);
   }
 }
 
@@ -881,12 +978,14 @@ int dispatch(const Args& a, int refract, const Op& op) {
 // triangle table, or null with tri_n = 0; bb: the (n_cb, 8) block AABBs,
 // or null with n_cb = 0; sbb: the sphere segment's (n_sb, 8) block AABBs,
 // or null with n_sb = 0; maps (P, 6), atlas (N, 3), tmeta (T, 3) and the
-// slot mask `slots` of a textured scene, or nulls and slots = 0. The render
+// slot mask `slots` of a textured scene, or nulls and slots = 0; bw / n_bw:
+// a textured scene's walked box segment (hit3.box_walk_tables, 16-byte
+// aligned) and its boxes, or null and 0 (the box rows swept dense). The render
 // instance runs steps [k0, k1) of the K in u8s; c0 / rid / cout: the carry
 // in, the lanes' rays and the carry out of a segment, or nulls (te0..xrow0
 // are read only when k0 = 0); next: two zeroed int32 counters for the
-// lane refill of a dense-row whole trace (which leaves them zeroed; a
-// whole render of one needs them), or null.
+// lane refill of a dense-row or box-walk whole trace (which leaves them
+// zeroed; a whole render of one needs them), or null.
 extern "C" int mrt_trace_fwd(const float* tab, int P, int sph_start,
                              int sph_n, int pln_start, int pln_n,
                              int box_start, int box_n, const float* tri,
@@ -901,8 +1000,10 @@ extern "C" int mrt_trace_fwd(const float* tab, int P, int sph_start,
                              int refract, int k0, int k1, const float* c0,
                              const int* rid, float* A, float* B, float* fl,
                              float* cout, int* next, const float* srows,
-                             const float* ssb, void* stream) {
-  if (n_sb > 0 && (srows == nullptr || ssb == nullptr))
+                             const float* ssb, const float* bw, int n_bw,
+                             void* stream) {
+  if ((n_sb > 0 && (srows == nullptr || ssb == nullptr)) ||
+      (n_bw > 0 && (bw == nullptr || slots == 0 || tri_n > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{tab, P,
                mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
@@ -910,7 +1011,7 @@ extern "C" int mrt_trace_fwd(const float* tab, int P, int sph_start,
                tri, bb, sbb, lights, L, dk,
                mrt::Tex{maps, atlas, tmeta, slots}, o0, d0, te0, row0, tx0,
                xrow0, u8s, K, R, k0, k1, c0, rid, A, B, fl, cout, nullptr,
-               nullptr, next, srows, ssb};
+               nullptr, next, srows, ssb, bw, n_bw};
   const bool seg = k0 != 0 || k1 != K || c0 || rid || cout;
   const Launch op{static_cast<cudaStream_t>(stream)};
   return seg ? dispatch<false, true>(a, refract, op)
@@ -926,8 +1027,10 @@ extern "C" int mrt_trace_fwd_train(
     const float* d0, const float* te0, const int* row0, const float* tx0,
     const int* xrow0, const float* u8s, int K, int R, int refract, float* A,
     float* B, float* fl, float* resid, int* n_live, int* next,
-    const float* srows, const float* ssb, void* stream) {
-  if (n_sb > 0 && (srows == nullptr || ssb == nullptr))
+    const float* srows, const float* ssb, const float* bw, int n_bw,
+    void* stream) {
+  if ((n_sb > 0 && (srows == nullptr || ssb == nullptr)) ||
+      (n_bw > 0 && (bw == nullptr || slots == 0 || tri_n > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{tab, P,
                mrt::Layout{sph_start, sph_n, pln_start, pln_n, box_start,
@@ -935,19 +1038,19 @@ extern "C" int mrt_trace_fwd_train(
                tri, bb, sbb, lights, L, dk,
                mrt::Tex{maps, atlas, tmeta, slots}, o0, d0, te0, row0, tx0,
                xrow0, u8s, K, R, 0, K, nullptr, nullptr, A, B, fl, nullptr,
-               resid, n_live, next, srows, ssb};
+               resid, n_live, next, srows, ssb, bw, n_bw};
   return dispatch<true, false>(a, refract,
                                Launch{static_cast<cudaStream_t>(stream)});
 }
 
 // Resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of
 // the instance a whole trace of these tables launches: the render (train
-// = 0) or train instance, refilling its lanes or not, into *warps; returns
-// a CUDA error code.
+// = 0) or train instance, refilling its lanes or not, walking n_bw boxes
+// or not (0), into *warps; returns a CUDA error code.
 extern "C" int mrt_trace_fwd_occupancy(
     int P, int sph_start, int sph_n, int pln_start, int pln_n, int box_start,
     int box_n, int tri_start, int tri_n, int n_cb, int n_sb, int L,
-    int slots, int refract, int train, int refill, int* warps) {
+    int slots, int refract, int train, int refill, int n_bw, int* warps) {
   int counter[2] = {};  // only its being set is read
   Args a{};
   a.next = refill ? counter : nullptr;
@@ -956,6 +1059,7 @@ extern "C" int mrt_trace_fwd_occupancy(
                       box_n, tri_start, tri_n, n_cb, n_sb};
   a.L = L;
   a.tex.slots = slots;
+  a.n_bw = n_bw;
   int per_sm = 0;
   const Occupancy op{&per_sm};
   const int e = train ? dispatch<true, false>(a, refract, op)

@@ -11,7 +11,8 @@ The row layout is the JAX package's exactly — the kernels depend on it:
 * one ``group_id`` per (object, instance) pair, so that mesh entry/exit hits
   follow rt.rs:740-772 and every non-mesh group is a single row;
 * ``any_refract``, ``n_groups`` and ``kind_counts`` as static metadata, and
-  ``kind_sweep``, the rows of each segment the kernels need to test.
+  ``kind_sweep``, the rows of each segment the kernels need to test;
+* ``box_order``, the box walk's order of a long box segment's rows.
 
 :func:`scene_from_numpy` / :func:`camera_from_numpy` build the tensors from
 numpy leaves, which is also how a test hands the JAX compiler's output to
@@ -94,6 +95,11 @@ class SceneArrays:
     map_slots: tuple = (True,) * 6
     n_groups: int = 0
     mapped_kinds: tuple = (True,) * 4
+    # where the box segment's swept rows are enough for the box walk
+    # (ops/hit3.py BOX_CULL_MIN): its valid rows' segment-local indices in
+    # the walk's order (hit3.box_order, from the compiled positions), a
+    # device int64 tensor; else None
+    box_order: torch.Tensor | None = None
 
     @property
     def n_prims(self) -> int:
@@ -138,6 +144,8 @@ def scene_from_numpy(d: dict, meta: dict, device="cpu") -> SceneArrays:
     static["mapped_kinds"] = tuple(bool(v) for v in static["mapped_kinds"])
     static["kind_sweep"] = _kind_sweep(static["kind_counts"],
                                        np.asarray(d["prim_valid"], bool))
+    static["box_order"] = _box_order(static["kind_counts"],
+                                     static["kind_sweep"], d, device)
     return SceneArrays(**leaves, **static)
 
 
@@ -168,6 +176,19 @@ def _kind_sweep(kind_counts, prim_valid):
         out.append(int(valid[-1]) + 1 if len(valid) else 0)
         start += c
     return tuple(out)
+
+
+def _box_order(kind_counts, kind_sweep, d, device):
+    """:attr:`SceneArrays.box_order` of a scene's numpy leaves ``d``."""
+    from ..ops import hit3
+
+    n = kind_sweep[schema.KIND_BOX]
+    if n < hit3.BOX_CULL_MIN:
+        return None
+    s = sum(kind_counts[:schema.KIND_BOX])
+    order = hit3.box_order(np.asarray(d["inst_pos"])[s:s + n],
+                           np.asarray(d["prim_valid"], bool)[s:s + n])
+    return torch.as_tensor(order, dtype=torch.int64, device=device)
 
 
 def _mapped_kinds(kind_counts, mat_id, mat_maps_np, prim_valid):

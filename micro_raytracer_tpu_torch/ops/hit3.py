@@ -25,6 +25,17 @@ one row). The kernels walk the blocks through 8-row sub-blocks, nearest
 first from inside the segment (``csrc/sph_walk.cuh``, on the packed rows
 of :func:`sph_walk_tables`), with the same t and row.
 
+A textured scene without triangles whose box segment holds at least
+:data:`BOX_CULL_MIN` valid boxes (:func:`box_culled`; the Minecraft class)
+walks its boxes through a spatial index over their row ids
+(:func:`box_walk_tables`: the valid box rows in a median-split order, in
+leaves of 8 within nodes of 64, behind world AABBs; ``csrc/box_walk.cuh``),
+the row table left as it is: nearest first, to the dense sweep's t and
+row, since every box's hit lies inside its leaf's and node's boxes as the
+walk grows them (no phantom; :func:`box_walk_phantoms` finds any). The
+plain version walks the same tables in the same order (:func:`_box_walk_mask`)
+and tests the same rows.
+
 Triangles: the entry test is pallas_tri._tri_block's Woop form (``|d'_z| >=
 thr``, then ``t = -o'_z / d'_z`` and the barycentric bounds), the any-hit
 test its division-free ``_tri_block_any``, and a triangle's exit t is its
@@ -48,7 +59,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..models import schema
@@ -83,15 +96,32 @@ SPH_MAX_BLOCKS = 64
 # rows per sub-block of a culled sphere segment: the per-step forward
 # tests a swept block's sub-blocks before their rows (csrc/step_fwd.cu)
 SPH_SUB = 8
+# the box walk (csrc/box_walk.cuh): at least BOX_CULL_MIN valid boxes, a
+# node's worth (below it the walk's slab tests cost about what they
+# save: a dense sweep of 64 boxes is one node's rows), at most
+# MAX_ROWS of them (32 nodes: a lane's 32-bit node mask); leaves of
+# BOX_LEAF boxes, BOX_FAN leaves a node; packed rows of BOX_ROW_COLS floats
+# (frame, position, sizes, row id) after a BOX_HEAD-float header (the
+# boxes' centre and the base growth g0); the kernels stage up to
+# BOX_STAGE_MAX packed rows in shared memory (32 KB); a ray from o grows
+# every box it tests by g0 + BOX_GROW |o - centre|_1, g0 = BOX_GROW0 +
+# BOX_GROW * the boxes' radius
+BOX_CULL_MIN = 64
+BOX_LEAF, BOX_FAN = 8, 8
+BOX_ROW_COLS, BOX_HEAD = 16, 8
+BOX_STAGE_MAX = 512
+BOX_GROW, BOX_GROW0 = 2e-4, 1e-3
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
 KERNEL = CudaKernel(
-    "hit3", "hit3.cu", ("hit3.cuh", "tri_walk.cuh", "sph_walk.cuh"),
+    "hit3", "hit3.cu", ("hit3.cuh", "tri_walk.cuh", "sph_walk.cuh",
+                        "box_walk.cuh"),
     "mrt_closest_hit",
     [_c_ptr, _c_int, _c_int] + [_c_int] * 6 + [_c_ptr, _c_int, _c_int,
                                                   _c_ptr, _c_int, _c_ptr,
                                                   _c_int]
-    + [_c_ptr, _c_ptr] + [_c_int] * 4 + [_c_ptr] * 4 + [_c_ptr] * 3)
+    + [_c_ptr, _c_ptr] + [_c_int] * 4 + [_c_ptr] * 4 + [_c_ptr] * 2
+    + [_c_ptr, _c_int, _c_ptr])
 # entry only (tx = te); entry and group exit; any-hit (te = -BIG on a hit)
 MODE_ENTRY, MODE_EXIT, MODE_ANY = 0, 1, 2
 
@@ -264,7 +294,8 @@ def sph_blockbounds(scene, rows=CB):
 
 def _sphere_boxes(ip, r, valid, rows):
     """:func:`sph_blockbounds` of sphere centres ``ip`` (n, 3), radii
-    ``r`` and valid flags ``valid`` (n, 1) in runs of ``rows`` rows."""
+    ``r`` and valid flags ``valid`` (n, 1) in runs of ``rows`` rows (also
+    of boxes: ``r`` (n, 3) their half extents, :func:`box_walk_tables`)."""
     lo = torch.where(valid, ip - r, BIG)
     hi = torch.where(valid, ip + r, -BIG)
     pad = (-lo.shape[0]) % rows
@@ -331,6 +362,304 @@ def walk_tables(tab, layout):
         rr = rr.view(-1, SPH_SUB).amin(1)
         sub[:, 6] = 1e-3 + 2e-6 / torch.clamp(rr, min=1e-6)
         return rows, sub
+
+
+class BoxWalk(NamedTuple):
+    """A walked box segment's tables (:func:`box_walk_tables`): ``tab``
+    the flat float32 ``[header (BOX_HEAD) | node AABBs (nn, 8) | leaf AABBs
+    (nl, 8) | packed rows (n, BOX_ROW_COLS)]`` and ``n`` its boxes."""
+
+    tab: torch.Tensor
+    n: int
+
+
+def box_cull_rows(layout):
+    """``(start, rows to sweep)`` of the box segment when it holds at least
+    BOX_CULL_MIN rows up to its last valid one, else None."""
+    for kind, s, _c, n in layout[0]:
+        if kind == schema.KIND_BOX and n >= BOX_CULL_MIN:
+            return s, n
+    return None
+
+
+def box_culled(scene, layout) -> bool:
+    """Whether the kernels walk the box segment (``csrc/box_walk.cuh``): a
+    textured scene without triangles (whose whole-trace instances have the
+    walk: the untextured and Mesh-class instances keep their code and
+    registers) with :func:`box_cull_rows` and at most MAX_ROWS dense
+    rows."""
+    return bool(scene.has_maps) and not layout[2] \
+        and layout[1] <= MAX_ROWS and box_cull_rows(layout) is not None
+
+
+def box_order(inst_pos, prim_valid):
+    """Segment-local indices (numpy int64) of the valid rows among a box
+    segment's swept rows (``inst_pos`` (n, 3) and ``prim_valid`` (n,)
+    numpy, the compiled positions) in a median-split order over their
+    centres: aligned runs of BOX_LEAF * BOX_FAN are nodes, runs of
+    BOX_LEAF within them leaves (models/compiler.py _median_split_order,
+    the sphere segment's order). The compiler keeps it on the scene
+    (``SceneArrays.box_order``): it only sets which boxes share a leaf,
+    the walk's bounds follow the current positions at every pack_step."""
+    from ..models.compiler import _median_split_order
+
+    idx = np.flatnonzero(prim_valid)
+    ctr = np.asarray(inst_pos, np.float32)[idx]
+    node = BOX_LEAF * BOX_FAN
+
+    def split(ix, leaf):
+        c = np.repeat(ctr[ix][:, None, :], 3, axis=1)
+        return ix[_median_split_order(c, leaf)]
+
+    order = split(np.arange(idx.size), node)
+    order = np.concatenate([split(order[k:k + node], BOX_LEAF)
+                            for k in range(0, order.size, node)])
+    return idx[order]
+
+
+def box_walk_tables(scene, layout, tab):
+    """The box walk's :class:`BoxWalk` where :func:`box_culled`, else None
+    (any device, without a gradient; ``step.pack_step`` builds it every
+    time, in the compiled scene's walk order ``scene.box_order``): the
+    valid box rows' sweep columns packed in walk order, 16 floats a row
+    (frame (9), position (3), sizes (3), row id: four 16-byte loads, the
+    row id the table's, so the row table keeps its order), each box's
+    world AABB ``ip +- |M^-1| |sizes| / 2`` (M^-1 the frame's adjugate over
+    its determinant) in runs of BOX_LEAF (leaves) and of BOX_LEAF *
+    BOX_FAN (nodes), slacked as the sphere blocks (:func:`_sphere_boxes`),
+    and the header: the
+    nodes' centre and g0 = BOX_GROW0 + BOX_GROW * their radius (the
+    kernels grow every box by g0 + BOX_GROW |o - centre|_1 for a ray from
+    o: csrc/box_walk.cuh)."""
+    if not box_culled(scene, layout):
+        return None
+    with torch.no_grad():
+        s, n = box_cull_rows(layout)
+        perm = scene.box_order
+        t = tab.detach()[s:s + n].index_select(0, perm)
+        fr, ip, sz = t[:, _C_FR:_C_IP], t[:, _C_IP:_C_PA], t[:, _C_PA:_C_PR]
+        M = fr.reshape(-1, 3, 3)
+        c0, c1, c2 = M[:, :, 0], M[:, :, 1], M[:, :, 2]
+        adj = torch.stack([torch.linalg.cross(c1, c2),
+                           torch.linalg.cross(c2, c0),
+                           torch.linalg.cross(c0, c1)], 1)   # rows of M^-1 det
+        det = (c0 * adj[:, 0]).sum(-1)
+        det = torch.where(det == 0.0, 1.0, det)
+        half = 0.5 * (torch.abs(adj) * torch.abs(sz)[:, None, :]).sum(-1) \
+            / torch.abs(det)[:, None]
+        ones = torch.ones_like(half[:, :1], dtype=torch.bool)
+        leaves = _sphere_boxes(ip, half, ones, BOX_LEAF)
+        nodes = _sphere_boxes(ip, half, ones, BOX_LEAF * BOX_FAN)
+        lo, hi = nodes[:, :3].amin(0), nodes[:, 3:6].amax(0)
+        ctr = 0.5 * (lo + hi)
+        rad = 0.5 * torch.linalg.vector_norm(hi - lo)
+        head = torch.cat([ctr, (BOX_GROW0 + BOX_GROW * rad)[None],
+                          torch.zeros_like(ctr), torch.zeros_like(rad[None])])
+        rows = torch.cat([fr, ip, sz, (s + perm).to(t.dtype)[:, None]], 1)
+        flat = torch.cat([head, nodes.reshape(-1), leaves.reshape(-1),
+                          rows.reshape(-1)]).contiguous()
+        return BoxWalk(flat, int(perm.numel()))
+
+
+def _box_parts(box):
+    """``(header (8,), nodes (nn, 8), leaves (nl, 8), rows (n, 16))``
+    views of a :class:`BoxWalk`."""
+    nl = -(-box.n // BOX_LEAF)
+    nn = -(-nl // BOX_FAN)
+    t = box.tab
+    a, b = BOX_HEAD + 8 * nn, BOX_HEAD + 8 * (nn + nl)
+    return (t[:BOX_HEAD], t[BOX_HEAD:a].view(nn, 8), t[a:b].view(nl, 8),
+            t[b:].view(box.n, BOX_ROW_COLS))
+
+
+def _box_slab(bb, g, o, inv):
+    """(tmin, tmax) (R, k) of rays ``o``, ``inv`` = 1/d against the boxes
+    ``bb`` (k, 8) grown by ``g`` (R,): csrc/box_walk.cuh box_slab's
+    operations in its order."""
+    tmin = tmax = None
+    for k in range(3):
+        lo = bb[None, :, k] - g[:, None]
+        hi = bb[None, :, 3 + k] + g[:, None]
+        t1 = (lo - o[:, k:k + 1]) * inv[:, k:k + 1]
+        t2 = (hi - o[:, k:k + 1]) * inv[:, k:k + 1]
+        near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tmin = near if tmin is None else torch.maximum(tmin, near)
+        tmax = far if tmax is None else torch.minimum(tmax, far)
+    return tmin, tmax
+
+
+def _box_touch(tmin, tmax, best):
+    """box_walk.cuh box_touch: met at t >= 0 and entered at or before
+    ``best`` (broadcast); a NaN is a touch."""
+    return ~(tmax < torch.maximum(tmin, torch.zeros_like(tmin))) \
+        & ~(tmin > best)
+
+
+def _box_key(tmin):
+    return torch.where(torch.isnan(tmin), -BIG, tmin)
+
+
+def _nearest(mask, key):
+    """(index, key) (R,) of each row's lowest key under ``mask`` (ties to
+    the lowest index; inf where the mask is empty)."""
+    cand = torch.where(mask, key, torch.full_like(key, float("inf")))
+    m = cand.amin(dim=1)
+    j = intersect.first_index(cand == m[:, None]).long()
+    return j, m
+
+
+def _box_walk(box, o, d, t0, ok, best, row, mode):
+    """The box walk of csrc/box_walk.cuh on rays ``o``, ``d`` (R, 3) (no
+    gradient): ``t0``, ``ok`` (R, n) are the packed rows' tests, ``best``,
+    ``row`` (R,) the hit of the rows before the box segment. Returns the
+    (R, n) bool of the packed rows the walk tests, the slab tests each
+    ray makes and, for the any-hit, the rows up to its first hit. The
+    closest hit visits the nodes nearest first and each node's leaves
+    nearest first, ending a level at an entry t beyond the best (t, row)
+    so far; the any-hit every node and leaf the ray meets, in order."""
+    R, n = t0.shape
+    head, nodes, leaves, rows = _box_parts(box)
+    nn, nl = nodes.shape[0], leaves.shape[0]
+    ids = rows[:, 15].long()
+    inv = 1.0 / d
+    g = head[3] + BOX_GROW * ((torch.abs(o[:, 0] - head[0])
+                               + torch.abs(o[:, 1] - head[1]))
+                              + torch.abs(o[:, 2] - head[2]))
+    ntmin, ntmax = _box_slab(nodes, g, o, inv)
+    ltmin, ltmax = _box_slab(leaves, g, o, inv)
+    fan = torch.arange(BOX_FAN, device=o.device)
+    leaf_n = torch.clamp(nl - torch.arange(nn, device=o.device) * BOX_FAN,
+                         max=BOX_FAN)
+    big = torch.full_like(best, BIG)
+    if mode == MODE_ANY:
+        node_on = _box_touch(ntmin, ntmax, big[:, None])
+        leaf_on = _box_touch(ltmin, ltmax, big[:, None]) \
+            & node_on[:, torch.arange(nl, device=o.device) // BOX_FAN]
+        tested = leaf_on[:, torch.arange(n, device=o.device) // BOX_LEAF]
+        hits = tested & ok
+        found = hits.any(dim=1)
+        first = intersect.first_index(hits).long()
+        upto = tested.long().cumsum(1)
+        rows_n = torch.where(found, upto.gather(1, first[:, None])[:, 0],
+                             upto[:, -1])
+        # a node's leaves are all slab-tested once the node is met
+        last = torch.where(found, first // (BOX_LEAF * BOX_FAN), nn - 1)
+        upto_node = torch.arange(nn, device=o.device)[None] <= last[:, None]
+        slabs = nn + (node_on & upto_node).long().mul(leaf_n).sum(1)
+        return tested, slabs, rows_n
+    ar = torch.arange(R, device=o.device)
+    tested = torch.zeros((R, n + 1), dtype=torch.bool, device=o.device)
+    nkey, lkey = _box_key(ntmin), _box_key(ltmin)
+    nm = _box_touch(ntmin, ntmax, best[:, None])
+    slabs = torch.full((R,), nn, dtype=torch.int64, device=o.device)
+    inf = torch.full_like(t0, float("inf"))
+    tm_all = torch.where(ok, t0, inf)
+    big_id = torch.full_like(ids, 1 << 30)
+    for _ in range(nn):
+        k, kt = _nearest(nm, nkey)
+        go = nm.any(dim=1) & ~(kt > best)
+        nm = nm & go[:, None]
+        nm[ar, k] &= ~go
+        slabs += torch.where(go, leaf_n[k], 0)
+        lidx = k[:, None] * BOX_FAN + fan[None]
+        lval = (lidx < nl) & go[:, None]
+        lidx = lidx.clamp(max=nl - 1)
+        lm = lval & _box_touch(ltmin.gather(1, lidx), ltmax.gather(1, lidx),
+                               best[:, None])
+        lk = lkey.gather(1, lidx)
+        for _ in range(BOX_FAN):
+            j, jt = _nearest(lm, lk)
+            lgo = lm.any(dim=1) & ~(jt > best)
+            lm = lm & lgo[:, None]
+            lm[ar, j] &= ~lgo
+            ridx = (k * BOX_FAN + j)[:, None] * BOX_LEAF + fan[None]
+            rval = (ridx < n) & lgo[:, None]
+            ridx = torch.where(rval, ridx, n)
+            tested.scatter_(1, ridx, rval | tested.gather(1, ridx))
+            rc = ridx.clamp(max=n - 1)
+            tm = torch.where(rval, tm_all.gather(1, rc),
+                             torch.full_like(best[:, None], float("inf")))
+            m = tm.amin(dim=1)
+            idm = torch.where(tm == m[:, None], ids[rc], big_id[rc]).amin(1)
+            upd = (m < best) | ((m == best) & (idm < row))
+            best = torch.where(upd, m, best)
+            row = torch.where(upd, idm, row)
+    tested = tested[:, :n]
+    return tested, slabs, tested.long().sum(1)
+
+
+def _box_walk_mask(box, s, o, d, t0, ok, best, row, mode):
+    """The rows the box walk tests (:func:`_box_walk`) as an (R, c) bool
+    over the box segment's rows (segment-local; ``t0``, ``ok`` its row
+    tests in row order), the rest cleared, and its rows and slab tests
+    per ray. With the mask the plain sweep's smallest (t, row) is the
+    kernels'."""
+    with torch.no_grad():
+        loc = _box_parts(box)[3][:, 15].long() - s
+        tested, slabs, rows = _box_walk(box, o, d, t0[:, loc], ok[:, loc],
+                                        best, row.long(), mode)
+        mask = torch.zeros(ok.shape, dtype=torch.bool, device=ok.device)
+        mask[:, loc] = tested
+        return mask, rows, slabs
+
+
+def box_walk_work(tab, layout, o, d, mode, box):
+    """(rows (R,), slabs (R,)) int64: the box rows and the node and leaf
+    slab tests the walk (``csrc/box_walk.cuh``) makes for these rays in
+    ``mode`` (any-hit: rows up to its first hit, none where a sphere or
+    plane hits first; :func:`sweep_plain`'s ``box_work``). Counts the
+    work behind a kernel's bound."""
+    work = {}
+    with torch.no_grad():
+        sweep_plain(tab.detach(), layout, o.detach(), d.detach(), mode,
+                    box=box, box_work=work)
+    return work["rows"], work["slabs"]
+
+
+def box_walk_phantoms(tab, layout, o, d, te, row, box):
+    """(R,) bool: rays whose box winner (``te``, ``row`` of the dense
+    sweep) lies outside a box the walk grows around it, its leaf's or its
+    node's (the slab test's entry beyond te, or a miss): the only hits a
+    walk could drop. The walk's bounds hold every box's hits, so none are
+    expected (the host tests and chip_smoke.py count them)."""
+    with torch.no_grad():
+        s, _n = box_cull_rows(layout)
+        head, nodes, leaves, rows = _box_parts(box)
+        where = torch.full((int(tab.shape[0]),), -1, dtype=torch.int64,
+                           device=o.device)
+        where[rows[:, 15].long()] = torch.arange(box.n, device=o.device)
+        p = where[row.long()]
+        on = (te < BIG * 0.5) & (p >= 0)
+        pc = p.clamp(min=0)
+        inv = 1.0 / d
+        g = head[3] + BOX_GROW * ((torch.abs(o[:, 0] - head[0])
+                                   + torch.abs(o[:, 1] - head[1]))
+                                  + torch.abs(o[:, 2] - head[2]))
+        bad = torch.zeros_like(on)
+        for bb, k in ((leaves, pc // BOX_LEAF),
+                      (nodes, pc // (BOX_LEAF * BOX_FAN))):
+            tmin, tmax = _box_slab(bb, g, o, inv)
+            tmin = tmin.gather(1, k[:, None])[:, 0]
+            tmax = tmax.gather(1, k[:, None])[:, 0]
+            bad |= ~_box_touch(tmin, tmax, te)
+        return on & bad
+
+
+def check_box_walk(box, layout):
+    """Validate a launch's box walk tables (a 16-byte aligned CUDA tensor
+    of the layout's boxes); their C arguments (null and 0 without)."""
+    if box is None:
+        return [None, 0]
+    nl = -(-box.n // BOX_LEAF)
+    size = BOX_HEAD + 8 * (-(-nl // BOX_FAN) + nl) + BOX_ROW_COLS * box.n
+    require_cuda_tensor("box walk", box.tab, torch.float32, (size,))
+    if box.tab.data_ptr() % 16:
+        raise ValueError("box walk tables are not 16-byte aligned")
+    if box_cull_rows(layout) is None or layout[2] \
+            or box.n > box_cull_rows(layout)[1]:
+        raise ValueError("box walk tables for a layout that gets none "
+                         "(box_culled)")
+    return [ptr(box.tab), box.n]
 
 
 def tri_tables(scene, frames):
@@ -634,16 +963,17 @@ def _need_tri(layout, tri):
 
 
 def closest_hit_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None,
-                      tbb=None, sbb=None):
+                      tbb=None, sbb=None, box=None):
     """Plain PyTorch closest hit of rays ``o``/``d`` ``(R, 3)`` against the
-    row table ``tab`` (and the triangle tables, the sphere cull blocks):
-    returns ``(te, row, tx, xrow)`` like the kernel (any device)."""
+    row table ``tab`` (and the triangle tables, the sphere cull blocks,
+    the box walk): returns ``(te, row, tx, xrow)`` like the kernel (any
+    device)."""
     KERNEL.plain_calls += 1
-    return sweep_plain(tab, layout, o, d, mode, tri, tbb, sbb)
+    return sweep_plain(tab, layout, o, d, mode, tri, tbb, sbb, box)
 
 
 def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
-                sbb=None):
+                sbb=None, box=None, box_work=None):
     """The sweep of :func:`closest_hit_plain` without its call count: the
     plain whole trace runs it for every step. Differentiable: ``te`` and
     ``tx`` carry the winner row's t gradient (the masked min / max over the
@@ -655,7 +985,11 @@ def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
     (:func:`_sph_cull`; an exit, the winner's own row, is unaffected);
     with the triangle cull blocks ``tbb`` every triangle entry culls, and
     the group exit too (:func:`_tri_exit`'s culled form: the kernels'
-    ``tri_exit_culled``)."""
+    ``tri_exit_culled``). With the box walk ``box``
+    (:func:`box_walk_tables`) the box rows the walk does not test are
+    cleared (:func:`_box_walk_mask`), as the kernels skip them, and a dict
+    ``box_work`` gets the walk's rows and slab tests per ray under
+    ``"rows"`` and ``"slabs"`` (:func:`box_walk_work`)."""
     fr, ipos, pa, pr, valid, gid = split_sweep(tab)
     segs, tri_start, _n_tri, tri_n = layout
     has_tri = _need_tri(layout, tri)
@@ -669,6 +1003,33 @@ def sweep_plain(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
             oks = _sph_cull(sbb, segs[0][3], o.detach(), d.detach(),
                             t0s.detach(), oks, mode)[0]
         parts[0] = (t0s, t1s, oks)
+    if box is not None:
+        # the box segment is the last dense one (box_culled: no triangles)
+        t0b, t1b, okb = parts[-1]
+        s = segs[-1][1]
+        with torch.no_grad():
+            if len(parts) > 1:
+                tp = torch.cat([p[0] for p in parts[:-1]], 1).detach()
+                op = torch.cat([p[2] for p in parts[:-1]], 1)
+                tp = torch.where(op, tp, torch.full_like(tp, BIG))
+                best = tp.amin(dim=1)
+                prow = intersect.first_index(tp == best[:, None]).long()
+                prow = torch.where(best < BIG, prow, 0)
+            else:
+                best = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
+                prow = torch.zeros(R, dtype=torch.int64, device=o.device)
+            mask, rows, slabs = _box_walk_mask(box, s, o.detach(),
+                                               d.detach(), t0b.detach(), okb,
+                                               best, prow, mode)
+            if box_work is not None:
+                if mode == MODE_ANY:
+                    # an any-hit ends at a sphere's or plane's hit before
+                    # the boxes
+                    pre = best < BIG * 0.5
+                    rows = torch.where(pre, 0, rows)
+                    slabs = torch.where(pre, 0, slabs)
+                box_work["rows"], box_work["slabs"] = rows, slabs
+        parts[-1] = (t0b, t1b, okb & mask)
     if parts:
         t0 = torch.cat([p[0] for p in parts], dim=1)
         t1 = torch.cat([p[1] for p in parts], dim=1)
@@ -803,19 +1164,22 @@ def check_walk_tables(srows, ssb, layout):
 
 
 def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
-                sbb=None, walk=None):
+                sbb=None, walk=None, box=None):
     """``(te, row, tx, xrow)`` of rays ``o``/``d`` ``(R, 3)`` float32
     against the row table ``tab`` ``(P, C >= 18)`` and, for a scene with
     triangles, its :func:`tri_tables` ``tri`` and ``tbb``; with a long
     sphere segment, its cull blocks ``sbb`` (:func:`sph_table`) and the
     walk tables ``walk`` = ``(srows, ssb)`` (:func:`sph_walk_tables`;
-    None: built here from ``tab``).
+    None: built here from ``tab``); with a walked box segment its
+    :class:`BoxWalk` ``box`` (:func:`box_walk_tables`; None: the box rows
+    swept dense).
 
     CUDA tensors launch ``mrt_closest_hit``; the rays may be any strided
     view, such as the transpose of lane-major ``(3, R)`` rays. CPU tensors
     run :func:`closest_hit_plain`."""
     if o.device.type == "cpu":
-        return closest_hit_plain(tab, layout, o, d, mode, tri, tbb, sbb)
+        return closest_hit_plain(tab, layout, o, d, mode, tri, tbb, sbb,
+                                 box)
     has_tri = _need_tri(layout, tri)
     R = o.shape[0]
     require_cuda_tensor("o", o, torch.float32, (R, 3), contiguous=False)
@@ -838,6 +1202,7 @@ def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
     if sbb is not None:
         walk = walk_tables(tab, layout) if walk is None else walk
         walk_ptrs = check_walk_tables(*walk, layout)
+    box_args = check_box_walk(box, layout)
     te = torch.empty(R, dtype=torch.float32, device=o.device)
     tx = torch.empty_like(te)
     row = torch.empty(R, dtype=torch.int32, device=o.device)
@@ -846,8 +1211,9 @@ def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
         KERNEL.launch(ptr(tab), n_dense, C,
                       *table_args(layout, tri, tbb, sbb),
                       ptr(o), ptr(d), *o.stride(), R, mode, ptr(te),
-                      ptr(row), ptr(tx), ptr(xrow), *walk_ptrs,
-                      stream_ptr(o.device))
+                      ptr(row), ptr(tx), ptr(xrow), *walk_ptrs, *box_args,
+                      stream_ptr(o.device),
+                      variant=None if box is None else "box_walk")
     return te, row, tx, xrow
 
 
@@ -880,7 +1246,8 @@ def check_cull_tables(layout, tri, tbb, sbb, max_tri_blocks=MAX_TRI_BLOCKS):
                              f"the shared-memory bound of {max_tri_blocks}")
 
 
-def any_hit(tab, layout, o, d, tri=None, tbb=None, sbb=None, walk=None):
+def any_hit(tab, layout, o, d, tri=None, tbb=None, sbb=None, walk=None,
+            box=None):
     """(R,) bool: does each ray hit any valid row?"""
     return closest_hit(tab, layout, o, d, MODE_ANY, tri, tbb, sbb,
-                       walk)[0] < BIG * 0.5
+                       walk, box)[0] < BIG * 0.5

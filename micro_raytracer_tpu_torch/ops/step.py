@@ -168,18 +168,21 @@ _FWD_ARGS = ([_c_ptr, _c_int] + [_c_int] * 6 + _TRI_ARGS
              + [_c_int] * 3)
 _HEADERS = ("hit3.cuh", "trace_step.cuh")
 _TRACE_HEADERS = _HEADERS + ("grid.cuh", "tri_walk.cuh",
-                             "sph_walk.cuh")
+                             "sph_walk.cuh", "box_walk.cuh")
 # ... k0, k1, c0, rid, A, B, first_live, cout, the refill counters, the
-# sphere walk tables (srows, ssb), stream
+# sphere walk tables (srows, ssb), the box walk (its tables and boxes),
+# stream
+_BOX_ARGS = [_c_ptr, _c_int, _c_ptr]
 KERNEL = CudaKernel("trace_fwd", "trace_fwd.cu", _TRACE_HEADERS,
                     "mrt_trace_fwd",
-                    _FWD_ARGS + [_c_int, _c_int] + [_c_ptr] * 10)
+                    _FWD_ARGS + [_c_int, _c_int] + [_c_ptr] * 9 + _BOX_ARGS)
 TRAIN_KERNEL = CudaKernel("trace_fwd_train", "trace_fwd.cu", _TRACE_HEADERS,
-                          "mrt_trace_fwd_train", _FWD_ARGS + [_c_ptr] * 9)
+                          "mrt_trace_fwd_train",
+                          _FWD_ARGS + [_c_ptr] * 8 + _BOX_ARGS)
 # resident warps per SM of a whole-trace instance (not launches)
 FWD_OCCUPANCY = CudaKernel("trace_fwd_occupancy", "trace_fwd.cu",
                            _TRACE_HEADERS, "mrt_trace_fwd_occupancy",
-                           [_c_int] * 16 + [_c_ptr])
+                           [_c_int] * 17 + [_c_ptr])
 _BWD_HEADERS = _HEADERS + ("trace_bwd.cuh",)
 BWD_KERNEL = CudaKernel(
     "trace_bwd", "trace_bwd.cu", _BWD_HEADERS + ("grid.cuh",),
@@ -272,6 +275,8 @@ class TraceTables(NamedTuple):
     # sub-blocks' AABBs (n_sub, hit3.BB_COLS), else None
     srows: torch.Tensor | None = None
     ssb: torch.Tensor | None = None
+    # a textured scene's walked box segment (hit3.box_walk_tables), or None
+    box: hit3.BoxWalk | None = None
 
 
 def n_uni(need_exit: bool) -> int:
@@ -340,7 +345,8 @@ def pack_step(scene) -> TraceTables:
     srows, ssb = hit3.sph_walk_tables(scene, layout, tab)
     return TraceTables(frames, tab, lights, layout, tri, tbb, *tex,
                        sbb=hit3.sph_table(scene, layout), tsb=tsb,
-                       srows=srows, ssb=ssb)
+                       srows=srows, ssb=ssb,
+                       box=hit3.box_walk_tables(scene, layout, tab))
 
 
 def primary_mode(scene) -> int:
@@ -485,8 +491,10 @@ def _light_vec(lt, p):
 def _occlusion(tables, L, p_e, live_i, work=None):
     """(R, L) bool: light li is visible from the entry point (no
     gradient: the shadow sweep's result is a choice). ``work["shadow"]``
-    gains the triangle rows the kernel's shadow sweeps test, and with
-    sphere cull blocks ``work["sph_shadow"]`` the sphere rows."""
+    gains the triangle rows the kernel's shadow sweeps test, with sphere
+    cull blocks ``work["sph_shadow"]`` the sphere rows, and with the box
+    walk ``work["box_shadow"]`` and ``work["box_slabs"]`` the box rows and
+    the walk's slab tests."""
     with torch.no_grad():
         tab, p_e = tables.tab.detach(), p_e.detach()
         lights, layout = tables.lights, tables.layout
@@ -496,8 +504,9 @@ def _occlusion(tables, L, p_e, live_i, work=None):
             lv = _light_vec(lights[li].detach(), p_e)
             ln = _scale(lv, 1.0 / torch.sqrt(_dot3(lv, lv)))
             so = p_e + ln * EPS
+            bw = {} if work is not None else None
             te = hit3.sweep_plain(tab, layout, so, ln, hit3.MODE_ANY, tri,
-                                  tables.tbb, tables.sbb)[0]
+                                  tables.tbb, tables.sbb, tables.box, bw)[0]
             if work is not None:
                 work["shadow"] += int(hit3.tri_rows_tested(
                     tab, layout, so, ln, hit3.MODE_ANY, tri,
@@ -507,11 +516,22 @@ def _occlusion(tables, L, p_e, live_i, work=None):
                         hit3.sph_rows_tested(tab, layout, so, ln,
                                              hit3.MODE_ANY,
                                              tables.sbb)[live_i].sum())
+                _box_work(work, "box_shadow", bw, live_i)
             oks.append((te >= hit3.BIG * 0.5) & live_i)
         if not oks:
             return torch.zeros((p_e.shape[0], 0), dtype=torch.bool,
                                device=p_e.device)
         return torch.stack(oks, 1)
+
+
+def _box_work(work, key, box_work, live):
+    """Add the box walk's rows (under ``key``) and slab tests (under
+    ``"box_slabs"``) for the ``live`` rays, from a sweep's ``box_work``
+    (:func:`hit3.sweep_plain`; empty without the walk), to ``work``."""
+    if box_work:
+        work[key] = work.get(key, 0) + int(box_work["rows"][live].sum())
+        work["box_slabs"] = (work.get("box_slabs", 0)
+                             + int(box_work["slabs"][live].sum()))
 
 
 def _direct_light(lights, L, lok, p, n, d, alb, rgh, met):
@@ -558,8 +578,10 @@ def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
     test (steps after the first, whose sweep is the primary-hit pass; the
     exit pass included) and under ``"shadow"`` those of its shadow sweeps,
     for the rays live at each sweep; with sphere cull blocks the sphere
-    rows under ``"sph_sweep"`` and ``"sph_shadow"``; on a textured scene
-    also ``"tex_fetch"`` and ``"tex_edge"`` (:func:`_side_material`).
+    rows under ``"sph_sweep"`` and ``"sph_shadow"``; with the box walk the
+    box rows under ``"box_sweep"`` and ``"box_shadow"`` and its slab tests
+    under ``"box_slabs"``; on a textured scene also ``"tex_fetch"`` and
+    ``"tex_edge"`` (:func:`_side_material`).
 
     ``seg`` (a :class:`Segment`) runs its steps from its carry, lane i
     reading the uniform column of ray ``rid[i]``, and returns ``(A, B,
@@ -600,10 +622,11 @@ def _trace_plain(scene, tables, decay, oT, dT, u8s, want_resid, work, seg,
     for k in range(seg.k0, seg.k1):
         u8 = u8s[k] if seg.rid is None else u8s[k][:, seg.rid]
         u, u_emit = unpack_uniforms(u8, refract)
+        bw = {} if work is not None and k else None
         if thit is None:
             te, row, tx, xrow = hit3.sweep_plain(tab, layout, o, d, mode,
                                                  tables.tri, tables.tbb,
-                                                 tables.sbb)
+                                                 tables.sbb, tables.box, bw)
         else:
             te, row, tx, xrow = merge_tri_hits(tab, layout, o, d, mode,
                                                tables.sbb, thit)
@@ -614,6 +637,7 @@ def _trace_plain(scene, tables, decay, oT, dT, u8s, want_resid, work, seg,
                 work["sph_sweep"] = work.get("sph_sweep", 0) + int(
                     hit3.sph_rows_tested(tab, layout, o, d, mode,
                                          tables.sbb)[live].sum())
+            _box_work(work, "box_sweep", bw, live)
         live_i = live & (te < hit3.BIG * 0.5)
         if k == 0:
             first = live_i
@@ -772,7 +796,9 @@ def merge_tri_hits(tab, layout, o, d, mode, sbb, thit):
 
 
 def _step_plain(scene, tables, decay, c0, u8, want_resid):
-    """:func:`step_plain` without its call count."""
+    """:func:`step_plain` without its call count (the box rows dense, as
+    the per-step kernels sweep them)."""
+    tables = tables._replace(box=None)
     out = _trace_plain(scene, tables, decay, c0[0:3], c0[3:6], u8[None],
                        want_resid, None, Segment(0, 1, c0),
                        tri_hits(scene, tables, c0, plain=True))
@@ -834,6 +860,9 @@ def _table_args(scene, tables, max_dense, what,
     if scene.has_maps and tables.sbb is not None:
         raise ValueError("sphere cull blocks for a textured scene "
                          "(hit3.sph_table)")
+    if tables.box is not None and not scene.has_maps:
+        raise ValueError("box walk tables for a scene without textures "
+                         "(hit3.box_culled)")
     hit3.check_cull_tables(layout, tables.tri, tables.tbb, tables.sbb,
                            max_tri_blocks)
     return [ptr(tab), n_dense,
@@ -886,7 +915,7 @@ def primary_hits(scene, tables, oT, dT):
     primaries, in :func:`primary_mode`: the trace kernels' ``hit0``."""
     return hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T,
                             primary_mode(scene), tables.tri, tables.tbb,
-                            tables.sbb, _walk(tables))
+                            tables.sbb, _walk(tables), tables.box)
 
 
 def _walk(tables):
@@ -896,11 +925,19 @@ def _walk(tables):
 
 
 def _walk_args(tables):
-    """The sphere walk tables' C arguments of a whole-trace launch (two
-    nulls without sphere cull blocks)."""
+    """The sphere and box walk tables' C arguments of a whole-trace launch
+    (srows, ssb; the box walk's tables and boxes: nulls and 0 without)."""
+    box = hit3.check_box_walk(tables.box, tables.layout)
     if tables.sbb is None:
-        return [None, None]
-    return hit3.check_walk_tables(tables.srows, tables.ssb, tables.layout)
+        return [None, None, *box]
+    return hit3.check_walk_tables(tables.srows, tables.ssb,
+                                  tables.layout) + box
+
+
+def _variant(tables):
+    """The counted variant of a whole-trace launch (``CudaKernel.variants``):
+    ``"box_walk"`` for the box walk's instances, else None."""
+    return None if tables.box is None else "box_walk"
 
 
 def _seg_args(seg, K, R, dev):
@@ -940,7 +977,8 @@ def trace_fwd(scene, tables, decay, oT, dT, u8s, hit0, seg=None):
         KERNEL.launch(*args, *seg_args, ptr(A), ptr(B), ptr(fl),
                       None if cout is None else ptr(cout),
                       None if nxt is None else ptr(nxt),
-                      *_walk_args(tables), stream_ptr(oT.device))
+                      *_walk_args(tables), stream_ptr(oT.device),
+                      variant=_variant(tables))
     return (A, B, fl) if seg is None else (A, B, fl, cout)
 
 
@@ -961,7 +999,8 @@ def trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0):
         nxt = _refill_counter(scene, tables, True, oT.device)
         TRAIN_KERNEL.launch(*args, ptr(A), ptr(B), ptr(fl), ptr(resid),
                             ptr(n_live), None if nxt is None else ptr(nxt),
-                            *_walk_args(tables), stream_ptr(oT.device))
+                            *_walk_args(tables), stream_ptr(oT.device),
+                            variant=_variant(tables))
     return A, B, fl, resid, n_live
 
 
@@ -971,7 +1010,12 @@ def refills(scene, tables, train: bool) -> bool:
     the render always, and training where the sphere segment has cull
     blocks (the Instance class: 37% faster on its frame; in the room,
     where rays live long, the refilled lanes' scattered residual stores
-    made it 29% slower; tools/torch_compare_trees.py ablate)."""
+    made it 29% slower; tools/torch_compare_trees.py ablate); on a
+    textured scene whose box segment is walked the render (its train
+    instance saves both sides' texels at every hit, trace_ray's
+    schedule)."""
+    if tables.box is not None:
+        return not train
     if tables.layout[2] or scene.has_maps:
         return False
     return not train or tables.sbb is not None
@@ -1028,10 +1072,11 @@ def instance_resources(scene, tables, which: str) -> dict:
         train = which == "trace_fwd_train"
         refill = refills(scene, tables, train)
         kernel = KERNEL if which == "trace_fwd" else TRAIN_KERNEL
-        # the walk of a culled sphere segment (its own instances)
+        # the walk of a culled sphere segment, of a box segment (their own
+        # instances)
         walk = not tri and not tex and t[12] > 0
         name, flags = "trace_fwd", (refract, train, False, tri, tex, refill,
-                                    walk)
+                                    walk, tables.box is not None)
     kernel.fn()
     key = (f"{name}_kernelI"
            + "".join(f"Lb{int(bool(f))}E" for f in flags) + "E")
@@ -1072,6 +1117,7 @@ def resident_warps(scene, tables, which: str) -> int:
         rc = FWD_OCCUPANCY.fn()(t[7], *t[:6], t[7], t[8], t[10], t[12],
                                 L, slots, refract, int(train),
                                 int(refills(scene, tables, train)),
+                                0 if tables.box is None else tables.box.n,
                                 ctypes.byref(warps))
     if rc:
         raise RuntimeError(f"occupancy of {which}: CUDA error {rc}")

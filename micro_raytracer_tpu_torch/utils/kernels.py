@@ -55,6 +55,8 @@ class CudaKernel:
 
     ``launches`` is a plain integer that :meth:`launch` increments once per
     kernel launch; callers reset it to 0 to count a run's launches.
+    ``variants`` counts the launches of a named variant of the entry
+    point (``launch(..., variant=name)``; callers reset it to ``{}``).
     ``plain_calls`` is the matching count for the plain PyTorch version,
     incremented by that function.
     """
@@ -67,6 +69,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.variants = {}
         self.plain_calls = 0
         self.build_log = ""
         self._fn = None
@@ -116,12 +119,15 @@ class CudaKernel:
                 self._fn = f
             return self._fn
 
-    def launch(self, *args) -> None:
-        """Launch on the current stream; raise if the launch failed."""
+    def launch(self, *args, variant: str | None = None) -> None:
+        """Launch on the current stream; raise if the launch failed.
+        ``variant`` names the instance the arguments select, if counted."""
         rc = self.fn()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1
+        if variant is not None:
+            self.variants[variant] = self.variants.get(variant, 0) + 1
 
 
 def ptxas_table(log: str) -> dict:

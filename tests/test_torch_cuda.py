@@ -1309,3 +1309,148 @@ def test_step_kernels_past_the_staged_lights(cuda_device):
         size=(step.CARRY_ROWS, R)).astype(np.float32)).to(cuda_device)
     ct1[:, bad] = 0.0
     _hold_step_bwd("lights_many", scene, tables, c0, u8, res_p, hit_p, ct1)
+
+
+def _blocks_rays(scene, tables, device, R):
+    """Camera rays of tex_blocks' camera and the same rays after two
+    bounce steps of the per-step path (those still live)."""
+    o, d = _rays(R, device, seed=6, name="tex_blocks")
+    gen = torch.Generator(device=device).manual_seed(7)
+    c = step.primary_carry(o.T.contiguous(), d.T.contiguous())
+    u8s = torch.rand((2, step.n_uni(True), R), generator=gen, device=device)
+    for k in range(2):
+        c = step.step_fwd(scene, tables, 0.85, c, u8s[k])[0]
+    live = c[step.C_LIVE] > 0.5
+    return [(o, d), (c[0:3].T[live].contiguous(), c[3:6].T[live].contiguous())]
+
+
+@pytest.mark.cuda
+def test_box_walk_instances_match_plain_and_dense(cuda_device):
+    """The box walk (csrc/box_walk.cuh) on tex_blocks: the primary-hit
+    kernel's kBox instance equals the plain box-walk sweep and the dense
+    instance (the same tables without the walk) bit for bit in every mode,
+    on camera rays and bounced rays; the render instance (kBox) equals the
+    dense render instance, the train instance the render instance, a
+    render in two segments (the kBox segment instances) the whole one, and
+    the per-step path (dense box sweeps) the whole trace, bit for bit."""
+    scene = _scene("tex_blocks", cuda_device)
+    tables = step.pack_step(scene)
+    assert tables.box is not None and tables.box.n == 256
+    dense = tables._replace(box=None)
+    for o, d in _blocks_rays(scene, tables, cuda_device, 1 << 15):
+        for mode in (hit3.MODE_EXIT, hit3.MODE_ENTRY, hit3.MODE_ANY):
+            before = hit3.KERNEL.launches
+            got = hit3.closest_hit(tables.tab, tables.layout, o, d, mode,
+                                   box=tables.box)
+            assert hit3.KERNEL.launches == before + 1
+            want = hit3.closest_hit_plain(tables.tab, tables.layout, o, d,
+                                          mode, box=tables.box)
+            flat = hit3.closest_hit(tables.tab, tables.layout, o, d, mode)
+            for g, w, f in zip(got, want, flat):
+                assert torch.equal(g, w) and torch.equal(g, f), mode
+    R = 1 << 15
+    o, d = _rays(R, cuda_device, seed=8, name="tex_blocks")
+    oT, dT = o.T.contiguous(), d.T.contiguous()
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    u8s = torch.rand((9, step.n_uni(True), R), generator=gen,
+                     device=cuda_device)
+    hit0 = step.primary_hits(scene, tables, oT, dT)
+    step.KERNEL.variants = {}
+    A, B, fl = step.trace_fwd(scene, tables, 0.85, oT, dT, u8s, hit0)
+    want = step.trace_fwd(scene, dense, 0.85, oT, dT, u8s,
+                          step.primary_hits(scene, dense, oT, dT))
+    assert step.KERNEL.variants == {"box_walk": 1}
+    for g, w in zip((A, B, fl), want):
+        assert torch.equal(g, w)
+    train = step.trace_fwd_train(scene, tables, 0.85, oT, dT, u8s, hit0)
+    for g, w in zip(train[:3], (A, B, fl)):
+        assert torch.equal(g, w)
+    dense_train = step.trace_fwd_train(scene, dense, 0.85, oT, dT, u8s,
+                                       hit0)
+    assert torch.equal(train[4], dense_train[4])
+    live = torch.arange(9, device=cuda_device)[:, None, None] \
+        < train[4][None, None]
+    assert torch.equal(torch.where(live, train[3], 0.0),
+                       torch.where(live, dense_train[3], 0.0))
+    renders = [ttr.trace_fused(scene, tables, 8, o, d, 0.15, u8s, cuts=c)
+               for c in ([], [4])]
+    assert torch.equal(*renders)
+    A_s, B_s, fl_s = step.trace_steps(scene, tables, 0.85, oT, dT, u8s)
+    assert torch.equal(A, A_s) and torch.equal(B, B_s)
+    assert torch.equal(fl, fl_s) and bool(fl.any())
+    res = step.instance_resources(scene, tables, "trace_fwd")
+    assert res["registers"] and res["warps_per_sm"] > 0
+
+
+@pytest.mark.cuda
+def test_box_walk_gate_keeps_the_old_instances(cuda_device, monkeypatch):
+    """Scenes under the gate (hit3.box_culled: textured, no triangles, at
+    least BOX_CULL_MIN valid boxes) launch their old instances: tex_dof,
+    the small tex_blocks (16 boxes), the room and tex_mesh get no walk
+    tables, and their instances' template flags carry no kBox; a walk
+    table handed to a launch that cannot take one, a launch without its
+    tables, or the box walk's whole render without its refill counters
+    raises; a source that does not build raises."""
+    for name, src in (("tex_dof", SCENES["tex_dof"]),
+                      ("small", tex_scene("tex_blocks", small=True)),
+                      ("room", SCENES["mixed"]),
+                      ("tex_mesh", SCENES["tex_mesh"])):
+        scene = compile_scene(schema.SceneConfig.from_json(src), cuda_device)
+        tables = step.pack_step(scene)
+        assert tables.box is None, name
+    scene = _scene("tex_blocks", cuda_device)
+    tables = step.pack_step(scene)
+    o, d = _rays(256, cuda_device, name="tex_blocks")
+    small = step.pack_step(compile_scene(schema.SceneConfig.from_json(
+        tex_scene("tex_blocks", small=True)), cuda_device))
+    with pytest.raises(ValueError):
+        hit3.closest_hit(small.tab, small.layout, o, d, box=tables.box)
+    args = [0] * len(hit3.KERNEL.argtypes)
+    with pytest.raises(RuntimeError):
+        # n_bw > 0 with no tables: the entry point refuses the launch
+        hit3.KERNEL.launch(*[None if t is hit3._c_ptr else a
+                             for t, a in zip(hit3.KERNEL.argtypes,
+                                             args)][:-2], 256, None)
+    bad = type(hit3.KERNEL)("box_walk_bad", "box_walk.cuh", (), "nope", [])
+    with pytest.raises(RuntimeError):
+        bad.fn()
+    # the box walk's whole render has only its refilling instance
+    oT, dT = o.T.contiguous(), d.T.contiguous()
+    u8s = torch.rand((3, step.n_uni(True), 256), device=cuda_device)
+    hit0 = step.primary_hits(scene, tables, oT, dT)
+    monkeypatch.setattr(step, "refills", lambda *_a: False)
+    with pytest.raises(RuntimeError):
+        step.trace_fwd(scene, tables, 0.85, oT, dT, u8s, hit0)
+
+
+@pytest.mark.cuda
+def test_box_walk_reads_rows_past_the_stage(cuda_device):
+    """A 24 x 24 block grid (576 boxes, past hit3.BOX_STAGE_MAX): the
+    kBox instances read the packed rows from global memory; closest_hit in
+    every mode and the render instance still equal the dense instances
+    bit for bit."""
+    from chip_smoke import tex_blocks
+
+    scene = compile_scene(schema.SceneConfig.from_json(
+        tex_blocks(small=True, grid=24)), cuda_device)
+    tables = step.pack_step(scene)
+    assert tables.box is not None and tables.box.n > hit3.BOX_STAGE_MAX
+    dense = tables._replace(box=None)
+    o, d = _rays(1 << 14, cuda_device, seed=10, name="tex_blocks")
+    for mode in (hit3.MODE_EXIT, hit3.MODE_ENTRY, hit3.MODE_ANY):
+        got = hit3.closest_hit(tables.tab, tables.layout, o, d, mode,
+                               box=tables.box)
+        want = hit3.closest_hit(tables.tab, tables.layout, o, d, mode)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), mode
+        if mode == hit3.MODE_ENTRY:
+            assert int((got[1] >= tables.layout[0][-1][1]).sum()) > 1000
+    oT, dT = o.T.contiguous(), d.T.contiguous()
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    u8s = torch.rand((9, step.n_uni(True), oT.shape[1]), generator=gen,
+                     device=cuda_device)
+    hit0 = step.primary_hits(scene, tables, oT, dT)
+    got = step.trace_fwd(scene, tables, 0.85, oT, dT, u8s, hit0)
+    want = step.trace_fwd(scene, dense, 0.85, oT, dT, u8s, hit0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -9,7 +9,7 @@ then every output compared.
     python3 tools/torch_compare_trees.py ablate <tree> <workdir>
     python3 tools/torch_compare_trees.py ablate <tree> <workdir> tri|walk
     python3 tools/torch_compare_trees.py ablate <tree> <workdir> step|steps
-    python3 tools/torch_compare_trees.py ablate <tree> <workdir> sweep
+    python3 tools/torch_compare_trees.py ablate <tree> <workdir> sweep|tex
     python3 tools/torch_compare_trees.py big_main <tree> <tag>
     python3 tools/torch_compare_trees.py pairs <tree_a> <tree_b> [pairs]
     python3 tools/torch_compare_trees.py reference <tree> <out.pt> <scene>...
@@ -85,6 +85,12 @@ launches, every variant on the carries the unchanged tree stepped and
 saved (the unchanged tree also on each carry with its live lanes first),
 and prints the walks' per-ray work at each step (``_step_stats``);
 ``steps`` the redesigned walk's options (``STEP_WALK_ABLATIONS``).
+
+``ablate <tree> <workdir> tex`` times the textured whole trace and the
+primary-hit pass of the dense design (``TEX_ABLATIONS``: the exit the
+winner row's own, a flat per-box cull, no texel fetches, the row table
+in global memory) as ``time`` does on ``tex_blocks`` and ``tex_dof``, and
+prints their live-step histograms (the lane refill's room).
 
 ``ablate <tree> <workdir> sweep`` times the whole trace's sweeps
 (``SWEEP_ABLATIONS``: the exit sweeps removed, the entries culled in exit
@@ -1086,6 +1092,96 @@ SWEEP_ABLATIONS = {
 }
 SWEEP_SCENES = ("mesh_glass", "inst_grid", "inst_glass")
 
+# the textured whole trace and the primary-hit pass (``ablate <tree>
+# <workdir> tex``) on tex_blocks and tex_dof, rows 1-tex, 1t-tex and 2 of
+# the dense design: (a) the exit the winner row's own t1 instead of the
+# group scan over every row; (b) a flat per-box cull standing in for a
+# perfect one: a box row is tested only where the ray meets its world
+# AABB (|M|^T sizes / 2 about its position, 1e-3 slack) at or before its
+# best t (any-hit: at all), so it tests the rows a perfect cull leaves and
+# pays a slab test per box on top; (c) no texel fetches (the uv and the
+# texel reads removed); (e) the row table read from global memory instead
+# of staged in shared memory (trace_fwd.cu and hit3.cu). (d), the lane
+# refill, is read from the live-step histogram (``_live_histogram``: the
+# lane-steps a warp runs over those its rays need). Timing only: the
+# variants' outputs are wrong.
+_TX_EXIT = (
+    "    exit_seg<kSphere>(tab, stride, L.sph_start, L.sph_n, wg, ox, oy, oz, "
+    "dx,\n                      dy, dz, xbest, xrow);\n"
+    "    exit_seg<kPlane>(tab, stride, L.pln_start, L.pln_n, wg, ox, oy, oz, "
+    "dx,\n                     dy, dz, xbest, xrow);\n"
+    "    exit_seg<kBox>(tab, stride, L.box_start, L.box_n, wg, ox, oy, oz, "
+    "dx, dy,\n                   dz, xbest, xrow);\n")
+_TX_OWN = (
+    "    if (best < kBig && row >= L.box_start)\n"
+    "      exit_seg<kBox>(tab, stride, row, 1, wg, ox, oy, oz, dx, dy, dz,\n"
+    "                     xbest, xrow);\n"
+    "    else if (best < kBig)\n"
+    "      exit_seg<kPlane>(tab, stride, row, 1, wg, ox, oy, oz, dx, dy, dz,\n"
+    "                       xbest, xrow);\n")
+_TX_PRE = '''// (ablation) the world AABB test of box row r before its row test
+__device__ __forceinline__ bool box_pre(const float* r, float ox, float oy,
+                                        float oz, float ix, float iy,
+                                        float iz, float best) {
+  const float o[3] = {ox, oy, oz}, inv[3] = {ix, iy, iz};
+  float tmin = -kBig, tmax = kBig;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float h = 0.5f * (fabsf(r[j]) * r[C_PA] + fabsf(r[3 + j]) *
+                            r[C_PA + 1] + fabsf(r[6 + j]) * r[C_PA + 2]) +
+                    1e-3f;
+    const float t1 = (r[C_IP + j] - h - o[j]) * inv[j];
+    const float t2 = (r[C_IP + j] + h - o[j]) * inv[j];
+    tmin = fmaxf(tmin, fminf(t1, t2));
+    tmax = fminf(tmax, fmaxf(t1, t2));
+  }
+  return tmax >= fmaxf(tmin, 0.0f) && tmin <= best;
+}
+
+// Entry sweep of one kind segment: strict `<` keeps the lowest row on ties.
+'''
+_TX_ENTRY = ("  for (int i = start; i < start + n; ++i) {\n    float t0, t1;\n"
+             "    if (row_hit<K>(tab + i * stride, ox, oy, oz, dx, dy, dz, "
+             "t0, t1) &&\n        t0 < best) {")
+_TX_ANY = ("  for (int i = start; i < start + n; ++i) {\n    float t0, t1;\n"
+           "    if (row_hit<K>(tab + i * stride, ox, oy, oz, dx, dy, dz, "
+           "t0, t1))\n      return true;")
+_TX_INV = ("  const float ix_ = 1.0f / (dx == 0.0f ? kEps : dx);\n"
+           "  const float iy_ = 1.0f / (dy == 0.0f ? kEps : dy);\n"
+           "  const float iz_ = 1.0f / (dz == 0.0f ? kEps : dz);\n")
+
+
+def _tx_pre(loop, best):
+    head = "  for (int i = start; i < start + n; ++i) {\n    float t0, t1;\n"
+    return _TX_INV + loop.replace(head, head + (
+        "    if (K == kBox && !box_pre(tab + i * stride, ox, oy, oz, ix_, "
+        f"iy_, iz_, {best}))\n      continue;\n"))
+
+
+TEX_ABLATIONS = {
+    "tex_exit_own": [("hit3.cuh", _TX_EXIT, _TX_OWN)],
+    "tex_box_flat_cull": [
+        ("hit3.cuh", "// Entry sweep of one kind segment: strict `<` keeps "
+         "the lowest row on ties.\n", _TX_PRE),
+        ("hit3.cuh", _TX_ENTRY, _tx_pre(_TX_ENTRY, "best")),
+        ("hit3.cuh", _TX_ANY, _tx_pre(_TX_ANY, "kBig"))],
+    "tex_no_fetch": [
+        ("trace_step.cuh", "  if (tv.id[0] >= 0) {\n    const float* px",
+         "  if (false) {\n    const float* px"),
+        ("trace_step.cuh", "    if (tv.id[s] >= 0) tv.v[2 + s] = __ldg(",
+         "    if (false) tv.v[2 + s] = __ldg(")],
+    "tex_rows_global": SWEEP_ABLATIONS["sweep_rows_global"] + [
+        ("hit3.cu", "    mrt::stage(s_tab, tab, P, stride, "
+         "mrt::kSweepCols);\n", ""),
+        ("hit3.cu", "mrt::any_hit<kTri>(s_tab, mrt::kSweepCols,",
+         "mrt::any_hit<kTri>(tab, stride,"),
+        ("hit3.cu", "mrt::closest_hit<true, kTri>(s_tab, mrt::kSweepCols,",
+         "mrt::closest_hit<true, kTri>(tab, stride,"),
+        ("hit3.cu", "mrt::closest_hit<false, kTri>(s_tab, mrt::kSweepCols,",
+         "mrt::closest_hit<false, kTri>(tab, stride,")],
+}
+TEX_SCENES = ("tex_blocks", "tex_dof")
+
 
 def _routes(cs, dev):
     """The per-step route against the whole trace, whole and compacted, on
@@ -1164,9 +1260,11 @@ def _occupancy_table(cs, dev):
     for P in (0, 64, 128, 256, 384, 512, 768, 1008, 1536, 2048):
         for train in (0, 1):
             w = ctypes.c_int(0)
+            # (a tree with the box walk takes its boxes, 0 here)
+            box = [0] * (len(step.FWD_OCCUPANCY.argtypes) - 17)
             rc = step.FWD_OCCUPANCY.fn()(
                 P, *t[:6], t[7], t[8], t[10], t[12], scene.n_lights, 0,
-                int(scene.any_refract), train, 1, ctypes.byref(w))
+                int(scene.any_refract), train, 1, *box, ctypes.byref(w))
             out[f"{P} rows{' train' if train else ''}"] = \
                 None if rc else w.value
     return out
@@ -1240,7 +1338,8 @@ def ablate(tree, work, which="room"):
     trees = {}
     variants = {"tri": TRI_ABLATIONS, "walk": TRI_WALK_ABLATIONS,
                 "step": STEP_ABLATIONS, "steps": STEP_WALK_ABLATIONS,
-                "sweep": SWEEP_ABLATIONS}.get(which, ABLATIONS)
+                "sweep": SWEEP_ABLATIONS,
+                "tex": TEX_ABLATIONS}.get(which, ABLATIONS)
     tri_set = which in ("tri", "walk")
     for name, patches in {"base": [], **variants}.items():
         dst = os.path.join(work, name)
@@ -1264,6 +1363,9 @@ def ablate(tree, work, which="room"):
                "hit3.KERNEL, step.KERNEL, step.BWD_KERNEL, step.STEP_KERNEL, "
                "step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL" if which == "sweep"
                else
+               "hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL, "
+               "step.STEP_KERNEL, step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL"
+               if which == "tex" else
                "step.STEP_KERNEL, step.STEP_TRAIN_KERNEL, "
                "step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL, "
                "tri.ENTRY_EXIT_KERNEL" if which in ("step", "steps") else
@@ -1293,6 +1395,12 @@ def ablate(tree, work, which="room"):
                             *SWEEP_SCENES], check=True)
         subprocess.run([sys.executable, me, "_sweep_extra", trees["base"]],
                        check=True)
+        return
+    if which == "tex":
+        for name in order:
+            subprocess.run([sys.executable, me, "time", trees[name], name,
+                            *TEX_SCENES], check=True)
+        _live_histogram(trees["base"], TEX_SCENES)
         return
     for name in order:
         if tri_set:
@@ -1359,10 +1467,11 @@ def _tri_mode(tree, tag, what):
     print(tag, json.dumps(out), flush=True)
 
 
-def _live_histogram(tree):
-    """The room's and inst_grid's live steps per ray (train instance) at
-    the frame: histogram, and the lane-steps a warp runs (its longest
-    lane's count x 32) over those its lanes need."""
+def _live_histogram(tree, names=("room", "inst_grid")):
+    """The live steps per ray (train instance) at the frame of the scenes
+    ``names`` (the room and inst_grid): histogram, and the lane-steps a
+    warp runs (its longest lane's count x 32) over those its lanes
+    need."""
     sys.path.insert(0, tree)
     os.chdir(tree)
     import torch
@@ -1373,7 +1482,7 @@ def _live_histogram(tree):
     from micro_raytracer_tpu_torch.ops import step
 
     dev = torch.device("cuda")
-    for name in ("room", "inst_grid"):
+    for name in names:
         cfg = _config(cs, name)
         scene = compile_scene(cfg.scene, dev)
         tables = step.pack_step(scene)
