@@ -7,6 +7,7 @@
     python3 chip_smoke.py --compaction   # renders with and without
                                          # live-first compaction
     python3 chip_smoke.py --big          # phases 22-24 alone
+    python3 chip_smoke.py --records      # phase 25 alone
     python3 chip_smoke.py --gate <tree> [runs]  # the timing gate against
                                          # another checkout (below)
 
@@ -14,9 +15,9 @@ Phases, each of which raises on failure:
 
 1. card: CUDA present; name and power limit from nvidia-smi; TF32 off.
 2. build: nvcc builds every kernel source of ``micro_raytracer_tpu_torch/csrc``
-   (``hit3.cu``, ``trace_fwd.cu`` with its render and train instances,
-   ``trace_bwd.cu``, ``step_fwd.cu``, ``step_fwd_many.cu``, ``step_bwd.cu``,
-   ``tri.cu``), one nvcc
+   (``hit3.cu``, ``hit3_bwd.cu``, ``trace_fwd.cu`` with its render and
+   train instances, ``trace_bwd.cu``, ``step_fwd.cu``,
+   ``step_fwd_many.cu``, ``step_bwd.cu``, ``tri.cu``), one nvcc
    process per source, all started together.
 3. closest_hit kernel against its plain PyTorch version on the slice
    scene's row table, on 2^17 random rays and on the main path's input
@@ -246,9 +247,41 @@ Phases, each of which raises on failure:
    tri_entry, step_fwd_train and step_bwd BOUNCE + 1 times per step,
    finite gradients, non-zero on the torus rows.
 
+25. the record path (``tracer.trace_radiance(fused=False)``,
+   ``MRT_NO_FUSE=1``) and its differentiable closest hit: hit3_bwd (the
+   closest hit's VJP, ``csrc/hit3_bwd.cu``) against its plain version
+   (autograd of ``hit3.winner_t_plain``) on 2^17 camera rays of the room,
+   ``mesh_glass``, ``tex_blocks`` and ``inst_grid``, real winners and
+   seeded random cotangents (``check_hit_bwd``: per-ray d_o, d_d rtol 1e-6
+   of the plain float32 version, the table cotangents within rtol 1e-5 of
+   their terms' magnitudes, rays and terms that float64 shows
+   ill-conditioned held to their float32 noise, at most ILL_BWD_SHARE of
+   the rays; row and per-ray cotangents equal across two launches), the
+   same on the full frame's rays of bounces REC_BWD_BOUNCES of the room and
+   ``mesh_glass`` (rays that start on a surface or inside the glass), and
+   timed at the room's frame with its byte bound (the median of
+   REC_BWD_ROUNDS rounds, a profiled round's host and device time); the
+   closest hit's kWalk
+   instance with a 64-bit block mask (``inst_grid3k``, 53 blocks) and its
+   kGlobal instance (``box_grid``, 2,116 untextured boxes) against the
+   plain sweep at the frame, rows and t bit for bit; the record path
+   against the fused path on the same uniforms, one sample at the frame
+   (the room and ``mesh_glass`` at bounce 8, ``inst_grid3k`` and
+   ``mesh_big_glass`` at bounce REC_ROUTE_BOUNCE, which check their route
+   only): radiance within rtol 1e-3 / atol 1e-4 on all but 0.5% of the
+   pixels; the CLI with ``MRT_NO_FUSE=1`` renders the room at 16 spp
+   (REC_RENDER_REPS renders, the median rays/s, closest-hit launches a
+   sample, one profiled render's busy share; no whole-trace kernel, no
+   plain version), and one room training step on the record path at the
+   frame, 1 path a pixel, with and without ``remat`` (seconds, peak
+   memory, BOUNCE + 1 hit3_bwd launches); ``tools/torch_grad_check.py`` on
+   the room, ``tex_dof`` and ``mesh_glass`` (``--scene CornellBox``,
+   ``dof``, ``Mesh``). ``--records`` runs phases 1, 2 and this one.
+
 ``--gate <tree> [runs]`` times every whole-trace kernel of the room, mesh,
-textured and Instance-class stand-ins at the frame and the per-step
-kernels of ``lights8`` and ``inst_grid3k`` in ``<tree>`` (the parent) and
+textured and Instance-class stand-ins at the frame, the room's hit3_bwd
+(where the parent has it) and the per-step kernels of ``lights8`` and
+``inst_grid3k`` in ``<tree>`` (the parent) and
 in this script's own tree, a worker process each, in ``runs`` (GATE_RUNS)
 interleaved runs (parent, change, change, parent, ...), each timing
 spanning GATE_MS of launches, and fails a kernel whose median in this
@@ -340,6 +373,7 @@ INST_CAMERA = {"pos": [0, -2.6, 1.25], "fov": 60}
 INST_DIMS = {"inst_grid": (10, 10, 10), "inst_glass": (7, 7, 7),
              "inst_grid3k": (15, 15, 15)}
 INST_SMALL_DIMS = (6, 7, 7)
+BOX_GRID_DIMS = (46, 46)
 # the per-step path's stand-ins (tests/test_torch_steps.py imports their
 # scene functions): lights8, an open scene under 8 lights, and inst_grid3k,
 # the sphere grid past the whole-trace kernels' rows
@@ -725,6 +759,40 @@ def inst_scene(name, small=False, dims=None):
     }
 
 
+def box_grid(dims=BOX_GRID_DIMS):
+    """``box_grid``: a grid of untextured unit-ish boxes (sizes 0.3, 0.3,
+    0.2, spacing 0.4; 46 x 46 by default, 2,116 boxes, past the 2,048
+    dense rows the closest-hit kernel stages, so the record path's hits run
+    its kGlobal instance) over a ground plane, in the ``inst_grid``
+    camera's view, four materials (three diffuse, one glass for about a
+    tenth, so the sweeps take the group exit), the sky, one point and one
+    directional light."""
+    import numpy as np
+
+    rng = np.random.default_rng(37)
+    mats = [{"albedo": [float(x) for x in rng.uniform(0.2, 0.9, 3)],
+             "rough": float(rng.uniform(0.4, 1.0))} for _ in range(3)]
+    mats.append({"opacity": 0.2, "glass": 0.1})
+    n = dims[0] * dims[1]
+    which = rng.integers(0, 3, n)
+    which[rng.random(n) < 0.1] = 3
+    insts = [[] for _ in mats]
+    for m, (i, j) in zip(which, np.ndindex(*dims)):
+        pos = [(i - (dims[0] - 1) / 2) * 0.4, 1.0 + j * 0.4,
+               float(rng.uniform(-1.4, -1.1))]
+        insts[int(m)].append([pos, [0, 0, 1, float(rng.uniform(0, 0.3))]])
+    objs = [{"type": "box", "sizes": [0.3, 0.3, 0.2], "inst": inst,
+             "mat": mat} for mat, inst in zip(mats, insts) if inst]
+    objs.append({"type": "plane", "n": [0, 0, 1], "pos": [0, 0, -1.5],
+                 "mat": {"rough": 0.9, "albedo": [0.5, 0.5, 0.45]}})
+    return {
+        "renderer": objs,
+        "light": [{"type": "point", "pos": [-3, -1, 5], "pwr": 0.7},
+                  {"type": "dir", "dir": [0.4, 0.6, -1], "pwr": 0.5}],
+        "sky": {"color": [0.55, 0.65, 0.85], "pwr": 0.7},
+    }
+
+
 def inst_json(name, res=None):
     """The render JSON of an Instance-class stand-in at the main path's
     size."""
@@ -851,10 +919,11 @@ def phase_build():
                step.STEP_KERNEL, step.STEP_TRAIN_KERNEL,
                step.STEP_BWD_KERNEL, tri.ENTRY_KERNEL, tri.ENTRY_EXIT_KERNEL,
                tri.EXIT_KERNEL,
-               # the lights past the staged ones (a parent tree timed by
-               # --gate may have no such library)
+               # the lights past the staged ones and the closest hit's VJP
+               # (a parent tree timed by --gate may have no such library)
                *(k for k in (getattr(step, "STEP_MANY_KERNEL", None),
-                             getattr(step, "STEP_MANY_TRAIN_KERNEL", None))
+                             getattr(step, "STEP_MANY_TRAIN_KERNEL", None),
+                             getattr(hit3, "BWD_KERNEL", None))
                  if k is not None))
     by_source = {k.source: k for k in kernels}
     t0 = time.perf_counter()
@@ -5037,6 +5106,682 @@ def _segment_launches(scene, tables, decay, oT, dT, u8s, hit0):
     return run
 
 
+# --- phase 25: the record path and its differentiable closest hit ----------
+
+REC_HIT_NAMES = ("room", "mesh_glass", "tex_blocks", "inst_grid")
+# the route checks of the scenes past the whole-trace bounds: bounce
+REC_ROUTE_BOUNCE = 2
+REC_RENDER_REPS = 3
+# hit3_bwd's timing at the frame: rounds of CUDA-event means of
+# REC_BWD_REPS calls (the median reported), then one profiled round
+REC_BWD_ROUNDS = 5
+REC_BWD_REPS = 20
+# the bounces of the record path's frame whose closest-hit inputs hit3_bwd
+# is also checked on (rays that start on a surface or inside glass)
+REC_BWD_BOUNCES = (1, 3)
+REC_PROFILE_SPP = 2
+# rays of a hit3_bwd check whose float32 cotangents float64 shows
+# ill-conditioned (grazing sphere hits): at most this share (check_hit_bwd)
+ILL_BWD_SHARE = 0.05
+# a table cotangent's terms from an ill-conditioned ray (check_hit_bwd):
+# within this many times the plain float32 version's distance from float64
+# on that ray, at the ray's scale
+WITNESS_FACTOR = 16.0
+GRAD_CHECK_SCENES = ("CornellBox", "dof", "Mesh")
+# one transposed winner row of csrc/hit3_bwd.cu (trace_bwd.cuh
+# winner_t_bwd): the row's o' and d' (33), the kind's t and its cotangents
+# (about 40 for a sphere, the dearest), the transposes through the frame
+# (30) and the frame's outer products (36)
+HIT_BWD_OPS = 139
+
+
+def rec_config(name):
+    """The render config of a stand-in by name (the room, the mesh,
+    textured, Instance-class and per-step stand-ins, ``box_grid``)."""
+    from micro_raytracer_tpu_torch.models import schema
+
+    if name == "room":
+        return slice_config()
+    if name in MESH_NAMES:
+        return mesh_config(name)
+    if name in TEX_NAMES:
+        return tex_config(name)
+    if name in INST_NAMES or name in STEP_NAMES:
+        return step_config(name) if name in STEP_NAMES \
+            else inst_config(name)
+    if name == "box_grid":
+        return schema.RenderConfig.from_json({
+            "scene": box_grid(), "frame": {"res": [RES, RES],
+                                           "cam": INST_CAMERA},
+            "rt": {"bounce": BOUNCE, "sample": SAMPLES}})
+    raise ValueError(name)
+
+
+def rec_inputs(name, dev):
+    """(cfg, scene, tables, cam) of a stand-in on the card."""
+    from micro_raytracer_tpu_torch.models.compiler import (compile_camera,
+                                                           compile_scene)
+    from micro_raytracer_tpu_torch.ops import step
+
+    cfg = rec_config(name)
+    scene = compile_scene(cfg.scene, dev)
+    return cfg, scene, step.pack_step(scene), compile_camera(cfg.frame.cam,
+                                                              dev)
+
+
+def hit_bwd_args(scene, tables, o, d, gen):
+    """The closest hit of rays ``o``, ``d`` in the scene's mode and random
+    cotangents of its te and tx (a seeded generator): the VJP's inputs."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    mode = step.primary_mode(scene)
+    tri = tables.tri if tables.layout[2] else None
+    te, row, tx, xrow = hit3.closest_hit(
+        tables.tab, tables.layout, o, d, mode, tri, tables.tbb, tables.sbb,
+        step._walk(tables), tables.box)
+    cts = torch.randn((2, o.shape[0]), generator=gen, device=o.device)
+    return (tables.tab, tables.layout, o, d, mode, te, row, tx, xrow,
+            cts[0], cts[1], tri)
+
+
+def hit_bwd_terms(tab, layout, o, d, mode, te, row, tx, xrow, ct_te, ct_tx,
+                  tri):
+    """The per-ray terms of the plain VJP's table cotangents (the
+    arithmetic of ``hit3.closest_hit_bwd_plain``, whose table cotangents
+    are their sums): a list of ``("tab" | "tri", rows (R,), terms (R,
+    k))``, one for each gather of ``hit3._row_t``, its rows and the
+    cotangent of their first k columns from each ray."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    ce, cx = hit3._masked_cts(mode, te, tx, ct_te, ct_tx)
+    gathered = []
+    with torch.enable_grad():
+        tab = tab.detach().requires_grad_(True)
+        tri = None if tri is None else tri.detach().requires_grad_(True)
+        outs = [hit3._row_t(tab, layout, o, d, row, False, tri, gathered)]
+        cts = [ce]
+        if mode != hit3.MODE_ENTRY:
+            outs.append(hit3._row_t(tab, layout, o, d, xrow, True, tri,
+                                    gathered))
+            cts.append(cx)
+        grads = torch.autograd.grad(outs, [g[2] for g in gathered], cts,
+                                    allow_unused=True)
+    return [(what, rows, torch.zeros_like(w) if gw is None else gw)
+            for (what, rows, w), gw in zip(gathered, grads)]
+
+
+def input_spread(args, rays, j):
+    """The sensitivity of the rays ``rays`` of hit_bwd_args' ``args`` to
+    one float32 rounding of their inputs: per component of the plain VJP's
+    output ``j`` (2: d_o, 3: d_d), the largest move of the float64 plain
+    version when ``o`` or ``d`` is scaled by 1 +- 2^-24. A ray that leaves
+    a box face nearly along it takes its slab t as a difference of
+    coordinates a rounding apart, divided by a direction component of
+    1e-4: its d_d moves by 1e-3 of itself with the last bit of ``o``."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    tab, layout, o, d, mode, te, row, tx, xrow, ce, cx, tri = args
+
+    def plain64(o_, d_):
+        sub = [t[rays].double() for t in (te, tx, ce, cx)]
+        return hit3.closest_hit_bwd_plain(
+            tab.double(), layout, o_, d_, mode, sub[0], row[rays], sub[1],
+            xrow[rays], sub[2], sub[3],
+            None if tri is None else tri.double())[j]
+
+    o64, d64 = o[rays].double(), d[rays].double()
+    ref = plain64(o64, d64)
+    moves = [(plain64(o64 * f, d64) - ref).abs() for f in
+             (1.0 + 2.0 ** -24, 1.0 - 2.0 ** -24)]
+    moves += [(plain64(o64, d64 * f) - ref).abs() for f in
+              (1.0 + 2.0 ** -24, 1.0 - 2.0 ** -24)]
+    return torch.stack(moves).amax(0)
+
+
+def check_hit_bwd(name, args):
+    """hit3_bwd (``hit3.closest_hit_bwd``) against its plain version
+    (``hit3.closest_hit_bwd_plain``, autograd of ``winner_t_plain``) on the
+    same inputs: per-ray d_o, d_d within rtol 1e-6 of the plain float32
+    version, with a floor of 1e-6 of the array's largest magnitude over
+    the rays whose float32 values float64 does not show far off (by more
+    than 1e-3 of the ray's largest component: a grazing ray's 1e15 does
+    not set the floor). A grazing sphere hit differentiates through
+    1/sqrt(disc), so a few rays' float32 cotangents depend on the order of
+    their operations: a ray outside the tolerance must be shown
+    ill-conditioned, the plain version run in float64 moving its float32
+    values by more than the tolerance and the kernel's lying within twice
+    that move of them (the rule of the whole-trace backward's check), or
+    one float32 rounding of the ray's o or d moving the float64 values by
+    more than the tolerance and the kernel's lying within twice that move
+    of float64 (:func:`input_spread`: bounced rays that leave a box face
+    nearly along it, where the plain float32 version can land closer to
+    float64 by chance);
+    those and the far rays, at most ILL_BWD_SHARE of the rays, are left
+    out of the next check. From a launch where the left-out rays'
+    cotangents are 0: the row and triangle-table cotangents (float64 sums
+    of float32 terms in the kernel) against the plain version's float32
+    per-ray terms summed in float64 (:func:`hit_bwd_terms`),
+    each entry within the sum over its rays of the ray's largest term on
+    that row times the larger of rtol 1e-5 and WITNESS_FACTOR times the
+    ray's float32 noise (the plain float32 version's distance from float64
+    on that ray, relative to its scale): a term is a difference of
+    products as large as the ray's largest, which two float32 programs
+    round differently on an ill-conditioned ray, and a sum's terms of
+    either sign cancel, so the limit follows their magnitudes, not the
+    sum's. Two launches give the same row cotangents and
+    per-ray cotangents bit for bit. Returns each array's largest error
+    over its limit on the kept rays (at most 1 passes), the largest
+    absolute error and the left-out share."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    k1 = hit3.closest_hit_bwd(*args)
+    k2 = hit3.closest_hit_bwd(*args)
+    for what, a, b in (("d_tab", k1[0], k2[0]), ("d_o", k1[2], k2[2]),
+                       ("d_d", k1[3], k2[3])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"hit3_bwd/{name}: {what} differs between "
+                                 f"two runs")
+    tab, layout, o, d, mode, te, row, tx, xrow, ce, cx, tri = args
+
+    def as64(ce, cx):
+        return (tab.double(), layout, o.double(), d.double(), mode,
+                te.double(), row, tx.double(), xrow, ce.double(),
+                cx.double(), None if tri is None else tri.double())
+
+    def plain64(ce, cx):
+        return hit3.closest_hit_bwd_plain(*as64(ce, cx))
+
+    def term_sums(terms, ref=None, fn=torch.abs):
+        """Per table entry, the float64 sum of ``fn`` of its per-ray terms
+        (or of their distances from ``ref``'s)."""
+        sums = {"tab": torch.zeros(tab.shape, dtype=torch.float64,
+                                   device=tab.device),
+                "tri": None if tri is None else torch.zeros(
+                    tri.shape, dtype=torch.float64, device=tab.device)}
+        for i, (what, rows, t) in enumerate(terms):
+            v = t.double() if ref is None else t.double() - ref[i][2]
+            sums[what][:, :t.shape[1]].index_add_(0, rows, fn(v))
+        return sums["tab"], sums["tri"]
+
+    def off(got, want, rtol, scale=None, top=None):
+        """(beyond the limit, error over the limit, error): the limit is
+        rtol times ``scale`` (default each value's magnitude plus 1e-6 /
+        rtol of ``top``: per ray, the ray's largest component)."""
+        got, want = got.double(), want.double()
+        if scale is None:
+            top = want.abs().amax(1, keepdim=True) if top is None else top
+            scale = want.abs() + 1e-6 / rtol * top
+        err = (got - want).abs()
+        lim = rtol * scale
+        return err > lim, err / (lim + 1e-30), err
+
+    p32 = hit3.closest_hit_bwd_plain(*args)
+    p64 = plain64(ce, cx)
+    # rays whose float32 values float64 shows far off (by more than 1e-3
+    # of the ray's largest component) do not set the floor
+    far = torch.zeros_like(te, dtype=torch.bool)
+    for j in (2, 3):
+        w = p64[j].abs()
+        far |= off(p32[j], p64[j], 1e-3,
+                   w + w.amax(1, keepdim=True))[0].any(1)
+    abs_err = 0.0
+    ill = far.clone()
+    errs = {}
+    for what, j in (("d_o", 2), ("d_d", 3)):
+        top = float(p32[j][~far].abs().max()) if bool((~far).any()) \
+            else 0.0
+        bad, rel, err = off(k1[j], p32[j], 1e-6, top=top)
+        # outside the tolerance: shown ill-conditioned where the float64
+        # plain version moves the float32 one by more than the tolerance
+        # and the kernel lies within twice that move of it, or where one
+        # float32 rounding of the ray does so (input_spread) and the
+        # kernel lies within twice that of float64
+        move = (p32[j].double() - p64[j]).abs()
+        lim = err / rel.clamp(min=1e-300)
+        shown = (move > lim) & (err <= 2.0 * move)
+        bad = bad & ~shown
+        rays = bad.any(1).nonzero().flatten()
+        if rays.numel():
+            spread = input_spread(args, rays, j)
+            e64 = (k1[j][rays].double() - p64[j][rays]).abs()
+            bad[rays] &= ~((spread > lim[rays]) & (e64 <= 2.0 * spread))
+        ill |= (rel > 1.0).any(1)
+        kept = ~ill
+        if bool(kept.any()):
+            errs[what] = float(rel[kept].max())
+            abs_err = max(abs_err, float(err[kept].max()))
+        if bool(bad.any()):
+            raise AssertionError(f"hit3_bwd/{name}: {what} outside rtol 1e-6 "
+                                 f"on {int(bad.any(1).sum())} rays not shown "
+                                 f"ill-conditioned")
+    share = float(ill.float().mean())
+    errs["ill_share"] = share
+    if share > ILL_BWD_SHARE:
+        raise AssertionError(f"hit3_bwd/{name}: {share:.4f} of the rays "
+                             f"ill-conditioned")
+    keep = (~ill).to(ce.dtype)
+    args_k = args[:9] + (ce * keep, cx * keep, tri)
+    k3 = hit3.closest_hit_bwd(*args_k)
+    t64 = hit_bwd_terms(*as64(ce * keep, cx * keep))
+    t32 = hit_bwd_terms(*args_k)
+    # each ray's float32 noise, relative to its scale: the plain float32
+    # version's distance from float64 over its d_o, d_d and row terms
+    kap = torch.zeros_like(te, dtype=torch.float64)
+    for j in (2, 3):
+        w = p64[j].abs().amax(1)
+        kap = torch.maximum(kap, (p32[j].double() - p64[j]).abs().amax(1)
+                            / (w + 1e-300))
+    for (_w, _r, a32), (_w2, _r2, a64) in zip(t32, t64):
+        w = a64.abs().amax(1)
+        kap = torch.maximum(kap, (a32.double() - a64).abs().amax(1)
+                            / (w + 1e-300))
+    # the reference: the plain version's float32 terms summed in float64,
+    # the kernel's arithmetic (float32 terms, float64 sums); each entry's
+    # limit: every ray's largest term on its row times the larger of
+    # 1e-5 and WITNESS_FACTOR times the ray's float32 noise (a term is a
+    # difference of products as large as the ray's largest term, which two
+    # float32 programs round differently where the ray is ill-conditioned)
+    ref = term_sums(t32, fn=lambda v: v)
+    rel_scale = torch.clamp(kap * WITNESS_FACTOR, min=1e-5)
+    lims = term_sums([(w, r, a.abs().amax(1, keepdim=True).expand_as(a)
+                       * rel_scale[:, None]) for w, r, a in t64])
+    for what, j in (("d_tab", 0), ("d_tri", 1)):
+        if ref[j] is None:
+            continue
+        bad, rel, err = off(k3[j], ref[j], 1.0, lims[j])
+        if rel.numel():
+            errs[what] = float(rel.max())
+            abs_err = max(abs_err, float(err.max()))
+        if bool(bad.any()):
+            worst = [(divmod(int(i), rel.shape[1]), float(err.flatten()[i]),
+                      float(ref[j].flatten()[i]), float(lims[j].flatten()[i]))
+                     for i in torch.argsort(rel.flatten(),
+                                            descending=True)[:4].tolist()]
+            raise AssertionError(f"hit3_bwd/{name}: {what} outside its limit "
+                                 f"on {int(bad.sum())} entries; worst ((row, "
+                                 f"column), error, value, limit): {worst}")
+    if not float(k1[0][:, :16].abs().max()) > 0:
+        raise AssertionError(f"hit3_bwd/{name}: no row cotangent")
+    hit = te < hit3.BIG * 0.5
+    hits, apart = int(hit.sum()), int((hit & (xrow != row)).sum())
+    log(f"hit3_bwd/{name}: {o.shape[0]} rays ({hits} hit, {apart} with an "
+        f"exit row other than the entry row), matches the "
+        f"plain version: largest error over its limit "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } ({share:.4f} of the "
+        f"rays shown ill-conditioned by float64 and left out); row and "
+        f"per-ray cotangents equal across two runs")
+    errs["max_abs_err"] = abs_err
+    return errs
+
+
+def hit_bwd_bound(scene, tables, R):
+    """The VJP's bound at R rays: each ray's o and d (12 + 12 bytes), its
+    winner rows and cotangents (8 + 8) read and d_o, d_d written (24); a
+    dense row's sweep columns read (16 floats) and its cotangents written
+    (26), a triangle row's Woop g, h read and their cotangents written (4 +
+    4); at HIT_BWD_OPS a transposed row (one a ray: the room's exit row is
+    its entry row)."""
+    return bound(R * (12 + 12 + 8 + 8 + 24) + tables.layout[1] * (16 + 26) * 4
+                 + tables.layout[2] * (4 + 4) * 4, R * HIT_BWD_OPS)
+
+
+def time_hit_bwd(args):
+    """hit3_bwd's wrapper (``hit3.closest_hit_bwd``: the cotangents'
+    masks, the zeroed outputs, the kernel and its finish) on ``args``:
+    REC_BWD_ROUNDS CUDA-event means of REC_BWD_REPS calls, their median,
+    and from one profiled round, a call's host wall time, its device busy
+    time and operations, and the device time of the two kernels of
+    csrc/hit3_bwd.cu alone."""
+    import numpy as np
+
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    rounds = [cuda_ms(lambda: hit3.closest_hit_bwd(*args), REC_BWD_REPS)
+              for _ in range(REC_BWD_ROUNDS)]
+
+    def run():
+        for _ in range(REC_BWD_REPS):
+            hit3.closest_hit_bwd(*args)
+
+    _o, wall, busy, n_ops, by_name = _busy_share(run)
+    kern = sum(v for k, v in by_name.items()
+               if "hit3_bwd_kernel" in k or "finish_kernel" in k)
+    return {"ms": float(np.median(rounds)), "rounds": rounds,
+            "host_ms": wall * 1e3 / REC_BWD_REPS,
+            "device_ms": busy * 1e3 / REC_BWD_REPS,
+            "ops": n_ops / REC_BWD_REPS,
+            "kernel_ms": kern * 1e3 / REC_BWD_REPS}
+
+
+def check_new_hit_paths(dev, gen):
+    """The closest hit's two instances past the staged rows against the
+    plain sweep at the frame, every mode, rows equal and t bit for bit:
+    the kWalk instance with a 64-bit block mask on ``inst_grid3k`` (3,384
+    rows, 53 blocks) and the kGlobal instance on ``box_grid`` (2,116
+    boxes)."""
+    out = {}
+    for name in ("inst_grid3k", "box_grid"):
+        cfg, scene, tables, _cam = rec_inputs(name, dev)
+        if tables.layout[1] <= 2048:
+            raise AssertionError(f"{name}: {tables.layout[1]} dense rows")
+        walked = tables.sbb is not None
+        if walked != (name == "inst_grid3k"):
+            raise AssertionError(f"{name}: sphere walk {walked}")
+        oT, dT = main_path_rays(cfg, gen, dev)
+        compare_hit(tables, oT.T, dT.T, exact=True)
+        log(f"{name}: the {'kWalk (64 blocks)' if walked else 'kGlobal'} "
+            f"closest hit, {tables.layout[1]} dense rows, equals the plain "
+            f"sweep at the frame")
+        out[name] = tables.layout[1]
+    return out
+
+
+def record_vs_fused(name, dev, gen, bounce, bwd_bounces=(), errs=None):
+    """One sample of the record path against the fused path on the same
+    uniforms at the frame: radiance within rtol 1e-3 / atol 1e-4 on all
+    but 0.5% of the pixels. At each bounce of ``bwd_bounces`` also
+    hit3_bwd against its plain version (check_hit_bwd) on the rays the
+    record path's closest hit took there, with random cotangents; their
+    errors go into ``errs``. Returns the outlier share."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models import tracer
+
+    import numpy as np
+
+    from micro_raytracer_tpu_torch.models.render import morton_ray_order
+
+    cfg, scene, tables, cam = rec_inputs(name, dev)
+    ys, xs = divmod(morton_ray_order(RES, RES), RES)
+    coords = torch.from_numpy(np.stack([xs, ys], -1)).to(dev, torch.float32)
+    u_aprt, u8s = tracer.draw_uniforms(gen, coords.shape[0], bounce,
+                                       scene.any_refract, dev)
+    rays = []
+    hits = tracer._hits
+
+    def seen(scene, tables, o, d):
+        rays.append((o, d))
+        return hits(scene, tables, o, d)
+
+    tracer._hits = seen
+    try:
+        with torch.no_grad():
+            rad = {f: tracer.trace_radiance_u(scene, cam, (RES, RES), bounce,
+                                              cfg.rt.loss, coords, u_aprt,
+                                              u8s, tables, fused=f)
+                   for f in (True, False)}
+    finally:
+        tracer._hits = hits
+    if not bool(torch.isfinite(rad[False]).all()):
+        raise AssertionError(f"record path/{name}: radiance not finite")
+    if len(rays) != bounce + 1:
+        raise AssertionError(f"record path/{name}: {len(rays)} closest "
+                             f"hits for bounce {bounce}")
+    for k in bwd_bounces:
+        errs[f"{name}@{k}"] = check_hit_bwd(
+            f"{name} bounce {k}", hit_bwd_args(scene, tables, *rays[k], gen))
+    del rays
+    bad = outlier_rays(rad[False].T, rad[True].T, 1e-3, 1e-4)
+    share = float(bad.float().mean())
+    if share > 0.005:
+        raise AssertionError(f"record path/{name}: {int(bad.sum())} pixels "
+                             f"off the fused path")
+    log(f"record path/{name}: one sample at {RES}x{RES}, bounce {bounce}: "
+        f"{share:.5f} of the pixels outside rtol 1e-3 / atol 1e-4 of the "
+        f"fused path")
+    return share
+
+
+def record_cli(card):
+    """The CLI renders the room with MRT_NO_FUSE=1 at 16 spp: launches
+    per sample (hit3 and hit3_bwd, no whole-trace kernel, no plain
+    version), REC_RENDER_REPS renders for the median rays/s, one profiled
+    for the device's busy share."""
+    import numpy as np
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    kernels = (hit3.KERNEL, hit3.BWD_KERNEL, step.KERNEL, step.TRAIN_KERNEL,
+               step.STEP_KERNEL)
+    for k in kernels:
+        k.launches = 0
+        k.plain_calls = 0
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "rec.png")
+    os.environ["MRT_NO_FUSE"] = "1"
+    try:
+        secs = [render_cli(out)[0]]
+        launched = {k.name: k.launches for k in kernels}
+        plain = {k.name: k.plain_calls for k in kernels if k.plain_calls}
+        if plain or launched[step.KERNEL.name] \
+                or launched[step.STEP_KERNEL.name] \
+                or launched[hit3.KERNEL.name] < SAMPLES * (BOUNCE + 1):
+            raise AssertionError(f"record path CLI: launches {launched}, "
+                                 f"plain calls {plain}")
+        secs += [render_cli(out)[0] for _ in range(REC_RENDER_REPS - 1)]
+        # profiled at REC_PROFILE_SPP (the profiler's events of 16 samples
+        # take tens of seconds to read back)
+        _o, wall, busy, n_ops, _n = _busy_share(
+            lambda: render_cli(out, samples=REC_PROFILE_SPP))
+    finally:
+        del os.environ["MRT_NO_FUSE"]
+    rate = RES * RES * SAMPLES / np.asarray(secs)
+    med = float(np.median(rate))
+    per_sample = launched[hit3.KERNEL.name] / SAMPLES
+    log(f"record path CLI (MRT_NO_FUSE=1), room {RES}x{RES} x {SAMPLES} "
+        f"spp, bounce {BOUNCE}: median {med / 1e6:.2f}M rays/s over "
+        f"{len(secs)} renders (seconds {[f'{x:.3f}' for x in secs]}); "
+        f"{per_sample:.1f} closest-hit launches a sample; profiled render "
+        f"({REC_PROFILE_SPP} spp) wall {wall:.3f} s, device busy {busy:.3f} "
+        f"s = {busy / wall:.3f}, {n_ops / REC_PROFILE_SPP:.0f} device "
+        f"operations a sample, on {card}")
+    return {"median_rays_per_s": med, "render_s": secs,
+            "hit3_launches_per_sample": per_sample,
+            "busy_share": busy / wall,
+            "ops_per_sample": n_ops / REC_PROFILE_SPP}
+
+
+def record_train(card):
+    """One room training step on the record path (MRT_NO_FUSE=1) at the
+    frame, 1 path a pixel, with and without ``remat``: seconds of the
+    second step, peak memory, the VJP's launches a step (one a bounce)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+    from micro_raytracer_tpu_torch.parallel import shard
+
+    dev = torch.device("cuda")
+    cfg = slice_config()
+    params, scene, cam, coords, target, gen, _rows = train_setup(cfg)
+    out = {}
+    os.environ["MRT_NO_FUSE"] = "1"
+    try:
+        for remat in (False, True):
+            ts = shard.make_train_step((RES, RES), BOUNCE, device=dev,
+                                       remat=remat)
+            p = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in params.items()}
+            ts.step(p, scene, cam, cfg.rt.loss, coords, target, gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in (hit3.KERNEL, hit3.BWD_KERNEL, step.TRAIN_KERNEL):
+                k.launches = 0
+            t0 = time.perf_counter()
+            loss, _new = ts.step(p, scene, cam, cfg.rt.loss, coords, target,
+                                 gen)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            bwd = hit3.BWD_KERNEL.launches
+            if bwd != BOUNCE + 1 or step.TRAIN_KERNEL.launches \
+                    or not bool(torch.isfinite(loss)):
+                raise AssertionError(f"record path training: {bwd} hit3_bwd "
+                                     f"launches, loss {float(loss)}")
+            for k, v in p.items():
+                if v.grad is None or not bool(torch.isfinite(v.grad).all()):
+                    raise AssertionError(f"record path training: gradient "
+                                         f"of {k}")
+            out["remat" if remat else "plain"] = {
+                "step_s": sec, "peak_bytes": peak,
+                "fwd_bwd_rays_per_s": RES * RES / sec,
+                "hit3_bwd_launches": bwd,
+                "hit3_launches": hit3.KERNEL.launches}
+            log(f"record path training (remat {remat}): {sec:.4f} s a step "
+                f"= {RES * RES / sec / 1e6:.3f}M fwd+bwd rays/s, peak "
+                f"{peak / 2**30:.3f} GiB, launches hit3 "
+                f"{hit3.KERNEL.launches}, hit3_bwd {bwd}, on {card}")
+    finally:
+        del os.environ["MRT_NO_FUSE"]
+    return out
+
+
+def run_grad_check(scene):
+    """tools/torch_grad_check.py on ``scene`` on the card, in this process
+    (its JSON lines kept out of this script's output, the failing ones
+    logged): its summary line; raises if a gate failed."""
+    import contextlib
+    import importlib.util
+    import io
+
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_grad_check.py")
+    spec = importlib.util.spec_from_file_location("torch_grad_check", tool)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(["--scene", scene])
+    lines = buf.getvalue().strip().splitlines()
+    summary = json.loads(lines[-1]) if lines else {}
+    for line in lines[:-1]:
+        if json.loads(line).get("pass") is False:
+            log(f"  grad_check {scene}: {line}")
+    if rc != 0 or not summary.get("ok"):
+        raise AssertionError(f"torch_grad_check {scene} failed (rc {rc}): "
+                             f"{buf.getvalue()[-3000:]}")
+    log(f"torch_grad_check {scene}: worst rel {summary['worst_rel']:.3g} "
+        f"(gate excess {summary['worst_gate_excess']:.3g}), finite "
+        f"differences {summary['fd_worst_rel']}")
+    return summary
+
+
+def phase_records(card, results):
+    """25. The record path (``MRT_NO_FUSE=1``) and its differentiable
+    closest hit: hit3_bwd against its plain version on 2^17 camera rays of
+    the room, ``mesh_glass``, ``tex_blocks`` and ``inst_grid`` and timed
+    at the room's frame; the closest hit's kWalk (64-bit mask) and kGlobal
+    instances against the plain sweep at the frame; the record path
+    against the fused path, one sample at the frame (the room and
+    ``mesh_glass`` at bounce 8, with hit3_bwd checked on the frame's rays
+    of bounces REC_BWD_BOUNCES, ``inst_grid3k`` and ``mesh_big_glass`` at
+    bounce REC_ROUTE_BOUNCE, their route only); the CLI and one training
+    step on it; tools/torch_grad_check.py on the room, tex_dof and
+    mesh_glass."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    t0 = time.perf_counter()
+    errs = {}
+    for name in REC_HIT_NAMES:
+        cfg, scene, tables, cam = rec_inputs(name, dev)
+        o, d = camera_rays(cam, N_CMP, gen, dev)
+        errs[name] = check_hit_bwd(name, hit_bwd_args(scene, tables, o, d,
+                                                      gen))
+    cfg, scene, tables, cam = rec_inputs("room", dev)
+    oT, dT = main_path_rays(cfg, gen, dev)
+    args = hit_bwd_args(scene, tables, oT.T, dT.T, gen)
+    timing = time_hit_bwd(args)
+    ms = timing["ms"]
+    p_ms = plain_ms(lambda: hit3.closest_hit_bwd_plain(*args))
+    b = hit_bwd_bound(scene, tables, oT.shape[1])
+    # the room's errors (the timed scene's; the Instance grid's grazing
+    # rays reach 1e17, so absolute errors across scenes do not compare)
+    results["hit3_bwd"] = {"ms": ms, "plain_ms": p_ms, **b,
+                           "library_ms": None,
+                           "max_abs_err": errs["room"]["max_abs_err"]}
+    log(f"hit3_bwd at the room's frame ({oT.shape[1]} rays): median "
+        f"{ms:.4f} ms of rounds {[f'{x:.4f}' for x in timing['rounds']]}; "
+        f"profiled, a call: host {timing['host_ms']:.4f} ms, device "
+        f"{timing['device_ms']:.4f} ms over {timing['ops']:.0f} operations "
+        f"(the kernels {timing['kernel_ms']:.4f} ms); plain {p_ms:.3f} ms, "
+        f"bound {fmt_bound(b)} on {card}")
+    del oT, dT, args
+    new_paths = check_new_hit_paths(dev, gen)
+    shares = {n: record_vs_fused(n, dev, gen, BOUNCE, REC_BWD_BOUNCES,
+                                 errs)
+              for n in ("room", "mesh_glass")}
+    shares.update({n: record_vs_fused(n, dev, gen, REC_ROUTE_BOUNCE)
+                   for n in ("inst_grid3k",)})
+    shares["mesh_big_glass"] = record_vs_fused_big(dev, gen)
+    t1 = time.perf_counter()
+    cli_res = record_cli(card)
+    train_res = record_train(card)
+    t2 = time.perf_counter()
+    checks = {s: run_grad_check(s) for s in GRAD_CHECK_SCENES}
+    log(f"phase 25: kernels and routes {t1 - t0:.1f} s, CLI and training "
+        f"{t2 - t1:.1f} s, grad checks {time.perf_counter() - t2:.1f} s")
+    return {"hit_bwd_errors": errs, "hit_bwd_timing": timing,
+            "new_paths": new_paths,
+            "record_vs_fused_outliers": shares, "cli": cli_res,
+            "train": train_res,
+            "grad_check": {k: {"worst_rel": v["worst_rel"],
+                               "worst_gate_excess": v["worst_gate_excess"],
+                               "fd_worst_rel": v["fd_worst_rel"]}
+                           for k, v in checks.items()}}
+
+
+def record_vs_fused_big(dev, gen):
+    """``mesh_big_glass`` (65,536 glass triangles in 1,024 cull blocks):
+    the record path's closest hits through tri_entry_exit and the dense
+    rows' closest hit, its shadows through the kGlobal instance, against
+    the fused (per-step) path, one sample at the frame, bounce
+    REC_ROUTE_BOUNCE."""
+    import numpy as np
+    import torch
+
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.render import morton_ray_order
+    from micro_raytracer_tpu_torch.ops import tri
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    cfg = big_render_config("mesh_big_glass", tmp)[0]
+    scene, tables, _decay, cam = big_inputs(cfg, dev)
+    ys, xs = divmod(morton_ray_order(RES, RES), RES)
+    coords = torch.from_numpy(np.stack([xs, ys], -1)).to(dev, torch.float32)
+    u_aprt, u8s = tracer.draw_uniforms(gen, coords.shape[0],
+                                       REC_ROUTE_BOUNCE, scene.any_refract,
+                                       dev)
+    tri.ENTRY_EXIT_KERNEL.launches = 0
+    with torch.no_grad():
+        rad = {f: tracer.trace_radiance_u(scene, cam, (RES, RES),
+                                          REC_ROUTE_BOUNCE, cfg.rt.loss,
+                                          coords, u_aprt, u8s, tables,
+                                          fused=f)
+               for f in (True, False)}
+    if tri.ENTRY_EXIT_KERNEL.launches < 2 * (REC_ROUTE_BOUNCE + 1):
+        raise AssertionError("mesh_big_glass: the record path skipped "
+                             "tri_entry_exit")
+    bad = outlier_rays(rad[False].T, rad[True].T, 1e-3, 1e-4)
+    share = float(bad.float().mean())
+    if share > 0.005 or not bool(torch.isfinite(rad[False]).all()):
+        raise AssertionError(f"record path/mesh_big_glass: {int(bad.sum())} "
+                             f"pixels off the fused path")
+    log(f"record path/mesh_big_glass: one sample at {RES}x{RES}, bounce "
+        f"{REC_ROUTE_BOUNCE}: {share:.5f} of the pixels outside rtol 1e-3 / "
+        f"atol 1e-4 of the fused path")
+    return share
+
+
 def _gate_kernels():
     """``{key: (function, reps)}``: every whole-trace kernel at the main
     path's frame on the room, the mesh, textured and Instance-class
@@ -5049,7 +5794,7 @@ def _gate_kernels():
 
     from micro_raytracer_tpu_torch.models import tracer
     from micro_raytracer_tpu_torch.models.compiler import compile_scene
-    from micro_raytracer_tpu_torch.ops import step
+    from micro_raytracer_tpu_torch.ops import hit3, step
 
     dev = torch.device("cuda")
     fns, info = {}, {}
@@ -5085,6 +5830,12 @@ def _gate_kernels():
                     *a[:3], a[5], r[3], r[4], c, c), 5)
         for w in ("trace_fwd", "trace_fwd_train"):
             info[f"{w}/{name}"] = step.instance_resources(scene, tables, w)
+        if name == "room" and hasattr(hit3, "closest_hit_bwd"):
+            # the record path's closest-hit VJP (a parent tree may have
+            # none)
+            h = hit_bwd_args(scene, tables, oT.T, dT.T, gen)
+            fns["hit3_bwd/room"] = (
+                lambda h=h: hit3.closest_hit_bwd(*h), 20)
     for name in STEP_NAMES:
         cfg, scene, tables, decay, _cam = step_inputs(name, dev)
         oT, dT = main_path_rays(cfg, gen, dev)
@@ -5284,6 +6035,13 @@ def main() -> int:
         print(json.dumps({"step_bwd_rows": rows, "inst_grid3k": chaos}))
         print(card)
         return 0
+    if sys.argv[1:] == ["--records"]:
+        phase_build()
+        results = {}
+        rec = phase_records(card, results)
+        print(json.dumps({"records": rec, "hit3_bwd": results["hit3_bwd"]}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--big"]:
         phase_build()
         results = {}
@@ -5353,6 +6111,8 @@ def main() -> int:
     big_res, big_counts, big_train_counts, big_train = phase_big(card,
                                                                  results)
     log(f"phases 22-24: {time.perf_counter() - t_start:.1f} s so far")
+    rec_res = phase_records(card, results)
+    log(f"phase 25: {time.perf_counter() - t_start:.1f} s so far")
 
     from micro_raytracer_tpu_torch.ops import hit3, step
 
@@ -5485,7 +6245,13 @@ def main() -> int:
          "launches": train_counts[step.BWD_KERNEL.name],
          **results["trace_bwd"]},
     ] + mesh_kernels + tex_kernels + inst_kernels + step_entries \
-        + big_entries(results, big_counts, big_train_counts)
+        + big_entries(results, big_counts, big_train_counts) + [
+        {"name": "hit3_bwd", "route": "cuda",
+         "source": "micro_raytracer_tpu_torch/csrc/hit3_bwd.cu",
+         "replaces": "micro_raytracer_tpu/ops/pallas_hit3.py:1164",
+         "launches": rec_res["train"]["plain"]["hit3_bwd_launches"],
+         **results["hit3_bwd"]}]
+    log(f"record path: {json.dumps(rec_res)}")
     log(f"render main path: {json.dumps(main_res)}")
     log(f"training main path: {json.dumps(train_res)}; closest_hit "
         f"launches {train_counts[hit3.KERNEL.name]}")

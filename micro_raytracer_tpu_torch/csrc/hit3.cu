@@ -6,7 +6,7 @@
 // Replaces: micro_raytracer_tpu/ops/pallas_hit3.py :: _call_hit / _hit_kernel
 // (dense segments, the long sphere segment's block cull, the triangle
 // segment with its candidate-block cull, the group exit; the winner-t VJP
-// _winner_t_all is not ported). The sweep
+// of make_closest_hit, _winner_t_all, is hit3_bwd.cu). The sweep
 // itself lives in hit3.cuh, shared with the whole-trace kernel; see there
 // for the semantics, the per-ray cull and what bounds it.
 //
@@ -37,7 +37,20 @@
 // packed rows (16 KB for 256 boxes), the lanes' columns of entry t and the
 // sweep rows before the box segment, and walks the boxes nearest first,
 // where it swept every box row of the staged table.
+// Past kMaxStaged dense rows (the record path takes every scene size, as
+// the JAX package's pallas_hit3 up to 4,096 padded rows and its jnp sweep
+// past them): a culled sphere segment of more than 32 blocks (up to
+// hit3.SPH_MAX_BLOCKS = 64, the 3,384-row inst_grid3k: 53) runs the kWalk
+// instance with a 64-bit block mask (kWide), which stages no dense table;
+// a scene with no walk runs the kGlobal instance, which stages nothing and
+// reads the dense sweep rows from global memory through L1/L2 (as
+// step_fwd.cu does), `stride` floats a row, and its cull blocks there too,
+// so it also takes a triangle segment past hit3.MAX_TRI_BLOCKS (the record
+// path's shadow rays on the big meshes). The instances below the bounds
+// keep their code.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "box_walk.cuh"
 #include "hit3.cuh"
@@ -46,8 +59,13 @@
 namespace {
 
 constexpr int kThreads = 256;
+// the dense rows and triangle cull blocks the staged instances hold in
+// shared memory (hit3.MAX_ROWS, hit3.MAX_TRI_BLOCKS)
+constexpr int kMaxStaged = 2048;
+constexpr int kMaxStagedBlocks = 256;
 
-template <bool kTri, bool kWalk, bool kBox>
+template <bool kTri, bool kWalk, bool kBox, bool kWide = false,
+          bool kGlobal = false>
 __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
                                    int stride, mrt::Layout lay,
                                    const float* __restrict__ tri,
@@ -95,7 +113,7 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
     W = mrt::SphWalk{mrt::SphPack{srows, s_sub, s_seg}, s_bb,
                      s_tb + threadIdx.x, kThreads,
                      s_pb - lay.pln_start * mrt::kSweepCols};
-  } else {
+  } else if constexpr (!kGlobal) {
     mrt::stage(s_tab, tab, P, stride, mrt::kSweepCols);
     if (kTri)
       mrt::stage(s_tab + P * mrt::kSweepCols, bb, lay.n_cb, mrt::kBbCols,
@@ -105,7 +123,12 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
                  mrt::kBbCols);
     __syncthreads();
   }
-  mrt::Tris T{tri, s_tab + P * mrt::kSweepCols};
+  // the sweep rows and the cull blocks (kGlobal: both in global memory)
+  const float* rows = kGlobal ? tab : s_tab;
+  const int rs = kGlobal ? stride : mrt::kSweepCols;
+  mrt::Tris T{tri, kGlobal ? (kTri ? bb : sbb) : s_tab + P * mrt::kSweepCols};
+  using Mask = typename std::conditional<kWide || kGlobal,
+                                         unsigned long long, unsigned>::type;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   const size_t b = static_cast<size_t>(i) * ray_stride;
@@ -124,27 +147,28 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
     }
   } else if constexpr (kWalk) {
     if (mode == 2) {
-      const bool hit = mrt::walk_any_hit(lay, W, ox, oy, oz, dx, dy, dz);
+      const bool hit =
+          mrt::walk_any_hit<Mask>(lay, W, ox, oy, oz, dx, dy, dz);
       h = mrt::Hit{hit ? -mrt::kBig : mrt::kBig, 0,
                    hit ? -mrt::kBig : mrt::kBig, 0};
     } else if (mode == 1) {
-      h = mrt::walk_closest_hit<true>(lay, W, ox, oy, oz, dx, dy, dz);
+      h = mrt::walk_closest_hit<true, Mask>(lay, W, ox, oy, oz, dx, dy, dz);
     } else {
-      h = mrt::walk_closest_hit<false>(lay, W, ox, oy, oz, dx, dy, dz);
+      h = mrt::walk_closest_hit<false, Mask>(lay, W, ox, oy, oz, dx, dy, dz);
     }
   } else if (mode == 2) {
-    const bool hit = mrt::any_hit<kTri>(s_tab, mrt::kSweepCols, lay, ox, oy,
-                                        oz, dx, dy, dz, T);
+    const bool hit = mrt::any_hit<kTri, !kTri, Mask>(rows, rs, lay, ox, oy,
+                                                     oz, dx, dy, dz, T);
     h.te = hit ? -mrt::kBig : mrt::kBig;
     h.row = 0;
     h.tx = h.te;
     h.xrow = 0;
   } else if (mode == 1) {
-    h = mrt::closest_hit<true, kTri>(s_tab, mrt::kSweepCols, lay, ox, oy, oz,
-                                     dx, dy, dz, T);
+    h = mrt::closest_hit<true, kTri, !kTri, Mask>(rows, rs, lay, ox, oy, oz,
+                                                  dx, dy, dz, T);
   } else {
-    h = mrt::closest_hit<false, kTri>(s_tab, mrt::kSweepCols, lay, ox, oy,
-                                      oz, dx, dy, dz, T);
+    h = mrt::closest_hit<false, kTri, !kTri, Mask>(rows, rs, lay, ox, oy, oz,
+                                                   dx, dy, dz, T);
   }
   te[i] = h.te;
   row[i] = h.row;
@@ -152,7 +176,8 @@ __global__ void closest_hit_kernel(const float* __restrict__ tab, int P,
   xrow[i] = h.xrow;
 }
 
-template <bool kTri, bool kWalk, bool kBox>
+template <bool kTri, bool kWalk, bool kBox, bool kWide = false,
+          bool kGlobal = false>
 int launch(const float* tab, int P, int stride, const mrt::Layout& lay,
            const float* tri, const float* bb, const float* sbb,
            const float* o, const float* d,
@@ -169,18 +194,20 @@ int launch(const float* tab, int P, int stride, const mrt::Layout& lay,
                static_cast<size_t>(lay.n_sb) * kThreads +
                static_cast<size_t>(P - lay.pln_start) * mrt::kSweepCols) *
                   sizeof(float)
+      : kGlobal ? 0
             : (static_cast<size_t>(P) * mrt::kSweepCols +
                static_cast<size_t>(kTri ? lay.n_cb : lay.n_sb) *
                    mrt::kBbCols) *
                   sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        closest_hit_kernel<kTri, kWalk, kBox>,
+        closest_hit_kernel<kTri, kWalk, kBox, kWide, kGlobal>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int blocks = (R + kThreads - 1) / kThreads;
-  closest_hit_kernel<kTri, kWalk, kBox><<<blocks, kThreads, smem, stream>>>(
+  closest_hit_kernel<kTri, kWalk, kBox, kWide, kGlobal>
+      <<<blocks, kThreads, smem, stream>>>(
       tab, P, stride, lay, tri, bb, sbb, o, d, ray_stride, comp_stride, R,
       mode, te, row, tx, xrow, srows, ssb, bw, n_bw);
   return static_cast<int>(cudaGetLastError());
@@ -209,8 +236,14 @@ extern "C" int mrt_closest_hit(const float* tab, int P, int stride,
   const mrt::Layout lay{sph_start, sph_n, pln_start, pln_n, box_start,
                         box_n,     tri_start, tri_n, n_cb,    n_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_bw > 0 && (bw == nullptr || tri_n > 0 || n_sb > 0))
+  if (n_bw > 0 && (bw == nullptr || tri_n > 0 || n_sb > 0 ||
+                   P > kMaxStaged))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n_sb > 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (tri_n > 0 && (P > kMaxStaged || n_cb > kMaxStagedBlocks))
+    return launch<true, false, false, false, true>(
+        tab, P, stride, lay, tri, bb, sbb, o, d, ray_stride, comp_stride, R,
+        mode, te, row, tx, xrow, srows, ssb, bw, n_bw, s);
   if (tri_n > 0)
     return launch<true, false, false>(tab, P, stride, lay, tri, bb, sbb, o,
                                       d, ray_stride, comp_stride, R, mode,
@@ -219,6 +252,10 @@ extern "C" int mrt_closest_hit(const float* tab, int P, int stride,
   if (n_sb > 0) {
     if (srows == nullptr || ssb == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
+    if (n_sb > 32)
+      return launch<false, true, false, true>(
+          tab, P, stride, lay, tri, bb, sbb, o, d, ray_stride, comp_stride,
+          R, mode, te, row, tx, xrow, srows, ssb, bw, n_bw, s);
     return launch<false, true, false>(tab, P, stride, lay, tri, bb, sbb, o,
                                       d, ray_stride, comp_stride, R, mode,
                                       te, row, tx, xrow, srows, ssb, bw,
@@ -229,6 +266,10 @@ extern "C" int mrt_closest_hit(const float* tab, int P, int stride,
                                       d, ray_stride, comp_stride, R, mode,
                                       te, row, tx, xrow, srows, ssb, bw,
                                       n_bw, s);
+  if (P > kMaxStaged)
+    return launch<false, false, false, false, true>(
+        tab, P, stride, lay, tri, bb, sbb, o, d, ray_stride, comp_stride, R,
+        mode, te, row, tx, xrow, srows, ssb, bw, n_bw, s);
   return launch<false, false, false>(tab, P, stride, lay, tri, bb, sbb, o, d,
                                      ray_stride, comp_stride, R, mode, te,
                                      row, tx, xrow, srows, ssb, bw, n_bw, s);

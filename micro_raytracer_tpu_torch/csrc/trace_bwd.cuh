@@ -33,6 +33,11 @@ __device__ __forceinline__ V3 norm_bwd(V3 v, V3 ct) {
 // (same_row: both sides share the row's primal chain), into d_at[0..15]
 // (frame, ip, na, radius) and the ray; a triangle row's (the Woop plane
 // form of its triangle-table row `tr`) into d_gh = (d g (3), d h).
+// kSplitTies: a box t attained by several axes shares its cotangent evenly
+// among them (autograd of jnp.max / jnp.min, the closest hit's VJP
+// pallas_hit3._winner_t_all, hit3_bwd.cu), where the fused backward gives
+// it all to the first (pallas_step.py:2021-2024).
+template <bool kSplitTies = false>
 __device__ __forceinline__ void winner_t_bwd(const float* at, int kind, V3 o,
                                              V3 d, float ce, float cx,
                                              float* d_at, V3& ct_o, V3& ct_d,
@@ -113,7 +118,7 @@ __device__ __forceinline__ void winner_t_bwd(const float* at, int kind, V3 o,
     ct_na = add(scale(ct_nr, inv), scale(na, 2.0f * ct_nn));
   } else {
     // box slabs: the gradient of t0 = max(lo) / t1 = min(hi) goes to the
-    // first axis that attains it
+    // first axis that attains it (kSplitTies: to each, evenly)
     const float dpa[3] = {dp.x, dp.y, dp.z};
     const float opa[3] = {op.x, op.y, op.z};
     const float ipa[3] = {ip.x, ip.y, ip.z};
@@ -132,14 +137,21 @@ __device__ __forceinline__ void winner_t_bwd(const float* at, int kind, V3 o,
     const float t_hi = fminf(fminf(tx[0], tx[1]), tx[2]);
     bool taken_e = false, taken_x = false;
     float co[3], cip[3], cna[3], cdp[3];
+    float ce_k = ce, cx_k = cx;
+    if constexpr (kSplitTies) {
+      const int n_e = (te[0] == t_lo) + (te[1] == t_lo) + (te[2] == t_lo);
+      const int n_x = (tx[0] == t_hi) + (tx[1] == t_hi) + (tx[2] == t_hi);
+      ce_k = n_e > 1 ? ce / static_cast<float>(n_e) : ce;
+      cx_k = n_x > 1 ? cx / static_cast<float>(n_x) : cx;
+    }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      const bool ak_e = te[k] == t_lo && !taken_e;
+      const bool ak_e = te[k] == t_lo && (kSplitTies || !taken_e);
       taken_e = taken_e || ak_e;
-      const bool ak_x = tx[k] == t_hi && !taken_x;
+      const bool ak_x = tx[k] == t_hi && (kSplitTies || !taken_x);
       taken_x = taken_x || ak_x;
-      const float cae = ak_e ? ce : 0.0f;
-      const float cax = ak_x ? cx : 0.0f;
+      const float cae = ak_e ? ce_k : 0.0f;
+      const float cax = ak_x ? cx_k : 0.0f;
       const float cboth = cae + cax;
       co[k] = cboth * (-mm[k]);
       cip[k] = cboth * mm[k];

@@ -36,10 +36,14 @@ the backward kernel on the card), and the sky fold ``B + A*sky`` with the
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..ops import hit3, rng, step
+from ..ops.linalg import EPS
 from . import camera as camera_mod
 from .compiler import CameraArrays, SceneArrays
 
@@ -163,15 +167,190 @@ def trace_fused(scene: SceneArrays, tables, bounce: int, orig, dirs, loss,
                        torch.broadcast_to(scene.sky_color, col.shape))
 
 
+# --- the record path: trace_records, then shade_records ---------------------
+
+# the shadow rays one occlusion query takes at most: past it the query runs
+# by groups of lights (2,051 lights on a frame would be 2.4e9 rays)
+ANY_HIT_RAYS = 1 << 24
+
+
+def _light_dirs_to(tables, lights, point):
+    """Un-normalized vectors ``(R, n, 3)`` toward the lights ``lights`` (a
+    range of light rows) from ``point`` ``(R, 3)`` (rt.rs:975-978; a
+    directional light's is its stored ``-normalize(dir)``)."""
+    return torch.stack([step._light_vec(tables.lights[li], point)
+                        for li in lights], 1)
+
+
+def _shadows(scene, tables, entry_p, live_i):
+    """``(R, L)`` bool: light li is visible from the entry point (no
+    gradient). The shadow rays go to ``hit3.any_hit`` on the fused path's
+    tables, walks included, by groups of lights of at most
+    :data:`ANY_HIT_RAYS` rays."""
+    R, L = entry_p.shape[0], scene.n_lights
+    if L == 0:
+        return torch.zeros((R, 0), dtype=torch.bool, device=entry_p.device)
+    with torch.no_grad():
+        p = entry_p.detach()
+        tab = tables.tab.detach()
+        tri = tables.tri.detach() if tables.layout[2] else None
+        per = max(1, ANY_HIT_RAYS // max(R, 1))
+        occ = []
+        for l0 in range(0, L, per):
+            lv = _light_dirs_to(tables, range(l0, min(L, l0 + per)), p)
+            s = lv[..., 0] * lv[..., 0] + lv[..., 1] * lv[..., 1] \
+                + lv[..., 2] * lv[..., 2]
+            ln = lv * (1.0 / torch.sqrt(s))[..., None]
+            so = p[:, None, :] + ln * EPS                  # Ray::cast_default
+            n = lv.shape[1]
+            occ.append(hit3.any_hit(
+                tab, tables.layout, so.reshape(R * n, 3),
+                ln.reshape(R * n, 3), tri, tables.tbb, tables.sbb,
+                step._walk(tables), tables.box).reshape(R, n))
+        return ~torch.cat(occ, 1) & live_i[:, None]
+
+
+def _hits(scene, tables, o, d):
+    """``(te, row, tx, xrow)`` of the rays ``o``, ``d`` (R, 3) through the
+    differentiable closest hit (pallas_hit3.make_closest_hit's role,
+    models/tracer.py:35-53 of the JAX package): :class:`hit3.ClosestHit` on
+    the fused path's tables, or for a triangle segment past
+    ``hit3.MAX_TRI_BLOCKS`` (``step.tri_split``) the triangle segment's
+    ``tri.TriEntry`` / ``tri.TriEntryExit`` (``step.tri_segment_hits``,
+    their winner-t VJPs) merged with the dense rows' :class:`hit3.ClosestHit`
+    by ``step.merge_tri_hits`` (intersect.closest_hit_tri_pallas)."""
+    layout = tables.layout
+    mode = step.primary_mode(scene)
+    if not step.tri_split(layout[2]):
+        return hit3.ClosestHit.apply(
+            tables.tab, tables.tri if layout[2] else None, o, d, layout,
+            mode, tables.tbb, tables.sbb, step._walk(tables), tables.box)
+    thit = step.tri_segment_hits(scene, tables, tables.tri, o, d)
+    dense = hit3.ClosestHit.apply(
+        tables.tab, None, o, d, (layout[0], layout[1], 0, 0), mode, None,
+        tables.sbb, step._walk(tables), None)
+    return step.merge_tri_hits(dense, layout[1], mode, thit)
+
+
+def _bounce_step(scene, tables, decay, o, d, pwr, live, u):
+    """One bounce of the record path (the JAX package's ``_bounce_step``,
+    rt.rs:1014-1066): the closest hit (:func:`_hits`), the winner rows'
+    attributes (one gather of each side's whole row), normals and
+    materials (``step._normal``, ``step._side_material``), the shadow
+    rays from the entry point, and the reflect / refract pick from the
+    step's uniforms ``u`` (R, 7) (``step.pick_side``, the plain trace's).
+    Returns the next ray ``(o, d, pwr, live)`` and the bounce's record."""
+    layout = tables.layout
+    ends = hit3.row_ends(layout)
+    te, row, tx, xrow = _hits(scene, tables, o, d)
+    live_i = live & (te < hit3.BIG * 0.5)
+    # dead lanes stay finite, so no NaN reaches a gradient
+    p_e = o + d * torch.where(live_i, te, 1.0)[:, None]
+    at_e = tables.tab[row.long()]
+    n_e = step._normal(at_e, p_e, row, ends)
+    mat_e, _tv = step._side_material(scene, tables, at_e, p_e, row, ends,
+                                     live_i, None)
+    lok = _shadows(scene, tables, p_e, live_i)
+    _choose, next_dir, from_p, norm, mat, _tv = step.pick_side(
+        scene, tables, o, d, tx, xrow, live_i, p_e, n_e, at_e, mat_e, u,
+        ends)
+    rec = {"live": live_i, "p": from_p, "norm": norm, "dir": d, "pwr": pwr,
+           "color": mat["color"], "rough": mat["rough"],
+           "metal": mat["metal"], "emit": mat["emit"], "light_ok": lok}
+    return (from_p + next_dir * EPS, next_dir, pwr * decay, live_i), rec
+
+
+def trace_records(scene, tables, bounce: int, orig, dirs, loss, u8s,
+                  remat: bool = False):
+    """The forward bounce loop of the record path (the JAX package's
+    ``trace_records``): ``bounce + 1`` records, one per bounce, of
+    primaries ``orig``/``dirs`` (R, 3) with step i's uniforms ``u8s[i]``
+    (the fused path's; ``u8s`` (bounce+1, NU, R)). Each record holds the
+    bounce's live mask, chosen point and normal, direction, throughput
+    ``pwr``, chosen material and per-light visibility. ``remat``: each
+    bounce under ``torch.utils.checkpoint`` (non-reentrant), its
+    activations recomputed in the backward (memory-lean gradients, the same
+    values)."""
+    if u8s.shape[0] != bounce + 1:
+        raise ValueError(f"u8s holds {u8s.shape[0]} steps, bounce {bounce} "
+                         f"needs {bounce + 1}")
+    decay = decay_of(loss)
+    R = orig.shape[0]
+    o, d = orig, dirs
+    pwr = torch.ones((), dtype=orig.dtype, device=orig.device)
+    live = torch.ones(R, dtype=torch.bool, device=orig.device)
+    records = []
+    for i in range(bounce + 1):
+        u = step.unpack_uniforms(u8s[i], scene.any_refract)[0]
+        if remat and torch.is_grad_enabled():
+            (o, d, pwr, live), rec = torch.utils.checkpoint.checkpoint(
+                _bounce_step, scene, tables, decay, o, d, pwr, live, u,
+                use_reentrant=False)
+        else:
+            (o, d, pwr, live), rec = _bounce_step(scene, tables, decay, o, d,
+                                                  pwr, live, u)
+        records.append(rec)
+    return records
+
+
+def shade_records(scene, tables, records, u8s):
+    """The reverse fold of ``reduce_light`` (rt.rs:956-994) over the
+    records, the JAX package's ``shade_records``: from the sky, each live
+    bounce from the last to the first gives ``color`` where its emit draw
+    (``u8s[i]``'s last row) is below its ``emit``, else ``(0.5 col + color
+    col + l_col) pwr`` with ``l_col`` the direct light at its chosen point
+    (``step._direct_light``). A ray that hit nothing gets the bare sky
+    colour. Returns (R, 3) radiance."""
+    R = records[0]["live"].shape[0]
+    col = torch.broadcast_to(scene.sky_color * scene.sky_pwr, (R, 3))
+    for i in reversed(range(len(records))):
+        rec = records[i]
+        u_emit = step.unpack_uniforms(u8s[i], scene.any_refract)[1]
+        b_emit = (u_emit < rec["emit"])[:, None]                # rt.rs:966
+        l_col = step._direct_light(tables.lights, scene.n_lights,
+                                   rec["light_ok"], rec["p"], rec["norm"],
+                                   rec["dir"], rec["color"], rec["rough"],
+                                   rec["metal"])               # rt.rs:973-987
+        d_col = 0.5 * col + rec["color"] * col                  # rt.rs:990
+        new = torch.where(b_emit, rec["color"],
+                          (d_col + l_col) * rec["pwr"])         # rt.rs:992
+        col = torch.where(rec["live"][:, None], new, col)
+    # empty path -> bare sky color, *without* pwr (rt.rs:957-959)
+    return torch.where(records[0]["live"][:, None], col,
+                       torch.broadcast_to(scene.sky_color, (R, 3)))
+
+
+def use_fused(fused=None) -> bool:
+    """The route of a trace: ``fused`` as given, else the fused path unless
+    ``MRT_NO_FUSE=1`` (read at each call, as the JAX package's
+    ``trace_radiance`` does)."""
+    if fused is None:
+        return os.environ.get("MRT_NO_FUSE", "0") != "1"
+    return bool(fused)
+
+
 def trace_radiance_u(scene: SceneArrays, cam: CameraArrays, render_wh,
-                     bounce: int, loss, coords, u_aprt, u8s, tables=None):
+                     bounce: int, loss, coords, u_aprt, u8s, tables=None,
+                     fused=None, remat: bool = False):
     """Per-pixel radiance from explicit uniforms: camera rays (``u_aprt``
     (R,2)) -> whole trace (``u8s`` (bounce+1, NU, R)). ``tables`` is the
-    scene's :func:`step.pack_step`, built here when not given."""
+    scene's :func:`step.pack_step`, built here when not given.
+
+    ``fused`` (None: :func:`use_fused`, ``MRT_NO_FUSE=1`` for False) picks
+    the fused path (:func:`trace_fused`) or the record path
+    (:func:`trace_records`, then :func:`shade_records`), which takes the
+    same uniforms and agrees up to float reassociation. ``remat``
+    checkpoints each bounce of the record path; the fused path's kernels
+    save only their residuals, so there it changes nothing, values or
+    memory."""
     orig, dirs = camera_mod.gen_rays(cam, render_wh, coords, u_aprt)
     if tables is None:
         tables = step.pack_step(scene)
-    return trace_fused(scene, tables, bounce, orig, dirs, loss, u8s)
+    if use_fused(fused):
+        return trace_fused(scene, tables, bounce, orig, dirs, loss, u8s)
+    records = trace_records(scene, tables, bounce, orig, dirs, loss, u8s,
+                            remat)
+    return shade_records(scene, tables, records, u8s)
 
 
 def draw_uniforms(gen, n_rays: int, bounce: int, any_refract: bool, device):
@@ -183,10 +362,11 @@ def draw_uniforms(gen, n_rays: int, bounce: int, any_refract: bool, device):
 
 
 def trace_radiance(scene: SceneArrays, cam: CameraArrays, render_wh,
-                   bounce: int, loss, coords, gen, tables=None):
+                   bounce: int, loss, coords, gen, tables=None, fused=None,
+                   remat: bool = False):
     """Per-pixel radiance, one path per coordinate, uniforms from ``gen``
-    (``tables`` as in :func:`trace_radiance_u`)."""
+    (``tables``, ``fused`` and ``remat`` as in :func:`trace_radiance_u`)."""
     u_aprt, u8s = draw_uniforms(gen, coords.shape[0], bounce,
                                 scene.any_refract, coords.device)
     return trace_radiance_u(scene, cam, render_wh, bounce, loss, coords,
-                            u_aprt, u8s, tables)
+                            u_aprt, u8s, tables, fused, remat)

@@ -52,7 +52,25 @@ E`` rule admits: ``tri.culled_exit_phantoms`` marks them.)
 
 :func:`closest_hit` launches the kernel for CUDA tensors and runs
 :func:`closest_hit_plain` for CPU tensors; there is no other path. On the
-render path it is the primary-hit pass of :func:`step.trace_packed`.
+render path it is the primary-hit pass of :func:`step.trace_packed`. It
+takes any number of dense rows: past the :data:`MAX_ROWS` the kernel
+stages, a culled sphere segment is walked as below it, and a scene without
+a walk reads its rows from global memory (``csrc/hit3.cu``'s kGlobal
+instance).
+
+The differentiable closest hit, pallas_hit3's ``make_closest_hit``, is
+:class:`ClosestHit`: its forward is :func:`closest_hit`, its backward
+:func:`closest_hit_bwd`, the hand-written kernel ``csrc/hit3_bwd.cu`` on
+CUDA tensors (one thread per ray; trace_bwd.cuh's winner-t transposes,
+whose box branch splits a tied t's cotangent evenly among its axes; the
+row cotangents through the float64 warp-aggregated scatter of the
+whole-trace backward) and :func:`closest_hit_bwd_plain` on CPU tensors:
+autograd of :func:`winner_t_plain`, the entry t recomputed at the winner
+row and the exit t at the exit row (pallas_hit3's ``_winner_t_all``). The
+cotangent of ``te`` reaches the entry row where the ray hit, that of ``tx``
+the exit row where it also has an exit: the row table's sweep columns 0-15,
+a triangle row's Woop columns ``G[2]``, ``h[2]``, and the rays. The record
+path (``models/tracer.py`` ``trace_records``) is its caller.
 """
 
 from __future__ import annotations
@@ -73,7 +91,9 @@ from .linalg import EPS
 BIG = 3.0e38
 SWEEP_COLS = 18          # fr(9) ipos(3) pa(3) pr valid gid
 _C_FR, _C_IP, _C_PA, _C_PR, _C_VALID, _C_GID = 0, 9, 12, 15, 16, 17
-# shared-memory bound of the kernel on the dense rows: 2048 rows * 72 B
+# the dense rows the kernel stages in shared memory, 2048 rows * 72 B;
+# past it a scene without a walk reads them from global memory (the kGlobal
+# instance of csrc/hit3.cu)
 MAX_ROWS = 2048
 # triangle table columns: G (9, row-major: o'_k = G[k] . o + h_k), h (3),
 # thr (BIG on invalid or degenerate rows), group id (-3 on invalid rows),
@@ -88,9 +108,10 @@ BB_COLS = 8              # block AABB: lo (3), hi (3), padding (2)
 MAX_TRI_BLOCKS = 256
 # a sphere segment of at least this many rows gets cull blocks
 # (pallas_hit3._DENSE_CULL_MIN), at most SPH_MAX_BLOCKS of them
-# (pallas_hit3._CAND_MAX); the whole-trace and primary-hit kernels, whose
-# dense rows are at most MAX_ROWS, see at most MAX_ROWS // CB = 32 (a
-# 32-bit mask per lane), the per-step kernel up to 64 (csrc/hit3.cuh)
+# (pallas_hit3._CAND_MAX); the whole-trace kernels, whose dense rows are
+# at most MAX_ROWS, see at most MAX_ROWS // CB = 32 (a 32-bit mask per
+# lane), the closest-hit kernel past MAX_ROWS and the per-step kernel up
+# to 64 (a 64-bit mask; csrc/hit3.cuh, csrc/hit3.cu)
 DENSE_CULL_MIN = 256
 SPH_MAX_BLOCKS = 64
 # rows per sub-block of a culled sphere segment: the per-step forward
@@ -911,13 +932,13 @@ def _tri_any(tri, tbb, n, o, d, done):
     return hit, tested
 
 
-def _tri_t(tri, row, o, d):
+def _tri_t(tri, row, o, d, w=None):
     """Differentiable t of triangle-local rows ``row`` (R,) for rays
     ``o``/``d``: the Woop plane form ``t = -(g.o + h)/(g.d)`` of
     pallas_tri._winner_t, in the sweep's operation order (so its value is
     the sweep's bit for bit); gradients reach ``G[2]``, ``h[2]``, ``o`` and
-    ``d``."""
-    w = tri[row]
+    ``d``. ``w``: the rows ``tri[row]`` if already gathered."""
+    w = tri[row] if w is None else w
     g = [w[:, 6 + k] for k in range(3)]
     oz = g[0] * o[:, 0] + g[1] * o[:, 1] + g[2] * o[:, 2] + w[:, _T_H + 2]
     dz = g[0] * d[:, 0] + g[1] * d[:, 1] + g[2] * d[:, 2]
@@ -1176,7 +1197,13 @@ def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
 
     CUDA tensors launch ``mrt_closest_hit``; the rays may be any strided
     view, such as the transpose of lane-major ``(3, R)`` rays. CPU tensors
-    run :func:`closest_hit_plain`."""
+    run :func:`closest_hit_plain`. Any number of dense rows: past
+    :data:`MAX_ROWS` a culled sphere segment is walked as below it (the
+    kWalk instances, up to :data:`SPH_MAX_BLOCKS` blocks), and a scene
+    without a walk reads its dense rows from global memory (the kGlobal
+    instance, ``csrc/hit3.cu``), as it does the cull blocks of a triangle
+    segment past :data:`MAX_TRI_BLOCKS`. No gradient: :class:`ClosestHit`
+    is the differentiable closest hit."""
     if o.device.type == "cpu":
         return closest_hit_plain(tab, layout, o, d, mode, tri, tbb, sbb,
                                  box)
@@ -1193,11 +1220,8 @@ def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
         raise ValueError(f"table: {C} columns, the sweep needs "
                          f"{SWEEP_COLS}")
     n_dense = layout[1]
-    if n_dense > MAX_ROWS:
-        raise ValueError(f"closest_hit kernel: {n_dense} sphere, plane and "
-                         f"box rows exceed the shared-memory bound of "
-                         f"{MAX_ROWS}")
-    check_cull_tables(layout, tri, tbb, sbb)
+    # past the staged cull blocks the kGlobal instance reads them in place
+    check_cull_tables(layout, tri, tbb, sbb, None)
     walk_ptrs = [None, None]
     if sbb is not None:
         walk = walk_tables(tab, layout) if walk is None else walk
@@ -1251,3 +1275,236 @@ def any_hit(tab, layout, o, d, tri=None, tbb=None, sbb=None, walk=None,
     """(R,) bool: does each ray hit any valid row?"""
     return closest_hit(tab, layout, o, d, MODE_ANY, tri, tbb, sbb,
                        walk, box)[0] < BIG * 0.5
+
+
+# --- the differentiable closest hit: the winner rows' t and its VJP ---------
+
+# the row cotangents the VJP kernel writes: the whole trace's row table's
+# columns (step.ROW_COLS), of which it fills the sweep columns 0-15
+BWD_COLS = 26
+# the VJP kernel: the table and layout as mrt_closest_hit's, the triangle
+# table, o, d and their strides, R, the mode, row, xrow, the masked
+# cotangents, d_o, d_d, the float64 row sums, d_tab, d_tri4, stream
+BWD_KERNEL = CudaKernel(
+    "hit3_bwd", "hit3_bwd.cu", ("hit3.cuh", "trace_step.cuh",
+                                "trace_bwd.cuh", "grid.cuh"),
+    "mrt_hit3_bwd",
+    [_c_ptr, _c_int, _c_int] + [_c_int] * 6 + [_c_ptr, _c_int, _c_int]
+    + [_c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int]
+    + [_c_ptr] * 10)
+
+
+def row_ends(layout):
+    """End rows of the sphere and plane segments and the first triangle
+    row: the kind of a winner row (the kernels' row_kind)."""
+    ints = layout_ints(layout)
+    return ints[0] + ints[1], ints[2] + ints[3], layout[1]
+
+
+def _row_t(tab, layout, o, d, row, exit_side, tri, gathered=None):
+    """Differentiable t of each ray's row ``row`` (R,): the entry t, or
+    with ``exit_side`` the exit t, by the row's kind (pallas_hit3's
+    ``_winner_t_all``): the sphere's near or far root, the plane equation,
+    the box's largest slab entry or smallest slab exit (``amax`` / ``amin``
+    of the three axes: a tied axis shares the cotangent evenly, as
+    autograd of ``jnp.max`` does), the Woop plane form of a triangle row
+    (:func:`_tri_t`). Every division and root is guarded before the op, so
+    an unselected kind or a missed ray gives no NaN. ``gathered`` (a list)
+    gets ``(table, rows, gathered rows)`` of each gather, whose gradients
+    are the per-ray terms of the table cotangents."""
+    P_nt = layout[1]
+    sph_end, pln_end, tri_start = row_ends(layout)
+    one = torch.ones((), dtype=o.dtype, device=o.device)
+    t = torch.zeros_like(o[:, 0])
+    if P_nt:
+        rc = row.long().clamp(max=P_nt - 1)
+        at = tab[:, :_C_PR + 1][rc]
+        if gathered is not None:
+            gathered.append(("tab", rc, at))
+        f, ip, pa, r = at[:, 0:9], at[:, 9:12], at[:, 12:15], at[:, 15]
+        rel = o - ip
+        op = torch.stack([f[:, 3 * k] * rel[:, 0] + f[:, 3 * k + 1] * rel[:, 1]
+                          + f[:, 3 * k + 2] * rel[:, 2] + ip[:, k]
+                          for k in range(3)], 1)
+        dp = torch.stack([f[:, 3 * k] * d[:, 0] + f[:, 3 * k + 1] * d[:, 1]
+                          + f[:, 3 * k + 2] * d[:, 2] for k in range(3)], 1)
+        # sphere
+        oc = op - ip
+        a = intersect._dot(dp, dp)
+        bq = 2.0 * intersect._dot(oc, dp)
+        c = intersect._dot(oc, oc) - r * r
+        disc = bq * bq - 4.0 * a * c
+        sq = torch.sqrt(torch.where(disc >= 0.0,
+                                    torch.clamp(disc, min=1e-12), one))
+        a2 = torch.where(a == 0.0, one, 2.0 * a)
+        t_sph = ((-bq + sq) if exit_side else (-bq - sq)) / a2
+        # plane
+        nn = intersect._dot(pa, pa)
+        nrm = pa / torch.sqrt(torch.where(nn > 0.0, nn, one))[:, None]
+        dn = intersect._dot(dp, nrm)
+        t_pln = -(intersect._dot(op, nrm) - intersect._dot(nrm, ip)) \
+            / torch.where(dn == 0.0, one, dn)
+        # box
+        zero = dp == 0.0
+        mm = torch.where(zero, torch.full_like(dp, 1.0 / EPS),
+                         1.0 / torch.where(zero, one, dp))
+        nb = (op - ip) * mm
+        kb = 0.5 * pa * torch.abs(mm)
+        t_box = (-nb + kb).amin(dim=1) if exit_side \
+            else (-nb - kb).amax(dim=1)
+        t = torch.where(row < sph_end, t_sph,
+                        torch.where(row < pln_end, t_pln, t_box))
+    if layout[2]:
+        rt = (row.long() - tri_start).clamp(0, tri.shape[0] - 1)
+        w = tri[rt]
+        if gathered is not None:
+            gathered.append(("tri", rt, w))
+        t = torch.where(row >= tri_start, _tri_t(tri, rt, o, d, w), t)
+    return t
+
+
+def winner_t_plain(tab, layout, o, d, row, xrow=None, tri=None):
+    """``(te, tx)``: the entry t of each ray's winner row ``row`` and the
+    exit t of its exit row ``xrow`` (None: the entry-only mode, ``tx =
+    te``), recomputed differentiably from the row table ``tab`` (its sweep
+    columns 0-15), the triangle table ``tri`` (its ``G[2]``, ``h[2]``) and
+    the rays ``o``, ``d`` (R, 3): the plain version of the closest hit's
+    VJP (pallas_hit3's ``_winner_t_all``, the kernel ``csrc/hit3_bwd.cu``).
+    Autograd of it is the backward of :class:`ClosestHit`."""
+    te = _row_t(tab, layout, o, d, row, False, tri)
+    if xrow is None:
+        return te, te
+    return te, _row_t(tab, layout, o, d, xrow, True, tri)
+
+
+def _masked_cts(mode, te, tx, ct_te, ct_tx):
+    """The cotangents that reach the winner rows (pallas_hit3's VJP):
+    ``te``'s where the ray hit, ``tx``'s where it hit and has an exit; in
+    the entry-only mode ``tx`` is ``te``, so both reach its row."""
+    hit_e = te < BIG * 0.5
+    ct_te = torch.zeros_like(te) if ct_te is None else ct_te
+    ct_tx = torch.zeros_like(te) if ct_tx is None else ct_tx
+    ce = torch.where(hit_e, ct_te, 0.0)
+    cx = torch.where(hit_e & (tx > -BIG * 0.5), ct_tx, 0.0)
+    if mode == MODE_ENTRY:
+        return ce + cx, torch.zeros_like(cx)
+    return ce, cx
+
+
+def closest_hit_bwd_plain(tab, layout, o, d, mode, te, row, tx, xrow,
+                          ct_te, ct_tx, tri=None):
+    """Plain version of :func:`closest_hit_bwd`: autograd of
+    :func:`winner_t_plain` (any device). Returns ``(d_tab (P, C), d_tri,
+    d_o, d_d)``; ``d_tri`` is None without a triangle table."""
+    BWD_KERNEL.plain_calls += 1
+    ce, cx = _masked_cts(mode, te, tx, ct_te, ct_tx)
+    ins = [t.detach().requires_grad_(True) for t in (tab, o, d)]
+    if tri is not None:
+        ins.append(tri.detach().requires_grad_(True))
+    with torch.enable_grad():
+        te_r, tx_r = winner_t_plain(
+            ins[0], layout, ins[1], ins[2], row,
+            None if mode == MODE_ENTRY else xrow,
+            ins[3] if tri is not None else None)
+        outs, cts = [te_r], [ce]
+        if mode != MODE_ENTRY:
+            outs, cts = [te_r, tx_r], [ce, cx]
+        grads = torch.autograd.grad(outs, ins, cts, allow_unused=True)
+    g = [torch.zeros_like(x) if gr is None else gr
+         for gr, x in zip(grads, ins)]
+    return g[0], g[3] if tri is not None else None, g[1], g[2]
+
+
+def closest_hit_bwd(tab, layout, o, d, mode, te, row, tx, xrow, ct_te,
+                    ct_tx, tri=None):
+    """The closest hit's VJP: for the cotangents ``ct_te``, ``ct_tx`` (R,)
+    of a :func:`closest_hit` that gave ``(te, row, tx, xrow)`` on rays
+    ``o``, ``d`` in ``mode``, the cotangents of the row table ``(P, C)``
+    (its sweep columns 0-15 of the winner rows), of the triangle table
+    ``(Pt, 16)`` (its ``G[2]``, ``h[2]`` columns; None without one) and of
+    ``o`` and ``d`` (R, 3). CUDA tensors launch ``mrt_hit3_bwd`` (one thread
+    per ray; the row cotangents float64 sums, so they vary from run to run
+    only where their float32 rounding does); CPU tensors run
+    :func:`closest_hit_bwd_plain`."""
+    if o.device.type == "cpu":
+        return closest_hit_bwd_plain(tab, layout, o, d, mode, te, row, tx,
+                                     xrow, ct_te, ct_tx, tri)
+    ce, cx = _masked_cts(mode, te, tx, ct_te, ct_tx)
+    ce, cx = ce.contiguous(), cx.contiguous()
+    has_tri = _need_tri(layout, tri)
+    R = o.shape[0]
+    require_cuda_tensor("o", o, torch.float32, (R, 3), contiguous=False)
+    require_cuda_tensor("d", d, torch.float32, (R, 3), contiguous=False)
+    if o.stride() != d.stride():
+        raise ValueError(f"o and d strides differ: {o.stride()} vs "
+                         f"{d.stride()}")
+    P, C = tab.shape
+    require_cuda_tensor("table", tab, torch.float32)
+    if not SWEEP_COLS <= C <= BWD_COLS:
+        raise ValueError(f"table: {C} columns, the backward takes "
+                         f"{SWEEP_COLS} to {BWD_COLS}")
+    for name, t, dt in (("row", row, torch.int32), ("xrow", xrow, torch.int32),
+                        ("ct_te", ce, torch.float32),
+                        ("ct_tx", cx, torch.float32)):
+        require_cuda_tensor(name, t, dt, (R,))
+    if has_tri:
+        require_cuda_tensor("tri", tri, torch.float32, (layout[2], TRI_COLS))
+    n_dense = layout[1]
+    dev = o.device
+    d_tab = torch.zeros((P, BWD_COLS), dtype=torch.float32, device=dev)
+    d_o = torch.empty((R, 3), dtype=torch.float32, device=dev)
+    d_d = torch.empty_like(d_o)
+    d_tri4 = torch.zeros((layout[2], 4), dtype=torch.float32, device=dev)
+    if R:
+        acc = torch.zeros(n_dense * BWD_COLS, dtype=torch.float64,
+                          device=dev)
+        BWD_KERNEL.launch(ptr(tab), n_dense, C, *_table_ints(layout),
+                          ptr(tri) if has_tri else None, layout[1],
+                          layout[3] if has_tri else 0, ptr(o), ptr(d),
+                          *o.stride(), R, 0 if mode == MODE_ENTRY else 1,
+                          ptr(row), ptr(xrow), ptr(ce), ptr(cx), ptr(d_o),
+                          ptr(d_d), ptr(acc), ptr(d_tab),
+                          ptr(d_tri4) if has_tri else None,
+                          stream_ptr(dev))
+    d_tri = None
+    if tri is not None:
+        d_tri = torch.zeros_like(tri)
+        d_tri[:, 6:9] = d_tri4[:, :3]
+        d_tri[:, _T_H + 2] = d_tri4[:, 3]
+    return d_tab[:, :C], d_tri, d_o, d_d
+
+
+class ClosestHit(torch.autograd.Function):
+    """The differentiable closest hit (pallas_hit3's ``make_closest_hit``):
+    forward :func:`closest_hit` (the ``hit3.cu`` kernel on CUDA tensors,
+    :func:`closest_hit_plain` on CPU tensors), backward
+    :func:`closest_hit_bwd`, which recomputes the entry t at ``row`` and
+    the exit t at ``xrow`` and sends ``te``'s cotangent where the ray hit
+    and ``tx``'s where it also has an exit to those rows' sweep columns
+    0-15 (frame, position, plane normal / box sizes, radius), the triangle
+    table's Woop columns, ``o`` and ``d``. ``row`` and ``xrow`` get none.
+
+    ``ClosestHit.apply(tab, tri, o, d, layout, mode, tbb, sbb, walk,
+    box)``: the arguments of :func:`closest_hit` (``tri`` None without
+    triangles); the tables are those of ``step.pack_step``, walks
+    included, so the forward is the fused path's sweep."""
+
+    @staticmethod
+    def forward(ctx, tab, tri, o, d, layout, mode, tbb=None, sbb=None,
+                walk=None, box=None):
+        te, row, tx, xrow = closest_hit(tab, layout, o, d, mode, tri, tbb,
+                                        sbb, walk, box)
+        ctx.save_for_backward(tab, tri, o, d, te, row, tx, xrow)
+        ctx.layout, ctx.mode = layout, mode
+        ctx.mark_non_differentiable(row, xrow)
+        return te, row, tx, xrow
+
+    @staticmethod
+    def backward(ctx, ct_te, _ct_row, ct_tx, _ct_xrow):
+        tab, tri, o, d, te, row, tx, xrow = ctx.saved_tensors
+        d_tab, d_tri, d_o, d_d = closest_hit_bwd(
+            tab, ctx.layout, o, d, ctx.mode, te, row, tx, xrow, ct_te,
+            ct_tx, tri if ctx.layout[2] else None)
+        if tri is not None and d_tri is None:
+            d_tri = torch.zeros_like(tri)
+        return (d_tab, d_tri, d_o, d_d, None, None, None, None, None, None)

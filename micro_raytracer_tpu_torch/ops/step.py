@@ -389,13 +389,6 @@ def _matvec(f, v):
                         + f[:, 3 * k + 2] * v[:, 2] for k in range(3)], 1)
 
 
-def _row_ends(layout):
-    """End rows of the sphere and plane segments (hit3.layout_ints) and the
-    first triangle row."""
-    ints = hit3.layout_ints(layout)
-    return ints[0] + ints[1], ints[2] + ints[3], layout[1]
-
-
 def _normal(at, p, row, ends):
     """World-space normal at ``p`` of the fetched rows ``at`` (trace_step.cuh
     normal_full): sphere ``M(p - ip)``, plane and triangle ``pa`` (a
@@ -559,6 +552,45 @@ def _direct_light(lights, L, lok, p, n, d, alb, rgh, met):
     return l_col
 
 
+def pick_side(scene, tables, o, d, tx, xrow, live_i, p_e, n_e, at_e, mat_e,
+              u, ends, work=None):
+    """The step's reflect / refract pick (rt.rs:559-589, 1054-1058) from
+    the entry side (point ``p_e``, normal ``n_e``, row attributes ``at_e``,
+    material ``mat_e``) and, on a refractive scene, the exit side at
+    ``tx``, ``xrow`` (its row gathered whole here), with the uniforms ``u``
+    (R, 7): ``(choose, next_dir, from_p, norm, mat, exit texels)``; the
+    chosen side's point, normal and material shade the step. Shared by the
+    plain trace and the record path (``models/tracer.py``)."""
+    rough_r = torch.where(_rough_override(at_e, mat_e, u[:, 0]), 1.0,
+                          mat_e["rough"])
+    nr = rng.sphere_rand(n_e, rough_r, u[:, 1], u[:, 2])
+    refl = _safe_norm(d - _scale(nr, 2.0 * _dot3(d, nr)))
+    if not scene.any_refract:
+        return torch.zeros_like(live_i), refl, p_e, n_e, mat_e, []
+    at_x = tables.tab[xrow.long()]
+    p_x = o + _scale(d, torch.where(live_i, tx, 1.0))
+    n_x = _normal(at_x, p_x, xrow, ends)
+    mat_x, tv_x = _side_material(scene, tables, at_x, p_x, xrow, ends,
+                                 live_i, work)
+    rough_f = torch.where(_rough_override(at_x, mat_x, u[:, 3]), 1.0,
+                          mat_x["rough"])
+    nf = rng.sphere_rand(n_x, rough_f, u[:, 4], u[:, 5])
+    eta = 1.0 + 0.5 * mat_x["glass"]
+    cs = -_dot3(nf, d)
+    kk = 1.0 - eta * eta * (1.0 - cs * cs)
+    refr_ok = kk >= 0.0
+    k_safe = torch.where(refr_ok, torch.clamp(kk, min=1e-12), 1.0)
+    refr = _finite0(_safe_norm(
+        _scale(d, eta) + _scale(nf, cs * eta + torch.sqrt(k_safe))))
+    choose = ((u[:, 6] < torch.clamp(1.0 - mat_e["opacity"], max=0.85))
+              & refr_ok)
+    c = choose[:, None]
+    mat = {k: torch.where(c if k == "color" else choose, mat_x[k], mat_e[k])
+           for k in mat_e}
+    return (choose, torch.where(c, refr, refl), torch.where(c, p_x, p_e),
+            torch.where(c, n_x, n_e), mat, tv_x)
+
+
 def trace_plain(scene, tables, decay, oT, dT, u8s, want_resid=False,
                 work=None, seg=None):
     """Plain PyTorch whole trace: the kernels' step, operation for
@@ -602,7 +634,7 @@ def _trace_plain(scene, tables, decay, oT, dT, u8s, want_resid, work, seg,
     tab, lights, layout = tables.tab, tables.lights, tables.layout
     L, refract = scene.n_lights, scene.any_refract
     mode = primary_mode(scene)
-    ends = _row_ends(layout)
+    ends = hit3.row_ends(layout)
     R, K = oT.shape[1], u8s.shape[0]
     segmented = seg is not None
     seg = Segment(0, K) if seg is None else seg
@@ -628,8 +660,9 @@ def _trace_plain(scene, tables, decay, oT, dT, u8s, want_resid, work, seg,
                                                  tables.tri, tables.tbb,
                                                  tables.sbb, tables.box, bw)
         else:
-            te, row, tx, xrow = merge_tri_hits(tab, layout, o, d, mode,
-                                               tables.sbb, thit)
+            dense = hit3.sweep_plain(tab, (layout[0], layout[1], 0, 0), o,
+                                     d, mode, sbb=tables.sbb)
+            te, row, tx, xrow = merge_tri_hits(dense, layout[1], mode, thit)
         if work is not None and k and thit is None:
             work["sweep"] += int(hit3.tri_rows_tested(
                 tab, layout, o, d, mode, tables.tri, tables.tbb)[live].sum())
@@ -647,38 +680,9 @@ def _trace_plain(scene, tables, decay, oT, dT, u8s, want_resid, work, seg,
         n_e = _normal(at_e, p_e, row, ends)
         mat_e, tv_e = _side_material(scene, tables, at_e, p_e, row, ends,
                                      live_i, work)
-        rough_r = torch.where(_rough_override(at_e, mat_e, u[:, 0]), 1.0,
-                              mat_e["rough"])
-        nr = rng.sphere_rand(n_e, rough_r, u[:, 1], u[:, 2])
-        refl = _safe_norm(d - _scale(nr, 2.0 * _dot3(d, nr)))
-        tv_x = []
-        if refract:
-            at_x = tab[xrow.long()]
-            p_x = o + _scale(d, torch.where(live_i, tx, 1.0))
-            n_x = _normal(at_x, p_x, xrow, ends)
-            mat_x, tv_x = _side_material(scene, tables, at_x, p_x, xrow,
-                                         ends, live_i, work)
-            rough_f = torch.where(_rough_override(at_x, mat_x, u[:, 3]), 1.0,
-                                  mat_x["rough"])
-            nf = rng.sphere_rand(n_x, rough_f, u[:, 4], u[:, 5])
-            eta = 1.0 + 0.5 * mat_x["glass"]
-            cs = -_dot3(nf, d)
-            kk = 1.0 - eta * eta * (1.0 - cs * cs)
-            refr_ok = kk >= 0.0
-            k_safe = torch.where(refr_ok, torch.clamp(kk, min=1e-12), 1.0)
-            refr = _finite0(_safe_norm(
-                _scale(d, eta) + _scale(nf, cs * eta + torch.sqrt(k_safe))))
-            choose = ((u[:, 6] < torch.clamp(1.0 - mat_e["opacity"],
-                                             max=0.85)) & refr_ok)
-            c = choose[:, None]
-            next_dir = torch.where(c, refr, refl)
-            from_p = torch.where(c, p_x, p_e)
-            norm_c = torch.where(c, n_x, n_e)
-            mat_c = {k: torch.where(c if k == "color" else choose, mat_x[k],
-                                    mat_e[k]) for k in mat_e}
-        else:
-            choose = torch.zeros_like(live_i)
-            next_dir, from_p, norm_c, mat_c = refl, p_e, n_e, mat_e
+        choose, next_dir, from_p, norm_c, mat_c, tv_x = pick_side(
+            scene, tables, o, d, tx, xrow, live_i, p_e, n_e, at_e, mat_e, u,
+            ends, work)
         alb_c = mat_c["color"]
         l_col = _direct_light(lights, L, lok, from_p, norm_c, d, alb_c,
                               mat_c["rough"], mat_c["metal"])
@@ -750,13 +754,20 @@ def tri_hits(scene, tables, c0, plain=False):
     which launch the kernel on the card (no gradient: the step's backward
     kernel transposes the winner's t) and walk the cull blocks through
     their superblocks (``tables.tsb``)."""
-    layout = tables.layout
-    if not tri_split(layout[2]):
+    if not tri_split(tables.layout[2]):
         return None
     args = (tables.tri, c0[0:3].T, c0[3:6].T)
     if not plain:
         args = tuple(t.detach() for t in args)
-    args += (tables.tbb, layout[3], c0[C_LIVE], plain)
+    return tri_segment_hits(scene, tables, *args, c0[C_LIVE], plain)
+
+
+def tri_segment_hits(scene, tables, tri, o, d, live=None, plain=False):
+    """The triangle segment's hits of rays ``o``, ``d`` (R, 3) on its
+    triangle table ``tri``: ``tri.TriEntry``, or on a refractive scene
+    ``tri.TriEntryExit`` (see :func:`tri_hits`), differentiable in ``tri``,
+    ``o`` and ``d`` through their winner-t VJPs."""
+    args = (tri, o, d, tables.tbb, tables.layout[3], live, plain)
     if not scene.any_refract:
         return tri_ops.TriEntry.apply(*args, tables.tsb)
     return tri_ops.TriEntryExit.apply(*args, tri_refracts(tables),
@@ -776,22 +787,21 @@ def tri_refracts(tables):
         return can.to(torch.float32)
 
 
-def merge_tri_hits(tab, layout, o, d, mode, sbb, thit):
-    """``(te, row, tx, xrow)`` of the closest hit from the dense rows'
-    sweep and the triangle segment's hits ``thit`` (:func:`tri_hits`), by
-    the rule of the JAX package's ``closest_hit_tri_pallas``
-    (intersect.py:488-524): the triangles are the last segment, so they win
-    only with a t strictly below the dense rows' best, and then the exit is
-    theirs."""
-    dense = (layout[0], layout[1], 0, 0)
-    te, row, tx, xrow = hit3.sweep_plain(tab, dense, o, d, mode, sbb=sbb)
+def merge_tri_hits(dense, n_dense, mode, thit):
+    """``(te, row, tx, xrow)`` of the closest hit from the dense rows' hits
+    ``dense`` (their ``(te, row, tx, xrow)``; ``n_dense`` rows) and the
+    triangle segment's hits ``thit`` (:func:`tri_hits`), by the rule of the
+    JAX package's ``closest_hit_tri_pallas`` (intersect.py:488-524): the
+    triangles are the last segment, so they win only with a t strictly
+    below the dense rows' best, and then the exit is theirs."""
+    te, row, tx, xrow = dense
     won = thit[0] < te
     te = torch.where(won, thit[0], te)
-    row = torch.where(won, layout[1] + thit[1], row)
+    row = torch.where(won, n_dense + thit[1], row)
     if mode != hit3.MODE_EXIT:
         return te, row, te, row
     tx = torch.where(won, thit[2], tx)
-    xrow = torch.where(won, layout[1] + thit[3], xrow)
+    xrow = torch.where(won, n_dense + thit[3], xrow)
     return te, row, tx, xrow
 
 

@@ -56,13 +56,18 @@ class TrainStep:
     takes them explicitly. Both return ``(loss, new_params)``: the loss
     before the step, and fresh leaves ``p - lr * grad`` that require a
     gradient. The gradients stay on the given leaves (``params[k].grad``).
+    The radiance is ``tracer.trace_radiance_u``'s: the fused path, or the
+    record path under ``MRT_NO_FUSE=1``, each bounce checkpointed there
+    with ``remat``.
     """
 
-    def __init__(self, render_wh, bounce: int, lr: float, device):
+    def __init__(self, render_wh, bounce: int, lr: float, device,
+                 remat: bool = False):
         self.render_wh = tuple(render_wh)
         self.bounce = bounce
         self.lr = lr
         self.device = require_device(device)
+        self.remat = remat
 
     def step_u(self, params, scene, cam, loss_cfg, coords, target, u_aprt,
                u8s):
@@ -73,7 +78,8 @@ class TrainStep:
             p.grad = None
         s = merge_params(scene, params)
         rad = tracer.trace_radiance_u(s, cam, self.render_wh, self.bounce,
-                                      loss_cfg, coords, u_aprt, u8s)
+                                      loss_cfg, coords, u_aprt, u8s,
+                                      remat=self.remat)
         loss = torch.mean((rad - target) ** 2)
         loss.backward()
         with torch.no_grad():
@@ -90,12 +96,14 @@ class TrainStep:
 
 
 def make_train_step(render_wh, bounce: int, lr: float = 1e-2,
-                    device="cuda", n_devices: int = 1) -> TrainStep:
+                    device="cuda", n_devices: int = 1,
+                    remat: bool = False) -> TrainStep:
     """The training step of JAX's ``make_train_step`` (shard.py:70-106) on
-    one device: L2 against a target, ``loss.backward()``, SGD."""
+    one device: L2 against a target, ``loss.backward()``, SGD; ``remat``
+    checkpoints each bounce of the record path (``MRT_NO_FUSE=1``)."""
     if n_devices != 1:
         raise ValueError("make_train_step: multi-device not yet ported")
-    return TrainStep(render_wh, bounce, lr, device)
+    return TrainStep(render_wh, bounce, lr, device, remat)
 
 
 # the inverse-rendering scene of the JAX package's tools/invert_render.py

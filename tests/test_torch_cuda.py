@@ -101,8 +101,9 @@ from torch_inst_helpers import inst_scene
 from torch_inst_helpers import render_json as inst_json
 from torch_mesh_helpers import (CLUSTERED_LIT, aimed_rays, big_mesh,
                                 mesh_scene, small_torus, two_tori)
-from torch_port_helpers import (MIXED, MIXED_OPAQUE, TIES,  # noqa: F401
-                                cuda_device, outlier_rows, rays)
+from torch_port_helpers import (BOXES, MIXED, MIXED_OPAQUE,  # noqa: F401
+                                TIES, cuda_device, edge_rays, outlier_rows,
+                                rays)
 from torch_tex_helpers import CAMERAS, max_flips, render_json, tex_scene
 from chip_smoke import LIGHTS8_CAMERA, lights8
 
@@ -1454,3 +1455,171 @@ def test_box_walk_reads_rows_past_the_stage(cuda_device):
     want = step.trace_fwd(scene, dense, 0.85, oT, dT, u8s, hit0)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# --- the record path and its differentiable closest hit ---------------------
+
+REC_SCENES = {"mixed": MIXED, "mesh_glass": SCENES["mesh_glass"],
+              "tex_blocks": SCENES["tex_blocks"],
+              "inst_grid": SCENES["inst_grid"], "ties": TIES}
+
+
+def _rec_args(name, device, n=1 << 14, seed=3):
+    """The VJP's inputs on the card: the scene's tables, rays, the closest
+    hit in the scene's mode and seeded cotangents (chip_smoke.py)."""
+    from chip_smoke import hit_bwd_args
+
+    scene = compile_scene(schema.SceneConfig.from_json(REC_SCENES[name]),
+                          device)
+    tables = step.pack_step(scene)
+    o, d = _rays(n, device, seed, name)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return hit_bwd_args(scene, tables, o.contiguous(), d.contiguous(), gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(REC_SCENES))
+def test_hit3_bwd_matches_winner_t_plain(name, cuda_device):
+    """hit3_bwd against autograd of ``hit3.winner_t_plain`` (chip_smoke.py
+    check_hit_bwd's rule: per-ray d_o, d_d rtol 1e-6 of the plain float32
+    version, table cotangents rtol 1e-5 of the float64 plain sums, rays
+    that float64 shows ill-conditioned left out, at most
+    chip_smoke.ILL_BWD_SHARE)."""
+    from chip_smoke import ILL_BWD_SHARE, check_hit_bwd
+
+    args = _rec_args(name, cuda_device)
+    hit3.BWD_KERNEL.launches = hit3.BWD_KERNEL.plain_calls = 0
+    errs = check_hit_bwd(name, args)
+    assert hit3.BWD_KERNEL.launches == 3
+    assert errs["ill_share"] <= ILL_BWD_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [hit3.MODE_EXIT, hit3.MODE_ENTRY])
+def test_hit3_bwd_splits_box_edge_ties(mode, cuda_device):
+    """Rays through a box's edges and corners (``edge_rays``: two or three
+    slab axes attain the entry or exit t): hit3_bwd shares each tied t's
+    cotangent evenly among the axes, as its plain version (autograd of
+    ``amax`` / ``amin``) and the JAX package's VJP do; the table and
+    per-ray cotangents within rtol 1e-5 / atol 1e-6."""
+    from micro_raytracer_tpu_torch.ops import intersect
+
+    scene = compile_scene(schema.SceneConfig.from_json(BOXES), cuda_device)
+    tab = hit3.pack_scene(scene, intersect.build_frames(scene)).contiguous()
+    layout = hit3.seg_layout(scene.kind_counts, scene.kind_sweep)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in edge_rays())
+    te, row, tx, xrow = hit3.closest_hit(tab, layout, o, d, mode)
+    ct = torch.linspace(0.5, 1.5, 2 * o.shape[0],
+                        device=cuda_device).view(2, -1)
+    args = (tab, layout, o, d, mode, te, row, tx, xrow, ct[0], ct[1])
+    got = hit3.closest_hit_bwd(*args)
+    want = hit3.closest_hit_bwd_plain(*args)
+    assert float(want[0][:, 9:15].abs().max()) > 0
+    for j in (0, 2, 3):
+        torch.testing.assert_close(got[j], want[j], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mixed", "mesh_glass", "inst_grid"])
+def test_hit3_bwd_run_to_run(name, cuda_device):
+    """Two launches give the same row cotangents and per-ray d_o, d_d bit
+    for bit (float64 row sums rounded once; per-ray values in a fixed
+    order)."""
+    args = _rec_args(name, cuda_device, n=1 << 16, seed=4)
+    a = hit3.closest_hit_bwd(*args)
+    b = hit3.closest_hit_bwd(*args)
+    for j in (0, 2, 3):            # d_tab, d_o, d_d
+        assert torch.equal(a[j], b[j]), j
+    if a[1] is not None:           # triangle rows: float32 atomics
+        torch.testing.assert_close(a[1], b[1], rtol=1e-5,
+                                   atol=1e-6 * float(a[1].abs().max()))
+    assert float(a[0].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_hit3_paths_past_the_staged_rows_match_plain(cuda_device):
+    """The closest hit's kWalk instance with a 64-bit block mask
+    (``inst_grid3k``: 3,384 rows in 53 blocks) and its kGlobal instance
+    (``box_grid``: 2,116 untextured boxes; and a mesh past 256 cull blocks
+    with the dense rows in global memory and its blocks read in place)
+    against the plain sweep in every mode, rows and t bit for bit."""
+    from chip_smoke import box_grid
+    from micro_raytracer_tpu_torch.models import camera
+    from micro_raytracer_tpu_torch.models.compiler import compile_camera
+
+    cam = compile_camera(schema.CameraConfig.from_json(INST_CAMERA),
+                         cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    n = 1 << 14
+    o, d = camera.gen_rays(
+        cam, (256, 256), torch.floor(torch.rand(
+            (n, 2), generator=gen, device=cuda_device) * 256),
+        torch.rand((n, 2), generator=gen, device=cuda_device))
+    for src, walked in ((inst_scene("inst_grid3k"), True), (box_grid(), False),
+                        (big_mesh(glass=True), False)):
+        scene = compile_scene(schema.SceneConfig.from_json(src), cuda_device)
+        t = step.pack_step(scene)
+        assert (t.sbb is not None) == walked
+        assert t.layout[1] > 2048 or hit3.tri_blocks(t.layout[2]) > 256
+        for mode in (hit3.MODE_EXIT, hit3.MODE_ENTRY, hit3.MODE_ANY):
+            tri_t = t.tri if t.layout[2] else None
+            got = hit3.closest_hit(t.tab, t.layout, o, d, mode, tri_t, t.tbb,
+                                   t.sbb, step._walk(t), t.box)
+            want = hit3.closest_hit_plain(t.tab, t.layout, o, d, mode, tri_t,
+                                          t.tbb, t.sbb, t.box)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (mode, walked)
+            assert bool((got[0] < hit3.BIG * 0.5).any())
+
+
+@pytest.mark.cuda
+def test_no_fuse_runs_hit3_and_its_vjp_on_the_card(cuda_device, tmp_path,
+                                                   monkeypatch):
+    """MRT_NO_FUSE=1 on a CUDA device: the CLI's render launches hit3.cu
+    (closest hit and shadows) and no whole-trace kernel; a training step
+    launches hit3_bwd once a bounce; no plain version runs. A failed launch
+    raises and nothing falls back."""
+    from micro_raytracer_tpu_torch.models.compiler import compile_camera
+    from micro_raytracer_tpu_torch.parallel import shard
+
+    monkeypatch.setenv("MRT_NO_FUSE", "1")
+    kernels = (hit3.KERNEL, hit3.BWD_KERNEL, step.KERNEL, step.TRAIN_KERNEL,
+               step.BWD_KERNEL, step.STEP_KERNEL)
+    for k in kernels:
+        k.launches = k.plain_calls = 0
+    out = tmp_path / "rec.png"
+    assert cli.main(["--obj", "sphere", "--light", "point:", "-0.5", "-1",
+                     "0.5", "--res", "32", "32", "--sample", "2",
+                     "--bounce", "3", "--device", "cuda", "-o",
+                     str(out)]) == 0 and out.exists()
+    assert hit3.KERNEL.launches == 2 * 4 * 2
+    assert [k.launches for k in kernels[2:]] == [0, 0, 0, 0]
+    assert all(k.plain_calls == 0 for k in kernels)
+    scene = _scene("mixed", cuda_device)
+    cam = compile_camera(schema.CameraConfig.from_json({"pos": [0, -2, 0]}),
+                         cuda_device)
+    params, scene = shard.split_params(scene)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    ys, xs = torch.meshgrid(torch.arange(32.0), torch.arange(32.0),
+                            indexing="ij")
+    coords = torch.stack([xs.ravel(), ys.ravel()], -1).to(cuda_device)
+    target = torch.rand((1024, 3), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ts = shard.make_train_step((32, 32), 3, device=cuda_device)
+    for k in kernels:
+        k.launches = k.plain_calls = 0
+    loss, _new = ts.step(params, scene, cam, 0.15, coords, target, gen)
+    assert torch.isfinite(loss)
+    assert hit3.BWD_KERNEL.launches == 4
+    assert [k.launches for k in kernels[2:]] == [0, 0, 0, 0]
+    assert all(k.plain_calls == 0 for k in kernels)
+    assert float(params["inst_pos"].grad.abs().max()) > 0
+
+    def broken(*_a, **_k):
+        raise RuntimeError("mrt_hit3_bwd launch failed: CUDA error 1")
+
+    monkeypatch.setattr(hit3.BWD_KERNEL, "launch", broken)
+    with pytest.raises(RuntimeError, match="hit3_bwd"):
+        ts.step(params, scene, cam, 0.15, coords, target, gen)
+    assert hit3.BWD_KERNEL.plain_calls == 0

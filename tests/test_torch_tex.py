@@ -71,7 +71,7 @@ def _scene(name):
 
 def _kinds(ps, rows):
     tables = step.pack_step(ps)
-    return step._row_kind(rows, step._row_ends(tables.layout)), tables
+    return step._row_kind(rows, step.hit3.row_ends(tables.layout)), tables
 
 
 # --- uv, texel fetch, materials ---------------------------------------------

@@ -50,6 +50,31 @@ TIES = {
 }
 
 
+# axis-aligned boxes (identity frames), so edge and corner rays tie exactly
+BOXES = {"renderer": [
+    {"type": "box", "sizes": [1.0, 1.0, 1.0], "pos": [0, 0, 0]},
+    {"type": "box", "sizes": [0.5, 0.5, 0.5], "pos": [2.0, 0, 0]},
+    {"type": "sphere", "r": 0.3, "pos": [0, 3, 0]},
+]}
+
+
+def edge_rays():
+    """float32 numpy rays that enter and leave BOXES' unit box through its
+    edges and corners (two or three slab axes tie at entry or exit: equal
+    origin components along the tied axes), beside rays that hit a face
+    and one that misses."""
+    o, d = [], []
+    for s in (-2.0, -3.0, -2.5):
+        o += [[s, s, 0.1], [s, s, s], [s, 0.05, s], [0.1, s, s]]
+        d += [[1, 1, 0], [1, 1, 1], [1, 0, 1], [0, 1, 1]]
+    o += [[2.0, -2.0, -2.0], [-2.0, 0.1, 0.2], [-2.0, -2.0, 5.0]]
+    d += [[0, 1, 1], [1, 0, 0], [0, 0, 1]]          # the last one misses
+    o = np.asarray(o, np.float32)
+    d = np.asarray(d, np.float64)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
 def port_scene(js, device="cpu"):
     """The port's SceneArrays from the JAX package's compiled scene."""
     leaves = {k: np.asarray(getattr(js, k)) for k in tcomp.SCENE_FIELDS}
