@@ -8,6 +8,9 @@
                                          # live-first compaction
     python3 chip_smoke.py --big          # phases 22-24 alone
     python3 chip_smoke.py --records      # phase 25 alone
+    python3 chip_smoke.py --hit-split [tree]  # the closest hit's and its
+                                         # VJP's host / device split (of
+                                         # another checkout's package)
     python3 chip_smoke.py --gate <tree> [runs]  # the timing gate against
                                          # another checkout (below)
 
@@ -23,7 +26,10 @@ Phases, each of which raises on failure:
    scene's row table, on 2^17 random rays and on the main path's input
    (the primary rays of the whole 1080x1080 frame in Morton order, as
    views of lane-major rays): closest (entry + exit), entry-only and
-   any-hit; rows equal, t within rtol 1e-5 / atol 1e-6.
+   any-hit; rows equal, t within rtol 1e-5 / atol 1e-6. The primary-hit
+   pass (``step.primary_hits``) timed at the frame, split into the host's
+   time to issue a call and the device's time (``wrapper_split``; so in
+   phases 9, 12 and 15).
 4. The trace (primary-hit pass, then trace_fwd) against its plain
    version, bounce 8, the same uniforms, on 2^17 camera rays at random
    pixels and on the main path's input: A, B and radiance within rtol
@@ -205,7 +211,7 @@ Phases, each of which raises on failure:
    step_bwd per step, no whole-trace kernel. Then ``lights_many``
    (``lights8``'s geometry under 2,051 lights, past the STEP_MAX_LIGHTS
    staged in shared memory) on 4,096 camera rays, bounce 1: the per-step
-   render against the plain per-step trace, and at step 0, on 1,024 of the
+   render against the plain per-step trace, and at step 0, on 512 of the
    rays, step_fwd and step_fwd_train and step_bwd against their plain
    versions (phase 18's rules).
 
@@ -259,8 +265,10 @@ Phases, each of which raises on failure:
    the rays; row and per-ray cotangents equal across two launches), the
    same on the full frame's rays of bounces REC_BWD_BOUNCES of the room and
    ``mesh_glass`` (rays that start on a surface or inside the glass), and
-   timed at the room's frame with its byte bound (the median of
-   REC_BWD_ROUNDS rounds, a profiled round's host and device time); the
+   timed at the room's frame with its byte bound (``wrapper_split``: the
+   median of REC_BWD_ROUNDS rounds of CUDA-event means, the host's time to
+   issue a call, a profiled round's device time, operations and kernel
+   time, all on the kernels line); the
    closest hit's kWalk
    instance with a 64-bit block mask (``inst_grid3k``, 53 blocks) and its
    kGlobal instance (``box_grid``, 2,116 untextured boxes) against the
@@ -279,8 +287,8 @@ Phases, each of which raises on failure:
    ``dof``, ``Mesh``). ``--records`` runs phases 1, 2 and this one.
 
 ``--gate <tree> [runs]`` times every whole-trace kernel of the room, mesh,
-textured and Instance-class stand-ins at the frame, the room's hit3_bwd
-(where the parent has it) and the per-step kernels of ``lights8`` and
+textured and Instance-class stand-ins at the frame, hit3_bwd on the
+room and ``mesh_glass`` (where the parent has it) and the per-step kernels of ``lights8`` and
 ``inst_grid3k`` in ``<tree>`` (the parent) and
 in this script's own tree, a worker process each, in ``runs`` (GATE_RUNS)
 interleaved runs (parent, change, change, parent, ...), each timing
@@ -1120,16 +1128,78 @@ def whole_walk_work(scene, tables, resid, n_live):
     return {k: v * scale for k, v in out.items()}
 
 
+# the spin kernel (torch.cuda._sleep cycles, tens of ms) that holds the
+# device while wrapper_split issues the calls it times
+QUEUE_CYCLES = 50_000_000
+
+
+def wrapper_split(fn, reps, names):
+    """A wrapper ``fn`` split into host and device time: REC_BWD_ROUNDS
+    CUDA-event means of ``reps`` calls (``ms``, their median; ``rounds``);
+    ``reps`` calls issued behind a spin kernel that holds the device, so
+    that the host's time to issue a call (``host_ms``) and the device's
+    time for a call run back to back (``device_ms``, None where the host
+    took longer than the spin) are measured apart; and from one profiled
+    round of ``reps`` calls a call's device operations (``ops``) and the
+    device time of the kernels whose name holds one of ``names``
+    (``kernel_ms``), both None where the profiler kept fewer operations
+    than calls (it drops records late in a long process)."""
+    import numpy as np
+    import torch
+
+    rounds = [cuda_ms(fn, reps) for _ in range(REC_BWD_ROUNDS)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    ev[2].record()
+    torch.cuda.synchronize()
+    held = ev[0].elapsed_time(ev[1]) > host * 1e3
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    _o, _wall, _busy, n_ops, by_name = _busy_share(run)
+    kern = sum(v for k, v in by_name.items() if any(n in k for n in names))
+    kept = n_ops >= reps
+    return {"ms": float(np.median(rounds)), "rounds": rounds,
+            "host_ms": host * 1e3 / reps,
+            "device_ms": ev[1].elapsed_time(ev[2]) / reps if held else None,
+            "ops": n_ops / reps if kept else None,
+            "kernel_ms": kern * 1e3 / reps if kept else None}
+
+
+def fmt_split(t: dict) -> str:
+    def f(x, form):
+        return "not measured" if x is None else format(x, form)
+
+    return (f"event mean {t['ms']:.4f} ms (median of "
+            f"{[f'{x:.4f}' for x in t['rounds']]}), host {t['host_ms']:.4f} "
+            f"ms a call, device {f(t['device_ms'], '.4f')} ms a call back to "
+            f"back, {f(t['ops'], '.1f')} operations, the kernel "
+            f"{f(t['kernel_ms'], '.4f')} ms (profiled)")
+
+
 def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
-    """closest_hit and its plain version timed on the main path's input
-    (lane-major primaries as (R, 3) views), and the bound of that input:
+    """The primary-hit pass (``step.primary_hits``, the closest_hit kernel
+    through its wrapper) split into host and device time
+    (:func:`wrapper_split`) and its plain version timed on the main
+    path's input (lane-major primaries as (R, 3) views), and the bound of
+    that input:
     every valid dense row tested on the entry side, the triangle rows the
     cull leaves (the plain version counts them), and on refractive scenes
-    the winner's group on the exit side (one row for a dense winner, the
-    mesh's rows for a triangle winner, counted with the triangles); a
-    culled sphere segment counts the rows the cull leaves, a walked box
-    segment the rows and slab tests of its walk and no exit row (the
-    winner's entry test gives its t1). Returns the result and the
+    with triangles the winner's group on the exit side (one row for a
+    dense winner, the mesh's rows for a triangle winner, counted with the
+    triangles; without triangles every group is one row and the winner's
+    entry test gives its t1); a culled sphere segment counts the rows the
+    cull leaves, a walked box segment the rows and slab tests of its
+    walk. Returns the result and the
     triangle and sphere (or box) rows tested per ray."""
     import torch
 
@@ -1140,7 +1210,8 @@ def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
             tables.tbb, tables.sbb)
     walk = None if tables.sbb is None else (tables.srows, tables.ssb)
     box = tables.box
-    ms = cuda_ms(lambda: hit3.closest_hit(*args, walk, box), reps)
+    split = wrapper_split(lambda: step.primary_hits(scene, tables, oT, dT),
+                          reps, ("closest_hit",))
     plain_ms = cuda_ms(lambda: plain_hit(tables, oT.T, dT.T, mode),
                        plain_reps)
     R = oT.shape[1]
@@ -1181,12 +1252,14 @@ def time_hit(scene, tables, oT, dT, reps=20, plain_reps=5):
             R * (24 + 16) + table_bytes(scene, tables),
             (R * (P + box.n) + exits) * ROW_TEST_OPS)["bound_ms"],
             "box_rows_per_ray": sph / R, "slabs_per_ray": slabs / R}
-        # the walk's exit is the winner's own t1, kept from its entry test
+    if not tables.layout[2]:
+        # every group is one row: a dense winner's exit is its own t1 from
+        # its entry test (the kTri instances sweep the dense rows again)
         exits = 0
     b = bound(R * (24 + 16) + table_bytes(scene, tables),
               (R * P + sph + exits) * ROW_TEST_OPS + tri_rows * TRI_TEST_OPS
               + slabs * SLAB_OPS)
-    return ({"ms": ms, "plain_ms": plain_ms, **b, **extra}, tri_rows / R,
+    return ({**split, "plain_ms": plain_ms, **b, **extra}, tri_rows / R,
             sph / R)
 
 
@@ -1206,7 +1279,7 @@ def phase_hit(cfg, results):
     oT, dT = main_path_rays(cfg, gen, dev)
     err = max(err, compare_hit(tables, oT.T, dT.T))
     res, _rows, _sph = time_hit(scene, tables, oT, dT)
-    log(f"closest_hit {oT.shape[1]} rays: kernel {res['ms']:.3f} ms, plain "
+    log(f"closest_hit {oT.shape[1]} rays: {fmt_split(res)}, plain "
         f"{res['plain_ms']:.3f} ms, bound {fmt_bound(res)}")
     results["closest_hit"] = {"max_abs_err": err, **res,
                               "library_ms": None}
@@ -3896,7 +3969,7 @@ def phase_many_lights(results):
     ``step_fwd_many.cu``)
     against the plain per-step trace (phase 4's rule); at step 0 the
     render and train instances of step_fwd against each other and the
-    plain step, and step_bwd against autograd of the plain step on 1,024
+    plain step, and step_bwd against autograd of the plain step on 512
     of the rays (phase 18's rules): a training step's kernels."""
     import torch
 
@@ -3945,7 +4018,7 @@ def phase_many_lights(results):
             float(B.abs().max()) <= 0.0:
         raise AssertionError(f"{name}: the per-step trace disagrees with "
                              f"the plain one ({share}, {err_in})")
-    m = 1024
+    m = 512
     c0, u0 = carries[0][:, :m].contiguous(), u8s[0][:, :m].contiguous()
     e, bad0, _c1, res0, hit0, _ms = compare_step_fwd(name, scene, tables,
                                                      decay, c0, u0, 0)
@@ -5424,41 +5497,74 @@ def check_hit_bwd(name, args):
 
 def hit_bwd_bound(scene, tables, R):
     """The VJP's bound at R rays: each ray's o and d (12 + 12 bytes), its
-    winner rows and cotangents (8 + 8) read and d_o, d_d written (24); a
-    dense row's sweep columns read (16 floats) and its cotangents written
-    (26), a triangle row's Woop g, h read and their cotangents written (4 +
-    4); at HIT_BWD_OPS a transposed row (one a ray: the room's exit row is
-    its entry row)."""
-    return bound(R * (12 + 12 + 8 + 8 + 24) + tables.layout[1] * (16 + 26) * 4
+    t, winner rows and cotangents (8 + 8 + 8: te and tx decide which
+    cotangents reach the rows) read and d_o, d_d written (24); a dense
+    row's sweep columns read (16 floats) and its cotangents written (26), a
+    triangle row's Woop g, h read and their cotangents written (4 + 4); at
+    HIT_BWD_OPS a transposed row (one a ray: the room's exit row is its
+    entry row)."""
+    return bound(R * (12 + 12 + 8 + 8 + 8 + 24)
+                 + tables.layout[1] * (16 + 26) * 4
                  + tables.layout[2] * (4 + 4) * 4, R * HIT_BWD_OPS)
 
 
 def time_hit_bwd(args):
-    """hit3_bwd's wrapper (``hit3.closest_hit_bwd``: the cotangents'
-    masks, the zeroed outputs, the kernel and its finish) on ``args``:
-    REC_BWD_ROUNDS CUDA-event means of REC_BWD_REPS calls, their median,
-    and from one profiled round, a call's host wall time, its device busy
-    time and operations, and the device time of the two kernels of
-    csrc/hit3_bwd.cu alone."""
-    import numpy as np
-
+    """hit3_bwd's wrapper (``hit3.closest_hit_bwd``) on ``args`` split into
+    host and device time (:func:`wrapper_split` over REC_BWD_REPS calls;
+    the kernel time is csrc/hit3_bwd.cu's kernels')."""
     from micro_raytracer_tpu_torch.ops import hit3
 
-    rounds = [cuda_ms(lambda: hit3.closest_hit_bwd(*args), REC_BWD_REPS)
-              for _ in range(REC_BWD_ROUNDS)]
+    # finish_kernel: the second kernel of a tree before the last-block
+    # finish
+    return wrapper_split(lambda: hit3.closest_hit_bwd(*args), REC_BWD_REPS,
+                         ("hit3_bwd", "finish_kernel"))
 
-    def run():
-        for _ in range(REC_BWD_REPS):
-            hit3.closest_hit_bwd(*args)
 
-    _o, wall, busy, n_ops, by_name = _busy_share(run)
-    kern = sum(v for k, v in by_name.items()
-               if "hit3_bwd_kernel" in k or "finish_kernel" in k)
-    return {"ms": float(np.median(rounds)), "rounds": rounds,
-            "host_ms": wall * 1e3 / REC_BWD_REPS,
-            "device_ms": busy * 1e3 / REC_BWD_REPS,
-            "ops": n_ops / REC_BWD_REPS,
-            "kernel_ms": kern * 1e3 / REC_BWD_REPS}
+SPLIT_NAMES = ("room", "tex_dof")
+
+
+def hit_split_only(card):
+    """``--hit-split [tree]``: the closest hit's and its VJP's wrappers
+    split into host and device time (:func:`wrapper_split`) at the frame,
+    without the other phases: ``step.primary_hits`` on the room and
+    ``tex_dof``, ``hit3.closest_hit_bwd`` on the room's and
+    ``mesh_glass``'s primaries (the latter the triangle instance), with
+    the registers of csrc/hit3.cu's and csrc/hit3_bwd.cu's kernels."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3, step
+    from micro_raytracer_tpu_torch.utils.kernels import ptxas_table
+
+    for k in (hit3.KERNEL, hit3.BWD_KERNEL):
+        k.fn()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = {}
+    for name in SPLIT_NAMES + ("mesh_glass",):
+        cfg, scene, tables, _cam = rec_inputs(name, dev)
+        oT, dT = main_path_rays(cfg, gen, dev)
+        if name in SPLIT_NAMES:
+            t = wrapper_split(lambda: step.primary_hits(scene, tables, oT,
+                                                        dT),
+                              REC_BWD_REPS, ("closest_hit",))
+            out[f"closest_hit/{name}"] = t
+            log(f"closest_hit/{name}: {fmt_split(t)}")
+        if name != "tex_dof":
+            t = time_hit_bwd(hit_bwd_args(scene, tables, oT.T, dT.T, gen))
+            out[f"hit3_bwd/{name}"] = t
+            log(f"hit3_bwd/{name}: {fmt_split(t)}")
+        if hasattr(hit3, "resident_warps"):
+            # warps per SM of the dense schedule and of the VJP's instance
+            # at this scene's rows (a parent tree may have no query)
+            P, tri = tables.layout[1], bool(tables.layout[2])
+            out[f"warps/{name}"] = {
+                "closest_hit": None if tri else hit3.resident_warps(P),
+                "hit3_bwd": hit3.resident_warps(P, True, tri)}
+            log(f"{name}: warps per SM {json.dumps(out[f'warps/{name}'])}")
+    for k in (hit3.KERNEL, hit3.BWD_KERNEL):
+        out[f"registers/{k.name}"] = ptxas_table(k.build_log)
+    log(f"on {card}")
+    return out
 
 
 def check_new_hit_paths(dev, gen):
@@ -5708,13 +5814,12 @@ def phase_records(card, results):
     # rays reach 1e17, so absolute errors across scenes do not compare)
     results["hit3_bwd"] = {"ms": ms, "plain_ms": p_ms, **b,
                            "library_ms": None,
-                           "max_abs_err": errs["room"]["max_abs_err"]}
-    log(f"hit3_bwd at the room's frame ({oT.shape[1]} rays): median "
-        f"{ms:.4f} ms of rounds {[f'{x:.4f}' for x in timing['rounds']]}; "
-        f"profiled, a call: host {timing['host_ms']:.4f} ms, device "
-        f"{timing['device_ms']:.4f} ms over {timing['ops']:.0f} operations "
-        f"(the kernels {timing['kernel_ms']:.4f} ms); plain {p_ms:.3f} ms, "
-        f"bound {fmt_bound(b)} on {card}")
+                           "max_abs_err": errs["room"]["max_abs_err"],
+                           **{k: timing[k] for k in ("host_ms", "device_ms",
+                                                     "ops", "kernel_ms")}}
+    log(f"hit3_bwd at the room's frame ({oT.shape[1]} rays): "
+        f"{fmt_split(timing)}; plain {p_ms:.3f} ms, bound {fmt_bound(b)} on "
+        f"{card}")
     del oT, dT, args
     new_paths = check_new_hit_paths(dev, gen)
     shares = {n: record_vs_fused(n, dev, gen, BOUNCE, REC_BWD_BOUNCES,
@@ -5830,11 +5935,12 @@ def _gate_kernels():
                     *a[:3], a[5], r[3], r[4], c, c), 5)
         for w in ("trace_fwd", "trace_fwd_train"):
             info[f"{w}/{name}"] = step.instance_resources(scene, tables, w)
-        if name == "room" and hasattr(hit3, "closest_hit_bwd"):
-            # the record path's closest-hit VJP (a parent tree may have
-            # none)
+        if name in ("room", "mesh_glass") \
+                and hasattr(hit3, "closest_hit_bwd"):
+            # the record path's closest-hit VJP, its dense and triangle
+            # instances (a parent tree may have none)
             h = hit_bwd_args(scene, tables, oT.T, dT.T, gen)
-            fns["hit3_bwd/room"] = (
+            fns[f"hit3_bwd/{name}"] = (
                 lambda h=h: hit3.closest_hit_bwd(*h), 20)
     for name in STEP_NAMES:
         cfg, scene, tables, decay, _cam = step_inputs(name, dev)
@@ -5981,9 +6087,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    # a worker of --gate imports the package of the tree it times
+    # a worker of --gate, and --hit-split <tree>, import the package of
+    # the tree they time
     worker = sys.argv[1:2] == ["--gate-worker"] and len(sys.argv) == 3
-    sys.path.insert(0, os.path.abspath(sys.argv[2]) if worker
+    other = worker or (sys.argv[1:2] == ["--hit-split"]
+                       and len(sys.argv) == 3)
+    sys.path.insert(0, os.path.abspath(sys.argv[2]) if other
                     else os.path.dirname(os.path.abspath(__file__)))
     try:
         import micro_raytracer_tpu_torch  # noqa: F401
@@ -6033,6 +6142,10 @@ def main() -> int:
             f"{TRAIN_STEPS} steps, "
             f"{sum('nonfinite' not in c for c in chaos)} finite throughout")
         print(json.dumps({"step_bwd_rows": rows, "inst_grid3k": chaos}))
+        print(card)
+        return 0
+    if sys.argv[1:2] == ["--hit-split"] and len(sys.argv) <= 3:
+        print(json.dumps({"hit_split": hit_split_only(card)}))
         print(card)
         return 0
     if sys.argv[1:] == ["--records"]:

@@ -184,16 +184,14 @@ def _light_dirs_to(tables, lights, point):
 
 def _shadows(scene, tables, entry_p, live_i):
     """``(R, L)`` bool: light li is visible from the entry point (no
-    gradient). The shadow rays go to ``hit3.any_hit`` on the fused path's
-    tables, walks included, by groups of lights of at most
-    :data:`ANY_HIT_RAYS` rays."""
+    gradient). The shadow rays go to the closest hit's any-hit mode on the
+    fused path's tables, walks included (``step.hits``), by groups of
+    lights of at most :data:`ANY_HIT_RAYS` rays."""
     R, L = entry_p.shape[0], scene.n_lights
     if L == 0:
         return torch.zeros((R, 0), dtype=torch.bool, device=entry_p.device)
     with torch.no_grad():
         p = entry_p.detach()
-        tab = tables.tab.detach()
-        tri = tables.tri.detach() if tables.layout[2] else None
         per = max(1, ANY_HIT_RAYS // max(R, 1))
         occ = []
         for l0 in range(0, L, per):
@@ -203,10 +201,9 @@ def _shadows(scene, tables, entry_p, live_i):
             ln = lv * (1.0 / torch.sqrt(s))[..., None]
             so = p[:, None, :] + ln * EPS                  # Ray::cast_default
             n = lv.shape[1]
-            occ.append(hit3.any_hit(
-                tab, tables.layout, so.reshape(R * n, 3),
-                ln.reshape(R * n, 3), tri, tables.tbb, tables.sbb,
-                step._walk(tables), tables.box).reshape(R, n))
+            te = step.hits(tables, so.reshape(R * n, 3),
+                           ln.reshape(R * n, 3), hit3.MODE_ANY)[0]
+            occ.append((te < hit3.BIG * 0.5).reshape(R, n))
         return ~torch.cat(occ, 1) & live_i[:, None]
 
 
@@ -224,7 +221,8 @@ def _hits(scene, tables, o, d):
     if not step.tri_split(layout[2]):
         return hit3.ClosestHit.apply(
             tables.tab, tables.tri if layout[2] else None, o, d, layout,
-            mode, tables.tbb, tables.sbb, step._walk(tables), tables.box)
+            mode, tables.tbb, tables.sbb, step._walk(tables), tables.box,
+            step.hit_args(tables))
     thit = step.tri_segment_hits(scene, tables, tables.tri, o, d)
     dense = hit3.ClosestHit.apply(
         tables.tab, None, o, d, (layout[0], layout[1], 0, 0), mode, None,

@@ -52,7 +52,10 @@ E`` rule admits: ``tri.culled_exit_phantoms`` marks them.)
 
 :func:`closest_hit` launches the kernel for CUDA tensors and runs
 :func:`closest_hit_plain` for CPU tensors; there is no other path. On the
-render path it is the primary-hit pass of :func:`step.trace_packed`. It
+render path it is the primary-hit pass of :func:`step.trace_packed`. Its
+tables' C arguments are checked and packed by :func:`hit_args` into a
+:class:`HitArgs`, once per ``step.TraceTables`` on the main path
+(``step.hits``), so that a call (:func:`launch_hit`) checks only its rays. It
 takes any number of dense rows: past the :data:`MAX_ROWS` the kernel
 stages, a culled sphere segment is walked as below it, and a scene without
 a walk reads its rows from global memory (``csrc/hit3.cu``'s kGlobal
@@ -61,10 +64,12 @@ instance).
 The differentiable closest hit, pallas_hit3's ``make_closest_hit``, is
 :class:`ClosestHit`: its forward is :func:`closest_hit`, its backward
 :func:`closest_hit_bwd`, the hand-written kernel ``csrc/hit3_bwd.cu`` on
-CUDA tensors (one thread per ray; trace_bwd.cuh's winner-t transposes,
+CUDA tensors (one launch a call, :func:`hit_bwd`: one thread per ray,
+the cotangents' mask in the kernel; trace_bwd.cuh's winner-t transposes,
 whose box branch splits a tied t's cotangent evenly among its axes; the
 row cotangents through the float64 warp-aggregated scatter of the
-whole-trace backward) and :func:`closest_hit_bwd_plain` on CPU tensors:
+whole-trace backward, in a per-device workspace that the kernel returns
+to zero) and :func:`closest_hit_bwd_plain` on CPU tensors:
 autograd of :func:`winner_t_plain`, the entry t recomputed at the winner
 row and the exit t at the exit row (pallas_hit3's ``_winner_t_all``). The
 cotangent of ``te`` reaches the entry row where the ray hit, that of ``tx``
@@ -83,8 +88,8 @@ import numpy as np
 import torch
 
 from ..models import schema
-from ..utils.kernels import (CudaKernel, ptr, require_cuda_tensor,
-                             stream_ptr)
+from ..utils.kernels import (CudaKernel, ptr, raw_stream,
+                             require_cuda_tensor)
 from . import intersect
 from .linalg import EPS
 
@@ -134,15 +139,17 @@ BOX_STAGE_MAX = 512
 BOX_GROW, BOX_GROW0 = 2e-4, 1e-3
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
+# the packed table arguments (HitArgs.fwd), o, d and their strides, R, the
+# mode, te, row, tx, xrow, the stream
 KERNEL = CudaKernel(
     "hit3", "hit3.cu", ("hit3.cuh", "tri_walk.cuh", "sph_walk.cuh",
-                        "box_walk.cuh"),
+                        "box_walk.cuh", "grid.cuh"),
     "mrt_closest_hit",
-    [_c_ptr, _c_int, _c_int] + [_c_int] * 6 + [_c_ptr, _c_int, _c_int,
-                                                  _c_ptr, _c_int, _c_ptr,
-                                                  _c_int]
-    + [_c_ptr, _c_ptr] + [_c_int] * 4 + [_c_ptr] * 4 + [_c_ptr] * 2
-    + [_c_ptr, _c_int, _c_ptr])
+    [_c_ptr] * 3 + [_c_int] * 4 + [_c_ptr] * 5)
+# the dense schedule's resident warps per SM at P staged rows
+DENSE_OCCUPANCY = CudaKernel(
+    "hit3_dense_occupancy", "hit3.cu", KERNEL.headers,
+    "mrt_closest_hit_dense_warps", [_c_int, _c_ptr])
 # entry only (tx = te); entry and group exit; any-hit (te = -BIG on a hit)
 MODE_ENTRY, MODE_EXIT, MODE_ANY = 0, 1, 2
 
@@ -1184,6 +1191,112 @@ def check_walk_tables(srows, ssb, layout):
     return [ptr(srows), ptr(ssb)]
 
 
+class HitArgs(NamedTuple):
+    """The launch arguments of the closest hit and its VJP for one set of
+    tables (:func:`hit_args`): checked and packed once, so that a call
+    checks only its rays. ``key``: the tables they were built from
+    ``(tab, layout, tri, tbb, sbb, srows, ssb, box)``, which they keep
+    alive; ``fwd`` / ``bwd``: the addresses of the packed table arguments
+    of ``mrt_closest_hit`` and ``mrt_hit3_bwd`` (``bwd`` 0 where the table
+    is wider than :data:`BWD_COLS`); ``packed``: those two int64 arrays;
+    ``variant``: the counted variant of the launch; ``n_dense``, ``P``,
+    ``C``: the dense rows and the table's shape; ``n_tri``: the triangle
+    table's rows (0 without)."""
+
+    key: tuple
+    device: torch.device
+    fwd: int
+    bwd: int
+    packed: tuple
+    variant: str | None
+    n_dense: int
+    P: int
+    C: int
+    n_tri: int
+
+
+def _c_value(v) -> int:
+    """A C argument as an integer: a pointer's address, 0 for None."""
+    if v is None:
+        return 0
+    return (v.value or 0) if isinstance(v, ctypes.c_void_p) else int(v)
+
+
+def _pack(vals):
+    """An int64 array of C arguments (:func:`_c_value`) and its address."""
+    arr = (ctypes.c_int64 * len(vals))(*map(_c_value, vals))
+    return arr, ctypes.addressof(arr)
+
+
+def hit_args(tab, layout, tri=None, tbb=None, sbb=None, walk=None,
+             box=None):
+    """Check the tables of a :func:`closest_hit` (the arguments of that
+    name) and pack their C arguments once: a :class:`HitArgs` for
+    :func:`launch_hit` and :func:`hit_bwd`. ``walk`` None with ``sbb``:
+    the walk tables are built here from ``tab``."""
+    has_tri = _need_tri(layout, tri)
+    require_cuda_tensor("table", tab, torch.float32)
+    P, C = tab.shape
+    if C < SWEEP_COLS:
+        raise ValueError(f"table: {C} columns, the sweep needs "
+                         f"{SWEEP_COLS}")
+    # past the staged cull blocks the kGlobal instance reads them in place
+    check_cull_tables(layout, tri, tbb, sbb, None)
+    walk_ptrs = [None, None]
+    if sbb is not None:
+        walk = walk_tables(tab, layout) if walk is None else walk
+        walk_ptrs = check_walk_tables(*walk, layout)
+    else:
+        walk = (None, None)
+    box_args = check_box_walk(box, layout)
+    fwd, fwd_at = _pack([ptr(tab), layout[1], C,
+                         *table_args(layout, tri, tbb, sbb), *walk_ptrs,
+                         *box_args])
+    bwd, bwd_at = None, 0
+    if C <= BWD_COLS:
+        n_tri = layout[2] if has_tri else 0
+        bwd, bwd_at = _pack([ptr(tab), layout[1], C, *_table_ints(layout),
+                             ptr(tri) if has_tri else None, layout[1],
+                             layout[3] if has_tri else 0, P, n_tri])
+    return HitArgs((tab, layout, tri, tbb, sbb, *walk, box), tab.device,
+                   fwd_at, bwd_at, (fwd, bwd),
+                   None if box is None else "box_walk", layout[1], P, C,
+                   layout[2] if has_tri else 0)
+
+
+def _check_rays(dev, o, d):
+    """Raise unless ``o`` and ``d`` are (R, 3) float32 tensors on ``dev``
+    with the same strides (any strided view: the kernels take strides)."""
+    if o.dtype is not torch.float32 or d.dtype is not torch.float32 \
+            or o.get_device() != dev.index or d.get_device() != dev.index \
+            or o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape \
+            or o.stride() != d.stride():
+        raise ValueError(f"rays: expected two (R, 3) float32 tensors of "
+                         f"equal strides on {dev}, got {tuple(o.shape)} "
+                         f"{o.dtype} {o.stride()} on {o.device} and "
+                         f"{tuple(d.shape)} {d.dtype} {d.stride()} on "
+                         f"{d.device}")
+
+
+def launch_hit(args, o, d, mode=MODE_EXIT):
+    """:func:`closest_hit` on CUDA rays ``o``, ``d`` (R, 3) through the
+    launch arguments ``args`` of its tables (:func:`hit_args`): checks the
+    rays, allocates the outputs and launches ``mrt_closest_hit``."""
+    dev = args.device
+    _check_rays(dev, o, d)
+    R = o.shape[0]
+    te = torch.empty(R, dtype=torch.float32, device=dev)
+    tx = torch.empty(R, dtype=torch.float32, device=dev)
+    row = torch.empty(R, dtype=torch.int32, device=dev)
+    xrow = torch.empty(R, dtype=torch.int32, device=dev)
+    if R:
+        KERNEL.launch(args.fwd, o.data_ptr(), d.data_ptr(), *o.stride(), R,
+                      mode, te.data_ptr(), row.data_ptr(), tx.data_ptr(),
+                      xrow.data_ptr(), raw_stream(dev),
+                      variant=args.variant)
+    return te, row, tx, xrow
+
+
 def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
                 sbb=None, walk=None, box=None):
     """``(te, row, tx, xrow)`` of rays ``o``/``d`` ``(R, 3)`` float32
@@ -1207,38 +1320,8 @@ def closest_hit(tab, layout, o, d, mode=MODE_EXIT, tri=None, tbb=None,
     if o.device.type == "cpu":
         return closest_hit_plain(tab, layout, o, d, mode, tri, tbb, sbb,
                                  box)
-    has_tri = _need_tri(layout, tri)
-    R = o.shape[0]
-    require_cuda_tensor("o", o, torch.float32, (R, 3), contiguous=False)
-    require_cuda_tensor("d", d, torch.float32, (R, 3), contiguous=False)
-    if o.stride() != d.stride():
-        raise ValueError(f"o and d strides differ: {o.stride()} vs "
-                         f"{d.stride()}")
-    P, C = tab.shape
-    require_cuda_tensor("table", tab, torch.float32)
-    if C < SWEEP_COLS:
-        raise ValueError(f"table: {C} columns, the sweep needs "
-                         f"{SWEEP_COLS}")
-    n_dense = layout[1]
-    # past the staged cull blocks the kGlobal instance reads them in place
-    check_cull_tables(layout, tri, tbb, sbb, None)
-    walk_ptrs = [None, None]
-    if sbb is not None:
-        walk = walk_tables(tab, layout) if walk is None else walk
-        walk_ptrs = check_walk_tables(*walk, layout)
-    box_args = check_box_walk(box, layout)
-    te = torch.empty(R, dtype=torch.float32, device=o.device)
-    tx = torch.empty_like(te)
-    row = torch.empty(R, dtype=torch.int32, device=o.device)
-    xrow = torch.empty_like(row)
-    if R:
-        KERNEL.launch(ptr(tab), n_dense, C,
-                      *table_args(layout, tri, tbb, sbb),
-                      ptr(o), ptr(d), *o.stride(), R, mode, ptr(te),
-                      ptr(row), ptr(tx), ptr(xrow), *walk_ptrs, *box_args,
-                      stream_ptr(o.device),
-                      variant=None if box is None else "box_walk")
-    return te, row, tx, xrow
+    return launch_hit(hit_args(tab, layout, tri, tbb, sbb, walk, box), o, d,
+                      mode)
 
 
 def tri_blocks(n_tri: int) -> int:
@@ -1282,16 +1365,56 @@ def any_hit(tab, layout, o, d, tri=None, tbb=None, sbb=None, walk=None,
 # the row cotangents the VJP kernel writes: the whole trace's row table's
 # columns (step.ROW_COLS), of which it fills the sweep columns 0-15
 BWD_COLS = 26
-# the VJP kernel: the table and layout as mrt_closest_hit's, the triangle
-# table, o, d and their strides, R, the mode, row, xrow, the masked
-# cotangents, d_o, d_d, the float64 row sums, d_tab, d_tri4, stream
+# the VJP kernel: the packed table arguments (HitArgs.bwd), o, d and their
+# strides, R, the mode, te, tx, row, xrow, the cotangents of te and tx,
+# d_o, d_d, d_tab, d_tri, the workspace, the stream
 BWD_KERNEL = CudaKernel(
     "hit3_bwd", "hit3_bwd.cu", ("hit3.cuh", "trace_step.cuh",
                                 "trace_bwd.cuh", "grid.cuh"),
     "mrt_hit3_bwd",
-    [_c_ptr, _c_int, _c_int] + [_c_int] * 6 + [_c_ptr, _c_int, _c_int]
-    + [_c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int]
-    + [_c_ptr] * 10)
+    [_c_ptr] * 3 + [_c_int] * 4 + [_c_ptr] * 12)
+BWD_OCCUPANCY = CudaKernel(
+    "hit3_bwd_occupancy", "hit3_bwd.cu", BWD_KERNEL.headers,
+    "mrt_hit3_bwd_warps", [_c_int, _c_int, _c_ptr])
+
+
+def resident_warps(P: int, bwd: bool = False, tri: bool = False) -> int:
+    """Warps per SM the card keeps resident of the dense schedule's kernel
+    at P staged rows, or (``bwd``) of the VJP kernel's instance (``tri``:
+    with triangles) at P dense rows (``cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor``). Builds the kernel if needed."""
+    warps = ctypes.c_int(0)
+    if bwd:
+        rc = BWD_OCCUPANCY.fn()(P, int(tri), ctypes.byref(warps))
+    else:
+        rc = DENSE_OCCUPANCY.fn()(P, ctypes.byref(warps))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return warps.value
+
+
+# the VJP's workspace on each (device, stream): a ticket, the float64 row
+# sums and the triangle rows' float32 sums, zero between launches (the
+# kernel returns it to zero); grown, never shrunk
+_BWD_WORKSPACE: dict = {}
+_TICKET_BYTES = 16
+
+
+def bwd_workspace(dev, stream: int, n_dense: int, n_tri: int):
+    """The zeroed workspace of ``mrt_hit3_bwd`` on device ``dev`` and CUDA
+    stream ``stream`` for ``n_dense`` dense and ``n_tri`` triangle rows:
+    a uint8 tensor of at least 16 + 8 * 16 * n_dense + 16 * n_tri bytes
+    (the sums of the 16 sweep columns of each dense row, of the 4 Woop
+    columns of each triangle row),
+    zeroed when it is made or grown (the only memset)."""
+    need = _TICKET_BYTES + 8 * 16 * n_dense + 16 * n_tri
+    key = (dev, stream)
+    ws = _BWD_WORKSPACE.get(key)
+    if ws is None or ws.numel() < need:
+        grow = 0 if ws is None else 2 * ws.numel()
+        ws = torch.zeros(max(need, grow), dtype=torch.uint8, device=dev)
+        _BWD_WORKSPACE[key] = ws
+    return ws
 
 
 def row_ends(layout):
@@ -1422,56 +1545,65 @@ def closest_hit_bwd(tab, layout, o, d, mode, te, row, tx, xrow, ct_te,
     ``o``, ``d`` in ``mode``, the cotangents of the row table ``(P, C)``
     (its sweep columns 0-15 of the winner rows), of the triangle table
     ``(Pt, 16)`` (its ``G[2]``, ``h[2]`` columns; None without one) and of
-    ``o`` and ``d`` (R, 3). CUDA tensors launch ``mrt_hit3_bwd`` (one thread
-    per ray; the row cotangents float64 sums, so they vary from run to run
-    only where their float32 rounding does); CPU tensors run
+    ``o`` and ``d`` (R, 3). CUDA tensors launch ``mrt_hit3_bwd`` once
+    (:func:`hit_bwd`; the row cotangents float64 sums, so they vary from
+    run to run only where their float32 rounding does); CPU tensors run
     :func:`closest_hit_bwd_plain`."""
     if o.device.type == "cpu":
         return closest_hit_bwd_plain(tab, layout, o, d, mode, te, row, tx,
                                      xrow, ct_te, ct_tx, tri)
-    ce, cx = _masked_cts(mode, te, tx, ct_te, ct_tx)
-    ce, cx = ce.contiguous(), cx.contiguous()
-    has_tri = _need_tri(layout, tri)
-    R = o.shape[0]
-    require_cuda_tensor("o", o, torch.float32, (R, 3), contiguous=False)
-    require_cuda_tensor("d", d, torch.float32, (R, 3), contiguous=False)
-    if o.stride() != d.stride():
-        raise ValueError(f"o and d strides differ: {o.stride()} vs "
-                         f"{d.stride()}")
-    P, C = tab.shape
-    require_cuda_tensor("table", tab, torch.float32)
-    if not SWEEP_COLS <= C <= BWD_COLS:
-        raise ValueError(f"table: {C} columns, the backward takes "
+    return hit_bwd(hit_args(tab, layout, tri), o, d, mode, te, row, tx,
+                   xrow, ct_te, ct_tx, tri)
+
+
+def _vec(name, t, dtype, R, dev):
+    """A per-ray (R,) input of the VJP kernel, contiguous (a copy only
+    where it is not, such as an expanded cotangent)."""
+    if t.dtype is not dtype or t.get_device() != dev.index or t.dim() != 1 \
+            or t.shape[0] != R:
+        raise ValueError(f"{name}: expected ({R},) {dtype} on {dev}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def hit_bwd(args, o, d, mode, te, row, tx, xrow, ct_te, ct_tx, tri=None):
+    """:func:`closest_hit_bwd` through the launch arguments ``args`` of
+    its tables (:func:`hit_args`): one device operation, the kernel, which
+    masks the cotangents (``None``: zeros), writes every entry of its
+    outputs (allocated uninitialized here) and sums the rows in this
+    device's workspace (:func:`bwd_workspace`)."""
+    if not args.bwd:
+        raise ValueError(f"table: {args.C} columns, the backward takes "
                          f"{SWEEP_COLS} to {BWD_COLS}")
-    for name, t, dt in (("row", row, torch.int32), ("xrow", xrow, torch.int32),
-                        ("ct_te", ce, torch.float32),
-                        ("ct_tx", cx, torch.float32)):
-        require_cuda_tensor(name, t, dt, (R,))
-    if has_tri:
-        require_cuda_tensor("tri", tri, torch.float32, (layout[2], TRI_COLS))
-    n_dense = layout[1]
-    dev = o.device
-    d_tab = torch.zeros((P, BWD_COLS), dtype=torch.float32, device=dev)
+    dev = args.device
+    _check_rays(dev, o, d)
+    R = o.shape[0]
+    te = _vec("te", te, torch.float32, R, dev)
+    tx = _vec("tx", tx, torch.float32, R, dev)
+    row = _vec("row", row, torch.int32, R, dev)
+    xrow = _vec("xrow", xrow, torch.int32, R, dev)
+    cts = [None if c is None else _vec(n, c, torch.float32, R, dev)
+           for n, c in (("ct_te", ct_te), ("ct_tx", ct_tx))]
+    d_tab = torch.empty((args.P, BWD_COLS), dtype=torch.float32, device=dev)
     d_o = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    d_d = torch.empty_like(d_o)
-    d_tri4 = torch.zeros((layout[2], 4), dtype=torch.float32, device=dev)
-    if R:
-        acc = torch.zeros(n_dense * BWD_COLS, dtype=torch.float64,
-                          device=dev)
-        BWD_KERNEL.launch(ptr(tab), n_dense, C, *_table_ints(layout),
-                          ptr(tri) if has_tri else None, layout[1],
-                          layout[3] if has_tri else 0, ptr(o), ptr(d),
-                          *o.stride(), R, 0 if mode == MODE_ENTRY else 1,
-                          ptr(row), ptr(xrow), ptr(ce), ptr(cx), ptr(d_o),
-                          ptr(d_d), ptr(acc), ptr(d_tab),
-                          ptr(d_tri4) if has_tri else None,
-                          stream_ptr(dev))
+    d_d = torch.empty((R, 3), dtype=torch.float32, device=dev)
     d_tri = None
-    if tri is not None:
+    if args.n_tri:
+        d_tri = torch.empty((args.n_tri, TRI_COLS), dtype=torch.float32,
+                            device=dev)
+    stream = raw_stream(dev)
+    ws = bwd_workspace(dev, stream, args.n_dense, args.n_tri)
+    BWD_KERNEL.launch(args.bwd, o.data_ptr(), d.data_ptr(), *o.stride(), R,
+                      0 if mode == MODE_ENTRY else 1, te.data_ptr(),
+                      tx.data_ptr(), row.data_ptr(), xrow.data_ptr(),
+                      *(None if c is None else c.data_ptr() for c in cts),
+                      d_o.data_ptr(), d_d.data_ptr(), d_tab.data_ptr(),
+                      None if d_tri is None else d_tri.data_ptr(),
+                      ws.data_ptr(), stream)
+    if d_tri is None and tri is not None:
         d_tri = torch.zeros_like(tri)
-        d_tri[:, 6:9] = d_tri4[:, :3]
-        d_tri[:, _T_H + 2] = d_tri4[:, 3]
-    return d_tab[:, :C], d_tri, d_o, d_d
+    return d_tab if args.C == BWD_COLS else d_tab[:, :args.C], d_tri, d_o, \
+        d_d
 
 
 class ClosestHit(torch.autograd.Function):
@@ -1485,26 +1617,38 @@ class ClosestHit(torch.autograd.Function):
     table's Woop columns, ``o`` and ``d``. ``row`` and ``xrow`` get none.
 
     ``ClosestHit.apply(tab, tri, o, d, layout, mode, tbb, sbb, walk,
-    box)``: the arguments of :func:`closest_hit` (``tri`` None without
-    triangles); the tables are those of ``step.pack_step``, walks
-    included, so the forward is the fused path's sweep."""
+    box, args)``: the arguments of :func:`closest_hit` (``tri`` None
+    without triangles); the tables are those of ``step.pack_step``, walks
+    included, so the forward is the fused path's sweep. ``args``: their
+    :class:`HitArgs` (``step.hit_args``) on CUDA tables, which the
+    forward and the backward launch through, or None: built per call."""
 
     @staticmethod
     def forward(ctx, tab, tri, o, d, layout, mode, tbb=None, sbb=None,
-                walk=None, box=None):
-        te, row, tx, xrow = closest_hit(tab, layout, o, d, mode, tri, tbb,
-                                        sbb, walk, box)
+                walk=None, box=None, args=None):
+        if args is None:
+            te, row, tx, xrow = closest_hit(tab, layout, o, d, mode, tri,
+                                            tbb, sbb, walk, box)
+        else:
+            te, row, tx, xrow = launch_hit(args, o, d, mode)
         ctx.save_for_backward(tab, tri, o, d, te, row, tx, xrow)
-        ctx.layout, ctx.mode = layout, mode
+        ctx.layout, ctx.mode, ctx.args = layout, mode, args
         ctx.mark_non_differentiable(row, xrow)
         return te, row, tx, xrow
 
     @staticmethod
     def backward(ctx, ct_te, _ct_row, ct_tx, _ct_xrow):
         tab, tri, o, d, te, row, tx, xrow = ctx.saved_tensors
-        d_tab, d_tri, d_o, d_d = closest_hit_bwd(
-            tab, ctx.layout, o, d, ctx.mode, te, row, tx, xrow, ct_te,
-            ct_tx, tri if ctx.layout[2] else None)
+        tri_ = tri if ctx.layout[2] else None
+        if ctx.args is None:
+            d_tab, d_tri, d_o, d_d = closest_hit_bwd(
+                tab, ctx.layout, o, d, ctx.mode, te, row, tx, xrow, ct_te,
+                ct_tx, tri_)
+        else:
+            d_tab, d_tri, d_o, d_d = hit_bwd(ctx.args, o, d, ctx.mode, te,
+                                             row, tx, xrow, ct_te, ct_tx,
+                                             tri_)
         if tri is not None and d_tri is None:
             d_tri = torch.zeros_like(tri)
-        return (d_tab, d_tri, d_o, d_d, None, None, None, None, None, None)
+        return (d_tab, d_tri, d_o, d_d, None, None, None, None, None, None,
+                None)

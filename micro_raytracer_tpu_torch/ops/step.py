@@ -277,6 +277,10 @@ class TraceTables(NamedTuple):
     ssb: torch.Tensor | None = None
     # a textured scene's walked box segment (hit3.box_walk_tables), or None
     box: hit3.BoxWalk | None = None
+    # on the card, the closest hit's launch arguments of these tables
+    # (hit3.HitArgs: checked and packed once, read through hit_args), or
+    # None
+    hit: hit3.HitArgs | None = None
 
 
 def n_uni(need_exit: bool) -> int:
@@ -343,10 +347,43 @@ def pack_step(scene) -> TraceTables:
     layout = hit3.seg_layout(scene.kind_counts, scene.kind_sweep)
     tsb = tri_ops.superbounds(tbb) if tri_split(layout[2]) else None
     srows, ssb = hit3.sph_walk_tables(scene, layout, tab)
-    return TraceTables(frames, tab, lights, layout, tri, tbb, *tex,
-                       sbb=hit3.sph_table(scene, layout), tsb=tsb,
-                       srows=srows, ssb=ssb,
-                       box=hit3.box_walk_tables(scene, layout, tab))
+    tables = TraceTables(frames, tab, lights, layout, tri, tbb, *tex,
+                         sbb=hit3.sph_table(scene, layout), tsb=tsb,
+                         srows=srows, ssb=ssb,
+                         box=hit3.box_walk_tables(scene, layout, tab))
+    return tables._replace(hit=hit_args(tables))
+
+
+def table_hit_args(tables):
+    """The closest hit's :class:`hit3.HitArgs` of ``tables`` (its row,
+    triangle and cull tables and walks, as :func:`primary_hits` passes
+    them)."""
+    return hit3.hit_args(tables.tab, tables.layout, tables.tri, tables.tbb,
+                         tables.sbb, _walk(tables), tables.box)
+
+
+def hit_args(tables):
+    """``tables.hit`` where it was built from these very tables, else
+    :func:`table_hit_args` (tables replaced in part, such as a float64 or
+    an unwalked copy); None for tables off the card."""
+    h = tables.hit
+    now = (tables.tab, tables.layout, tables.tri, tables.tbb, tables.sbb,
+           *(_walk(tables) or (None, None)), tables.box)
+    if h is not None and all(a is b for a, b in zip(h.key, now)):
+        return h
+    return table_hit_args(tables) if tables.tab.is_cuda else None
+
+
+def hits(tables, o, d, mode):
+    """``hit3.closest_hit`` of rays ``o``, ``d`` (R, 3) against the
+    tables' sweep (walks included): on the card through their launch
+    arguments (:func:`hit_args`, so a call checks only the rays), on the
+    CPU the plain version."""
+    if o.device.type == "cpu":
+        return hit3.closest_hit(tables.tab, tables.layout, o, d, mode,
+                                tables.tri, tables.tbb, tables.sbb,
+                                _walk(tables), tables.box)
+    return hit3.launch_hit(hit_args(tables), o, d, mode)
 
 
 def primary_mode(scene) -> int:
@@ -921,11 +958,10 @@ def _fwd_args(scene, tables, decay, oT, dT, u8s, hit0):
 
 
 def primary_hits(scene, tables, oT, dT):
-    """The primary-hit pass (:func:`hit3.closest_hit`) of lane-major
-    primaries, in :func:`primary_mode`: the trace kernels' ``hit0``."""
-    return hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T,
-                            primary_mode(scene), tables.tri, tables.tbb,
-                            tables.sbb, _walk(tables), tables.box)
+    """The primary-hit pass (:func:`hit3.closest_hit`, through
+    :func:`hits`) of lane-major primaries, in :func:`primary_mode`: the
+    trace kernels' ``hit0``."""
+    return hits(tables, oT.T, dT.T, primary_mode(scene))
 
 
 def _walk(tables):
@@ -1337,7 +1373,7 @@ class TraceFunction(torch.autograd.Function):
         ctx.save_for_backward(tab, lights, tri, u8s, resid, n_live)
         ctx.scene, ctx.decay = scene, decay
         ctx.tables = tables._replace(frames=None, tab=None, lights=None,
-                                     tri=None)
+                                     tri=None, hit=None)
         ctx.mark_non_differentiable(fl)
         return A, B, fl
 
@@ -1368,7 +1404,7 @@ class StepFunction(torch.autograd.Function):
         ctx.save_for_backward(tab, lights, tri, c0, u8, resid, hit)
         ctx.scene, ctx.decay = scene, decay
         ctx.tables = tables._replace(frames=None, tab=None, lights=None,
-                                     tri=None)
+                                     tri=None, hit=None)
         ctx.mark_non_differentiable(hit)
         return c1, hit
 

@@ -122,7 +122,7 @@ class CudaKernel:
     def launch(self, *args, variant: str | None = None) -> None:
         """Launch on the current stream; raise if the launch failed.
         ``variant`` names the instance the arguments select, if counted."""
-        rc = self.fn()(*args)
+        rc = (self._fn or self.fn())(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1
@@ -160,6 +160,18 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raw_stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream as an integer (the
+    value of :func:`stream_ptr`, without making a stream object)."""
+    import torch
+
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return get(torch.cuda.current_device() if device.index is None
+               else device.index)
 
 
 def require_cuda_tensor(name: str, t, dtype, shape=None,

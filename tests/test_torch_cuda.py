@@ -1406,12 +1406,11 @@ def test_box_walk_gate_keeps_the_old_instances(cuda_device, monkeypatch):
         tex_scene("tex_blocks", small=True)), cuda_device))
     with pytest.raises(ValueError):
         hit3.closest_hit(small.tab, small.layout, o, d, box=tables.box)
-    args = [0] * len(hit3.KERNEL.argtypes)
+    packed = hit3._pack([0] * 19 + [256])
     with pytest.raises(RuntimeError):
         # n_bw > 0 with no tables: the entry point refuses the launch
-        hit3.KERNEL.launch(*[None if t is hit3._c_ptr else a
-                             for t, a in zip(hit3.KERNEL.argtypes,
-                                             args)][:-2], 256, None)
+        hit3.KERNEL.launch(packed[1], *[None if t is hit3._c_ptr else 0
+                                        for t in hit3.KERNEL.argtypes[1:]])
     bad = type(hit3.KERNEL)("box_walk_bad", "box_walk.cuh", (), "nope", [])
     with pytest.raises(RuntimeError):
         bad.fn()
@@ -1623,3 +1622,120 @@ def test_no_fuse_runs_hit3_and_its_vjp_on_the_card(cuda_device, tmp_path,
     with pytest.raises(RuntimeError, match="hit3_bwd"):
         ts.step(params, scene, cam, 0.15, coords, target, gen)
     assert hit3.BWD_KERNEL.plain_calls == 0
+
+
+# --- the closest hit's dense schedule and its VJP's one launch --------------
+
+def _frame_rays(name, n, device, seed):
+    """``n`` camera rays of the stand-in ``name`` (the room or a textured
+    stand-in) at random pixels of its 1080x1080 frame."""
+    from chip_smoke import camera_rays, rec_inputs
+
+    _cfg, scene, tables, cam = rec_inputs(name, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    o, d = camera_rays(cam, n, gen, device)
+    return scene, tables, o, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["room", "tex_dof"])
+def test_dense_schedule_matches_plain_bit_for_bit(name, cuda_device):
+    """The dense instance's schedule (``csrc/hit3.cu``
+    closest_hit_dense_kernel: persistent blocks, staged rows, two rays a
+    thread) against ``closest_hit_plain`` in every mode, te, row, tx and
+    xrow bit for bit, at R = 1, 31, 257 and the frame + 3 (a last warp
+    with one pair short), through the main path's wrapper
+    (``step.hits``) and ``hit3.closest_hit``."""
+    scene, tables, o, d = _frame_rays(name, 1080 * 1080 + 3, cuda_device, 5)
+    assert not tables.layout[2] and tables.sbb is None and tables.box is None
+    for R in (1, 31, 257, o.shape[0]):
+        for mode in (hit3.MODE_EXIT, hit3.MODE_ENTRY, hit3.MODE_ANY):
+            want = hit3.closest_hit_plain(tables.tab, tables.layout, o[:R],
+                                          d[:R], mode)
+            before = hit3.KERNEL.launches
+            got = step.hits(tables, o[:R], d[:R], mode)
+            again = hit3.closest_hit(tables.tab, tables.layout, o[:R],
+                                     d[:R], mode)
+            assert hit3.KERNEL.launches == before + 2
+            for g, a, w in zip(got, again, want):
+                assert torch.equal(g, w), (R, mode)
+                assert torch.equal(a, w), (R, mode)
+        if R > 1000:
+            assert int((want[0] < hit3.BIG * 0.5).sum()) > R // 2
+
+
+def _vjp_case(name, device, n, zero=False):
+    """The VJP's inputs (chip_smoke.hit_bwd_args) of ``n`` rays of a scene
+    of REC_SCENES, with zero cotangents where ``zero``."""
+    args = list(_rec_args(name, device, n=n, seed=6))
+    if zero:
+        args[9] = torch.zeros_like(args[9])
+        args[10] = torch.zeros_like(args[10])
+    return args
+
+
+def _assert_same_bwd(a, b, what):
+    for j in (0, 2, 3):                 # d_tab, d_o, d_d
+        assert torch.equal(a[j], b[j]), (what, j)
+    assert (a[1] is None) == (b[1] is None), what
+    if a[1] is not None:                # triangle rows: float32 atomics
+        torch.testing.assert_close(a[1], b[1], rtol=1e-5,
+                                   atol=1e-6 * float(b[1].abs().max()))
+
+
+@pytest.mark.cuda
+def test_hit3_bwd_back_to_back_equals_fresh(cuda_device):
+    """hit3_bwd called back to back on scenes of different dense and
+    triangle row counts, with all-zero cotangents and with R = 0, equals
+    each call made alone on a fresh workspace; the workspace is zero after
+    every call (the last block returns it to zero)."""
+    cases = [("mesh_glass", 1 << 15, False), ("mixed", 1 << 14, False),
+             ("inst_grid", 1 << 15, False), ("mixed", 1 << 14, True),
+             ("mesh_glass", 0, False), ("ties", 4097, False),
+             ("mesh_glass", 1 << 15, True)]
+    args = [_vjp_case(n, cuda_device, r, z) for n, r, z in cases]
+    fresh = []
+    for a in args:
+        hit3._BWD_WORKSPACE.clear()
+        fresh.append(hit3.closest_hit_bwd(*a))
+    for k, a in enumerate(args):
+        assert float(fresh[k][0].abs().max()) > 0 or cases[k][1] == 0 \
+            or cases[k][2]
+        if cases[k][1] == 0 or cases[k][2]:
+            assert int(torch.count_nonzero(fresh[k][0])) == 0
+            assert int(torch.count_nonzero(fresh[k][2])) == 0
+    for order in (range(len(args)), reversed(range(len(args)))):
+        for k in order:
+            got = hit3.closest_hit_bwd(*args[k])
+            _assert_same_bwd(got, fresh[k], cases[k])
+            torch.cuda.synchronize()
+            for ws in hit3._BWD_WORKSPACE.values():
+                assert int(torch.count_nonzero(ws)) == 0, cases[k]
+
+
+def _device_ops(fn):
+    """The device operations one call of ``fn`` launches (torch.profiler,
+    after a warm-up call)."""
+    from chip_smoke import _busy_share
+
+    fn()
+    torch.cuda.synchronize()
+    return _busy_share(fn)[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["room", "mesh_glass"])
+def test_hit_wrappers_launch_one_device_operation(name, cuda_device):
+    """A profiled call of the primary-hit pass (``step.primary_hits``)
+    launches exactly one device operation, and one of hit3_bwd's wrapper
+    (``hit3.closest_hit_bwd``: the mask, the outputs and the finish in the
+    kernel; no memset) at most two, and here one."""
+    from chip_smoke import hit_bwd_args
+
+    scene, tables, o, d = _frame_rays(name, 1 << 16, cuda_device, 7)
+    oT, dT = o.T.contiguous(), d.T.contiguous()
+    assert _device_ops(lambda: step.primary_hits(scene, tables, oT, dT)) \
+        == 1
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    args = hit_bwd_args(scene, tables, oT.T, dT.T, gen)
+    assert _device_ops(lambda: hit3.closest_hit_bwd(*args)) == 1

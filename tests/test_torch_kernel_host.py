@@ -89,15 +89,24 @@ static inline float __int_as_float(int i) {
   memcpy(&f, &i, sizeof f);
   return f;
 }
+static inline int __float_as_int(float f) {
+  int i;
+  memcpy(&i, &f, sizeof i);
+  return i;
+}
 struct HostDim3 { int x, y, z; };
 static const HostDim3 threadIdx{0, 0, 0}, blockDim{1, 1, 1};
 """
 
 _HARNESS = r"""
+#include <vector>
+
 #include "trace_fwd.cu"
 #include "trace_bwd.cu"
 #include "step_fwd.cu"
 #include "step_bwd.cu"
+#include "hit3.cu"
+#include "hit3_bwd.cu"
 
 namespace {
 struct HostAcc {
@@ -280,6 +289,42 @@ extern "C" void host_closest_hit(const float* tab, int stride,
   else
     hit_rays<false>(tab, stride, lay, mrt::Tris{tri, bb}, o, d, R, mode, te,
                     row, tx, xrow);
+}
+
+// the closest hit's dense schedule (hit3.cu dense_hit_pair): the rows
+// staged kRowStride floats apart, rays (R, 3) taken kPair at a time (a
+// last short group repeats its last ray, unwritten)
+extern "C" void host_dense_hit(const float* tab, int stride, int P,
+    const int* lay10, const float* o, const float* d, int R, int mode,
+    float* te, int* row, float* tx, int* xrow) {
+  std::vector<float> rows(static_cast<size_t>(P) * mrt::kRowStride);
+  for (int r = 0; r < P; ++r)
+    for (int k = 0; k < mrt::kRowStride; ++k)
+      rows[r * mrt::kRowStride + k] = mrt::staged_col(tab, stride, r, k);
+  const mrt::Layout lay = layout(lay10);
+  for (int i = 0; i < R; i += mrt::kPair) {
+    mrt::RayPair p;
+    for (int k = 0; k < mrt::kPair; ++k) {
+      const int j = i + k < R ? i + k : R - 1;
+      p.ox[k] = o[3 * j]; p.oy[k] = o[3 * j + 1]; p.oz[k] = o[3 * j + 2];
+      p.dx[k] = d[3 * j]; p.dy[k] = d[3 * j + 1]; p.dz[k] = d[3 * j + 2];
+    }
+    mrt::Hit h[mrt::kPair];
+    mrt::dense_hit_pair(rows.data(), lay, mode, p, h);
+    for (int k = 0; k < mrt::kPair && i + k < R; ++k) {
+      te[i + k] = h[k].te; row[i + k] = h[k].row;
+      tx[i + k] = h[k].tx; xrow[i + k] = h[k].xrow;
+    }
+  }
+}
+
+// the VJP kernel's cotangent mask (hit3_bwd.cu masked_cts) of R rays
+extern "C" void host_masked_cts(int need_exit, const float* te,
+    const float* tx, const float* ct_te, const float* ct_tx, int R,
+    float* ce, float* cx) {
+  for (int i = 0; i < R; ++i)
+    mrt::masked_cts(need_exit != 0, te[i], tx[i], ct_te[i], ct_tx[i], ce[i],
+                    cx[i]);
 }
 
 template <bool kTri, bool kTex>
@@ -854,6 +899,145 @@ def test_host_closest_hit_matches_plain(name, host_lib):
         assert int(hits.sum()) > 100 or mode == hit3.MODE_ANY
         for g, w in zip(got, want):
             assert torch.equal(g, w), mode
+
+
+def _launch_scene(name):
+    if name == "room":
+        from chip_smoke import slice_config
+        return compile_scene(slice_config().scene, "cpu")
+    return compile_scene(schema.SceneConfig.from_json(SCENES[name]), "cpu")
+
+
+@pytest.mark.parametrize("name", ["mixed", "mixed_opaque", "tex_dof", "ties",
+                                  "room"])
+def test_host_dense_schedule_matches_plain(name, host_lib):
+    """The closest hit's dense schedule (``csrc/hit3.cu``
+    ``dense_hit_pair``: staged rows of 20 floats, two rays a thread) on a
+    scene without triangles, cull blocks or walks, in every mode, against
+    the per-ray sweep of ``hit3.cuh`` bit for bit, an odd ray count
+    included, and against the plain version: rows equal, t within one ulp
+    on at most 0.1% of the rays (``sqrtf`` here). The room's walls and
+    spheres share their frame (the rows keep the rays' direction parts),
+    ``mixed``'s rows turn."""
+    scene = _launch_scene(name)
+    tables = step.pack_step(scene)
+    assert not tables.layout[2] and tables.sbb is None and tables.box is None
+    tab = tables.tab.detach().contiguous()
+    n = 4095
+    # the room's rays from inside it (the mesh scenes' room)
+    oT, dT = _rays("mesh_glass" if name == "room" else name, n, 8)
+    o, d = oT.T.contiguous(), dT.T.contiguous()
+    lay = _lay(tables)
+    for mode in (hit3.MODE_ENTRY, hit3.MODE_EXIT, hit3.MODE_ANY):
+        got, per_ray = [(torch.empty(n), torch.empty(n, dtype=torch.int32),
+                         torch.empty(n), torch.empty(n, dtype=torch.int32))
+                        for _ in range(2)]
+        host_lib.host_dense_hit(_p(tab), step.ROW_COLS, tables.layout[1],
+                                _p(lay), _p(o), _p(d), n, mode,
+                                *map(_p, got))
+        host_lib.host_closest_hit(_p(tab), step.ROW_COLS, _p(lay), None,
+                                  None, _p(o), _p(d), n, mode,
+                                  *map(_p, per_ray))
+        with torch.no_grad():
+            want = hit3.closest_hit_plain(tab, tables.layout, o, d, mode)
+        assert int((want[0] < hit3.BIG * 0.5).sum()) > n // 4, mode
+        for g, r, w in zip(got, per_ray, want):
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32)), mode
+            if g.dtype == torch.int32:
+                assert torch.equal(g, w), mode
+                continue
+            # libm's sqrtf here, PyTorch's CPU sqrt there (one ulp apart
+            # on some inputs; the card tests hold the kernel bit for bit)
+            off = g != w
+            ulp = (g == torch.nextafter(w, w + 1.0)) | \
+                (g == torch.nextafter(w, w - 1.0))
+            assert bool((~off | ulp).all()), mode
+            assert int(off.sum()) <= n // 1000, mode
+
+
+@pytest.mark.parametrize("mode", [hit3.MODE_ENTRY, hit3.MODE_EXIT])
+@pytest.mark.parametrize("cts", ["random", "zeros"])
+def test_host_masked_cts_matches_plain(mode, cts, host_lib):
+    """The VJP kernel's cotangent mask (``csrc/hit3_bwd.cu`` masked_cts)
+    against ``hit3._masked_cts`` bit for bit: hits, misses (te = BIG), no
+    exit (tx = -BIG), the entry mode's sum, and cotangents that are
+    exactly 0 or -0."""
+    rng = np.random.default_rng(11 + mode)
+    n = 4096
+    te = rng.uniform(0.0, 5.0, n).astype(np.float32)
+    tx = (te + rng.uniform(0.0, 1.0, n)).astype(np.float32)
+    miss = rng.random(n) < 0.25
+    te[miss] = np.float32(hit3.BIG)
+    tx[miss | (rng.random(n) < 0.25)] = np.float32(-hit3.BIG)
+    if cts == "zeros":
+        ct = np.zeros((2, n), np.float32)
+        ct[:, rng.random(n) < 0.5] = np.float32(-0.0)
+    else:
+        ct = rng.standard_normal((2, n)).astype(np.float32)
+        ct[:, rng.random(n) < 0.2] = 0.0
+        ct[:, rng.random(n) < 0.1] = np.float32(-0.0)
+    te, tx, ct_te, ct_tx = (torch.from_numpy(np.ascontiguousarray(a))
+                            for a in (te, tx, ct[0], ct[1]))
+    ce, cx = torch.empty(n), torch.empty(n)
+    host_lib.host_masked_cts(int(mode != hit3.MODE_ENTRY), _p(te), _p(tx),
+                             _p(ct_te), _p(ct_tx), n, _p(ce), _p(cx))
+    want = hit3._masked_cts(mode, te, tx, ct_te, ct_tx)
+    for g, w in zip((ce, cx), want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    if cts == "random":
+        assert int((want[0] != 0.0).sum()) > n // 4
+
+
+def _require_any_device(name, t, dtype, shape=None, contiguous=True):
+    """``require_cuda_tensor`` without its device check: the launch
+    arguments of CPU tables."""
+    assert t.dtype == dtype, name
+    assert shape is None or tuple(t.shape) == tuple(shape), name
+    assert not contiguous or t.is_contiguous(), name
+
+
+@pytest.mark.parametrize("name", ["room", "mesh_glass", "tex_blocks",
+                                  "inst_grid"])
+def test_tables_launch_args_equal_per_call(name, monkeypatch):
+    """The closest hit's launch arguments built once per ``TraceTables``
+    (``step.table_hit_args``, what ``pack_step`` keeps on the card) equal
+    those the per-call path (``hit3.closest_hit``'s arguments, as
+    ``primary_hits`` passes them) builds, and the parent's argument list
+    of ``mrt_closest_hit`` in its order; tables replaced in part are not
+    served the kept arguments."""
+    monkeypatch.setattr(hit3, "require_cuda_tensor", _require_any_device)
+    tables = step.pack_step(_launch_scene(name))
+    assert tables.hit is None and step.hit_args(tables) is None  # card only
+    kept = step.table_hit_args(tables)
+    tables = tables._replace(hit=kept)
+    assert step.hit_args(tables) is kept
+    walk = step._walk(tables)
+    per_call = hit3.hit_args(tables.tab, tables.layout, tables.tri,
+                             tables.tbb, tables.sbb, walk, tables.box)
+    for a, b in zip(kept.packed, per_call.packed):
+        assert list(a) == list(b)
+    assert kept.variant == per_call.variant == \
+        (None if tables.box is None else "box_walk")
+    walk_ptrs = [None, None] if walk is None else \
+        hit3.check_walk_tables(*walk, tables.layout)
+    flat = [hit3.ptr(tables.tab), tables.layout[1], tables.tab.shape[1],
+            *hit3.table_args(tables.layout, tables.tri, tables.tbb,
+                             tables.sbb),
+            *walk_ptrs, *hit3.check_box_walk(tables.box, tables.layout)]
+    assert list(kept.packed[0]) == [hit3._c_value(v) for v in flat]
+    has_tri = bool(tables.layout[2])
+    assert list(kept.packed[1]) == [hit3._c_value(v) for v in (
+        hit3.ptr(tables.tab), tables.layout[1], tables.tab.shape[1],
+        *hit3.layout_ints(tables.layout),
+        hit3.ptr(tables.tri) if has_tri else None, tables.layout[1],
+        tables.layout[3] if has_tri else 0, tables.tab.shape[0],
+        tables.layout[2] if has_tri else 0)]
+    for part in ({"tab": tables.tab.clone()}, {"box": None}, {"sbb": None},
+                 {"tbb": None}):
+        other = tables._replace(**part)
+        if all(getattr(other, k) is getattr(tables, k) for k in part):
+            continue
+        assert step.hit_args(other) is not kept
 
 
 @pytest.mark.parametrize("name", ["inst_grid", "inst_glass", "mesh_glass"])

@@ -3,7 +3,7 @@
 checkouts, on one NVIDIA GPU: the same inputs through each tree's kernels,
 then every output compared.
 
-    python3 tools/torch_compare_trees.py dump <tree> <out.pt>
+    python3 tools/torch_compare_trees.py dump <tree> <out.pt> [hits]
     python3 tools/torch_compare_trees.py compare <a.pt> <b.pt>
     python3 tools/torch_compare_trees.py time <tree> <tag> [scene ...]
     python3 tools/torch_compare_trees.py ablate <tree> <workdir>
@@ -26,7 +26,8 @@ instance and the step's backward at steps 0 and 3, and on its big meshes
 ``mesh_big_glass``) rows 6, 7 (every row refracting, and the step's
 refracting rows) and 8 on 2^18 camera rays at steps 0 and 2 and on 2^17
 random rays; it saves every output (a step's residuals on the
-rays that hit, the rest unwritten). ``compare``
+rays that hit, the rest unwritten). ``dump ... hits``
+dumps the closest hit and its VJP alone (``dump_hits``). ``compare``
 holds two dumps equal: every per-ray output bit for bit (row 7's exit
 outputs, culled since the two-level walk, are reported where they differ
 and not held: ``chip_smoke.py`` phase 22 shows each such ray a phantom),
@@ -144,7 +145,48 @@ SUMS = ("d_tab", "d_lights", "d_tri")
 SPLIT = "_split"   # a sum from the rays' two halves, added in float64
 
 
-def dump(tree, out):
+HIT_SCENES = ("room", "tex_dof", "mesh_glass")
+
+
+def dump_hits(cs, dev):
+    """``dump <tree> <out.pt> hits``: the closest hit alone at the frame of
+    the room, ``tex_dof`` and ``mesh_glass`` (every mode, the primaries of
+    ``chip_smoke.main_path_rays`` as views of lane-major rays) and its VJP
+    on 2^18 of them (``chip_smoke.hit_bwd_args``, seed 31): per-ray
+    outputs, and the VJP's table cotangents as sums."""
+    import torch
+
+    from micro_raytracer_tpu_torch.models.compiler import compile_scene
+    from micro_raytracer_tpu_torch.ops import hit3, step
+
+    res = {}
+    for name in HIT_SCENES:
+        cfg = _config(cs, name)
+        scene = compile_scene(cfg.scene, dev)
+        tables = step.pack_step(scene)
+        gen = torch.Generator(device=dev).manual_seed(31)
+        oT, dT = cs.main_path_rays(cfg, gen, dev)
+        rec = {}
+        tri = tables.tri if tables.layout[2] else None
+        for mode in (hit3.MODE_ENTRY, hit3.MODE_EXIT, hit3.MODE_ANY):
+            got = hit3.closest_hit(tables.tab, tables.layout, oT.T, dT.T,
+                                   mode, tri, tables.tbb, tables.sbb,
+                                   step._walk(tables), tables.box)
+            rec.update({f"frame_{k}@{mode}": t.cpu() for k, t in zip(
+                ("te", "row", "tx", "xrow"), got)})
+        n = 1 << 18
+        args = cs.hit_bwd_args(scene, tables, oT.T[:n].contiguous(),
+                               dT.T[:n].contiguous(), gen)
+        d_tab, d_tri, d_o, d_d = hit3.closest_hit_bwd(*args)
+        rec.update({"hit_bwd_d_o": d_o.cpu(), "hit_bwd_d_d": d_d.cpu(),
+                    "d_tab@hit_bwd": d_tab.cpu()})
+        if d_tri is not None:
+            rec["d_tri@hit_bwd"] = d_tri.cpu()
+        res[name] = rec
+    return res
+
+
+def dump(tree, out, only=None):
     out = os.path.abspath(out)
     sys.path.insert(0, os.path.abspath(tree))
     os.chdir(tree)
@@ -157,6 +199,9 @@ def dump(tree, out):
     from micro_raytracer_tpu_torch.ops import step
 
     dev = torch.device("cuda")
+    if only == "hits":
+        torch.save(dump_hits(cs, dev), out)
+        return
     res = {}
     for name in ("room", "mesh_glass", "mesh_opaque", *cs.TEX_NAMES,
                  *getattr(cs, "INST_NAMES", ())):
@@ -1749,7 +1794,7 @@ def reference(tree, out, *names):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["dump"] and len(sys.argv) == 4:
+    if sys.argv[1:2] == ["dump"] and len(sys.argv) in (4, 5):
         dump(*sys.argv[2:])
     elif sys.argv[1:2] == ["compare"] and len(sys.argv) == 4:
         sys.exit(compare(*sys.argv[2:]))
