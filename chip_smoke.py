@@ -8,6 +8,7 @@
                                          # live-first compaction
     python3 chip_smoke.py --big          # phases 22-24 alone
     python3 chip_smoke.py --records      # phase 25 alone
+    python3 chip_smoke.py --multi        # phase 26 alone
     python3 chip_smoke.py --hit-split [tree]  # the closest hit's and its
                                          # VJP's host / device split (of
                                          # another checkout's package)
@@ -227,13 +228,16 @@ Phases, each of which raises on failure:
    and t bit for bit, row 7's entry equal to row 6's, and row 7's culled
    exit equal to row 8's unculled one where a triangle wins but on phantom
    exits (the unculled exit's hit point outside its block's AABB, at most
-   PHANTOM_SHARE of the rays; also at each step of the glass frame); on
-   2^15 of the camera rays step_fwd and step_fwd_train (their
+   PHANTOM_SHARE of the rays; also at each step of the glass frame, where
+   row 8 is also held to its plain version bit for bit on N_EXIT_CMP of
+   the frame's rays); on 2^15 of the camera rays step_fwd and
+   step_fwd_train (their
    kTriIn instances) at steps 0 and 2 and step_bwd at step 0 by phase 18's
    rules, and the per-step trace against the plain per-step trace (phase
    4's rule). Timed at the frame: each kernel at step 0 (every ray live)
    and a sample's nine launches (the kTriIn step kernels fed the triangle
-   sweep's result, swept beforehand), and on ``mesh_big`` row 7 with no
+   sweep's result, swept beforehand; row 8 fed each step's winner groups,
+   with its registers and warps per SM), and on ``mesh_big`` row 7 with no
    row marked to refract (the opaque torus of ``mesh_big_mixed``); the
    plain versions only on the 2^17-ray sets; the work behind the bounds
    (superblock and block slab tests, rows the walk leaves, culled exit
@@ -285,11 +289,24 @@ Phases, each of which raises on failure:
    memory, BOUNCE + 1 hit3_bwd launches); ``tools/torch_grad_check.py`` on
    the room, ``tex_dof`` and ``mesh_glass`` (``--scene CornellBox``,
    ``dof``, ``Mesh``). ``--records`` runs phases 1, 2 and this one.
+26. multi-device (``phase_multi``): the room at MULTI_RES x MULTI_RES,
+   MULTI_SPP spp, over a mesh of two devices (cards 0 and 1 on a machine
+   with two or more, else the one card named twice) as (dp, sp) = (2, 1)
+   (the framebuffer equal to one device's bit for bit) and (1, 2) (within
+   rtol 1e-5), the closest hit and the whole trace launched once per
+   sample and ray part; on two cards the one-device render on card 1
+   equals card 0's; the CLI over ``--devices 1`` (and ``2`` on two cards)
+   and the HTTP service over ``devices=1`` give the one-device PNG and
+   JPEG, ``--devices 2`` is refused on one card; one dp = 2 training step
+   against the one-device step on the same uniforms (loss and every
+   gradient within rtol 1e-5), the train kernels launched once a part.
+   ``--multi`` runs the build and this phase.
 
 ``--gate <tree> [runs]`` times every whole-trace kernel of the room, mesh,
 textured and Instance-class stand-ins at the frame, hit3_bwd on the
-room and ``mesh_glass`` (where the parent has it) and the per-step kernels of ``lights8`` and
-``inst_grid3k`` in ``<tree>`` (the parent) and
+room and ``mesh_glass`` (where the parent has it), the per-step kernels
+of ``lights8`` and ``inst_grid3k``, and row 8 on ``mesh_big``'s frame
+(step 0 and a sample's nine) in ``<tree>`` (the parent) and
 in this script's own tree, a worker process each, in ``runs`` (GATE_RUNS)
 interleaved runs (parent, change, change, parent, ...), each timing
 spanning GATE_MS of launches, and fails a kernel whose median in this
@@ -402,7 +419,7 @@ BIG_NAMES = ("mesh_big", "mesh_big_glass")
 BIG_RENDER_NAMES = BIG_NAMES + ("mesh_big_mixed",)
 BIG_SCALE = 10.0
 BIG_TORUS = (256, 128)
-BIG_RENDER_REPS = 3
+BIG_RENDER_REPS = 2
 BIG_GLASS_SAMPLES = 16
 STEP_TRAIN_LEAVES = {"lights8": None,
                      "inst_grid3k": ("mat_albedo", "light_pwr")}
@@ -437,6 +454,10 @@ N_CMP = 1 << 17
 # the rays of the per-step checks that run a plain step nine times
 # (phases 19 and 22: the per-step route and the big meshes' per-step trace)
 N_STEP_CMP = 1 << 15
+# the frame's rays on which row 8 is held against its plain version at
+# each step of mesh_big_glass's frame (the plain version takes about 0.2 s
+# on them)
+N_EXIT_CMP = 1 << 14
 OUTLIER_SHARE = 0.001
 # row 7's culled group exit may drop a phantom exit hit (outside its
 # block's slacked AABB) that row 8's unculled exit finds: at most this share
@@ -4553,6 +4574,22 @@ def tri_work(tables, o, d, refr=None):
     return work
 
 
+def exit_tests(t, n, wg, live):
+    """The ray-row tests one launch of row 8 makes: for each live ray whose
+    group id ``wg`` is among the first ``n`` rows of the table ``t``, the
+    rows of that group (what this run's data needs; rows of other groups
+    and rays without one cost none)."""
+    import torch
+
+    from micro_raytracer_tpu_torch.ops import hit3
+
+    g = t[:n, hit3._T_GID]
+    gids, counts = torch.unique(g[~torch.isnan(g)], return_counts=True)
+    idx = torch.searchsorted(gids, wg).clamp(max=gids.numel() - 1)
+    found = (gids[idx] == wg) & (live > 0.5)
+    return float(torch.where(found, counts[idx], 0).sum())
+
+
 def tri_bounds(tables, R, live, work, which="walk", group_exit=False):
     """Bounds of one launch of row 6 or 7 (``group_exit``: row 8) over R
     rays, ``live`` of them live, with ``work`` the summed counts of
@@ -4586,9 +4623,11 @@ def phase_big_kernels(results):
     step_bwd against the plain step on 2^17 camera rays with phase 18's
     rules, and the per-step trace against the plain per-step trace. Timed
     at the frame: each kernel's launch at step 0 (every ray live) and a
-    sample's nine, step_fwd's and step_bwd's beside the sum of their nine
-    bounds (:func:`step_sample`). Plain versions run only on the 2^17-ray
-    sets."""
+    sample's nine (row 8 fed each step's winner groups), step_fwd's,
+    step_bwd's and row 8's beside the sum of their nine bounds
+    (:func:`step_sample`). Plain versions run only on the 2^17-ray sets,
+    and row 8's at every step of the glass frame on N_EXIT_CMP of its
+    rays (bit for bit)."""
     import torch
 
     from micro_raytracer_tpu_torch.ops import hit3, step, tri
@@ -4654,10 +4693,15 @@ def phase_big_kernels(results):
         t, tbb, n = tables.tri.detach(), tables.tbb, tables.layout[3]
         refr = step.tri_refracts(tables)
         # the work at each step, counted on a fixed 2^17 of the frame's
-        # rays and scaled to the frame; on the glass torus row 7's culled
-        # exit against row 8's unculled one at each step of the frame
+        # rays and scaled to the frame; row 8 at each step of the frame,
+        # fed that step's winner groups (row 6's, or row 7's entry), timed;
+        # on the glass torus held against its plain version on a fixed
+        # N_EXIT_CMP of the frame's rays, and row 7's culled exit against
+        # it at each step of the frame
         sub = frame_subset(R, dev)
-        works, frame_ph, won_rays = [], 0, 0
+        works, frame_ph, won_rays, exit_ms, exit_work = [], 0, 0, [], []
+        # the run table that every call of row 8 builds (timed with it)
+        runs_ms = cuda_ms(lambda: tri.group_runs(t, n), 3)
         for c in cs:
             cs_ = c[:, sub]
             live_s = cs_[step.C_LIVE] > 0.5
@@ -4665,22 +4709,35 @@ def phase_big_kernels(results):
             w = tri_work(tables, o_s, d_s, refr if glass else refr * 0.0)
             works.append({k: float(v.sum()) * R / N_CMP for k, v in w.items()}
                          | {"live": float(live_s.sum()) * R / N_CMP})
+            ee = step.tri_hits(scene, tables, c)
+            won = ee[0] < tri.BIG * 0.5
+            wg = torch.where(won, t[ee[1].long(), hit3._T_GID],
+                             -5.0).contiguous()
+            args = (t, c[0:3].T, c[3:6].T, wg, n, c[step.C_LIVE])
+            exit_ms.append(cuda_ms(lambda a=args: tri.tri_group_exit(*a), 3))
+            exit_work.append({"exit_rows_unculled": exit_tests(
+                t, n, wg, c[step.C_LIVE])})
             if glass:
-                ee = step.tri_hits(scene, tables, c)
-                won = ee[0] < tri.BIG * 0.5
-                wg = torch.where(won, t[ee[1].long(), hit3._T_GID],
-                                 -5.0).contiguous()
-                gx = tri.tri_group_exit(t, c[0:3].T, c[3:6].T, wg, n,
-                                        c[step.C_LIVE])
+                gx = tri.tri_group_exit(*args)
+                few = sub[:N_EXIT_CMP]
+                want = tri.group_exit_plain(t, c[0:3].T[few], c[3:6].T[few],
+                                            wg[few], n, c[step.C_LIVE][few])
+                if not (torch.equal(gx[0][few].view(torch.int32),
+                                    want[0].view(torch.int32))
+                        and torch.equal(gx[1][few], want[1])):
+                    raise AssertionError(f"{name}: row 8 differs from its "
+                                         f"plain version at step "
+                                         f"{len(exit_ms) - 1} of the frame")
                 frame_ph += check_phantoms(
                     tables, c[0:3].T[won], c[3:6].T[won],
                     (ee[2][won], ee[3][won]), (gx[0][won], gx[1][won]),
                     "the frame")
                 won_rays += int(won.sum())
         if glass:
-            log(f"{name} at the frame: row 7's culled exit equals row 8's "
-                f"unculled one at every step but on {frame_ph} phantom "
-                f"exits of {won_rays} winning rays")
+            log(f"{name} at the frame: row 8 equals its plain version bit "
+                f"for bit at every step on {N_EXIT_CMP} rays; row 7's "
+                f"culled exit equals row 8's unculled one at every step but "
+                f"on {frame_ph} phantom exits of {won_rays} winning rays")
         step_ms = [step_alone_ms(scene, tables, c, lambda c=c, k=k:
                                  step.step_fwd(scene, tables, decay, c,
                                                u8s[k]))
@@ -4700,10 +4757,7 @@ def phase_big_kernels(results):
         ct1 = torch.randn((step.CARRY_ROWS, R), generator=gen, device=dev)
         ms_b = cuda_ms(lambda: step.step_bwd(scene, tables, decay, c0, u8s[0],
                                              res_t, hit_t, ct1), 3)
-        th0 = step.tri_hits(scene, tables, c0)
-        wg = torch.where(th0[0] < tri.BIG * 0.5,
-                         t[th0[1].long(), hit3._T_GID], -5.0).contiguous()
-        ms_x = cuda_ms(lambda: tri.tri_group_exit(t, oT.T, dT.T, wg, n), 3)
+        ms_x = exit_ms[0]
         # the opaque mesh in a refractive scene (mesh_big_mixed): row 7
         # with no row marked to refract sweeps no group exit
         ms_own = None
@@ -4722,7 +4776,11 @@ def phase_big_kernels(results):
         b_sample_old = sum(tri_bounds(tables, R, w["live"], w,
                                       "one_level")["bound_ms"]
                            for w in works)
-        b_exit = tri_bounds(tables, R, R, w0, group_exit=True)
+        # row 8's bounds from the ray-row tests of its own inputs
+        b_exit = tri_bounds(tables, R, R, exit_work[0], group_exit=True)
+        b_exit_sample = sum(tri_bounds(tables, R, R, w, group_exit=True)
+                            ["bound_ms"] for w in exit_work)
+        use_x = tri.exit_resources()
         per_ray = {k: v / R for k, v in w0.items() if k != "live"}
         log(f"{name} at step 0 ({R} rays, {bw['hits']} hit, {hits} of "
             f"{N_CMP} camera rays on the mesh): {sweep} {tri_ms[0]:.3f} ms "
@@ -4732,7 +4790,11 @@ def phase_big_kernels(results):
             f"ms, bound {b_sample:.4f} ms (one-level {b_sample_old:.4f}); "
             f"per ray at step 0 "
             f"{ {k: round(v, 3) for k, v in per_ray.items()} }; "
-            f"tri_exit {ms_x:.3f} ms, bound {fmt_bound(b_exit)}; "
+            f"tri_exit {ms_x:.3f} ms (its run table alone {runs_ms:.3f}), "
+            f"bound {fmt_bound(b_exit)}, a "
+            f"sample's nine {' + '.join(f'{x:.3f}' for x in exit_ms)} = "
+            f"{sum(exit_ms):.3f} ms, bound {b_exit_sample:.4f} ms, "
+            f"{json.dumps(use_x)}; "
             + (f"tri_entry_exit with no refracting row {ms_own:.3f} ms; "
                if ms_own is not None else "")
             + f"step_fwd {step_ms[0]:.3f} ms "
@@ -4759,10 +4821,11 @@ def phase_big_kernels(results):
             + frame_ph}
         if ms_own is not None:
             results[f"{sweep}/{name}"]["entry_exit_no_refract_ms"] = ms_own
-        if glass:
-            results[f"tri_exit/{name}"] = {
-                "max_abs_err": 0.0, "ms": ms_x, "plain_ms": plain_tri["exit"],
-                **b_exit, "library_ms": None, **shape}
+        results[f"tri_exit/{name}"] = {
+            "max_abs_err": 0.0, "ms": ms_x, "plain_ms": plain_tri["exit"],
+            **b_exit, "library_ms": None, **shape, "step_ms": exit_ms,
+            "sample_ms": sum(exit_ms), "sample_bound_ms": b_exit_sample,
+            "run_table_ms": runs_ms, **use_x}
         results[f"step_fwd/{name}"] = {
             "max_abs_err": max(errs_f), "ms": step_ms[0], "plain_ms": plain_f,
             **bw["step_fwd"], "library_ms": None, **shape,
@@ -4885,6 +4948,8 @@ def big_entries(results, counts, train_counts):
          counts["mesh_big"][tri.ENTRY_KERNEL.name]),
         ("tri_entry_exit/mesh_big_glass", tri_src, f"{pt}:226",
          counts["mesh_big_glass"][tri.ENTRY_EXIT_KERNEL.name]),
+        ("tri_exit/mesh_big", tri_src, f"{pt}:274",
+         counts["mesh_big"][tri.EXIT_KERNEL.name]),
         ("tri_exit/mesh_big_glass", tri_src, f"{pt}:274",
          counts["mesh_big_glass"][tri.EXIT_KERNEL.name]),
         ("step_fwd/mesh_big", step_src, f"{ps}:1110",
@@ -5778,6 +5843,165 @@ def run_grad_check(scene):
     return summary
 
 
+MULTI_RES = 256
+MULTI_SPP = 4
+
+
+def phase_multi(card):
+    """Phase 26: multi-device rendering and training over a mesh of two
+    devices (``parallel/mesh.py``): cards 0 and 1 where the machine has
+    two, else the one card named twice. The room at MULTI_RES x
+    MULTI_RES, MULTI_SPP samples in one pass: over (dp, sp) = (2, 1) the
+    framebuffer equals the one-device render's bit for bit, over (1, 2)
+    within rtol 1e-5 (each column sums its samples); each render launches
+    the closest hit and the whole trace once per sample and ray part; on
+    two cards the one-device render on card 1 equals card 0's bit for
+    bit. The CLI with ``--devices 1`` writes the one-device PNG, and
+    ``--devices 2`` the same PNG on two cards or is refused on one; the
+    HTTP service over ``devices=1`` answers the one-device JPEG. One dp =
+    2 training step against the one-device step on the same uniforms:
+    loss and every leaf's gradient within rtol 1e-5 (a floor of 1e-6 of
+    each leaf's largest), the train kernels launched once a part. Returns
+    the phase's numbers."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from micro_raytracer_tpu_torch.frontends import cli
+    from micro_raytracer_tpu_torch.frontends.http import (HttpServer,
+                                                          render_jpeg)
+    from micro_raytracer_tpu_torch.models import tracer
+    from micro_raytracer_tpu_torch.models.render import Renderer
+    from micro_raytracer_tpu_torch.ops import hit3, step
+    from micro_raytracer_tpu_torch.parallel import shard
+    from micro_raytracer_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    n_cards = torch.cuda.device_count()
+    pair = [dev, torch.device("cuda", 1) if n_cards > 1 else dev]
+    cfg = cli.parse_render(cli.build_parser().parse_args(
+        SLICE_ARGS + ["--res", str(MULTI_RES), str(MULTI_RES), "--sample",
+                      str(MULTI_SPP)]))
+    kernels = (hit3.KERNEL, step.KERNEL, step.TRAIN_KERNEL, step.BWD_KERNEL)
+
+    def render(mesh, on=dev):
+        for k in kernels:
+            k.launches = 0
+        r = Renderer(cfg, seed=5, device=on, mesh=mesh)
+        t0 = time.perf_counter()
+        r.execute_many(MULTI_SPP)
+        sec = time.perf_counter() - t0
+        return r.framebuffer(), {k.name: k.launches for k in kernels}, sec
+
+    one, launched, sec = render(None)
+    out = {"one_device": {"s": sec, "launches": launched},
+           "devices": [str(d) for d in pair]}
+    if n_cards > 1 and not np.array_equal(render(None, pair[1])[0], one):
+        raise AssertionError("the one-device render on cuda:1 differs from "
+                             "cuda:0's")
+    for name, sp in (("dp2", 1), ("sp2", 2)):
+        mesh = make_mesh(2, sp=sp, device=pair)
+        fb, launched, sec = render(mesh)
+        dp = mesh.shape["dp"]
+        want = {hit3.KERNEL.name: MULTI_SPP * dp, step.KERNEL.name:
+                MULTI_SPP * dp, step.TRAIN_KERNEL.name: 0,
+                step.BWD_KERNEL.name: 0}
+        if launched != want:
+            raise AssertionError(f"multi-device {name}: launches {launched}"
+                                 f", want {want}")
+        err = float(np.abs(fb - one).max())
+        rel = float((np.abs(fb - one) / np.maximum(np.abs(one), 1e-30))
+                    [np.abs(one) > 1e-6].max(initial=0.0))
+        ok = np.array_equal(fb, one) if sp == 1 else \
+            np.allclose(fb, one, rtol=1e-5, atol=1e-6)
+        log(f"multi-device {name} {mesh.shape} ({MULTI_RES}x{MULTI_RES}, "
+            f"{MULTI_SPP} spp): framebuffer {'equal' if ok else 'DIFFERS'} "
+            f"(max abs {err:.3g}, max rel {rel:.3g}), launches {launched}, "
+            f"{sec:.4f} s ({out['one_device']['s']:.4f} s one device)")
+        if not ok:
+            raise AssertionError(f"multi-device {name}: the framebuffer "
+                                 f"differs from the one-device render")
+        out[name] = {"s": sec, "launches": launched, "max_abs": err,
+                     "max_rel": rel}
+    # the front ends: --devices 1 (and 2 on two cards) renders the
+    # one-device PNG; two cards are refused on a machine with one
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    args = SLICE_ARGS + ["--res", "64", "64", "--sample", "2"]
+    pngs = []
+    for extra in ([], ["--devices", "1"]) + (
+            (["--devices", "2"],) if n_cards > 1 else ()):
+        path = os.path.join(tmp, f"m{len(pngs)}.png")
+        if cli.main(args + extra + ["-o", path]) != 0:
+            raise AssertionError(f"CLI {extra}: failed")
+        pngs.append(np.asarray(Image.open(path)))
+    if any(not np.array_equal(p, pngs[0]) for p in pngs[1:]):
+        raise AssertionError("CLI --devices: the PNG differs")
+    if n_cards == 1 and cli.main(
+            args + ["--devices", "2", "-o", os.path.join(tmp, "x.png")]) != 1:
+        raise AssertionError("CLI --devices 2 on one card was not refused")
+    body = json.dumps(dict(cfg.to_json(), frame=dict(
+        cfg.to_json()["frame"], res=[64, 64]),
+        rt=dict(cfg.to_json()["rt"], sample=2))).encode()
+    srv = HttpServer("127.0.0.1:0", device="cuda", devices=1)
+    if srv._render(body, "chip_smoke") != render_jpeg(body, device="cuda"):
+        raise AssertionError("HTTP over devices=1: the JPEG differs")
+    # training: dp = 2 over the card twice against one device
+    params, scene, cam, coords, target, gen, _rows = train_setup(cfg)
+    coords, target = coords[:MULTI_RES * MULTI_RES], \
+        target[:MULTI_RES * MULTI_RES]
+    R = coords.shape[0]
+    u_aprt, u8s = tracer.draw_uniforms(gen, R, BOUNCE, scene.any_refract, dev)
+    grads = []
+    for ts in (shard.make_train_step((RES, RES), BOUNCE, device=dev),
+               shard.make_train_step((RES, RES), BOUNCE, mesh=make_mesh(
+                   2, sp=1, device=pair))):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        for k in kernels:
+            k.launches = 0
+        if isinstance(ts, shard.ShardedTrainStep):
+            loss, _new = ts.step_u(p, scene, cam, cfg.rt.loss, coords, target,
+                                   u_aprt[None], u8s[None])
+        else:
+            loss, _new = ts.step_u(p, scene, cam, cfg.rt.loss, coords, target,
+                                   u_aprt, u8s)
+        for d in pair:
+            torch.cuda.synchronize(d)
+        grads.append((float(loss), {k: v.grad for k, v in p.items()},
+                      {k.name: k.launches for k in kernels}))
+    (l1, g1, n1), (l2, g2, n2) = grads
+    if n2[step.TRAIN_KERNEL.name] != 2 or n2[step.BWD_KERNEL.name] != 2:
+        raise AssertionError(f"dp = 2 training step: launches {n2}")
+    worst = 0.0
+    for k, w in g1.items():
+        g = g2[k]
+        if w is None or g is None:
+            if (w is None) != (g is None):
+                raise AssertionError(f"dp = 2 training: {k} gradient "
+                                     f"{'missing' if g is None else 'extra'}")
+            continue
+        floor = 1e-6 * float(w.abs().max())
+        excess = float(((g - w).abs() - 1e-5 * w.abs() - floor).max())
+        worst = max(worst, float(((g - w).abs() / (w.abs() + floor + 1e-30))
+                                 .max()))
+        if excess > 0:
+            raise AssertionError(f"dp = 2 training: {k} gradient off by "
+                                 f"{excess:.3g} past rtol 1e-5")
+    if abs(l2 - l1) > 1e-5 * abs(l1):
+        raise AssertionError(f"dp = 2 training: loss {l2} against {l1}")
+    log(f"multi-device training (dp 2 on {[str(d) for d in pair]}, {R} "
+        f"rays): loss {l2:.8g} against {l1:.8g} on one device, every "
+        f"gradient within rtol 1e-5 (worst relative {worst:.3g}); launches "
+        f"{n2} (one device: {n1}); CLI --devices 1"
+        f"{' and 2' if n_cards > 1 else ''} PNG and HTTP devices=1 JPEG "
+        f"equal the one-device ones"
+        f"{', --devices 2 refused on one card' if n_cards == 1 else ''}; "
+        f"{card}")
+    out["train"] = {"loss": l2, "loss_one_device": l1, "worst_rel": worst,
+                    "launches": n2}
+    return out
+
+
 def phase_records(card, results):
     """25. The record path (``MRT_NO_FUSE=1``) and its differentiable
     closest hit: hit3_bwd against its plain version on 2^17 camera rays of
@@ -5891,10 +6115,11 @@ def _gate_kernels():
     """``{key: (function, reps)}``: every whole-trace kernel at the main
     path's frame on the room, the mesh, textured and Instance-class
     stand-ins (closest_hit, trace_fwd, the segments of a compacting render,
-    trace_fwd_train, trace_bwd), and the per-step kernels on lights8 and
+    trace_fwd_train, trace_bwd), the per-step kernels on lights8 and
     inst_grid3k (step_fwd and step_bwd at step 0, step_fwd over a sample's
-    nine launches); and ``{key: registers and warps per SM}`` of the
-    whole-trace instances."""
+    nine launches), and row 8 (tri_group_exit) on mesh_big's frame at step
+    0 and over a sample's nine steps; and ``{key: registers and warps per
+    SM}`` of the whole-trace instances."""
     import torch
 
     from micro_raytracer_tpu_torch.models import tracer
@@ -5965,6 +6190,29 @@ def _gate_kernels():
                 *a, c, u[0], r, h, g), 10)
         for w in ("step_fwd", "step_bwd"):
             info[f"{w}/{name}"] = step.instance_resources(scene, tables, w)
+    # row 8 on mesh_big's frame, fed each step's winner groups (row 6's)
+    from micro_raytracer_tpu_torch.ops import tri
+
+    cfg = big_render_config("mesh_big", tempfile.mkdtemp(
+        prefix="chip_smoke_gate_"))[0]
+    scene, tables, decay, _cam = big_inputs(cfg, dev)
+    t, n = tables.tri.detach(), tables.layout[3]
+    oT, dT = main_path_rays(cfg, gen, dev)
+    u8s = torch.rand((BOUNCE + 1, step.n_uni(False), oT.shape[1]),
+                     generator=gen, device=dev)
+    calls = []
+    c = step.primary_carry(oT, dT)
+    for k in range(BOUNCE + 1):
+        te, row = step.tri_hits(scene, tables, c)[:2]
+        wg = torch.where(te < tri.BIG * 0.5, t[row.long(), hit3._T_GID],
+                         -5.0).contiguous()
+        calls.append((t, c[0:3].T, c[3:6].T, wg, n, c[step.C_LIVE]))
+        if k < BOUNCE:
+            c = step.step_fwd(scene, tables, decay, c, u8s[k])[0]
+    fns["tri_exit/mesh_big@0"] = (
+        lambda a=calls[0]: tri.tri_group_exit(*a), 5)
+    fns["tri_exit/mesh_big/sample"] = (
+        lambda cs=calls: [tri.tri_group_exit(*a) for a in cs], 1)
     return fns, info
 
 
@@ -6148,6 +6396,11 @@ def main() -> int:
         print(json.dumps({"hit_split": hit_split_only(card)}))
         print(card)
         return 0
+    if sys.argv[1:] == ["--multi"]:
+        phase_build()
+        print(json.dumps({"multi": phase_multi(card)}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--records"]:
         phase_build()
         results = {}
@@ -6226,6 +6479,8 @@ def main() -> int:
     log(f"phases 22-24: {time.perf_counter() - t_start:.1f} s so far")
     rec_res = phase_records(card, results)
     log(f"phase 25: {time.perf_counter() - t_start:.1f} s so far")
+    multi_res = phase_multi(card)
+    log(f"phase 26: {time.perf_counter() - t_start:.1f} s so far")
 
     from micro_raytracer_tpu_torch.ops import hit3, step
 
@@ -6365,6 +6620,7 @@ def main() -> int:
          "launches": rec_res["train"]["plain"]["hit3_bwd_launches"],
          **results["hit3_bwd"]}]
     log(f"record path: {json.dumps(rec_res)}")
+    log(f"multi-device: {json.dumps(multi_res)}")
     log(f"render main path: {json.dumps(main_res)}")
     log(f"training main path: {json.dumps(train_res)}; closest_hit "
         f"launches {train_counts[hit3.KERNEL.name]}")

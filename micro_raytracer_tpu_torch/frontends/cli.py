@@ -8,8 +8,10 @@ Merge precedence (cli.rs:78-153):
 
 then the render loop (cli.rs:155-177) with the same ``cli:*`` log lines.
 ``--device`` picks the render device (default ``cuda``; no fallback to the
-CPU). ``--devices``/``--sp`` (multi-device rendering) are not ported yet and
-raise.
+CPU). ``--devices N [--sp S]`` renders over a (N / S, S) mesh of that kind
+of device (``parallel/mesh.py``: the first N cards, raising where the
+machine has fewer; on the CPU, the CPU named N times), rays over dp and
+samples over sp; ``--sp`` without ``--devices`` is refused.
 """
 
 from __future__ import annotations
@@ -66,10 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sky", nargs="+", metavar="param",
                    help="Scene sky color: r g b pwr")
     p.add_argument("--devices", type=int,
-                   help="Render across N devices (not ported yet)")
+                   help="Render across N devices of --device's kind")
     p.add_argument("--sp", type=int,
                    help="Sample-parallel axis size within --devices "
-                        "(not ported yet)")
+                        "(default 1)")
     p.add_argument("--device", default="cuda",
                    help="Render device: cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="RNG seed")
@@ -142,13 +144,26 @@ def _save(img, filename: str) -> None:
     Image.fromarray(img).save(filename)
 
 
+def make_cli_mesh(args):
+    """The mesh of ``--devices`` / ``--sp`` (None without them)."""
+    if args.devices is None:
+        return None
+    from ..parallel.mesh import make_mesh
+
+    mesh = make_mesh(args.devices, sp=args.sp or 1, device=args.device)
+    log.info("cli:mesh: %s", mesh.shape)
+    return mesh
+
+
 def raytrace(args, cfg: schema.RenderConfig) -> float:
     """Render loop (cli.rs:155-177): sample passes, --update, final save."""
     from ..models.render import Renderer
     from ..utils.profiling import device_trace, rays_per_second
 
     chunk = max(1024, args.dim * args.dim) if args.dim else None
-    r = Renderer(cfg, seed=args.seed, chunk=chunk, device=args.device)
+    mesh = make_cli_mesh(args)
+    r = Renderer(cfg, seed=args.seed, chunk=chunk, device=args.device,
+                 mesh=mesh)
     if args.resume:
         r.load_state(args.resume)
     filename = args.output or "out.png"
@@ -185,13 +200,14 @@ def main(argv=None) -> int:
     )
 
     try:
-        if args.devices is not None or args.sp is not None:
-            raise ValueError("--devices/--sp: multi-device not yet ported")
+        if args.sp is not None and args.devices is None:
+            raise ValueError("--sp needs --devices")
         if args.http:
             logging.getLogger().setLevel(logging.INFO)
             from .http import HttpServer
 
-            HttpServer(args.http, device=args.device).start()  # blocks
+            HttpServer(args.http, device=args.device, devices=args.devices,
+                       sp=args.sp).start()  # blocks
             return 0
 
         cfg = parse_render(args)

@@ -3,8 +3,10 @@
 The counterpart of ``micro_raytracer_tpu.frontends.http`` (the reference's
 http.rs:14-164): strict request validation (HTTP/1.1 + POST +
 application/json + matching Content-Length -> 505/405/400/415/411), a render
-at the request's own sample count on the server's device, serialized
-through a lock, and a quality-90 ``image/jpeg`` response. The socket loop
+at the request's own sample count on the server's device (or over the
+one device mesh of the whole server, ``devices`` / ``sp``: the CLI's
+``--devices`` / ``--sp``), serialized through a lock, and a quality-90
+``image/jpeg`` response. The socket loop
 runs in the native C++ transport when it is built, else in Python.
 :meth:`HttpServer.stop` ends either loop.
 """
@@ -26,16 +28,18 @@ log = logging.getLogger("raytrace")
 _MAX_HEADER = 1 << 20
 
 
-def render_jpeg(body: bytes, peer: str = "?", device="cuda") -> bytes:
+def render_jpeg(body: bytes, peer: str = "?", device="cuda",
+                mesh=None) -> bytes:
     """Parse a render JSON body and return the rendered JPEG (q90) bytes
-    (``HttpServer::raytrace``, http.rs:136-148)."""
+    (``HttpServer::raytrace``, http.rs:136-148); over ``mesh`` where
+    given."""
     from PIL import Image
 
     from ..models.render import Renderer
 
     cfg = schema.RenderConfig.from_json(json.loads(body.decode("utf-8")))
     log.info("http:render[%s]: %s", peer, json.dumps(cfg.to_json()))
-    r = Renderer(cfg, device=device)
+    r = Renderer(cfg, device=device, mesh=mesh)
     sample = 0
     while sample < cfg.rt.sample:
         n = min(16, cfg.rt.sample - sample)
@@ -63,20 +67,32 @@ def _parse_request(raw: bytes):
 
 
 class HttpServer:
-    """Blocking accept-loop server (http.rs:150-163) on ``device``."""
+    """Blocking accept-loop server (http.rs:150-163) on ``device``, or
+    over one mesh of ``devices`` devices of its kind (``sp``: the
+    sample-parallel axis, default 1), built for the whole server."""
 
-    def __init__(self, addr: str, device="cuda"):
+    def __init__(self, addr: str, device="cuda", devices: int | None = None,
+                 sp: int | None = None):
         host, _, port = addr.rpartition(":")
         self.host = host or "0.0.0.0"
         self.port = int(port)
         self.device = device
+        self.mesh = None
+        if devices is not None:
+            from ..parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(devices, sp=sp or 1, device=device)
+            log.info("http:mesh: %s", self.mesh.shape)
+        elif sp is not None:
+            raise ValueError("sp needs devices")
         self._render_lock = threading.Lock()
         self._stop = threading.Event()
         self._native = False
 
     def _render(self, body: bytes, peer: str) -> bytes:
         with self._render_lock:
-            return render_jpeg(body, peer=peer, device=self.device)
+            return render_jpeg(body, peer=peer, device=self.device,
+                               mesh=self.mesh)
 
     # -- per-connection handler (http.rs:61-134) --------------------------
     def handle(self, conn: socket.socket, peer) -> None:

@@ -4,6 +4,18 @@ The frame is a flat padded pixel buffer in Morton ray order, rendered in
 fixed-size chunks; samples accumulate into a float32 framebuffer on the
 render device (progressive rendering, cli.rs:162-170). Progressive state
 (accumulator, count, generator state) is exposed for checkpoint/resume.
+
+A render runs over a (dp, sp) device mesh (``parallel/mesh.py``; the JAX
+package's ``_make_sp_chunk_fn``), one device being the (1, 1) mesh: each
+chunk's rays are cut into dp contiguous parts,
+part ``i`` accumulating on its owner ``devices[i][0]``, and the samples of
+a pass are spread over sp: sample ``s`` of a chunk runs on the devices of
+column ``s % sp``. Every (chunk, sample, ray) takes the uniforms the
+one-device render of the same seed takes: they are drawn from the
+renderer's generator on the primary device in the one-device order, and
+each device gets its rays' part. So with sp = 1 the framebuffer is the
+one-device one bit for bit, and with sp > 1 it differs by the order of
+float32 sums (each column's samples summed apart, then added).
 """
 
 from __future__ import annotations
@@ -15,10 +27,11 @@ import torch
 
 from ..ops import step, tonemap
 from ..ops.rng import make_generator
+from ..parallel.mesh import make_mesh, to_device
 from ..utils.device import require_device
 from .compiler import compile_camera, compile_scene
 from .schema import RenderConfig
-from .tracer import trace_radiance
+from .tracer import draw_uniforms, trace_radiance_u
 
 
 def _part1by1(v: np.ndarray) -> np.ndarray:
@@ -59,14 +72,17 @@ def _pick_chunk(n_pix: int, device: torch.device) -> int:
 
 
 class Renderer:
-    """Progressive renderer over a compiled scene, on an explicit device.
+    """Progressive renderer over a compiled scene, over a device ``mesh``
+    (``parallel/mesh.py``), by default the one device ``device``; the
+    mesh's primary device is the render device.
 
     ``execute_many(n)`` adds n samples per pixel, ``img()`` tonemaps the
     running mean (sampler.rs:11-99)."""
 
     def __init__(self, config: RenderConfig, seed: int = 0,
-                 chunk: int | None = None, device="cuda"):
-        self.device = require_device(device)
+                 chunk: int | None = None, device="cuda", mesh=None):
+        self.mesh = mesh or make_mesh(1, sp=1, device=[device])
+        self.device = self.mesh.primary
         self.config = config
         self.scene = compile_scene(config.scene, self.device)
         self.cam = compile_camera(config.frame.cam, self.device)
@@ -75,7 +91,9 @@ class Renderer:
         self.render_wh = config.frame.render_res
         nw, nh = self.render_wh
         self.n_pix = nw * nh
+        dp = self.mesh.shape["dp"]
         self.chunk = chunk or _pick_chunk(self.n_pix, self.device)
+        self.chunk = -(-self.chunk // dp) * dp
         n_pad = -(-self.n_pix // self.chunk) * self.chunk
         order = morton_ray_order(nw, nh)
         # padding ray slots re-render pixel 0; their accum rows are dropped
@@ -85,11 +103,26 @@ class Renderer:
         inv = np.empty(self.n_pix, np.int64)
         inv[order] = np.arange(self.n_pix, dtype=np.int64)
         self._inv_order = torch.from_numpy(inv).to(self.device)
-        self._coords = torch.from_numpy(
-            coords.reshape(-1, self.chunk, 2)).to(self.device)
-        self.n_chunks = self._coords.shape[0]
-        self._accum = torch.zeros((self.n_chunks, self.chunk, 3),
-                                  dtype=torch.float32, device=self.device)
+        coords = torch.from_numpy(coords.reshape(-1, self.chunk, 2))
+        self.n_chunks = coords.shape[0]
+        # per distinct device of the mesh: its scene, camera and tables
+        self._local = {self.device: (self.scene, self.cam, self.tables)}
+        for dev in self.mesh.distinct():
+            if dev not in self._local:
+                s = to_device(self.scene, dev)
+                self._local[dev] = (s, to_device(self.cam, dev),
+                                    step.pack_step(s))
+        # per ray part: its coordinates on each device of its row and its
+        # accumulator on its owner
+        part = self.chunk // dp
+        self._parts = [slice(i * part, (i + 1) * part) for i in range(dp)]
+        self._coords = {(i, dev): coords[:, sl].to(dev)
+                        for i, sl in enumerate(self._parts)
+                        for dev in self.mesh.devices[i]}
+        self._accum = [torch.zeros((self.n_chunks, part, 3),
+                                   dtype=torch.float32,
+                                   device=self.mesh.owner(i))
+                       for i in range(dp)]
         self.count = 0
         self.gen = make_generator(seed, self.device)
         self._loss = float(config.rt.loss)
@@ -101,23 +134,54 @@ class Renderer:
 
     def execute_many(self, n_samples: int) -> float:
         """Add ``n_samples`` paths per pixel; returns seconds, measured after
-        the device finished (``torch.cuda.synchronize``)."""
+        every device finished (``torch.cuda.synchronize``)."""
         t0 = time.perf_counter()
-        bounce = self.config.rt.bounce
         for c in range(self.n_chunks):
-            for _ in range(n_samples):
-                self._accum[c] += trace_radiance(
-                    self.scene, self.cam, self.render_wh, bounce,
-                    self._loss, self._coords[c], self.gen, self.tables)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            self._execute_chunk(c, n_samples)
+        for dev in self.mesh.distinct():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         self.count += n_samples
         return time.perf_counter() - t0
 
+    def _execute_chunk(self, c: int, n_samples: int):
+        """``n_samples`` samples of chunk ``c``: sample ``s`` on column ``s
+        % sp``, its uniforms drawn as the one-device render draws them;
+        with sp = 1 each sample is added into its owner's accumulator as
+        it comes (the one-device order), else each column sums its samples
+        and the sums are added in column order."""
+        bounce = self.config.rt.bounce
+        sp = self.mesh.shape["sp"]
+        sums = {}
+        for s in range(n_samples):
+            u_aprt, u8s = draw_uniforms(self.gen, self.chunk, bounce,
+                                        self.scene.any_refract, self.device)
+            j = s % sp
+            for i, sl in enumerate(self._parts):
+                dev = self.mesh.devices[i][j]
+                scene, cam, tables = self._local[dev]
+                rad = trace_radiance_u(
+                    scene, cam, self.render_wh, bounce, self._loss,
+                    self._coords[i, dev][c], u_aprt[sl].to(dev),
+                    u8s[:, :, sl].contiguous().to(dev), tables)
+                if sp == 1:
+                    self._accum[i][c] += rad
+                elif (i, j) in sums:
+                    sums[i, j] += rad
+                else:
+                    sums[i, j] = rad
+        for (i, _j), v in sorted(sums.items()):
+            self._accum[i][c] += v.to(self.mesh.owner(i))
+
     # -- image -------------------------------------------------------------
+    def _gathered(self):
+        """The accumulator ``(n_chunks, chunk, 3)`` on the render device,
+        its ray parts gathered from their owners."""
+        return torch.cat([a.to(self.device) for a in self._accum], 1)
+
     def _frame(self):
         """Running radiance sum as an (nh, nw, 3) tensor on the device."""
-        flat = self._accum.reshape(-1, 3)[self._inv_order]
+        flat = self._gathered().reshape(-1, 3)[self._inv_order]
         nw, nh = self.render_wh
         return flat.reshape(nh, nw, 3)
 
@@ -136,7 +200,7 @@ class Renderer:
     # -- checkpoint/resume ---------------------------------------------------
     def save_state(self, path: str) -> None:
         """Persist progressive state (framebuffer, count, generator state)."""
-        np.savez(path, accum=self._accum.reshape(-1, 3).cpu().numpy(),
+        np.savez(path, accum=self._gathered().reshape(-1, 3).cpu().numpy(),
                  count=self.count,
                  gen_state=self.gen.get_state().cpu().numpy(),
                  render_wh=np.asarray(self.render_wh), chunk=self.chunk,
@@ -167,18 +231,20 @@ class Renderer:
                 f"but the current render settings need {want} "
                 f"({self.n_chunks} chunks x {self.chunk}) — state was saved "
                 "with different render/chunk settings")
-        self._accum = torch.from_numpy(data["accum"]).to(self.device).reshape(
+        accum = torch.from_numpy(data["accum"]).reshape(
             self.n_chunks, self.chunk, 3)
+        self._accum = [accum[:, sl].to(self.mesh.owner(i)).contiguous()
+                       for i, sl in enumerate(self._parts)]
         self.count = int(data["count"])
         self.gen.set_state(torch.from_numpy(data["gen_state"]))
 
 
 def render_image(config: RenderConfig, seed: int = 0, on_sample=None,
                  samples_per_pass: int | None = None,
-                 device="cuda") -> np.ndarray:
+                 device="cuda", mesh=None) -> np.ndarray:
     """Render a full frame: ``rt.sample`` progressive passes then tonemap.
     ``on_sample(i, seconds, renderer)`` runs after each pass."""
-    r = Renderer(config, seed=seed, device=device)
+    r = Renderer(config, seed=seed, device=device, mesh=mesh)
     total = config.rt.sample
     step = samples_per_pass or (1 if on_sample else total)
     done = 0

@@ -1293,7 +1293,7 @@ def launch_hit(args, o, d, mode=MODE_EXIT):
         KERNEL.launch(args.fwd, o.data_ptr(), d.data_ptr(), *o.stride(), R,
                       mode, te.data_ptr(), row.data_ptr(), tx.data_ptr(),
                       xrow.data_ptr(), raw_stream(dev),
-                      variant=args.variant)
+                      variant=args.variant, device=dev)
     return te, row, tx, xrow
 
 
@@ -1599,7 +1599,7 @@ def hit_bwd(args, o, d, mode, te, row, tx, xrow, ct_te, ct_tx, tri=None):
                       *(None if c is None else c.data_ptr() for c in cts),
                       d_o.data_ptr(), d_d.data_ptr(), d_tab.data_ptr(),
                       None if d_tri is None else d_tri.data_ptr(),
-                      ws.data_ptr(), stream)
+                      ws.data_ptr(), stream, device=dev)
     if d_tri is None and tri is not None:
         d_tri = torch.zeros_like(tri)
     return d_tab if args.C == BWD_COLS else d_tab[:, :args.C], d_tri, d_o, \

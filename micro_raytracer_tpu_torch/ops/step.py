@@ -1024,7 +1024,7 @@ def trace_fwd(scene, tables, decay, oT, dT, u8s, hit0, seg=None):
                       None if cout is None else ptr(cout),
                       None if nxt is None else ptr(nxt),
                       *_walk_args(tables), stream_ptr(oT.device),
-                      variant=_variant(tables))
+                      variant=_variant(tables), device=oT.device)
     return (A, B, fl) if seg is None else (A, B, fl, cout)
 
 
@@ -1046,7 +1046,7 @@ def trace_fwd_train(scene, tables, decay, oT, dT, u8s, hit0):
         TRAIN_KERNEL.launch(*args, ptr(A), ptr(B), ptr(fl), ptr(resid),
                             ptr(n_live), None if nxt is None else ptr(nxt),
                             *_walk_args(tables), stream_ptr(oT.device),
-                            variant=_variant(tables))
+                            variant=_variant(tables), device=oT.device)
     return A, B, fl, resid, n_live
 
 
@@ -1207,7 +1207,7 @@ def trace_bwd(scene, tables, decay, u8s, resid, n_live, ctA, ctB):
             ptr(n_live), ptr(u8s), R, int(scene.any_refract), ptr(ctA),
             ptr(ctB), ptr(d_oT), ptr(d_dT), ptr(acc), ptr(d_tab),
             ptr(d_lights), ptr(d_tri4) if layout[2] else None,
-            stream_ptr(dev))
+            stream_ptr(dev), device=dev)
     d_tri = torch.zeros((layout[2], hit3.TRI_COLS), dtype=torch.float32,
                         device=dev)
     d_tri[:, 6:9] = d_tri4[:, :3]
@@ -1286,7 +1286,7 @@ def step_fwd(scene, tables, decay, c0, u8):
         _step_kernels(scene)[0].launch(
             *tab_args, *ray_args, ptr(c1), ptr(hit), *tin,
             *_sph_walk_args(tables), ptr(_counters(c0.device)),
-            stream_ptr(c0.device))
+            stream_ptr(c0.device), device=c0.device)
     return c1, hit
 
 
@@ -1305,7 +1305,7 @@ def step_fwd_train(scene, tables, decay, c0, u8):
         _step_kernels(scene)[1].launch(
             *tab_args, *ray_args, ptr(c1), ptr(hit), ptr(resid), *tin,
             *_sph_walk_args(tables), ptr(_counters(c0.device)),
-            stream_ptr(c0.device))
+            stream_ptr(c0.device), device=c0.device)
     return c1, hit, resid
 
 
@@ -1349,7 +1349,8 @@ def step_bwd(scene, tables, decay, c0, u8, resid, hit, ct1):
             *tab_args, ptr(resid), ptr(hit), ptr(c0), ptr(u8), R,
             int(scene.any_refract), ptr(ct1), ptr(ct0), int(shared),
             ptr(acc), ptr(d_tab), ptr(d_lights),
-            ptr(d_tri4) if layout[2] else None, stream_ptr(dev))
+            ptr(d_tri4) if layout[2] else None, stream_ptr(dev),
+            device=dev)
     d_tri = torch.zeros((layout[2], hit3.TRI_COLS), dtype=torch.float32,
                         device=dev)
     d_tri[:, 6:9] = d_tri4[:, :3]

@@ -23,7 +23,11 @@ bit. :func:`tri_entry_exit`'s group exit culls too (``hit3._tri_exit``
 with ``tbb``): a block the ray misses, or leaves before its best exit t so
 far, is skipped. pallas_tri sweeps every row; the two differ only on
 "phantom" ``|det| >= E`` hits outside their block's AABB. The group exit
-of :func:`tri_group_exit` never culls.
+of :func:`tri_group_exit` never culls: its kernel finds each ray's group
+once in a run table sorted by id (:func:`group_runs`), queues the rays
+that have one by group, and sweeps items of (256 queued rays x 128 of
+their group's rows: csrc/tri.cu's kExitThreads x kExitRows), merging the
+items exactly through a packed key.
 
 The per-step path (``ops/step.py``) launches :func:`tri_entry` (opaque
 scenes) or :func:`tri_entry_exit` (refractive ones) before each bounce step
@@ -45,11 +49,12 @@ columns, ``o`` and ``d`` through the winner row's t alone
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from ..utils.kernels import (CudaKernel, ptr, require_cuda_tensor,
-                             stream_ptr)
+from ..utils.kernels import (CudaKernel, ptr, ptxas_table,
+                             require_cuda_tensor, stream_ptr)
 from . import hit3
 
 BIG = hit3.BIG
@@ -71,9 +76,23 @@ ENTRY_EXIT_KERNEL = CudaKernel("tri_entry_exit", "tri.cu", _HEADERS,
                                "mrt_tri_entry_exit",
                                _TAB + _RAYS + [_c_ptr, _c_int]
                                + [_c_ptr] * 5)
+# the table; the run table (key, start, end) and its length; the rays;
+# wg, R; the workspace, the keys, tx, row, the stream
 EXIT_KERNEL = CudaKernel("tri_exit", "tri.cu", _HEADERS, "mrt_tri_exit",
-                         [_c_ptr, _c_int] + _RAYS + [_c_ptr, _c_int]
-                         + [_c_ptr] * 3)
+                         [_c_ptr] * 4 + [_c_int] + _RAYS + [_c_ptr, _c_int]
+                         + [_c_ptr] * 5)
+EXIT_OCCUPANCY = CudaKernel("tri_exit_occupancy", "tri.cu", _HEADERS,
+                            "mrt_tri_exit_occupancy", [_c_ptr])
+
+
+class GroupRuns(NamedTuple):
+    """The runs of equal group ids among a triangle table's swept rows,
+    sorted by id (NaN last), then by row (:func:`group_runs`): run ``k``
+    holds rows ``[start[k], end[k])`` of id ``key[k]``; ``key`` is NaN on
+    the entries that start no run."""
+    key: torch.Tensor
+    start: torch.Tensor
+    end: torch.Tensor
 
 
 def from_pallas_consts(AT, HT, thr, gid):
@@ -111,6 +130,40 @@ def superbounds(tbb):
         hi = hi.view(-1, SUPER, 3).amax(1)
         return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])],
                          1).contiguous()
+
+
+def group_runs(tri, n=None) -> GroupRuns:
+    """The run table of row 8's kernel over the first ``n`` rows of
+    ``tri`` (default all): one entry per row, those that start a run of
+    equal group ids keyed by the id, the others by NaN, sorted stably (so
+    a group's runs are adjacent, in row order). A ray finds its group by a
+    binary search of ``key``, once. Built on the table's device with no
+    host sync, by every call of :func:`tri_group_exit` on the card."""
+    with torch.no_grad():
+        g = tri[:_rows(tri, n), hit3._T_GID].detach()
+        start, end = hit3._group_ranges(g)
+        first = start == torch.arange(g.shape[0], device=g.device)
+        key, order = torch.sort(torch.where(first, g, float("nan")),
+                                stable=True)
+        return GroupRuns(key.contiguous(), start[order].to(torch.int32),
+                         end[order].to(torch.int32))
+
+
+def exit_resources() -> dict:
+    """Registers and spilled bytes per thread of row 8's sweep kernel
+    (``nvcc``'s log) and the warps per SM the card keeps resident of it.
+    Builds the kernel if needed."""
+    EXIT_KERNEL.fn()
+    found = [v for k, v in ptxas_table(EXIT_KERNEL.build_log).items()
+             if "exit_sweep_kernel" in k]
+    regs, st, ld = found[0] if found else (None, None, None)
+    warps = ctypes.c_int(0)
+    rc = EXIT_OCCUPANCY.fn()(ctypes.byref(warps))
+    if rc:
+        raise RuntimeError(f"occupancy of tri_exit: CUDA error {rc}")
+    return {"registers": regs,
+            "spill_bytes": None if st is None else st + ld,
+            "warps_per_sm": warps.value}
 
 
 def winner_t(tri, o, d, row):
@@ -269,7 +322,7 @@ def _entry_fwd(tri, o, d, tbb, n, live, tsb=None):
     row = torch.empty(R, dtype=torch.int32, device=o.device)
     if R:
         ENTRY_KERNEL.launch(*table, *rays, R, ptr(te), ptr(row),
-                            stream_ptr(o.device))
+                            stream_ptr(o.device), device=o.device)
     return te, row
 
 
@@ -288,7 +341,7 @@ def _entry_exit_fwd(tri, o, d, tbb, n, live, refr, tsb=None):
         ENTRY_EXIT_KERNEL.launch(*table, *rays,
                                  None if refr is None else ptr(refr), R,
                                  ptr(te), ptr(row), ptr(tx), ptr(xrow),
-                                 stream_ptr(o.device))
+                                 stream_ptr(o.device), device=o.device)
     return te, row, tx, xrow
 
 
@@ -297,11 +350,19 @@ def _group_exit_fwd(tri, o, d, wg, n, live):
         return group_exit_plain(tri, o, d, wg, n, live)
     table, rays, R = _launch_args(tri, o, d, None, n, live, "tri_group_exit")
     require_cuda_tensor("wg", wg, torch.float32, (R,))
+    runs = group_runs(tri, n)
+    m = runs.key.shape[0]
     tx = torch.empty(R, dtype=torch.float32, device=o.device)
     row = torch.empty(R, dtype=torch.int32, device=o.device)
     if R:
-        EXIT_KERNEL.launch(*table[:2], *rays, ptr(wg), R, ptr(tx), ptr(row),
-                           stream_ptr(o.device))
+        # csrc/tri.cu ExitWork: 8 ints a run-table entry, 2, 2 a ray
+        ws = torch.empty(8 * m + 2 + 2 * R, dtype=torch.int32,
+                         device=o.device)
+        keys = torch.empty(R, dtype=torch.int64, device=o.device)
+        EXIT_KERNEL.launch(table[0], ptr(runs.key), ptr(runs.start),
+                           ptr(runs.end), m, *rays, ptr(wg), R, ptr(ws),
+                           ptr(keys), ptr(tx), ptr(row),
+                           stream_ptr(o.device), device=o.device)
     return tx, row
 
 
@@ -422,6 +483,7 @@ def tri_entry_exit(tri, o, d, tbb=None, n=None, live=None, refr=None,
 
 def tri_group_exit(tri, o, d, wg, n=None, live=None):
     """``(tx, xrow)`` of the farthest valid row of group ``wg`` ``(R,)``
-    float32 per ray. CUDA tensors launch ``mrt_tri_exit``, CPU tensors run
-    :func:`group_exit_plain`."""
+    float32 per ray among the first ``n`` rows, never culled. CUDA tensors
+    build the run table :func:`group_runs` of those rows and launch
+    ``mrt_tri_exit``, CPU tensors run :func:`group_exit_plain`."""
     return TriGroupExit.apply(tri, o, d, wg, n, live)

@@ -1,1 +1,2 @@
-"""Training steps over the port's differentiable trace (one device)."""
+"""Meshes of devices, several processes, and training steps and rendering
+over them (the counterpart of the JAX package's ``parallel``)."""

@@ -7,8 +7,9 @@ Each kernel is a plain C entry point of a ``.cu`` file under
 of one file share its library, and a library is rebuilt when the hash of
 its sources or flags changes; ``nvcc``'s output (``-Xptxas -v``: each
 kernel's registers and spills) is kept beside it. Pointers cross as
-``tensor.data_ptr()`` and the stream as
-``torch.cuda.current_stream().cuda_stream``; every entry point returns
+``tensor.data_ptr()`` and the stream as the tensors' card's
+``torch.cuda.current_stream(device).cuda_stream``, launched with that card
+current (:meth:`CudaKernel.launch`'s ``device``); every entry point returns
 ``cudaGetLastError()`` after its launch, and :meth:`CudaKernel.launch`
 raises on anything but 0.
 
@@ -119,10 +120,21 @@ class CudaKernel:
                 self._fn = f
             return self._fn
 
-    def launch(self, *args, variant: str | None = None) -> None:
-        """Launch on the current stream; raise if the launch failed.
-        ``variant`` names the instance the arguments select, if counted."""
-        rc = (self._fn or self.fn())(*args)
+    def launch(self, *args, variant: str | None = None,
+               device=None) -> None:
+        """Launch; raise if the launch failed. ``device``: the card of the
+        kernel's tensors, whose stream the arguments name; the entry
+        points launch on the current device, so it is made current for
+        the launch where it is not. ``variant`` names the instance the
+        arguments select, if counted."""
+        fn = self._fn or self.fn()
+        if device is None or _is_current(device):
+            rc = fn(*args)
+        else:
+            import torch
+
+            with torch.cuda.device(device):
+                rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1
@@ -150,6 +162,14 @@ def ptxas_table(log: str) -> dict:
         if m:
             out[name][0] = int(m.group(1))
     return {k: tuple(v) for k, v in out.items()}
+
+
+def _is_current(device) -> bool:
+    """Whether ``device`` (a ``torch.device`` of type cuda) is the current
+    CUDA device (one without an index is)."""
+    import torch
+
+    return device.index is None or device.index == torch.cuda.current_device()
 
 
 def ptr(t) -> ctypes.c_void_p:

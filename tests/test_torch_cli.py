@@ -64,10 +64,31 @@ def test_resume_roundtrip(tmp_path):
         assert int(data["count"]) == 2
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--sp", "2"]])
-def test_multi_device_flags_are_refused(flag, capsys):
-    assert tcli.main(SPHERE + flag + ["--device", "cpu", "-d"]) == 1
-    assert "multi-device not yet ported" in capsys.readouterr().err
+@pytest.mark.parametrize("flag", [["--devices", "2", "--sp", "2"],
+                                  ["--devices", "2"]])
+def test_multi_device_flags_are_refused(flag, tmp_path, caplog):
+    """Once refused, ``--devices 2 [--sp 2]`` now render over a mesh of
+    the CPU named twice ((1, 2) and (2, 1)): the PNG equals the one-device
+    one (two samples: with sp = 2 each column sums one, so the sums keep
+    the one-device order)."""
+    base = SPHERE + ["--res", "24", "16", "--sample", "2", "--bounce", "2",
+                     "--device", "cpu", "-v"]
+    one, many = tmp_path / "one.png", tmp_path / "many.png"
+    assert tcli.main(base + ["-o", str(one)]) == 0
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="raytrace"):
+        assert tcli.main(base + flag + ["-o", str(many)]) == 0
+    shape = {"dp": 1, "sp": 2} if "--sp" in flag else {"dp": 2, "sp": 1}
+    assert f"cli:mesh: {shape}" in [r.getMessage() for r in caplog.records]
+    np.testing.assert_array_equal(np.asarray(Image.open(many)),
+                                  np.asarray(Image.open(one)))
+
+
+def test_sp_without_devices_is_refused(capsys):
+    """``--sp`` alone names no mesh: refused, not rendered on one
+    device."""
+    assert tcli.main(SPHERE + ["--sp", "2", "--device", "cpu", "-d"]) == 1
+    assert "--sp needs --devices" in capsys.readouterr().err
 
 
 def test_unported_scene_class_is_refused(tmp_path):
@@ -150,3 +171,24 @@ def test_http_render_and_method_check(server):
     assert res.split(b"\r\n\r\n", 1)[1][:2] == b"\xff\xd8"
     res = _req(server, b"GET /render " + head)
     assert b"405" in res.split(b"\r\n")[0]
+
+
+def test_http_server_renders_over_one_mesh():
+    """``HttpServer(devices=, sp=)`` builds one mesh for the whole server
+    (the CLI's ``--devices`` / ``--sp``) and renders each request over it:
+    the JPEG equals the one-device server's (two samples, so even with
+    sp = 2 the sums keep the one-device order); sp alone is refused."""
+    from micro_raytracer_tpu_torch.frontends.http import render_jpeg
+
+    body = json.dumps({
+        "rt": {"sample": 2, "bounce": 2}, "frame": {"res": [24, 16]},
+        "scene": {"renderer": [{"type": "sphere", "r": 0.5}],
+                  "light": [{"type": "point", "pos": [-0.5, -1, 0.5]}]},
+    }).encode()
+    srv = HttpServer("127.0.0.1:0", device="cpu", devices=4, sp=2)
+    assert srv.mesh.shape == {"dp": 2, "sp": 2}
+    got = srv._render(body, "test")
+    assert got[:2] == b"\xff\xd8"
+    assert got == render_jpeg(body, device="cpu")
+    with pytest.raises(ValueError, match="sp needs devices"):
+        HttpServer("127.0.0.1:0", device="cpu", sp=2)

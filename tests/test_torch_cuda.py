@@ -1160,6 +1160,65 @@ def test_two_level_walk_matches_plain(kind, cuda_device):
 
 
 @pytest.mark.cuda
+def test_group_exit_kernel_matches_plain(cuda_device):
+    """Row 8's kernel (``csrc/tri.cu`` ``mrt_tri_exit``: the rays queued by
+    group, (ray tile x row slice) items, the packed-key merge) against
+    ``group_exit_plain`` bit for bit, and equal to itself on a second run
+    (the atomics' order does not reach the outputs): on ``stack_table``
+    (several groups, one in two runs, -0.0 / +0.0 ids, NaN rows; rays
+    asking for no group or dead; the origin rays' -0 / +0 tie; 301 rays),
+    over all rows and a row count inside a group; on the two-group
+    16,448-row mesh table with 4,133 carried rays (a tenth dead) asking
+    for either group or none, over all rows and 9,224; one launch a
+    call, and the run table passed or built."""
+    from torch_mesh_helpers import stack_table
+
+    t, o, d = stack_table()
+    rng = np.random.default_rng(5)
+    n_r = o.shape[0]
+    wg = torch.from_numpy(rng.choice(np.float32(
+        [0.0, 1.0, 2.0, 3.0, 7.5, -0.0, -5.0, 42.0, np.nan]), n_r))
+    wg[-12:] = 3.0
+    live = torch.from_numpy((rng.random(n_r) > 0.1).astype(np.float32))
+    live[-12:] = 1.0
+    cases = [(t, o, d, wg, live, (t.shape[0], 205))]
+    js = big_mesh(True)
+    scene = compile_scene(schema.SceneConfig.from_json(js), cuda_device)
+    tables = step.pack_step(scene)
+    R = 4133
+    bo, bd = aimed_rays(compile_scene(schema.SceneConfig.from_json(js),
+                                      "cpu"), R, 7)
+    c = step.primary_carry(torch.from_numpy(bo.T.copy()).to(cuda_device),
+                           torch.from_numpy(bd.T.copy()).to(cuda_device))
+    c[step.C_LIVE, ::10] = 0.0
+    bt = tables.tri.detach()
+    ids = torch.unique(bt[:tables.layout[3], hit3._T_GID]).cpu()
+    assert ids.numel() == 2
+    bwg = torch.from_numpy(rng.choice(np.float32(
+        [float(ids[0]), float(ids[1]), -5.0]), R))
+    cases.append((bt, c[0:3].T, c[3:6].T, bwg, c[step.C_LIVE],
+                  (tables.layout[3], 9224)))
+    for tab, o_, d_, wg_, live_, ns in cases:
+        tab = tab.to(cuda_device)
+        o_, d_ = o_.to(cuda_device), d_.to(cuda_device)
+        wg_, live_ = wg_.to(cuda_device), live_.to(cuda_device)
+        if o_.stride(0) != live_.stride(0):
+            # rays as the carry holds them, so live shares their stride
+            o_, d_ = o_.T.contiguous().T, d_.T.contiguous().T
+        for n in ns:
+            tri.EXIT_KERNEL.launches = 0
+            got = tri.tri_group_exit(tab, o_, d_, wg_, n, live_)
+            again = tri.tri_group_exit(tab, o_, d_, wg_, n, live_)
+            assert tri.EXIT_KERNEL.launches == 2
+            want = tri.group_exit_plain(tab, o_, d_, wg_, n, live_)
+            for g, a, w in zip(got, again, want):
+                if g.dtype == torch.float32:
+                    g, a, w = (x.view(torch.int32) for x in (g, a, w))
+                assert torch.equal(g, w) and torch.equal(a, w)
+            assert int((want[0] > -tri.BIG * 0.5).sum()) > 50
+
+
+@pytest.mark.cuda
 def test_cli_and_training_run_the_step_kernels(cuda_device, tmp_path):
     """lights8 (8 lights) renders through the CLI on the step kernel, one
     launch per step and sample, and trains on its train instance and
@@ -1739,3 +1798,154 @@ def test_hit_wrappers_launch_one_device_operation(name, cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     args = hit_bwd_args(scene, tables, oT.T, dT.T, gen)
     assert _device_ops(lambda: hit3.closest_hit_bwd(*args)) == 1
+
+
+@pytest.mark.cuda
+def test_mesh_renders_on_the_card(cuda_device):
+    """``make_mesh`` past the machine's card count raises; the slice room
+    over the card named twice renders the one-device framebuffer bit for
+    bit as (dp, sp) = (2, 1) and within rtol 1e-5 as (1, 2), launching
+    the closest hit and the whole trace once per sample and ray part."""
+    from chip_smoke import SLICE_ARGS
+    from micro_raytracer_tpu_torch.models.render import Renderer
+    from micro_raytracer_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="the machine has"):
+        make_mesh(torch.cuda.device_count() + 1)
+    cfg = cli.parse_render(cli.build_parser().parse_args(
+        SLICE_ARGS + ["--res", "64", "64", "--sample", "4"]))
+    fbs = []
+    for mesh in (None, make_mesh(2, sp=1, device=[cuda_device] * 2),
+                 make_mesh(2, sp=2, device=[cuda_device] * 2)):
+        hit3.KERNEL.launches = step.KERNEL.launches = 0
+        r = Renderer(cfg, seed=3, device=cuda_device, mesh=mesh)
+        r.execute_many(4)
+        dp = 1 if mesh is None else mesh.shape["dp"]
+        assert hit3.KERNEL.launches == step.KERNEL.launches == 4 * dp
+        fbs.append(r.framebuffer())
+    np.testing.assert_array_equal(fbs[1], fbs[0])
+    np.testing.assert_allclose(fbs[2], fbs[0], rtol=1e-5, atol=1e-6)
+    assert float(fbs[0].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_mesh_renders_and_trains_on_distinct_cards(cuda_device):
+    """On a machine with two or more cards: the slice room rendered on card
+    1 equals card 0's bit for bit; over the first two (or four) cards as
+    (dp, sp) = (2, 1) (and (4, 1)) it equals it bit for bit, as (1, 2)
+    (and (2, 2)) within rtol 1e-5, each card launching the closest hit
+    and the whole trace once per sample of its ray part; a dp = 2
+    training step over cards 0 and 1 gives the loss and gradients of the
+    same step over card 0 named twice within rtol 1e-5."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    from chip_smoke import SLICE_ARGS
+    from micro_raytracer_tpu_torch.models.compiler import compile_camera
+    from micro_raytracer_tpu_torch.models.render import Renderer
+    from micro_raytracer_tpu_torch.parallel import shard
+    from micro_raytracer_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = cli.parse_render(cli.build_parser().parse_args(
+        SLICE_ARGS + ["--res", "64", "64", "--sample", "4"]))
+
+    def render(**kw):
+        hit3.KERNEL.launches = step.KERNEL.launches = 0
+        r = Renderer(cfg, seed=3, **kw)
+        r.execute_many(4)
+        return r.framebuffer(), hit3.KERNEL.launches, step.KERNEL.launches
+
+    one = render(device="cuda:0")[0]
+    np.testing.assert_array_equal(render(device="cuda:1")[0], one)
+    meshes = [(2, 1), (2, 2)] + ([(4, 1), (4, 2)] if n >= 4 else [])
+    for k, sp in meshes:
+        mesh = make_mesh(k, sp=sp)
+        fb, n_hit, n_step = render(mesh=mesh)
+        assert n_hit == n_step == 4 * mesh.shape["dp"]
+        if sp == 1:
+            np.testing.assert_array_equal(fb, one)
+        else:
+            np.testing.assert_allclose(fb, one, rtol=1e-5, atol=1e-6)
+    scene = compile_scene(cfg.scene, "cuda:0")
+    cam = compile_camera(cfg.frame.cam, "cuda:0")
+    R = 4096
+    ys, xs = np.divmod(np.arange(R), 64)
+    coords = torch.from_numpy(np.stack([xs, ys], -1).astype(
+        np.float32)).to("cuda:0")
+    gen = torch.Generator(device="cuda:0").manual_seed(4)
+    u_aprt, u8s = ttr.draw_uniforms(gen, R, cfg.rt.bounce,
+                                    scene.any_refract, coords.device)
+    target = torch.full((R, 3), 0.2, device="cuda:0")
+    out = []
+    for devs in (["cuda:0", "cuda:0"], ["cuda:0", "cuda:1"]):
+        ts = shard.make_train_step(cfg.frame.render_res, cfg.rt.bounce,
+                                   mesh=make_mesh(2, sp=1, device=devs))
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in shard.split_params(scene)[0].items()}
+        loss, _new = ts.step_u(params, scene, cam, cfg.rt.loss, coords,
+                               target, u_aprt[None], u8s[None])
+        out.append((loss, {k: p.grad for k, p in params.items()}))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-5, atol=0)
+    for k, w in out[0][1].items():
+        g = out[1][1][k]
+        assert (g is None) == (w is None), k
+        if w is not None:
+            torch.testing.assert_close(
+                g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()) + 1e-12)
+
+
+_NCCL_WORKER = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[1])
+from micro_raytracer_tpu_torch.parallel import distributed
+assert distributed.initialize(device="cuda")
+t = torch.tensor([float(dist.get_rank() + 1)], device="cuda")
+dist.all_reduce(t)
+print(json.dumps({"slice": distributed.local_slice(11),
+                  "primary": distributed.is_primary(), "sum": float(t),
+                  "card": torch.cuda.current_device()}))
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_two_processes_over_nccl(cuda_device):
+    """On a machine with two or more cards: two processes joined by
+    ``distributed.initialize`` over nccl (a localhost address, a 120 s
+    limit each) take cards 0 and 1, an all-reduce on the cards sees
+    both, and their slices of 11 cover it."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank))
+        env.pop("LOCAL_RANK", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _NCCL_WORKER, root], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            assert p.returncode == 0, err[-2000:]
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    assert [o["card"] for o in outs] == [0, 1]
+    assert [o["sum"] for o in outs] == [3.0, 3.0]
+    assert [o["primary"] for o in outs] == [True, False]
+    assert [tuple(o["slice"]) for o in outs] == [(0, 6), (6, 11)]

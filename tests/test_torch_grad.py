@@ -329,8 +329,32 @@ def check_resid(name):
 
 
 def test_train_step_one_device_only():
-    with pytest.raises(ValueError, match="multi-device not yet ported"):
-        shard.make_train_step((8, 8), 1, device="cpu", n_devices=2)
+    """Once refused past one device, ``make_train_step`` now runs over a
+    mesh: ``n_devices=2`` on the CPU gives a (1, 2) mesh, and
+    ``mesh=make_mesh(2, sp=1)`` a (2, 1) one; each takes a finite step
+    whose loss and gradients agree with the other's formula on the
+    one-device port (``tests/test_torch_parallel.py`` holds them)."""
+    from micro_raytracer_tpu_torch.models import schema as tschema
+    from micro_raytracer_tpu_torch.models.compiler import compile_camera
+    from micro_raytracer_tpu_torch.parallel.mesh import make_mesh
+
+    ps = _scene("opaque")[1]
+    cam = compile_camera(tschema.CameraConfig.from_json({}), "cpu")
+    ys, xs = np.divmod(np.arange(64), 8)
+    coords = torch.from_numpy(np.stack([xs, ys], -1).astype(np.float32))
+    target = torch.full((64, 3), 0.2)
+    for ts, shape in ((shard.make_train_step((8, 8), 1, device="cpu",
+                                             n_devices=2), (1, 2)),
+                      (shard.make_train_step((8, 8), 1, mesh=make_mesh(
+                          2, sp=1, device=["cpu", "cpu"])), (2, 1))):
+        assert (ts.mesh.shape["dp"], ts.mesh.shape["sp"]) == shape
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in shard.split_params(ps)[0].items()}
+        loss, new = ts.step(params, ps, cam, 0.15, coords, target,
+                            torch.Generator().manual_seed(1))
+        assert np.isfinite(float(loss))
+        assert all(bool(torch.isfinite(v).all()) for v in new.values())
+        assert float(params["mat_albedo"].grad.abs().sum()) > 0
 
 
 def test_params_from_numpy_leaves():

@@ -77,7 +77,8 @@ from micro_raytracer_tpu_torch.ops import hit3, intersect, step, tri
 from micro_raytracer_tpu_torch.utils.kernels import CSRC
 from test_torch_kernel_host import _SHIM
 from test_torch_steps import DECAY, _carry, _on, _outliers, _u8, _unpack
-from torch_mesh_helpers import aimed_rays, big_tris, mesh_scene
+from torch_mesh_helpers import (aimed_rays, big_tris, mesh_scene,
+                                stack_table)
 from torch_mesh_helpers import big_mesh as big
 from torch_mesh_helpers import one_torch_thread  # noqa: F401
 from torch_port_helpers import port_scene, rays
@@ -495,19 +496,23 @@ def test_cli_renders_a_mesh_past_the_staged_blocks_on_cpu(tmp_path):
 # --- the host build of the device code ---------------------------------------
 
 _HARNESS = r"""
+#include <algorithm>
+#include <vector>
+
 #include "tri.cu"
 #include "step_fwd.cu"
 
-// mode 0: row 6, 1: row 7, 2: row 8; 4: the one-level entry walk
-// (hit3.cuh tri_entry), 5: it and the unculled group exit (hit3.cuh
-// tri_exit). The first n_staged superblocks are read from `sb_staged`.
+// mode 0: row 6, 1: row 7; 4: the one-level entry walk (hit3.cuh
+// tri_entry), 5: it and the unculled group exit (hit3.cuh tri_exit). The
+// first n_staged superblocks are read from `sb_staged`. (Row 8:
+// host_group_exit.)
 extern "C" void host_tri(int mode, const float* tri, int n, const float* bb,
     int n_cb, const float* sb, const float* sb_staged, int n_sb,
     int n_staged, const float* o, const float* d, int s_ray, int s_comp,
     const float* live, const float* refr, const float* wg, int R,
     float* te, int* row, float* tx, int* xrow) {
   const mrt::Tris T{tri, bb};
-  const mrt::Layout L{0, 0, 0, 0, 0, 0, 0, n, mode == 2 ? 0 : n_cb, 0};
+  const mrt::Layout L{0, 0, 0, 0, 0, 0, 0, n, n_cb, 0};
   float chunks[64 * mrt::kBbCols];
   mrt::chunk_bounds(sb_staged, n_staged, chunks, 0, 1);
   const mrt::Supers S{sb_staged, sb, chunks, n_sb, n_staged};
@@ -520,8 +525,6 @@ extern "C" void host_tri(int mode, const float* tri, int n, const float* bb,
         mrt::tri_entry_ray(T, L, S, oo, dd, h.te, h.row);
       } else if (mode == 1) {
         h = mrt::tri_entry_exit_ray(T, L, S, refr, oo, dd);
-      } else if (mode == 2) {
-        mrt::tri_group_exit_ray(T, L, wg[i], oo, dd, h.tx, h.xrow);
       } else {
         mrt::tri_entry(T, L, L.n_cb > 0, oo[0], oo[1], oo[2], dd[0], dd[1],
                        dd[2], h.te, h.row);
@@ -534,6 +537,56 @@ extern "C" void host_tri(int mode, const float* tri, int n, const float* bb,
     row[i] = h.row;
     tx[i] = h.tx;
     xrow[i] = h.xrow;
+  }
+}
+
+// Row 8 as the card splits its work (tri.cu exit_*): the live rays with a
+// group (exit_group) queued by group, against the group's rows
+// (exit_group_rows, exit_group_row) in slices of `slice` rows, taken last
+// first; each slice's farthest hit of each ray (exit_rows) merged into
+// the ray's key by max, as the kernel's atomicMax does; then
+// exit_finish.
+extern "C" void host_group_exit(const float* tri, const float* rkey,
+    const int* rs, const int* re, int n_runs, const float* o, const float* d,
+    int s_ray, int s_comp, const float* live, const float* wg, int R,
+    int slice, float* tx, int* xrow) {
+  const mrt::Runs G{rkey, rs, re, n_runs};
+  const mrt::TriRays q{o, d, s_ray, s_comp, live};
+  std::vector<int> grp(R, -1);
+  std::vector<std::vector<int>> queue(n_runs);
+  for (int i = 0; i < R; ++i) {
+    const size_t b = static_cast<size_t>(i) * s_ray;
+    if (live == nullptr || live[b] > 0.5f) grp[i] = mrt::exit_group(G, wg[i]);
+    if (grp[i] >= 0) queue[grp[i]].push_back(i);
+  }
+  std::vector<unsigned long long> key(R, 0ull);
+  std::vector<float> rows(static_cast<size_t>(slice) * mrt::kTriCols);
+  std::vector<int> ids(slice);
+  for (int g = 0; g < n_runs; ++g) {
+    const int n_rows = queue[g].empty() ? 0 : mrt::exit_group_rows(G, g);
+    for (int s = (n_rows - 1) / slice; s >= 0 && n_rows > 0; --s) {
+      const int m = std::min(slice, n_rows - s * slice);
+      for (int p = 0; p < m; ++p) {
+        ids[p] = mrt::exit_group_row(G, g, s * slice + p);
+        memcpy(&rows[static_cast<size_t>(p) * mrt::kTriCols],
+               tri + static_cast<size_t>(ids[p]) * mrt::kTriCols,
+               mrt::kTriCols * sizeof(float));
+      }
+      for (const int i : queue[g]) {
+        float oo[3], dd[3], bt = -mrt::kBig;
+        int br = -1;
+        mrt::tri_ray(q, i, oo, dd);
+        mrt::exit_rows(rows.data(), ids.data(), m, oo, dd, bt, br);
+        if (br >= 0) key[i] = std::max(key[i], mrt::exit_key(bt, br));
+      }
+    }
+  }
+  for (int i = 0; i < R; ++i) {
+    float oo[3], dd[3];
+    tx[i] = -mrt::kBig;
+    xrow[i] = 0;
+    if (grp[i] >= 0 && mrt::tri_ray(q, i, oo, dd))
+      mrt::exit_finish(tri, key[i], oo, dd, tx[i], xrow[i]);
   }
 }
 
@@ -609,6 +662,19 @@ def _p(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
+def _host_group_exit(lib, t, o, d, s_ray, s_comp, live, wg, R, n_rows=None,
+                     slice_rows=5):
+    """The host build's row 8 (``host_group_exit``) over the first
+    ``n_rows`` rows of ``t`` (default all), the rows in slices of
+    ``slice_rows``: (tx, xrow)."""
+    runs = tri.group_runs(t, n_rows)
+    tx, xrow = torch.empty(R), torch.empty(R, dtype=torch.int32)
+    lib.host_group_exit(_p(t), _p(runs.key), _p(runs.start), _p(runs.end),
+                        runs.key.shape[0], _p(o), _p(d), s_ray, s_comp,
+                        _p(live), _p(wg), R, slice_rows, _p(tx), _p(xrow))
+    return tx, xrow
+
+
 def _host_tri(lib, mode, t, tbb, c, wg=None, refr=None, n_rows=None,
               staged=None):
     """The host build's row 6 / 7 / 8 (modes 0-2; 4, 5: the one-level
@@ -619,6 +685,12 @@ def _host_tri(lib, mode, t, tbb, c, wg=None, refr=None, n_rows=None,
     n = c.shape[1]
     te, tx = torch.empty(n), torch.empty(n)
     row, xrow = (torch.empty(n, dtype=torch.int32) for _ in "ab")
+    if mode == 2:
+        te.fill_(tri.BIG)
+        row.zero_()
+        tx, xrow = _host_group_exit(lib, t, c, c[3:], 1, n,
+                                    c[step.C_LIVE:], wg, n, n_rows)
+        return te, row, tx, xrow
     tsb = None if tbb is None else tri.superbounds(tbb)
     n_sb = 0 if tsb is None else tsb.shape[0]
     staged = n_sb if staged is None else min(staged, n_sb)
@@ -790,6 +862,85 @@ def test_superbounds_hold_their_blocks():
             assert not bool((inner & ~outer).any()), b
     # every ray but the two NaN ones
     assert int(hit3._slab_touch(tbb[21], o, invd, best).sum()) == R - 2
+
+
+@pytest.mark.parametrize("slice_rows", [1, 5, 64, 256])
+def test_host_group_exit_split(slice_rows, host_tri):
+    """Row 8's work split on the host (the run table, the queue by group,
+    slices of ``slice_rows`` rows last first, the packed-key merge, the
+    finish) against ``group_exit_plain`` bit for
+    bit on ``stack_table``: several groups (one in two runs, -0.0 and +0.0
+    ids, NaN rows), rays that ask for no group (-5, 42, NaN) or are dead,
+    t ties across slices, the origin rays' -0 / +0 tie (group 3's lower
+    row wins with its own t), and 301 rays; then the same on
+    ``big_glass``'s rays (two 8,224-row groups) over all rows and a row
+    count inside a group."""
+    t, o, d = stack_table()
+    n_r = o.shape[0]
+    rng = np.random.default_rng(5)
+    wg = torch.from_numpy(rng.choice(np.float32(
+        [0.0, 1.0, 2.0, 3.0, 7.5, -0.0, -5.0, 42.0, np.nan]), n_r))
+    wg[-12:] = 3.0
+    live = torch.from_numpy((rng.random(n_r) > 0.1).astype(np.float32))
+    live[-12:] = 1.0
+    # rays as the carry holds them: (3, R), so live shares their stride
+    oT, dT = o.T.contiguous(), d.T.contiguous()
+    for n in (t.shape[0], 205):
+        got = _host_group_exit(host_tri, t, oT, dT, 1, n_r, live, wg, n_r, n,
+                               slice_rows)
+        want = tri.group_exit_plain(t, o, d, wg, n, live)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+        hit = want[0] > -tri.BIG * 0.5
+        assert int(hit.sum()) > n_r // 3
+        # the origin rays: t = -0 (row 40) or +0 (row 200), row 40 wins
+        if n == t.shape[0]:
+            zero = want[0][-12:]
+            assert bool((zero == 0.0).all()) and bool((want[1][-12:]
+                                                       == 40).all())
+            signs = torch.signbit(got[0][-12:])
+            assert bool(signs.any()) and bool((~signs).any())
+    # ties of t inside one group across slices: two rows of one height
+    d_up = torch.zeros_like(d)
+    d_up[:, 2] = 1.0
+    got = _host_group_exit(host_tri, t, o, d_up, 3, 1, None,
+                           torch.full((n_r,), 1.0), n_r, None, slice_rows)
+    want = tri.group_exit_plain(t, o, d_up, torch.full((n_r,), 1.0))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int((want[0] > 0).sum()) > n_r // 2
+    bt, bo, bd = (_culled("big_glass")[0].detach().contiguous(),
+                  *(torch.from_numpy(x) for x in _rays("big_glass")))
+    te, row = tri.entry_plain(bt, bo, bd)
+    bwg = torch.where(te < tri.BIG * 0.5, bt[row.long(), hit3._T_GID],
+                      -5.0).contiguous()
+    assert len(set(bwg[te < tri.BIG * 0.5].tolist())) == 2
+    for n in (bt.shape[0], 8224 + 1000):
+        got = _host_group_exit(host_tri, bt, bo, bd, 3, 1, None, bwg, R, n,
+                               slice_rows * 53)
+        want = tri.group_exit_plain(bt, bo, bd, bwg, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int((want[0] > -tri.BIG * 0.5).sum()) > R // 5
+
+
+def test_group_runs_find_every_row_of_a_group():
+    """``tri.group_runs``: one entry a row, a run's start keyed by its
+    id, sorted (NaN last, a group's runs adjacent in row order); the rows
+    of each id's runs are exactly the rows that hold the id (0.0's: rows
+    0-29 and the -0.0 / +0.0 run, which ``==`` joins)."""
+    t = stack_table()[0]
+    runs = tri.group_runs(t)
+    key, start, end = runs
+    assert key.shape == start.shape == end.shape == (t.shape[0],)
+    ok = ~torch.isnan(key)
+    assert int(ok.sum()) == 7 and bool(ok[:7].all())
+    gid = t[:, hit3._T_GID]
+    for g in (0.0, 1.0, 2.0, 3.0, 7.5, 0.0):
+        rows = torch.cat([torch.arange(int(a), int(b)) for k, a, b
+                          in zip(key, start, end) if float(k) == g])
+        assert torch.equal(rows, torch.nonzero(gid == g)[:, 0])
+    assert torch.equal(key[ok], torch.sort(key[ok], stable=True).values)
+    assert tri.group_runs(t, 0).key.shape == (0,)
 
 
 def test_host_chunk_bounds(host_tri):

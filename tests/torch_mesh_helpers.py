@@ -174,3 +174,51 @@ def big_mesh(glass=False, n_lights=1, glass_sphere=False):
         {"type": "plane", "n": [0, 0, 1], "pos": [0, 0, -0.6]},
     ], "light": [{"type": "point", "pos": [0.2 * i - 0.4, -1, 1.5],
                   "pwr": 0.6} for i in range(n_lights)]}
+
+
+def stack_table(seed=31):
+    """A hand-made triangle table for row 8: 300 rows of unit Woop
+    triangles (``G`` = diag(1, 1, s), ``s = +-1``) stacked at a few
+    heights, so many rays meet many rows of their group at equal t; group
+    ids 0, 1, 2 and 3 (group 3 in two runs apart), 7.5, -0.0 then +0.0
+    (one run: ``==`` holds), and NaN (never matched). Rows 40 and 200 of
+    group 3 meet rays from the origin at t = -0 and +0 (``o'_z = +0``,
+    ``d'_z`` of either sign), their group's only hits on those rays, in
+    two slices and two of the plain version's 64-row blocks. Returns the
+    table and (o, d) of 301 rays (the last 12 from the origin), on the
+    CPU."""
+    from micro_raytracer_tpu_torch.ops import tri
+
+    rng = np.random.default_rng(seed)
+    P = 300
+    gid = np.zeros(P, np.float32)
+    for lo, hi, g in ((0, 30, 0.0), (30, 60, 3.0), (60, 110, 1.0),
+                      (110, 150, 2.0), (150, 190, 7.5), (190, 220, 3.0),
+                      (220, 250, -0.0), (250, 280, 0.0),
+                      (280, 300, np.nan)):
+        gid[lo:hi] = g
+    s = np.where(rng.random(P) < 0.5, 1.0, -1.0).astype(np.float32)
+    G = np.zeros((P, 9), np.float32)
+    G[:, 0], G[:, 4], G[:, 8] = 1.0, 1.0, s
+    h = np.zeros((P, 3), np.float32)
+    h[:, :2] = rng.uniform(-0.3, 0.1, (P, 2))
+    h[:, 2] = s * rng.choice(np.float32([-0.5, -0.25, 0.0, 0.25]), P)
+    # group 3's other rows: u < 0 for rays from the origin along z
+    h[gid == 3.0, 0] = rng.uniform(-0.3, -0.05, int((gid == 3.0).sum()))
+    thr = np.full((P, 1), 1e-6, np.float32)
+    t = tri.from_pallas_consts(G, h, thr, gid)
+    # rows 40 and 200: o'_z = +0 for rays from the origin, u = v = 0.2
+    for r, sz in ((40, 1.0), (200, -1.0)):
+        t[r, 8], t[r, 9:12] = sz, torch.tensor([0.2, 0.2, 0.0])
+    n_r = 301
+    o = np.zeros((n_r, 3), np.float32)
+    o[:, :2] = rng.uniform(0.0, 0.5, (n_r, 2))
+    o[:, 2] = -1.0
+    d = np.zeros((n_r, 3), np.float32)
+    d[:, :2] = rng.normal(0.0, 0.05, (n_r, 2))
+    d[:, 2] = rng.choice([1.0, -1.0], n_r, p=[0.8, 0.2])
+    o[-12:] = 0.0
+    d[-12:] = 0.0
+    d[-12:, 2] = np.where(np.arange(12) % 2, 1.0, -1.0)
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return t, torch.from_numpy(o), torch.from_numpy(d.astype(np.float32))
